@@ -7,19 +7,32 @@
 Phases (any failure stops the run with a non-zero exit code):
 1. build the hand-written CUDA kernels from yolo_tpu_torch/csrc (nvcc, sm_90a);
 2. hold every kernel against its plain PyTorch twin on the card, in f32 and
-   bf16, at the main path's shapes (nine C2f instances, four Detect levels,
-   NMS at K=64 over a 128-frame chunk), with activations captured from the
-   trained model on real-size frames; print each kernel's time, its plain
-   twin's, a cuDNN conv walk of the same block (`library_ms`, a yardstick the
-   port never calls) and the least time the card could take (`bound_ms`);
-3. run FusedDetectTrack (the demo's trained yolov8-small P2, scale n,
-   demos/artifacts/train/weights/best.npz) on a seeded synthetic 512-frame
-   640x512 IR clip with moving targets and dropout gaps: in f32 through the
-   kernels and in f32 through the plain twins (tracks, ids and stats must be
-   equal, boxes close), then in bf16, timed, with the per-stage split and the
-   launch count of every kernel in that run (each must be > 0).
-The last three lines are the `kernels` JSON line, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+   bf16, at the main path's shapes (the C2f instances, four Detect levels
+   through both head kernels, NMS at K=64 over a 128-frame chunk and at
+   K=1024), with activations captured from the trained model on real-size
+   frames; print each kernel's time, its plain twin's, a cuDNN conv walk of
+   the same block (`library_ms`, a yardstick the port never calls) and the
+   least time the card could take (`bound_ms`);
+3. `[pipeline]`: run FusedDetectTrack (the demo's trained yolov8-small P2,
+   scale n, demos/artifacts/train/weights/best.npz) on a seeded synthetic
+   512-frame 640x512 IR clip with moving targets and dropout gaps: in f32
+   through the kernels and in f32 through the plain twins (tracks, ids and
+   stats must be equal, boxes close), then in bf16, timed, with the per-stage
+   split and the launch count of every kernel in that run;
+4. `[pipeline head_cm]`: the same with `head_cm=True`, the Detect levels
+   through the channel-major head kernel (16 launches per 512 frames, none of
+   the default head kernel);
+5. `[pipeline bgr]`: one chunk of 3-channel BGR frames through
+   `FusedDetectTrack(channels=3)`, f32 kernels against f32 twins, then bf16;
+   `[batched tracker]`: `BatchedMultiTargetTracker.update` / `scan_frames` on
+   the card against the CPU on a seeded detection sequence;
+6. `[predict]`: `YOLO(best.npz).predict` frame by frame on 64 3-channel frames
+   of the clip into the per-object Kalman clip loop, in f32 through the
+   kernels and through the twins (equal detections and stats), then in bf16,
+   timed.
+Every kernel of a path must have been launched in that path's run. The last
+three lines are the `kernels` JSON line, the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -37,11 +50,19 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cor
 # kernel vs plain twin, (atol, rtol): f32 differs only in summation order;
 # bf16 rounds every intermediate map, and a one-ulp flip travels down a C2f chain
 TOL = {"float32": (1e-3, 1e-3), "bfloat16": (6e-2, 6e-2)}
+# the channel-major head's cls output is a sigmoid score, far below 1e-3 on background
+# pixels: it is held to a tighter absolute tolerance than the maps and distances, and
+# again as a logit, where background and target pixels weigh alike (bf16: two ulps of
+# the logit the kernel rounded before its sigmoid, 2 * 2^-7 of its size)
+CLS_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2e-3, 6e-2)}
+LOGIT_TOL = {"float32": (1e-3, 0.0), "bfloat16": (6e-2, 1.6e-2)}
 FRAMES, CHUNK, HW = 512, 128, (512, 640)
+PREDICT_FRAMES = 64
 KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "c2f": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:264"),
     "c2f_upconcat": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:290"),
     "head_level": ("cuda", "yolo_tpu_torch/csrc/head.cu", "yolo_tpu/ops/pallas_head.py:203"),
+    "head_level_cm": ("cuda", "yolo_tpu_torch/csrc/head_cm.cu", "yolo_tpu/ops/pallas_head2.py:117"),
     "nms_keep": ("cuda", "yolo_tpu_torch/csrc/nms.cu", "yolo_tpu/ops/pallas_nms.py:56"),
 }
 
@@ -176,10 +197,31 @@ def library_head(kw, dtype):
     return walk
 
 
+def library_head_cm(kw, dtype):
+    """The channel-major level as library calls: the conv walk + softmax DFL, then the sigmoid."""
+    import torch
+
+    walk = library_head(kw, dtype)
+
+    def walk_cm(x):
+        dist, logits = walk(x)
+        return dist, torch.sigmoid(logits.float())
+
+    return walk_cm
+
+
 def _nchw(x):
     import torch
 
     return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def _logit(score):
+    """Sigmoid scores (f32) → their logits, in f64."""
+    import torch
+
+    s = score.double().clamp(1e-38, 1 - 2.0**-24)
+    return torch.log(s) - torch.log1p(-s)
 
 
 def _nbytes(*ts) -> int:
@@ -229,7 +271,7 @@ def check_kernels(model, params, frames, card, d_max=16):
     import torch
 
     from yolo_tpu_torch import FusedDetectTrack
-    from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_nms
+    from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_head_cm, cuda_nms
 
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -240,7 +282,9 @@ def check_kernels(model, params, frames, card, d_max=16):
         rec, boxes, scores = capture_instances(ft.model, x)
         nb = sum(1 for name, _ in rec if name == "c2f")
         log(f"kernels {dn}", card, f"captured {len(rec)} kernel calls from a {tuple(x.shape)} chunk ({nb} c2f)")
-        for name, args in rec:
+        # every captured Detect level is also a case of the channel-major head kernel
+        cases = [c for name, args in rec for c in ([(name, args)] + ([("head_level_cm", args)] if name == "head_level" else []))]
+        for name, args in cases:
             if name == "c2f":
                 xin, kw, sc = args
                 B, H, W, c1 = xin.shape
@@ -273,34 +317,51 @@ def check_kernels(model, params, frames, card, d_max=16):
             else:
                 xin, kw = args
                 B, H, W, C = xin.shape
-                kern = lambda: cuda_head.fused_head_level(xin, kw)  # noqa: E731
-                plain = lambda: cuda_head.head_level_plain(xin, kw)  # noqa: E731
-                lib, lib_in = library_head(kw, dtype), _nchw(xin)
+                if name == "head_level_cm":
+                    kern = lambda: cuda_head_cm.head_level_cm(xin, kw)  # noqa: E731
+                    plain = lambda: cuda_head_cm.head_level_cm_plain(xin, kw)  # noqa: E731
+                    lib, lib_in = library_head_cm(kw, dtype), _nchw(xin)
+                    tile = cuda_head_cm.plan(H, W, C, kw.c2, kw.c3, dtype)
+                else:
+                    kern = lambda: cuda_head.fused_head_level(xin, kw)  # noqa: E731
+                    plain = lambda: cuda_head.head_level_plain(xin, kw)  # noqa: E731
+                    lib, lib_in = library_head(kw, dtype), _nchw(xin)
+                    tile = cuda_head.plan(H, W, C, kw.c2, kw.c3, dtype)
                 macs = H * W * (9 * C * (kw.c2 + kw.c3) + 9 * kw.c2 * kw.c2 + 9 * kw.c3 * kw.c3
                                 + kw.c2 * 4 * kw.reg_max + kw.c3 * kw.nc)
                 ins = (xin,)
                 desc = f"{H}x{W} C={C}"
-                tile = cuda_head.plan(H, W, C, kw.c2, kw.c3, dtype)
             got, want = kern(), plain()
             torch.cuda.synchronize()
             got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
-            err = 0.0
-            for g_, w_ in zip(got, want):
-                if g_.shape != w_.shape or not torch.isfinite(g_.float()).all():
-                    raise AssertionError(f"{name} {desc} {dn}: shape {tuple(g_.shape)} vs {tuple(w_.shape)} or non-finite")
-                err = max(err, float((g_.float() - w_.float()).abs().max()))
-                if not torch.allclose(g_.float(), w_.float(), atol=atol, rtol=rtol):
-                    raise AssertionError(f"{name} {desc} {dn}: kernel disagrees with its plain twin, max |err| {err}")
+            held = [(f"output {i}", g_.float(), w_.float(), atol, rtol) for i, (g_, w_) in enumerate(zip(got, want))]
+            if name == "head_level_cm":
+                held = [("dist", *held[0][1:]), ("cls", *held[1][1:3], *CLS_TOL[dn]),
+                        ("cls as logit", _logit(got[1]), _logit(want[1]), *LOGIT_TOL[dn])]
+            errs = {}
+            for label, g_, w_, at, rt in held:
+                if g_.shape != w_.shape or not torch.isfinite(g_).all():
+                    raise AssertionError(f"{name} {desc} {dn}: {label}: shape {tuple(g_.shape)} vs {tuple(w_.shape)} or non-finite")
+                errs[label] = float((g_ - w_).abs().max())
+                if not torch.allclose(g_, w_, atol=at, rtol=rt):
+                    raise AssertionError(f"{name} {desc} {dn}: {label} disagrees with the plain twin "
+                                         f"(atol {at}, rtol {rt}), max |err| {errs[label]}")
+            err = max(v for k, v in errs.items() if k != "cls as logit")
             ms, pms = cuda_ms(kern), cuda_ms(plain)
             lms = cuda_ms(lambda: lib(lib_in))
             wbytes = _nbytes(*(t for t in vars(kw).values() if torch.is_tensor(t)))
             bound, by = _bound(_nbytes(*ins, *got) + wbytes, 2.0 * B * macs, dn)
             log(
                 f"kernels {dn}", card,
-                f"{name:13s} {desc:32s} tile={tile[0]}x{tile[1]} smem={tile[2]}B "
+                f"{name:14s} {desc:32s} tile={tile[0]}x{tile[1]} smem={tile[2]}B "
                 f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms(cudnn walk)={lms:.4f} "
                 f"bound_ms={bound:.4f} ({by})"
             )
+            if name == "head_level_cm":
+                cls = want[1].float().abs()
+                for k, v in errs.items():
+                    log(f"kernels {dn}", card, f"{name:14s} {desc:32s} {k:12s} max_abs_err={v:.3e}"
+                        + (f" (scores: max {float(cls.max()):.3e}, median {float(cls.median()):.3e})" if k == "cls" else ""))
             if dtype == torch.bfloat16:
                 r = records.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
                                                   ops_ms=0.0, bytes_ms=0.0))
@@ -328,6 +389,15 @@ def check_kernels(model, params, frames, card, d_max=16):
             f"max_abs_err=0 kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms=null bound_ms={bound:.5f} ({by}; "
             f"{n_iou} IoUs x 12 f32 ops)"
         )
+        # the predict facade's NMS: K = max_nms = 1024 candidates per frame, here over 8 frames at a low threshold
+        cand1k, top1k = nms_candidates(boxes[:8], scores[:8], 0.01, 1024)
+        got1k = cuda_nms.nms_keep(cand1k, top1k, ft.iou)
+        want1k = cuda_nms.nms_keep_plain(cand1k, top1k, ft.iou)
+        torch.cuda.synchronize()
+        if not torch.equal(got1k, want1k):
+            raise AssertionError(f"nms_keep {dn} K=1024: keep mask differs in {int((got1k != want1k).sum())} slots")
+        log(f"kernels {dn}", card, f"nms_keep       B=8 K=1024 kept={int(got1k.sum())} valid={int((top1k > 0).sum())} "
+            f"max_abs_err=0 kernel_ms={cuda_ms(lambda: cuda_nms.nms_keep(cand1k, top1k, ft.iou)):.4f}")
         if dtype == torch.bfloat16:
             records["nms_keep"] = dict(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, max_abs_err=0.0,
                                        ops_ms=bound if by == "operations" else 0.0,
@@ -338,11 +408,33 @@ def check_kernels(model, params, frames, card, d_max=16):
 # ---------------------------------------------------------------- phase 3 --
 
 
-def make_pipeline(model, params, dtype, plain):
+def make_pipeline(model, params, dtype, plain, head_cm=False, channels=1):
     from yolo_tpu_torch import FusedDetectTrack
 
-    return FusedDetectTrack(model, params, frame_hw=HW, channels=1, chunk=CHUNK, conf=0.15, iou=0.6, n_max=64,
-                            d_max=16, dtype=dtype, plain=plain)
+    return FusedDetectTrack(model, params, frame_hw=HW, channels=channels, chunk=CHUNK, conf=0.15, iou=0.6, n_max=64,
+                            d_max=16, dtype=dtype, plain=plain, head_cm=head_cm)
+
+
+def launch_counters() -> dict:
+    """name → the wrapper whose `launches` attribute counts that kernel's launches."""
+    from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_head_cm, cuda_nms
+
+    return {"c2f": cuda_c2f.fused_c2f, "c2f_upconcat": cuda_c2f.fused_c2f_upconcat, "head_level": cuda_head.fused_head_level,
+            "head_level_cm": cuda_head_cm.head_level_cm, "nms_keep": cuda_nms.nms_keep}
+
+
+def counted(path_kernels, run):
+    """Set every launch count to 0, drive one path with `run()`, read the counts
+    just after: every kernel of the path must have launched, no other head kernel may have."""
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    result = run()
+    launches = {k: f.launches for k, f in counters.items()}
+    for k, v in launches.items():
+        if (v <= 0) if k in path_kernels else (v != 0):
+            raise AssertionError(f"kernel {k}: {v} launches on a path of {sorted(path_kernels)}")
+    return result, launches
 
 
 def timed_run(ft, clip):
@@ -352,6 +444,164 @@ def timed_run(ft, clip):
     t0 = time.perf_counter()
     outs, stats = ft.run_clip(clip)  # ends in one device synchronisation
     return outs, stats, time.perf_counter() - t0
+
+
+def pipeline_phase(tag, model, params, clip, card, head_cm):
+    """FusedDetectTrack on the clip: f32 kernels against f32 twins, then the timed bf16 run → its launch counts."""
+    import torch
+
+    ok_, sk, wk = timed_run(make_pipeline(model, params, torch.float32, plain=False, head_cm=head_cm), clip)
+    op_, sp, wp = timed_run(make_pipeline(model, params, torch.float32, plain=True, head_cm=head_cm), clip)
+    worst = compare_runs(ok_, op_, sk, sp)
+    log(f"{tag} f32", card, f"kernels {sk} in {wk:.2f} s | plain {sp} in {wp:.2f} s | tracks, ids, statuses, detection "
+        f"counts, stats equal; max |box/conf/vel diff| {worst:.3e}")
+
+    ft = make_pipeline(model, params, torch.bfloat16, plain=False, head_cm=head_cm)
+    ft.run_clip(clip[:CHUNK])  # warm-up: cuDNN plans, allocator, first launches
+    ft.reset()
+    ft.timings = []
+    path = {"c2f", "c2f_upconcat", "nms_keep", "head_level_cm" if head_cm else "head_level"}
+    (ob, sb, wb), launches = counted(path, lambda: timed_run(ft, clip))
+    split = {}
+    for marks in ft.timings:
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            split[name] = split.get(name, 0.0) + a.elapsed_time(b)
+    same = sum(int((a["det_count"] == b["det_count"]).sum()) for a, b in zip(ob, ok_))
+    log(f"{tag} bf16", card, f"{sb}; {FRAMES} frames in {wb:.3f} s = {FRAMES / wb:.1f} frames/s end to end (host clock, "
+        f"upload included); device split per {FRAMES} frames: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"; tracker {split.get('tracker', 0.0) / FRAMES:.3f} ms/frame; det_count equal to f32 on {same}/{FRAMES} frames")
+    log(f"{tag} bf16", card, f"kernel launches in that run: {launches}")
+    if not all(len(o["bbox"]) == CHUNK and o["bbox"].shape[1:] == (64, 4) for o in ob):
+        raise AssertionError("unexpected packed output shape")
+    return ft, launches
+
+
+def bgr_phase(model, params, clip, card):
+    """FusedDetectTrack on 3-channel BGR frames (no gray fold; the flip to RGB
+    on the card), one chunk: f32 through the kernels against f32 through the
+    twins, then bf16 with the launch counts."""
+    import numpy as np
+    import torch
+
+    bgr = np.repeat(clip[:CHUNK], 3, -1)
+    bgr[..., 0] //= 2  # unequal channels, so the stem's three input planes all matter
+    ok_, sk, _ = timed_run(make_pipeline(model, params, torch.float32, plain=False, channels=3), bgr)
+    op_, sp, _ = timed_run(make_pipeline(model, params, torch.float32, plain=True, channels=3), bgr)
+    worst = compare_runs(ok_, op_, sk, sp)
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    (_, sb, wb), launches = counted(path, lambda: timed_run(make_pipeline(model, params, torch.bfloat16, plain=False, channels=3), bgr))
+    if sk["detection_frames"] <= 0:
+        raise AssertionError(f"the 3-channel pipeline detected nothing: {sk}")
+    log("pipeline bgr", card, f"f32 kernels {sk} | plain equal in tracks, ids, statuses, detection counts, stats; max |box/conf/vel "
+        f"diff| {worst:.3e}; bf16 {sb} in {wb:.3f} s (cold), launches {launches}")
+
+
+def batched_tracker_phase(card):
+    """BatchedMultiTargetTracker (the host wrapper of the batched Kalman step)
+    on the card against the same wrapper on the CPU, on a seeded sequence of
+    three moving boxes with dropout gaps: `update` frame by frame over the
+    first frames, then `scan_frames` over the rest."""
+    import numpy as np
+
+    from yolo_tpu_torch.kalman.batched import STATUS_PREDICTED, BatchedMultiTargetTracker
+
+    rng = np.random.default_rng(0)
+    T, T_UPDATE, D = 96, 32, 16
+    boxes, mask = np.zeros((T, D, 4), np.float32), np.zeros((T, D), bool)
+    targets = [(60.0, 100.0, 2.5, 0.8, range(20, 40)), (560.0, 420.0, -2.0, -1.0, range(50, 70)), (320.0, 60.0, 0.3, 1.5, range(0))]
+    for t in range(T):
+        seen = [(x0 + vx * t, y0 + vy * t) for x0, y0, vx, vy, hidden in targets if t not in hidden]
+        for i, (cx, cy) in enumerate(seen):
+            cx, cy = cx + rng.normal(0, 0.3), cy + rng.normal(0, 0.3)
+            boxes[t, i], mask[t, i] = (cx - 6, cy - 6, cx + 6, cy + 6), True
+    trackers = [BatchedMultiTargetTracker(n_max=64, d_max=D, device=dev) for dev in ("cuda", "cpu")]
+    worst, n_tracks = 0.0, 0
+    for t in range(T_UPDATE):
+        dets = [[*b, 0.9] for b, m in zip(boxes[t], mask[t]) if m]
+        got, want = (tr.update(dets) for tr in trackers)
+        if [(g["track_id"], g["status"], g["time_since_update"]) for g in got] != [(w["track_id"], w["status"], w["time_since_update"]) for w in want]:
+            raise AssertionError(f"batched tracker update, frame {t}: the card's tracks differ from the CPU's")
+        for g, w in zip(got, want):
+            worst = max(worst, float(np.abs(g["bbox"] - w["bbox"]).max()), float(np.abs(g["velocity"] - w["velocity"]).max()))
+        n_tracks += len(got)
+    got, want = (tr.scan_frames(boxes[T_UPDATE:], mask[T_UPDATE:]) for tr in trackers)
+    for k in ("emit", "status", "track_num", "time_since_update"):
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"batched tracker scan_frames: '{k}' on the card differs from the CPU's")
+    emit = got["emit"]
+    for k in ("bbox", "velocity", "confidence"):
+        worst = max(worst, float(np.abs(got[k][emit] - want[k][emit]).max()))
+    predicted = int((got["status"][emit] == STATUS_PREDICTED).sum())
+    if worst > 1e-2 or n_tracks <= 0 or not emit.any() or predicted <= 0:
+        raise AssertionError(f"batched tracker: max diff {worst}, {n_tracks} tracks from update, {int(emit.sum())} emitted, {predicted} coasting")
+    log("batched tracker", card, f"update x{T_UPDATE} ({n_tracks} tracks) and scan_frames x{T - T_UPDATE} ({int(emit.sum())} emitted, "
+        f"{predicted} coasting) on the card equal the CPU's in ids, statuses and ages; max |box/vel/conf diff| {worst:.3e}")
+
+
+def predict_phase(clip, card):
+    """`YOLO(best.npz).predict`, one 3-channel frame at a time, into the clip loop
+    with the per-object Kalman trackers: f32 through the kernels against f32
+    through the twins, then bf16, timed (each predict ends in a device wait,
+    so the host clock sees all of it)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.kalman.multi_tracker import EnhancedMultiTargetTracker
+    from yolo_tpu_torch.kalman.pipeline import track_clip, yolo_detector
+
+    frames = np.repeat(clip[:PREDICT_FRAMES], 3, -1)  # BGR copies of the IR frames
+
+    def run(half, plain):
+        detect = yolo_detector(YOLO(str(WEIGHTS)).fuse(), 0.15, imgsz=640, iou=0.6, half=half, plain=plain)
+        detect(frames[0])  # warm-up: cuDNN plans, allocator, first launches
+        seen, spent = [], {"detect": 0.0, "track": 0.0}
+
+        def detector(frame):
+            t0 = time.perf_counter()
+            seen.append(detect(frame))
+            spent["detect"] += time.perf_counter() - t0
+            return seen[-1]
+
+        class Timed(EnhancedMultiTargetTracker):
+            def update(self, detections):
+                t0 = time.perf_counter()
+                tracks = super().update(detections)
+                spent["track"] += time.perf_counter() - t0
+                return tracks
+
+        with contextlib.redirect_stdout(io.StringIO()):  # the trackers narrate every track they open and lose
+            tracker = Timed(max_lost_frames=150, min_hits=1, iou_threshold=0.1)
+            t0 = time.perf_counter()
+            stats = track_clip(iter(frames), detector, tracker, total_frames=len(frames))
+            wall = time.perf_counter() - t0
+        return seen, stats, wall, spent
+
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    (dk, sk, wk, _), _ = counted(path, lambda: run(half=False, plain=False))
+    dp, sp, wp, _ = run(half=False, plain=True)
+    if [len(d) for d in dk] != [len(d) for d in dp]:
+        raise AssertionError(f"detections per frame differ: kernels {[len(d) for d in dk]} vs plain {[len(d) for d in dp]}")
+    worst = max([float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()) for a, b in zip(dk, dp) if a] or [0.0])
+    if worst > 1e-2:
+        raise AssertionError(f"boxes of the kernel and plain runs differ by {worst} px")
+    details = lambda s: [{k: v for k, v in d.items() if k != "confidence"} for d in s["tracker"]["tracker_details"]]  # noqa: E731
+    head = lambda s: {**{k: v for k, v in s.items() if k != "tracker"}, **{k: v for k, v in s["tracker"].items() if k != "tracker_details"}}  # noqa: E731
+    if head(sk) != head(sp) or details(sk) != details(sp):
+        raise AssertionError(f"clip stats differ: kernels {sk} vs plain {sp}")
+    if sk["frames"] != PREDICT_FRAMES or sk["detection_frames"] <= 0 or sum(len(d) for d in dk) <= 0:
+        raise AssertionError(f"the predict path detected nothing: {head(sk)}")
+    log("predict f32", card, f"kernels {head(sk)} in {wk:.2f} s | plain in {wp:.2f} s | detections per frame and stats equal "
+        f"({sum(len(d) for d in dk)} detections); max |box/conf diff| {worst:.3e}")
+    (db, sb, wb, spent), launches = counted(path, lambda: run(half=True, plain=False))
+    same = sum(len(a) == len(b) for a, b in zip(db, dk))
+    log("predict bf16", card, f"{head(sb)}; {PREDICT_FRAMES} frames in {wb:.3f} s = {PREDICT_FRAMES / wb:.1f} frames/s (host clock, one "
+        f"frame per predict); predict {spent['detect'] / PREDICT_FRAMES * 1e3:.3f} ms/frame, per-object tracker "
+        f"{spent['track'] / PREDICT_FRAMES * 1e3:.3f} ms/frame; detections equal to f32 on {same}/{PREDICT_FRAMES} frames")
+    log("predict bf16", card, f"kernel launches in that run: {launches}")
 
 
 def compare_runs(a, b, stats_a, stats_b):
@@ -380,7 +630,7 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from yolo_tpu_torch import load_npz
-    from yolo_tpu_torch.ops import _cuda, cuda_c2f, cuda_head, cuda_nms
+    from yolo_tpu_torch.ops import _cuda
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -403,37 +653,14 @@ def main(argv) -> int:
 
     records = check_kernels(model, params, clip[:CHUNK], card)
 
-    ok_, sk, wk = timed_run(make_pipeline(model, params, torch.float32, plain=False), clip)
-    op_, sp, wp = timed_run(make_pipeline(model, params, torch.float32, plain=True), clip)
-    worst = compare_runs(ok_, op_, sk, sp)
-    log("pipeline f32", card, f"kernels {sk} in {wk:.2f} s | plain {sp} in {wp:.2f} s | tracks, ids, stats equal; "
-          f"max |box/conf/vel diff| {worst:.3e}")
-
-    ft = make_pipeline(model, params, torch.bfloat16, plain=False)
-    ft.run_clip(clip[:CHUNK])  # warm-up: cuDNN plans, allocator, first launches
-    ft.reset()
-    ft.timings = []
-    counters = (cuda_c2f.fused_c2f, cuda_c2f.fused_c2f_upconcat, cuda_head.fused_head_level, cuda_nms.nms_keep)
-    for f in counters:
-        f.launches = 0
-    ob, sb, wb = timed_run(ft, clip)  # the main path
-    launches = {"c2f": cuda_c2f.fused_c2f.launches, "c2f_upconcat": cuda_c2f.fused_c2f_upconcat.launches,
-                "head_level": cuda_head.fused_head_level.launches, "nms_keep": cuda_nms.nms_keep.launches}
-    split = {}
-    for marks in ft.timings:
-        for (_, a), (name, b) in zip(marks, marks[1:]):
-            split[name] = split.get(name, 0.0) + a.elapsed_time(b)
-    same = sum(int((a["det_count"] == b["det_count"]).sum()) for a, b in zip(ob, ok_))
-    log("pipeline bf16", card, f"{sb}; {FRAMES} frames in {wb:.3f} s = {FRAMES / wb:.1f} frames/s end to end (host clock, "
-          f"upload included); device split per {FRAMES} frames: "
-          + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
-          + f"; tracker {split.get('tracker', 0.0) / FRAMES:.3f} ms/frame; det_count equal to f32 on {same}/{FRAMES} frames")
-    log("pipeline bf16", card, f"kernel launches in that run: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    if not all(len(o["bbox"]) == CHUNK and o["bbox"].shape[1:] == (64, 4) for o in ob):
-        raise AssertionError("unexpected packed output shape")
+    ft, launches = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
+    _, launches_cm = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)
+    if launches_cm["head_level_cm"] != 4 * (FRAMES // CHUNK):
+        raise AssertionError(f"head_level_cm: {launches_cm['head_level_cm']} launches, expected one per level and chunk")
+    launches["head_level_cm"] = launches_cm["head_level_cm"]
+    bgr_phase(model, params, clip, card)
+    batched_tracker_phase(card)
+    predict_phase(clip, card)
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile

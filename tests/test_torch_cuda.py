@@ -13,10 +13,14 @@ import pytest
 import torch
 
 from yolo_tpu_torch.nn import modules as PM
-from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_nms
+from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_head_cm, cuda_nms
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=1e-3, rtol=1e-3), torch.bfloat16: dict(atol=6e-2, rtol=6e-2)}
+# sigmoid scores (the channel-major head's cls output) are small: a tighter absolute
+# tolerance, and again as logits (bf16: two ulps of the logit rounded before the sigmoid)
+CLS_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-3), torch.bfloat16: dict(atol=2e-3, rtol=6e-2)}
+LOGIT_TOL = {torch.float32: dict(atol=1e-3, rtol=0.0), torch.bfloat16: dict(atol=6e-2, rtol=1.6e-2)}
 
 
 @pytest.fixture
@@ -75,6 +79,27 @@ def test_head_kernel_matches_plain(card, dtype, C, H, W):
     torch.testing.assert_close(got_c.float(), want_c.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,W,nc", [(24, 21, 30, 1), (192, 5, 7, 1), (48, 16, 20, 3), (96, 33, 41, 17)])
+def test_head_cm_kernel_matches_plain(card, dtype, C, H, W, nc):
+    """Ragged tiles, a W no TPU tile divides, P5's width and nc beyond one m-tile."""
+    rng = np.random.default_rng(2)
+    head = PM.Detect(nc=nc, ch=(C,))
+    head.to(card)
+    _random_convs(head, rng, dtype)
+    kw = head.kernel_weights(0)
+    x = torch.randn(3, H, W, C, device=card).to(dtype)
+    before = (cuda_head_cm.head_level_cm.launches, cuda_head.fused_head_level.launches)
+    got_d, got_c = cuda_head_cm.head_level_cm(x, kw)
+    want_d, want_c = cuda_head_cm.head_level_cm_plain(x, kw)
+    torch.cuda.synchronize()
+    assert (cuda_head_cm.head_level_cm.launches, cuda_head.fused_head_level.launches) == (before[0] + 1, before[1])
+    assert got_c.dtype == torch.float32 and got_c.shape == (3, H * W, nc)
+    torch.testing.assert_close(got_d, want_d, **TOL[dtype])
+    torch.testing.assert_close(got_c, want_c, **CLS_TOL[dtype])
+    torch.testing.assert_close(torch.logit(got_c.double(), eps=1e-12), torch.logit(want_c.double(), eps=1e-12), **LOGIT_TOL[dtype])
+
+
 def test_nms_kernel_matches_plain(card):
     g = torch.Generator(device=card).manual_seed(0)
     B, K = 16, 64
@@ -87,3 +112,53 @@ def test_nms_kernel_matches_plain(card):
     got = cuda_nms.nms_keep(boxes, scores, 0.5)
     want = cuda_nms.nms_keep_plain(boxes, scores, 0.5)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("head_cm", [False, True])
+def test_fused_detect_track_bgr_kernels_match_plain(card, head_cm):
+    """3-channel BGR chunks through FusedDetectTrack on the card: f32 through
+    the kernels equals f32 through the twins in tracks, ids, statuses and stats."""
+    from yolo_tpu_torch import DetectionModel, FusedDetectTrack
+
+    model = DetectionModel("yolov8n.yaml", device=card)
+    params = model.init(0)
+    clip = np.random.default_rng(3).integers(0, 255, (16, 64, 64, 3), np.uint8)
+    clip[:, 20:28, 30:38] = 255
+    kw = dict(frame_hw=(64, 64), channels=3, chunk=8, conf=1e-4, n_max=8, d_max=4, dtype=torch.float32, head_cm=head_cm)
+    name = cuda_head_cm.head_level_cm if head_cm else cuda_head.fused_head_level
+    before = name.launches
+    got_outs, got_stats = FusedDetectTrack(model, params, **kw).run_clip(clip)
+    assert name.launches == before + 2 * len(model.stride)
+    want_outs, want_stats = FusedDetectTrack(model, params, plain=True, **kw).run_clip(clip)
+    assert got_stats == want_stats and got_stats["detection_frames"] > 0
+    for got, want in zip(got_outs, want_outs):
+        for k in ("emit", "status", "track_num", "time_since_update", "det_count"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for k in ("bbox", "confidence", "velocity"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-2, err_msg=k)
+
+
+def test_batched_multi_target_tracker_on_the_card_equals_cpu(card):
+    from yolo_tpu_torch.kalman.batched import BatchedMultiTargetTracker
+
+    rng = np.random.default_rng(4)
+    T, D = 40, 4
+    boxes, mask = np.zeros((T, D, 4), np.float32), np.zeros((T, D), bool)
+    for t in range(T):
+        for i, (x0, y0, vx, vy) in enumerate(((20.0, 30.0, 2.0, 1.0), (200.0, 90.0, -1.5, 0.5))):
+            if i == 0 and 10 <= t < 20:
+                continue  # a dropout: the track coasts
+            cx, cy = x0 + vx * t + rng.normal(0, 0.3), y0 + vy * t + rng.normal(0, 0.3)
+            boxes[t, i], mask[t, i] = (cx - 5, cy - 5, cx + 5, cy + 5), True
+    on_card, on_cpu = (BatchedMultiTargetTracker(n_max=8, d_max=D, device=d) for d in (card, "cpu"))
+    for t in range(15):
+        dets = [[*b, 0.9] for b, m in zip(boxes[t], mask[t]) if m]
+        got, want = on_card.update(dets), on_cpu.update(dets)
+        assert [(g["track_id"], g["status"], g["time_since_update"]) for g in got] == [
+            (w["track_id"], w["status"], w["time_since_update"]) for w in want]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g["bbox"], w["bbox"], rtol=0, atol=1e-3)
+    got, want = on_card.scan_frames(boxes[15:], mask[15:]), on_cpu.scan_frames(boxes[15:], mask[15:])
+    for k in ("emit", "status", "track_num", "time_since_update"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["bbox"][got["emit"]], want["bbox"][want["emit"]], rtol=0, atol=1e-3)

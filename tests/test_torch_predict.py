@@ -1,0 +1,345 @@
+"""The port's predict facade against the JAX package: box helpers, letterbox
+(host and device), `non_max_suppression` with `classes` / `agnostic` and
+planted ties, `Detect.decode` / `DetectionModel.predict`, the Results
+containers and `YOLO(best.npz).predict`. Inputs come from seeded numpy
+generators; the port runs on the CPU through the kernels' plain twins.
+Tolerances are stated at each comparison."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import yolo_tpu
+import yolo_tpu_torch
+from yolo_tpu.engine import results as JR
+from yolo_tpu.nn.tasks import DetectionModel as JaxDetectionModel
+from yolo_tpu.ops import boxes as JB
+from yolo_tpu.ops import letterbox as JL
+from yolo_tpu.ops import nms as JN
+from yolo_tpu_torch import DetectionModel, params_from_jax
+from yolo_tpu_torch.engine import results as PR
+from yolo_tpu_torch.engine.predictor import BasePredictor, PredictArgs, _iter_source, _snap_batch
+from yolo_tpu_torch.ops import boxes as PB
+from yolo_tpu_torch.ops import letterbox as PL
+from yolo_tpu_torch.ops import nms as PN
+
+from tests.conftest import ROOT
+
+WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
+
+
+def _boxes(rng, n):
+    xy = rng.uniform(-20, 600, (n, 2))
+    return np.concatenate([xy, xy + rng.uniform(1, 120, (n, 2))], -1).astype(np.float32)
+
+
+# --- ops/boxes ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("as_torch", [False, True])
+def test_box_helpers_match_jax(as_torch):
+    rng = np.random.default_rng(0)
+    b = _boxes(rng, 9)
+    arg = torch.from_numpy(b) if as_torch else b
+    out = lambda v: v.numpy() if as_torch else v  # noqa: E731
+    np.testing.assert_allclose(out(PB.xyxy2xywh(arg)), JB.xyxy2xywh(b), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out(PB.clip_boxes(arg, (512, 640))), JB.clip_boxes(b, (512, 640)), rtol=0, atol=0)
+    for img1, img0, ratio_pad, xywh in [
+        ((640, 640), (512, 640), None, False),
+        ((384, 640), (1080, 1920), None, False),
+        ((640, 640), (512, 640), ((1.0, 1.0), (0.0, 64.0)), False),
+        ((640, 640), (300, 500), None, True),
+    ]:
+        got = PB.scale_boxes(img1, arg, img0, ratio_pad=ratio_pad, xywh=xywh)
+        want = JB.scale_boxes(img1, b, img0, ratio_pad=ratio_pad, xywh=xywh)
+        np.testing.assert_allclose(out(got), want, rtol=1e-6, atol=1e-5)
+    assert PB.xyxy2xywh(b[:0]).shape == (0, 4)
+
+
+# --- ops/letterbox ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,new_shape,kw", [
+    ((512, 640), (640, 640), {}),
+    ((300, 500), 640, {}),
+    ((1080, 1920), (384, 640), dict(scaleup=False)),
+    ((100, 90), (640, 640), dict(auto=True, stride=32)),
+    ((480, 640), (640, 640), dict(center=False)),
+])
+def test_letterbox_params_match_jax(shape, new_shape, kw):
+    assert PL.letterbox_params(shape, new_shape, **kw) == JL.letterbox_params(shape, new_shape, **kw)
+
+
+def test_letterbox_without_resize_is_exact_and_needs_no_cv2(monkeypatch):
+    import sys
+
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 255, (512, 640, 3), np.uint8)
+    want, want_meta = JL.LetterBox((640, 640))(img, return_meta=True)
+    monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` would raise: padding alone must not need it
+    got, got_meta = PL.LetterBox((640, 640))(img, return_meta=True)
+    assert got_meta == want_meta == ((1.0, 1.0), (0.0, 64.0))
+    np.testing.assert_array_equal(got, want)
+    gray = PL.LetterBox((640, 640))(img[..., 0])
+    assert gray.shape == (640, 640, 1) and gray[0, 0, 0] == 114 and gray[64, 5, 0] == img[0, 5, 0]
+
+
+@pytest.mark.parametrize("shape,kw", [((300, 500), {}), ((700, 900), {}), ((40, 50), dict(scaleup=False)), ((200, 100), dict(scale_fill=True))])
+def test_letterbox_with_resize_matches_jax(shape, kw):
+    """Both sides resize with cv2's INTER_LINEAR; they may differ by one intensity level at most."""
+    img = np.random.default_rng(2).integers(0, 255, (*shape, 3), np.uint8)
+    got, got_meta = PL.LetterBox((640, 640), **kw)(img, return_meta=True)
+    want, want_meta = JL.LetterBox((640, 640), **kw)(img, return_meta=True)
+    assert got_meta == want_meta and got.shape == want.shape == (640, 640, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("src,dst", [((48, 60), (96, 96)), ((100, 140), (64, 64)), ((64, 80), (80, 80))])
+def test_letterbox_device_matches_jax(src, dst):
+    """Up, down (both sides antialias when they shrink) and pad only; atol 1e-3 on 0..255 values."""
+    x = np.random.default_rng(3).uniform(0, 255, (2, *src, 3)).astype(np.float32)
+    got, got_meta = PL.letterbox_device(torch.from_numpy(x), src, dst)
+    want, want_meta = JL.letterbox_device(jnp.asarray(x), src, dst)
+    assert got_meta == want_meta and tuple(got.shape) == (2, *dst, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-3)
+
+
+# --- ops/nms ------------------------------------------------------------------------
+
+
+def _planted_prediction(rng, B=3, A=80, nc=4):
+    cxcy = rng.uniform(20, 200, (B, A, 2))
+    wh = rng.uniform(8, 60, (B, A, 2))
+    boxes = np.concatenate([cxcy, wh], -1).astype(np.float32)
+    boxes[:, 1::5] = boxes[:, 0::5]  # duplicate boxes
+    scores = rng.uniform(0, 1, (B, A, nc)).round(1).astype(np.float32)  # many equal scores
+    scores[:, 1::5] = scores[:, 0::5]  # duplicates tie with their originals, in every class
+    scores[:, 7] = 0.9  # one anchor with all classes tied: argmax must take class 0 on both sides
+    return np.concatenate([boxes, scores], -1).transpose(0, 2, 1).copy()
+
+
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("classes,agnostic", [(None, False), ([1, 3], False), (None, True), ([0, 2], True)])
+def test_non_max_suppression_matches_jax(plain, classes, agnostic):
+    pred = _planted_prediction(np.random.default_rng(4))
+    kw = dict(conf_thres=0.25, iou_thres=0.5, classes=classes, agnostic=agnostic, max_det=20, max_nms=64)
+    want = JN.non_max_suppression(jnp.asarray(pred), **kw)
+    got = PN.non_max_suppression(torch.from_numpy(pred), plain=plain, **kw)
+    assert int(got["valid"].sum()) > 10
+    np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]))
+    np.testing.assert_array_equal(got["cls"].numpy(), np.asarray(want["cls"]))
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=0)
+    np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=0, atol=1e-4)
+    if classes is not None:
+        assert set(got["cls"][got["valid"]].tolist()) <= set(classes)
+    with pytest.raises(ValueError, match="4 \\+ nc"):
+        PN.non_max_suppression(torch.from_numpy(pred), nc=2)
+
+
+# --- Detect.decode / DetectionModel.predict ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_model():
+    jm = JaxDetectionModel("yolov8n.yaml", nc=3)
+    jp = jm.fuse(jm.init(0))
+    pm = DetectionModel("yolov8n.yaml", nc=3, device="cpu")
+    params_from_jax(pm, jax.tree_util.tree_map(np.asarray, jp), torch.float32)
+    x = np.random.default_rng(5).uniform(0, 1, (2, 64, 96, 3)).astype(np.float32)
+    return jm, jp, pm, x
+
+
+@pytest.mark.parametrize("neck_opt", [True, False])
+def test_model_predict_matches_jax(tiny_model, neck_opt):
+    jm, jp, pm, x = tiny_model
+    want = np.asarray(jm.predict(jp, jnp.asarray(x), dtype=jnp.float32, neck_opt=neck_opt))
+    got = pm.predict(torch.from_numpy(x), neck_opt=neck_opt)
+    assert tuple(got.shape) == want.shape == (2, 4 + 3, 8 * 12 + 4 * 6 + 2 * 3)
+    np.testing.assert_allclose(got[:, :4].numpy(), want[:, :4], rtol=0, atol=2e-3)  # boxes, px
+    np.testing.assert_allclose(got[:, 4:].numpy(), want[:, 4:], rtol=0, atol=1e-4)  # scores
+
+
+def test_detect_decode_matches_jax(tiny_model):
+    """The raw per-level walk (Detect.forward) and its decode, against JAX Detect.__call__ / decode_parts / decode."""
+    jm, jp, pm, x = tiny_model
+    ctx = yolo_tpu.nn.modules.Ctx(train=False, dtype=jnp.float32)
+    hp = jp["model"][str(jm.layers[-1].i)]
+    rng = np.random.default_rng(6)
+    xs = [rng.normal(0, 1, (2, h, w, m.c1)).astype(np.float32) for (h, w), m in zip([(8, 12), (4, 6), (2, 3)], [b[0] for b in pm.head.cv2])]
+    want_outs = jm.head(hp, [jnp.asarray(v) for v in xs], ctx)
+    got_outs = pm.head([torch.from_numpy(v) for v in xs])
+    for g, w in zip(got_outs, want_outs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+    want_b, want_s = jm.head.decode_parts(hp, want_outs)
+    got_b, got_s = pm.head.decode_parts(got_outs)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0, atol=1e-5)
+    got = pm.head.decode(got_outs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.head.decode(hp, want_outs)), rtol=0, atol=2e-3)
+    # the kernels' route from the head inputs gives the same decode
+    kb, ks = pm.head.decode_from_inputs([torch.from_numpy(v) for v in xs])
+    np.testing.assert_allclose(kb.numpy(), got_b.numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(ks.numpy(), got_s.numpy(), rtol=0, atol=1e-5)
+
+
+def test_model_init_is_seeded_and_loadable():
+    pm = DetectionModel("yolov8n.yaml", nc=2, device="cpu")
+    p0, p1, p2 = pm.init(0), pm.init(0), pm.init(1)
+    w = lambda p: p["model"]["0"]["conv"]["weight"]  # noqa: E731
+    assert w(p0).shape == (3, 3, 3, 16) and np.array_equal(w(p0), w(p1)) and not np.array_equal(w(p0), w(p2))
+    head = p0["model"][str(len(pm.layers) - 1)]
+    assert np.all(head["cv2"]["0"]["2"]["bias"] == 1.0) and head["dfl"]["conv"]["weight"].shape == (1, 1, 16, 1)
+    np.testing.assert_allclose(head["cv3"]["1"]["2"]["bias"], np.log(5 / 2 / (640 / 16) ** 2), rtol=1e-6)
+    params_from_jax(pm, p0, torch.float32)
+    out = pm.predict(torch.rand(1, 64, 64, 3))
+    assert tuple(out.shape) == (1, 6, 84) and bool(torch.isfinite(out).all())
+
+
+# --- engine/results -------------------------------------------------------------------------
+
+
+def test_results_containers_match_jax():
+    rng = np.random.default_rng(7)
+    data = np.concatenate([_boxes(rng, 5), rng.uniform(0, 1, (5, 1)), rng.integers(0, 2, (5, 1))], -1).astype(np.float32)
+    img = np.zeros((512, 640, 3), np.uint8)
+    names = {0: "aircraft", 1: "bird"}
+    got, want = PR.Results(img, "a.jpg", names, boxes=data), JR.Results(img, "a.jpg", names, boxes=data)
+    assert len(got) == len(want) == 5 and got.verbose() == want.verbose() and got.orig_shape == (512, 640)
+    for attr in ("xyxy", "conf", "cls", "xywh", "xyxyn", "xywhn"):
+        np.testing.assert_allclose(getattr(got.boxes, attr), getattr(want.boxes, attr), rtol=0, atol=1e-6, err_msg=attr)
+    assert got.boxes.id is None and set(got.speed) == {"preprocess", "inference", "postprocess"}
+    np.testing.assert_array_equal(got[1:3].boxes.data, want[1:3].boxes.data)
+    np.testing.assert_array_equal(got[2].boxes.data, want[2].boxes.data)
+    np.testing.assert_array_equal(got.boxes[[0, 4]].data, want.boxes[[0, 4]].data)
+    empty = PR.Results(img, "a.jpg", names)
+    assert len(empty) == 0 and empty.verbose() == JR.Results(img, "a.jpg", names).verbose() == "512x640 (no detections), "
+    tracked = PR.Boxes(np.insert(data, 4, np.arange(5), axis=1), (512, 640))
+    assert tracked.is_track and list(tracked.id) == [0, 1, 2, 3, 4]
+    np.testing.assert_array_equal(tracked.conf, data[:, 4])
+    with pytest.raises(ValueError, match="6 or 7"):
+        PR.Boxes(np.zeros((2, 5), np.float32), (4, 4))
+
+
+# --- engine/predictor + engine/model ------------------------------------------------------------
+
+
+def _ir_frame(rng, h, w, cx, cy):
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = 30 + rng.normal(0, 2, (h, w)) + 170 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 4.0**2))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def yolos():
+    return yolo_tpu.YOLO(str(WEIGHTS)), yolo_tpu_torch.YOLO(str(WEIGHTS), device="cpu")
+
+
+def _assert_same_results(got, want, box_atol):
+    assert [len(r) for r in got] == [len(r) for r in want]
+    for g, w in zip(got, want):
+        assert g.orig_shape == w.orig_shape and g.path == w.path
+        np.testing.assert_allclose(g.boxes.xyxy, w.boxes.xyxy, rtol=0, atol=box_atol)
+        np.testing.assert_allclose(g.boxes.conf, w.boxes.conf, rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(g.boxes.cls, w.boxes.cls)
+
+
+def test_yolo_predict_matches_jax(yolos):
+    """Three 96x128 frames that fit imgsz exactly (pure padding on both sides):
+    same count, boxes within 1e-2 px, conf within 1e-4. The JAX side is asked
+    for f32 (its default compute dtype is bf16); a batch of 3 snaps to 4."""
+    jy, py = yolos
+    rng = np.random.default_rng(8)
+    frames = [np.repeat(_ir_frame(rng, 96, 128, cx, cy)[..., None], 3, -1) for cx, cy in ((40, 30), (90, 60), (20, 80))]
+    frames.append(np.full((96, 128, 3), 30, np.uint8))  # nothing to detect
+    kw = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=3)
+    want = jy.predict(frames, compute_dtype="float32", **kw)
+    got = py.predict(frames, **kw)
+    assert [len(r) for r in got] == [1, 1, 1, 0]
+    _assert_same_results(got, want, box_atol=1e-2)
+    assert got[0].names == want[0].names and all(v is not None and v >= 0 for v in got[0].speed.values())
+    assert py.names == jy.names and py.stride == jy.stride == [4, 8, 16, 32]
+    # a reused predictor takes new settings: nothing passes conf 0.99; the single gray frame is expanded
+    assert [len(r) for r in py.predict(frames, **{**kw, "conf": 0.99})] == [0, 0, 0, 0]
+    one = py(frames[0][..., 0], **kw)
+    assert len(one) == 1 and one[0].path == "array"
+    np.testing.assert_allclose(one[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-4)
+    # plain=True (the twins by name) is the same route on the CPU (a batch of 1, so sums differ in the last bit)
+    np.testing.assert_allclose(py.predict(frames[0], plain=True, **kw)[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-5)
+    with pytest.raises(TypeError, match="not a setting"):
+        py.predict(frames[0], augment=True)
+
+
+def test_yolo_predict_letterboxed_source_matches_jax(yolos):
+    """A (N, H, W, 3) array batch that needs padding (64x128 into 128x128): the
+    boxes come back in source coordinates, clipped to the source."""
+    jy, py = yolos
+    rng = np.random.default_rng(9)
+    batch = np.stack([np.repeat(_ir_frame(rng, 64, 128, cx, cy)[..., None], 3, -1) for cx, cy in ((40, 30), (100, 8))])
+    kw = dict(conf=0.1, iou=0.6, imgsz=128, verbose=False, batch=2)
+    want = jy.predict(batch, compute_dtype="float32", **kw)
+    got = py.predict(batch, stream=True, **kw)
+    assert not isinstance(got, list)
+    got = list(got)
+    _assert_same_results(got, want, box_atol=1e-2)
+    assert sum(len(r) for r in got) >= 2 and got[0].path == "image0.jpg"
+    assert all(r.boxes.xyxy[:, [1, 3]].max() <= 64 for r in got if len(r))
+
+
+def test_predictor_pieces():
+    assert [_snap_batch(n) for n in (1, 2, 3, 5, 16, 17)] == [1, 2, 4, 8, 16, 32]
+    a = PredictArgs()
+    assert (a.conf, a.iou, a.imgsz, a.half, a.classes, a.agnostic_nms, a.max_det, a.batch, a.vid_stride) == (
+        0.25, 0.7, 640, False, None, False, 300, 16, 1)
+    f = np.zeros((8, 8, 3), np.uint8)
+    assert [(p, i) for _, p, i in _iter_source([f, f])] == [("array0", 0), ("array1", 0)]
+    assert [p for _, p, _ in _iter_source(np.zeros((2, 8, 8, 3), np.uint8))] == ["image0.jpg", "image1.jpg"]
+    with pytest.raises(ValueError, match="uint8"):
+        list(_iter_source(np.zeros((2, 8, 8, 3), np.float32)))
+    with pytest.raises(ValueError, match="unsupported source"):
+        list(_iter_source("frames.txt"))
+    with pytest.raises(FileNotFoundError):
+        list(_iter_source("no_such_clip.mp4"))
+
+
+def test_predictor_runs_on_the_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        yolo_tpu_torch.YOLO("yolov8n.yaml")
+    model = DetectionModel("yolov8n.yaml", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BasePredictor(model, model.init(0))
+    pred = BasePredictor(model, model.init(0), overrides={"device": "cpu", "half": True, "verbose": False})
+    assert pred.device == torch.device("cpu") and pred.dtype == torch.bfloat16
+    out = pred._predict(torch.zeros((1, 64, 64, 3), dtype=torch.uint8))
+    assert out["boxes"].shape == (1, 300, 4) and out["valid"].dtype == torch.bool
+    with pytest.raises(NotImplementedError, match="detect"):
+        yolo_tpu_torch.YOLO("yolov8n.yaml", task="segment", device="cpu")
+    with pytest.raises(ValueError, match="unsupported model source"):
+        yolo_tpu_torch.YOLO("weights.pt", device="cpu")
+
+
+def test_reused_yolo_takes_half_and_back():
+    """`half` on a YOLO that has already predicted changes the compute dtype of
+    the installed weights and of the forward, and changes back; the same
+    settings do not reload the tree."""
+    py = yolo_tpu_torch.YOLO("yolov8n.yaml", device="cpu")
+    frame = np.random.default_rng(10).integers(0, 255, (64, 64, 3), np.uint8)
+    kw = dict(imgsz=64, conf=0.001, verbose=False)
+    stem = py.model.layers[0]
+    r32 = py.predict(frame, **kw)
+    pred = py.predictor
+    assert pred.dtype == torch.float32 and stem.weight.dtype == torch.float32
+    seen = []
+    real = py.model.predict
+    py.model.predict = lambda x, **k: (seen.append(x.dtype), real(x, **k))[1]
+    r16 = py.predict(frame, half=True, **kw)
+    assert py.predictor is pred and pred.dtype == torch.bfloat16 and stem.weight.dtype == torch.bfloat16
+    w16 = stem.weight
+    py.predict(frame, **kw)  # `half` stays as it was set: nothing is reloaded
+    assert stem.weight is w16
+    r32b = py.predict(frame, half=False, **kw)
+    assert seen == [torch.bfloat16, torch.bfloat16, torch.float32] and stem.weight.dtype == torch.float32
+    np.testing.assert_array_equal(r32b[0].boxes.data, r32[0].boxes.data)
+    assert len(r16) == 1

@@ -1,4 +1,4 @@
-// Shared helpers of the port's hand-written Hopper kernels (c2f.cu, head.cu).
+// Shared helpers of the port's hand-written Hopper kernels (c2f.cu, head.cu, head_cm.cu).
 //
 // Numerics follow the fused ConvBNAct path of the JAX package
 // (yolo_tpu/ops/pallas_c2f.py, pallas_head.py): every product is exact and

@@ -37,6 +37,8 @@ def load_npz(filename, device=None):
     if meta.get("task", "detect") != "detect":
         raise NotImplementedError(f"only detection checkpoints are ported, got task '{meta['task']}'")
     model = DetectionModel(cfg, device=device)
+    if meta.get("names"):
+        model.names = {int(k): v for k, v in meta["names"].items()}
     params = _unflatten(flat)
     # parameterless layers (Upsample, Concat) flatten to nothing
     for i in range(len(model.layers)):

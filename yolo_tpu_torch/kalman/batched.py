@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from yolo_tpu_torch.device import resolve_device
@@ -285,3 +286,56 @@ def make_step(n_max: int = 64, d_max: int = 16, max_lost_frames: int = 150, min_
         return s, out
 
     return step
+
+
+class BatchedMultiTargetTracker:
+    """Host-friendly wrapper: the `update()` contract of EnhancedMultiTargetTracker
+    over the batched step; `scan_frames` runs a whole chunk of frames on the
+    device and waits once, when the stacked outputs are copied back."""
+
+    def __init__(self, max_lost_frames: int = 150, min_hits: int = 1, iou_threshold: float = 0.1, n_max: int = 64, d_max: int = 16, device=None):
+        self.n_max, self.d_max = n_max, d_max
+        self.device = resolve_device(device)
+        self._step = make_step(n_max, d_max, max_lost_frames, min_hits, iou_threshold, device=self.device)
+        self.state = init_state(n_max, self.device)
+
+    def update(self, detections) -> list[dict]:
+        """detections: list of [x1, y1, x2, y2, conf] → list of track-info dicts, in id order."""
+        D = self.d_max
+        boxes = np.zeros((D, 4), np.float32)
+        mask = np.zeros((D,), bool)
+        for i, det in enumerate(detections[:D]):
+            boxes[i] = det[:4]
+            mask[i] = True
+        with torch.no_grad():
+            self.state, out = self._step(
+                self.state, torch.from_numpy(boxes).to(self.device), torch.from_numpy(mask).to(self.device)
+            )
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        tracks = []
+        for i in np.argsort(out["track_num"], kind="stable"):
+            if not out["emit"][i]:
+                continue
+            tracks.append(
+                {
+                    "track_id": f"T{int(out['track_num'][i]):03d}",
+                    "bbox": out["bbox"][i],
+                    "confidence": float(out["confidence"][i]),
+                    "status": "predicted" if out["status"][i] == STATUS_PREDICTED else "detected",
+                    "time_since_update": int(out["time_since_update"][i]),
+                    "velocity": out["velocity"][i],
+                }
+            )
+        return tracks
+
+    def scan_frames(self, det_boxes_seq, det_mask_seq) -> dict:
+        """Run T frames on the device: (T, D, 4), (T, D) → the step outputs stacked over T, as numpy."""
+        boxes = torch.as_tensor(np.asarray(det_boxes_seq), dtype=torch.float32).to(self.device)
+        mask = torch.as_tensor(np.asarray(det_mask_seq), dtype=torch.bool).to(self.device)
+        state, outs = self.state, []
+        with torch.no_grad():
+            for t in range(boxes.shape[0]):
+                state, out = self._step(state, boxes[t], mask[t])
+                outs.append(out)
+        self.state = state
+        return {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}

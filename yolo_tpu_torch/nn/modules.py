@@ -14,8 +14,9 @@ Detect head with its DFL decode.
   compute dtype, adds the bias in that dtype, and SiLU is x * sigmoid(x)
   with the logistic taken in f32 and rounded (ops/pallas_c2f.py:_silu).
 - C2f blocks and Detect levels run the hand-written CUDA kernels
-  (ops/cuda_c2f.py, ops/cuda_head.py); `plain=True` runs their plain PyTorch
-  twins instead, the reference the kernels are held against on the card.
+  (ops/cuda_c2f.py, ops/cuda_head.py, ops/cuda_head_cm.py); `plain=True` runs
+  their plain PyTorch twins instead, the reference the kernels are held
+  against on the card.
   Every other conv (stem, stride-2 convs, SPPF) is torch.nn.functional.conv2d,
   as the JAX package leaves those to XLA.
 """
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_tpu_torch.ops import cuda_c2f, cuda_head
+from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_head_cm
 from yolo_tpu_torch.ops.conv import conv_nhwc, silu
 
 
@@ -218,19 +219,61 @@ class Detect(nn.Module):
             ]
         return self._kw[l]
 
+    def forward(self, xs):
+        """Per-level raw outputs (B, H, W, 4*reg_max + nc), box bins then cls
+        logits, through plain convs (JAX Detect.__call__): what `decode_parts`
+        and `decode` take."""
+        outs = []
+        for l, x in enumerate(xs):
+            b, c = x, x
+            for j in range(3):
+                b, c = self.cv2[l][j](b), self.cv3[l][j](c)
+            outs.append(torch.cat([b, c], -1))
+        return outs
+
+    def _anchor_decode(self, dists, clss, feat_shapes):
+        """Per-level dist (B, A_l, 4) and scores (B, A_l, nc) → (boxes (B, A, 4) px xywh, scores (B, A, nc))."""
+        from yolo_tpu_torch.ops.anchors import dist2bbox, make_anchors
+
+        anchors, strides = make_anchors(feat_shapes, self.stride, 0.5, device=dists[0].device)
+        dbox = dist2bbox(torch.cat(dists, 1), anchors[None], xywh=True, dim=-1) * strides[None]
+        return dbox, torch.cat(clss, 1)
+
+    def decode_parts(self, outs):
+        """DFL decode of the raw per-level outputs → (boxes (B, A, 4) px xywh f32,
+        scores (B, A, nc) f32 sigmoid), the anchors-major layout NMS consumes."""
+        dists, clss = [], []
+        for o in outs:
+            B, H, W, _ = o.shape
+            box = o[..., : self.reg_max * 4].reshape(B, H * W, 4, self.reg_max)
+            dists.append(dfl_project(box, self.proj))
+            clss.append(torch.sigmoid(o[..., self.reg_max * 4 :].reshape(B, H * W, self.nc).float()))
+        return self._anchor_decode(dists, clss, [(o.shape[1], o.shape[2]) for o in outs])
+
+    @staticmethod
+    def pack(dbox: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+        """Decode parts → (B, 4 + nc, A), the layout of `decode` and of `non_max_suppression`."""
+        return torch.cat([dbox, cls], -1).transpose(1, 2)
+
+    def decode(self, outs) -> torch.Tensor:
+        """DFL decode of the raw per-level outputs → (B, 4 + nc, A): px xywh, then sigmoid scores."""
+        return self.pack(*self.decode_parts(outs))
+
     def decode_from_inputs(self, xs, plain: bool = False):
         """Both branches + DFL per level from the head inputs (NHWC), then the
         anchor decode: (boxes (B, A, 4) px xywh f32, scores (B, A, nc) f32)."""
-        from yolo_tpu_torch.ops.anchors import dist2bbox, make_anchors
-
         fn = cuda_head.head_level_plain if plain else cuda_head.fused_head_level
         dists, clss = [], []
         for l, x in enumerate(xs):
             d, c = fn(x, self.kernel_weights(l))
             dists.append(d)
             clss.append(torch.sigmoid(c.float()))
-        feat_shapes = [(x.shape[1], x.shape[2]) for x in xs]
-        anchors, strides = make_anchors(feat_shapes, self.stride, 0.5, device=xs[0].device)
-        dist = torch.cat(dists, 1)
-        dbox = dist2bbox(dist, anchors[None], xywh=True, dim=-1) * strides[None]
-        return dbox, torch.cat(clss, 1)
+        return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])
+
+    def decode_from_inputs_cm(self, xs, plain: bool = False):
+        """`decode_from_inputs` with every level through the channel-major
+        kernel (ops/cuda_head_cm.py, sigmoid inside). Every level shape is
+        served: there is no tile width to fall back from."""
+        fn = cuda_head_cm.head_level_cm_plain if plain else cuda_head_cm.head_level_cm
+        dists, clss = zip(*(fn(x, self.kernel_weights(l)) for l, x in enumerate(xs)))
+        return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])

@@ -3,9 +3,10 @@
 Counterpart of yolo_tpu/nn/tasks.py for the detect main path: the same scale
 math (c2 = make_divisible(min(c2, max_channels) * width, 8), n = max(round(n *
 depth), 1)), the same static stride propagation, the neck fold detection of
-`_build_neck_opt` and `predict_parts`. Here the neck fold is always on and
-every C2f and Detect level goes through the hand-written kernels (their plain
-twins with `plain=True`, or on the CPU).
+`_build_neck_opt`, `predict_parts` and `predict`. Every C2f and Detect level
+goes through the hand-written kernels (their plain twins with `plain=True`,
+or on the CPU); `predict_parts` always folds the neck, `predict` unless
+`neck_opt=False`.
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -166,6 +167,7 @@ class DetectionModel(nn.Module):
         if nc and nc != self.yaml.get("nc"):
             self.yaml["nc"] = nc
         self.nc = self.yaml["nc"]
+        self.names = {i: f"{i}" for i in range(self.nc)}
         layers, self.froms, self.save = parse_model(self.yaml, ch)
         self.layers = nn.ModuleList(layers)
         _compute_strides(self.layers, self.froms)
@@ -200,17 +202,41 @@ class DetectionModel(nn.Module):
                 self._upconcat[c] = Fr[b][1]
                 self._neck_skip |= {a, b}
 
-    @torch.no_grad()
-    def predict_parts(self, x: torch.Tensor, plain: bool = False):
-        """Decoded (boxes (B, A, 4) px xywh, scores (B, A, nc)), f32, from NHWC
-        images in the model's dtype. `plain=True` runs the kernels' plain twins."""
+    def init(self, seed: int = 0) -> dict:
+        """A seeded random parameter tree in the JAX package's layout (HWIO
+        convs, BN already folded): He-normal conv weights, zero biases, and the
+        Detect head's bias priors. For models built from a YAML; the numbers
+        are the port's own, not those of the JAX package's `init`."""
+        rng = np.random.default_rng(seed)
+
+        def tree(m):
+            if isinstance(m, (M.ConvBNAct, M.Conv2d)):
+                fan_in = m.c1 * m.k * m.k
+                leaf = {
+                    "weight": rng.normal(0.0, math.sqrt(2.0 / fan_in), (m.k, m.k, m.c1, m.c2)).astype(np.float32),
+                    "bias": np.zeros(m.c2, np.float32),
+                }
+                return {"conv": leaf} if isinstance(m, M.ConvBNAct) else leaf
+            return {name: tree(child) for name, child in m.named_children()}
+
+        params = {"model": {str(i): tree(m) for i, m in enumerate(self.layers)}}
+        hp, head = params["model"][str(len(self.layers) - 1)], self.head
+        hp["dfl"] = {"conv": {"weight": np.arange(head.reg_max, dtype=np.float32).reshape(1, 1, head.reg_max, 1)}}
+        for l, s in enumerate(head.stride):
+            hp["cv2"][str(l)]["2"]["bias"][:] = 1.0
+            hp["cv3"][str(l)]["2"]["bias"][:] = math.log(5 / head.nc / (640 / s) ** 2)
+        return params
+
+    def _head_inputs(self, x: torch.Tensor, plain: bool, neck_opt: bool = True):
+        """Walk the graph up to the Detect head → its input maps. `neck_opt`
+        folds the Upsample→Concat→C2f chains into `C2f.call_upconcat`."""
         y = {}
         for i, (m, f) in enumerate(zip(self.layers, self.froms)):
-            if i in self._neck_skip:
+            if neck_opt and i in self._neck_skip:
                 continue
             if isinstance(m, M.Detect):
-                return m.decode_from_inputs([x if j == -1 else y[j] for j in f], plain=plain)
-            if i in self._upconcat:
+                return [x if j == -1 else y[j] for j in f]
+            if neck_opt and i in self._upconcat:
                 x = m.call_upconcat(x, y[self._upconcat[i]], plain=plain)
             else:
                 x_in = [x if j == -1 else y[j] for j in f] if isinstance(f, list) else (x if f == -1 else y[f])
@@ -218,6 +244,25 @@ class DetectionModel(nn.Module):
             if i in self.save:
                 y[i] = x
         raise ValueError("the model has no Detect head")
+
+    @torch.no_grad()
+    def predict_parts(self, x: torch.Tensor, plain: bool = False, head_cm: bool = False):
+        """Decoded (boxes (B, A, 4) px xywh, scores (B, A, nc)), f32, from NHWC
+        images in the model's dtype. `plain=True` runs the kernels' plain twins.
+        `head_cm=True` sends the Detect levels through the channel-major head
+        kernel instead of the default one."""
+        xs = self._head_inputs(x, plain)
+        decode = self.head.decode_from_inputs_cm if head_cm else self.head.decode_from_inputs
+        return decode(xs, plain=plain)
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False) -> torch.Tensor:
+        """Decoded predictions (B, 4 + nc, A): px xywh boxes, then sigmoid
+        scores, the layout `ops.nms.non_max_suppression` takes. The C2f blocks
+        and the Detect levels go through the kernels (`plain=True`: their
+        twins); `neck_opt=False` materialises the neck's upsample and concat."""
+        xs = self._head_inputs(x, plain, neck_opt)
+        return self.head.pack(*self.head.decode_from_inputs(xs, plain=plain))
 
 
 def params_from_jax(model: DetectionModel, params: dict, dtype=None) -> DetectionModel:

@@ -1,8 +1,62 @@
-"""Box-format conversions and pairwise IoU (counterpart of yolo_tpu/ops/boxes.py)."""
+"""Box-format conversions, the inverse letterbox and pairwise IoU (counterpart of yolo_tpu/ops/boxes.py).
+
+`xyxy2xywh`, `clip_boxes` and `scale_boxes` take numpy arrays (the host side
+of the predictor) or torch tensors alike; the others take torch tensors.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def _stack(cols, like):
+    return torch.stack(cols, dim=-1) if torch.is_tensor(like) else np.stack(cols, axis=-1)
+
+
+def _as_array(x):
+    return x if torch.is_tensor(x) else np.asarray(x)
+
+
+def xyxy2xywh(x):
+    """(x1, y1, x2, y2) → (cx, cy, w, h) over the last axis."""
+    x = _as_array(x)
+    return _stack([(x[..., 0] + x[..., 2]) / 2, (x[..., 1] + x[..., 3]) / 2, x[..., 2] - x[..., 0], x[..., 3] - x[..., 1]], x)
+
+
+def clip_boxes(boxes, shape):
+    """Clip xyxy boxes to the image bounds shape = (h, w)."""
+    boxes = _as_array(boxes)
+    h, w = shape[0], shape[1]
+    clip = (lambda v, hi: v.clamp(0, hi)) if torch.is_tensor(boxes) else (lambda v, hi: np.clip(v, 0, hi))
+    return _stack([clip(boxes[..., 0], w), clip(boxes[..., 1], h), clip(boxes[..., 2], w), clip(boxes[..., 3], h)], boxes)
+
+
+def scale_boxes(img1_shape, boxes, img0_shape, ratio_pad=None, padding: bool = True, xywh: bool = False):
+    """Rescale boxes from the letterboxed img1_shape back to the original img0_shape.
+
+    The inverse letterbox: gain is min(h1 / h0, w1 / w0) and the pad is
+    (round(wdiff / 2 - 0.1), round(hdiff / 2 - 0.1)), unless `ratio_pad` =
+    ((gain, gain), (padw, padh)) gives them. xyxy boxes are clipped to the
+    image; xywh ones (centres) are not."""
+    boxes = _as_array(boxes)
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad = (
+            round((img1_shape[1] - img0_shape[1] * gain) / 2 - 0.1),
+            round((img1_shape[0] - img0_shape[0] * gain) / 2 - 0.1),
+        )
+    else:
+        gain = ratio_pad[0][0]
+        pad = ratio_pad[1]
+    if padding:
+        shift = [pad[0], pad[1], 0 if xywh else pad[0], 0 if xywh else pad[1]]
+        if torch.is_tensor(boxes):
+            boxes = boxes - torch.tensor(shift, dtype=boxes.dtype, device=boxes.device)
+        else:
+            boxes = boxes - np.asarray(shift, dtype=boxes.dtype)
+    boxes = boxes / gain
+    return boxes if xywh else clip_boxes(boxes, img0_shape)
 
 
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:

@@ -45,12 +45,20 @@ class HeadWeights:
     b2c: torch.Tensor
     proj: torch.Tensor  # (reg_max,) f32
     _mma: tuple | None = field(default=None, repr=False)
+    _mma_1x1: tuple | None = field(default=None, repr=False)
 
     def mma(self) -> tuple:
         """(w0, w1r, w1c) in the bf16 tensor-core layout [9][pad16(cout)][pad16(cin)]."""
         if self._mma is None:
             self._mma = tuple(_cuda.mma_weight(w, 3) for w in (self.w0, self.w1r, self.w1c))
         return self._mma
+
+    def mma_cm(self) -> tuple:
+        """(w0, w1r, w1c, w2r, w2c) for the channel-major kernel, which runs the
+        1x1 heads on the tensor cores too: bf16 [taps][pad16(cout)][pad16(cin)]."""
+        if self._mma_1x1 is None:
+            self._mma_1x1 = tuple(_cuda.mma_weight(w, 1) for w in (self.w2r, self.w2c))
+        return self.mma() + self._mma_1x1
 
     @property
     def c2(self) -> int:

@@ -41,26 +41,57 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float, m
     return torch.stack(idx, 1), torch.stack(valid, 1)
 
 
+def non_max_suppression(
+    prediction: torch.Tensor,
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    classes=None,
+    agnostic: bool = False,
+    max_det: int = 300,
+    nc: int = 0,
+    max_nms: int = 1024,
+    plain: bool = False,
+) -> dict:
+    """Fixed-shape NMS over decoded predictions (B, 4 + nc, A): xywh boxes, then
+    per-class scores (the layout of `DetectionModel.predict`). Same outputs as
+    `non_max_suppression_parts`."""
+    nc = nc or (prediction.shape[1] - 4)
+    if prediction.shape[1] != 4 + nc:
+        raise ValueError(f"prediction has {prediction.shape[1]} rows, expected 4 + nc = {4 + nc} (detect task only)")
+    return non_max_suppression_parts(
+        prediction[:, :4].transpose(1, 2), prediction[:, 4:].transpose(1, 2), conf_thres=conf_thres,
+        iou_thres=iou_thres, classes=classes, agnostic=agnostic, max_det=max_det, max_nms=max_nms, plain=plain,
+    )
+
+
 def non_max_suppression_parts(
     boxes_xywh: torch.Tensor,
     cls_scores: torch.Tensor,
     conf_thres: float = 0.25,
     iou_thres: float = 0.45,
+    classes=None,
+    agnostic: bool = False,
     max_det: int = 300,
     max_nms: int = 1024,
     plain: bool = False,
 ) -> dict:
     """Fixed-shape NMS over anchors-major decode parts: boxes (B, A, 4) xywh, scores (B, A, nc).
 
+    `classes` keeps only those class ids (the others score 0); `agnostic`
+    suppresses across classes (no per-class box offset).
     Returns boxes (B, max_det, 4) xyxy | scores (B, max_det) | cls (B, max_det) | valid (B, max_det)."""
     K = min(max_nms, boxes_xywh.shape[1])
+    if classes is not None:
+        allowed = torch.zeros(cls_scores.shape[-1], dtype=torch.bool, device=cls_scores.device)
+        allowed[torch.as_tensor(list(classes), dtype=torch.long, device=cls_scores.device)] = True
+        cls_scores = torch.where(allowed, cls_scores, 0.0)
     conf, cls_id = cls_scores.max(-1)
     conf = torch.where(conf > conf_thres, conf, -1.0)
     top_conf, top_idx = torch.sort(conf, dim=1, descending=True, stable=True)
     top_conf, top_idx = top_conf[:, :K], top_idx[:, :K]
     b = xywh2xyxy(torch.gather(boxes_xywh, 1, top_idx[..., None].expand(-1, -1, 4)))
     c = torch.gather(cls_id, 1, top_idx)
-    offset = c.to(b.dtype) * MAX_WH
+    offset = torch.zeros_like(top_conf) if agnostic else c.to(b.dtype) * MAX_WH
     return _suppress_tail(b, c, top_conf, offset, iou_thres, max_det, plain)
 
 

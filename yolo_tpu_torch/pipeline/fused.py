@@ -7,16 +7,19 @@ Counterpart of yolo_tpu/pipeline/fused.py::FusedDetectTrack:
       → the batched Kalman step over the T frames            [sequential]
       → one packed (T, N, 12) f32 tensor per chunk + contract stats
 
-- The grayscale fold (conv(broadcast(x, 3), W) == conv(x, sum_c W)) and the
-  /255 fold (conv(x / 255, W) == conv(x, W / 255)) go into the stem weights,
-  so uint8 frames feed the stem as a bare cast.
+- The /255 fold (conv(x / 255, W) == conv(x, W / 255)) goes into the stem
+  weights, so uint8 frames feed the stem as a bare cast. Single-channel frames
+  also take the grayscale fold (conv(broadcast(x, 3), W) == conv(x, sum_c W));
+  3-channel frames are BGR and are flipped to RGB.
 - The contract stats (detection / prediction frame counts, state changes,
   including the status edge between two chunks) stay on the device.
 - `run_clip` uploads each chunk from pinned memory on a side stream, enqueues
   every chunk without waiting, and synchronises once at the end.
 
-The JAX package's TPU-only knobs (mesh, s2d, int8, sparse head, lazy decode,
-frame-format upload) are not ported.
+`head_cm=True` sends the Detect levels through the channel-major head kernel
+(ops/cuda_head_cm.py), the JAX package's `pallas_head2`. Its TPU-only knobs
+(mesh, s2d, int8, sparse head, lazy decode, frame-format upload, scan unroll)
+are not ported.
 """
 
 from __future__ import annotations
@@ -64,11 +67,12 @@ def init_stats(n_max: int, device=None) -> dict:
     }
 
 
-def _fold_stem(params: dict) -> dict:
-    """Gray and /255 folds into the (fused) stem conv of a JAX parameter tree."""
+def _fold_stem(params: dict, gray: bool) -> dict:
+    """The /255 fold, and for single-channel frames the gray fold, into the
+    (fused) stem conv of a JAX parameter tree."""
     stem = params["model"]["0"]["conv"]
     w = np.asarray(stem["weight"], np.float32)
-    if w.shape[2] == 3:
+    if gray and w.shape[2] == 3:
         w = w.sum(axis=2, keepdims=True)
     model = dict(params["model"])
     model["0"] = {**params["model"]["0"], "conv": {**stem, "weight": w / 255.0}}
@@ -81,7 +85,9 @@ class FusedDetectTrack:
     `model` is a DetectionModel (its structure; this object keeps its own copy),
     `params` a JAX parameter tree (fused or not). `dtype` is the compute dtype
     of the forward (bf16 by default). `plain=True` runs the kernels' plain
-    PyTorch twins instead of the CUDA kernels: the reference on the card."""
+    PyTorch twins instead of the CUDA kernels: the reference on the card.
+    `head_cm=True` runs the Detect levels through the channel-major head
+    kernel instead of the default one."""
 
     def __init__(
         self,
@@ -101,13 +107,16 @@ class FusedDetectTrack:
         max_nms: int = 0,
         device=None,
         plain: bool = False,
+        head_cm: bool = False,
     ):
-        if channels != 1:
-            raise NotImplementedError("only single-channel (IR) frames are ported; the stem takes the gray fold")
+        if channels not in (1, 3):
+            raise ValueError(f"frames have 1 (IR) or 3 (BGR) channels, got {channels}")
         self.device = resolve_device(device)
         if not params_are_fused(params):
             params = fuse(params)
-        params = _fold_stem(params)
+        params = _fold_stem(params, gray=channels == 1)
+        self.channels = channels
+        self.head_cm = head_cm
         self.model = copy.deepcopy(model)
         self.model.device = self.device
         self.dtype = dtype or torch.bfloat16
@@ -139,12 +148,14 @@ class FusedDetectTrack:
     def process_chunk_device(self, frames: torch.Tensor) -> torch.Tensor:
         """One chunk of uint8 frames (T, H, W, C) on the device → the packed
         (T, N, 12) device tensor, without synchronising with the host."""
-        if tuple(frames.shape) != (self.chunk, *self.frame_hw, 1):
-            raise ValueError(f"a chunk is ({self.chunk}, {self.frame_hw[0]}, {self.frame_hw[1]}, 1) frames, got {tuple(frames.shape)}")
+        if tuple(frames.shape) != (self.chunk, *self.frame_hw, self.channels):
+            raise ValueError(f"a chunk is {(self.chunk, *self.frame_hw, self.channels)} frames, got {tuple(frames.shape)}")
         marks = [] if self.timings is not None and frames.is_cuda else None
         self._mark(marks, "start")
         x = frames.to(self.dtype)  # /255 lives in the stem weights
-        boxes_xywh, scores = self.model.predict_parts(x, plain=self.plain)
+        if self.channels == 3:
+            x = x.flip(-1)  # BGR → RGB
+        boxes_xywh, scores = self.model.predict_parts(x, plain=self.plain, head_cm=self.head_cm)
         self._mark(marks, "forward")
         det = non_max_suppression_parts(
             boxes_xywh, scores, conf_thres=self.conf, iou_thres=self.iou, max_det=self.d_max, max_nms=self.max_nms,
