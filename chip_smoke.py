@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`yolo_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
-    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of one bf16 chunk
+    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of one bf16 chunk, the C2f
+                                     # plan sweep and the C2f kernel's per-stage cycle counts
 
 Phases (any failure stops the run with a non-zero exit code):
 1. build the hand-written CUDA kernels from yolo_tpu_torch/csrc (nvcc, sm_90a);
@@ -12,7 +13,12 @@ Phases (any failure stops the run with a non-zero exit code):
    K=1024), with activations captured from the trained model on real-size
    frames; print each kernel's time, its plain twin's, a cuDNN conv walk of
    the same block (`library_ms`, a yardstick the port never calls) and the
-   least time the card could take (`bound_ms`);
+   least time the card could take (`bound_ms`); the C2f lines also print
+   what the kernel's plan chose for the instance, and hold the instance again
+   cut to one frame, as `[predict]` gives it (another plan). `[c2f edges]` then holds
+   the C2f kernel against its twin at shapes the main path lacks (B = 1, odd
+   and undivided maps, n = 1 and 3, c = 12, 64 and 96, c1 = 288, both shortcut
+   settings, upconcat with 48 and 192 small channels);
 3. `[pipeline]`: run FusedDetectTrack (the demo's trained yolov8-small P2,
    scale n, demos/artifacts/train/weights/best.npz) on a seeded synthetic
    512-frame 640x512 IR clip with moving targets and dropout gaps: in f32
@@ -30,6 +36,13 @@ Phases (any failure stops the run with a non-zero exit code):
    of the clip into the per-object Kalman clip loop, in f32 through the
    kernels and through the twins (equal detections and stats), then in bf16,
    timed.
+With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
+C2f kernel with every candidate tile and ring step the plan's cost model rates
+within 3x of its choice (at most 40), per instance, dtype and batch (128 and
+1), and prints the model's choice beside the fastest measured one, and what
+the model would choose with each of its constants set to a neutral value;
+`[c2f trace]` builds the kernel with its cycle counters compiled in and prints
+where one interior block's first warp spends its cycles, stage by stage.
 Every kernel of a path must have been launched in that path's run. The last
 three lines are the `kernels` JSON line, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -266,8 +279,160 @@ def nms_iou_count(boxes, thr) -> int:
     return int(((~sup).float() * (K - 1 - later).float()).sum())
 
 
-def check_kernels(model, params, frames, card, d_max=16):
-    """Phase 2: every kernel against its plain twin at the main path's shapes → per-kernel records (bf16)."""
+def c2f_plan_text(B, H, W, c1, cs, kw, dtype) -> str:
+    from yolo_tpu_torch.ops import cuda_c2f
+
+    p = cuda_c2f.plan(B, H, W, c1, cs, kw.c, kw.w2.shape[1], kw.n, dtype)
+    text = (f"tile={p['tile'][0]}x{p['tile'][1]} blocks={p['blocks']} cluster={p['cluster']} per_sm={p['blocks_per_sm']} "
+            f"smem={p['smem']}B {p['instruction']}")
+    return text + (f" item={p['item_px']}px ring={p['ring_steps']}x{p['step_slices']}" if p["ring_steps"] else "")
+
+
+def c2f_edges_phase(card):
+    """The C2f kernel against its plain twin, f32 and bf16, on seeded random
+    weights and inputs at the port's list of edge shapes. A disagreement raises."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.nn import modules as PM
+    from yolo_tpu_torch.ops import cuda_c2f
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        atol, rtol = TOL[dn]
+        for c1, c2, n, shortcut, cs, B, H, W in cuda_c2f.EDGE_SHAPES:
+            rng = np.random.default_rng(0)
+            mod = PM.C2f(c1, c2, n=n, shortcut=shortcut)
+            for m in mod.modules():
+                if isinstance(m, PM.ConvBNAct):
+                    fan_in = m.weight[0].numel()
+                    m.weight = torch.from_numpy(rng.uniform(-1, 1, tuple(m.weight.shape)) / np.sqrt(fan_in)).float().to("cuda", dtype)
+                    m.bias = torch.from_numpy(rng.normal(0, 0.1, tuple(m.bias.shape))).float().to("cuda", dtype)
+            kw = mod.kernel_weights()
+            skip = torch.from_numpy(rng.normal(0, 1, (B, H, W, c1 - cs))).float().to("cuda", dtype)
+            if cs:
+                small = torch.from_numpy(rng.normal(0, 1, (B, H // 2, W // 2, cs))).float().to("cuda", dtype)
+                got, want = cuda_c2f.fused_c2f_upconcat(small, skip, kw, shortcut), cuda_c2f.c2f_upconcat_plain(small, skip, kw, shortcut)
+            else:
+                got, want = cuda_c2f.fused_c2f(skip, kw, shortcut), cuda_c2f.c2f_plain(skip, kw, shortcut)
+            torch.cuda.synchronize()
+            desc = f"B={B} {H}x{W} {f'up({cs})+{c1 - cs}' if cs else c1}->{c2} n={n}{' shortcut' if shortcut else ''}"
+            err = float((got.float() - want.float()).abs().max())
+            if got.shape != want.shape or not torch.isfinite(got).all() or not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+                raise AssertionError(f"c2f edges {dn}: {desc} disagrees with the plain twin (atol {atol}, rtol {rtol}), max |err| {err}")
+            log(f"c2f edges {dn}", card, f"{desc:44s} max_abs_err={err:.3e} {c2f_plan_text(B, H, W, c1, cs, kw, dtype)}")
+
+
+def _c2f_case(name, args, B):
+    """A captured C2f call cut to B frames → (x or skip, small or None, kw, shortcut, description)."""
+    if name == "c2f":
+        x, kw, sc = args
+        small = None
+    else:
+        small, x, kw, sc = args
+        small = small[:B]
+    x = x[:B]
+    cs = 0 if small is None else small.shape[-1]
+    desc = f"{x.shape[1]}x{x.shape[2]} {f'up({cs})+{x.shape[-1]}' if cs else x.shape[-1]}->{kw.w2.shape[1]} n={kw.n}"
+    return x, small, kw, sc, desc
+
+
+def c2f_plan_sweep(cases, card, within=3.0, most=40):
+    """`[c2f plans]`: the plan's cost model against the card. Per captured C2f
+    instance, dtype and batch (a chunk, one frame), every candidate the model
+    rates within `within` of its choice (the `most` cheapest) is launched and
+    timed; the line gives the model's choice and the fastest candidate. Then each
+    constant of the model is set to its neutral value in turn, and the choice the
+    model would then make is timed too. The sums say what each constant is worth."""
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_c2f
+
+    neutral = {"barrier": 0.0, "shared": 1.0}
+    key = lambda p: (p["th"], p["tw"], p["step_slices"])  # noqa: E731
+    show = lambda k: f"{k[0]}x{k[1]}" + (f" ring 2x{k[2]}" if k[2] else "")  # noqa: E731
+    sums = {}
+    for dn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for B in (CHUNK, 1):
+            total = sums.setdefault((dn, B), {"model": 0.0, "fastest": 0.0, **{f"without {k}": 0.0 for k in neutral}})
+            for name, args in cases[dn]:
+                x, small, kw, sc, desc = _c2f_case(name, args, B)
+                shape = (B, x.shape[1], x.shape[2], kw.w1.shape[0], 0 if small is None else small.shape[-1], kw.c, kw.w2.shape[1], kw.n, dtype)
+                timed = {}
+
+                def ms(k):
+                    if k not in timed:
+                        run = lambda: cuda_c2f._launch(x, small, kw, sc, force=k)  # noqa: E731
+                        timed[k] = cuda_ms(run, iters=3, warmup=1)
+                        if timed[k] < 0.5:  # a short kernel: enough launches in a row that the host's gaps do not count
+                            timed[k] = cuda_ms(run, iters=30, warmup=3)
+                    return timed[k]
+
+                def choice(model):
+                    cands = cuda_c2f.candidates(*shape, model=model)
+                    return key(min(cands, key=lambda p: p["cost"])), cands  # the first of least cost, as the plan takes it
+
+                pick, cands = choice(None)
+                if pick[:2] != cuda_c2f.plan(*shape)["tile"]:
+                    raise AssertionError(f"c2f plans: the candidates' cheapest {pick} is not the plan's tile for {desc}")
+                floor = min(p["cost"] for p in cands)
+                near = sorted({key(p): p["cost"] for p in cands if p["cost"] <= within * floor}.items(), key=lambda kv: kv[1])[:most]
+                for k, _ in near:
+                    ms(k)
+                fastest = min(timed, key=timed.get)
+                without = {k: choice({k: v})[0] for k, v in neutral.items()}
+                total["model"] += ms(pick)
+                total["fastest"] += timed[fastest]
+                for k, alt in without.items():
+                    total[f"without {k}"] += ms(alt)
+                log(f"c2f plans {dn}", card, f"B={B:<3d} {desc:30s} model {show(pick)} {ms(pick):.4f} ms | fastest of {len(near)} "
+                    f"{show(fastest)} {timed[fastest]:.4f} ms ({ms(pick) / timed[fastest]:.3f}x), then "
+                    + " ".join(f"{show(k)} {v:.4f}" for k, v in sorted(timed.items(), key=lambda kv: kv[1])[1:4]) + " | "
+                    + ", ".join(f"without {k}: {show(alt)} {ms(alt):.4f}" for k, alt in without.items() if alt != pick))
+    for (dn, B), total in sums.items():
+        log(f"c2f plans {dn}", card, f"B={B}: sum over the instances, ms: " + ", ".join(f"{k} {v:.4f}" for k, v in total.items()))
+
+
+def c2f_stage_trace(cases, card):
+    """`[c2f trace]`: the bf16 kernel built with -DYT_C2F_TRACE. Per captured
+    instance at chunk size, the cycles that thread 0 of one interior block spent,
+    per GEMM of the block: waiting for its own copies, at the block barriers,
+    issuing copies, in the ldmatrix + mma loop, in the epilogues and in the rest
+    (zeroing, item set-up), with the ring steps it took."""
+    import ctypes
+
+    import torch
+
+    from yolo_tpu_torch.ops import _cuda, cuda_c2f
+
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(_cuda.build(extra=("-DYT_C2F_TRACE",))))
+    lib.yt_c2f_set_trace.argtypes = [ctypes.c_void_p]
+    log("c2f trace", card, f"traced build in {time.perf_counter() - t0:.1f} s")
+    slots = ("copy wait", "barrier", "copy issue", "loop", "epilogue", "other")
+    buf = torch.zeros((16, 7), dtype=torch.int64, device="cuda")
+    for name, args in cases:
+        x, small, kw, sc, desc = _c2f_case(name, args, CHUNK)
+        stages = ["cv1 y_a", "cv1 y_b"] + [f"m{i}.cv{j}" for i in range(kw.n) for j in (1, 2)]
+        stages += [f"cv2[{o}]" for o in range(-(-kw.w2.shape[1] // (-(-kw.c // 16) * 16)))]
+        cuda_c2f._launch(x, small, kw, sc, lib=lib)  # warm: the weights and this block's input are in L2, as in a run of chunks
+        torch.cuda.synchronize()
+        buf.zero_()
+        lib.yt_c2f_set_trace(buf.data_ptr())
+        cuda_c2f._launch(x, small, kw, sc, lib=lib)
+        torch.cuda.synchronize()
+        lib.yt_c2f_set_trace(None)
+        rows = buf.cpu().tolist()[: len(stages)]
+        whole = sum(sum(r[:6]) for r in rows)
+        for stage, r in zip(stages, rows):
+            log("c2f trace", card, f"{desc:30s} {stage:8s} steps={r[6]:<4d} " + " ".join(f"{s}={v}" for s, v in zip(slots, r)) + f" sum={sum(r[:6])}")
+        log("c2f trace", card, f"{desc:30s} block    steps={sum(r[6] for r in rows):<4d} cycles={whole} shares: "
+            + ", ".join(f"{s} {sum(r[i] for r in rows) / whole:.3f}" for i, s in enumerate(slots)))
+
+
+def check_kernels(model, params, frames, card, d_max=16, keep=None):
+    """Phase 2: every kernel against its plain twin at the main path's shapes → per-kernel records (bf16).
+    `keep`, a dict, receives the captured C2f calls by dtype name (for `--profile`)."""
     import torch
 
     from yolo_tpu_torch import FusedDetectTrack
@@ -282,6 +447,8 @@ def check_kernels(model, params, frames, card, d_max=16):
         rec, boxes, scores = capture_instances(ft.model, x)
         nb = sum(1 for name, _ in rec if name == "c2f")
         log(f"kernels {dn}", card, f"captured {len(rec)} kernel calls from a {tuple(x.shape)} chunk ({nb} c2f)")
+        if keep is not None:
+            keep[dn] = [(name, args) for name, args in rec if name.startswith("c2f")]
         # every captured Detect level is also a case of the channel-major head kernel
         cases = [c for name, args in rec for c in ([(name, args)] + ([("head_level_cm", args)] if name == "head_level" else []))]
         for name, args in cases:
@@ -294,7 +461,7 @@ def check_kernels(model, params, frames, card, d_max=16):
                 macs = H * W * (c1 * 2 * kw.c + kw.n * 18 * kw.c * kw.c + (2 + kw.n) * kw.c * kw.w2.shape[1])
                 ins = (xin,)
                 desc = f"{H}x{W} {c1}->{kw.w2.shape[1]} n={kw.n}{' shortcut' if sc else ''}"
-                tile = cuda_c2f.plan(H, W, kw.c, kw.w2.shape[1], kw.n, dtype)
+                tile = c2f_plan_text(B, H, W, c1, 0, kw, dtype)
             elif name == "c2f_upconcat":
                 small, skip, kw, sc = args
                 B, H, W, ck = skip.shape
@@ -313,7 +480,7 @@ def check_kernels(model, params, frames, card, d_max=16):
                 )
                 ins = (small, skip)
                 desc = f"{H}x{W} up({cs})+{ck}->{kw.w2.shape[1]} n={kw.n}"
-                tile = cuda_c2f.plan(H, W, kw.c, kw.w2.shape[1], kw.n, dtype)
+                tile = c2f_plan_text(B, H, W, cs + ck, cs, kw, dtype)
             else:
                 xin, kw = args
                 B, H, W, C = xin.shape
@@ -321,12 +488,12 @@ def check_kernels(model, params, frames, card, d_max=16):
                     kern = lambda: cuda_head_cm.head_level_cm(xin, kw)  # noqa: E731
                     plain = lambda: cuda_head_cm.head_level_cm_plain(xin, kw)  # noqa: E731
                     lib, lib_in = library_head_cm(kw, dtype), _nchw(xin)
-                    tile = cuda_head_cm.plan(H, W, C, kw.c2, kw.c3, dtype)
+                    tile = "tile={}x{} smem={}B".format(*cuda_head_cm.plan(H, W, C, kw.c2, kw.c3, dtype))
                 else:
                     kern = lambda: cuda_head.fused_head_level(xin, kw)  # noqa: E731
                     plain = lambda: cuda_head.head_level_plain(xin, kw)  # noqa: E731
                     lib, lib_in = library_head(kw, dtype), _nchw(xin)
-                    tile = cuda_head.plan(H, W, C, kw.c2, kw.c3, dtype)
+                    tile = "tile={}x{} smem={}B".format(*cuda_head.plan(H, W, C, kw.c2, kw.c3, dtype))
                 macs = H * W * (9 * C * (kw.c2 + kw.c3) + 9 * kw.c2 * kw.c2 + 9 * kw.c3 * kw.c3
                                 + kw.c2 * 4 * kw.reg_max + kw.c3 * kw.nc)
                 ins = (xin,)
@@ -349,14 +516,27 @@ def check_kernels(model, params, frames, card, d_max=16):
             err = max(v for k, v in errs.items() if k != "cls as logit")
             ms, pms = cuda_ms(kern), cuda_ms(plain)
             lms = cuda_ms(lambda: lib(lib_in))
-            wbytes = _nbytes(*(t for t in vars(kw).values() if torch.is_tensor(t)))
+            wbytes = _nbytes(*(t for k, t in vars(kw).items() if torch.is_tensor(t) and not k.startswith("_")))
             bound, by = _bound(_nbytes(*ins, *got) + wbytes, 2.0 * B * macs, dn)
             log(
                 f"kernels {dn}", card,
-                f"{name:14s} {desc:32s} tile={tile[0]}x{tile[1]} smem={tile[2]}B "
+                f"{name:14s} {desc:32s} {tile} "
                 f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms(cudnn walk)={lms:.4f} "
                 f"bound_ms={bound:.4f} ({by})"
             )
+            if name.startswith("c2f"):
+                # the per-frame predict path gives the kernel the same instance with one frame: another plan
+                one = [t[:1] for t in ins]
+                fused = cuda_c2f.fused_c2f if name == "c2f" else cuda_c2f.fused_c2f_upconcat
+                plain1 = cuda_c2f.c2f_plain if name == "c2f" else cuda_c2f.c2f_upconcat_plain
+                g1, w1 = fused(*one, kw, sc).float(), plain1(*one, kw, sc).float()
+                torch.cuda.synchronize()
+                err1 = float((g1 - w1).abs().max())
+                if g1.shape != w1.shape or not torch.isfinite(g1).all() or not torch.allclose(g1, w1, atol=atol, rtol=rtol):
+                    raise AssertionError(f"{name} {desc} {dn} at B=1: disagrees with the plain twin (atol {atol}, rtol {rtol}), "
+                                         f"max |err| {err1}")
+                log(f"kernels {dn}", card, f"{name:14s} {desc:32s} B=1: {c2f_plan_text(1, H, W, kw.w1.shape[0], kw.w1.shape[0] - ins[-1].shape[-1], kw, dtype)} "
+                    f"max_abs_err={err1:.3e} kernel_ms={cuda_ms(lambda: fused(*one, kw, sc)):.4f}")
             if name == "head_level_cm":
                 cls = want[1].float().abs()
                 for k, v in errs.items():
@@ -651,7 +831,10 @@ def main(argv) -> int:
     clip = make_clip(FRAMES, *HW)
     print(f"[clip] {clip.shape} uint8 made in {time.perf_counter() - t0:.1f} s")
 
-    records = check_kernels(model, params, clip[:CHUNK], card)
+    profiling = "--profile" in argv
+    c2f_cases = {} if profiling else None
+    records = check_kernels(model, params, clip[:CHUNK], card, keep=c2f_cases)
+    c2f_edges_phase(card)
 
     ft, launches = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
     _, launches_cm = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)
@@ -662,7 +845,7 @@ def main(argv) -> int:
     batched_tracker_phase(card)
     predict_phase(clip, card)
 
-    if "--profile" in argv:
+    if profiling:
         from torch.profiler import ProfilerActivity, profile
 
         dev = torch.from_numpy(clip[:CHUNK]).cuda()
@@ -671,6 +854,8 @@ def main(argv) -> int:
             ft.process_chunk_device(dev)
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        c2f_plan_sweep(c2f_cases, card)
+        c2f_stage_trace(c2f_cases["bfloat16"], card)
 
     rows = []
     for name, (route, source, replaces) in KERNEL_ROWS.items():

@@ -40,17 +40,24 @@ def _random_convs(module, rng, dtype):
             m.bias = torch.from_numpy(rng.normal(0, 0.1, tuple(m.bias.shape))).float().to("cuda", dtype)
 
 
+# (c1, c2, n, shortcut, small channels of the upconcat mode or 0, B, H, W): three mid-size cases, then
+# the edge shapes of chip_smoke.py's `[c2f edges]` phase (one frame, odd and undivided maps, n = 1 and 3,
+# c = 12, 64 and 96, c1 = 288, both shortcut settings, upconcat with 48 and 192 small channels)
+C2F_CASES = [(24, 24, 2, True, 0, 3, 20, 26), (48, 48, 3, True, 0, 3, 20, 26), (144, 96, 2, False, 96, 3, 20, 26)]
+C2F_CASES += cuda_c2f.EDGE_SHAPES
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c1,c2,n,shortcut,cs", [(24, 24, 2, True, 0), (48, 48, 3, True, 0), (144, 96, 2, False, 96)])
-def test_c2f_kernel_matches_plain(card, dtype, c1, c2, n, shortcut, cs):
+@pytest.mark.parametrize("c1,c2,n,shortcut,cs,B,H,W", C2F_CASES)
+def test_c2f_kernel_matches_plain(card, dtype, c1, c2, n, shortcut, cs, B, H, W):
     rng = np.random.default_rng(0)
     mod = PM.C2f(c1, c2, n=n, shortcut=shortcut)
     _random_convs(mod, rng, dtype)
     kw = mod.kernel_weights()
-    skip = torch.randn(3, 20, 26, c1 - cs, device=card).to(dtype)
+    skip = torch.randn(B, H, W, c1 - cs, device=card).to(dtype)
     before = (cuda_c2f.fused_c2f.launches, cuda_c2f.fused_c2f_upconcat.launches)
     if cs:
-        small = torch.randn(3, 10, 13, cs, device=card).to(dtype)
+        small = torch.randn(B, H // 2, W // 2, cs, device=card).to(dtype)
         got = cuda_c2f.fused_c2f_upconcat(small, skip, kw, shortcut)
         want = cuda_c2f.c2f_upconcat_plain(small, skip, kw, shortcut)
     else:
@@ -60,7 +67,20 @@ def test_c2f_kernel_matches_plain(card, dtype, c1, c2, n, shortcut, cs):
     assert (cuda_c2f.fused_c2f.launches, cuda_c2f.fused_c2f_upconcat.launches) == (
         before[0] + (not cs), before[1] + bool(cs)
     )
+    plan = cuda_c2f.plan(B, H, W, c1, cs, kw.c, c2, n, dtype)
+    assert plan["blocks"] >= B and plan["smem"] <= 232448 and plan["tile"][0] <= H and plan["tile"][1] <= W
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_c2f_kernel_refuses_what_it_does_not_take(card):
+    """A shape outside the kernel's reach raises; nothing falls back to the twin."""
+    mod = PM.C2f(20, 24, n=1, shortcut=False)  # 20 input channels: not a multiple of 8
+    _random_convs(mod, np.random.default_rng(0), torch.bfloat16)
+    x = torch.randn(1, 8, 8, 20, device=card).to(torch.bfloat16)
+    before = cuda_c2f.fused_c2f.launches
+    with pytest.raises(ValueError, match="does not take"):
+        cuda_c2f.fused_c2f(x, mod.kernel_weights(), False)
+    assert cuda_c2f.fused_c2f.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,243 +7,939 @@
 // Replaces yolo_tpu/ops/pallas_c2f.py::_c2f_kernel (entries fused_c2f and
 // fused_c2f_upconcat). The TPU kernel streams image rows in order and carries
 // ring buffers from one grid step to the next; Hopper blocks run in no order
-// and share nothing, so here each block owns one output tile of one frame and
-// recomputes the halo its chain of 3x3 convs needs (2n pixels on each side):
-//   cv1 (b half) over tile+2n, cv1 (a half) over the tile, bottleneck i's
-//   first conv over tile+(2n-2i-1), its second conv over tile+(2n-2i-2).
-// Each map is zero outside the image (the 3x3 convs' padding of 1). cv2 over
-// the concat is a sum of per-segment 1x1 products, accumulated in f32 in
-// shared memory as each segment (y_a, y_b, m_0 .. m_{n-1}) becomes ready, so
-// no segment has to outlive its stage. In upconcat mode cv1 reads
-// small[h/2, w/2] directly (the TPU kernel's host-side W-repeat is not needed).
+// and share nothing, so a block owns one output tile of one frame and
+// recomputes the halo its chain of 3x3 convs needs (2n pixels).
 //
-// What bounds it on the H100: operations. The block moves only its input(s)
-// and output through device memory (chip_smoke.py prints both bounds per
-// instance). In bf16 the 3x3 convs and cv2 run on the tensor cores
-// (mma.sync, common.cuh); cv1 reads global memory and runs on the CUDA cores,
-// as does everything in f32 (f32 inputs must work, for exact-track checks).
-// The halo recompute is the design's cost: it is largest for n=3 and for the
-// 16x20 maps of layers 8 and 24, whose tiles are small next to their 2n halo.
-// The tile is the one with the least recompute whose shared maps fit in
-// 113 KB (two blocks per SM), else in 227 KB.
+// What bounds it on the H100: operations by the roofline (a block moves only
+// its input(s) and its output through device memory; chip_smoke.py prints both
+// bounds per instance), but the kernel is 20-30x above that bound: its GEMMs
+// are small (16..96 output channels, K = 16..96 per weight slice, 80..1200
+// pixels per stage). chip_smoke.py --profile counts where one interior block's
+// first warp spends its cycles (`[c2f trace]`; NVIDIA H100 80GB HBM3, 700 W,
+// bf16, 128 frames; PERF.md has the table):
+// - the ldmatrix + mma.sync loop takes 26% of them at c = 12 and 60% at c = 96.
+//   There a 3x3 conv's 648 mma of a warp take about 24,000 cycles, 10.7 per mma
+//   and tensor core: by the instruction counts (5 ldmatrix.x4 to 12 mma) the
+//   shared-memory pipe is the busier one, so a larger item or wgmma, which
+//   reads its operands from shared memory itself, is what could shorten it
+//   (a guess from counts; 64x48 items on 8 warps were slower, wgmma is untried);
+// - the epilogues (bias, SiLU, rounding, stores) take 16-34%: most at c = 12,
+//   where they outweigh the products;
+// - cv1 takes a fifth to a half of a block though its products are a tenth:
+//   every (round, ring step) of it stages its input pixels, waits for them and
+//   only then multiplies, so the latency of the copies is paid per step;
+// - block barriers take under 1% and the waits for the weight copies 4-8%.
+// On the 64x80 (c = 24) and 32x40 (c = 48) maps the two maps and the kept
+// segments fill the 227 KB, which sets the tile (16x16, 32x4, 32x8) and so the
+// recompute; the 16x20 maps (c = 96) take a 4x20 band, one 20 KB tap per step.
+// What the design does about halo recompute, operand traffic and latency:
+// - The frame of a tile is clipped to the image plus the convs' one-pixel
+//   zero border, and every stage's rectangle to the image, so a tile that
+//   spans the image in one direction recomputes nothing there. The plan
+//   (plan_for) weighs, per candidate tile and slices per ring step, the
+//   rounds of warp items of every stage, the ring steps, and the waves of
+//   blocks over the SMs for this batch; with few frames (B = 1) it takes
+//   small tiles to spread over the SMs. chip_smoke.py --profile holds its
+//   choice against a timed sweep of the candidates (`[c2f plans]`).
+// - Every bf16 conv is an implicit GEMM on the tensor cores (mma.sync
+//   m16n8k16, f32 accumulators; operands by ldmatrix) whose two operands are
+//   both in shared memory: pixels are M, read from the shifted rows of a map
+//   (pixel stride pad16(c) + 8 halves, conflict-free); the weights come as
+//   slices [pad16(c) out][pad16(c) + 8 in] (one 3x3 tap, one K chunk of cv1,
+//   or one concat segment of cv2), streamed from global memory through a ring
+//   of two steps of 1, 3 or 9 slices: a step is one bulk copy of the copy
+//   engine (TMA without a tensor map), asked for by one thread of the last
+//   warp and awaited on an mbarrier, with one block barrier per step to free
+//   the other slot; all warps of the block read the slices from there (1.4%
+//   faster than 16-byte cp.async by all threads; a third step was never
+//   faster and cost its shared memory). mma.sync serves
+//   every instance: at N = 16..96 and K = 16..96 per slice, on stages of a few
+//   hundred pixels whose rows are shifted per tap, a 64-row wgmma tile with
+//   its swizzled operand layouts was not tried.
+// - A block is 16 warps of at most 128 registers: measured faster than 8
+//   warps with larger items or two blocks of 8 on an SM. A warp item is 32 or
+//   64 pixels by up to 48 channels, halved on a stage too small to occupy
+//   half the warps.
+// - cv1 runs on the tensor cores too: the input pixels (x, or skip plus the
+//   small[h/2, w/2] row of each pixel in upconcat mode, read per pixel, never
+//   upsampled in memory) are staged by cp.async into the second map's room
+//   inside the GEMM, step by step: the pixels that one round of warp items
+//   covers, for the K chunks of one ring step, so that all warps have an item
+//   whatever c1 is (staging whole pixels at full K left 64 pixels a pass at
+//   c1 = 288, and cv1 then took half the time of the upconcat instances).
+// - cv2 is one GEMM over the concat at the end, its K walking the segments
+//   y_a, y_b, m_0 .. m_{n-1} kept in shared memory over the tile (the last one
+//   read from the map), so its sums live in accumulator registers.
+// - The epilogue works on channel pairs in packed bf16 (add, multiply and
+//   convert round once, as the scalar forms of common.cuh do); a thread loads
+//   its biases once per item and turns pixel indices into rows and columns by
+//   a multiplication (RowCol), which together took 12% off the kernel.
+// In f32 (the exact-track mode; tensor cores would round to tf32) the same
+// tiles run on the CUDA cores: cv1 from global memory, the convs through
+// common.cuh's conv_smem, cv2 as f32 partial sums per segment in shared
+// memory. PERF.md has every instance's time beside its bound and cuDNN's.
 #include "common.cuh"
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <type_traits>
 
 namespace {
 
 using namespace yt;
+using bf16_t = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // f32 blocks
+// bf16 blocks: 16 warps of at most 128 registers; one block fills an SM's register file, and
+// twice the warps hide the step barriers and fragment loads better than two blocks of eight
+constexpr int kMmaWarps = 16;
+constexpr size_t kMaxSmem = 232448;  // 227 KB: the most one block may ask for
+// steps of the weight ring: the copy of the next step flies while this one is multiplied. A third
+// step was never faster on the card and cost a step's shared memory (PERF.md has the sweep).
+constexpr int kRing = 2;
 
 struct C2fArgs {
   const void* x;      // plain: (B, H, W, c1); upconcat: skip (B, H, W, c1 - cs)
   const void* small;  // upconcat: (B, H/2, W/2, cs); plain: null
   void* out;          // (B, H, W, c2o)
-  const float* w1;    // cv1 [c1][2c] (upconcat: the small channels' rows first)
+  const float* w1;    // f32: cv1 [c1][2c] (upconcat: the small channels' rows first)
   const float* b1;    // [2c]
-  const void* wm;     // bottleneck i conv j (2i + j): f32 [9][c][c], or bf16 [9][pad16(c)][pad16(c)]
+  const float* wm;    // f32: bottleneck i conv j (2i + j) as [9][c][c]
   const float* bm;    // bias of bottleneck i conv j at (2i + j) * c
-  const void* w2;     // cv2: f32 [(2 + n) c][c2o], or per segment bf16 [2 + n][pad16(c2o)][pad16(c)]
+  const float* w2;    // f32: cv2 [(2 + n) c][c2o]
   const float* b2;    // [c2o]
+  const bf16_t* wp;   // bf16: every conv as slices [pad16(c)][pad16(c) + 8], see ops/cuda_c2f.py::pack_slices
   int B, H, W, c1, cs, c, c2o, n, shortcut;
   int th, tw;  // output tile
+  int grp;     // weight slices per step of the weight ring (bf16)
+#ifdef YT_C2F_TRACE
+  long long* trace;  // null, or kTraceStages x kTraceSlots cycle counts of block `trace_block`
+  int trace_block;
+#endif
 };
 
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
+// Built with -DYT_C2F_TRACE (chip_smoke.py --profile does, into a library of its own), thread 0
+// of one interior block of a bf16 launch adds the cycles between its ticks to a slot of the GEMM
+// it is in: where one warp's time goes, stage by stage. Without the macro nothing of it is compiled.
+constexpr int kTraceStages = 16, kTraceSlots = 7;
+enum TraceSlot { kCopyWait = 0, kBarrierWait = 1, kCopyIssue = 2, kLoop = 3, kEpilogue = 4, kOther = 5, kSteps = 6 };
+struct Trace {
+#ifdef YT_C2F_TRACE
+  long long* out = nullptr;
+  long long t = 0, acc[kTraceSlots] = {};
+  int stage = 0;
+  __device__ __forceinline__ void start(const C2fArgs& a) {
+    if (a.trace && int(blockIdx.x) == a.trace_block && threadIdx.x == 0) out = a.trace, t = clock64();
+  }
+  __device__ __forceinline__ void tick(TraceSlot slot) {
+    if (out) {
+      const long long now = clock64();
+      acc[slot] += now - t;
+      t = now;
+    }
+  }
+  __device__ __forceinline__ void step() { acc[kSteps] += 1; }
+  // the GEMM is over: its counts go out (the write is not counted: the clock restarts after it)
+  __device__ __forceinline__ void next() {
+    if (out) {
+#pragma unroll
+      for (int i = 0; i < kTraceSlots; ++i) out[stage * kTraceSlots + i] = acc[i], acc[i] = 0;
+      stage = stage + 1 < kTraceStages ? stage + 1 : stage;
+      t = clock64();
+    }
+  }
+#else
+  __device__ void start(const C2fArgs&) {}
+  __device__ void tick(TraceSlot) {}
+  __device__ void step() {}
+  __device__ void next() {}
+#endif
+};
 
-// shared bytes of one block: two frame-sized maps of c channels (compute
-// dtype) and the f32 cv2 accumulator over the tile
-__host__ __device__ inline size_t c2f_frame_bytes(int th, int tw, int n, int c, bool bf16) {
-  const int R = 2 * n;
-  return align16(size_t(th + 2 * R) * (tw + 2 * R) * map_ld(c, bf16) * (bf16 ? 2 : 4));
-}
-__host__ __device__ inline size_t c2f_smem(int th, int tw, int n, int c, int c2o, bool bf16) {
-  return 2 * c2f_frame_bytes(th, tw, n, c, bf16) + size_t(th) * tw * (c2o | 1) * 4;
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// the largest frame of a th x tw tile: the tile and its halo R, clipped to the image plus a one-pixel border
+__host__ __device__ inline int frame_px(int H, int W, int th, int tw, int R) {
+  return imin(th + 2 * R, H + 2) * imin(tw + 2 * R, W + 2);
 }
 
-template <typename T, bool BF16, int OCB>
-__global__ void __launch_bounds__(256) c2f_kernel(C2fArgs a) {
-  using S = T;
+// shared memory of a bf16 block: map | (1 + n) tile segments | map | weight ring | the ring's barriers. The second
+// map's room also stages cv1's input, a round of pixels and a ring step's K chunks at a time.
+struct MmaLayout {
+  size_t map, seg, total;  // bytes
+};
+__host__ __device__ inline MmaLayout mma_layout(int H, int W, int th, int tw, int n, int c, int ring_slices) {
+  const int kp = pad16(c), ld = kp + 8;
+  MmaLayout l;
+  l.map = size_t(frame_px(H, W, th, tw, 2 * n)) * ld * 2;
+  l.seg = size_t(th) * tw * ld * 2;
+  l.total = 2 * l.map + (1 + n) * l.seg + size_t(ring_slices) * kp * ld * 2 + kRing * sizeof(uint64_t);
+  return l;
+}
+
+// shared memory of an f32 block: two maps and the f32 cv2 accumulator over the tile
+__host__ __device__ inline size_t f32_map_bytes(int H, int W, int th, int tw, int n, int c) {
+  return (size_t(frame_px(H, W, th, tw, 2 * n)) * map_ld(c, false) * 4 + 15) & ~size_t(15);
+}
+__host__ __device__ inline size_t f32_smem(int H, int W, int th, int tw, int n, int c, int c2o) {
+  return 2 * f32_map_bytes(H, W, th, tw, n, c) + size_t(th) * tw * (c2o | 1) * 4;
+}
+
+// A block's tile and frame. Frame coordinates are image coordinates minus (oy, ox).
+struct Rect {
+  int y, x, h, w;
+};
+struct Geo {
+  int b, y0, x0, oy, ox, FH, FW, th, tw, H, W;
+  __device__ Geo(const C2fArgs& a) {
+    const int R = 2 * a.n, tiles_x = (a.W + a.tw - 1) / a.tw, tiles = tiles_x * ((a.H + a.th - 1) / a.th);
+    const int t = blockIdx.x % tiles;
+    b = blockIdx.x / tiles;
+    th = a.th, tw = a.tw, H = a.H, W = a.W;
+    y0 = (t / tiles_x) * th;
+    x0 = (t % tiles_x) * tw;
+    oy = imax(y0 - R, -1);
+    ox = imax(x0 - R, -1);
+    FH = imin(y0 + th + R, H + 1) - oy;
+    FW = imin(x0 + tw + R, W + 1) - ox;
+  }
+  // the tile grown by `halo`, clipped to the image, in frame coordinates
+  __device__ Rect rect(int halo) const {
+    const int iy0 = imax(y0 - halo, 0), iy1 = imin(y0 + th + halo, H);
+    const int ix0 = imax(x0 - halo, 0), ix1 = imin(x0 + tw + halo, W);
+    return {iy0 - oy, ix0 - ox, iy1 - iy0, ix1 - ix0};
+  }
+};
+
+// ---------------------------------------------------------------- bf16 ----
+
+// p -> (p / w, p % w) by one multiplication, exact for p * w < 2^32: the pixel indices of a
+// stage are turned into rows and columns for every item and every epilogue row
+struct RowCol {
+  uint64_t m;
+  int w;
+  __device__ explicit RowCol(int w_) : m((uint64_t(1) << 32) / uint32_t(w_) + 1), w(w_) {}
+  __device__ __forceinline__ void operator()(int p, int& row, int& col) const {
+    row = int((uint64_t(uint32_t(p)) * m) >> 32);
+    col = p - row * w;
+  }
+};
+
+// 16-pixel tiles in a warp item of a GEMM over npx pixels: the instantiation's `most`, halved
+// while the items would leave half the warps of a round idle
+__host__ __device__ inline int item_mtiles(int npx, int nchunks, int most, int warps) {
+  int mt = most;
+  while (mt > 1 && ((npx + 16 * mt - 1) / (16 * mt)) * nchunks <= warps / 2) mt /= 2;
+  return mt;
+}
+
+// the most pixels the items of one round of a GEMM cover (an upper bound)
+__host__ __device__ inline int round_px(int npx, int kp, int most, int nt, int warps) {
+  const int nchunks = (kp + 8 * nt - 1) / (8 * nt);
+  const int px = ((warps + nchunks - 1) / nchunks + (warps % nchunks ? 1 : 0)) * 16 * item_mtiles(npx, nchunks, most, warps);
+  return px < npx ? px : npx;
+}
+
+// K chunks of cv1 to a ring step: as many (at most `most`) as `room` halves hold for `px` staged
+// rows of (chunks * kp + 8) halves; one chunk always fits, a map has a row of kp + 8 for every pixel
+__host__ __device__ inline int cv1_group(int room, int kp, int most, int px) {
+  int g = most;
+  while (g > 1 && (g * kp + 8) * px > room) --g;
+  return g;
+}
+
+using bf16x2_t = __nv_bfloat162;
+
+__device__ __forceinline__ bf16x2_t& pair_at(bf16_t* d) { return *reinterpret_cast<bf16x2_t*>(d); }
+
+// ConvBNAct epilogue of two neighbouring channels' f32 sums, with the roundings of
+// yt::bias_add<true> and yt::silu<true>: the sum is rounded to bf16, the bias (a bf16 value
+// held in f32) added in bf16, and SiLU is x * round(logistic_f32(x)), rounded. Packed bf16
+// adds and multiplies round the exact result once, as the scalar f32 forms do (the _rn forms:
+// the plain ones may be contracted with a following add, e.g. the residual's, into one fma
+// that rounds once where the plain version rounds twice); the logistic's exponential and
+// quotient are the fast intrinsics (their error is far below the rounding to bf16 that follows).
+__device__ __forceinline__ bf16x2_t act2(float v0, float v1, bf16x2_t bias) {
+  const bf16x2_t x = __hadd2_rn(__floats2bfloat162_rn(v0, v1), bias);
+  const float2 xf = __bfloat1622float2(x);
+  const float s0 = __fdividef(1.0f, 1.0f + __expf(-xf.x)), s1 = __fdividef(1.0f, 1.0f + __expf(-xf.y));
+  return __hmul2_rn(x, __floats2bfloat162_rn(s0, s1));
+}
+
+struct Ring {
+  bf16_t* buf;    // kRing steps of grp slices
+  uint64_t* bar;  // one mbarrier per step: its phase completes when the step's slices have landed
+  int* done;      // ring steps the block's GEMMs have taken so far: step number -> slot and phase parity
+  int grp;
+  int sl;  // halves per slice: np * (kp + 8)
+  int np, kp;
+};
+
+// One implicit GEMM of a block on the tensor cores: rows = `npx` pixels,
+// N = rg.np output channels, K = `nsl` slices of rg.kp. A warp item is
+// 16*MT pixels (fewer on a small stage, item_mtiles) x 8*NT channels; the
+// items are dealt to the warps in rounds, and all warps walk the slices
+// together, rg.grp slices to a step: step g of
+// the flat sequence (rounds x steps) is copied into the ring one step
+// ahead of its use, as one bulk copy that thread 0 asks the copy engine
+// for; the threads wait for it on the slot's mbarrier, and one block barrier
+// per step frees the other slot for the next copy.
+// `pix(p, o0, o1)` gives pixel p's row offsets, `at(s, o0, o1)` the row's
+// pointer for slice s; the sums of channels oc, oc + 1 < nvalid of pixel p go
+// through the ConvBNAct epilogue (act2, with bias[oc], bias[oc + 1], which a
+// thread loads once per item) and `put(hnd(p), oc, y)` stores the pair. KS is
+// rg.kp / 16 at compile time (the K loop of a slice unrolls, so fragment loads
+// run ahead of the mma), or 0 for a width without an instantiation; NW is the
+// block's warps. Where the A
+// operand is not in shared memory yet (cv1), `stg(p0, np, s0, cnt)` starts the
+// copies of pixels [p0, p0 + np), the ones a round's items cover, for slices
+// [s0, s0 + cnt) of a step, between two barriers of that step; InPlace says
+// there is nothing to stage.
+struct InPlace {
+  __device__ void operator()(int, int, int, int) const {}
+};
+template <int MT, int NT, int KS, int NW, class Pix, class At, class Hnd, class Put, class Stg = InPlace>
+__device__ __forceinline__ void gemm(Trace& tr, const Ring& rg, const bf16_t* __restrict__ wsl, int nsl, int npx,
+                                     const float* __restrict__ bias, int nvalid, Pix pix, At at, Hnd hnd, Put put,
+                                     Stg stg = Stg()) {
+  constexpr bool kStaged = !std::is_same<Stg, InPlace>::value;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int kw8 = rg.kp + 8;
+  const int nchunks = (rg.np + 8 * NT - 1) / (8 * NT);
+  const int mt = item_mtiles(npx, nchunks, MT, NW);  // 16-pixel tiles of an item in this GEMM
+  const int mtiles = (npx + 16 * mt - 1) / (16 * mt);
+  const int items = mtiles * nchunks;
+  const int steps = (nsl + rg.grp - 1) / rg.grp;  // per round
+  const int total = ((items + NW - 1) / NW) * steps;
+  const int g0 = *rg.done;  // the block's count of ring steps before this GEMM
+  auto load = [&](int g) {
+    if (threadIdx.x == (NW - 1) * 32 && g < total) {  // the last warp is the first to be without an item
+      const int s0 = (g % steps) * rg.grp, cnt = imin(rg.grp, nsl - s0), slot = (g0 + g) % kRing;
+      bulk_copy_g2s(rg.buf + size_t(slot) * rg.grp * rg.sl, wsl + size_t(s0) * rg.sl, uint32_t(cnt) * rg.sl * 2, rg.bar + slot);
+    }
+  };
+  tr.tick(kOther);
+  __syncthreads();  // the A operand is written; the ring's last readers are done
+  tr.tick(kBarrierWait);
+  load(0);
+  tr.tick(kCopyIssue);
+
+  float acc[MT][NT][4];
+  int o0[MT], o1[MT];
+  int m = 0, nb = 0, st = 0, turn = 0;
+  bool live = false;
+  for (int g = 0; g < total; ++g) {
+    if (st == 0) {
+      const int item = turn * NW + warp;
+      live = item < items;
+      m = item / nchunks;  // a round's items cover one range of pixels
+      nb = (item % nchunks) * 8 * NT;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+        pix(imin((m * mt + imin(mi, mt - 1)) * 16 + (lane & 15), npx - 1), o0[mi], o1[mi]);
+      }
+      tr.tick(kOther);
+    }
+    mbar_wait(rg.bar + (g0 + g) % kRing, ((g0 + g) / kRing) & 1);  // step g has landed
+    tr.tick(kCopyWait);
+    __syncthreads();  // everyone's has; the slot of step g - 1 and the staged pixels are free
+    tr.tick(kBarrierWait);
+    tr.step();
+    if constexpr (kStaged) {
+      const int p0 = (turn * NW / nchunks) * 16 * mt;
+      const int p1 = imin(npx, (((turn + 1) * NW - 1) / nchunks + 1) * 16 * mt);
+      stg(p0, p1 - p0, st * rg.grp, imin(rg.grp, nsl - st * rg.grp));
+      cp_async_commit();
+      load(g + 1);
+      tr.tick(kCopyIssue);
+      cp_async_wait(0);  // the staged pixels
+      tr.tick(kCopyWait);
+      __syncthreads();
+      tr.tick(kBarrierWait);
+    } else {
+      load(g + 1);
+      tr.tick(kCopyIssue);
+    }
+    if (live) {
+      const int s0 = st * rg.grp, cnt = imin(rg.grp, nsl - s0);
+      const bf16_t* bp = rg.buf + size_t((g0 + g) % kRing) * rg.grp * rg.sl +
+                         (nb + (lane & 7) + ((lane >> 4) << 3)) * kw8 + ((lane >> 3) & 1) * 8;
+      for (int q = 0; q < cnt; ++q, bp += rg.sl) {
+        const bf16_t* ap[MT];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) ap[mi] = at(s0 + q, o0[mi], o1[mi]) + (lane >> 4) * 8;
+#pragma unroll
+        for (int kc = 0; kc < (KS ? KS * 16 : rg.kp); kc += 16) {
+          uint32_t af[MT][4];
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            if (mi < mt) ldmatrix_x4(af[mi], ap[mi] + kc);
+          }
+#pragma unroll
+          for (int j = 0; j < NT; j += 2) {
+            if (nb + j * 8 < rg.np) {
+              uint32_t bq[4];
+              ldmatrix_x4(bq, bp + j * 8 * kw8 + kc);
+#pragma unroll
+              for (int mi = 0; mi < MT; ++mi) {
+                if (mi < mt) {
+                  mma_bf16_16816(acc[mi][j], af[mi], bq[0], bq[1]);
+                  mma_bf16_16816(acc[mi][j + 1], af[mi], bq[2], bq[3]);
+                }
+              }
+            }
+          }
+        }
+      }
+      tr.tick(kLoop);
+      if (st == steps - 1) {
+        bf16x2_t bj[NT];  // the biases of this lane's channel pairs, rounded as the epilogue wants them
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int oc = nb + j * 8 + tig * 2;
+          bj[j] = oc < nvalid ? __floats2bfloat162_rn(__ldg(bias + oc), __ldg(bias + oc + 1)) : __floats2bfloat162_rn(0.f, 0.f);
+        }
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = (m * mt + mi) * 16 + gid + r * 8;
+            if (mi < mt && p < npx) {
+              const auto h = hnd(p);
+#pragma unroll
+              for (int j = 0; j < NT; ++j) {
+                const int oc = nb + j * 8 + tig * 2;
+                if (oc < nvalid) put(h, oc, act2(acc[mi][j][2 * r], acc[mi][j][2 * r + 1], bj[j]));
+              }
+            }
+          }
+        }
+      }
+    }
+    tr.tick(kEpilogue);
+    if (++st == steps) st = 0, ++turn;
+  }
+  *rg.done = g0 + total;
+  tr.next();
+}
+
+template <int MT, int NT, int KS, int NW>
+__global__ void __launch_bounds__(NW * 32) c2f_mma_kernel(C2fArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int R = 2 * a.n;
-  const int th = a.th, tw = a.tw, H = a.H, W = a.W, c = a.c, c2o = a.c2o;
-  const int FH = th + 2 * R, FW = tw + 2 * R;
-  const int ld = map_ld(c, BF16), ld2 = c2o | 1;
-  const size_t frame_bytes = c2f_frame_bytes(th, tw, a.n, c, BF16);
-  S* buf0 = reinterpret_cast<S*>(smem);
-  S* buf1 = reinterpret_cast<S*>(smem + frame_bytes);
-  float* acc2 = reinterpret_cast<float*>(smem + 2 * frame_bytes);
-  if constexpr (BF16) zero_smem(smem, 2 * frame_bytes);  // padded channels read as zeros
-  // weights of bottleneck conv j and of cv2 segment s in this dtype's layout
-  auto wm_of = [&](int j) -> const void* {
-    if constexpr (BF16) return static_cast<const __nv_bfloat16*>(a.wm) + size_t(j) * 9 * pad16(c) * pad16(c);
-    else return static_cast<const float*>(a.wm) + size_t(j) * 9 * c * c;
-  };
-  auto w2_of = [&](int seg) -> const void* {
-    if constexpr (BF16) return static_cast<const __nv_bfloat16*>(a.w2) + size_t(seg) * pad16(c2o) * pad16(c);
-    else return static_cast<const float*>(a.w2) + size_t(seg) * c * c2o;
+  const int n = a.n, R = 2 * n, c = a.c, c2o = a.c2o, H = a.H, W = a.W;
+  const int kp = pad16(c), ld = kp + 8;
+  const int nk1 = (a.c1 + kp - 1) / kp;
+  const MmaLayout L = mma_layout(H, W, a.th, a.tw, n, c, kRing * a.grp);
+  bf16_t* buf0 = reinterpret_cast<bf16_t*>(smem);
+  bf16_t* segs = reinterpret_cast<bf16_t*>(smem + L.map);  // y_a, y_b, m_0 .. m_{n-2} over the tile
+  bf16_t* buf1 = reinterpret_cast<bf16_t*>(smem + L.map + (1 + n) * L.seg);
+  const int segh = int(L.seg / 2);
+  unsigned char* ring = smem + 2 * L.map + (1 + n) * L.seg;
+  int ring_steps = 0;
+  const Ring rg{reinterpret_cast<bf16_t*>(ring), reinterpret_cast<uint64_t*>(ring + size_t(kRing) * a.grp * kp * ld * 2),
+                &ring_steps, a.grp, kp * ld, kp, kp};
+  const size_t SL = size_t(rg.sl);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(rg.bar + s, 1);
+    mbar_init_fence();
+  }
+
+  const Geo g(a);
+  const int FW = g.FW, tY = g.y0 - g.oy, tX = g.x0 - g.ox;
+  const Rect T = g.rect(0);
+  // offset into a tile segment of frame pixel (fy, fx), or -1 outside the tile
+  auto tile_off = [&](int fy, int fx) {
+    const int ty = fy - tY, tx = fx - tX;
+    return (ty >= 0 && ty < T.h && tx >= 0 && tx < T.w) ? (ty * T.w + tx) * ld : -1;
   };
 
-  const int tiles_x = (W + tw - 1) / tw;
-  const int b = blockIdx.y;
-  const int oy = (blockIdx.x / tiles_x) * th - R;  // image row of frame row 0
-  const int ox = (blockIdx.x % tiles_x) * tw - R;
-  auto inside = [&](int fy, int fx) {
-    const int iy = oy + fy, ix = ox + fx;
-    return iy >= 0 && iy < H && ix >= 0 && ix < W;
-  };
+  Trace tr;
+  tr.start(a);
+  // padded channels and the one-pixel border must read as zeros
+  zero_smem(smem, L.map + (1 + n) * L.seg);
 
-  const T* x = static_cast<const T*>(a.x);
-  const T* small = static_cast<const T*>(a.small);
+  // ---- cv1: one half (0: y_a, 1: y_b) over a rectangle, input staged in buf1
+  const bf16_t* x = static_cast<const bf16_t*>(a.x);
+  const bf16_t* small = static_cast<const bf16_t*>(a.small);
+  const int cs = a.cs, ck = a.c1 - a.cs;
+  auto cv1 = [&](const Rect rc, int half, auto hnd, auto put) {
+    const int npx = rc.h * rc.w;
+    const RowCol yx(rc.w);
+    Ring r1 = rg;  // as many K chunks to a step as the staged rows of a round leave room for
+    r1.grp = cv1_group(int(L.map / 2), kp, imin(rg.grp, nk1), round_px(npx, kp, MT, NT, NW));
+    const int rowh = r1.grp * kp + 8;
+    int cur_p0 = 0, cur_s0 = 0;
+    gemm<MT, NT, KS, NW>(
+        tr, r1, a.wp + size_t(half * nk1) * SL, nk1, npx, a.b1 + half * c, c, [&](int p, int& o0, int& o1) { o0 = p, o1 = 0; },
+        [&](int s, int o0, int) { return buf1 + (o0 - cur_p0) * rowh + (s - cur_s0) * kp; }, hnd, put,
+        [&](int p0, int np, int s0, int cnt) {
+          cur_p0 = p0, cur_s0 = s0;
+          const int q8 = cnt * kp / 8;
+          for (int i = threadIdx.x; i < np * q8; i += NW * 32) {
+            const int r = i / q8, k = (i - r * q8) * 8, ch = s0 * kp + k;
+            int iy, ix;
+            yx(p0 + r, iy, ix);
+            iy += g.oy + rc.y, ix += g.ox + rc.x;
+            bf16_t* dst = buf1 + r * rowh + k;
+            if (ch < cs) {
+              cp_async16(dst, small + ((size_t(g.b) * (H / 2) + iy / 2) * (W / 2) + ix / 2) * cs + ch);
+            } else if (ch < a.c1) {
+              cp_async16(dst, x + ((size_t(g.b) * H + iy) * W + ix) * ck + (ch - cs));
+            } else {
+              *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+            }
+          }
+        });
+  };
+  // y_a over the tile: only cv2 reads it
+  cv1(
+      T, 0, [&](int p) { return p * ld; }, [&](int off, int oc, bf16x2_t y) { pair_at(segs + off + oc) = y; });
+  {  // y_b over the whole frame: the bottleneck chain's input
+    const Rect rb = g.rect(R);
+    const RowCol yx(rb.w);
+    cv1(
+        rb, 1,
+        [&](int p) {
+          int fy, fx;
+          yx(p, fy, fx);
+          fy += rb.y, fx += rb.x;
+          return make_int2((fy * FW + fx) * ld, tile_off(fy, fx));
+        },
+        [&](int2 off, int oc, bf16x2_t y) {
+          pair_at(buf0 + off.x + oc) = y;
+          if (off.y >= 0) pair_at(segs + segh + off.y + oc) = y;
+        });
+  }
+  __syncthreads();
+  zero_smem(reinterpret_cast<unsigned char*>(buf1), L.map);  // it held the staged input
+
+  // ---- the bottleneck chain: buf0 -> buf1 -> buf0 (in place: an element reads only its own residual)
+  for (int i = 0; i < n; ++i) {
+    const Rect r1 = g.rect(R - 2 * i - 1), r2 = g.rect(R - 2 * i - 2);
+    const float* b_1 = a.bm + (2 * i) * c;
+    const float* b_2 = a.bm + (2 * i + 1) * c;
+    const bf16_t* w_1 = a.wp + size_t(2 * nk1 + (2 * i) * 9) * SL;
+    auto tap = [&](const bf16_t* in) {
+      return [=](int s, int o0, int) { return in + o0 + ((s / 3 - 1) * FW + (s % 3 - 1)) * ld; };
+    };
+    // offset into a map of pixel p of a rectangle
+    auto map_off = [&](const Rect& rc, const RowCol& yx, int p) {
+      int fy, fx;
+      yx(p, fy, fx);
+      return ((rc.y + fy) * FW + rc.x + fx) * ld;
+    };
+    const RowCol yx1(r1.w), yx2(r2.w);
+    gemm<MT, NT, KS, NW>(
+        tr, rg, w_1, 9, r1.h * r1.w, b_1, c, [&](int p, int& o0, int& o1) { o0 = map_off(r1, yx1, p), o1 = 0; }, tap(buf0),
+        [&](int p) { return map_off(r1, yx1, p); }, [&](int off, int oc, bf16x2_t y) { pair_at(buf1 + off + oc) = y; });
+    bf16_t* keep = i < n - 1 ? segs + (2 + i) * segh : nullptr;  // the last m is read from buf0 itself
+    gemm<MT, NT, KS, NW>(
+        tr, rg, w_1 + 9 * SL, 9, r2.h * r2.w, b_2, c, [&](int p, int& o0, int& o1) { o0 = map_off(r2, yx2, p), o1 = 0; },
+        tap(buf1),
+        [&](int p) {
+          int fy, fx;
+          yx2(p, fy, fx);
+          fy += r2.y, fx += r2.x;
+          return make_int2((fy * FW + fx) * ld, keep ? tile_off(fy, fx) : -1);
+        },
+        [&](int2 off, int oc, bf16x2_t y) {
+          bf16x2_t& d = pair_at(buf0 + off.x + oc);
+          if (a.shortcut) y = __hadd2_rn(y, d);
+          d = y;
+          if (off.y >= 0) pair_at(keep + off.y + oc) = y;
+        });
+  }
+
+  // ---- cv2 over the concat, one GEMM per chunk of kp output channels; K walks the segments
+  bf16_t* out = static_cast<bf16_t*>(a.out);
+  const bf16_t* w_2 = a.wp + size_t(2 * nk1 + 2 * n * 9) * SL;
+  const RowCol yxT(T.w);
+  for (int oh = 0; oh * kp < c2o; ++oh) {
+    gemm<MT, NT, KS, NW>(
+        tr, rg, w_2 + size_t(oh * (2 + n)) * SL, 2 + n, T.h * T.w, a.b2 + oh * kp, c2o - oh * kp,
+        [&](int p, int& o0, int& o1) {
+          int ty, tx;
+          yxT(p, ty, tx);
+          o0 = p * ld, o1 = ((tY + ty) * FW + tX + tx) * ld;
+        },
+        [&](int s, int o0, int o1) { return s < 1 + n ? segs + s * segh + o0 : buf0 + o1; },
+        [&](int p) {
+          int ty, tx;
+          yxT(p, ty, tx);
+          return ((size_t(g.b) * H + g.y0 + ty) * W + g.x0 + tx) * c2o + oh * kp;
+        },
+        [&](size_t off, int oc, bf16x2_t y) { pair_at(out + off + oc) = y; });
+  }
+}
+
+// ----------------------------------------------------------------- f32 ----
+
+// two blocks to an SM where the maps allow it: the 128 registers this leaves a thread let the
+// compiler keep more weight loads in flight than it does when left to choose
+template <int OCB>
+__global__ void __launch_bounds__(kThreads, 2) c2f_f32_kernel(C2fArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, R = 2 * n, c = a.c, c2o = a.c2o, H = a.H, W = a.W, tw = a.tw;
+  const int ld = map_ld(c, false), ld2 = c2o | 1;
+  const size_t map_bytes = f32_map_bytes(H, W, a.th, tw, n, c);
+  float* buf0 = reinterpret_cast<float*>(smem);
+  float* buf1 = reinterpret_cast<float*>(smem + map_bytes);
+  float* acc2 = reinterpret_cast<float*>(smem + 2 * map_bytes);
+  const Geo g(a);
+  const int FW = g.FW, tY = g.y0 - g.oy, tX = g.x0 - g.ox;
+  const Rect T = g.rect(0);
+  // frame pixels outside the image are never written: they read as the convs' zero padding
+  for (int i = threadIdx.x; i < g.FH * FW; i += kThreads) {
+    const int iy = g.oy + i / FW, ix = g.ox + i % FW;
+    if (iy < 0 || iy >= H || ix < 0 || ix >= W) {
+      for (int ch = 0; ch < c; ++ch) buf0[i * ld + ch] = buf1[i * ld + ch] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  const float* x = static_cast<const float*>(a.x);
+  const float* small = static_cast<const float*>(a.small);
   const int cs = a.cs, ck = a.c1 - a.cs, c2 = 2 * c;
 
   // ---- cv1 (1x1 from global memory): channels [half*c, half*c + c) over a rectangle
-  auto cv1 = [&](int half, S* dst, int ry0, int rx0, int rh, int rw) {
-    const int npx = rh * rw;
-    const int items = npx * (c / OCB);
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int g = it / npx, p = it - g * npx;
-      const int fy = ry0 + p / rw, fx = rx0 + p % rw;
-      S* d = dst + (fy * FW + fx) * ld + g * OCB;
-      if (!inside(fy, fx)) {
-#pragma unroll
-        for (int o = 0; o < OCB; ++o) d[o] = from_f<S>(0.f);
-        continue;
-      }
-      const int iy = oy + fy, ix = ox + fx;
-      const int oc0 = half * c + g * OCB;
+  auto cv1 = [&](int half, float* dst, const Rect rc) {
+    const int npx = rc.h * rc.w;
+    for (int it = threadIdx.x; it < npx * (c / OCB); it += kThreads) {
+      const int gr = it / npx, p = it - gr * npx;
+      const int fy = rc.y + p / rc.w, fx = rc.x + p % rc.w;
+      const int iy = g.oy + fy, ix = g.ox + fx;
+      const int oc0 = half * c + gr * OCB;
       float acc[OCB];
 #pragma unroll
       for (int o = 0; o < OCB; ++o) acc[o] = 0.f;
       if (cs) {
-        const T* sp = small + ((size_t(b) * (H / 2) + iy / 2) * (W / 2) + ix / 2) * cs;
+        const float* sp = small + ((size_t(g.b) * (H / 2) + iy / 2) * (W / 2) + ix / 2) * cs;
         for (int ci = 0; ci < cs; ++ci) {
-          const float v = to_f(sp[ci]);
+          const float v = sp[ci];
           float wv[OCB];
           load_w<OCB>(a.w1 + ci * c2 + oc0, wv);
 #pragma unroll
           for (int o = 0; o < OCB; ++o) acc[o] = fmaf(v, wv[o], acc[o]);
         }
       }
-      const T* xp = x + ((size_t(b) * H + iy) * W + ix) * ck;
+      const float* xp = x + ((size_t(g.b) * H + iy) * W + ix) * ck;
       for (int ci = 0; ci < ck; ++ci) {
-        const float v = to_f(xp[ci]);
+        const float v = xp[ci];
         float wv[OCB];
         load_w<OCB>(a.w1 + (cs + ci) * c2 + oc0, wv);
 #pragma unroll
         for (int o = 0; o < OCB; ++o) acc[o] = fmaf(v, wv[o], acc[o]);
       }
+      float* d = dst + (fy * FW + fx) * ld + gr * OCB;
 #pragma unroll
-      for (int o = 0; o < OCB; ++o) d[o] = from_f<S>(silu<BF16>(bias_add<BF16>(acc[o], __ldg(a.b1 + oc0 + o))));
+      for (int o = 0; o < OCB; ++o) d[o] = silu<false>(bias_add<false>(acc[o], __ldg(a.b1 + oc0 + o)));
     }
   };
 
   // ---- cv2 partial product of concat segment `seg` (a map of c channels) over the tile
-  auto cv2_acc = [&](const S* src, int seg, bool init) {
-    conv<1, 8, BF16>(src, FW, ld, c, w2_of(seg), c2o, c2o, R, R, th, tw, [&](int fy, int fx, int oc, float v) {
-      float* d = acc2 + ((fy - R) * tw + (fx - R)) * ld2 + oc;
-      *d = init ? v : *d + v;
-    });
+  auto cv2_acc = [&](const float* src, int seg, bool init) {
+    conv_smem<1, 8, float>(src, FW, ld, c, a.w2 + size_t(seg) * c * c2o, c2o, c2o, T.y, T.x, T.h, T.w,
+                           [&](int fy, int fx, int oc0, float(&acc)[8]) {
+                             float* d = acc2 + ((fy - tY) * tw + (fx - tX)) * ld2 + oc0;
+#pragma unroll
+                             for (int o = 0; o < 8; ++o) d[o] = init ? acc[o] : d[o] + acc[o];
+                           });
   };
 
-  if constexpr (BF16) __syncthreads();  // zeroed before the maps are written
-  cv1(1, buf0, 0, 0, FH, FW);  // y_b over the whole frame: the bottleneck chain's input
-  cv1(0, buf1, R, R, th, tw);  // y_a over the tile: only cv2 reads it
+  cv1(1, buf0, g.rect(R));  // y_b over the whole frame: the bottleneck chain's input
+  cv1(0, buf1, T);          // y_a over the tile: only cv2 reads it
   __syncthreads();
   cv2_acc(buf1, 0, true);
   cv2_acc(buf0, 1, false);
 
-  for (int i = 0; i < a.n; ++i) {
-    const int h1 = R - 2 * i - 1, h2 = R - 2 * i - 2;
+  for (int i = 0; i < n; ++i) {
+    const Rect r1 = g.rect(R - 2 * i - 1), r2 = g.rect(R - 2 * i - 2);
     const float* b_1 = a.bm + (2 * i) * c;
     const float* b_2 = a.bm + (2 * i + 1) * c;
+    const float* w_1 = a.wm + size_t(2 * i) * 9 * c * c;
     __syncthreads();  // buf0 complete; the last readers of buf1 are done
-    conv<3, OCB, BF16>(buf0, FW, ld, c, wm_of(2 * i), c, c, R - h1, R - h1, th + 2 * h1, tw + 2 * h1,
-                       [&](int fy, int fx, int oc, float v) {
-                         buf1[(fy * FW + fx) * ld + oc] =
-                             from_f<S>(inside(fy, fx) ? silu<BF16>(bias_add<BF16>(v, __ldg(b_1 + oc))) : 0.f);
-                       });
+    conv_smem<3, OCB, float>(buf0, FW, ld, c, w_1, c, c, r1.y, r1.x, r1.h, r1.w,
+                             [&](int fy, int fx, int oc0, float(&acc)[OCB]) {
+                               float* d = buf1 + (fy * FW + fx) * ld + oc0;
+#pragma unroll
+                               for (int o = 0; o < OCB; ++o) d[o] = silu<false>(bias_add<false>(acc[o], __ldg(b_1 + oc0 + o)));
+                             });
     __syncthreads();
     // second conv in place over buf0: an output element reads only its own residual
-    conv<3, OCB, BF16>(buf1, FW, ld, c, wm_of(2 * i + 1), c, c, R - h2, R - h2, th + 2 * h2, tw + 2 * h2,
-                       [&](int fy, int fx, int oc, float v) {
-                         S* d = buf0 + (fy * FW + fx) * ld + oc;
-                         v = silu<BF16>(bias_add<BF16>(v, __ldg(b_2 + oc)));
-                         if (a.shortcut) v = rnd<BF16>(v + to_f(*d));
-                         *d = from_f<S>(inside(fy, fx) ? v : 0.f);
-                       });
+    conv_smem<3, OCB, float>(buf1, FW, ld, c, w_1 + 9 * c * c, c, c, r2.y, r2.x, r2.h, r2.w,
+                             [&](int fy, int fx, int oc0, float(&acc)[OCB]) {
+                               float* d = buf0 + (fy * FW + fx) * ld + oc0;
+#pragma unroll
+                               for (int o = 0; o < OCB; ++o) {
+                                 float v = silu<false>(bias_add<false>(acc[o], __ldg(b_2 + oc0 + o)));
+                                 if (a.shortcut) v += d[o];
+                                 d[o] = v;
+                               }
+                             });
     __syncthreads();
     cv2_acc(buf0, 2 + i, false);
   }
   __syncthreads();
 
   // ---- cv2 epilogue: consecutive threads write consecutive channels of a pixel
-  T* out = static_cast<T*>(a.out);
-  for (int idx = threadIdx.x; idx < th * tw * c2o; idx += blockDim.x) {
+  float* out = static_cast<float*>(a.out);
+  for (int idx = threadIdx.x; idx < T.h * T.w * c2o; idx += kThreads) {
     const int p = idx / c2o, o = idx - p * c2o;
-    const int fy = R + p / tw, fx = R + p % tw;
-    if (!inside(fy, fx)) continue;
-    const float v = silu<BF16>(bias_add<BF16>(acc2[p * ld2 + o], __ldg(a.b2 + o)));
-    out[((size_t(b) * H + oy + fy) * W + ox + fx) * c2o + o] = from_f<T>(v);
+    const int ty = p / T.w, tx = p - ty * T.w;
+    const float v = silu<false>(bias_add<false>(acc2[(ty * tw + tx) * ld2 + o], __ldg(a.b2 + o)));
+    out[((size_t(g.b) * H + g.y0 + ty) * W + g.x0 + tx) * c2o + o] = v;
   }
 }
 
-// the tile with the least halo recompute whose shared maps fit the budget
-void pick_tile(int H, int W, int n, int c, int c2o, bool bf16, int* th, int* tw, size_t* bytes) {
-  static const int cand[][2] = {{32, 32}, {16, 32}, {16, 16}, {8, 32}, {8, 16}, {8, 8},
-                                {4, 16}, {4, 8},   {4, 4},   {2, 8},  {2, 4},  {1, 4}};
-  const int R = 2 * n;
-  for (size_t budget : {size_t(113) << 10, size_t(227) << 10}) {
-    double best = -1.0;
-    for (const auto& t : cand) {
-      const int h = t[0] < H ? t[0] : H, w = t[1] < W ? t[1] : W;
-      const size_t s = c2f_smem(h, w, n, c, c2o, bf16);
-      const double eff = double(h) * w / (double(h + 2 * R) * (w + 2 * R));
-      if (s <= budget && eff > best) {
-        best = eff;
-        *th = h;
-        *tw = w;
-        *bytes = s;
+// ---------------------------------------------------------------- host ----
+
+using Kernel = void (*)(C2fArgs);
+
+// which instantiation serves an instance, and the rows of its warp item
+struct Variant {
+  Kernel kern;
+  int mt, nt;  // bf16: item = 16 mt pixels x 8 nt channels; f32: nt = output channels per thread
+  int threads;
+};
+Variant variant_of(int c, bool bf16) {
+  if (!bf16) return c % 8 ? Variant{c2f_f32_kernel<4>, 0, 4, kThreads} : Variant{c2f_f32_kernel<8>, 0, 8, kThreads};
+  switch (pad16(c)) {
+    case 16: return {c2f_mma_kernel<4, 2, 1, kMmaWarps>, 4, 2, 32 * kMmaWarps};
+    case 32: return {c2f_mma_kernel<2, 4, 2, kMmaWarps>, 2, 4, 32 * kMmaWarps};
+    case 48: return {c2f_mma_kernel<2, 6, 3, kMmaWarps>, 2, 6, 32 * kMmaWarps};
+    case 96: return {c2f_mma_kernel<2, 6, 6, kMmaWarps>, 2, 6, 32 * kMmaWarps};
+    default: return {c2f_mma_kernel<2, 6, 0, kMmaWarps>, 2, 6, 32 * kMmaWarps};
+  }
+}
+
+struct Plan {
+  int th = 0, tw = 0, grp = 0, blocks = 0, per_sm = 0;
+  size_t smem = 0;
+};
+
+// registers of a kernel and the card's SM count, asked once
+cudaError_t kernel_facts(Kernel k, int* regs, int* sms) {
+  static std::map<Kernel, int> seen;
+  static int n_sm = 0;
+  auto it = seen.find(k);
+  if (it == seen.end()) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, k);
+    int dev = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    it = seen.emplace(k, fa.numRegs).first;
+  }
+  *regs = it->second;
+  *sms = n_sm;
+  return cudaSuccess;
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The plan's cost model, in units of one warp-level mma. `barrier` is what a ring step costs beside
+// its products (its block barrier, copy wait and copy issue): without it a single frame takes tiles so
+// small that steps outweigh products. `shared` is the time of a wave of two blocks to an SM over that of
+// a wave of one (only f32 blocks are small enough to share): two blocks hide each other's latencies, but
+// they share the SM's fmaf rate. Both are set from chip_smoke.py --profile's sweep, which times the
+// candidates on the card and shows the choice with either constant at its neutral value (0 and 1).
+struct Model {
+  double barrier = 12.0, shared = 1.3;
+};
+
+// the refusals of the C entries, apart from CUDA's error codes (which are positive)
+constexpr int kNotTaken = -1, kNoTileFits = -2;
+
+struct Instance {
+  int B, H, W, c1, c, c2o, n;
+  bool bf16;
+};
+
+// One candidate (tile, ring) of an instance: its launch shape and modelled time, or false if its
+// block does not fit. A stage costs its rounds of warp items (bf16: tensor-core steps per item plus
+// a barrier per ring step; f32: fmaf per thread); a block costs its stages on the
+// worst-placed (interior) tile; the launch costs the waves of blocks over the SMs.
+bool candidate(const Instance& s, const Variant& v, int regs, int sms, const Model& m, Plan* p, double* cost) {
+  const int H = s.H, W = s.W, n = s.n, c = s.c, th = p->th, tw = p->tw;
+  if (th < 1 || tw < 1 || th > H || tw > W) return false;
+  if (s.bf16 && p->grp < 1) return false;
+  const int R = 2 * n, kp = pad16(c), nk1 = ceil_div(s.c1, kp), warps = v.threads / 32;
+  size_t map_halves = 0;
+  if (s.bf16) {
+    const MmaLayout l = mma_layout(H, W, th, tw, n, c, kRing * p->grp);
+    p->smem = l.total, map_halves = l.map / 2;
+  } else {
+    p->grp = 0;
+    p->smem = f32_smem(H, W, th, tw, n, c, s.c2o);
+  }
+  if (p->smem > kMaxSmem) return false;
+  // px pixels through nsl slices (bf16) or a K of nsl * c (f32), N output channels
+  auto stage = [&](int px, int nsl, int N, bool staged = false) {
+    if (s.bf16) {
+      const int nchunks = ceil_div(kp, 8 * v.nt), mt = item_mtiles(px, nchunks, v.mt, warps);
+      const int items = ceil_div(px, 16 * mt) * nchunks;
+      const int grp = staged ? cv1_group(int(map_halves), kp, imin(p->grp, nsl), round_px(px, kp, v.mt, v.nt, warps)) : p->grp;
+      return ceil_div(items, warps) * (nsl * (kp / 16 * mt * v.nt) + ceil_div(nsl, grp) * m.barrier);
+    }
+    return ceil_div(px * (N / v.nt), kThreads) * double(nsl) * c * v.nt;
+  };
+  auto rect_px = [&](int halo) { return imin(th + 2 * halo, H) * imin(tw + 2 * halo, W); };
+  double t = 0.0;
+  if (s.bf16) {
+    t += stage(rect_px(R), nk1, c, true) + stage(th * tw, nk1, c, true);
+    t += ceil_div(s.c2o, kp) * stage(th * tw, 2 + n, c);
+  } else {
+    t += (stage(rect_px(R), 1, c) + stage(th * tw, 1, c)) * s.c1 / c + (2 + n) * stage(th * tw, 1, s.c2o);
+  }
+  for (int k = 0; k < 2 * n; ++k) t += stage(rect_px(R - 1 - k), 9, c);
+  const int by_regs = imax(1, 65536 / (imax(regs, 1) * v.threads));
+  p->blocks = s.B * ceil_div(H, th) * ceil_div(W, tw);
+  p->per_sm = imax(1, imin(2, imin(by_regs, int((kMaxSmem + 1024) / (p->smem + 1024)))));
+  *cost = t * ceil_div(p->blocks, sms * p->per_sm) * (p->per_sm == 2 && p->blocks > sms ? m.shared : 1.0);
+  return true;
+}
+
+// every candidate the plan weighs, in order (the first stays on a tie): f(plan, modelled time)
+template <class F>
+cudaError_t each_candidate(const Instance& s, const Model& m, F f) {
+  const Variant v = variant_of(s.c, s.bf16);
+  int regs = 0, sms = 0;
+  cudaError_t e = kernel_facts(v.kern, &regs, &sms);
+  if (e != cudaSuccess) return e;
+  const int ths[] = {s.H, 64, 32, 16, 8, 4, 2, 1}, tws[] = {s.W, (s.W + 1) / 2, 64, 32, 16, 8, 4};
+  const int groups[] = {9, 3, 1};  // bf16: weight slices per ring step
+  for (int th : ths) {
+    for (int tw : tws) {
+      for (int grp : groups) {
+        if (!s.bf16 && grp != groups[0]) break;
+        Plan p;
+        p.th = th, p.tw = tw, p.grp = grp;
+        double cost = 0.0;
+        if (candidate(s, v, regs, sms, m, &p, &cost)) f(p, cost);
       }
     }
-    if (best > 0) return;
   }
-  *th = *tw = 0;
-  *bytes = 0;
+  return cudaSuccess;
 }
 
-template <typename T, bool BF16, int OCB>
-int launch(const C2fArgs& a, size_t bytes, cudaStream_t stream) {
-  auto kern = c2f_kernel<T, BF16, OCB>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+// the plan of an instance: the candidate with the least modelled time
+int plan_for(const Instance& s, Plan* best) {
+  static std::map<std::tuple<int, int, int, int, int, int, int, bool>, Plan> cache;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(s.B, s.H, s.W, s.c1, s.c, s.c2o, s.n, s.bf16);
+  auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *best = hit->second;
+    return 0;
+  }
+  double best_cost = -1.0;
+  cudaError_t e = each_candidate(s, Model{}, [&](const Plan& p, double cost) {
+    if (best_cost < 0 || cost < best_cost) best_cost = cost, *best = p;
+  });
   if (e != cudaSuccess) return int(e);
-  const int tiles = ((a.H + a.th - 1) / a.th) * ((a.W + a.tw - 1) / a.tw);
-  kern<<<dim3(tiles, a.B), 256, bytes, stream>>>(a);
-  YT_RETURN_LAUNCH_ERROR();
+  if (best_cost < 0) return kNoTileFits;
+  cache[key] = *best;
+  return 0;
 }
+
+bool takes(int c1, int cs, int c, int c2o, int n, int H, int W, bool bf16) {
+  if (n < 1 || c % 4 || (cs && (H % 2 || W % 2))) return false;
+  return bf16 ? (c1 % 8 == 0 && cs % 8 == 0 && c2o % 2 == 0) : c2o % 8 == 0;
+}
+
+#ifdef YT_C2F_TRACE
+long long* g_trace = nullptr;
+#endif
 
 }  // namespace
 
 extern "C" {
 
-// tile rows, tile columns and shared bytes the kernel uses for this instance
-int yt_c2f_plan(int H, int W, int c, int c2o, int n, int bf16, int* th, int* tw, long long* bytes) {
-  size_t s = 0;
-  pick_tile(H, W, n, c, c2o, bf16 != 0, th, tw, &s);
-  *bytes = static_cast<long long>(s);
-  return *th > 0 ? 0 : int(cudaErrorInvalidConfiguration);
+// Every entry returns 0, a CUDA error code (positive), -1 for an instance the kernel does not take
+// or -2 where no tile of it fits the shared memory.
+
+// what the kernel does with an instance: out = {tile rows, tile columns, blocks, blocks an SM holds,
+// shared bytes per block, steps of the weight ring and slices per step (0 in f32), pixels per warp item (0 in f32)}
+int yt_c2f_plan(int B, int H, int W, int c1, int cs, int c, int c2o, int n, int bf16, long long* out) {
+  if (!takes(c1, cs, c, c2o, n, H, W, bf16 != 0)) return kNotTaken;
+  Plan p;
+  const int e = plan_for(Instance{B, H, W, c1, c, c2o, n, bf16 != 0}, &p);
+  if (e) return e;
+  const long long vals[] = {p.th, p.tw, p.blocks, p.per_sm, (long long)p.smem, bf16 ? kRing : 0, p.grp, 16 * variant_of(c, bf16 != 0).mt};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
 }
 
-int yt_c2f_forward(const void* x, const void* small, void* out, const float* w1, const float* b1, const void* wm,
-                   const float* bm, const void* w2, const float* b2, int B, int H, int W, int c1, int cs, int c,
-                   int c2o, int n, int shortcut, int bf16, void* stream) {
-  if (c % 4 || c2o % 8 || n < 1 || (cs && (H % 2 || W % 2))) return int(cudaErrorInvalidValue);
-  C2fArgs a{x, small, out, w1, b1, wm, bm, w2, b2, B, H, W, c1, cs, c, c2o, n, shortcut, 0, 0};
-  size_t bytes = 0;
-  pick_tile(H, W, n, c, c2o, bf16 != 0, &a.th, &a.tw, &bytes);
-  if (!a.th) return int(cudaErrorInvalidConfiguration);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return c % 8 ? launch<__nv_bfloat16, true, 4>(a, bytes, s) : launch<__nv_bfloat16, true, 8>(a, bytes, s);
+// The candidates the plan weighs for an instance, in its order: plans[i] = {tile rows, tile columns,
+// slices per ring step, blocks, blocks an SM holds, shared bytes}, costs[i] = the modelled time; at
+// most `room` of them, *count = how many there are. `model` = {barrier, shared}, where it is not
+// null, replaces the built-in constants (a NaN keeps the built-in one).
+int yt_c2f_candidates(int B, int H, int W, int c1, int cs, int c, int c2o, int n, int bf16, const double* model,
+                      int room, long long* plans, double* costs, int* count) {
+  if (!takes(c1, cs, c, c2o, n, H, W, bf16 != 0)) return kNotTaken;
+  Model m;
+  if (model && model[0] == model[0]) m.barrier = model[0];
+  if (model && model[1] == model[1]) m.shared = model[1];
+  int k = 0;
+  cudaError_t e = each_candidate(Instance{B, H, W, c1, c, c2o, n, bf16 != 0}, m, [&](const Plan& p, double cost) {
+    if (k < room) {
+      const long long vals[] = {p.th, p.tw, p.grp, p.blocks, p.per_sm, (long long)p.smem};
+      for (int i = 0; i < 6; ++i) plans[k * 6 + i] = vals[i];
+      costs[k] = cost;
+    }
+    ++k;
+  });
+  *count = k;
+  return int(e);
+}
+
+#ifdef YT_C2F_TRACE
+// the next launches write one interior block's cycle counts per stage to `trace` (kTraceStages x kTraceSlots, device memory)
+int yt_c2f_set_trace(long long* trace) {
+  g_trace = trace;
+  return 0;
+}
+#endif
+
+// th = 0 launches the instance's plan; th > 0 launches the tile and slices per ring step given (a measurement's way in)
+int yt_c2f_forward(const void* x, const void* small, void* out, const float* w1, const float* b1, const float* wm,
+                   const float* bm, const float* w2, const float* b2, const void* wp, int B, int H, int W, int c1,
+                   int cs, int c, int c2o, int n, int shortcut, int bf16, int th, int tw, int grp, void* stream) {
+  if (!takes(c1, cs, c, c2o, n, H, W, bf16 != 0)) return kNotTaken;
+  const Instance s{B, H, W, c1, c, c2o, n, bf16 != 0};
+  const Variant v = variant_of(c, bf16 != 0);
+  Plan p;
+  if (th > 0) {
+    int regs = 0, sms = 0;
+    cudaError_t e = kernel_facts(v.kern, &regs, &sms);
+    if (e != cudaSuccess) return int(e);
+    double cost = 0.0;
+    p.th = th, p.tw = tw, p.grp = grp;
+    if (!candidate(s, v, regs, sms, Model{}, &p, &cost)) return kNoTileFits;
+  } else {
+    const int e = plan_for(s, &p);
+    if (e) return e;
   }
-  return c % 8 ? launch<float, false, 4>(a, bytes, s) : launch<float, false, 8>(a, bytes, s);
+  C2fArgs a{x,  small, out, w1, b1, wm, bm,       w2,   b2,   static_cast<const bf16_t*>(wp),
+            B,  H,     W,   c1, cs, c,  c2o,      n,    shortcut,
+            p.th, p.tw, p.grp};
+#ifdef YT_C2F_TRACE
+  a.trace = g_trace;
+  const int tiles_x = ceil_div(W, p.tw), tiles_y = ceil_div(H, p.th);
+  a.trace_block = (B / 2) * tiles_x * tiles_y + (tiles_y / 2) * tiles_x + tiles_x / 2;
+#endif
+  // the limit is lifted to what this launch needs, not to the most a block may ask for: the card
+  // sizes L1 by it, and the f32 kernel reads its weights through L1
+  cudaError_t e = cudaFuncSetAttribute(v.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
+  if (e != cudaSuccess) return int(e);
+  v.kern<<<p.blocks, v.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  YT_RETURN_LAUNCH_ERROR();
 }
 
 }  // extern "C"

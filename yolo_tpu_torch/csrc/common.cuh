@@ -197,6 +197,73 @@ __device__ __forceinline__ void conv_smem_mma(const __nv_bfloat16* in, int fw, i
   }
 }
 
+// ---- building blocks of kernels that stage both operands in shared memory
+// (c2f.cu): 16-byte asynchronous copies global -> shared, bulk copies by the
+// copy engine, and ldmatrix loads of four 8x8 bf16 matrices, one 16-byte row
+// address per lane.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem_dst)), "l"(gmem_src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most `pending` (0..3) of this thread's committed groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// ---- bulk copies global -> shared by the copy engine (TMA without a tensor map): one thread
+// asks for `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned); the hardware
+// reports them to an mbarrier in shared memory, which the block's threads wait on by phase parity.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals) : "memory");
+}
+
+// after the mbar_init calls, before any thread or the copy engine uses the barriers
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+
+// one arrival that also announces `bytes` of copies, then the copy that will report them
+__device__ __forceinline__ void bulk_copy_g2s(void* smem_dst, const void* gmem_src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(smem_dst)),
+               "l"(gmem_src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// spin until the barrier's phase of this parity is complete (its copies have landed and are visible)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra MBAR_DONE;\n"
+      "bra MBAR_WAIT;\n"
+      "MBAR_DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(smem_row))
+               : "memory");
+}
+
 // A conv between shared maps with a per-element epilogue: tensor cores in
 // bf16 (w: bf16 [tap][pad16(ncout)][pad16(cin)]), CUDA cores in f32 (w: f32
 // HWIO with row stride ldw).

@@ -40,22 +40,24 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def _library_path() -> Path:
+def _library_path(extra=()) -> Path:
     cus, cuhs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra]).encode())
     for f in cus + cuhs:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD / f"libyolo_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(extra=()) -> Path:
     """Compile the kernels unless the library for these sources exists; returns its path.
 
     Each source compiles in its own `nvcc` process, all at once; the ptxas
     report (registers, shared memory, spills per kernel) goes to `build.log`.
+    `extra` nvcc flags (a `-D` of a measurement build) give a library of their
+    own beside the default one, and leave `build.log` as it is.
     """
-    out = _library_path()
+    out = _library_path(extra)
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -64,7 +66,7 @@ def build() -> Path:
     procs = []
     for src in cus:
         obj = BUILD / f"{src.stem}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
     for src, _, p in procs:
@@ -72,7 +74,8 @@ def build() -> Path:
         log.append(f"== {src.name} (rc {p.returncode})\n{text}")
         if p.returncode:
             failed.append(src.name)
-    (BUILD / "build.log").write_text("\n".join(log))
+    if not extra:
+        (BUILD / "build.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -2,8 +2,18 @@
 
 Counterpart of yolo_tpu/ops/pallas_c2f.py (`fused_c2f`, `fused_c2f_upconcat`,
 both served by `_c2f_kernel`). The kernel computes one whole C2f block with
-every intermediate map in shared memory; see the note at the top of
-csrc/c2f.cu for its design, what bounds it, and what it does about that.
+every intermediate map in shared memory: a block owns one tile of one frame
+(a full-width row band where the map is small) and recomputes the 2n-pixel
+halo of its conv chain inside the image only. It is bound by operations. In
+bf16 every conv, cv1 included, is an implicit GEMM on the tensor cores with
+both operands in shared memory: the input pixels are staged by asynchronous
+copies, and the weights stream through a two-step ring as the slices that
+`pack_slices` lays out, one bulk copy of the copy engine per step, read from
+global memory once per block and round of warp items. cv2 runs once over the
+kept concat segments with its sums in registers. f32 runs the same tiles on
+the CUDA cores (no TF32). `plan` says what the kernel picks for an instance
+and `candidates` what it weighed; the note at the top of csrc/c2f.cu has the
+design and what bounds it.
 
 `fused_c2f` / `fused_c2f_upconcat` launch the kernel for a CUDA tensor and
 count the launch in their `launches` attribute; for a CPU tensor they compute
@@ -39,7 +49,7 @@ class C2fWeights:
     bm: torch.Tensor  # (2n, c)
     w2: torch.Tensor  # cv2 ((2 + n) c, c2o)
     b2: torch.Tensor  # (c2o,)
-    _mma: tuple | None = field(default=None, repr=False)
+    _slices: torch.Tensor | None = field(default=None, repr=False)
 
     @property
     def n(self) -> int:
@@ -49,15 +59,11 @@ class C2fWeights:
     def c(self) -> int:
         return self.wm.shape[-1]
 
-    def mma(self) -> tuple:
-        """(wm, w2) in the bf16 tensor-core layout: each bottleneck conv as
-        [9][pad16(c)][pad16(c)], cv2 as one [pad16(c2o)][pad16(c)] per concat segment."""
-        if self._mma is None:
-            c, c2o = self.c, self.w2.shape[1]
-            wm = torch.stack([_cuda.mma_weight(w, 3) for w in self.wm])
-            w2 = torch.cat([_cuda.mma_weight(s, 1) for s in self.w2.reshape(-1, c, c2o)])
-            self._mma = (wm.contiguous(), w2.contiguous())
-        return self._mma
+    def slices(self) -> torch.Tensor:
+        """The weights as the bf16 kernel streams them (`pack_slices`), made once."""
+        if self._slices is None:
+            self._slices = pack_slices(self)
+        return self._slices
 
     @classmethod
     def from_convs(cls, cv1, bottlenecks, cv2) -> "C2fWeights":
@@ -71,6 +77,30 @@ class C2fWeights:
             w2=_flat(cv2.weight),
             b2=cv2.bias.float().contiguous(),
         )
+
+
+def pack_slices(kw: C2fWeights) -> torch.Tensor:
+    """Every conv of the block as bf16 weight slices (S, kp, kp + 8) with kp = c
+    padded to 16: slice[r, k] multiplies input channel k of its K chunk into
+    output channel r of its N chunk; rows past the conv's output channels,
+    columns k >= c (or past c1 in cv1's last chunk) and the 8 pad columns (they
+    keep a slice's rows on distinct shared-memory banks) are zero.
+    In the kernel's order:
+    - cv1: for each half (y_a, y_b) its ceil(c1 / kp) chunks of kp input channels;
+    - each bottleneck conv 2i + j: its 9 taps;
+    - cv2: for each chunk of kp output channels its 2 + n concat segments."""
+    c, n, c1, c2o = kw.c, kw.n, kw.w1.shape[0], kw.w2.shape[1]
+    kp = (c + 15) // 16 * 16
+
+    def slab(w: torch.Tensor) -> torch.Tensor:  # (k <= kp, r <= kp) → (kp, kp + 8)
+        out = torch.zeros((kp, kp + 8), dtype=torch.bfloat16, device=w.device)
+        out[: w.shape[1], : w.shape[0]] = w.t().to(torch.bfloat16)
+        return out
+
+    slabs = [slab(kw.w1[k : k + kp, h * c : (h + 1) * c]) for h in (0, 1) for k in range(0, c1, kp)]
+    slabs += [slab(kw.wm[q, t * c : (t + 1) * c]) for q in range(2 * n) for t in range(9)]
+    slabs += [slab(kw.w2[s * c : (s + 1) * c, o : o + kp]) for o in range(0, c2o, kp) for s in range(2 + n)]
+    return torch.stack(slabs).contiguous()
 
 
 def _tail(y: torch.Tensor, kw: C2fWeights, shortcut: bool) -> torch.Tensor:
@@ -101,23 +131,82 @@ def c2f_upconcat_plain(small: torch.Tensor, skip: torch.Tensor, kw: C2fWeights, 
     return _tail(silu(up + yb + kw.b1.to(yb.dtype)), kw, shortcut)
 
 
+# Shapes a tiling can get wrong and the main path lacks; the card run holds the kernel against
+# its twin at them and the CPU tests the twin against the JAX module:
+# (c1, c2, n, shortcut, small channels of the upconcat mode or 0, B, H, W)
+EDGE_SHAPES = [
+    (24, 24, 2, True, 0, 1, 7, 12),  # c = 12 (padded to 16), odd H, one frame
+    (48, 48, 3, True, 0, 1, 33, 41),  # n = 3, a map no tile divides
+    (288, 192, 2, False, 0, 2, 16, 20),  # c1 = 288, c = 96
+    (192, 192, 2, True, 0, 1, 16, 20),  # c = 96 with one frame: small tiles over the SMs
+    (32, 64, 1, False, 0, 3, 7, 12),  # n = 1
+    (64, 128, 1, True, 0, 1, 8, 10),  # c = 64: a width served by the kernel's general instantiation
+    (72, 24, 2, False, 48, 1, 14, 22),  # upconcat, 48 small channels
+    (288, 96, 2, False, 192, 2, 8, 10),  # upconcat, 192 small channels
+    (72, 24, 3, True, 48, 1, 34, 42),  # upconcat with the residual and n = 3
+]
+MODEL = ("barrier", "shared")  # the constants of the plan's cost model (csrc/c2f.cu::Model)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(lib=None):
+    """`yt_c2f_forward` of the kernel library, or of another build of it (`lib`)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _cuda.function("yt_c2f_forward", [p, p, p] + [p] * 6 + [i] * 10 + [p])
+    argtypes = [p, p, p] + [p] * 7 + [i] * 13 + [p]
+    if lib is None:
+        return _cuda.function("yt_c2f_forward", argtypes)
+    fn = lib.yt_c2f_forward
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
-def plan(H: int, W: int, c: int, c2o: int, n: int, dtype) -> tuple[int, int, int]:
-    """(tile rows, tile columns, shared bytes) the kernel picks for an instance."""
-    th, tw, nb = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    fn = _cuda.function(
-        "yt_c2f_plan", [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.POINTER(ctypes.c_longlong)]
-    )
-    _cuda.check(fn(H, W, c, c2o, n, int(dtype == torch.bfloat16), th, tw, nb), "c2f plan")
-    return th.value, tw.value, nb.value
+def candidates(B: int, H: int, W: int, c1: int, cs: int, c: int, c2o: int, n: int, dtype, model=None):
+    """Every (tile, slices per ring step) the plan weighs for an instance, in its
+    order, as dicts with the modelled `cost`; the plan is the first of least
+    cost. `model` gives some of the constants named in MODEL other values (a
+    measurement's way to ask what each of them decides)."""
+    room = 256
+    plans, costs, count = (ctypes.c_longlong * (6 * room))(), (ctypes.c_double * room)(), ctypes.c_int(0)
+    consts = None if model is None else (ctypes.c_double * len(MODEL))(*(model.get(k, float("nan")) for k in MODEL))
+    i = ctypes.c_int
+    fn = _cuda.function("yt_c2f_candidates", [i] * 9 + [ctypes.POINTER(ctypes.c_double), i, ctypes.POINTER(ctypes.c_longlong),
+                                               ctypes.POINTER(ctypes.c_double), ctypes.POINTER(i)])
+    err = fn(B, H, W, c1, cs, c, c2o, n, int(dtype == torch.bfloat16), consts, room, plans, costs, ctypes.byref(count))
+    if err < 0:
+        raise ValueError(_refusal(c1, cs, c, c2o, n, H, W, dtype))
+    _cuda.check(err, "c2f candidates")
+    keys = ("th", "tw", "step_slices", "blocks", "blocks_per_sm", "smem")
+    return [dict(zip(keys, (int(v) for v in plans[6 * k : 6 * k + 6])), cost=costs[k]) for k in range(min(count.value, room))]
 
 
-def _launch(x: torch.Tensor, small: torch.Tensor | None, kw: C2fWeights, shortcut: bool) -> torch.Tensor:
+def plan(B: int, H: int, W: int, c1: int, cs: int, c: int, c2o: int, n: int, dtype) -> dict:
+    """What the kernel picks for an instance (it depends on the batch: few frames
+    take small tiles to spread over the SMs): the output tile, the blocks of the
+    launch (no clusters) and how many an SM holds, the shared bytes per block,
+    and the matrix instruction; in bf16 also the steps of the weight ring (two),
+    the slices per step and the pixels of a warp item."""
+    bf16 = dtype == torch.bfloat16
+    out = (ctypes.c_longlong * 8)()
+    fn = _cuda.function("yt_c2f_plan", [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)])
+    err = fn(B, H, W, c1, cs, c, c2o, n, int(bf16), out)
+    if err < 0:
+        raise ValueError(_refusal(c1, cs, c, c2o, n, H, W, dtype))
+    _cuda.check(err, "c2f plan")
+    th, tw, blocks, per_sm, smem, ring, group, item_px = (int(v) for v in out)
+    return dict(tile=(th, tw), blocks=blocks, cluster=1, blocks_per_sm=per_sm, smem=smem, ring_steps=ring,
+                step_slices=group, item_px=item_px, instruction="mma.sync.m16n8k16 + ldmatrix" if bf16 else "fmaf (CUDA cores)")
+
+
+def _refusal(c1, cs, c, c2o, n, H, W, dtype) -> str:
+    return (f"the C2f kernel does not take c1={c1} (small: {cs}), c={c}, c2o={c2o}, n={n} on a {H}x{W} map in {dtype}: "
+            "it needs c % 4 == 0, an even map in upconcat mode, in bf16 input channel counts "
+            "that are multiples of 8 and an even c2o, in f32 c2o % 8 == 0, and a tile that fits 227 KB of shared memory")
+
+
+def _launch(x: torch.Tensor, small: torch.Tensor | None, kw: C2fWeights, shortcut: bool, force=(0, 0, 0), lib=None) -> torch.Tensor:
+    """Launch the kernel with the instance's plan, or (measurements only) with the
+    tile and ring `force` = (th, tw, slices per ring step), from `lib` where that
+    is another build of the kernel library."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused C2f takes f32 or bf16 activations, got {x.dtype}")
     B, H, W, ck = x.shape
@@ -129,14 +218,17 @@ def _launch(x: torch.Tensor, small: torch.Tensor | None, kw: C2fWeights, shortcu
     x = x.contiguous()
     small = None if small is None else small.contiguous()
     c2o = kw.w2.shape[1]
-    wm, w2 = kw.mma() if x.dtype == torch.bfloat16 else (kw.wm, kw.w2)
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((B, H, W, c2o), device=x.device, dtype=x.dtype)
-    err = _entry()(
+    err = _entry(lib)(
         x.data_ptr(), 0 if small is None else small.data_ptr(), out.data_ptr(),
-        kw.w1.data_ptr(), kw.b1.data_ptr(), wm.data_ptr(), kw.bm.data_ptr(), w2.data_ptr(), kw.b2.data_ptr(),
-        B, H, W, cs + ck, cs, kw.c, c2o, kw.n, int(shortcut), int(x.dtype == torch.bfloat16),
+        kw.w1.data_ptr(), kw.b1.data_ptr(), kw.wm.data_ptr(), kw.bm.data_ptr(), kw.w2.data_ptr(), kw.b2.data_ptr(),
+        kw.slices().data_ptr() if bf16 else 0,
+        B, H, W, cs + ck, cs, kw.c, c2o, kw.n, int(shortcut), int(bf16), *force,
         _cuda.stream_of(x),
     )
+    if err < 0:  # the kernel's own refusals; CUDA's error codes are positive
+        raise ValueError(_refusal(cs + ck, cs, kw.c, c2o, kw.n, H, W, x.dtype))
     _cuda.check(err, "c2f kernel")
     return out
 
