@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`yolo_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
-    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of one bf16 chunk, the C2f
-                                     # plan sweep and the C2f kernel's per-stage cycle counts
+    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of one bf16 chunk, the C2f and
+                                     # head plan sweeps and both kernels' per-stage cycle counts
 
 Phases (any failure stops the run with a non-zero exit code):
 1. build the hand-written CUDA kernels from yolo_tpu_torch/csrc (nvcc, sm_90a);
@@ -18,7 +18,12 @@ Phases (any failure stops the run with a non-zero exit code):
    cut to one frame, as `[predict]` gives it (another plan). `[c2f edges]` then holds
    the C2f kernel against its twin at shapes the main path lacks (B = 1, odd
    and undivided maps, n = 1 and 3, c = 12, 64 and 96, c1 = 288, both shortcut
-   settings, upconcat with 48 and 192 small channels);
+   settings, upconcat with 48 and 192 small channels). Each captured Detect
+   level is also held cut to one frame through both head kernels, and `[head
+   edges]` holds both against their twins at the port's head edge shapes
+   (B = 1 and 3, an odd map, a map narrower than the tile, P5's C = 192,
+   c3 = 192, nc = 3, 17, the stock yolov8.yaml nc = 80 level, and yolov8x's
+   c2 = 80 at C = 320 and 512);
 3. `[pipeline]`: run FusedDetectTrack (the demo's trained yolov8-small P2,
    scale n, demos/artifacts/train/weights/best.npz) on a seeded synthetic
    512-frame 640x512 IR clip with moving targets and dropout gaps: in f32
@@ -42,7 +47,9 @@ within 3x of its choice (at most 40), per instance, dtype and batch (128 and
 1), and prints the model's choice beside the fastest measured one, and what
 the model would choose with each of its constants set to a neutral value;
 `[c2f trace]` builds the kernel with its cycle counters compiled in and prints
-where one interior block's first warp spends its cycles, stage by stage.
+where one interior block's first warp spends its cycles, stage by stage;
+`[head plans]` and `[head trace]` do the same for the head kernel's plan (the
+four captured levels, B = 128 and 1) and its stages.
 Every kernel of a path must have been launched in that path's run. The last
 three lines are the `kernels` JSON line, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -323,6 +330,166 @@ def c2f_edges_phase(card):
             log(f"c2f edges {dn}", card, f"{desc:44s} max_abs_err={err:.3e} {c2f_plan_text(B, H, W, c1, cs, kw, dtype)}")
 
 
+def head_plan_text(B, H, W, C, kw, dtype) -> str:
+    from yolo_tpu_torch.ops import cuda_head
+
+    p = cuda_head.plan(B, H, W, C, kw.c2, kw.c3, kw.nc, dtype)
+    text = (f"tile={p['tile'][0]}x{p['tile'][1]} blocks={p['blocks']} tiles={p['tiles']} per_sm={p['blocks_per_sm']} "
+            f"smem={p['smem']}B {p['instruction']}")
+    return text + (f" ring={p['ring_steps']}x{p['slot_bytes']}B" if p["ring_steps"] else "")
+
+
+def head_fns(name):
+    """(kernel wrapper, plain twin) of a head kernel by its KERNEL_ROWS name."""
+    from yolo_tpu_torch.ops import cuda_head, cuda_head_cm
+
+    if name == "head_level_cm":
+        return cuda_head_cm.head_level_cm, cuda_head_cm.head_level_cm_plain
+    return cuda_head.fused_head_level, cuda_head.head_level_plain
+
+
+def hold(name, desc, dn, got, want) -> dict:
+    """Hold a kernel's outputs against its twin's at the stated tolerances (the
+    channel-major head's scores also as logits) → max |err| by output; raises."""
+    import torch
+
+    got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+    atol, rtol = TOL[dn]
+    held = [(f"output {i}", g_.float(), w_.float(), atol, rtol) for i, (g_, w_) in enumerate(zip(got, want))]
+    if name == "head_level_cm":
+        held = [("dist", *held[0][1:]), ("cls", *held[1][1:3], *CLS_TOL[dn]),
+                ("cls as logit", _logit(got[1]), _logit(want[1]), *LOGIT_TOL[dn])]
+    errs = {}
+    for label, g_, w_, at, rt in held:
+        if g_.shape != w_.shape or not torch.isfinite(g_).all():
+            raise AssertionError(f"{name} {desc} {dn}: {label}: shape {tuple(g_.shape)} vs {tuple(w_.shape)} or non-finite")
+        errs[label] = float((g_ - w_).abs().max())
+        if not torch.allclose(g_, w_, atol=at, rtol=rt):
+            raise AssertionError(f"{name} {desc} {dn}: {label} disagrees with the plain twin "
+                                 f"(atol {at}, rtol {rt}), max |err| {errs[label]}")
+    return errs
+
+
+def head_edges_phase(card):
+    """`[head edges]`: both head kernels against their twins, f32 and bf16, on
+    seeded random levels at the port's list of edge shapes (ops/cuda_head.py
+    HEAD_EDGES). A disagreement raises."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_head
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for B, H, W, C, c2, c3, nc in cuda_head.HEAD_EDGES:
+            kw = cuda_head.HeadWeights.random(C, c2, c3, nc, seed=0, device="cuda", dtype=dtype)
+            x = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (B, H, W, C))).float().to("cuda", dtype)
+            desc = f"B={B} {H}x{W} C={C} c2={c2} c3={c3} nc={nc}"
+            for name in ("head_level", "head_level_cm"):
+                kern, plain = head_fns(name)
+                got, want = kern(x, kw), plain(x, kw)
+                torch.cuda.synchronize()
+                errs = hold(name, desc, dn, got, want)
+                log(f"head edges {dn}", card, f"{name:14s} {desc:40s} max_abs_err="
+                    + "/".join(f"{v:.3e}" for v in errs.values()) + f" {head_plan_text(B, H, W, C, kw, dtype)}")
+
+
+def head_plan_sweep(cases, card, within=3.0, most=40):
+    """`[head plans]`: the head plan's cost model against the card, as `[c2f
+    plans]` does for C2f: per captured Detect level, dtype and batch (a chunk,
+    one frame), every candidate tile the model rates within `within` of its
+    choice (the `most` cheapest) is launched and timed; then the model's choice
+    with its constant `barrier` at 0."""
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_head
+
+    key = lambda p: (p["th"], p["tw"])  # noqa: E731
+    show = lambda k: f"{k[0]}x{k[1]}"  # noqa: E731
+    for dn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for B in (CHUNK, 1):
+            total = {"model": 0.0, "fastest": 0.0, "without barrier": 0.0}
+            for x, kw in cases[dn]:
+                x = x[:B]
+                _, H, W, C = x.shape
+                shape = (B, H, W, C, kw.c2, kw.c3, kw.nc, dtype)
+                timed = {}
+
+                def ms(k):
+                    if k not in timed:
+                        run = lambda: cuda_head._launch(x, kw, cm=False, force=k)  # noqa: E731
+                        timed[k] = cuda_ms(run, iters=3, warmup=1)
+                        if timed[k] < 0.5:  # a short kernel: enough launches in a row that the host's gaps do not count
+                            timed[k] = cuda_ms(run, iters=30, warmup=3)
+                    return timed[k]
+
+                def choice(model):
+                    cands = cuda_head.candidates(*shape, model=model)
+                    return key(min(cands, key=lambda p: p["cost"])), cands
+
+                pick, cands = choice(None)
+                if pick != cuda_head.plan(*shape)["tile"]:
+                    raise AssertionError(f"head plans: the candidates' cheapest {pick} is not the plan's tile for {shape}")
+                floor = min(p["cost"] for p in cands)
+                near = sorted({key(p): p["cost"] for p in cands if p["cost"] <= within * floor}.items(), key=lambda kv: kv[1])[:most]
+                for k, _ in near:
+                    ms(k)
+                fastest = min(timed, key=timed.get)
+                alt = choice({"barrier": 0.0})[0]
+                total["model"] += ms(pick)
+                total["fastest"] += timed[fastest]
+                total["without barrier"] += ms(alt)
+                log(f"head plans {dn}", card, f"B={B:<3d} {H}x{W} C={C:<4d} model {show(pick)} {ms(pick):.4f} ms | fastest of "
+                    f"{len(near)} {show(fastest)} {timed[fastest]:.4f} ms ({ms(pick) / timed[fastest]:.3f}x), then "
+                    + " ".join(f"{show(k)} {v:.4f}" for k, v in sorted(timed.items(), key=lambda kv: kv[1])[1:4])
+                    + (f" | without barrier: {show(alt)} {ms(alt):.4f}" if alt != pick else ""))
+            log(f"head plans {dn}", card, f"B={B}: sum over the levels, ms: " + ", ".join(f"{k} {v:.4f}" for k, v in total.items()))
+
+
+def head_stage_trace(cases, card):
+    """`[head trace]`: the bf16 head kernel built with -DYT_HEAD_TRACE. Per
+    captured Detect level at chunk size, the cycles that thread 0 of one
+    interior block spent per stage (input staging, the first conv, the reg
+    second conv with its 1x1 and DFL as its epilogue, the cls second conv with
+    its 1x1 as its epilogue), split into waits for its copies, the block
+    barriers, copy issue, the product loop, the epilogues and the rest, per
+    tile of that block, with the level's kernel time in that build."""
+    import ctypes
+
+    import torch
+
+    from yolo_tpu_torch.ops import _cuda, cuda_head
+
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(_cuda.build(extra=("-DYT_HEAD_TRACE",))))
+    lib.yt_head_set_trace.argtypes = [ctypes.c_void_p]
+    log("head trace", card, f"traced build in {time.perf_counter() - t0:.1f} s")
+    stages = ("staging", "first conv", "reg 3x3 | 1x1+DFL", "cls 3x3 | 1x1")
+    slots = ("copy wait", "barrier", "copy issue", "loop", "epilogue", "other")
+    buf = torch.zeros((4 * 7 + 1,), dtype=torch.int64, device="cuda")
+    for x, kw in cases:
+        _, H, W, C = x.shape
+        desc = f"{H}x{W} C={C}"
+        run = lambda: cuda_head._launch(x, kw, cm=False, lib=lib)  # noqa: E731
+        kms = cuda_ms(run)  # also warms L2 with the weights and the input, as in a run of chunks
+        torch.cuda.synchronize()
+        buf.zero_()
+        lib.yt_head_set_trace(buf.data_ptr())
+        run()
+        torch.cuda.synchronize()
+        lib.yt_head_set_trace(None)
+        v = buf.cpu().tolist()
+        tiles = max(v[-1], 1)
+        rows = [v[7 * s_ : 7 * s_ + 7] for s_ in range(4)]
+        whole = sum(sum(r[:6]) for r in rows)
+        for stage, r in zip(stages, rows):
+            log("head trace", card, f"{desc:16s} {stage:18s} steps/tile={r[6] / tiles:<5.1f} "
+                + " ".join(f"{s_}={v_ / tiles:.0f}" for s_, v_ in zip(slots, r)) + f" sum={sum(r[:6]) / tiles:.0f}")
+        log("head trace", card, f"{desc:16s} block: {tiles} tiles, {whole / tiles:.0f} cycles/tile, kernel "
+            f"{kms:.4f} ms; shares: " + ", ".join(f"{s_} {sum(r[i] for r in rows) / whole:.3f}" for i, s_ in enumerate(slots))
+            + f"; reg loop {rows[2][3] / tiles:.0f} cycles/tile")
+
+
 def _c2f_case(name, args, B):
     """A captured C2f call cut to B frames → (x or skip, small or None, kw, shortcut, description)."""
     if name == "c2f":
@@ -432,11 +599,12 @@ def c2f_stage_trace(cases, card):
 
 def check_kernels(model, params, frames, card, d_max=16, keep=None):
     """Phase 2: every kernel against its plain twin at the main path's shapes → per-kernel records (bf16).
-    `keep`, a dict, receives the captured C2f calls by dtype name (for `--profile`)."""
+    `keep`, a dict, receives the captured C2f calls by dtype name and, under "head " + that name, the
+    captured Detect levels (for `--profile`)."""
     import torch
 
     from yolo_tpu_torch import FusedDetectTrack
-    from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_head_cm, cuda_nms
+    from yolo_tpu_torch.ops import cuda_c2f, cuda_nms
 
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -449,6 +617,7 @@ def check_kernels(model, params, frames, card, d_max=16, keep=None):
         log(f"kernels {dn}", card, f"captured {len(rec)} kernel calls from a {tuple(x.shape)} chunk ({nb} c2f)")
         if keep is not None:
             keep[dn] = [(name, args) for name, args in rec if name.startswith("c2f")]
+            keep["head " + dn] = [args for name, args in rec if name == "head_level"]
         # every captured Detect level is also a case of the channel-major head kernel
         cases = [c for name, args in rec for c in ([(name, args)] + ([("head_level_cm", args)] if name == "head_level" else []))]
         for name, args in cases:
@@ -484,35 +653,19 @@ def check_kernels(model, params, frames, card, d_max=16, keep=None):
             else:
                 xin, kw = args
                 B, H, W, C = xin.shape
-                if name == "head_level_cm":
-                    kern = lambda: cuda_head_cm.head_level_cm(xin, kw)  # noqa: E731
-                    plain = lambda: cuda_head_cm.head_level_cm_plain(xin, kw)  # noqa: E731
-                    lib, lib_in = library_head_cm(kw, dtype), _nchw(xin)
-                    tile = "tile={}x{} smem={}B".format(*cuda_head_cm.plan(H, W, C, kw.c2, kw.c3, dtype))
-                else:
-                    kern = lambda: cuda_head.fused_head_level(xin, kw)  # noqa: E731
-                    plain = lambda: cuda_head.head_level_plain(xin, kw)  # noqa: E731
-                    lib, lib_in = library_head(kw, dtype), _nchw(xin)
-                    tile = "tile={}x{} smem={}B".format(*cuda_head.plan(H, W, C, kw.c2, kw.c3, dtype))
+                kfn, pfn = head_fns(name)
+                kern = lambda: kfn(xin, kw)  # noqa: E731
+                plain = lambda: pfn(xin, kw)  # noqa: E731
+                lib, lib_in = (library_head_cm if name == "head_level_cm" else library_head)(kw, dtype), _nchw(xin)
+                tile = head_plan_text(B, H, W, C, kw, dtype)
                 macs = H * W * (9 * C * (kw.c2 + kw.c3) + 9 * kw.c2 * kw.c2 + 9 * kw.c3 * kw.c3
                                 + kw.c2 * 4 * kw.reg_max + kw.c3 * kw.nc)
                 ins = (xin,)
                 desc = f"{H}x{W} C={C}"
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
-            held = [(f"output {i}", g_.float(), w_.float(), atol, rtol) for i, (g_, w_) in enumerate(zip(got, want))]
-            if name == "head_level_cm":
-                held = [("dist", *held[0][1:]), ("cls", *held[1][1:3], *CLS_TOL[dn]),
-                        ("cls as logit", _logit(got[1]), _logit(want[1]), *LOGIT_TOL[dn])]
-            errs = {}
-            for label, g_, w_, at, rt in held:
-                if g_.shape != w_.shape or not torch.isfinite(g_).all():
-                    raise AssertionError(f"{name} {desc} {dn}: {label}: shape {tuple(g_.shape)} vs {tuple(w_.shape)} or non-finite")
-                errs[label] = float((g_ - w_).abs().max())
-                if not torch.allclose(g_, w_, atol=at, rtol=rt):
-                    raise AssertionError(f"{name} {desc} {dn}: {label} disagrees with the plain twin "
-                                         f"(atol {at}, rtol {rt}), max |err| {errs[label]}")
+            errs = hold(name, desc, dn, got, want)
+            got = (got,) if torch.is_tensor(got) else got
             err = max(v for k, v in errs.items() if k != "cls as logit")
             ms, pms = cuda_ms(kern), cuda_ms(plain)
             lms = cuda_ms(lambda: lib(lib_in))
@@ -537,6 +690,11 @@ def check_kernels(model, params, frames, card, d_max=16, keep=None):
                                          f"max |err| {err1}")
                 log(f"kernels {dn}", card, f"{name:14s} {desc:32s} B=1: {c2f_plan_text(1, H, W, kw.w1.shape[0], kw.w1.shape[0] - ins[-1].shape[-1], kw, dtype)} "
                     f"max_abs_err={err1:.3e} kernel_ms={cuda_ms(lambda: fused(*one, kw, sc)):.4f}")
+            if name.startswith("head"):
+                # the per-frame predict path gives the kernel the same level with one frame: another plan
+                e1 = hold(name, desc + " B=1", dn, kfn(xin[:1], kw), pfn(xin[:1], kw))
+                log(f"kernels {dn}", card, f"{name:14s} {desc:32s} B=1: {head_plan_text(1, H, W, C, kw, dtype)} max_abs_err="
+                    + "/".join(f"{v:.3e}" for v in e1.values()) + f" kernel_ms={cuda_ms(lambda: kfn(xin[:1], kw)):.4f}")
             if name == "head_level_cm":
                 cls = want[1].float().abs()
                 for k, v in errs.items():
@@ -835,6 +993,7 @@ def main(argv) -> int:
     c2f_cases = {} if profiling else None
     records = check_kernels(model, params, clip[:CHUNK], card, keep=c2f_cases)
     c2f_edges_phase(card)
+    head_edges_phase(card)
 
     ft, launches = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
     _, launches_cm = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)
@@ -856,6 +1015,8 @@ def main(argv) -> int:
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
         c2f_plan_sweep(c2f_cases, card)
         c2f_stage_trace(c2f_cases["bfloat16"], card)
+        head_plan_sweep({dn: c2f_cases["head " + dn] for dn in ("bfloat16", "float32")}, card)
+        head_stage_trace(c2f_cases["head bfloat16"], card)
 
     rows = []
     for name, (route, source, replaces) in KERNEL_ROWS.items():

@@ -84,40 +84,53 @@ def test_c2f_kernel_refuses_what_it_does_not_take(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,H,W", [(24, 21, 30), (192, 5, 7)])
-def test_head_kernel_matches_plain(card, dtype, C, H, W):
-    rng = np.random.default_rng(1)
-    head = PM.Detect(nc=1, ch=(C,))
-    head.to(card)
-    _random_convs(head, rng, dtype)
-    kw = head.kernel_weights(0)
-    x = torch.randn(2, H, W, C, device=card).to(dtype)
+@pytest.mark.parametrize("B,H,W,C,c2,c3,nc", cuda_head.HEAD_EDGES)
+def test_head_kernel_matches_plain(card, dtype, B, H, W, C, c2, c3, nc):
+    """The `[head edges]` levels: one and three frames, an odd map, a map
+    narrower than the tile, P5's C = 192, c3 = 192, nc = 3, 17 and 80, and
+    yolov8x's c2 = 80 with C = 320 and 512."""
+    kw = cuda_head.HeadWeights.random(C, c2, c3, nc, seed=1, device=card, dtype=dtype)
+    x = torch.randn(B, H, W, C, device=card).to(dtype)
+    before = (cuda_head.fused_head_level.launches, cuda_head_cm.head_level_cm.launches)
     got_d, got_c = cuda_head.fused_head_level(x, kw)
     want_d, want_c = cuda_head.head_level_plain(x, kw)
     torch.cuda.synchronize()
+    assert (cuda_head.fused_head_level.launches, cuda_head_cm.head_level_cm.launches) == (before[0] + 1, before[1])
+    assert got_c.dtype == dtype and got_c.shape == (B, H * W, nc)
+    plan = cuda_head.plan(B, H, W, C, c2, c3, nc, dtype)
+    assert plan["smem"] <= 232448 and plan["tile"][0] <= H and plan["tile"][1] <= W and 1 <= plan["blocks"] <= plan["tiles"]
     torch.testing.assert_close(got_d, want_d, **TOL[dtype])
     torch.testing.assert_close(got_c.float(), want_c.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,H,W,nc", [(24, 21, 30, 1), (192, 5, 7, 1), (48, 16, 20, 3), (96, 33, 41, 17)])
-def test_head_cm_kernel_matches_plain(card, dtype, C, H, W, nc):
-    """Ragged tiles, a W no TPU tile divides, P5's width and nc beyond one m-tile."""
-    rng = np.random.default_rng(2)
-    head = PM.Detect(nc=nc, ch=(C,))
-    head.to(card)
-    _random_convs(head, rng, dtype)
-    kw = head.kernel_weights(0)
-    x = torch.randn(3, H, W, C, device=card).to(dtype)
+@pytest.mark.parametrize("B,H,W,C,c2,c3,nc", cuda_head.HEAD_EDGES)
+def test_head_cm_kernel_matches_plain(card, dtype, B, H, W, C, c2, c3, nc):
+    """The `[head edges]` levels through the channel-major entry (sigmoid inside)."""
+    kw = cuda_head.HeadWeights.random(C, c2, c3, nc, seed=2, device=card, dtype=dtype)
+    x = torch.randn(B, H, W, C, device=card).to(dtype)
     before = (cuda_head_cm.head_level_cm.launches, cuda_head.fused_head_level.launches)
     got_d, got_c = cuda_head_cm.head_level_cm(x, kw)
     want_d, want_c = cuda_head_cm.head_level_cm_plain(x, kw)
     torch.cuda.synchronize()
     assert (cuda_head_cm.head_level_cm.launches, cuda_head.fused_head_level.launches) == (before[0] + 1, before[1])
-    assert got_c.dtype == torch.float32 and got_c.shape == (3, H * W, nc)
+    assert got_c.dtype == torch.float32 and got_c.shape == (B, H * W, nc)
     torch.testing.assert_close(got_d, want_d, **TOL[dtype])
     torch.testing.assert_close(got_c, want_c, **CLS_TOL[dtype])
     torch.testing.assert_close(torch.logit(got_c.double(), eps=1e-12), torch.logit(want_c.double(), eps=1e-12), **LOGIT_TOL[dtype])
+
+
+def test_head_kernel_refuses_what_it_does_not_take(card):
+    """A level outside the bf16 kernel's reach (C = 20: an input pixel is not a
+    whole number of 16-byte copies) raises; nothing falls back to the twin."""
+    kw = cuda_head.HeadWeights.random(20, 64, 24, 1, device=card, dtype=torch.bfloat16)
+    x = torch.randn(1, 8, 8, 20, device=card).to(torch.bfloat16)
+    before = (cuda_head.fused_head_level.launches, cuda_head_cm.head_level_cm.launches)
+    with pytest.raises(ValueError, match="do not take"):
+        cuda_head.fused_head_level(x, kw)
+    with pytest.raises(ValueError, match="do not take"):
+        cuda_head_cm.head_level_cm(x, kw)
+    assert (cuda_head.fused_head_level.launches, cuda_head_cm.head_level_cm.launches) == before
 
 
 def test_nms_kernel_matches_plain(card):

@@ -91,11 +91,16 @@ def test_head_level_cm_plain_is_head_level_plain_plus_sigmoid_in_f32():
 
 
 def test_head_weights_tensor_core_layout_of_the_cm_kernel():
+    """The channel-major kernel streams the bf16 pack of the default one
+    (ops/cuda_head.py::pack_core; tests/test_torch_head.py walks its layout):
+    each conv's blocks padded as the kernel reads them, made once."""
     rng = np.random.default_rng(3)
     _, _, kw = _level(rng, 24, 1)
-    mma = kw.mma_cm()
-    assert [tuple(w.shape) for w in mma] == [(9, 96, 32), (9, 64, 64), (9, 32, 32), (1, 64, 64), (1, 16, 32)]
-    assert all(w.dtype == torch.bfloat16 for w in mma) and kw.mma_cm()[3] is mma[3]  # cached
+    core = kw.core()
+    # merged first conv 9 x pad16(24) x pad48(64 + pad32(24)), reg 3x3 9 x 64 x 64, cls 3x3 9 x 32 x 32,
+    # reg 1x1 64 x 64, cls 1x1 pad32(24) x pad16(1)
+    assert core.shape == (9 * 32 * 96 + 9 * 64 * 64 + 9 * 32 * 32 + 64 * 64 + 32 * 16,)
+    assert core.dtype == torch.bfloat16 and kw.core() is core  # cached
 
 
 @pytest.fixture(scope="module")

@@ -157,9 +157,6 @@ struct Trace {
 #endif
 };
 
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
 // the largest frame of a th x tw tile: the tile and its halo R, clipped to the image plus a one-pixel border
 __host__ __device__ inline int frame_px(int H, int W, int th, int tw, int R) {
   return imin(th + 2 * R, H + 2) * imin(tw + 2 * R, W + 2);
@@ -215,18 +212,6 @@ struct Geo {
 
 // ---------------------------------------------------------------- bf16 ----
 
-// p -> (p / w, p % w) by one multiplication, exact for p * w < 2^32: the pixel indices of a
-// stage are turned into rows and columns for every item and every epilogue row
-struct RowCol {
-  uint64_t m;
-  int w;
-  __device__ explicit RowCol(int w_) : m((uint64_t(1) << 32) / uint32_t(w_) + 1), w(w_) {}
-  __device__ __forceinline__ void operator()(int p, int& row, int& col) const {
-    row = int((uint64_t(uint32_t(p)) * m) >> 32);
-    col = p - row * w;
-  }
-};
-
 // 16-pixel tiles in a warp item of a GEMM over npx pixels: the instantiation's `most`, halved
 // while the items would leave half the warps of a round idle
 __host__ __device__ inline int item_mtiles(int npx, int nchunks, int most, int warps) {
@@ -248,24 +233,6 @@ __host__ __device__ inline int cv1_group(int room, int kp, int most, int px) {
   int g = most;
   while (g > 1 && (g * kp + 8) * px > room) --g;
   return g;
-}
-
-using bf16x2_t = __nv_bfloat162;
-
-__device__ __forceinline__ bf16x2_t& pair_at(bf16_t* d) { return *reinterpret_cast<bf16x2_t*>(d); }
-
-// ConvBNAct epilogue of two neighbouring channels' f32 sums, with the roundings of
-// yt::bias_add<true> and yt::silu<true>: the sum is rounded to bf16, the bias (a bf16 value
-// held in f32) added in bf16, and SiLU is x * round(logistic_f32(x)), rounded. Packed bf16
-// adds and multiplies round the exact result once, as the scalar f32 forms do (the _rn forms:
-// the plain ones may be contracted with a following add, e.g. the residual's, into one fma
-// that rounds once where the plain version rounds twice); the logistic's exponential and
-// quotient are the fast intrinsics (their error is far below the rounding to bf16 that follows).
-__device__ __forceinline__ bf16x2_t act2(float v0, float v1, bf16x2_t bias) {
-  const bf16x2_t x = __hadd2_rn(__floats2bfloat162_rn(v0, v1), bias);
-  const float2 xf = __bfloat1622float2(x);
-  const float s0 = __fdividef(1.0f, 1.0f + __expf(-xf.x)), s1 = __fdividef(1.0f, 1.0f + __expf(-xf.y));
-  return __hmul2_rn(x, __floats2bfloat162_rn(s0, s1));
 }
 
 struct Ring {
@@ -740,8 +707,6 @@ cudaError_t kernel_facts(Kernel k, int* regs, int* sms) {
   return cudaSuccess;
 }
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
 // The plan's cost model, in units of one warp-level mma. `barrier` is what a ring step costs beside
 // its products (its block barrier, copy wait and copy issue): without it a single frame takes tiles so
 // small that steps outweigh products. `shared` is the time of a wave of two blocks to an SM over that of
@@ -768,7 +733,7 @@ bool candidate(const Instance& s, const Variant& v, int regs, int sms, const Mod
   const int H = s.H, W = s.W, n = s.n, c = s.c, th = p->th, tw = p->tw;
   if (th < 1 || tw < 1 || th > H || tw > W) return false;
   if (s.bf16 && p->grp < 1) return false;
-  const int R = 2 * n, kp = pad16(c), nk1 = ceil_div(s.c1, kp), warps = v.threads / 32;
+  const int R = 2 * n, kp = pad16(c), nk1 = cdiv(s.c1, kp), warps = v.threads / 32;
   size_t map_halves = 0;
   if (s.bf16) {
     const MmaLayout l = mma_layout(H, W, th, tw, n, c, kRing * p->grp);
@@ -781,26 +746,26 @@ bool candidate(const Instance& s, const Variant& v, int regs, int sms, const Mod
   // px pixels through nsl slices (bf16) or a K of nsl * c (f32), N output channels
   auto stage = [&](int px, int nsl, int N, bool staged = false) {
     if (s.bf16) {
-      const int nchunks = ceil_div(kp, 8 * v.nt), mt = item_mtiles(px, nchunks, v.mt, warps);
-      const int items = ceil_div(px, 16 * mt) * nchunks;
+      const int nchunks = cdiv(kp, 8 * v.nt), mt = item_mtiles(px, nchunks, v.mt, warps);
+      const int items = cdiv(px, 16 * mt) * nchunks;
       const int grp = staged ? cv1_group(int(map_halves), kp, imin(p->grp, nsl), round_px(px, kp, v.mt, v.nt, warps)) : p->grp;
-      return ceil_div(items, warps) * (nsl * (kp / 16 * mt * v.nt) + ceil_div(nsl, grp) * m.barrier);
+      return cdiv(items, warps) * (nsl * (kp / 16 * mt * v.nt) + cdiv(nsl, grp) * m.barrier);
     }
-    return ceil_div(px * (N / v.nt), kThreads) * double(nsl) * c * v.nt;
+    return cdiv(px * (N / v.nt), kThreads) * double(nsl) * c * v.nt;
   };
   auto rect_px = [&](int halo) { return imin(th + 2 * halo, H) * imin(tw + 2 * halo, W); };
   double t = 0.0;
   if (s.bf16) {
     t += stage(rect_px(R), nk1, c, true) + stage(th * tw, nk1, c, true);
-    t += ceil_div(s.c2o, kp) * stage(th * tw, 2 + n, c);
+    t += cdiv(s.c2o, kp) * stage(th * tw, 2 + n, c);
   } else {
     t += (stage(rect_px(R), 1, c) + stage(th * tw, 1, c)) * s.c1 / c + (2 + n) * stage(th * tw, 1, s.c2o);
   }
   for (int k = 0; k < 2 * n; ++k) t += stage(rect_px(R - 1 - k), 9, c);
   const int by_regs = imax(1, 65536 / (imax(regs, 1) * v.threads));
-  p->blocks = s.B * ceil_div(H, th) * ceil_div(W, tw);
+  p->blocks = s.B * cdiv(H, th) * cdiv(W, tw);
   p->per_sm = imax(1, imin(2, imin(by_regs, int((kMaxSmem + 1024) / (p->smem + 1024)))));
-  *cost = t * ceil_div(p->blocks, sms * p->per_sm) * (p->per_sm == 2 && p->blocks > sms ? m.shared : 1.0);
+  *cost = t * cdiv(p->blocks, sms * p->per_sm) * (p->per_sm == 2 && p->blocks > sms ? m.shared : 1.0);
   return true;
 }
 
@@ -931,7 +896,7 @@ int yt_c2f_forward(const void* x, const void* small, void* out, const float* w1,
             p.th, p.tw, p.grp};
 #ifdef YT_C2F_TRACE
   a.trace = g_trace;
-  const int tiles_x = ceil_div(W, p.tw), tiles_y = ceil_div(H, p.th);
+  const int tiles_x = cdiv(W, p.tw), tiles_y = cdiv(H, p.th);
   a.trace_block = (B / 2) * tiles_x * tiles_y + (tiles_y / 2) * tiles_x + tiles_x / 2;
 #endif
   // the limit is lifted to what this launch needs, not to the most a block may ask for: the card

@@ -1,4 +1,4 @@
-// Shared helpers of the port's hand-written Hopper kernels (c2f.cu, head.cu, head_cm.cu).
+// Shared helpers of the port's hand-written Hopper kernels (c2f.cu, head.cuh).
 //
 // Numerics follow the fused ConvBNAct path of the JAX package
 // (yolo_tpu/ops/pallas_c2f.py, pallas_head.py): every product is exact and
@@ -10,10 +10,11 @@
 // Activations are NHWC in global memory. Inside a block every intermediate
 // map lives in shared memory in the compute dtype `S`, `ld` elements per
 // pixel. The convs between shared maps run
-// - in bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulators), the
-//   maps' channels padded to a multiple of 16 with zeros and `ld` = that + 8
-//   so that the fragment loads of a warp hit 32 distinct banks; weights are
-//   bf16 [tap][cout padded to 16][cin padded to 16], read through L1;
+// - in bf16 on the tensor cores (mma.sync m16n8k16 fed by ldmatrix, f32
+//   accumulators), the maps' channels padded to a multiple of 16 with zeros
+//   and `ld` = that + 8 so that the fragment loads of a warp hit 32 distinct
+//   banks; the weights are streamed into shared memory in the layouts that
+//   c2f.cu and head.cuh describe;
 // - in f32 on the CUDA cores (tensor cores would round the inputs to tf32),
 //   `ld` = channels | 1 (odd, conflict-free); weights are f32 HWIO
 //   [tap][cin][cout], read warp-uniformly through L1.
@@ -28,19 +29,15 @@
 namespace yt {
 
 __host__ __device__ constexpr int pad16(int c) { return (c + 15) & ~15; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // elements per pixel of a shared map with c channels
 __host__ __device__ constexpr int map_ld(int c, bool bf16) { return bf16 ? pad16(c) + 8 : (c | 1); }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename S>
-__device__ __forceinline__ S from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
 // round an f32 value to the compute dtype and back
 template <bool BF16>
@@ -136,69 +133,8 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The same convolution in bf16 on the tensor cores, as an implicit GEMM:
-// rows = output pixels, K = taps x input channels, N = output channels. A warp
-// item is 16 pixels x 8*NT output channels; per tap and 16-channel step it
-// loads the A fragment from the shifted input pixels in shared memory and the
-// B fragments from `w` = bf16 [tap][pad16(ncout)][pad16(cin)]. The map's
-// channels [cin, pad16(cin)) must be zero. `put(fy, fx, oc, v)` consumes each
-// output element's f32 sum.
-template <int KS, int NT, class Put>
-__device__ __forceinline__ void conv_smem_mma(const __nv_bfloat16* in, int fw, int ld, int cin,
-                                              const __nv_bfloat16* __restrict__ w, int ncout, int ry0, int rx0, int rh,
-                                              int rw, Put put) {
-  const int kp = pad16(cin), np = pad16(ncout);
-  const int npx = rh * rw;
-  const int mtiles = (npx + 15) / 16, ntiles = (np + 8 * NT - 1) / (8 * NT);
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  for (int item = threadIdx.x >> 5; item < mtiles * ntiles; item += blockDim.x >> 5) {
-    const int m = item % mtiles, nb = (item / mtiles) * 8 * NT;
-    const int p0 = m * 16 + gid, p1 = p0 + 8;
-    const int q0 = p0 < npx ? p0 : npx - 1, q1 = p1 < npx ? p1 : npx - 1;
-    const int fy0 = ry0 + q0 / rw, fx0 = rx0 + q0 % rw;
-    const int fy1 = ry0 + q1 / rw, fx1 = rx0 + q1 % rw;
-    const __nv_bfloat16* r0 = in + (fy0 * fw + fx0) * ld + tig * 2;
-    const __nv_bfloat16* r1 = in + (fy1 * fw + fx1) * ld + tig * 2;
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int k = 0; k < KS * KS; ++k) {
-      const int off = ((k / KS - KS / 2) * fw + (k % KS - KS / 2)) * ld;
-      const __nv_bfloat16* wk = w + (size_t(k) * np + nb + gid) * kp + tig * 2;
-      for (int kc = 0; kc < kp; kc += 16) {
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(r0 + off + kc);
-        a[1] = *reinterpret_cast<const uint32_t*>(r1 + off + kc);
-        a[2] = *reinterpret_cast<const uint32_t*>(r0 + off + kc + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(r1 + off + kc + 8);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          if (nb + j * 8 < np) {
-            const __nv_bfloat16* wj = wk + j * 8 * kp + kc;
-            mma_bf16_16816(acc[j], a, __ldg(reinterpret_cast<const unsigned int*>(wj)),
-                           __ldg(reinterpret_cast<const unsigned int*>(wj + 8)));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int oc = nb + j * 8 + tig * 2;
-      if (p0 < npx) {
-        if (oc < ncout) put(fy0, fx0, oc, acc[j][0]);
-        if (oc + 1 < ncout) put(fy0, fx0, oc + 1, acc[j][1]);
-      }
-      if (p1 < npx) {
-        if (oc < ncout) put(fy1, fx1, oc, acc[j][2]);
-        if (oc + 1 < ncout) put(fy1, fx1, oc + 1, acc[j][3]);
-      }
-    }
-  }
-}
-
 // ---- building blocks of kernels that stage both operands in shared memory
-// (c2f.cu): 16-byte asynchronous copies global -> shared, bulk copies by the
+// (c2f.cu, head.cuh): 16-byte asynchronous copies global -> shared, bulk copies by the
 // copy engine, and ldmatrix loads of four 8x8 bf16 matrices, one 16-byte row
 // address per lane.
 
@@ -264,21 +200,42 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_r
                : "memory");
 }
 
-// A conv between shared maps with a per-element epilogue: tensor cores in
-// bf16 (w: bf16 [tap][pad16(ncout)][pad16(cin)]), CUDA cores in f32 (w: f32
-// HWIO with row stride ldw).
-template <int KS, int OCB, bool BF16, typename S, class Put>
-__device__ __forceinline__ void conv(const S* in, int fw, int ld, int cin, const void* w, int ldw, int ncout, int ry0,
-                                     int rx0, int rh, int rw, Put put) {
-  if constexpr (BF16) {
-    conv_smem_mma<KS, 2>(in, fw, ld, cin, static_cast<const __nv_bfloat16*>(w), ncout, ry0, rx0, rh, rw, put);
-  } else {
-    conv_smem<KS, OCB, S>(in, fw, ld, cin, static_cast<const float*>(w), ldw, ncout, ry0, rx0, rh, rw,
-                          [&](int fy, int fx, int oc0, float(&acc)[OCB]) {
-#pragma unroll
-                            for (int o = 0; o < OCB; ++o) put(fy, fx, oc0 + o, acc[o]);
-                          });
+// p -> (p / w, p % w) by one multiplication, exact for p * w < 2^32: the pixel indices of a
+// stage are turned into rows and columns for every item and every epilogue row
+struct RowCol {
+  uint64_t m;
+  int w;
+  __device__ explicit RowCol(int w_) : m((uint64_t(1) << 32) / uint32_t(w_) + 1), w(w_) {}
+  __device__ __forceinline__ void operator()(int p, int& row, int& col) const {
+    row = int((uint64_t(uint32_t(p)) * m) >> 32);
+    col = p - row * w;
   }
+};
+
+using bf16x2_t = __nv_bfloat162;
+
+__device__ __forceinline__ bf16x2_t& pair_at(__nv_bfloat16* d) { return *reinterpret_cast<bf16x2_t*>(d); }
+
+__device__ __forceinline__ uint32_t as_u32(bf16x2_t v) { return *reinterpret_cast<uint32_t*>(&v); }
+
+// conv epilogue of two neighbouring channels' f32 sums without the activation (yt::bias_add<true>):
+// the sums rounded to bf16, the bias (a bf16 value held in f32) added in bf16
+__device__ __forceinline__ bf16x2_t bias2(float v0, float v1, bf16x2_t bias) {
+  return __hadd2_rn(__floats2bfloat162_rn(v0, v1), bias);
+}
+
+// ConvBNAct epilogue of two neighbouring channels' f32 sums, with the roundings of
+// yt::bias_add<true> and yt::silu<true>: the sum is rounded to bf16, the bias (a bf16 value
+// held in f32) added in bf16, and SiLU is x * round(logistic_f32(x)), rounded. Packed bf16
+// adds and multiplies round the exact result once, as the scalar f32 forms do (the _rn forms:
+// the plain ones may be contracted with a following add, e.g. the residual's, into one fma
+// that rounds once where the plain version rounds twice); the logistic's exponential and
+// quotient are the fast intrinsics (their error is far below the rounding to bf16 that follows).
+__device__ __forceinline__ bf16x2_t act2(float v0, float v1, bf16x2_t bias) {
+  const bf16x2_t x = bias2(v0, v1, bias);
+  const float2 xf = __bfloat1622float2(x);
+  const float s0 = __fdividef(1.0f, 1.0f + __expf(-xf.x)), s1 = __fdividef(1.0f, 1.0f + __expf(-xf.y));
+  return __hmul2_rn(x, __floats2bfloat162_rn(s0, s1));
 }
 
 }  // namespace yt

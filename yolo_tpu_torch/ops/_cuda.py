@@ -115,19 +115,6 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({lib().yt_error_string(err).decode()})")
 
 
-def mma_weight(w, k: int):
-    """A flat HWIO f32 conv weight (k*k*cin, cout) → the tensor-core layout of the
-    bf16 kernels: bf16 [k*k][cout padded to 16][cin padded to 16], zero-padded."""
-    import torch
-
-    kk = k * k
-    cin, cout = w.shape[0] // kk, w.shape[1]
-    pad = lambda c: (c + 15) // 16 * 16  # noqa: E731
-    out = torch.zeros((kk, pad(cout), pad(cin)), dtype=torch.bfloat16, device=w.device)
-    out[:, :cout, :cin] = w.reshape(kk, cin, cout).transpose(1, 2).to(torch.bfloat16)
-    return out
-
-
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on `t`'s device."""
     import torch
