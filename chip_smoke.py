@@ -10,7 +10,8 @@ Phases (any failure stops the run with a non-zero exit code):
 2. hold every kernel against its plain PyTorch twin on the card, in f32 and
    bf16, at the main path's shapes (the C2f instances, four Detect levels
    through both head kernels, NMS at K=64 over a 128-frame chunk and at
-   K=1024), with activations captured from the trained model on real-size
+   K=1024 over one frame at conf 0.15, as each predict runs it, and over 8
+   frames at conf 0.01), with activations captured from the trained model on real-size
    frames; print each kernel's time, its plain twin's, a cuDNN conv walk of
    the same block (`library_ms`, a yardstick the port never calls) and the
    least time the card could take (`bound_ms`); the C2f lines also print
@@ -23,7 +24,10 @@ Phases (any failure stops the run with a non-zero exit code):
    edges]` holds both against their twins at the port's head edge shapes
    (B = 1 and 3, an odd map, a map narrower than the tile, P5's C = 192,
    c3 = 192, nc = 3, 17, the stock yolov8.yaml nc = 80 level, and yolov8x's
-   c2 = 80 at C = 320 and 512);
+   c2 = 80 at C = 320 and 512); `[nms edges]` holds the NMS kernel against
+   its twin, bit for bit, at B = 1 and 128 and K = 1, 33, 64, 1024, 1200 and
+   4096, and at B = 1 and K = 1280 and 1281, the last K of one launch and the
+   first of two (both forms of its plan, printed per shape);
 3. `[pipeline]`: run FusedDetectTrack (the demo's trained yolov8-small P2,
    scale n, demos/artifacts/train/weights/best.npz) on a seeded synthetic
    512-frame 640x512 IR clip with moving targets and dropout gaps: in f32
@@ -111,6 +115,20 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(call, reps: int = 20) -> float:
+    """The device's time per call of `call`, without the host's: `reps` calls
+    captured in one CUDA graph, whose replays are timed by events."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            call()
+    return cuda_ms(g.replay, iters=10, warmup=2) / reps
 
 
 def make_clip(n: int, h: int, w: int, seed: int = 0):
@@ -284,6 +302,27 @@ def nms_iou_count(boxes, thr) -> int:
     for i in range(K):
         sup |= over[:, i, :] & (later > i) & ~sup[:, i : i + 1]
     return int(((~sup).float() * (K - 1 - later).float()).sum())
+
+
+def nms_edges_phase(card):
+    """`[nms edges]`: the NMS kernel against its twin, bit for bit, at the port's
+    edge shapes (ops/cuda_nms.py NMS_EDGES: B = 1 and 128, K = 1 to 4096, both
+    forms of the plan) on seeded candidates with ties, duplicates and padding.
+    The twin takes 16 images at a time (its IoU matrix is B x K x K floats)."""
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_nms
+
+    for B, K in cuda_nms.NMS_EDGES:
+        boxes, scores = cuda_nms.edge_candidates(B, K, seed=K, device="cuda")
+        got = cuda_nms.nms_keep(boxes, scores, 0.5)
+        want = torch.cat([cuda_nms.nms_keep_plain(boxes[i : i + 16], scores[i : i + 16], 0.5) for i in range(0, B, 16)])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"nms edges: B={B} K={K}: keep mask differs from the twin in {int((got != want).sum())} slots")
+        ms = cuda_ms(lambda: cuda_nms.nms_keep(boxes, scores, 0.5), iters=20, warmup=2)
+        log("nms edges", card, f"B={B:<3d} K={K:<4d} kept={int(got.sum())} valid={int((scores > 0).sum())} equal to the twin; "
+            f"{cuda_nms.plan_text(B, K)} kernel_ms={ms:.4f}")
 
 
 def c2f_plan_text(B, H, W, c1, cs, kw, dtype) -> str:
@@ -717,25 +756,30 @@ def check_kernels(model, params, frames, card, d_max=16, keep=None):
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"nms_keep {dn}: keep mask differs from the plain twin in {int((got != want).sum())} slots")
-        ms = cuda_ms(lambda: cuda_nms.nms_keep(cand, top, ft.iou))
+        ms = cuda_ms(lambda: cuda_nms.nms_keep(cand, top, ft.iou), iters=50, warmup=5)
         pms = cuda_ms(lambda: cuda_nms.nms_keep_plain(cand, top, ft.iou))
         n_iou = nms_iou_count(cand, ft.iou)
         bound, by = _bound(_nbytes(cand, top) + B * K, 12.0 * n_iou, "float32")
         log(
             f"kernels {dn}", card,
-            f"nms_keep      B={B} K={K} kept={int(got.sum())} valid={int((top > 0).sum())} "
-            f"max_abs_err=0 kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms=null bound_ms={bound:.5f} ({by}; "
-            f"{n_iou} IoUs x 12 f32 ops)"
+            f"nms_keep      B={B} K={K} kept={int(got.sum())} valid={int((top > 0).sum())} {cuda_nms.plan_text(B, K)} "
+            f"max_abs_err=0 kernel_ms={ms:.4f} (device, graph: {graph_ms(lambda: cuda_nms.nms_keep(cand, top, ft.iou)):.4f}) "
+            f"plain_ms={pms:.4f} library_ms=null bound_ms={bound:.5f} ({by}; {n_iou} IoUs x 12 f32 ops)"
         )
-        # the predict facade's NMS: K = max_nms = 1024 candidates per frame, here over 8 frames at a low threshold
-        cand1k, top1k = nms_candidates(boxes[:8], scores[:8], 0.01, 1024)
-        got1k = cuda_nms.nms_keep(cand1k, top1k, ft.iou)
-        want1k = cuda_nms.nms_keep_plain(cand1k, top1k, ft.iou)
-        torch.cuda.synchronize()
-        if not torch.equal(got1k, want1k):
-            raise AssertionError(f"nms_keep {dn} K=1024: keep mask differs in {int((got1k != want1k).sum())} slots")
-        log(f"kernels {dn}", card, f"nms_keep       B=8 K=1024 kept={int(got1k.sum())} valid={int((top1k > 0).sum())} "
-            f"max_abs_err=0 kernel_ms={cuda_ms(lambda: cuda_nms.nms_keep(cand1k, top1k, ft.iou)):.4f}")
+        # the predict facade's NMS: K = max_nms = 1024 candidates of one frame at its conf 0.15, as each
+        # predict launches it, and over 8 frames at a low threshold
+        for nb, conf in ((1, ft.conf), (8, 0.01)):
+            cand1k, top1k = nms_candidates(boxes[:nb], scores[:nb], conf, 1024)
+            got1k = cuda_nms.nms_keep(cand1k, top1k, ft.iou)
+            want1k = cuda_nms.nms_keep_plain(cand1k, top1k, ft.iou)
+            torch.cuda.synchronize()
+            if not torch.equal(got1k, want1k):
+                raise AssertionError(f"nms_keep {dn} B={nb} K=1024: keep mask differs in {int((got1k != want1k).sum())} slots")
+            log(f"kernels {dn}", card, f"nms_keep      B={nb} K=1024 conf={conf} kept={int(got1k.sum())} "
+                f"valid={int((top1k > 0).sum())} {cuda_nms.plan_text(nb, 1024)} max_abs_err=0 kernel_ms="
+                f"{cuda_ms(lambda: cuda_nms.nms_keep(cand1k, top1k, ft.iou), iters=50, warmup=5):.4f} (device, graph: "
+                f"{graph_ms(lambda: cuda_nms.nms_keep(cand1k, top1k, ft.iou)):.4f}) plain_ms="
+                f"{cuda_ms(lambda: cuda_nms.nms_keep_plain(cand1k, top1k, ft.iou), iters=2, warmup=1):.4f}")
         if dtype == torch.bfloat16:
             records["nms_keep"] = dict(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, max_abs_err=0.0,
                                        ops_ms=bound if by == "operations" else 0.0,
@@ -994,6 +1038,7 @@ def main(argv) -> int:
     records = check_kernels(model, params, clip[:CHUNK], card, keep=c2f_cases)
     c2f_edges_phase(card)
     head_edges_phase(card)
+    nms_edges_phase(card)
 
     ft, launches = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
     _, launches_cm = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)

@@ -133,18 +133,65 @@ def test_head_kernel_refuses_what_it_does_not_take(card):
     assert (cuda_head.fused_head_level.launches, cuda_head_cm.head_level_cm.launches) == before
 
 
-def test_nms_kernel_matches_plain(card):
-    g = torch.Generator(device=card).manual_seed(0)
-    B, K = 16, 64
-    xy = torch.rand(B, K, 2, device=card, generator=g) * 100
-    wh = torch.rand(B, K, 2, device=card, generator=g) * 30 + 4
-    boxes = torch.cat([xy, xy + wh], -1)
-    boxes[:, 1::4] = boxes[:, 0::4]  # duplicates
-    scores = torch.sort(torch.rand(B, K, device=card, generator=g).round(decimals=1), 1, descending=True).values
-    scores[:, -8:] = -1.0
+@pytest.mark.parametrize("B,K", cuda_nms.NMS_EDGES)
+def test_nms_kernel_matches_plain(card, B, K):
+    """Bit for bit, at one image and a chunk, K from 1 to 4096 (both forms of the
+    plan), with ties, duplicates, padding and all-padding images. The twin runs
+    16 images at a time: its (B, K, K) IoU matrix at 128 x 4096 would not fit."""
+    boxes, scores = cuda_nms.edge_candidates(B, K, seed=K, device=card)
+    before = cuda_nms.nms_keep.launches
     got = cuda_nms.nms_keep(boxes, scores, 0.5)
-    want = cuda_nms.nms_keep_plain(boxes, scores, 0.5)
-    assert torch.equal(got, want)
+    assert cuda_nms.nms_keep.launches == before + 1
+    want = torch.cat([cuda_nms.nms_keep_plain(boxes[i : i + 16], scores[i : i + 16], 0.5) for i in range(0, B, 16)])
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert K == 1 or 0 < int(got.sum()) < int((scores > 0).sum())
+
+
+def test_nms_plan_forms(card):
+    """nms.cu's plan: one launch, a block per image, while an image's boxes, areas
+    and mask fit a block (every K of the main path, the predict facade and d_max =
+    300, up to K = 1280); two launches (mask rows over many blocks into a scratch of
+    K rows of ceil(K / 32) words per image) from K = 1281 on."""
+    for B, K in ((128, 64), (1, 64), (1, 1024), (8, 1024), (128, 1024), (128, 1200), (1, 1280), (4096, 64)):
+        p = cuda_nms.plan(B, K)
+        assert (p["launches"], p["blocks"], p["row_blocks"], p["scratch_words"]) == (1, B, 0, 0), (B, K)
+        assert p["smem"] == 20 * K + 4 * (K + 1) * ((K + 31) // 32) <= 227 * 1024 - 1024
+    for B, K in ((1, 1281), (1, 4096), (128, 4096)):
+        p = cuda_nms.plan(B, K)
+        W = (K + 31) // 32
+        assert p["launches"] == 2 and p["scratch_words"] == B * K * W and 1 <= p["row_blocks"] <= W, (B, K)
+        assert p["blocks"] == B * p["row_blocks"] + -(-B // 4) and p["smem"] == 16 * W
+
+
+def test_nms_kernel_refuses_what_it_does_not_take(card):
+    boxes, scores = cuda_nms.edge_candidates(2, 8, device=card)
+    for b, s in ((boxes.double(), scores), (boxes, scores[:, :4]), (boxes[:, :0], scores[:, :0]), (boxes[..., :3], scores)):
+        with pytest.raises(ValueError, match="nms_keep takes"):
+            cuda_nms.nms_keep(b, s, 0.5)
+
+
+def test_fused_detect_track_d_max_300_kernels_match_plain(card):
+    """FusedDetectTrack(d_max=300) gives max_nms = 1200 candidate slots, more than
+    the first NMS kernel took: f32 through the kernels equals f32 through the twins in tracks, ids, statuses and stats."""
+    from yolo_tpu_torch import DetectionModel, FusedDetectTrack
+
+    model = DetectionModel("yolov8n.yaml", device=card)
+    params = model.init(0)
+    clip = np.random.default_rng(5).integers(0, 255, (16, 320, 320, 1), np.uint8)
+    clip[:, 100:116, 60:76] = 255
+    kw = dict(frame_hw=(320, 320), chunk=8, conf=1e-4, n_max=512, d_max=300, dtype=torch.float32)
+    ft = FusedDetectTrack(model, params, **kw)
+    assert ft.max_nms == 1200
+    before = cuda_nms.nms_keep.launches
+    got_outs, got_stats = ft.run_clip(clip)
+    assert cuda_nms.nms_keep.launches == before + 2
+    want_outs, want_stats = FusedDetectTrack(model, params, plain=True, **kw).run_clip(clip)
+    assert got_stats == want_stats and got_stats["detection_frames"] > 0
+    for got, want in zip(got_outs, want_outs):
+        for k in ("emit", "status", "track_num", "time_since_update", "det_count"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for k in ("bbox", "confidence", "velocity"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-2, err_msg=k)
 
 
 @pytest.mark.parametrize("head_cm", [False, True])
