@@ -44,7 +44,25 @@ Phases (any failure stops the run with a non-zero exit code):
 6. `[predict]`: `YOLO(best.npz).predict` frame by frame on 64 3-channel frames
    of the clip into the per-object Kalman clip loop, in f32 through the
    kernels and through the twins (equal detections and stats), then in bf16,
-   timed.
+   timed;
+7. `[track bytetrack]`: `YOLO(best.npz).track(frame, persist=True,
+   tracker="bytetrack.yaml")` on the same 64 BGR frames, one per call, at the
+   track defaults (conf 0.1, max_det 300, imgsz 640; the host BYTETracker):
+   f32 kernels against f32 twins (rows and ids equal per frame, boxes 1e-2 px,
+   conf 1e-4), then bf16, timed (predict and tracker host ms/frame);
+8. `[track botsort]`: the same with a BoT-SORT yaml whose gmc_method is none,
+   written to a temporary path (the only form a machine without cv2 runs);
+   where cv2 imports, `[track botsort sparseOptFlow]` runs the default
+   botsort.yaml, the GMC on;
+9. `[track device]`: the bytetrack run with YOLO_TPU_DEVICE_TRACKER=1, the
+   batched ByteTrack twin on the card: rows equal the host tracker's under the
+   JAX package's contract (ids exact, 2e-2), then its bf16 ms/frame at d_max /
+   n_max 320 / 512 (the defaults) and 16 / 64;
+10. `[byte scan]`: the 512-frame clip in 128-frame chunks already on the card:
+   the bf16 forward, NMS at d_max 16, xyxy → xywh with cls 0, then
+   `BatchedBYTETracker(n_max=64, d_max=16).scan_frames`; equal to `update`
+   frame by frame and to the same scan on the CPU (ids exact, 1e-4); frames/s
+   and the per-chunk event split (forward, NMS, byte step).
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -61,9 +79,11 @@ three lines are the `kernels` JSON line, the card's name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -82,6 +102,7 @@ CLS_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2e-3, 6e-2)}
 LOGIT_TOL = {"float32": (1e-3, 0.0), "bfloat16": (6e-2, 1.6e-2)}
 FRAMES, CHUNK, HW = 512, 128, (512, 640)
 PREDICT_FRAMES = 64
+TRACK_FRAMES = 64
 KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "c2f": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:264"),
     "c2f_upconcat": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:290"),
@@ -89,6 +110,15 @@ KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "head_level_cm": ("cuda", "yolo_tpu_torch/csrc/head_cm.cu", "yolo_tpu/ops/pallas_head2.py:117"),
     "nms_keep": ("cuda", "yolo_tpu_torch/csrc/nms.cu", "yolo_tpu/ops/pallas_nms.py:56"),
 }
+
+
+def cv2_version() -> str | None:
+    """cv2's version where it imports, else None."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2.__version__
 
 
 def card_line() -> str:
@@ -986,6 +1016,196 @@ def predict_phase(clip, card):
     log("predict bf16", card, f"kernel launches in that run: {launches}")
 
 
+@contextlib.contextmanager
+def environ(**env):
+    """Set environment variables for the block, then restore them."""
+    import os
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def track_run(frames, tracker, half, plain, device_tracker=False, d_max=320, n_max=512):
+    """`YOLO(best.npz).track` one BGR frame per call with persist=True at the track
+    defaults (conf 0.1, max_det 300, imgsz 640) → (Results rows per frame, wall s,
+    tracker s, tracker class). The tracker is made first, as the first call would
+    make it (create_tracker), so that its update can be timed; one predict warms up."""
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.trackers.track import create_tracker
+
+    with environ(YOLO_TPU_DEVICE_TRACKER=int(device_tracker), YOLO_TPU_DEVICE_TRACKER_DMAX=d_max,
+                 YOLO_TPU_DEVICE_TRACKER_NMAX=n_max):
+        model = YOLO(str(WEIGHTS))
+        model.predict(frames[0], conf=0.1, half=half, plain=plain, verbose=False)  # cuDNN plans, allocator, first launches
+        model._tracker = trk = create_tracker(tracker, device=model.device)
+    spent, update = [0.0], trk.update
+
+    def timed_update(*args, **kw):
+        t0 = time.perf_counter()
+        out = update(*args, **kw)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    trk.update = timed_update
+    rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for frame in frames:
+        rows.append(model.track(frame, persist=True, tracker=tracker, half=half, plain=plain, verbose=False)[0].boxes.data)
+    return rows, time.perf_counter() - t0, spent[0], type(trk).__name__
+
+
+def compare_tracks(got, want, box_tol, conf_tol, what):
+    """Per frame: equal row counts, equal ids, boxes within box_tol px, conf within
+    conf_tol (rows in id order) → (largest box difference, tracked rows, distinct ids)."""
+    import numpy as np
+
+    worst, n_rows, ids = 0.0, 0, set()
+    for f, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}, frame {f}: rows {g.shape} vs {w.shape}")
+        if g.shape[-1] == 7:
+            g, w = g[np.argsort(g[:, 4], kind="stable")], w[np.argsort(w[:, 4], kind="stable")]
+            if not np.array_equal(g[:, 4], w[:, 4]):
+                raise AssertionError(f"{what}, frame {f}: ids {g[:, 4]} vs {w[:, 4]}")
+            n_rows += len(g)
+            ids |= set(g[:, 4].tolist())
+        if len(g):
+            worst = max(worst, float(np.abs(g[:, :4] - w[:, :4]).max()))
+            if worst > box_tol or float(np.abs(g[:, -2] - w[:, -2]).max()) > conf_tol or not np.array_equal(g[:, -1], w[:, -1]):
+                raise AssertionError(f"{what}, frame {f}: boxes / conf / cls beyond {box_tol} px / {conf_tol}:\n{g}\n{w}")
+    return worst, n_rows, ids
+
+
+def track_phase(tag, clip, card, tracker):
+    """`[track bytetrack]` / `[track botsort]`: YOLO.track over the clip's first
+    TRACK_FRAMES frames as BGR, f32 through the kernels against f32 through the
+    twins (rows, ids, boxes 1e-2 px, conf 1e-4), then bf16, timed → the f32 kernel rows."""
+    import numpy as np
+
+    frames = np.repeat(clip[:TRACK_FRAMES], 3, -1)
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    (rk, wk, _, name), _ = counted(path, lambda: track_run(frames, tracker, half=False, plain=False))
+    rp, wp, _, _ = track_run(frames, tracker, half=False, plain=True)
+    worst, n_rows, ids = compare_tracks(rk, rp, 1e-2, 1e-4, f"{tag}: kernels against plain")
+    if n_rows <= 0:
+        raise AssertionError(f"{tag}: no tracked rows in {TRACK_FRAMES} frames")
+    log(f"{tag} f32", card, f"{name}: kernels in {wk:.2f} s | plain in {wp:.2f} s | rows and ids equal on every frame "
+        f"({n_rows} tracked rows, ids {sorted(int(i) for i in ids)}); max |box diff| {worst:.3e} px")
+    (rb, wb, tb, _), launches = counted(path, lambda: track_run(frames, tracker, half=True, plain=False))
+    same = sum(len(a) == len(b) for a, b in zip(rb, rk))
+    log(f"{tag} bf16", card, f"{TRACK_FRAMES} frames in {wb:.3f} s = {TRACK_FRAMES / wb:.1f} frames/s (host clock, one frame "
+        f"per track call); predict {(wb - tb) / TRACK_FRAMES * 1e3:.3f} ms/frame, tracker {tb / TRACK_FRAMES * 1e3:.3f} ms/frame; "
+        f"rows per frame equal to f32 on {same}/{TRACK_FRAMES} frames; kernel launches {launches}")
+    return rk
+
+
+def track_device_phase(clip, card, host_rows):
+    """`[track device]`: the bytetrack run with YOLO_TPU_DEVICE_TRACKER=1, the batched
+    twin on the card: rows match the host tracker's under the JAX package's contract
+    (ids exact, 2e-2); then its bf16 ms/frame at the default capacities and at 16 / 64."""
+    import numpy as np
+
+    frames = np.repeat(clip[:TRACK_FRAMES], 3, -1)
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    (rd, _, _, name), _ = counted(path, lambda: track_run(frames, "bytetrack.yaml", half=False, plain=False, device_tracker=True))
+    if name != "BatchedBYTETracker":
+        raise AssertionError(f"track device: YOLO_TPU_DEVICE_TRACKER=1 made a {name}")
+    worst, n_rows, _ = compare_tracks(rd, host_rows, 2e-2, 2e-2, "track device: the batched twin against the host tracker")
+    log("track device f32", card, f"BatchedBYTETracker on the card (d_max 320, n_max 512): {n_rows} tracked rows, rows and ids "
+        f"equal to [track bytetrack]'s host tracker on every frame; max |box diff| {worst:.3e} px")
+    for d_max, n_max in ((320, 512), (16, 64)):
+        (rb, wb, tb, _), launches = counted(
+            path, lambda: track_run(frames, "bytetrack.yaml", half=True, plain=False, device_tracker=True, d_max=d_max, n_max=n_max))
+        log("track device bf16", card, f"d_max {d_max} n_max {n_max}: {TRACK_FRAMES} frames in {wb:.3f} s = {TRACK_FRAMES / wb:.1f} "
+            f"frames/s; predict {(wb - tb) / TRACK_FRAMES * 1e3:.3f} ms/frame, batched tracker update {tb / TRACK_FRAMES * 1e3:.3f} "
+            f"ms/frame (host clock, ends in its copy to the host); tracked rows {sum(len(r) for r in rb if r.shape[-1] == 7)}; "
+            f"kernel launches {launches}")
+
+
+def byte_scan_phase(model, params, clip, card):
+    """`[byte scan]`: the JAX package's device_fps_byte_track shape. Per 128-frame
+    chunk, frames already on the card: the bf16 forward (predict_parts, the default
+    head kernel), NMS with d_max 16, xyxy → xywh with cls 0, then
+    BatchedBYTETracker(n_max 64, d_max 16, max_time_lost 30).scan_frames. The
+    outputs must equal `update` frame by frame on the same detections, and the
+    same scan on the CPU (ids exact, 1e-4)."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.ops.nms import non_max_suppression_parts
+    from yolo_tpu_torch.trackers.batched import BatchedBYTETracker
+
+    ft = make_pipeline(model, params, torch.bfloat16, plain=False)
+    chunks = [torch.from_numpy(clip[i : i + CHUNK]).cuda() for i in range(0, FRAMES, CHUNK)]
+
+    def run(trk, marks=None):
+        dets, outs = [], []
+        with torch.no_grad():
+            for frames in chunks:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+                boxes, scores = ft.model.predict_parts(frames.to(ft.dtype), plain=False)
+                ev[1].record()
+                det = non_max_suppression_parts(boxes, scores, conf_thres=ft.conf, iou_thres=ft.iou, max_det=ft.d_max,
+                                                max_nms=ft.max_nms)
+                ev[2].record()
+                xyxy = det["boxes"].float()
+                xywh = torch.cat([(xyxy[..., :2] + xyxy[..., 2:]) / 2, xyxy[..., 2:] - xyxy[..., :2]], -1)
+                seq = (xywh, det["scores"].float(), torch.zeros_like(det["scores"], dtype=torch.float32), det["valid"])
+                outs.append(trk.scan_frames(*seq))  # ends in the chunk's one wait for the device
+                ev[3].record()
+                dets.append(seq)
+                if marks is not None:
+                    marks.append(ev)
+        return dets, {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+    def make(device):  # the ByteTrack defaults: track_buffer 30 at 30 frames/s, so max_time_lost 30
+        return BatchedBYTETracker(n_max=64, d_max=ft.d_max, device=device)
+
+    run(make("cuda"))  # warm-up
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (dets, outs), launches = counted({"c2f", "c2f_upconcat", "head_level", "nms_keep"}, lambda: run(make("cuda"), marks))
+    wall = time.perf_counter() - t0
+    split = np.array([[a.elapsed_time(b) for a, b in zip(ev, ev[1:])] for ev in marks])
+    xywh, sc, cl, valid = (torch.cat([d[i] for d in dets]).cpu().numpy() for i in range(4))
+    cpu = make("cpu").scan_frames(xywh, sc, cl, valid)
+    step = make("cuda")
+    worst = 0.0
+    for f in range(FRAMES):
+        m = valid[f]
+        rows = step.update(xywh[f][m], sc[f][m], cl[f][m])
+        for o, what in ((outs, "the scan"), (cpu, "the CPU scan")):
+            keep = np.flatnonzero(o["emit"][f])
+            keep = keep[np.argsort(o["track_id"][f][keep])]
+            scan_rows = np.concatenate([o["xyxy"][f][keep]] + [o[k][f][keep, None] for k in ("track_id", "score", "cls", "det_idx")], 1)
+            if scan_rows.shape != rows.shape or not np.array_equal(scan_rows[:, 4], rows[:, 4]):
+                raise AssertionError(f"byte scan, frame {f}: stepwise update gives ids {rows[:, 4]}, {what} {scan_rows[:, 4]}")
+            if len(rows):
+                worst = max(worst, float(np.abs(scan_rows - rows).max()))
+    if worst > 1e-4 or not outs["emit"].any():
+        raise AssertionError(f"byte scan: max |row diff| {worst} against stepwise update, {int(outs['emit'].sum())} emitted")
+    log("byte scan", card, f"{FRAMES} frames (on the card) in {wall:.3f} s = {FRAMES / wall:.1f} frames/s (host clock); "
+        f"{int(valid.sum())} detections, {int(outs['emit'].sum())} emitted rows, {len(set(outs['track_id'][outs['emit']].tolist()))} "
+        f"ids; the scan equals update frame by frame and the CPU scan (ids exact, max |row diff| {worst:.3e}); kernel launches "
+        f"{launches}")
+    for i, (fwd, nms, byte) in enumerate(split):
+        log("byte scan", card, f"chunk {i}: forward {fwd:.2f} ms, NMS {nms:.2f} ms, byte step {byte:.2f} ms "
+            f"({byte / CHUNK:.3f} ms/frame, its copy to the host included)")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -1048,6 +1268,18 @@ def main(argv) -> int:
     bgr_phase(model, params, clip, card)
     batched_tracker_phase(card)
     predict_phase(clip, card)
+    host_rows = track_phase("track bytetrack", clip, card, "bytetrack.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        botsort = Path(tmp) / "botsort_none.yaml"
+        botsort.write_text((ROOT / "yolo_tpu_torch" / "cfg" / "trackers" / "botsort.yaml").read_text()
+                           .replace("gmc_method: sparseOptFlow", "gmc_method: none"))
+        print(f"[track botsort] gmc_method none, the GMC off (a machine without cv2 runs only this form); "
+              f"cv2 here: {cv2_version()}")
+        track_phase("track botsort", clip, card, str(botsort))
+    if cv2_version():  # the default yaml's sparse optical flow, where cv2 imports
+        track_phase("track botsort sparseOptFlow", clip, card, "botsort.yaml")
+    track_device_phase(clip, card, host_rows)
+    byte_scan_phase(model, params, clip, card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

@@ -242,3 +242,94 @@ def test_batched_multi_target_tracker_on_the_card_equals_cpu(card):
     for k in ("emit", "status", "track_num", "time_since_update"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     np.testing.assert_allclose(got["bbox"][got["emit"]], want["bbox"][want["emit"]], rtol=0, atol=1e-3)
+
+
+def _rich_stream(n_frames=60, seed=3, n_targets=5):
+    """tests/test_torch_trackers.py::_rich_stream (that module imports JAX, which the card's
+    machine lacks): well separated targets with a dropout, a low-confidence dip, a late
+    joiner and a departure → per frame [(xywh, conf, cls), ...]."""
+    rng = np.random.default_rng(seed)
+    starts = rng.uniform([60, 60], [560, 420], (n_targets, 2))
+    vels = rng.uniform(-4, 4, (n_targets, 2))
+    frames = []
+    for f in range(n_frames):
+        dets = []
+        for t in range(n_targets):
+            if (t == 2 and 20 <= f < 28) or (t == 3 and f < 10) or (t == 4 and f > 45):
+                continue
+            cx, cy = starts[t] + vels[t] * f
+            if not (20 < cx < 620 and 20 < cy < 490):
+                continue
+            dets.append(([cx, cy, 26 + 2 * t, 18 + t], 0.18 if t == 1 and 30 <= f < 36 else 0.9, t % 3))
+        frames.append(dets)
+    return frames
+
+
+@pytest.mark.parametrize("n_max,d_max", [(64, 16), (8, 4)])
+def test_batched_byte_tracker_on_the_card_equals_cpu(card, n_max, d_max):
+    """update frame by frame, then scan_frames over a second stretch: ids exact, rows 1e-4. With
+    d_max 4 the frames of five targets lose their fifth detection, as in JAX, with one warning each."""
+    import warnings
+
+    from yolo_tpu_torch.trackers.batched import BatchedBYTETracker
+
+    frames = _rich_stream()
+    on_card, on_cpu = (BatchedBYTETracker(n_max=n_max, d_max=d_max, device=d) for d in (card, "cpu"))
+    rng = np.random.default_rng(1)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for f, dets in enumerate(frames[:40]):
+            boxes = np.array([d[0] for d in dets], np.float32).reshape(-1, 4) + rng.normal(0, 0.25, (len(dets), 4)).astype(np.float32)
+            scores, cls = np.array([d[1] for d in dets], np.float32), np.array([d[2] for d in dets], np.float32)
+            got, want = on_card.update(boxes, scores, cls), on_cpu.update(boxes, scores, cls)
+            assert got.shape == want.shape, f
+            np.testing.assert_array_equal(got[:, 4], want[:, 4])
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4, err_msg=f"frame {f}")
+    assert len([w for w in seen if "d_max" in str(w.message)]) == (2 if d_max < 5 else 0)
+    T, D = 20, d_max
+    seq = [np.zeros((T, D, 4), np.float32), np.zeros((T, D), np.float32), np.zeros((T, D), np.float32), np.zeros((T, D), bool)]
+    for f, dets in enumerate(frames[40:]):
+        for i, (b, s, c) in enumerate(dets[:D]):
+            seq[0][f, i], seq[1][f, i], seq[2][f, i], seq[3][f, i] = b, s, c, True
+    got, want = on_card.scan_frames(*seq), on_cpu.scan_frames(*seq)
+    for k in ("emit", "track_id", "det_idx"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("xyxy", "score", "cls"):
+        np.testing.assert_allclose(got[k][got["emit"]], want[k][want["emit"]], rtol=0, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("tracker", ["bytetrack.yaml", "botsort-none"])
+def test_yolo_track_kernels_match_plain(card, tracker, tmp_path):
+    """YOLO(best.npz).track on the card, f32, through the kernels and through the plain
+    twins (`plain=True`): equal row counts and ids, boxes 1e-2 px, conf 1e-4. BoT-SORT
+    runs with gmc_method none (the card's machine has no cv2)."""
+    from pathlib import Path
+
+    from yolo_tpu_torch import YOLO
+
+    if tracker == "botsort-none":
+        cfg = (Path(__file__).resolve().parents[1] / "yolo_tpu_torch" / "cfg" / "trackers" / "botsort.yaml").read_text()
+        tracker = str(tmp_path / "botsort_none.yaml")
+        Path(tracker).write_text(cfg.replace("gmc_method: sparseOptFlow", "gmc_method: none"))
+    weights = Path(__file__).resolve().parents[1] / "demos" / "artifacts" / "train" / "weights" / "best.npz"
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:512, 0:640]
+    frames = []
+    for f in range(8):
+        img = 30 + rng.normal(0, 2, (512, 640))
+        for x0, y0, vx, vy in ((100, 120, 6, 2), (400, 300, -5, 3), (300, 80, 1, 5)):
+            img = img + 170 * np.exp(-((xx - x0 - vx * f) ** 2 + (yy - y0 - vy * f) ** 2) / (2 * 4.0**2))
+        frames.append(np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3, -1))
+    runs = []
+    for plain in (False, True):
+        model = YOLO(str(weights))
+        runs.append([model.track(fr, persist=True, tracker=tracker, plain=plain, verbose=False)[0] for fr in frames])
+    n_ids = set()
+    for g, w in zip(*runs):
+        assert len(g) == len(w) and g.boxes.is_track == w.boxes.is_track
+        if len(g):
+            np.testing.assert_array_equal(g.boxes.id, w.boxes.id)
+            np.testing.assert_allclose(g.boxes.xyxy, w.boxes.xyxy, rtol=0, atol=1e-2)
+            np.testing.assert_allclose(g.boxes.conf, w.boxes.conf, rtol=0, atol=1e-4)
+            n_ids |= set(g.boxes.id.tolist())
+    assert n_ids == {1.0, 2.0, 3.0}

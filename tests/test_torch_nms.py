@@ -183,3 +183,22 @@ def test_nms_parts_at_d_max_300_matches_jax(plain):
     for k in ("boxes", "scores", "cls", "valid"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
     assert got["valid"].any()
+
+
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("classes", [[0, 5], [5], [-1, 2], [-4, 1], [-3]])
+def test_nms_parts_classes_out_of_range_match_jax(plain, classes):
+    """nc = 3: ids >= nc or < -nc select nothing (JAX's scatter drops them), negative ids count from the end."""
+    rng = np.random.default_rng(3)
+    B, A, nc = 2, 200, 3
+    xy = rng.uniform(10, 200, (B, A, 2))
+    wh = rng.uniform(4, 30, (B, A, 2))
+    boxes = np.concatenate([xy, wh], -1).astype(np.float32)
+    scores = rng.uniform(0, 1, (B, A, nc)).astype(np.float32)
+    kw = dict(conf_thres=0.25, iou_thres=0.5, max_det=30, max_nms=64, classes=classes)
+    got = non_max_suppression_parts(torch.from_numpy(boxes), torch.from_numpy(scores), plain=plain, **kw)
+    want = jax_nms_parts(jnp.asarray(boxes), jnp.asarray(scores), **kw)
+    for k in ("boxes", "scores", "cls", "valid"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    kept = {c % nc for c in classes if -nc <= c < nc}
+    assert set(got["cls"][got["valid"]].tolist()) == kept

@@ -267,7 +267,7 @@ def test_yolo_predict_matches_jax(yolos):
     np.testing.assert_allclose(one[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-4)
     # plain=True (the twins by name) is the same route on the CPU (a batch of 1, so sums differ in the last bit)
     np.testing.assert_allclose(py.predict(frames[0], plain=True, **kw)[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-5)
-    with pytest.raises(TypeError, match="not a setting"):
+    with pytest.raises(NotImplementedError, match="augment"):
         py.predict(frames[0], augment=True)
 
 
@@ -343,3 +343,44 @@ def test_reused_yolo_takes_half_and_back():
     assert seen == [torch.bfloat16, torch.bfloat16, torch.float32] and stem.weight.dtype == torch.float32
     np.testing.assert_array_equal(r32b[0].boxes.data, r32[0].boxes.data)
     assert len(r16) == 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(save=False), dict(augment=False), dict(show=False), dict(line_width=2), dict(stream_buffer=False),
+    dict(mode="track", tracker="bytetrack.yaml", persist=True), dict(epochs=3, lr0=0.1, format="npz"),
+    dict(classes=[0, 3]),
+])
+def test_yolo_predict_takes_the_cfg_keys_like_jax(yolos, kw):
+    """Keys of the JAX package's cfg that ask for nothing unported change nothing
+    (JAX's predict keeps them too); class ids beyond nc = 1 select nothing. The
+    results equal JAX's at the tolerances of test_yolo_predict_matches_jax."""
+    jy, py = yolos
+    rng = np.random.default_rng(11)
+    frame = np.repeat(_ir_frame(rng, 96, 128, 50, 40)[..., None], 3, -1)
+    base = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=1)
+    want = jy.predict(frame, compute_dtype="float32", **base, **{k: v for k, v in kw.items() if k != "persist"})
+    got = py.predict(frame, **base, **kw)
+    assert len(got[0]) == 1
+    _assert_same_results(got, want, box_atol=1e-2)
+
+
+def test_predict_settings_that_ask_for_unported_features_raise():
+    py = yolo_tpu_torch.YOLO("yolov8-small.yaml", device="cpu")
+    frame = np.random.default_rng(12).integers(0, 255, (64, 64, 3), np.uint8)
+    kw = dict(imgsz=64, conf=0.001, verbose=False)
+    one = py.predict(frame, classes=[0], **kw)
+    np.testing.assert_array_equal(py.predict(frame, classes=[0, 3], **kw)[0].boxes.data, one[0].boxes.data)
+    assert len(one[0]) > 0 and len(py.predict(frame, classes=[3], **kw)[0]) == 0
+    for bad in (dict(save=True), dict(show=True), dict(save_txt=True), dict(visualize=True), dict(int8=True), dict(embed=[21])):
+        with pytest.raises(NotImplementedError, match=next(iter(bad))):
+            py.predict(frame, **kw, **bad)
+    with pytest.raises(TypeError, match="'no_such_key' is not a setting"):
+        py.predict(frame, no_such_key=1, **kw)
+    a = PredictArgs()
+    a.update(dict(compute_dtype="bfloat16", save=False, mode="track"))
+    pred = BasePredictor(py.model, py.params, overrides={"device": "cpu", "compute_dtype": "bfloat16"})
+    assert a.compute_dtype == "bfloat16" and pred.dtype == torch.bfloat16
+    from yolo_tpu.cfg import DEFAULT_CFG_DICT
+    from yolo_tpu_torch.engine.predictor import _cfg_keys
+
+    assert _cfg_keys() == set(DEFAULT_CFG_DICT)

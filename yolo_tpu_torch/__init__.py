@@ -1,5 +1,6 @@
 """yolo_tpu_torch: the PyTorch/CUDA port of yolo_tpu for NVIDIA Hopper: the fused detect+track
-pipeline and the `YOLO(...).predict` facade with the per-object Kalman clip loop.
+pipeline, the `YOLO(...).predict` facade with the per-object Kalman clip loop, and
+`YOLO(...).track` with the ByteTrack / BoT-SORT trackers.
 
 The JAX package `yolo_tpu` is the reference; this package imports nothing of
 it (nor JAX). Entry points run on the CUDA card unless the caller passes

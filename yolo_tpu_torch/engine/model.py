@@ -3,10 +3,10 @@
     YOLO("yolov8-small.yaml")      # fresh DetectionModel, seeded random weights
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     results = YOLO(...).predict(frame, conf=0.25)
+    tracked = YOLO(...).track(frame, persist=True, tracker="bytetrack.yaml")
 
 Runs on the CUDA card unless `device="cpu"` is passed. `.pt` / orbax loading,
-remote and ensemble models, and the track / train / val / export modes are
-not ported.
+remote and ensemble models, and the train / val / export modes are not ported.
 """
 
 from __future__ import annotations
@@ -76,3 +76,15 @@ class YOLO:
             self.predictor.args.update(kwargs)
             self.predictor.set_params(self.params)
         return self.predictor(source, stream=stream)
+
+    def track(self, source=None, stream: bool = False, persist: bool = False, **kwargs):
+        """Predict, then track (trackers/track.py) → Results whose boxes carry track ids.
+        `conf` defaults to 0.1 and `batch` to 1; `persist=True` keeps the tracker
+        of the previous call, so frames passed one call at a time form one stream."""
+        kwargs.setdefault("conf", 0.1)
+        kwargs.setdefault("batch", 1)
+        kwargs["mode"] = "track"
+        results = self.predict(source, stream=stream, **kwargs)
+        from yolo_tpu_torch.trackers.track import attach_tracker
+
+        return attach_tracker(self, results, persist=persist, stream=stream, tracker_cfg=kwargs.get("tracker"))

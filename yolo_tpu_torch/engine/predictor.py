@@ -11,6 +11,7 @@ not ported.
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -25,6 +26,7 @@ from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
 from yolo_tpu_torch.ops.nms import non_max_suppression
 
+CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
 VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv", "webm"}
 
 
@@ -36,14 +38,30 @@ def _snap_batch(n: int) -> int:
     return b
 
 
+@functools.cache
+def _cfg_keys() -> frozenset:
+    """The keys of the package's copy of the JAX package's cfg/default.yaml."""
+    import yaml
+
+    return frozenset(yaml.safe_load((CFG_DIR / "default.yaml").read_text(encoding="utf-8")))
+
+
+# cfg settings the detect predictor would act on but the port does not have, with
+# the value that asks for nothing; any other value raises NotImplementedError
+UNPORTED = {"save": False, "save_txt": False, "save_crop": False, "show": False, "augment": False,
+            "visualize": False, "embed": None, "int8": False}
+
+
 @dataclass
 class PredictArgs:
-    """The settings the detect predictor reads (defaults of the JAX package's cfg/default.yaml)."""
+    """The settings the detect predictor reads (defaults of the JAX package's cfg/default.yaml,
+    but f32 compute: `half` or compute_dtype 'bfloat16' selects bf16)."""
 
     conf: float = 0.25
     iou: float = 0.7
     imgsz: int | tuple = 640
     half: bool = False
+    compute_dtype: str = "float32"
     classes: list | None = None
     agnostic_nms: bool = False
     max_det: int = 300
@@ -54,10 +72,19 @@ class PredictArgs:
     plain: bool = False  # the kernels' plain twins instead of the kernels (the reference on the card)
 
     def update(self, overrides: dict) -> None:
+        """Take settings by name. Every cfg key is accepted (`persist` too, which
+        `YOLO.track` sends): the ones above are set, the others change nothing
+        here (train, val, export, plotting and tracker keys), except those in
+        UNPORTED, which raise NotImplementedError when they ask for something.
+        A name no cfg has raises TypeError."""
         for k, v in overrides.items():
-            if not hasattr(self, k):
-                raise TypeError(f"'{k}' is not a setting of the detect predictor ({', '.join(vars(self))})")
-            setattr(self, k, v)
+            if hasattr(self, k):
+                setattr(self, k, v)
+            elif k in UNPORTED:
+                if v != UNPORTED[k]:
+                    raise NotImplementedError(f"predict setting {k}={v!r} is not ported (only {k}={UNPORTED[k]!r})")
+            elif k != "persist" and k not in _cfg_keys():
+                raise TypeError(f"'{k}' is not a setting of the detect predictor nor a cfg key")
 
 
 class BasePredictor:
@@ -78,8 +105,8 @@ class BasePredictor:
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype of the forward: bf16 with `half`, else f32."""
-        return torch.bfloat16 if self.args.half else torch.float32
+        """The compute dtype of the forward: bf16 with `half` or compute_dtype 'bfloat16', else f32."""
+        return torch.bfloat16 if self.args.half or str(self.args.compute_dtype) == "bfloat16" else torch.float32
 
     def set_params(self, params) -> None:
         """Install a parameter tree: BN folded (`params_from_jax` fuses), on the

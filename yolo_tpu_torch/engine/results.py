@@ -2,7 +2,8 @@
 
 Host-side and numpy-backed: the predictor hands over the valid rows of the
 fixed-shape NMS output, and these classes expose the `.boxes.xyxy/conf/cls`
-views the Kalman clip loop consumes. Plotting and saving are not ported.
+views the Kalman clip loop consumes, and the track id column `YOLO.track` adds.
+Plotting and saving are not ported.
 """
 
 from __future__ import annotations
@@ -81,8 +82,14 @@ class Results:
         return len(self.boxes)
 
     def __getitem__(self, idx):
+        """One row, a slice, or a list / array of row indices (the tracker's subset)."""
         sel = idx if isinstance(idx, (slice, list, np.ndarray)) else [idx]
         return Results(self.orig_img, self.path, self.names, boxes=self.boxes.data[sel], speed=self.speed)
+
+    def update(self, boxes: np.ndarray | None = None):
+        """Replace the boxes: (n, 6) [x1, y1, x2, y2, conf, cls] or, tracked, (n, 7) with the id before conf."""
+        if boxes is not None:
+            self.boxes = Boxes(boxes, self.orig_shape)
 
     def verbose(self) -> str:
         """Per-image log fragment: '512x640 2 aircrafts, ' or '512x640 (no detections), '."""

@@ -1,7 +1,8 @@
 """Box-format conversions, the inverse letterbox and pairwise IoU (counterpart of yolo_tpu/ops/boxes.py).
 
-`xyxy2xywh`, `clip_boxes` and `scale_boxes` take numpy arrays (the host side
-of the predictor) or torch tensors alike; the others take torch tensors.
+`xyxy2xywh`, `clip_boxes`, `scale_boxes` and `box_iou` take numpy arrays (the
+host side of the predictor and of the MOT trackers) or torch tensors alike;
+`xywh2xyxy` takes torch tensors.
 """
 
 from __future__ import annotations
@@ -66,11 +67,13 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([x[..., 0] - hw, x[..., 1] - hh, x[..., 0] + hw, x[..., 1] + hh], dim=-1)
 
 
-def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
-    """Pairwise IoU between (..., N, 4) and (..., M, 4) xyxy boxes → (..., N, M)."""
-    lt = torch.maximum(box1[..., :, None, :2], box2[..., None, :, :2])
-    rb = torch.minimum(box1[..., :, None, 2:4], box2[..., None, :, 2:4])
-    wh = (rb - lt).clamp(min=0)
+def box_iou(box1, box2, eps: float = 1e-7):
+    """Pairwise IoU between (..., N, 4) and (..., M, 4) xyxy boxes → (..., N, M); numpy
+    arrays (the host trackers, in their own dtype) or torch tensors alike."""
+    xp = torch if torch.is_tensor(box1) else np
+    lt = xp.maximum(box1[..., :, None, :2], box2[..., None, :, :2])
+    rb = xp.minimum(box1[..., :, None, 2:4], box2[..., None, :, 2:4])
+    wh = xp.clip(rb - lt, 0, None)
     inter = wh[..., 0] * wh[..., 1]
     area1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
     area2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])

@@ -82,8 +82,11 @@ def non_max_suppression_parts(
     Returns boxes (B, max_det, 4) xyxy | scores (B, max_det) | cls (B, max_det) | valid (B, max_det)."""
     K = min(max_nms, boxes_xywh.shape[1])
     if classes is not None:
-        allowed = torch.zeros(cls_scores.shape[-1], dtype=torch.bool, device=cls_scores.device)
-        allowed[torch.as_tensor(list(classes), dtype=torch.long, device=cls_scores.device)] = True
+        # ids in [-nc, nc) count, negative ones from the end; the others select nothing (as in JAX)
+        nc = cls_scores.shape[-1]
+        ids = [c % nc for c in map(int, classes) if -nc <= c < nc]
+        allowed = torch.zeros(nc, dtype=torch.bool, device=cls_scores.device)
+        allowed[torch.as_tensor(ids, dtype=torch.long, device=cls_scores.device)] = True
         cls_scores = torch.where(allowed, cls_scores, 0.0)
     conf, cls_id = cls_scores.max(-1)
     conf = torch.where(conf > conf_thres, conf, -1.0)
