@@ -62,7 +62,28 @@ Phases (any failure stops the run with a non-zero exit code):
    the bf16 forward, NMS at d_max 16, xyxy → xywh with cls 0, then
    `BatchedBYTETracker(n_max=64, d_max=16).scan_frames`; equal to `update`
    frame by frame and to the same scan on the CPU (ids exact, 1e-4); frames/s
-   and the per-chunk event split (forward, NMS, byte step).
+   and the per-chunk event split (forward, NMS, byte step);
+11. config 5 (camera-motion compensation and grayscale recovery; needs cv2, and
+   fails without it): the 649-frame 640x512 panning clip (a copy of
+   demos/motion_comp_bench.py::make_panning_clip, seed 7) through the chunked
+   config-5 detector (gray frames, /255, broadcast to the stem, predict_parts
+   and NMS at conf 0.15, iou 0.6, max_det 16, 128-frame chunks).
+   `[motion kernels]`: f32 kernels against f32 twins (equal detection counts
+   per frame, boxes 1e-2 px, conf 1e-4), then the optical-flow
+   MotionCompensatedMultiTracker on both detection sequences (equal stats and
+   per-frame track lists by position). `[motion optical_flow]`, `[motion
+   feature_matching]`, `[motion hybrid]`: the bf16 chunked detector, then the
+   host loop: fps_batched = frames / (detect s + host s), device ms/frame
+   (CUDA events), host ms/frame split into motion detection and tracker,
+   events, resets and launches; optical_flow also with the detector called
+   once a frame. `[motion compare]`: `motion.compare_motion_methods` over the
+   clip's first 128 frames as an mp4v file, the bf16 detector once a frame.
+   `[grayscale]`: 128 frames of the IR clip as an mp4v file through
+   `GrayscaleTracker.process_video(test_range=(32, 80))`, its own YOLO set to
+   f32 against a plain-twin f32 detector (equal stats and tracks), then the
+   default (bf16) tracker timed. `[grayscale scorer]`: `predict_center_torch`
+   on 256 seeded 40x40 ROIs on the card against the numpy scorer (same
+   index, score rel 1e-5), timed.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -103,6 +124,9 @@ LOGIT_TOL = {"float32": (1e-3, 0.0), "bfloat16": (6e-2, 1.6e-2)}
 FRAMES, CHUNK, HW = 512, 128, (512, 640)
 PREDICT_FRAMES = 64
 TRACK_FRAMES = 64
+MOTION_FRAMES = 649  # config 5: the reference's clip length (demos/motion_comp_bench.py)
+MOTION_COMPARE_FRAMES = 128
+GRAY_FRAMES, GRAY_TEST_RANGE = 128, (32, 80)
 KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "c2f": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:264"),
     "c2f_upconcat": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:290"),
@@ -126,6 +150,11 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def compute_dtype(half: bool) -> str:
+    """The predict setting that goes with `half`: predict computes in bf16 unless asked for f32."""
+    return "bfloat16" if half else "float32"
 
 
 def log(tag: str, card: str, msg: str) -> None:
@@ -968,7 +997,8 @@ def predict_phase(clip, card):
     frames = np.repeat(clip[:PREDICT_FRAMES], 3, -1)  # BGR copies of the IR frames
 
     def run(half, plain):
-        detect = yolo_detector(YOLO(str(WEIGHTS)).fuse(), 0.15, imgsz=640, iou=0.6, half=half, plain=plain)
+        detect = yolo_detector(YOLO(str(WEIGHTS)).fuse(), 0.15, imgsz=640, iou=0.6, half=half, plain=plain,
+                               compute_dtype=compute_dtype(half))
         detect(frames[0])  # warm-up: cuDNN plans, allocator, first launches
         seen, spent = [], {"detect": 0.0, "track": 0.0}
 
@@ -1046,7 +1076,8 @@ def track_run(frames, tracker, half, plain, device_tracker=False, d_max=320, n_m
     with environ(YOLO_TPU_DEVICE_TRACKER=int(device_tracker), YOLO_TPU_DEVICE_TRACKER_DMAX=d_max,
                  YOLO_TPU_DEVICE_TRACKER_NMAX=n_max):
         model = YOLO(str(WEIGHTS))
-        model.predict(frames[0], conf=0.1, half=half, plain=plain, verbose=False)  # cuDNN plans, allocator, first launches
+        # cuDNN plans, allocator, first launches
+        model.predict(frames[0], conf=0.1, half=half, plain=plain, compute_dtype=compute_dtype(half), verbose=False)
         model._tracker = trk = create_tracker(tracker, device=model.device)
     spent, update = [0.0], trk.update
 
@@ -1061,7 +1092,8 @@ def track_run(frames, tracker, half, plain, device_tracker=False, d_max=320, n_m
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for frame in frames:
-        rows.append(model.track(frame, persist=True, tracker=tracker, half=half, plain=plain, verbose=False)[0].boxes.data)
+        rows.append(model.track(frame, persist=True, tracker=tracker, half=half, plain=plain, compute_dtype=compute_dtype(half),
+                                verbose=False)[0].boxes.data)
     return rows, time.perf_counter() - t0, spent[0], type(trk).__name__
 
 
@@ -1206,6 +1238,379 @@ def byte_scan_phase(model, params, clip, card):
             f"({byte / CHUNK:.3f} ms/frame, its copy to the host included)")
 
 
+# ------------------------------------------------------------ config 5 --
+
+
+def make_panning_clip(n_frames: int, w: int = 640, h: int = 512, seed: int = 7, visible: int = 10, occluded: int = 50):
+    """The config-5 clip (a copy of demos/motion_comp_bench.py::make_panning_clip): the frame is
+    a crop window drifting over a 2x textured background, with a smooth pan and two abrupt
+    jumps at 1/3 and 2/3 of the clip (camera bumps that should fire global resets), and one
+    target that moves in world coordinates, visible 10 frames of every 60. → (n, h, w) uint8."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    H2, W2 = h * 2, w * 2
+    bg = cv2.resize(rng.normal(30, 10, (H2 // 16, W2 // 16)).astype(np.float32), (W2, H2), interpolation=cv2.INTER_CUBIC)
+    # mid-frequency texture: the LK and ORB motion detectors need trackable features
+    bg += cv2.resize(rng.normal(0, 12, (H2 // 4, W2 // 4)).astype(np.float32), (W2, H2), interpolation=cv2.INTER_CUBIC)
+    gy, gx = np.mgrid[0:H2, 0:W2]
+    bg += 25 * np.cos(gy / 37.0) * np.sin(gx / 53.0)
+    frames = np.empty((n_frames, h, w), np.uint8)
+    cycle = visible + occluded
+    yy, xx = np.mgrid[0:h, 0:w]
+    for f in range(n_frames):
+        ox = int(w / 2 + (w / 3) * np.sin(f / 90)) + (80 if f >= n_frames // 3 else 0)
+        oy = int(h / 2 + (h / 4) * np.cos(f / 130)) + (60 if f >= 2 * n_frames // 3 else 0)
+        ox = int(np.clip(ox, 0, W2 - w))
+        oy = int(np.clip(oy, 0, H2 - h))
+        img = bg[oy : oy + h, ox : ox + w] + rng.normal(0, 2, (h, w))
+        tx = W2 / 2 + 300 * np.sin(f / 200)
+        ty = H2 / 2 + 150 * np.cos(f / 260)
+        cx, cy = tx - ox, ty - oy
+        if (f % cycle) < visible and 10 < cx < w - 10 and 10 < cy < h - 10:
+            img = img + 170 * np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 4.0**2)))
+        frames[f] = np.clip(img, 0, 255).astype(np.uint8)
+    return frames
+
+
+def motion_detector(model, params, dtype, plain):
+    """The counterpart of demos/motion_comp_bench.py::build_batch_detector / build_detector:
+    (T, H, W) uint8 gray frames on the card, /255 in the compute dtype, broadcast to the
+    stem's channels, `DetectionModel.predict_parts`, `non_max_suppression_parts` at conf
+    0.15, iou 0.6, max_det 16 (max_nms 1024, its default, as there) → the NMS dict."""
+    import copy
+
+    import torch
+
+    from yolo_tpu_torch import params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression_parts
+
+    m = copy.deepcopy(model)
+    params_from_jax(m, params, dtype)
+    ch = int(params["model"]["0"]["conv"]["weight"].shape[2])  # stem input channels
+
+    @torch.no_grad()
+    def detect(frames):
+        x = frames[..., None].to(dtype) / 255.0
+        boxes, scores = m.predict_parts(x.expand(*x.shape[:3], ch), plain=plain)
+        return non_max_suppression_parts(boxes, scores, conf_thres=0.15, iou_thres=0.6, max_det=16, plain=plain)
+
+    return detect
+
+
+def time_calls(obj, name: str, spent: dict) -> None:
+    """Replace `obj.<name>` by a wrapper that adds each call's host seconds to `spent[name]`."""
+    call = getattr(obj, name)
+    spent[name] = 0.0
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return call(*args, **kwargs)
+        finally:
+            spent[name] += time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def det_lists(out) -> list:
+    """NMS dict (host numpy) → per frame [[x1, y1, x2, y2, conf], ...], the tracker's input."""
+    return [[[*b.tolist(), float(s)] for b, s, v in zip(bb, ss, vv) if v] for bb, ss, vv in zip(out["boxes"], out["scores"], out["valid"])]
+
+
+def detect_chunked(detect, clip_gray):
+    """The whole clip through `detect` in CHUNK-frame chunks (the last one padded with black
+    frames) → (per-frame detections, host-clock s of the leg: uploads, forward, NMS and the
+    copies back, one device wait per chunk; CUDA-event ms of each chunk's forward + NMS)."""
+    import numpy as np
+    import torch
+
+    n = len(clip_gray)
+    pad = (-n) % CHUNK
+    clip = np.concatenate([clip_gray, np.zeros((pad, *clip_gray.shape[1:]), np.uint8)]) if pad else clip_gray
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, marks = [], []
+    for i in range(0, len(clip), CHUNK):
+        frames = torch.from_numpy(clip[i : i + CHUNK]).cuda()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = detect(frames)
+        ev[1].record()
+        outs.append({k: out[k].cpu().numpy() for k in ("boxes", "scores", "valid")})
+        marks.append(ev)
+    wall = time.perf_counter() - t0
+    out = {k: np.concatenate([o[k] for o in outs])[:n] for k in outs[0]}
+    return det_lists(out), wall, [a.elapsed_time(b) for a, b in marks]
+
+
+def motion_loop(method, clip_bgr, dets):
+    """MotionCompensatedMultiTracker over the clip with precomputed detections (the demo's
+    batched-detect leg) → (per-frame track lists, comprehensive stats, host s, of which s in
+    the global motion detector). The trackers' per-reset prints go to a buffer, as in
+    motion/compare.py."""
+    import contextlib
+    import io
+
+    from yolo_tpu_torch.motion import MotionCompensatedMultiTracker
+
+    spent = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        tracker = MotionCompensatedMultiTracker(max_lost_frames=150, min_hits=1, iou_threshold=0.1,
+                                                motion_detection_method=method)
+        time_calls(tracker.motion_detector, "detect_motion", spent)
+        tracks = []
+        t0 = time.perf_counter()
+        for frame, d in zip(clip_bgr, dets):
+            tracks.append(tracker.update([list(x) for x in d], frame))
+        wall = time.perf_counter() - t0
+    return tracks, tracker.get_comprehensive_stats(), wall, spent["detect_motion"]
+
+
+def same_tracks(got, want, what) -> float:
+    """Per frame, track lists compared by position (ids are random uuids): equal statuses,
+    ages, hits, resets; boxes within 1e-2 px → the largest box difference."""
+    import numpy as np
+
+    worst = 0.0
+    for f, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w):
+            raise AssertionError(f"{what}, frame {f}: {len(g)} tracks vs {len(w)}")
+        for a, b in zip(g, w):
+            keys = ("status", "age", "hits", "hit_streak", "time_since_update", "reset_count")
+            if [a[k] for k in keys] != [b[k] for k in keys]:
+                raise AssertionError(f"{what}, frame {f}: {[a[k] for k in keys]} vs {[b[k] for k in keys]}")
+            worst = max(worst, float(np.abs(np.asarray(a["bbox"]) - np.asarray(b["bbox"])).max()))
+    if worst > 1e-2:
+        raise AssertionError(f"{what}: boxes differ by {worst} px")
+    return worst
+
+
+def motion_kernels_phase(model, params, pan, card):
+    """`[motion kernels]`: the chunked config-5 detector over the panning clip in f32 through
+    the kernels and through the twins (equal detection counts per frame, boxes 1e-2 px, conf
+    1e-4), then the optical-flow motion-compensated tracker on both detection sequences
+    (equal events, resets and per-frame track lists)."""
+    import numpy as np
+    import torch
+
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    (dk, wk, _), launches = counted(path, lambda: detect_chunked(motion_detector(model, params, torch.float32, False), pan))
+    dp, wp, _ = detect_chunked(motion_detector(model, params, torch.float32, True), pan)
+    if [len(d) for d in dk] != [len(d) for d in dp]:
+        bad = [f for f, (a, b) in enumerate(zip(dk, dp)) if len(a) != len(b)]
+        raise AssertionError(f"motion kernels: detection counts differ on frames {bad[:20]}")
+    rows = [(np.asarray(a), np.asarray(b)) for a, b in zip(dk, dp) if a]
+    box = max([float(np.abs(a[:, :4] - b[:, :4]).max()) for a, b in rows] or [0.0])
+    conf = max([float(np.abs(a[:, 4] - b[:, 4]).max()) for a, b in rows] or [0.0])
+    n_det = sum(len(d) for d in dk)
+    if box > 1e-2 or conf > 1e-4 or n_det <= 0:
+        raise AssertionError(f"motion kernels: {n_det} detections, boxes differ by {box} px, conf by {conf}")
+    log("motion kernels f32", card, f"{len(pan)} frames in {-(-len(pan) // CHUNK)} chunks: kernels {wk:.2f} s (first, cold), "
+        f"plain {wp:.2f} s; detection counts equal on every frame ({n_det} detections on "
+        f"{sum(1 for d in dk if d)} frames); max |box diff| {box:.3e} px, |conf diff| {conf:.3e}; launches {launches}")
+    bgr = np.repeat(pan[..., None], 3, -1)
+    tk, sk, _, _ = motion_loop("optical_flow", bgr, dk)
+    tp, sp, _, _ = motion_loop("optical_flow", bgr, dp)
+    if sk["basic"] != sp["basic"] or sk["motion_detection"] != sp["motion_detection"]:
+        raise AssertionError(f"motion kernels: tracker stats differ: {sk['basic']} vs {sp['basic']}")
+    worst = same_tracks(tk, tp, "motion kernels: optical_flow tracks, kernels against plain")
+    if sk["basic"]["global_resets"] <= 0:
+        raise AssertionError(f"motion kernels: no global reset on the panning clip: {sk['basic']}")
+    log("motion kernels f32", card, f"optical_flow tracker on both: stats equal {sk['basic']}; "
+        f"{sum(len(t) for t in tk)} track rows equal frame by frame (by position), max |box diff| {worst:.3e} px")
+
+
+def motion_method_phase(method, model, params, pan, card):
+    """`[motion <method>]`: the bf16 chunked detector, then the host loop (demos/motion_comp_bench.py's
+    batched-detect leg, its deployment shape)."""
+    import numpy as np
+    import torch
+
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    detect = motion_detector(model, params, torch.bfloat16, False)
+    detect_chunked(detect, pan[:CHUNK])  # warm-up: cuDNN plans, allocator, first launches
+    (dets, dev_s, chunk_ms), launches = counted(path, lambda: detect_chunked(detect, pan))
+    _, stats, host_s, motion_s = motion_loop(method, np.repeat(pan[..., None], 3, -1), dets)
+    n = len(pan)
+    b = stats["basic"]
+    log(f"motion {method}", card, f"{n} frames: fps_batched {n / (dev_s + host_s):.1f} frames/s = {n} / (detect {dev_s:.3f} s "
+        f"+ host {host_s:.3f} s); detect {dev_s / n * 1e3:.3f} ms/frame (host clock, uploads and copies back included), "
+        f"device {sum(chunk_ms) / n:.3f} ms/frame (CUDA events; per chunk " + ", ".join(f"{v:.2f}" for v in chunk_ms)
+        + f" ms); host {host_s / n * 1e3:.3f} ms/frame = motion detection {motion_s / n * 1e3:.3f} + tracker "
+        f"{(host_s - motion_s) / n * 1e3:.3f}; {sum(len(d) for d in dets)} detections; events {b['global_motion_events']}, "
+        f"global resets {b['global_resets']}, individual resets {b['individual_resets']}; launches {launches}")
+
+
+def motion_per_frame_phase(method, model, params, pan, card):
+    """`[motion <method> per-frame]`: the demo's per-frame-dispatch control: the bf16 detector
+    called once a frame (B = 1), its detections straight into the host loop."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.motion import MotionCompensatedMultiTracker
+
+    detect = motion_detector(model, params, torch.bfloat16, False)
+    bgr = np.repeat(pan[..., None], 3, -1)
+    n = len(pan)
+    spent = {"detect": 0.0, "track": 0.0}
+
+    def run():
+        t0 = time.perf_counter()
+        for f in range(n):
+            t1 = time.perf_counter()
+            d = det_lists({k: v.cpu().numpy() for k, v in detect(torch.from_numpy(pan[f : f + 1]).cuda()).items()})[0]
+            t2 = time.perf_counter()
+            tracker.update(d, bgr[f])
+            spent["detect"] += t2 - t1
+            spent["track"] += time.perf_counter() - t2
+        return time.perf_counter() - t0
+
+    detect(torch.from_numpy(pan[:1]).cuda())  # warm-up at B = 1
+    with contextlib.redirect_stdout(io.StringIO()):
+        tracker = MotionCompensatedMultiTracker(max_lost_frames=150, min_hits=1, iou_threshold=0.1, motion_detection_method=method)
+        wall, launches = counted({"c2f", "c2f_upconcat", "head_level", "nms_keep"}, run)
+    b = tracker.get_comprehensive_stats()["basic"]
+    log(f"motion {method} per-frame", card, f"{n} frames in {wall:.3f} s = {n / wall:.1f} frames/s (host clock, one detect "
+        f"call a frame, B = 1): detect {spent['detect'] / n * 1e3:.3f} ms/frame, host motion + tracker "
+        f"{spent['track'] / n * 1e3:.3f} ms/frame; events {b['global_motion_events']}, global resets {b['global_resets']}, "
+        f"individual resets {b['individual_resets']}; launches {launches}")
+
+
+def motion_compare_phase(model, params, pan, card):
+    """`[motion compare]`: the first MOTION_COMPARE_FRAMES frames of the panning clip as an mp4v
+    file; the package's entry point `motion.compare_motion_methods` over it with the bf16
+    detector called once a frame."""
+    import contextlib
+    import io
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.motion import compare_motion_methods
+
+    detect = motion_detector(model, params, torch.bfloat16, False)
+
+    def detector(frame):  # a decoded BGR frame → its gray plane, as the demo's per-frame detector
+        return det_lists({k: v.cpu().numpy() for k, v in detect(torch.from_numpy(frame[None, ..., 0].copy()).cuda()).items()})[0]
+
+    detector(np.repeat(pan[0][..., None], 3, -1))  # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        vid = Path(tmp) / "pan.mp4"
+        vw = cv2.VideoWriter(str(vid), cv2.VideoWriter_fourcc(*"mp4v"), 30, (pan.shape[2], pan.shape[1]))
+        for frame in pan[:MOTION_COMPARE_FRAMES]:
+            vw.write(np.repeat(frame[..., None], 3, -1))
+        vw.release()
+        path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+        with contextlib.redirect_stdout(io.StringIO()):  # the trackers' own prints; the method lines go to the log
+            out, launches = counted(path, lambda: compare_motion_methods(vid, detector, report_path=Path(tmp) / "report.txt"))
+    for method, r in out["results"].items():
+        log("motion compare", card, f"{method}: {r['frames']} frames, {r['fps']:.1f} frames/s ({r['ms_per_frame']:.3f} ms/frame, "
+            f"detect, decode and host legs together); events {r['global_motion_events']}, global resets "
+            f"{r['global_resets']}, individual resets {r['individual_resets']}")
+    if any(r["frames"] != MOTION_COMPARE_FRAMES for r in out["results"].values()):
+        raise AssertionError(f"motion compare: frames read {[r['frames'] for r in out['results'].values()]}")
+    log("motion compare", card, f"recommended {out['recommended']}; launches over the three methods {launches}")
+
+
+def grayscale_phase(clip, card):
+    """`[grayscale]`: GRAY_FRAMES frames of the IR clip as a BGR mp4v file through
+    `GrayscaleTracker.process_video(test_range=(32, 80))`: the tracker's own `yolo_detect`
+    (the port's YOLO on the card, set to f32 through its overrides) against a detector that
+    calls `YOLO.predict(plain=True, compute_dtype="float32")`: equal stats and tracks; then
+    the default tracker (bf16), timed."""
+    import contextlib
+    import io
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.grayscale import GrayscaleTracker
+
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    with tempfile.TemporaryDirectory() as tmp:
+        vid = Path(tmp) / "ir.mp4"
+        vw = cv2.VideoWriter(str(vid), cv2.VideoWriter_fourcc(*"mp4v"), 30, (clip.shape[2], clip.shape[1]))
+        for frame in clip[:GRAY_FRAMES]:
+            vw.write(np.repeat(frame, 3, -1))
+        vw.release()
+        run = lambda t: t.process_video(vid, test_range=GRAY_TEST_RANGE, write_video=False)  # noqa: E731
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            own = GrayscaleTracker(str(WEIGHTS), conf=0.25)
+            own._yolo = YOLO(str(WEIGHTS)).fuse()
+            own._yolo.overrides["compute_dtype"] = "float32"
+            sk, launches32 = counted(path, lambda: run(own))
+            twin = YOLO(str(WEIGHTS)).fuse()
+            plain = GrayscaleTracker(conf=0.25, detector=lambda frame: [list(r) for r in twin.predict(
+                frame, conf=0.25, plain=True, compute_dtype="float32", verbose=False)[0].boxes.data])
+            sp = run(plain)
+        if own._yolo.predictor.dtype != torch.float32 or sk != sp:
+            raise AssertionError(f"grayscale: f32 kernels {sk} vs plain {sp}")
+        if sk["detected_frames"] <= 0 or sk["predicted_frames"] <= 0:
+            raise AssertionError(f"grayscale: nothing detected or coasted: {sk}")
+        log("grayscale f32", card, f"own yolo_detect (kernels) and the plain detector: stats and tracks equal "
+            f"{ {k: v for k, v in sk.items() if k != 'tracks'} }, tracks {sk['tracks']}; launches {launches32}")
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = GrayscaleTracker(str(WEIGHTS), conf=0.25)
+            t.yolo_detect(np.repeat(clip[0], 3, -1), -1)  # builds the YOLO on the card; warm-up
+            spent = {}
+            for name in ("yolo_detect", "predict_lost_targets"):
+                time_calls(t, name, spent)
+            t0 = time.perf_counter()
+            sb, launches16 = counted(path, lambda: run(t))
+            wall = time.perf_counter() - t0
+    n = sb["frames"]
+    if t._yolo.predictor.dtype != torch.bfloat16 or n != GRAY_FRAMES:
+        raise AssertionError(f"grayscale: the default run computed in {t._yolo.predictor.dtype} over {n} frames")
+    counts = {k: v for k, v in sb.items() if k != "tracks"}
+    moved = max(max(abs(a - b) for a, b in zip(sb["tracks"][i]["last_center"], sk["tracks"][i]["last_center"]))
+                for i in sb["tracks"] if i in sk["tracks"])
+    log("grayscale bf16", card, f"{n} frames in {wall:.3f} s = {n / wall:.1f} frames/s (host clock, video decode included); "
+        f"yolo_detect {spent['yolo_detect'] / n * 1e3:.3f} ms/frame, predict_lost_targets "
+        f"{spent['predict_lost_targets'] / n * 1e3:.3f} ms/frame; stats {counts}, equal to f32: "
+        f"{counts == {k: v for k, v in sk.items() if k != 'tracks'}}, track ids {sorted(sb['tracks'])} (f32 "
+        f"{sorted(sk['tracks'])}), last centers within {moved} px of f32's; launches {launches16}")
+
+
+def grayscale_scorer_phase(card):
+    """`[grayscale scorer]`: `predict_center_torch` on the card over 256 seeded 40x40 ROIs at
+    once against the numpy scorer's argmax on each (same index, score rel 1e-5); its time per
+    256 ROIs and per single ROI (CUDA events). Plain PyTorch: no kernel, no bound row."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.grayscale.scoring import gradient_window_scores, predict_center_torch
+
+    rng = np.random.default_rng(0)
+    rois = rng.integers(0, 256, (256, 40, 40)).astype(np.uint8)
+    yy, xx = np.mgrid[0:40, 0:40]
+    for i in range(0, 256, 4):  # a bright target in every fourth ROI
+        cx, cy = rng.uniform(3, 37, 2)
+        rois[i] = np.clip(rois[i] // 4 + 170 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 18.0), 0, 255).astype(np.uint8)
+    dev = torch.from_numpy(rois).cuda()
+    best, score = (t.cpu().numpy() for t in predict_center_torch(dev))
+    worst = 0.0
+    for i, roi in enumerate(rois):
+        s = gradient_window_scores(roi)
+        iy, ix = np.unravel_index(int(np.argmax(s)), s.shape)
+        worst = max(worst, abs(float(score[i]) - float(s[iy, ix])) / abs(float(s[iy, ix])))
+        if (iy, ix) != tuple(best[i]) or worst > 1e-5:
+            raise AssertionError(f"grayscale scorer, ROI {i}: card {tuple(best[i])} {score[i]} vs numpy {(iy, ix)} {s[iy, ix]}")
+    ms256 = cuda_ms(lambda: predict_center_torch(dev), iters=20, warmup=3)
+    ms1 = cuda_ms(lambda: predict_center_torch(dev[0]), iters=50, warmup=5)
+    log("grayscale scorer", card, f"256 ROIs 40x40 on the card: every index equal to the numpy scorer's, score rel err "
+        f"{worst:.2e}; {ms256:.4f} ms per 256 ROIs ({ms256 / 256 * 1e3:.2f} us/ROI), {ms1:.4f} ms for one ROI (CUDA events)")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -1280,6 +1685,19 @@ def main(argv) -> int:
         track_phase("track botsort sparseOptFlow", clip, card, "botsort.yaml")
     track_device_phase(clip, card, host_rows)
     byte_scan_phase(model, params, clip, card)
+
+    if cv2_version() is None:
+        raise RuntimeError("config 5 needs cv2 (the motion detector, the panning clip, the video files); it does not import")
+    t0 = time.perf_counter()
+    pan = make_panning_clip(MOTION_FRAMES)
+    print(f"[motion clip] {pan.shape} uint8 made in {time.perf_counter() - t0:.1f} s (cv2 {cv2_version()})")
+    motion_kernels_phase(model, params, pan, card)
+    for method in ("optical_flow", "feature_matching", "hybrid"):
+        motion_method_phase(method, model, params, pan, card)
+    motion_per_frame_phase("optical_flow", model, params, pan, card)
+    motion_compare_phase(model, params, pan, card)
+    grayscale_phase(clip, card)
+    grayscale_scorer_phase(card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

@@ -225,7 +225,7 @@ def test_clip_loop_with_the_yolo_detector_matches_jax(capsys):
         clip.append(np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3, -1))
 
     py = yolo_tpu_torch.YOLO(str(WEIGHTS), device="cpu").fuse()
-    got = PP.track_clip(iter(clip), PP.yolo_detector(py, 0.1, imgsz=(96, 128)), PM.EnhancedMultiTargetTracker(150, 1, 0.1))
+    got = PP.track_clip(iter(clip), PP.yolo_detector(py, 0.1, imgsz=(96, 128), compute_dtype="float32"), PM.EnhancedMultiTargetTracker(150, 1, 0.1))
 
     jy = yolo_tpu.YOLO(str(WEIGHTS))
     jy.fuse()

@@ -323,7 +323,7 @@ def test_yolo_track_kernels_match_plain(card, tracker, tmp_path):
     runs = []
     for plain in (False, True):
         model = YOLO(str(weights))
-        runs.append([model.track(fr, persist=True, tracker=tracker, plain=plain, verbose=False)[0] for fr in frames])
+        runs.append([model.track(fr, persist=True, tracker=tracker, plain=plain, compute_dtype="float32", verbose=False)[0] for fr in frames])
     n_ids = set()
     for g, w in zip(*runs):
         assert len(g) == len(w) and g.boxes.is_track == w.boxes.is_track
@@ -333,3 +333,38 @@ def test_yolo_track_kernels_match_plain(card, tracker, tmp_path):
             np.testing.assert_allclose(g.boxes.conf, w.boxes.conf, rtol=0, atol=1e-4)
             n_ids |= set(g.boxes.id.tolist())
     assert n_ids == {1.0, 2.0, 3.0}
+
+
+def test_predict_center_torch_on_the_card_equals_numpy(card):
+    """The grayscale window scorer on the card, 64 seeded 40x40 ROIs at once and a constant
+    ROI: the numpy scorer's index (first maximum) and its score at rel 1e-5."""
+    from yolo_tpu_torch.grayscale.scoring import gradient_window_scores, predict_center_torch
+
+    rois = np.random.default_rng(0).integers(0, 256, (64, 40, 40)).astype(np.uint8)
+    best, score = predict_center_torch(torch.from_numpy(rois).to(card))
+    assert best.is_cuda and score.is_cuda and best.shape == (64, 2)
+    for i, roi in enumerate(rois):
+        s = gradient_window_scores(roi)
+        iy, ix = np.unravel_index(int(np.argmax(s)), s.shape)
+        assert tuple(best[i].tolist()) == (iy, ix), i
+        assert float(score[i]) == pytest.approx(float(s[iy, ix]), rel=1e-5)
+    b, s = predict_center_torch(torch.full((40, 40), 77, dtype=torch.uint8, device=card))
+    assert b.tolist() == [0, 0] and float(s) == 77.0
+
+
+def test_motion_detector_kernels_match_plain(card):
+    """chip_smoke's config-5 detector (gray frames, /255, broadcast to the stem, predict_parts and
+    NMS at conf 0.15, iou 0.6, max_det 16) on one 128-frame chunk of the panning clip, in f32
+    through the kernels and through the twins: equal valid slots, boxes 1e-2 px, scores 1e-4."""
+    import chip_smoke
+    from yolo_tpu_torch import load_npz
+
+    model, params, _ = load_npz(chip_smoke.WEIGHTS, device=card)
+    frames = torch.from_numpy(chip_smoke.make_panning_clip(128)).to(card)
+    before = cuda_nms.nms_keep.launches
+    got = chip_smoke.motion_detector(model, params, torch.float32, plain=False)(frames)
+    want = chip_smoke.motion_detector(model, params, torch.float32, plain=True)(frames)
+    assert cuda_nms.nms_keep.launches == before + 1
+    assert torch.equal(got["valid"], want["valid"]) and int(got["valid"].sum()) > 0
+    torch.testing.assert_close(got["boxes"], want["boxes"], atol=1e-2, rtol=0)
+    torch.testing.assert_close(got["scores"], want["scores"], atol=1e-4, rtol=0)

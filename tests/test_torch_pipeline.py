@@ -66,6 +66,15 @@ def test_port_imports_no_jax():
         "ft = FusedDetectTrack(m, p, frame_hw=(64, 64), chunk=2, device='cpu')\n"
         "outs, stats = ft.run_clip(np.zeros((2, 64, 64, 1), np.uint8))\n"
         "assert stats['frames'] == 2, stats\n"
+        "from yolo_tpu_torch.motion import GlobalMotionDetector, MotionCompensatedMultiTracker, compare_motion_methods\n"
+        "from yolo_tpu_torch.grayscale import GrayscaleTracker, predict_center, predict_center_torch\n"
+        "from yolo_tpu_torch.grayscale import analysis, config\n"
+        "rng = np.random.default_rng(0)\n"
+        "frames = rng.integers(0, 255, (2, 64, 80, 3), np.uint8)\n"
+        "gmd = GlobalMotionDetector('hybrid')\n"
+        "assert [gmd.detect_motion(f)[3] for f in frames] == [False, False]\n"
+        "best, score = predict_center_torch(torch.from_numpy(frames[0, :40, :40, 0]))\n"
+        "assert best.shape == (2,) and float(score) > 0\n"
         "bad = sorted(k for k in sys.modules if k == 'yolo_tpu' or k.startswith('yolo_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -26,6 +26,7 @@ from yolo_tpu_torch.ops import letterbox as PL
 from yolo_tpu_torch.ops import nms as PN
 
 from tests.conftest import ROOT
+from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 
@@ -253,8 +254,8 @@ def test_yolo_predict_matches_jax(yolos):
     rng = np.random.default_rng(8)
     frames = [np.repeat(_ir_frame(rng, 96, 128, cx, cy)[..., None], 3, -1) for cx, cy in ((40, 30), (90, 60), (20, 80))]
     frames.append(np.full((96, 128, 3), 30, np.uint8))  # nothing to detect
-    kw = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=3)
-    want = jy.predict(frames, compute_dtype="float32", **kw)
+    kw = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=3, compute_dtype="float32")
+    want = jy.predict(frames, **kw)
     got = py.predict(frames, **kw)
     assert [len(r) for r in got] == [1, 1, 1, 0]
     _assert_same_results(got, want, box_atol=1e-2)
@@ -277,8 +278,8 @@ def test_yolo_predict_letterboxed_source_matches_jax(yolos):
     jy, py = yolos
     rng = np.random.default_rng(9)
     batch = np.stack([np.repeat(_ir_frame(rng, 64, 128, cx, cy)[..., None], 3, -1) for cx, cy in ((40, 30), (100, 8))])
-    kw = dict(conf=0.1, iou=0.6, imgsz=128, verbose=False, batch=2)
-    want = jy.predict(batch, compute_dtype="float32", **kw)
+    kw = dict(conf=0.1, iou=0.6, imgsz=128, verbose=False, batch=2, compute_dtype="float32")
+    want = jy.predict(batch, **kw)
     got = py.predict(batch, stream=True, **kw)
     assert not isinstance(got, list)
     got = list(got)
@@ -326,7 +327,7 @@ def test_reused_yolo_takes_half_and_back():
     settings do not reload the tree."""
     py = yolo_tpu_torch.YOLO("yolov8n.yaml", device="cpu")
     frame = np.random.default_rng(10).integers(0, 255, (64, 64, 3), np.uint8)
-    kw = dict(imgsz=64, conf=0.001, verbose=False)
+    kw = dict(imgsz=64, conf=0.001, verbose=False, compute_dtype="float32")
     stem = py.model.layers[0]
     r32 = py.predict(frame, **kw)
     pred = py.predictor
@@ -345,6 +346,41 @@ def test_reused_yolo_takes_half_and_back():
     assert len(r16) == 1
 
 
+def _frame_640x512(seed):
+    """A 640x512 BGR frame with three bright targets; imgsz 640 only pads it (no resize, so no
+    bilinear rounding that differs between the two packages' letterboxes)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:512, 0:640]
+    img = 30 + rng.normal(0, 2, (512, 640))
+    for cx, cy in ((100, 120), (400, 300), (300, 80)):
+        img = img + 170 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 4.0**2))
+    return np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3, -1)
+
+
+# bf16 against bf16 (the two packages round their activations in another order): boxes and scores
+# may differ by a few bf16 steps, 2^-8 of a score near 1
+BF16_BOX_PX, BF16_CONF = 0.25, 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["default", "float32"])
+def test_yolo_predict_dtype_matches_jax(dtype, two_threads):
+    """A fresh YOLO in each package (the JAX predictor fixes its dtype at its first call): at the
+    defaults both compute in bf16 and agree at the bf16 tolerance; asked for f32, both agree at
+    1e-2 px / 1e-4 conf. Rows are compared in x1 order (bf16 scores can tie)."""
+    frame = _frame_640x512(13)
+    kw = {} if dtype == "default" else {"compute_dtype": "float32"}
+    jy, py = yolo_tpu.YOLO(str(WEIGHTS)), yolo_tpu_torch.YOLO(str(WEIGHTS), device="cpu")
+    want, got = jy.predict(frame, verbose=False, **kw)[0], py.predict(frame, verbose=False, **kw)[0]
+    bf16 = dtype == "default"
+    assert py.predictor.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert jy.predictor.dtype == (jnp.bfloat16 if bf16 else jnp.float32)
+    assert len(got) == len(want) == 3
+    g, w = (r.boxes.data[np.argsort(r.boxes.xyxy[:, 0])] for r in (got, want))
+    np.testing.assert_allclose(g[:, :4], w[:, :4], rtol=0, atol=BF16_BOX_PX if bf16 else 1e-2)
+    np.testing.assert_allclose(g[:, 4], w[:, 4], rtol=0, atol=BF16_CONF if bf16 else 1e-4)
+    np.testing.assert_array_equal(g[:, 5], w[:, 5])
+
+
 @pytest.mark.parametrize("kw", [
     dict(save=False), dict(augment=False), dict(show=False), dict(line_width=2), dict(stream_buffer=False),
     dict(mode="track", tracker="bytetrack.yaml", persist=True), dict(epochs=3, lr0=0.1, format="npz"),
@@ -357,8 +393,8 @@ def test_yolo_predict_takes_the_cfg_keys_like_jax(yolos, kw):
     jy, py = yolos
     rng = np.random.default_rng(11)
     frame = np.repeat(_ir_frame(rng, 96, 128, 50, 40)[..., None], 3, -1)
-    base = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=1)
-    want = jy.predict(frame, compute_dtype="float32", **base, **{k: v for k, v in kw.items() if k != "persist"})
+    base = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=1, compute_dtype="float32")
+    want = jy.predict(frame, **base, **{k: v for k, v in kw.items() if k != "persist"})
     got = py.predict(frame, **base, **kw)
     assert len(got[0]) == 1
     _assert_same_results(got, want, box_atol=1e-2)

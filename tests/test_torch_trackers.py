@@ -443,7 +443,7 @@ def test_yolo_track_matches_jax(yolos, tracker):
         warnings.simplefilter("ignore")  # the GMC on a frame with few corners
         for frame in _ir_frames(5):
             want = jy.track(frame, persist=True, tracker=tracker, compute_dtype="float32", verbose=False)
-            got = py.track(frame, persist=True, tracker=tracker, verbose=False)
+            got = py.track(frame, persist=True, tracker=tracker, compute_dtype="float32", verbose=False)
             assert len(got) == len(want) == 1
             g, w = got[0].boxes, want[0].boxes
             assert len(g) == len(w) and g.is_track == (w.data.shape[-1] == 7)

@@ -54,14 +54,15 @@ UNPORTED = {"save": False, "save_txt": False, "save_crop": False, "show": False,
 
 @dataclass
 class PredictArgs:
-    """The settings the detect predictor reads (defaults of the JAX package's cfg/default.yaml,
-    but f32 compute: `half` or compute_dtype 'bfloat16' selects bf16)."""
+    """The settings the detect predictor reads, with the defaults of the JAX package's
+    cfg/default.yaml: bf16 compute (`half` or compute_dtype 'bfloat16' selects bf16;
+    compute_dtype 'float32' without `half` selects f32)."""
 
     conf: float = 0.25
     iou: float = 0.7
     imgsz: int | tuple = 640
     half: bool = False
-    compute_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
     classes: list | None = None
     agnostic_nms: bool = False
     max_det: int = 300
@@ -111,7 +112,7 @@ class BasePredictor:
     def set_params(self, params) -> None:
         """Install a parameter tree: BN folded (`params_from_jax` fuses), on the
         device and in the compute dtype the settings name now. The same tree
-        is reloaded only when `device` or `half` changed since."""
+        is reloaded only when `device` or the compute dtype changed since."""
         installed = (self.device, self.dtype)
         if params is getattr(self, "_params", None) and installed == self._installed:
             return
