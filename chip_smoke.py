@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of one bf16 chunk, the C2f and
-                                     # head plan sweeps and both kernels' per-stage cycle counts
+                                     # head plan sweeps, both kernels' per-stage cycle counts and
+                                     # the val loader-thread sweep
 
 Phases (any failure stops the run with a non-zero exit code):
 1. build the hand-written CUDA kernels from yolo_tpu_torch/csrc (nvcc, sm_90a);
@@ -84,6 +85,21 @@ Phases (any failure stops the run with a non-zero exit code):
    default (bf16) tracker timed. `[grayscale scorer]`: `predict_center_torch`
    on 256 seeded 40x40 ROIs on the card against the numpy scorer (same
    index, score rel 1e-5), timed.
+12. `[val kernels]` (needs cv2): `YOLO(best.npz).val` at imgsz 640, batch 16, on the
+   demo's held-out split (32 frames of 640x512, seed 10,000, written by a copy of
+   demos/ir_end_to_end.py::_write_split, letterboxed to 640x640): f32 through the
+   kernels against f32 through the twins (P, R, mAP50, mAP50-95 and fitness within
+   1e-4, equal confusion matrices, equal detections per image with boxes within 1e-2
+   px and conf 1e-4), the f32 mAP beside the JAX demo's recorded one, then bf16 and its
+   difference; then kernels 1, 2, 3 and 5 against their twins at TOL on activations
+   captured from the first val batch (B = 16, 640x640; NMS at conf 0.001, K = 1024);
+13. `[val]`: the same on a 512-frame split (seed 20,000) in f32 and bf16 at batch 16
+   and 32: images/s by the host clock over the `.val(...)` call of a model already warmed
+   at that batch and dtype (built and on the card before the clock), the per-batch split (loader
+   wait, the host's enqueue, upload + forward + NMS in CUDA events, the copy-back wait,
+   host matching), each kernel's launches (6 c2f, 3 c2f_upconcat, 4 head_level, 1
+   nms_keep a batch), and at batch 16 a profiled call: the device's busy time and idle
+   share, the top device kernels and host ops.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -92,7 +108,8 @@ the model would choose with each of its constants set to a neutral value;
 `[c2f trace]` builds the kernel with its cycle counters compiled in and prints
 where one interior block's first warp spends its cycles, stage by stage;
 `[head plans]` and `[head trace]` do the same for the head kernel's plan (the
-four captured levels, B = 128 and 1) and its stages.
+four captured levels, B = 128 and 1) and its stages; `[val workers]` times the bf16 `[val]`
+call with 1 to 16 loader threads, and the validator's device pass alone.
 Every kernel of a path must have been launched in that path's run. The last
 three lines are the `kernels` JSON line, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -127,6 +144,7 @@ TRACK_FRAMES = 64
 MOTION_FRAMES = 649  # config 5: the reference's clip length (demos/motion_comp_bench.py)
 MOTION_COMPARE_FRAMES = 128
 GRAY_FRAMES, GRAY_TEST_RANGE = 128, (32, 80)
+VAL_HELDOUT, VAL_FRAMES = (32, 10_000), (512, 20_000)  # validation splits: frames, seed
 KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "c2f": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:264"),
     "c2f_upconcat": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:290"),
@@ -1611,6 +1629,254 @@ def grayscale_scorer_phase(card):
         f"{worst:.2e}; {ms256:.4f} ms per 256 ROIs ({ms256 / 256 * 1e3:.2f} us/ROI), {ms1:.4f} ms for one ROI (CUDA events)")
 
 
+# ------------------------------------------------------------- validation --
+
+
+def write_split(root: Path, n: int, seed: int, w: int = 640, h: int = 512) -> Path:
+    """A copy of demos/ir_end_to_end.py::_write_split at its defaults (the training
+    distribution): n seeded 640x512 IR frames as PNGs under root/images/val, 1-3 small
+    bright targets on a cloudy background each, YOLO labels under root/labels/val → the
+    dataset yaml."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "images/val").mkdir(parents=True, exist_ok=True)
+    (root / "labels/val").mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(n):
+        bg = rng.normal(30, 10, (h // 16, w // 16)).astype(np.float32)
+        img = cv2.resize(bg, (w, h), interpolation=cv2.INTER_CUBIC)
+        img += rng.normal(0, 2, (h, w))
+        lines = []
+        for _ in range(rng.integers(1, 4)):
+            cx, cy = rng.uniform(0.08, 0.92), rng.uniform(0.08, 0.92)
+            r = rng.uniform(2.5, 6.0)
+            a = rng.uniform(120.0, 200.0)
+            img += a * np.exp(-(((xx - cx * w) ** 2 + (yy - cy * h) ** 2) / (2 * r**2)))
+            lines.append(f"0 {cx:.4f} {cy:.4f} {(4 * r) / w:.4f} {(4 * r) / h:.4f}")
+        cv2.imwrite(str(root / f"images/val/{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
+        (root / f"labels/val/{i}.txt").write_text("\n".join(lines) + "\n")
+    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnames:\n  0: aircraft\n")
+    return root / "data.yaml"
+
+
+def recording_validator():
+    """The port's DetectionValidator, keeping each batch's packed device outputs (host copies) in `outs`."""
+    from yolo_tpu_torch.engine.validator import DetectionValidator
+
+    class Recording(DetectionValidator):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.outs = []
+
+        def _update(self, batch, out, *rest):
+            self.outs.append(out)
+            return super()._update(batch, out, *rest)
+
+    return Recording
+
+
+def val_run(data, y=None, **kw):
+    """`y.val(data=..., imgsz=640, plots=False, **kw)` on the card, `y` a new YOLO(best.npz) unless
+    given → (results, validator)."""
+    from yolo_tpu_torch import YOLO
+
+    y = y or YOLO(str(WEIGHTS))
+    results = y.val(validator=recording_validator(), data=str(data), imgsz=640, plots=False, **kw)
+    return results, y.validator
+
+
+def same_val_detections(got, want) -> float:
+    """Per image: equal detection counts, boxes within 1e-2 px and conf within 1e-4, rows in x1 order
+    (two scores of one image may lie within the f32 difference) → the largest |diff|."""
+    import numpy as np
+
+    worst = 0.0
+    for a, b in zip((o for out in got.outs for o in out), (o for out in want.outs for o in out)):
+        a, b = a[a[:, 6] > 0], b[b[:, 6] > 0]
+        if len(a) != len(b):
+            raise AssertionError(f"val: detections per image differ, kernels {len(a)} vs plain {len(b)}")
+        a, b = a[np.argsort(a[:, 0], kind="stable")], b[np.argsort(b[:, 0], kind="stable")]
+        if not np.array_equal(a[:, 5], b[:, 5]) or not np.isfinite(a).all():
+            raise AssertionError("val: classes differ or non-finite outputs")
+        box, conf = float(np.abs(a[:, :4] - b[:, :4]).max(initial=0)), float(np.abs(a[:, 4] - b[:, 4]).max(initial=0))
+        if box > 1e-2 or conf > 1e-4:
+            raise AssertionError(f"val: boxes differ by {box} px or conf by {conf}")
+        worst = max(worst, box, conf)
+    return worst
+
+
+def val_kernel_holds(model, params, data, card):
+    """Kernels 1, 2, 3 and 5 against their twins at TOL on activations captured from the first
+    val batch (B = 16, 640x640, the letterboxed 640x512 frames, RGB / 255), f32 and bf16; NMS at
+    conf 0.001, K = 1024, bit for bit."""
+    import copy
+
+    import torch
+
+    from yolo_tpu_torch.cfg import get_cfg
+    from yolo_tpu_torch.data import build_dataloader, build_yolo_dataset, check_det_dataset
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+    from yolo_tpu_torch.ops import cuda_c2f, cuda_nms
+
+    model = copy.deepcopy(model)
+    d = check_det_dataset(str(data))
+    imgs = next(iter(build_dataloader(build_yolo_dataset(get_cfg(overrides={"imgsz": 640}), d["val"], d), 16, workers=4)))["img"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        params_from_jax(model, params, dtype)
+        x = torch.from_numpy(imgs).cuda().to(dtype) / 255.0
+        rec, boxes, scores = capture_instances(model, x)
+        for name, args in rec:
+            if name == "c2f":
+                kern, plain = (lambda a=args: cuda_c2f.fused_c2f(*a)), (lambda a=args: cuda_c2f.c2f_plain(*a))
+            elif name == "c2f_upconcat":
+                kern, plain = (lambda a=args: cuda_c2f.fused_c2f_upconcat(*a)), (lambda a=args: cuda_c2f.c2f_upconcat_plain(*a))
+            else:
+                kfn, pfn = head_fns(name)
+                kern, plain = (lambda a=args: kfn(*a)), (lambda a=args: pfn(*a))
+            B, H, W, C = args[1 if name == "c2f_upconcat" else 0].shape
+            desc = f"B={B} {H}x{W} C={C}"
+            errs = hold(name, desc, dn, kern(), plain())
+            log(f"val kernels {dn}", card, f"{name:14s} {desc:22s} max_abs_err={max(errs.values()):.3e} "
+                f"kernel_ms={cuda_ms(kern):.4f} plain_ms={cuda_ms(plain):.4f}")
+        cand, top = nms_candidates(boxes, scores, 0.001, 1024)
+        got, want = cuda_nms.nms_keep(cand, top, 0.7), cuda_nms.nms_keep_plain(cand, top, 0.7)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"nms_keep {dn} B=16 K=1024 conf 0.001: keep mask differs in {int((got != want).sum())} slots")
+        log(f"val kernels {dn}", card, f"nms_keep       B={cand.shape[0]} K={cand.shape[1]} valid={int((top > 0).sum())} "
+            f"kept={int(got.sum())} max_abs_err=0 kernel_ms={cuda_ms(lambda: cuda_nms.nms_keep(cand, top, 0.7), iters=50, warmup=5):.4f} "
+            f"plain_ms={cuda_ms(lambda: cuda_nms.nms_keep_plain(cand, top, 0.7), iters=2, warmup=1):.4f}")
+
+
+def val_kernels_phase(model, params, data, card):
+    """`[val kernels]`: YOLO(best.npz).val on the demo's held-out split (32 frames, seed 10,000, as
+    demos/ir_end_to_end.py::make_dataset makes it) at imgsz 640, batch 16: f32 through the kernels
+    against f32 through the twins (metrics within 1e-4, equal confusion matrices, per-image
+    detections), then bf16; the kernels against their twins on one val batch."""
+    import numpy as np
+
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    (rk, vk), launches = counted(path, lambda: val_run(data, batch=16))
+    rp, vp = val_run(data, batch=16, plain=True)
+    diff = {k: abs(rk[k] - rp[k]) for k in rk}
+    if max(diff.values()) > 1e-4 or not np.array_equal(vk.confusion_matrix.matrix, vp.confusion_matrix.matrix):
+        raise AssertionError(f"val: kernels {rk} vs plain {rp}; confusion matrices {vk.confusion_matrix.matrix.tolist()} "
+                             f"vs {vp.confusion_matrix.matrix.tolist()}")
+    worst = same_val_detections(vk, vp)
+    n_det = sum(int((o[:, 6] > 0).sum()) for out in vk.outs for o in out)
+    if rk["mAP50"] <= 0 or n_det <= 0:
+        raise AssertionError(f"val found nothing: {rk}, {n_det} detections")
+    demo = json.loads((ROOT / "demos" / "artifacts" / "demo_report.json").read_text())["train_metrics_heldout_val"]
+    log("val kernels f32", card, f"kernels {rk} | plain: every key within {max(diff.values()):.2e}, confusion matrix equal "
+        f"{vk.confusion_matrix.matrix.tolist()}, {n_det} detections over {VAL_HELDOUT[0]} images equal per image (max |box/conf diff| "
+        f"{worst:.3e}); launches {launches}")
+    log("val kernels f32", card, f"for scale only: the JAX demo's recorded held-out mAP50 {demo['mAP50']:.4f}, "
+        f"mAP50-95 {demo['mAP50-95']:.4f} (demos/artifacts/demo_report.json); the port's here {rk['mAP50']:.4f}, {rk['mAP50-95']:.4f}")
+    rb, _ = val_run(data, batch=16, half=True)
+    log("val kernels bf16", card, f"{rb}; bf16 - f32: " + ", ".join(f"{k} {rb[k] - rk[k]:+.4f}" for k in rb))
+    val_kernel_holds(model, params, data, card)
+
+
+def val_phase(data, warm_data, card):
+    """`[val]`: YOLO(best.npz).val on a 512-frame split (seed 20,000), f32 and bf16 at batch 16 (the
+    cfg default) and 32, each after a warm-up of the same YOLO on the 32-frame split: images/s by
+    the host clock over the `.val(...)` call alone (the model built and its weights on the card
+    before the clock starts), the per-batch split (loader wait on the main thread, upload + forward +
+    NMS in CUDA events, the wait on the copy back, host matching) and each kernel's launches (6
+    c2f, 3 c2f_upconcat, 4 head_level and 1 nms_keep a batch); at batch 16 also a profiled call
+    for the device's idle share."""
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.data.dataset import YOLODataset
+
+    YOLODataset(str(Path(data).parent / "images" / "val"))  # the label cache, written before any timed run
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    per_batch = {"c2f": 6, "c2f_upconcat": 3, "head_level": 4, "nms_keep": 1}
+    for half in (False, True):
+        for batch in (16, 32):
+            y = YOLO(str(WEIGHTS))
+            val_run(warm_data, y, batch=batch, half=half)  # weights, plans, cuDNN, allocator at this batch
+
+            def timed():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = val_run(data, y, batch=batch, half=half)
+                return out, time.perf_counter() - t0
+
+            ((res, v), wall), launches = counted(path, timed)
+            n_b = len(v.timings)
+            if n_b != -(-VAL_FRAMES[0] // batch) or any(launches[k] != c * n_b for k, c in per_batch.items()):
+                raise AssertionError(f"val batch {batch}: {n_b} batches, launches {launches}")
+            mean = {k: sum(t[k] for t in v.timings) / n_b for k in v.timings[0]}
+            tag = f"val {'bf16' if half else 'f32'} b{batch}"
+            log(tag, card, f"{VAL_FRAMES[0]} images in {wall:.3f} s = {VAL_FRAMES[0] / wall:.1f} images/s (host clock, the "
+                f".val call on a warm model); per batch: " + ", ".join(f"{k} {m:.2f} ms" for k, m in mean.items())
+                + f"; mAP50 {res['mAP50']:.4f} mAP50-95 {res['mAP50-95']:.4f}; launches {launches}")
+            if batch == 16:
+                val_profile(tag, y, data, batch, half, card)
+
+
+def val_profile(tag, y, data, batch, half, card):
+    """One more val call under torch.profiler: the device's busy time (the sum of its kernels and
+    copies) against the call's wall time → the idle share (the profiler's own host cost inflates
+    the wall a little, so the share is an upper bound); the top device kernels and host ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        val_run(data, y, batch=batch, half=half)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    on_card = [e for e in events if str(e.device_type).endswith("CUDA")]  # kernels, copies, sets
+    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731 (µs)
+    busy = sum(dev(e) for e in on_card) / 1e6
+    if busy <= 0:
+        raise AssertionError(f"{tag}: the profiler recorded no device time ({len(on_card)} device events)")
+    top_dev = sorted(on_card, key=dev, reverse=True)[:6]
+    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    log(tag + " profile", card, f"device busy {busy:.3f} s of {wall:.3f} s under the profiler: idle {1 - busy / wall:.1%}; "
+        "device: " + ", ".join(f"{e.key[:40]} {dev(e) / 1e3:.1f} ms x{e.count}" for e in top_dev)
+        + "; host self: " + ", ".join(f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}" for e in top_cpu))
+
+
+def val_workers_sweep(data, warm_data, card):
+    """`--profile`: the bf16 `[val]` call at batch 16 with 1, 2, 4, 8 (the cfg default) and 16 loader
+    threads, then the validator's device pass alone (no loader) on one pinned-able batch: the host's
+    time to issue it and the time left for the device after."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    for workers in (1, 2, 4, 8, 16):
+        y = YOLO(str(WEIGHTS))
+        val_run(warm_data, y, batch=16, half=True, workers=workers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, v = val_run(data, y, batch=16, half=True, workers=workers)
+        wall = time.perf_counter() - t0
+        mean = {k: sum(t[k] for t in v.timings) / len(v.timings) for k in v.timings[0]}
+        log("val workers", card, f"bf16 b16, {workers:2d} loader threads: {VAL_FRAMES[0] / wall:.1f} images/s; per batch: "
+            + ", ".join(f"{k} {m:.2f} ms" for k, m in mean.items()))
+    y = YOLO(str(WEIGHTS))
+    y.val(data=str(warm_data), imgsz=640, plots=False, half=True)
+    imgs = np.random.default_rng(0).integers(0, 255, (16, 640, 640, 3), np.uint8)
+    for _ in range(3):
+        y.validator._device_pass(y.model, imgs, torch.device("cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        y.validator._device_pass(y.model, imgs, torch.device("cuda"), torch.bfloat16)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    log("val workers", card, f"the device pass alone (B = 16, bf16, no loader threads): the host issues it in "
+        f"{(t1 - t0) / 10 * 1e3:.2f} ms, the device finishes {(time.perf_counter() - t1) * 1e3:.2f} ms after the tenth")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -1698,6 +1964,15 @@ def main(argv) -> int:
     motion_compare_phase(model, params, pan, card)
     grayscale_phase(clip, card)
     grayscale_scorer_phase(card)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        heldout, big = write_split(Path(tmp) / "heldout", *VAL_HELDOUT), write_split(Path(tmp) / "val", *VAL_FRAMES)
+        print(f"[val splits] {VAL_HELDOUT[0]} + {VAL_FRAMES[0]} frames of 640x512 written in {time.perf_counter() - t0:.1f} s")
+        val_kernels_phase(model, params, heldout, card)
+        val_phase(big, heldout, card)
+        if profiling:
+            val_workers_sweep(big, heldout, card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

@@ -368,3 +368,29 @@ def test_motion_detector_kernels_match_plain(card):
     assert torch.equal(got["valid"], want["valid"]) and int(got["valid"].sum()) > 0
     torch.testing.assert_close(got["boxes"], want["boxes"], atol=1e-2, rtol=0)
     torch.testing.assert_close(got["scores"], want["scores"], atol=1e-4, rtol=0)
+
+
+def test_yolo_val_kernels_match_plain(card, tmp_path):
+    """YOLO(best.npz).val on the card, f32, through the kernels and through the plain twins
+    (`plain=True`), on 8 frames of 640x512 (chip_smoke's copy of the demo's split writer) at
+    imgsz 640, batch 3 (a partial last batch): every metric within 1e-4, equal confusion
+    matrices, each of kernels 1, 2, 3 and 5 launched once a batch."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+    from yolo_tpu_torch import YOLO
+
+    data = chip_smoke.write_split(tmp_path, 8, 10_000)
+    counters = chip_smoke.launch_counters()
+    runs = []
+    for plain in (False, True):
+        before = {k: f.launches for k, f in counters.items()}
+        model = YOLO(str(chip_smoke.WEIGHTS))
+        runs.append((model.val(data=str(data), imgsz=640, batch=3, plots=False, plain=plain), model.validator))
+        launched = {k: f.launches - before[k] for k, f in counters.items()}
+        per_batch = {"c2f": 6, "c2f_upconcat": 3, "head_level": 4, "head_level_cm": 0, "nms_keep": 1}
+        assert launched == {k: 0 if plain else 3 * n for k, n in per_batch.items()}
+    (got, gv), (want, wv) = runs
+    assert got["mAP50"] > 0.5
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4, k
+    np.testing.assert_array_equal(gv.confusion_matrix.matrix, wv.confusion_matrix.matrix)

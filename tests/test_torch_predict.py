@@ -417,6 +417,6 @@ def test_predict_settings_that_ask_for_unported_features_raise():
     pred = BasePredictor(py.model, py.params, overrides={"device": "cpu", "compute_dtype": "bfloat16"})
     assert a.compute_dtype == "bfloat16" and pred.dtype == torch.bfloat16
     from yolo_tpu.cfg import DEFAULT_CFG_DICT
-    from yolo_tpu_torch.engine.predictor import _cfg_keys
+    from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT as PORT_CFG_DICT  # the key set `PredictArgs.update` accepts
 
-    assert _cfg_keys() == set(DEFAULT_CFG_DICT)
+    assert set(PORT_CFG_DICT) == set(DEFAULT_CFG_DICT)

@@ -1,6 +1,7 @@
 """yolo_tpu_torch: the PyTorch/CUDA port of yolo_tpu for NVIDIA Hopper: the fused detect+track
-pipeline, the `YOLO(...).predict` facade with the per-object Kalman clip loop, and
-`YOLO(...).track` with the ByteTrack / BoT-SORT trackers.
+pipeline, the `YOLO(...).predict` facade with the per-object Kalman clip loop,
+`YOLO(...).track` with the ByteTrack / BoT-SORT trackers, and `YOLO(...).val`, the
+detect validator (`DetectionValidator`: P, R, mAP50, mAP50-95).
 
 The JAX package `yolo_tpu` is the reference; this package imports nothing of
 it (nor JAX). Entry points run on the CUDA card unless the caller passes
@@ -10,7 +11,8 @@ it (nor JAX). Entry points run on the CUDA card unless the caller passes
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.exporter import load_npz
 from yolo_tpu_torch.engine.model import YOLO
+from yolo_tpu_torch.engine.validator import DetectionValidator
 from yolo_tpu_torch.nn.tasks import DetectionModel, fuse, params_from_jax
 from yolo_tpu_torch.pipeline.fused import FusedDetectTrack
 
-__all__ = ["YOLO", "DetectionModel", "FusedDetectTrack", "fuse", "load_npz", "params_from_jax", "resolve_device"]
+__all__ = ["YOLO", "DetectionModel", "DetectionValidator", "FusedDetectTrack", "fuse", "load_npz", "params_from_jax", "resolve_device"]

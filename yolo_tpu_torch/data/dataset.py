@@ -1,0 +1,201 @@
+"""YOLO-format detection dataset (images/ + labels/*.txt) in its validation form
+(counterpart of yolo_tpu/data/dataset.py): the dataset yaml, the label files and
+their JSON cache, image loading, the letterbox, and the collate into fixed-shape
+batches.
+
+Box rows (`cls cx cy w h`, normalized) and polygon rows (`cls x1 y1 x2 y2 ...`,
+turned into their boxes) are read; the masks, keypoints and rotated boxes of the
+other tasks, and the training augmentations, are not ported.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from pathlib import Path
+
+import numpy as np
+import yaml
+
+from yolo_tpu_torch.utils import LOGGER
+
+IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
+DATASETS_DIR = Path(__file__).resolve().parents[1] / "cfg" / "datasets"
+
+
+def check_det_dataset(data) -> dict:
+    """A dataset dict, or the path of its yaml (a bare name is looked up among the
+    shipped yamls) → the dict with `train` / `val` / `test` resolved against
+    `path` (or the yaml's folder), `names` as {id: name} and `nc`."""
+    if isinstance(data, dict):
+        d = dict(data)
+    else:
+        p = Path(data)
+        if not p.exists() and p.suffix in (".yaml", ".yml") and len(p.parts) == 1 and (DATASETS_DIR / p.name).exists():
+            data = DATASETS_DIR / p.name
+        d = yaml.safe_load(Path(data).read_text(encoding="utf-8", errors="ignore")) or {}
+        d.setdefault("yaml_file", str(data))
+    root = Path(d.get("path") or Path(d.get("yaml_file", ".")).parent)
+    for split in ("train", "val", "test"):
+        if d.get(split) and not Path(d[split]).is_absolute():
+            d[split] = str(root / d[split])
+    names = d.get("names") or {0: "object"}
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    d["names"] = {int(k): v for k, v in names.items()}
+    d["nc"] = len(d["names"])
+    return d
+
+
+def img2label_path(img_path: str) -> str:
+    """.../images/.../x.jpg → .../labels/.../x.txt (the last `images` part), else x.txt beside the image."""
+    p = Path(img_path)
+    if "images" in p.parent.parts:
+        parts = list(p.parts)
+        parts[len(parts) - 1 - parts[::-1].index("images")] = "labels"
+        return str(Path(*parts).with_suffix(".txt"))
+    return str(p.with_suffix(".txt"))
+
+
+def _parse_label_file(path: str, single_cls: bool):
+    """→ (cls (n,), bboxes (n, 4) normalized xywh) of one label file, or None when it is missing."""
+    if not Path(path).exists():
+        return None
+    cls, boxes = [], []
+    for line in Path(path).read_text().splitlines():
+        parts = line.split()
+        if len(parts) >= 7 and len(parts) % 2 == 1:  # a polygon of three points or more → its box
+            poly = np.array([float(x) for x in parts[1:]], np.float32).reshape(-1, 2)
+            (x1, y1), (x2, y2) = poly.min(0), poly.max(0)
+            boxes.append([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1])
+        elif len(parts) >= 5:
+            boxes.append([float(x) for x in parts[1:5]])
+        else:
+            continue
+        cls.append(0.0 if single_cls else float(parts[0]))
+    return np.array(cls, np.float32), np.array(boxes, np.float32).reshape(-1, 4)
+
+
+class YOLODataset:
+    """Detection dataset over a directory, a glob or a list file of images, letterboxed for validation."""
+
+    def __init__(self, img_path, imgsz: int = 640, augment: bool = False, stride: int = 32, single_cls: bool = False,
+                 fraction: float = 1.0, names=None, cache=None):
+        if augment:
+            raise NotImplementedError("augment=True: the training augmentations wait for the training port")
+        if cache in ("ram", True):
+            raise NotImplementedError(f"cache={cache!r}: the image cache serves a dataset read once an epoch, "
+                                      "so it waits for the training port")
+        from yolo_tpu_torch.data.augment import ValTransforms
+
+        self.img_path = img_path
+        self.imgsz = imgsz
+        self.stride = stride
+        self.single_cls = single_cls
+        self.names = names or {}
+        self.im_files = self._list_images(img_path, fraction)
+        if not self.im_files:
+            raise FileNotFoundError(f"no images found in {img_path}")
+        # `cache` switches only the label cache: on unless it is False
+        self.labels = self._load_labels(cache is not False)
+        self.transforms = ValTransforms(imgsz, stride)
+
+    @staticmethod
+    def _list_images(img_path, fraction: float) -> list:
+        p = Path(img_path)
+        if p.is_file() and p.suffix == ".txt":  # a list file: relative entries resolve against its folder
+            lines = (line.strip() for line in p.read_text().splitlines())
+            files = [t if Path(t).is_absolute() else str((p.parent / t).resolve()) for t in lines if t]
+        elif p.is_dir():
+            files = sorted(str(f) for f in p.rglob("*") if f.suffix.lower() in IMG_EXTS)
+        else:
+            files = sorted(str(f) for f in Path(p.parent).glob(p.name) if f.suffix.lower() in IMG_EXTS)
+        return files[: max(1, int(len(files) * fraction))] if files else []
+
+    def _load_labels(self, cache: bool = True) -> list[dict]:
+        """Parse the label files, or read them from the JSON cache beside the first
+        image, keyed by the file lists, the label files' sizes and times and `single_cls`.
+        The file is the port's own: it holds no polygons, so it must not stand in for
+        the JAX package's cache, which does."""
+        label_files = [img2label_path(f) for f in self.im_files]
+
+        def sig(p):
+            try:
+                st = Path(p).stat()
+                return f"{st.st_size}:{st.st_mtime_ns}"
+            except OSError:
+                return "missing"
+
+        key = hashlib.sha1(("".join(self.im_files + label_files) + ";".join(map(sig, label_files)) + f":sc{self.single_cls}").encode())
+        cache_path = Path(self.im_files[0]).parent / f".labels_{key.hexdigest()[:16]}.torch.cache.json"
+        if cache and cache_path.exists():
+            try:
+                return [{"cls": np.array(r["cls"], np.float32), "bboxes": np.array(r["bboxes"], np.float32).reshape(-1, 4)}
+                        for r in json.loads(cache_path.read_text())]
+            except (ValueError, KeyError, TypeError):
+                pass  # an unreadable cache is parsed again and rewritten
+        labels, n_missing = [], 0
+        for lf in label_files:
+            parsed = _parse_label_file(lf, self.single_cls)
+            if parsed is None:
+                n_missing += 1
+                parsed = np.zeros(0, np.float32), np.zeros((0, 4), np.float32)
+            labels.append({"cls": parsed[0], "bboxes": parsed[1]})
+        if n_missing:
+            LOGGER.warning(f"{n_missing}/{len(label_files)} label files missing (treated as background)")
+        if cache:
+            try:
+                cache_path.write_text(json.dumps([{k: lb[k].tolist() for k in ("cls", "bboxes")} for lb in labels]))
+            except OSError:
+                pass  # a read-only dataset: no cache
+        return labels
+
+    def __len__(self):
+        return len(self.im_files)
+
+    def load_raw(self, i: int) -> dict:
+        """Image i (BGR, as decoded) with its labels as pixel xyxy boxes, before the letterbox."""
+        from yolo_tpu_torch.ops.boxes import xywhn2xyxy
+        from yolo_tpu_torch.utils.files import imread
+
+        img = imread(self.im_files[i])
+        if img is None:
+            raise FileNotFoundError(self.im_files[i])
+        h, w = img.shape[:2]
+        lb = self.labels[i]
+        bboxes = xywhn2xyxy(lb["bboxes"], w=w, h=h) if len(lb["bboxes"]) else np.zeros((0, 4), np.float32)
+        return {"img": img, "cls": lb["cls"].copy(), "bboxes": np.asarray(bboxes, np.float32), "shape": (h, w),
+                "im_file": self.im_files[i]}
+
+    def __getitem__(self, i: int) -> dict:
+        return self.transforms(self.load_raw(i))
+
+
+def collate_batch(samples: list[dict], max_boxes: int = 64) -> dict:
+    """Stack letterboxed samples into fixed-shape arrays: img (B, H, W, 3) uint8 RGB,
+    cls (B, N), bboxes (B, N, 4) normalized xywh, mask_gt (B, N), and `meta`, a list
+    of {im_file, shape, ratio_pad}. Labels beyond `max_boxes` are dropped, with a warning."""
+    from yolo_tpu_torch.ops.boxes import xyxy2xywhn
+
+    B = len(samples)
+    H, W = samples[0]["img"].shape[:2]
+    worst = max(len(s["cls"]) for s in samples)
+    if worst > max_boxes:
+        LOGGER.warning(f"collate: an image carries {worst} labels but the static capacity is {max_boxes}: "
+                       f"extra labels are dropped (raise max_boxes in build_dataloader to keep them)")
+    imgs = np.zeros((B, H, W, 3), np.uint8)
+    cls = np.zeros((B, max_boxes), np.float32)
+    bboxes = np.zeros((B, max_boxes, 4), np.float32)
+    mask = np.zeros((B, max_boxes), np.float32)
+    meta = []
+    for i, s in enumerate(samples):
+        im = s["img"]
+        # decoded BGR → RGB here, once, so the device pass never flips a dataset batch
+        imgs[i] = im[..., ::-1] if im.ndim == 3 else im[..., None].repeat(3, -1)
+        n = min(len(s["cls"]), max_boxes)
+        if n:
+            cls[i, :n] = s["cls"][:n]
+            bboxes[i, :n] = np.asarray(xyxy2xywhn(s["bboxes"][:n], w=W, h=H), np.float32)
+            mask[i, :n] = 1.0
+        meta.append({"im_file": s.get("im_file"), "shape": s.get("shape"), "ratio_pad": s.get("ratio_pad")})
+    return {"img": imgs, "cls": cls, "bboxes": bboxes, "mask_gt": mask, "meta": meta}

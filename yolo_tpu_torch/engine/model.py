@@ -4,9 +4,10 @@
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     results = YOLO(...).predict(frame, conf=0.25)
     tracked = YOLO(...).track(frame, persist=True, tracker="bytetrack.yaml")
+    metrics = YOLO(...).val(data="dataset.yaml", imgsz=640)   # P, R, mAP50, mAP50-95, fitness
 
 Runs on the CUDA card unless `device="cpu"` is passed. `.pt` / orbax loading,
-remote and ensemble models, and the train / val / export modes are not ported.
+remote and ensemble models, and the train / export modes are not ported.
 """
 
 from __future__ import annotations
@@ -88,3 +89,16 @@ class YOLO:
         from yolo_tpu_torch.trackers.track import attach_tracker
 
         return attach_tracker(self, results, persist=persist, stream=stream, tracker_cfg=kwargs.get("tracker"))
+
+    def val(self, validator=None, **kwargs) -> dict:
+        """Validate on a dataset split (`data`, `split`, `imgsz`, `batch`, `conf`, ...) →
+        {precision, recall, mAP50, mAP50-95, fitness}, also kept in `self.metrics`. The
+        forward computes in f32 unless `half=True`; `plain=True` runs the kernels' twins."""
+        args = {"device": str(self.device), **self.overrides, **kwargs, "mode": "val"}
+        if validator is None:
+            from yolo_tpu_torch.engine.validator import validator_for
+
+            validator = validator_for(self.model)
+        self.validator = validator(args=args)
+        self.metrics = self.validator(model=self.model, params=self.params)
+        return self.metrics

@@ -11,7 +11,6 @@ not ported.
 
 from __future__ import annotations
 
-import functools
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -19,14 +18,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.results import Results
-from yolo_tpu_torch.nn.tasks import params_from_jax
+from yolo_tpu_torch.nn.tasks import install_params
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
 from yolo_tpu_torch.ops.nms import non_max_suppression
 
-CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
 VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv", "webm"}
 
 
@@ -36,14 +35,6 @@ def _snap_batch(n: int) -> int:
     while b < n:
         b *= 2
     return b
-
-
-@functools.cache
-def _cfg_keys() -> frozenset:
-    """The keys of the package's copy of the JAX package's cfg/default.yaml."""
-    import yaml
-
-    return frozenset(yaml.safe_load((CFG_DIR / "default.yaml").read_text(encoding="utf-8")))
 
 
 # cfg settings the detect predictor would act on but the port does not have, with
@@ -84,7 +75,7 @@ class PredictArgs:
             elif k in UNPORTED:
                 if v != UNPORTED[k]:
                     raise NotImplementedError(f"predict setting {k}={v!r} is not ported (only {k}={UNPORTED[k]!r})")
-            elif k != "persist" and k not in _cfg_keys():
+            elif k != "persist" and k not in DEFAULT_CFG_DICT:
                 raise TypeError(f"'{k}' is not a setting of the detect predictor nor a cfg key")
 
 
@@ -111,15 +102,11 @@ class BasePredictor:
 
     def set_params(self, params) -> None:
         """Install a parameter tree: BN folded (`params_from_jax` fuses), on the
-        device and in the compute dtype the settings name now. The same tree
-        is reloaded only when `device` or the compute dtype changed since."""
-        installed = (self.device, self.dtype)
-        if params is getattr(self, "_params", None) and installed == self._installed:
-            return
-        self._params, self._installed = params, installed
-        self.model.device = self.device
-        self.model.to(self.device)
-        params_from_jax(self.model, params, self.dtype)
+        device and in the compute dtype the settings name now. The model records
+        what it holds, so the tree is reloaded only when another user of the
+        model (the validator) or a change of `device` or dtype replaced it."""
+        self._params = params
+        install_params(self.model, params, self.device, self.dtype)
 
     @torch.no_grad()
     def _predict(self, imgs: torch.Tensor) -> dict:

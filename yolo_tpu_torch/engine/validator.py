@@ -1,0 +1,171 @@
+"""Detection validator (counterpart of yolo_tpu/engine/validator.py DetectionValidator):
+P, R, mAP50, mAP50-95 and fitness of a detect model on a dataset split.
+
+Per batch: the loader's threads read, letterbox and collate the images (RGB
+uint8); the device pass uploads the batch from pinned memory, scales it to
+[0, 1] in the compute dtype (f32, bf16 with `half=True`), runs
+`DetectionModel.predict` (the C2f and head kernels) and the fixed-shape NMS
+(the NMS kernel) at `conf` (0.001 unless set), `iou` and `max_det`, and packs
+the outputs into one tensor that is copied back once; the host then matches
+each image's detections to its labels at ten IoU thresholds and updates the
+metrics and the confusion matrix. The other tasks' validators and the COCOeval
+cross-check are not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
+from yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
+from yolo_tpu_torch.data.dataset import check_det_dataset
+from yolo_tpu_torch.device import resolve_device
+from yolo_tpu_torch.nn.tasks import install_params
+from yolo_tpu_torch.ops.boxes import scale_boxes, xywhn2xyxy, xyxy2xywh
+from yolo_tpu_torch.ops.nms import non_max_suppression
+from yolo_tpu_torch.utils import LOGGER
+from yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
+
+
+def validator_for(model):
+    """The validator class of a model's task: the detect task's; the other tasks raise NotImplementedError."""
+    task = "rtdetr" if getattr(model, "is_rtdetr", False) else getattr(model, "task", "detect")
+    if task != "detect":
+        raise NotImplementedError(f"validation of the {task} task is not ported (only detect)")
+    return DetectionValidator
+
+
+class DetectionValidator:
+    """Evaluate a detection model on a dataset split. `args` are cfg settings (other keys
+    are ignored, as in the JAX package) and `plain`, which runs the kernels' plain twins."""
+
+    def __init__(self, args: dict | None = None, data: dict | None = None):
+        args = dict(args or {})
+        self.plain = bool(args.pop("plain", False))
+        self.args = get_cfg(overrides={k: v for k, v in args.items() if k in DEFAULT_CFG_DICT})
+        if self.args.conf is None:
+            self.args.conf = 0.001
+        self.data = data
+        self.iou_thresholds = np.linspace(0.5, 0.95, 10)
+        # per batch, ms: the wait for the loader, the host's time to issue the device pass, the device
+        # pass (CUDA events from the upload to the packed outputs; on the CPU the host's), the wait
+        # for the copy back, the host matching
+        self.timings: list[dict] = []
+
+    @torch.no_grad()
+    def _device_pass(self, model, imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """One uint8 RGB batch → (B, max_det, 7) f32 on the device: xyxy box, score, class, valid."""
+        a = self.args
+        x = torch.from_numpy(imgs)
+        if device.type == "cuda":
+            x = x.pin_memory()
+        x = x.to(device, non_blocking=True).to(dtype) / 255.0
+        out = non_max_suppression(model.predict(x, plain=self.plain), conf_thres=float(a.conf), iou_thres=float(a.iou),
+                                  max_det=int(a.max_det), plain=self.plain)
+        cols = [out["boxes"], out["scores"][..., None], out["cls"][..., None], out["valid"][..., None]]
+        return torch.cat([c.to(torch.float32) for c in cols], -1)
+
+    def __call__(self, model, params) -> dict:
+        a = self.args
+        data = self.data or check_det_dataset(a.data)
+        anno = Path(data.get("path", ".")) / "annotations" / "instances_val2017.json"
+        if a.save_json and anno.exists():
+            raise NotImplementedError(f"the COCOeval cross-check against {anno} (utils/coco_eval.py coco_evaluate) is not ported")
+        split = data.get(a.split) or data.get("val") or data.get("train")
+        dataset = build_yolo_dataset(a, split, data, stride=int(max(model.stride)))
+        batch_size = min(int(a.batch) if a.batch and a.batch > 0 else 16, len(dataset))
+        loader = build_dataloader(dataset, batch_size, workers=a.workers)
+        device, dtype = resolve_device(a.device), torch.bfloat16 if a.half else torch.float32
+        install_params(model, params, device, dtype)
+        names = getattr(model, "names", {})
+        # COCO-91 category ids in the json rows of a COCO dataset
+        cat_map = None
+        if data.get("nc", 0) == 80 and "coco" in str(data.get("path", "")).lower():
+            from yolo_tpu_torch.utils.coco_eval import coco80_to_coco91_class
+
+            cat_map = coco80_to_coco91_class()
+
+        metrics, cm = DetMetrics(names=names), ConfusionMatrix(nc=model.nc)
+        self._json_dets, self.timings = [], []
+        n_img, t_start = 0, time.time()
+        with contextlib.closing(iter(loader)) as batches:  # closing stops the loader's threads on any exit
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                t1 = time.perf_counter()
+                if device.type == "cuda":
+                    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    ev[0].record()
+                out = self._device_pass(model, batch["img"], device, dtype)
+                if device.type == "cuda":
+                    ev[1].record()
+                t2 = time.perf_counter()
+                out = out.cpu().numpy()  # the batch's one wait for the device
+                t3 = time.perf_counter()
+                n_img += self._update(batch, out, metrics, cm, cat_map)
+                t4 = time.perf_counter()
+                self.timings.append({
+                    "loader": (t1 - t0) * 1e3,
+                    "enqueue": (t2 - t1) * 1e3,
+                    "device": ev[0].elapsed_time(ev[1]) if device.type == "cuda" else (t2 - t1) * 1e3,
+                    "copy": (t3 - t2) * 1e3,
+                    "host": (t4 - t3) * 1e3,
+                })
+        results = metrics.process()
+        LOGGER.info(f"val: {n_img} images in {time.time() - t_start:.1f}s — P {results['precision']:.4f} R {results['recall']:.4f} "
+                    f"mAP50 {results['mAP50']:.4f} mAP50-95 {results['mAP50-95']:.4f}")
+        self.confusion_matrix, self.metrics = cm, metrics
+        save_dir = None  # resolved once: a second get_save_dir would number another directory
+        if a.save_json and self._json_dets:
+            save_dir = get_save_dir(a, name="val")
+            save_dir.mkdir(parents=True, exist_ok=True)
+            (save_dir / "predictions.json").write_text(json.dumps(self._json_dets))
+            LOGGER.info(f"saved {save_dir / 'predictions.json'}")
+        if a.plots:
+            try:  # a failed PNG is a warning: the metrics stand
+                from yolo_tpu_torch.utils.plotting import plot_confusion_matrix
+
+                save_dir = save_dir or get_save_dir(a, name="val")
+                save_dir.mkdir(parents=True, exist_ok=True)
+                plot_confusion_matrix(cm.matrix, names=names, save_path=save_dir / "confusion_matrix.png")
+            except Exception as e:
+                LOGGER.warning(f"plotting failed: {e}")
+        return results
+
+    def _update(self, batch: dict, out: np.ndarray, metrics: DetMetrics, cm: ConfusionMatrix, cat_map) -> int:
+        """Match each image's detections to its labels; update the metrics, the matrix and
+        the json rows → the number of images."""
+        H, W = batch["img"].shape[1:3]
+        for i, meta in enumerate(batch["meta"]):
+            valid = out[i, :, 6] > 0
+            pboxes, pconf, pcls = out[i, valid, :4], out[i, valid, 4], out[i, valid, 5]
+            m = batch["mask_gt"][i] > 0
+            gt_boxes = np.asarray(xywhn2xyxy(batch["bboxes"][i][m], w=W, h=H))  # normalized on the canvas → pixels
+            gt_cls = batch["cls"][i][m]
+            metrics.update(match_predictions(pboxes, pcls, gt_boxes, gt_cls, self.iou_thresholds), pconf, pcls, gt_cls)
+            cm.process_batch(pboxes, pconf, pcls, gt_boxes, gt_cls)
+            if self.args.save_json:
+                self._json_rows(pboxes, pconf, pcls, meta, (H, W), cat_map)
+        return len(batch["meta"])
+
+    def _json_rows(self, pboxes, pconf, pcls, meta: dict, hw, cat_map) -> None:
+        """COCO-style rows of one image: a numeric file stem as the image id, boxes in the
+        original image's pixels as (x, y, w, h), COCO-91 ids for a COCO dataset."""
+        stem = Path(meta["im_file"]).stem
+        image_id = int(stem) if stem.isnumeric() else stem
+        jb = np.asarray(scale_boxes(hw, np.array(pboxes, np.float64), meta["shape"], meta["ratio_pad"]))
+        for b, s, c in zip(np.asarray(xyxy2xywh(jb)), pconf, pcls):
+            self._json_dets.append({
+                "image_id": image_id,
+                "category_id": cat_map[int(c)] if cat_map else int(c),
+                "bbox": [round(float(v), 3) for v in [b[0] - b[2] / 2, b[1] - b[3] / 2, b[2], b[3]]],
+                "score": round(float(s), 5),
+            })

@@ -268,12 +268,24 @@ class DetectionModel(nn.Module):
 def params_from_jax(model: DetectionModel, params: dict, dtype=None) -> DetectionModel:
     """Load a JAX parameter tree ({"model": {"<layer>": subtree}}, numpy or JAX
     arrays, HWIO convs; fused or not) into `model`'s modules, on its device,
-    in `dtype` (the compute dtype; default f32). Returns the model."""
-    if not params_are_fused(params):
-        params = fuse(params)
+    in `dtype` (the compute dtype; default f32). Returns the model, which
+    records what it holds in `held` (this tree, its device, the dtype)."""
     dtype = dtype or torch.float32
-    mp = params["model"]
+    mp = (params if params_are_fused(params) else fuse(params))["model"]
     for i, m in enumerate(model.layers):
         if hasattr(m, "load_jax"):
             m.load_jax(mp[str(i)], model.device, dtype)
+    model.held = (params, model.device, dtype)
     return model
+
+
+def install_params(model: DetectionModel, params: dict, device, dtype) -> None:
+    """Move `model` to `device` and load `params` in `dtype`, unless the model already
+    holds this very tree there in that dtype. The record lives on the model, so its
+    users (the predictor, the validator) each see what the other installed."""
+    held = getattr(model, "held", None)
+    if held is not None and held[0] is params and held[1:] == (device, dtype):
+        return
+    model.device = device
+    model.to(device)
+    params_from_jax(model, params, dtype)

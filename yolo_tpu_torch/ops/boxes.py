@@ -1,8 +1,8 @@
 """Box-format conversions, the inverse letterbox and pairwise IoU (counterpart of yolo_tpu/ops/boxes.py).
 
-`xyxy2xywh`, `clip_boxes`, `scale_boxes` and `box_iou` take numpy arrays (the
-host side of the predictor and of the MOT trackers) or torch tensors alike;
-`xywh2xyxy` takes torch tensors.
+`xyxy2xywh`, `xywhn2xyxy`, `xyxy2xywhn`, `clip_boxes`, `scale_boxes` and
+`box_iou` take numpy arrays (the host side of the predictor, the validator and
+the MOT trackers) or torch tensors alike; `xywh2xyxy` takes torch tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +23,25 @@ def xyxy2xywh(x):
     """(x1, y1, x2, y2) → (cx, cy, w, h) over the last axis."""
     x = _as_array(x)
     return _stack([(x[..., 0] + x[..., 2]) / 2, (x[..., 1] + x[..., 3]) / 2, x[..., 2] - x[..., 0], x[..., 3] - x[..., 1]], x)
+
+
+def xywhn2xyxy(x, w: int = 640, h: int = 640, padw: float = 0.0, padh: float = 0.0):
+    """Normalized (cx, cy, w, h) → pixel (x1, y1, x2, y2), shifted by the pads."""
+    x = _as_array(x)
+    return _stack([
+        w * (x[..., 0] - x[..., 2] / 2) + padw, h * (x[..., 1] - x[..., 3] / 2) + padh,
+        w * (x[..., 0] + x[..., 2] / 2) + padw, h * (x[..., 1] + x[..., 3] / 2) + padh,
+    ], x)
+
+
+def xyxy2xywhn(x, w: int = 640, h: int = 640, clip: bool = False, eps: float = 0.0):
+    """Pixel (x1, y1, x2, y2) → normalized (cx, cy, w, h); `clip` first clips to (h - eps, w - eps)."""
+    x = _as_array(x)
+    if clip:
+        x = clip_boxes(x, (h - eps, w - eps))
+    return _stack([
+        (x[..., 0] + x[..., 2]) / 2 / w, (x[..., 1] + x[..., 3]) / 2 / h, (x[..., 2] - x[..., 0]) / w, (x[..., 3] - x[..., 1]) / h,
+    ], x)
 
 
 def clip_boxes(boxes, shape):
