@@ -100,6 +100,18 @@ Phases (any failure stops the run with a non-zero exit code):
    host matching), each kernel's launches (6 c2f, 3 c2f_upconcat, 4 head_level, 1
    nms_keep a batch), and at batch 16 a profiled call: the device's busy time and idle
    share, the top device kernels and host ops.
+14. training (needs cv2): the demo's 64-frame training split (seed 0) and its held-out split
+   (the 32 frames of `[val kernels]`), written by the copy of _write_split. `[train]`:
+   YOLO("yolov8-small.yaml").train with the IR recipe of train_small_targets.py:16-45
+   (TRAIN_RECIPE: imgsz 640, batch 16, AdamW lr0 8e-4, bf16 `amp`, 8 loader threads; epochs
+   3 and close_mosaic 1 instead of 150 and 20): per epoch the losses, P, R, mAP50, mAP50-95,
+   epoch and validation seconds; train images/s, the per-step split (loader wait; forward +
+   loss, backward, optimizer + BN + EMA in CUDA events), peak memory and the launches of
+   check_amp and the validations. `[train step f32]`: one f32 step on the card and on the
+   CPU from the same tree and batch, held to TRAIN_STEP_TOL. `[train finetune]` (report
+   only): YOLO(best.npz), the demo's trained weights, one epoch of the recipe, mAP before
+   and after. `[train val kernels]`: both trained models validated in f32 through the
+   kernels and the twins, held as `[val kernels]` holds them.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -109,7 +121,9 @@ the model would choose with each of its constants set to a neutral value;
 where one interior block's first warp spends its cycles, stage by stage;
 `[head plans]` and `[head trace]` do the same for the head kernel's plan (the
 four captured levels, B = 128 and 1) and its stages; `[val workers]` times the bf16 `[val]`
-call with 1 to 16 loader threads, and the validator's device pass alone.
+call with 1 to 16 loader threads, and the validator's device pass alone; `[train profile]`
+records the device's work over one epoch of `[train]` (the device only: host tracing slows
+the steps tenfold) and sets it against an unprofiled step: the device's idle share.
 Every kernel of a path must have been launched in that path's run. The last
 three lines are the `kernels` JSON line, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -1632,17 +1646,17 @@ def grayscale_scorer_phase(card):
 # ------------------------------------------------------------- validation --
 
 
-def write_split(root: Path, n: int, seed: int, w: int = 640, h: int = 512) -> Path:
+def write_split(root: Path, n: int, seed: int, w: int = 640, h: int = 512, split: str = "val") -> Path:
     """A copy of demos/ir_end_to_end.py::_write_split at its defaults (the training
-    distribution): n seeded 640x512 IR frames as PNGs under root/images/val, 1-3 small
-    bright targets on a cloudy background each, YOLO labels under root/labels/val → the
-    dataset yaml."""
+    distribution): n seeded 640x512 IR frames as PNGs under root/images/<split>, 1-3 small
+    bright targets on a cloudy background each, YOLO labels under root/labels/<split> → the
+    dataset yaml, which names every split written under root."""
     import cv2
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    (root / "images/val").mkdir(parents=True, exist_ok=True)
-    (root / "labels/val").mkdir(parents=True, exist_ok=True)
+    (root / f"images/{split}").mkdir(parents=True, exist_ok=True)
+    (root / f"labels/{split}").mkdir(parents=True, exist_ok=True)
     yy, xx = np.mgrid[0:h, 0:w]
     for i in range(n):
         bg = rng.normal(30, 10, (h // 16, w // 16)).astype(np.float32)
@@ -1655,9 +1669,10 @@ def write_split(root: Path, n: int, seed: int, w: int = 640, h: int = 512) -> Pa
             a = rng.uniform(120.0, 200.0)
             img += a * np.exp(-(((xx - cx * w) ** 2 + (yy - cy * h) ** 2) / (2 * r**2)))
             lines.append(f"0 {cx:.4f} {cy:.4f} {(4 * r) / w:.4f} {(4 * r) / h:.4f}")
-        cv2.imwrite(str(root / f"images/val/{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
-        (root / f"labels/val/{i}.txt").write_text("\n".join(lines) + "\n")
-    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnames:\n  0: aircraft\n")
+        cv2.imwrite(str(root / f"images/{split}/{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
+        (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
+    (root / "data.yaml").write_text(f"path: {root}\n{splits}names:\n  0: aircraft\n")
     return root / "data.yaml"
 
 
@@ -1756,21 +1771,14 @@ def val_kernels_phase(model, params, data, card):
     demos/ir_end_to_end.py::make_dataset makes it) at imgsz 640, batch 16: f32 through the kernels
     against f32 through the twins (metrics within 1e-4, equal confusion matrices, per-image
     detections), then bf16; the kernels against their twins on one val batch."""
-    import numpy as np
-
     path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
     (rk, vk), launches = counted(path, lambda: val_run(data, batch=16))
     rp, vp = val_run(data, batch=16, plain=True)
-    diff = {k: abs(rk[k] - rp[k]) for k in rk}
-    if max(diff.values()) > 1e-4 or not np.array_equal(vk.confusion_matrix.matrix, vp.confusion_matrix.matrix):
-        raise AssertionError(f"val: kernels {rk} vs plain {rp}; confusion matrices {vk.confusion_matrix.matrix.tolist()} "
-                             f"vs {vp.confusion_matrix.matrix.tolist()}")
-    worst = same_val_detections(vk, vp)
-    n_det = sum(int((o[:, 6] > 0).sum()) for out in vk.outs for o in out)
+    n_det, dm, worst = hold_val_runs("val", card, rk, vk, rp, vp)
     if rk["mAP50"] <= 0 or n_det <= 0:
         raise AssertionError(f"val found nothing: {rk}, {n_det} detections")
     demo = json.loads((ROOT / "demos" / "artifacts" / "demo_report.json").read_text())["train_metrics_heldout_val"]
-    log("val kernels f32", card, f"kernels {rk} | plain: every key within {max(diff.values()):.2e}, confusion matrix equal "
+    log("val kernels f32", card, f"kernels {rk} | plain: every key within {dm:.2e}, confusion matrix equal "
         f"{vk.confusion_matrix.matrix.tolist()}, {n_det} detections over {VAL_HELDOUT[0]} images equal per image (max |box/conf diff| "
         f"{worst:.3e}); launches {launches}")
     log("val kernels f32", card, f"for scale only: the JAX demo's recorded held-out mAP50 {demo['mAP50']:.4f}, "
@@ -1877,6 +1885,258 @@ def val_workers_sweep(data, warm_data, card):
         f"{(t1 - t0) / 10 * 1e3:.2f} ms, the device finishes {(time.perf_counter() - t1) * 1e3:.2f} ms after the tenth")
 
 
+# ---------------------------------------------------------------- training --
+
+TRAIN_SET = (64, 0)  # demos/ir_end_to_end.py::make_dataset: 64 train frames (seed 0), the held-out split as val
+# train_small_targets.py:16-45 (the IR recipe) on yolov8-small.yaml at scale n, nc = 1, full width and depth;
+# cut: epochs 3 (150) and close_mosaic 1 (20, which at 3 epochs would switch mosaic and copy-paste off at once)
+TRAIN_RECIPE = dict(
+    epochs=3, patience=30, batch=16, imgsz=640, optimizer="AdamW", lr0=0.0008, lrf=0.005, momentum=0.95,
+    weight_decay=0.0008, warmup_epochs=5, hsv_h=0.0, hsv_s=0.0, hsv_v=0.3, degrees=0.0, translate=0.05, scale=0.2,
+    shear=0.0, perspective=0.0, flipud=0.1, fliplr=0.5, mosaic=0.3, mixup=0.0, copy_paste=0.15, close_mosaic=1,
+    amp=True, workers=8, seed=0,
+)
+# [train step f32], card against CPU: the loss and its components (relative), every gradient (absolute, as a
+# share of its tensor's largest), the BN running moments after the step (absolute), and the parameters after
+# the optimizer. AdamW's first step moves a parameter by lr · u(g), u(g) = g / (|g| + 1e-8) of the clipped
+# gradient, which is ±1 wherever |g| >> 1e-8: a gradient near zero that differs between the devices within
+# the gradient tolerance may move its parameter up to 2 lr the other way. So the parameters must agree
+# within lr · |u(g_card) - u(g_cpu)| (from the two runs' own gradients, in float64) + TRAIN_STEP_TOL["param"]
+TRAIN_STEP_TOL = {"loss": 1e-4, "grad": 1e-3, "bn": 1e-4, "param": 1e-6}
+
+
+def train_epoch_recorder(epochs: list, profile_epoch=None):
+    """A DetectionTrainer whose hooks keep each epoch's numbers in `epochs`, and profile
+    one epoch's training steps (`profile_epoch`, a dict that gets the result) with torch.profiler."""
+    from yolo_tpu_torch.engine.trainer import DetectionTrainer
+
+    class Recording(DetectionTrainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.callbacks["on_train_epoch_start"].append(self._start)
+            self.callbacks["on_train_epoch_end"].append(self._train_end)
+            self.callbacks["on_fit_epoch_end"].append(self._record)
+            self._n, self._prof = 0, None
+
+        def _start(self, t):
+            self._t0 = time.perf_counter()
+            if profile_epoch is not None and self._n == profile_epoch["epoch"]:
+                from torch.profiler import ProfilerActivity, profile
+
+                self._prof = profile(activities=[ProfilerActivity.CUDA])  # the device only: host tracing slows the steps 10x
+                self._prof.__enter__()
+            self._n += 1
+
+        def _train_end(self, t):
+            self._t_end = time.perf_counter()  # the epoch's losses were read: the device is done with its steps
+            if self._prof is not None:
+                self._prof.__exit__(None, None, None)
+                profile_epoch.update(device_profile(self._prof, self._t_end - self._t0))
+                self._prof = None
+
+        def _record(self, t):
+            profiled = profile_epoch is not None and self._n - 1 == profile_epoch["epoch"]
+            epochs.append({"row": dict(t._last_row), "epoch_s": t.epoch_time, "val_s": t.val_time,
+                           "timings": list(t.timings), "t_end": self._t_end, "profiled": profiled})
+
+    return Recording
+
+
+def device_profile(prof, wall: float) -> dict:
+    """The device's busy time (its kernels, copies and sets) in a profiled window of `wall` s → busy,
+    the window's idle share, the top device kernels."""
+    events = prof.key_averages()
+    on_card = [e for e in events if str(e.device_type).endswith("CUDA")]
+    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731 (µs)
+    busy = sum(dev(e) for e in on_card) / 1e6
+    if busy <= 0:
+        raise AssertionError(f"the profiler recorded no device time ({len(on_card)} device events)")
+    top = sorted(on_card, key=dev, reverse=True)[:6]
+    return {"busy": busy, "wall": wall, "idle": 1 - busy / wall, "kernels": len(on_card),
+            "top": ", ".join(f"{e.key[:40]} {dev(e) / 1e3:.1f} ms x{e.count}" for e in top)}
+
+
+def train_step_flops(batch: int, imgsz: int = 640) -> tuple:
+    """The operations of one train step's convolutions and matrix products (FlopCounterMode, from
+    their shapes): (forward, forward + backward) of the yolov8-small train form on `batch` images."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from yolo_tpu_torch.nn.tasks import DetectionModel, load_train_params
+
+    m = DetectionModel("yolov8-small.yaml")
+    load_train_params(m, m.init(0))
+    m.train()
+    x = torch.rand(batch, imgsz, imgsz, 3, device="cuda", dtype=torch.bfloat16)
+    with FlopCounterMode(display=False) as fwd:
+        outs = m.forward_features(x)
+    with FlopCounterMode(display=False) as both:
+        sum(o.float().sum() for o in m.forward_features(x)).backward()
+    del outs
+    return fwd.get_total_flops(), both.get_total_flops()
+
+
+def train_phase(data, run_dir, card, profiling):
+    """`[train]`: YOLO("yolov8-small.yaml").train with TRAIN_RECIPE on the 64-frame split, validating
+    the EMA weights on the 32-frame held-out split each epoch: per epoch the loss components, P, R,
+    mAP50, mAP50-95, epoch and validation seconds; train images/s over every step after the first of
+    each epoch (host clock, from the step's loader wait to the epoch's read of its losses); the mean
+    per-step split (loader wait on the host; forward + loss, backward, optimizer + BN + EMA in CUDA
+    events); peak device memory; each kernel's launches (check_amp and the validations); with
+    --profile, the device's idle share over the second epoch's steps."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    epochs, prof = [], ({"epoch": 1} if profiling else None)
+    y = YOLO("yolov8-small.yaml")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, launches = counted({"c2f", "c2f_upconcat", "head_level", "nms_keep"}, lambda: y.train(
+        trainer=train_epoch_recorder(epochs, prof), data=str(data), project=str(run_dir), name="train", exist_ok=True,
+        **TRAIN_RECIPE))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    batch = TRAIN_RECIPE["batch"]
+    for e in epochs:
+        r = e["row"]
+        if not all(np.isfinite(r[f"train/{k}_loss"]) for k in ("box", "cls", "dfl")) or r["train/box_loss"] <= 0:
+            raise AssertionError(f"train: epoch {r['epoch']} losses {r}")
+        log("train", card, f"epoch {r['epoch'] + 1}/{TRAIN_RECIPE['epochs']}: box {r['train/box_loss']:.4f} cls "
+            f"{r['train/cls_loss']:.4f} dfl {r['train/dfl_loss']:.4f}; P {r['metrics/precision']:.4f} R {r['metrics/recall']:.4f} "
+            f"mAP50 {r['metrics/mAP50']:.4f} mAP50-95 {r['metrics/mAP50-95']:.4f}; epoch {e['epoch_s']:.2f} s, val {e['val_s']:.2f} s")
+    timed = [e for e in epochs if not e["profiled"]]
+    images = sum((len(e["timings"]) - 1) * batch for e in timed)
+    span = sum(e["t_end"] - e["timings"][1]["start"] for e in timed)
+    steps = [t for e in timed for t in e["timings"][1:]]
+    mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
+    log("train", card, f"{images} images over the {len(steps)} steps after the first of each epoch not profiled: "
+        f"{images / span:.1f} images/s "
+        f"(host clock); per step: loader wait {mean['loader']:.2f} ms (host), forward+loss {mean['forward']:.2f} ms, backward "
+        f"{mean['backward']:.2f} ms, optimizer+BN+EMA {mean['optimizer']:.2f} ms (events); peak memory {peak:.2f} GiB "
+        f"(max_memory_allocated, over the {base / 2**30:.2f} GiB held before the phase); the whole .train call {wall:.1f} s; launches {launches}")
+    fwd, both = train_step_flops(batch)
+    log("train", card, f"a step's convolutions: {both / 1e12:.3f} TFLOP (forward {fwd / batch / 1e9:.2f} GFLOP an image, "
+        f"FlopCounterMode); at {PEAK_OPS_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s (bf16) the bound is {both / PEAK_OPS_PER_S['bfloat16'] * 1e3:.3f} "
+        f"ms a step against {span / len(steps) * 1e3:.1f} ms measured")
+    if prof:
+        n_prof = len(next(e for e in epochs if e["profiled"])["timings"])
+        busy_step, wall_step = prof["busy"] / n_prof, span / len(steps)
+        log("train profile", card, f"epoch {prof['epoch'] + 1}'s {n_prof} steps: device busy {prof['busy']:.3f} s in {prof['wall']:.3f} s "
+            f"under the profiler (idle {prof['idle']:.1%} there); {busy_step * 1e3:.1f} ms of device work a step against "
+            f"{wall_step * 1e3:.1f} ms a step unprofiled: idle {1 - busy_step / wall_step:.1%}; device: {prof['top']}")
+    if metrics is None or y.params is None:
+        raise AssertionError("train: no metrics or weights")
+    return y, launches
+
+
+def train_step_f32_phase(data, card):
+    """`[train step f32]`: one f32 step of the trainer's path (forward, loss, backward, AdamW at the
+    recipe's lr0 with its weight decay at batch 16, BN moments) on the card and on the CPU, from
+    DetectionModel("yolov8-small.yaml").init(0) and the first batch of the training loader (B = 16,
+    640x640): within TRAIN_STEP_TOL, or the run fails."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.cfg import get_cfg
+    from yolo_tpu_torch.data import build_dataloader, build_yolo_dataset, check_det_dataset
+    from yolo_tpu_torch.nn.tasks import DetectionModel, load_train_params, train_leaves
+    from yolo_tpu_torch.utils.loss import v8DetectionLoss
+    from yolo_tpu_torch.utils.optim import AdamW, apply_bn_stats
+
+    cfg = get_cfg(overrides=TRAIN_RECIPE)
+    d = check_det_dataset(str(data))
+    batch = next(iter(build_dataloader(build_yolo_dataset(cfg, d["train"], d, mode="train"), cfg.batch, workers=8, shuffle=True)))
+    lr, decay = cfg.lr0, cfg.weight_decay * cfg.batch * max(round(cfg.nbs / cfg.batch), 1) / cfg.nbs
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = DetectionModel("yolov8-small.yaml", device=dev)
+        load_train_params(m, m.init(0))
+        m.train()
+        x = torch.from_numpy(batch["img"]).to(dev).float() / 255.0
+        tb = {k: torch.from_numpy(batch[k]).to(dev) for k in ("cls", "bboxes", "mask_gt")}
+        t0 = time.perf_counter()
+        total, comps = v8DetectionLoss(m, cfg)(m.forward_features(x), tb)
+        total.backward()
+        leaves = train_leaves(m)
+        params = {k: t for k, t in leaves.items() if isinstance(t, torch.nn.Parameter)}
+        grads = {k: t.grad.detach().cpu().clone() for k, t in params.items()}  # before the clip scales them in place
+        AdamW(list(params.items()), weight_decay=decay).step(lr, None, lr_bias=lr)
+        apply_bn_stats(m)
+        after = {k: t.detach().cpu().clone() for k, t in leaves.items()}
+        runs[dev] = (float(total.detach()), comps.cpu().numpy(), grads, after, time.perf_counter() - t0)
+    (tc, cc, gc, pc, sc), (tp, cp, gp, pp, sp) = runs["cuda"], runs["cpu"]
+    err = {"loss": max(abs(tc - tp) / abs(tp), float(np.abs(cc - cp).max() / np.abs(cp).max()))}
+    err["grad"] = max(float((gc[k] - gp[k]).abs().max() / gp[k].abs().max().clamp(min=1e-30)) for k in gp)
+    err["bn"] = max(float((pc[k] - pp[k]).abs().max()) for k in pp if "running" in k)
+    def u(g):  # AdamW's first-step direction of each gradient after the global-norm clip at 10
+        g = {k: v.double() for k, v in g.items()}
+        scale = min(1.0, 10.0 / (float(torch.sqrt(sum((v * v).sum() for v in g.values()))) + 1e-6))
+        return {k: scale * v / ((scale * v).abs() + 1e-8) for k, v in g.items()}
+
+    uc, up = u(gc), u(gp)
+    err["param"], apart = 0.0, 0
+    for k in gp:
+        excess = (pc[k] - pp[k]).double().abs() - lr * (uc[k] - up[k]).abs()
+        err["param"] = max(err["param"], float(excess.max()))
+        apart += int((torch.sign(gc[k]) != torch.sign(gp[k])).sum())
+    if any(v > TRAIN_STEP_TOL[k] for k, v in err.items()):
+        raise AssertionError(f"train step f32: card vs CPU {err} beyond {TRAIN_STEP_TOL}")
+    log("train step f32", card, f"loss {tc:.6f} (CPU {tp:.6f}), components {np.round(cc, 6).tolist()} (CPU "
+        f"{np.round(cp, 6).tolist()}); largest differences, as TRAIN_STEP_TOL measures them: {err}; {apart} gradient "
+        f"elements of opposite sign (near zero); the step took "
+        f"{sc:.2f} s on the card (its first) and {sp:.2f} s on the CPU; all {len(gp)} gradients and {len(pp)} tensors held")
+
+
+def hold_val_runs(tag, card, rk, vk, rp, vp):
+    """f32 kernels against f32 twins on one split: metrics within 1e-4, equal confusion matrices, the
+    same detections per image → the number of detections and the largest |box / conf| difference."""
+    import numpy as np
+
+    diff = {k: abs(rk[k] - rp[k]) for k in rk}
+    if max(diff.values()) > 1e-4 or not np.array_equal(vk.confusion_matrix.matrix, vp.confusion_matrix.matrix):
+        raise AssertionError(f"{tag}: kernels {rk} vs plain {rp}; confusion matrices {vk.confusion_matrix.matrix.tolist()} "
+                             f"vs {vp.confusion_matrix.matrix.tolist()}")
+    worst = same_val_detections(vk, vp)
+    return sum(int((o[:, 6] > 0).sum()) for out in vk.outs for o in out), max(diff.values()), worst
+
+
+def train_val_kernels_phase(trees, data, card):
+    """`[train val kernels]`: the validator in f32 on the held-out split, through the kernels and with
+    plain=True, on each trained YOLO of `trees` ({name: YOLO}: `[train]`'s, holding its final best EMA
+    tree, and `[train finetune]`'s): the same metrics within 1e-4, the same confusion matrix and the
+    same detections per image, or the run fails."""
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    for name, y in trees.items():
+        (rk, vk), launches = counted(path, lambda: val_run(data, y, batch=16))
+        rp, vp = val_run(data, y, batch=16, plain=True)
+        n_det, dm, worst = hold_val_runs(f"train val {name}", card, rk, vk, rp, vp)
+        log("train val kernels", card, f"{name}: kernels {rk} | plain: every key within {dm:.2e}, confusion matrix equal "
+            f"{vk.confusion_matrix.matrix.tolist()}, {n_det} detections equal per image (max |box/conf diff| {worst:.3e}); "
+            f"launches {launches}")
+
+
+def train_finetune_phase(data, run_dir, card):
+    """`[train finetune]` (report only): YOLO(best.npz), the demo's trained weights, validated on the
+    held-out split (f32), then one epoch of TRAIN_RECIPE from them (the pretrained path; close_mosaic 1
+    makes it a clean epoch) and its own validation → the fine-tuned YOLO."""
+    from yolo_tpu_torch import YOLO
+
+    y = YOLO(str(WEIGHTS))
+    before, _ = val_run(data, y, batch=16)
+    t0 = time.perf_counter()
+    after = y.train(data=str(data), project=str(run_dir), name="finetune", exist_ok=True, plots=False,
+                    **{**TRAIN_RECIPE, "epochs": 1})
+    log("train finetune", card, f"{WEIGHTS.relative_to(ROOT)} on the held-out split: mAP50 {before['mAP50']:.4f} "
+        f"mAP50-95 {before['mAP50-95']:.4f}; after one epoch of the recipe ({time.perf_counter() - t0:.1f} s, "
+        f"{'bf16' if y.trainer.args.amp else 'f32: check_amp refused bf16'}): mAP50 {after['mAP50']:.4f} "
+        f"mAP50-95 {after['mAP50-95']:.4f}")
+    return y
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -1973,6 +2233,17 @@ def main(argv) -> int:
         val_phase(big, heldout, card)
         if profiling:
             val_workers_sweep(big, heldout, card)
+
+        t0 = time.perf_counter()
+        train_root = Path(tmp) / "train"
+        write_split(train_root, *TRAIN_SET, split="train")
+        train_data = write_split(train_root, *VAL_HELDOUT)
+        print(f"[train split] {TRAIN_SET[0]} train + {VAL_HELDOUT[0]} held-out frames of 640x512 written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        trained, _ = train_phase(train_data, Path(tmp) / "runs", card, profiling)
+        train_step_f32_phase(train_data, card)
+        tuned = train_finetune_phase(train_data, Path(tmp) / "runs", card)
+        train_val_kernels_phase({"train": trained, "finetune": tuned}, train_data, card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

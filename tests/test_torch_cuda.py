@@ -170,13 +170,40 @@ def test_nms_kernel_refuses_what_it_does_not_take(card):
             cuda_nms.nms_keep(b, s, 0.5)
 
 
+def _he_normal_params(model, seed: int = 0) -> dict:
+    """The seeded tree the d_max=300 test was written with: He-normal convs, zero biases and the
+    head's priors, BN folded. `DetectionModel.init` now draws the JAX package's tree, whose small
+    activations leave every P5 score of a random frame at the class prior (1.56e-4, above conf 1e-4):
+    100 anchors a frame tied exactly, which the kernels' and the twins' last-ulp differences order
+    apart, so their tracks could not be held equal."""
+    import math
+
+    rng = np.random.default_rng(seed)
+
+    def tree(m):
+        if isinstance(m, (PM.ConvBNAct, PM.Conv2d)):
+            leaf = {"weight": rng.normal(0.0, math.sqrt(2.0 / (m.c1 * m.k * m.k)), (m.k, m.k, m.c1, m.c2)).astype(np.float32),
+                    "bias": np.zeros(m.c2, np.float32)}
+            return {"conv": leaf} if isinstance(m, PM.ConvBNAct) else leaf
+        return {name: tree(child) for name, child in m.named_children()}
+
+    params = {"model": {str(i): tree(m) for i, m in enumerate(model.layers)}}
+    head = model.head
+    hp = params["model"][str(len(model.layers) - 1)]
+    hp["dfl"] = {"conv": {"weight": np.arange(head.reg_max, dtype=np.float32).reshape(1, 1, head.reg_max, 1)}}
+    for l, s in enumerate(head.stride):
+        hp["cv2"][str(l)]["2"]["bias"][:] = 1.0
+        hp["cv3"][str(l)]["2"]["bias"][:] = math.log(5 / head.nc / (640 / s) ** 2)
+    return params
+
+
 def test_fused_detect_track_d_max_300_kernels_match_plain(card):
     """FusedDetectTrack(d_max=300) gives max_nms = 1200 candidate slots, more than
     the first NMS kernel took: f32 through the kernels equals f32 through the twins in tracks, ids, statuses and stats."""
     from yolo_tpu_torch import DetectionModel, FusedDetectTrack
 
     model = DetectionModel("yolov8n.yaml", device=card)
-    params = model.init(0)
+    params = _he_normal_params(model)
     clip = np.random.default_rng(5).integers(0, 255, (16, 320, 320, 1), np.uint8)
     clip[:, 100:116, 60:76] = 255
     kw = dict(frame_hw=(320, 320), chunk=8, conf=1e-4, n_max=512, d_max=300, dtype=torch.float32)
@@ -394,3 +421,36 @@ def test_yolo_val_kernels_match_plain(card, tmp_path):
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-4, k
     np.testing.assert_array_equal(gv.confusion_matrix.matrix, wv.confusion_matrix.matrix)
+
+
+def _train_split(root):
+    """chip_smoke's training split cut to 16 + 8 frames of 640x512 (the demo's writer)."""
+    import chip_smoke
+
+    chip_smoke.write_split(root, 16, 0, split="train")
+    return chip_smoke.write_split(root, 8, 10_000)
+
+
+def test_train_step_f32_card_matches_cpu(card, tmp_path):
+    """chip_smoke's `[train step f32]`: one f32 step of yolov8-small (forward, loss, backward,
+    AdamW, BN moments; B = 16 at 640x640) on the card and on the CPU from the same tree and batch,
+    within chip_smoke.TRAIN_STEP_TOL."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+
+    chip_smoke.train_step_f32_phase(_train_split(tmp_path), "card test")
+
+
+def test_train_val_kernels_match_plain(card, tmp_path):
+    """chip_smoke's `[train val kernels]` on weights the trainer made on the card: best.npz after one
+    epoch of the IR recipe (batch 8), validated in f32 through the kernels and through the twins:
+    metrics within 1e-4, equal confusion matrices and detections."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+    from yolo_tpu_torch import YOLO
+
+    data = _train_split(tmp_path)
+    y = YOLO(str(chip_smoke.WEIGHTS))
+    y.train(data=str(data), project=str(tmp_path), name="t", plots=False, **{**chip_smoke.TRAIN_RECIPE, "epochs": 1, "batch": 8})
+    assert y.metrics["mAP50"] > 0.5
+    chip_smoke.train_val_kernels_phase({"finetune": y}, data, "card test")

@@ -1,10 +1,16 @@
-"""The port's validation data path (yolo_tpu_torch/data/, cfg/, utils/files.py) against
-the JAX package's: dataset yamls, label paths and parsing, the validation letterbox,
-the collate and the ordered threaded loader. The fixture's images are seeded numpy
-noise written as PNGs; both packages read them with the label cache off
-(`cache=False`) unless a test is about the cache, so neither reads the other's."""
+"""The port's data path (yolo_tpu_torch/data/, cfg/, utils/files.py) against the JAX
+package's: dataset yamls, label paths and parsing, the validation letterbox, the
+training augmentations one by one and composed under the IR recipe, the demo's and a
+recipe that turns every one on, the collate, and the threaded loaders (in order, and
+shuffled with per-worker augmentation RNGs over epochs and close_mosaic). The
+fixture's images are seeded numpy noise written as PNGs; both packages read them with
+the label cache off (`cache=False`) unless a test is about the cache, so neither reads
+the other's. The same `random.Random` seeds drive both packages' augmentations, which
+must give the same pixels and labels, bit for bit."""
 
+import copy
 import json
+import random
 import threading
 
 import cv2
@@ -122,9 +128,11 @@ def test_label_cache_is_the_ports_own(dataset_root):
         p.unlink()
 
 
-@pytest.mark.parametrize("kw", [{"augment": True}, {"cache": "ram"}, {"cache": True}], ids=["augment", "ram", "true"])
-def test_training_settings_raise(dataset_root, kw):
-    with pytest.raises(NotImplementedError, match="training"):
+@pytest.mark.parametrize("kw, what", [({"augment": True, "hyp": PC.get_cfg({"cutmix": 0.5})}, "cutmix"),
+                                      ({"cache": "ram"}, "RAM cache"), ({"cache": True}, "RAM cache")], ids=["augment", "ram", "true"])
+def test_training_settings_raise(dataset_root, kw, what):
+    """The training settings left unported raise, naming themselves: cutmix among the augmentations, the image cache."""
+    with pytest.raises(NotImplementedError, match=what):
         PD.YOLODataset(str(dataset_root / "images" / "val"), **kw)
 
 
@@ -227,3 +235,102 @@ def test_files_and_coco_ids_match_jax(tmp_path):
     assert PF.increment_path(tmp_path / "run", mkdir=True).is_dir()
     assert PF.increment_path(tmp_path / "run") == JF.increment_path(tmp_path / "run") == tmp_path / "run2"
     assert coco80_to_coco91_class() == jax_coco() and len(coco80_to_coco91_class()) == 80
+
+
+# --- the training augmentations ---------------------------------------------------------------
+
+IR_RECIPE = dict(hsv_h=0.0, hsv_s=0.0, hsv_v=0.3, degrees=0.0, translate=0.05, scale=0.2, shear=0.0, perspective=0.0,
+                 flipud=0.1, fliplr=0.5, mosaic=0.3, mixup=0.0, copy_paste=0.15)  # train_small_targets.py:16-45
+DEMO_RECIPE = dict(hsv_h=0.0, hsv_s=0.0, hsv_v=0.3, degrees=0.0, translate=0.05, scale=0.2, mosaic=0.3, copy_paste=0.0,
+                   fliplr=0.5, flipud=0.1)  # demos/ir_end_to_end.py:120-125
+ALL_ON = dict(degrees=10.0, shear=2.0, perspective=0.0005, mosaic=0.8, mixup=0.5, copy_paste=0.6, copy_paste_mode="mixup",
+              bgr=0.5, augment_photometric=0.3)  # every augmentation, with the cfg's HSV gains
+RECIPES = {"ir": IR_RECIPE, "demo": DEMO_RECIPE, "all_on": ALL_ON}
+
+
+def _same_sample(a, b, what=""):
+    for k in ("img", "bboxes", "cls"):
+        assert np.asarray(a[k]).dtype == np.asarray(b[k]).dtype, (what, k)
+        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{what} {k}")
+
+
+def _raw(ds, i):
+    return copy.deepcopy(ds.load_raw(i))
+
+
+STEPS = {
+    "hsv": lambda m, ds, rng: {"img": m.random_hsv(_raw(ds, 0)["img"], 0.015, 0.7, 0.4, rng=rng), "bboxes": np.zeros(0), "cls": np.zeros(0)},
+    "flip": lambda m, ds, rng: m.random_flip(_raw(ds, 1), lr_p=0.5, ud_p=0.5, rng=rng),
+    "perspective": lambda m, ds, rng: m.random_perspective(_raw(ds, 0), degrees=10, translate=0.1, scale=0.5, shear=2,
+                                                             perspective=0.0005, border=(-8, -8), rng=rng),
+    "affine": lambda m, ds, rng: m.random_perspective(_raw(ds, 4), translate=0.05, scale=0.2, rng=rng),
+    "mosaic4": lambda m, ds, rng: m.mosaic4([_raw(ds, i) for i in (0, 1, 4, 6)], 64, rng=rng),
+    "copy_paste": lambda m, ds, rng: m.copy_paste(_raw(ds, 4), _raw(ds, 0), p=0.9, rng=rng),
+    "mixup": lambda m, ds, rng: m.mixup(_raw(ds, 0), _raw(ds, 3), rng=rng),
+    "photometric": lambda m, ds, rng: {"img": m.random_photometric(_raw(ds, 1)["img"], p=1.0, rng=rng), "bboxes": np.zeros(0),
+                                       "cls": np.zeros(0)},
+}
+
+
+@pytest.mark.parametrize("step", list(STEPS))
+def test_train_augmentations_match_jax(dataset_root, step):
+    """Each augmentation on the fixture's images, eight draws from one `random.Random(seed)` per
+    package: the same images, boxes and classes; the RNGs end in the same state."""
+    got, _ = _datasets(str(dataset_root / "images" / "val"), imgsz=64)
+    for seed in range(8):
+        rp, rj = random.Random(seed), random.Random(seed)
+        _same_sample(STEPS[step](PA, got, rp), STEPS[step](JA, got, rj), f"{step} seed {seed}")
+        assert rp.random() == rj.random()
+
+
+def test_box_clip_and_filter_match_jax():
+    rng = np.random.default_rng(5)
+    b = rng.uniform(-20, 90, (40, 4)).astype(np.float32)
+    b[:, 2:] = b[:, :2] + rng.uniform(0, 30, (40, 2))
+    cls = np.arange(40, dtype=np.float32)
+    np.testing.assert_array_equal(PA._clip_bboxes(b.copy(), 64, 48), JA._clip_bboxes(b.copy(), 64, 48))
+    for kw in ({}, {"area_thr": 0.3, "orig_boxes": b * 1.2}):
+        for g, w in zip(PA._filter_boxes(b.copy(), cls, **kw), JA._filter_boxes(b.copy(), cls, **kw)):
+            np.testing.assert_array_equal(g, w)
+
+
+def _train_datasets(root, recipe, imgsz=64):
+    p = PD.YOLODataset(str(root / "images" / "val"), imgsz=imgsz, augment=True, hyp=PC.get_cfg(recipe), cache=False)
+    j = JD.YOLODataset(str(root / "images" / "val"), imgsz=imgsz, augment=True, hyp=jax_get_cfg(overrides=recipe), cache=False)
+    assert isinstance(p.transforms, PA.TrainTransforms) and isinstance(j.transforms, JA.TrainTransforms)
+    return p, j
+
+
+@pytest.mark.parametrize("recipe", list(RECIPES))
+def test_train_transforms_match_jax(dataset_root, recipe):
+    """TrainTransforms under a recipe, every image three times from one RNG per package, then again
+    after close_mosaic: the same images, boxes and classes, bit for bit."""
+    got, want = _train_datasets(dataset_root, RECIPES[recipe])
+    for closed in (False, True):
+        if closed:
+            got.close_mosaic(), want.close_mosaic()
+        rp, rj = random.Random(7), random.Random(7)
+        for i in list(range(len(got))) * 3:
+            a, b = got.transforms(got.load_raw(i), rp), want.transforms(want.load_raw(i), rj)
+            _same_sample(a, b, f"{recipe} image {i} closed={closed}")
+            assert a["img"].shape == (64, 64, 3)
+
+
+@pytest.mark.parametrize("recipe,workers", [("ir", 2), ("all_on", 3)])
+def test_train_loader_matches_jax(dataset_root, recipe, workers):
+    """The training loaders (shuffled by seed and epoch, one augmentation RNG per worker, the short
+    last batch dropped) over two epochs, close_mosaic before the second: the same batches."""
+    got, want = _train_datasets(dataset_root, RECIPES[recipe])
+    pl = PBd.build_dataloader(got, 2, workers=workers, shuffle=True, seed=3, drop_last=True)
+    jl = JBd.build_dataloader(want, 2, workers=workers, shuffle=True, seed=3, drop_last=True)
+    assert len(pl) == len(jl) == len(LABELS) // 2
+    for epoch in (0, 1):
+        if epoch:
+            got.close_mosaic(), want.close_mosaic()
+        pl.set_epoch(epoch), jl.set_epoch(epoch)
+        pb, jb = list(pl), list(jl)
+        assert len(pb) == len(jb) == len(LABELS) // 2
+        for x, y in zip(pb, jb):
+            for k in ("img", "cls", "bboxes", "mask_gt"):
+                np.testing.assert_array_equal(x[k], y[k], err_msg=f"epoch {epoch} {k}")
+            assert x["meta"] == y["meta"]

@@ -1,7 +1,8 @@
 """yolo_tpu_torch: the PyTorch/CUDA port of yolo_tpu for NVIDIA Hopper: the fused detect+track
 pipeline, the `YOLO(...).predict` facade with the per-object Kalman clip loop,
-`YOLO(...).track` with the ByteTrack / BoT-SORT trackers, and `YOLO(...).val`, the
-detect validator (`DetectionValidator`: P, R, mAP50, mAP50-95).
+`YOLO(...).track` with the ByteTrack / BoT-SORT trackers, `YOLO(...).val`, the
+detect validator (`DetectionValidator`: P, R, mAP50, mAP50-95), and `YOLO(...).train`,
+the detect trainer (`engine/trainer.py`).
 
 The JAX package `yolo_tpu` is the reference; this package imports nothing of
 it (nor JAX). Entry points run on the CUDA card unless the caller passes

@@ -1,11 +1,13 @@
-"""YOLO-format detection dataset (images/ + labels/*.txt) in its validation form
-(counterpart of yolo_tpu/data/dataset.py): the dataset yaml, the label files and
-their JSON cache, image loading, the letterbox, and the collate into fixed-shape
+"""YOLO-format detection dataset (images/ + labels/*.txt) (counterpart of
+yolo_tpu/data/dataset.py): the dataset yaml, the label files and their JSON
+cache, image loading, the validation letterbox or the training augmentations
+(`augment=True` with the settings as `hyp`), and the collate into fixed-shape
 batches.
 
 Box rows (`cls cx cy w h`, normalized) and polygon rows (`cls x1 y1 x2 y2 ...`,
-turned into their boxes) are read; the masks, keypoints and rotated boxes of the
-other tasks, and the training augmentations, are not ported.
+turned into their boxes; the training augmentations warp the polygons) are read;
+the masks, keypoints and rotated boxes of the other tasks, and the image RAM cache,
+are not ported.
 """
 
 from __future__ import annotations
@@ -58,35 +60,38 @@ def img2label_path(img_path: str) -> str:
 
 
 def _parse_label_file(path: str, single_cls: bool):
-    """→ (cls (n,), bboxes (n, 4) normalized xywh) of one label file, or None when it is missing."""
+    """→ (cls (n,), bboxes (n, 4) normalized xywh, segments) of one label file, or None when it is
+    missing. `segments` lists each row's normalized polygon (None for a box row), or is None when
+    the file has no polygon row; the training augmentations warp polygons, not their boxes."""
     if not Path(path).exists():
         return None
-    cls, boxes = [], []
+    cls, boxes, segments = [], [], []
     for line in Path(path).read_text().splitlines():
         parts = line.split()
         if len(parts) >= 7 and len(parts) % 2 == 1:  # a polygon of three points or more → its box
             poly = np.array([float(x) for x in parts[1:]], np.float32).reshape(-1, 2)
             (x1, y1), (x2, y2) = poly.min(0), poly.max(0)
             boxes.append([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1])
+            segments.append(poly)
         elif len(parts) >= 5:
             boxes.append([float(x) for x in parts[1:5]])
+            segments.append(None)
         else:
             continue
         cls.append(0.0 if single_cls else float(parts[0]))
-    return np.array(cls, np.float32), np.array(boxes, np.float32).reshape(-1, 4)
+    segments = segments if any(sg is not None for sg in segments) else None
+    return np.array(cls, np.float32), np.array(boxes, np.float32).reshape(-1, 4), segments
 
 
 class YOLODataset:
-    """Detection dataset over a directory, a glob or a list file of images, letterboxed for validation."""
+    """Detection dataset over a directory, a glob or a list file of images: letterboxed for
+    validation, or augmented for training when `augment` is set and `hyp` holds the settings."""
 
-    def __init__(self, img_path, imgsz: int = 640, augment: bool = False, stride: int = 32, single_cls: bool = False,
-                 fraction: float = 1.0, names=None, cache=None):
-        if augment:
-            raise NotImplementedError("augment=True: the training augmentations wait for the training port")
+    def __init__(self, img_path, imgsz: int = 640, augment: bool = False, hyp=None, stride: int = 32,
+                 single_cls: bool = False, fraction: float = 1.0, names=None, cache=None):
         if cache in ("ram", True):
-            raise NotImplementedError(f"cache={cache!r}: the image cache serves a dataset read once an epoch, "
-                                      "so it waits for the training port")
-        from yolo_tpu_torch.data.augment import ValTransforms
+            raise NotImplementedError(f"cache={cache!r}: the image RAM cache is not ported")
+        from yolo_tpu_torch.data.augment import TrainTransforms, ValTransforms
 
         self.img_path = img_path
         self.imgsz = imgsz
@@ -98,7 +103,7 @@ class YOLODataset:
             raise FileNotFoundError(f"no images found in {img_path}")
         # `cache` switches only the label cache: on unless it is False
         self.labels = self._load_labels(cache is not False)
-        self.transforms = ValTransforms(imgsz, stride)
+        self.transforms = TrainTransforms(self, imgsz, hyp) if augment and hyp is not None else ValTransforms(imgsz, stride)
 
     @staticmethod
     def _list_images(img_path, fraction: float) -> list:
@@ -114,9 +119,9 @@ class YOLODataset:
 
     def _load_labels(self, cache: bool = True) -> list[dict]:
         """Parse the label files, or read them from the JSON cache beside the first
-        image, keyed by the file lists, the label files' sizes and times and `single_cls`.
-        The file is the port's own: it holds no polygons, so it must not stand in for
-        the JAX package's cache, which does."""
+        image, keyed by the file lists, the label files' sizes and times, `single_cls` and
+        the format (it holds the polygons since the training augmentations need them). The
+        file is the port's own, written and read by the port alone."""
         label_files = [img2label_path(f) for f in self.im_files]
 
         def sig(p):
@@ -126,11 +131,13 @@ class YOLODataset:
             except OSError:
                 return "missing"
 
-        key = hashlib.sha1(("".join(self.im_files + label_files) + ";".join(map(sig, label_files)) + f":sc{self.single_cls}").encode())
+        key = hashlib.sha1(("".join(self.im_files + label_files) + ";".join(map(sig, label_files)) + f":sc{self.single_cls}:polygons").encode())
         cache_path = Path(self.im_files[0]).parent / f".labels_{key.hexdigest()[:16]}.torch.cache.json"
         if cache and cache_path.exists():
             try:
-                return [{"cls": np.array(r["cls"], np.float32), "bboxes": np.array(r["bboxes"], np.float32).reshape(-1, 4)}
+                return [{"cls": np.array(r["cls"], np.float32), "bboxes": np.array(r["bboxes"], np.float32).reshape(-1, 4),
+                         "segments": [None if sg is None else np.array(sg, np.float32).reshape(-1, 2) for sg in r["segments"]]
+                         if r.get("segments") else None}
                         for r in json.loads(cache_path.read_text())]
             except (ValueError, KeyError, TypeError):
                 pass  # an unreadable cache is parsed again and rewritten
@@ -139,13 +146,16 @@ class YOLODataset:
             parsed = _parse_label_file(lf, self.single_cls)
             if parsed is None:
                 n_missing += 1
-                parsed = np.zeros(0, np.float32), np.zeros((0, 4), np.float32)
-            labels.append({"cls": parsed[0], "bboxes": parsed[1]})
+                parsed = np.zeros(0, np.float32), np.zeros((0, 4), np.float32), None
+            labels.append(dict(zip(("cls", "bboxes", "segments"), parsed)))
         if n_missing:
             LOGGER.warning(f"{n_missing}/{len(label_files)} label files missing (treated as background)")
         if cache:
             try:
-                cache_path.write_text(json.dumps([{k: lb[k].tolist() for k in ("cls", "bboxes")} for lb in labels]))
+                cache_path.write_text(json.dumps([
+                    {"cls": lb["cls"].tolist(), "bboxes": lb["bboxes"].tolist(),
+                     "segments": [None if sg is None else sg.tolist() for sg in lb["segments"]] if lb["segments"] else None}
+                    for lb in labels]))
             except OSError:
                 pass  # a read-only dataset: no cache
         return labels
@@ -154,7 +164,8 @@ class YOLODataset:
         return len(self.im_files)
 
     def load_raw(self, i: int) -> dict:
-        """Image i (BGR, as decoded) with its labels as pixel xyxy boxes, before the letterbox."""
+        """Image i (BGR, as decoded) with its labels as pixel xyxy boxes (and polygons, where the
+        label file has them), before any transform."""
         from yolo_tpu_torch.ops.boxes import xywhn2xyxy
         from yolo_tpu_torch.utils.files import imread
 
@@ -164,11 +175,19 @@ class YOLODataset:
         h, w = img.shape[:2]
         lb = self.labels[i]
         bboxes = xywhn2xyxy(lb["bboxes"], w=w, h=h) if len(lb["bboxes"]) else np.zeros((0, 4), np.float32)
-        return {"img": img, "cls": lb["cls"].copy(), "bboxes": np.asarray(bboxes, np.float32), "shape": (h, w),
-                "im_file": self.im_files[i]}
+        out = {"img": img, "cls": lb["cls"].copy(), "bboxes": np.asarray(bboxes, np.float32), "shape": (h, w),
+               "im_file": self.im_files[i]}
+        if lb.get("segments"):
+            out["segments"] = [None if sg is None else sg * np.array([w, h], np.float32) for sg in lb["segments"]]
+        return out
 
     def __getitem__(self, i: int) -> dict:
         return self.transforms(self.load_raw(i))
+
+    def close_mosaic(self) -> None:
+        """Turn off mosaic, copy-paste and mixup for the last epochs."""
+        if hasattr(self.transforms, "mosaic_enabled"):
+            self.transforms.mosaic_enabled = False
 
 
 def collate_batch(samples: list[dict], max_boxes: int = 64) -> dict:

@@ -1,15 +1,35 @@
-"""Reader of the `.npz` checkpoints the JAX package writes (yolo_tpu/engine/exporter.py::save_npz).
+"""The `.npz` checkpoints of both packages (counterpart of save_npz / load_npz in
+yolo_tpu/engine/exporter.py), and the trainer's full train state.
 
 The file holds `param::<dotted.path>` arrays (HWIO convs, BN groups unless the
 model was fused before saving), the model config as JSON bytes under
-`__yaml__` and metadata under `__meta__`. It is read with numpy alone.
+`__yaml__` and metadata under `__meta__`. It is written and read with numpy
+alone, so either package reads what the other writes.
+
+The train state (parameters, optimizer moments, EMA, update count) is the
+port's own file, `<dir>/state.pt` (torch.save); the JAX package keeps an orbax
+checkpoint in the same folder, which the port does not read.
 """
 
 from __future__ import annotations
 
 import json
+from pathlib import Path
 
 import numpy as np
+
+from yolo_tpu_torch.utils import LOGGER
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
 
 
 def _unflatten(flat: dict) -> dict:
@@ -44,3 +64,37 @@ def load_npz(filename, device=None):
     for i in range(len(model.layers)):
         params.setdefault("model", {}).setdefault(str(i), {})
     return model, params, meta
+
+
+def save_npz(model, params: dict, filename="model.npz", meta: dict | None = None) -> Path:
+    """Write a numpy parameter tree and the model's config (and `meta`) to one .npz, in the
+    JAX package's keys."""
+    filename = Path(filename)
+    filename.parent.mkdir(parents=True, exist_ok=True)
+    payload = {f"param::{k}": v for k, v in _flatten(params).items()}
+    payload["__yaml__"] = np.frombuffer(json.dumps(model.yaml, default=str).encode(), dtype=np.uint8)
+    payload["__meta__"] = np.frombuffer(
+        json.dumps({"names": getattr(model, "names", {}), "task": getattr(model, "task", "detect"), **(meta or {})},
+                   default=str).encode(),
+        dtype=np.uint8,
+    )
+    np.savez(filename, **payload)
+    LOGGER.info(f"saved {filename} ({filename.stat().st_size / 1e6:.1f} MB)")
+    return filename
+
+
+def save_train_state(dirname, state: dict) -> Path:
+    """Write the trainer's state (tensors, lists of tensors, numbers) to `<dirname>/state.pt`."""
+    import torch
+
+    path = Path(dirname) / "state.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(state, path)
+    return path
+
+
+def load_train_state(dirname, device) -> dict:
+    """The state `save_train_state` wrote, its tensors on `device`."""
+    import torch
+
+    return torch.load(Path(dirname) / "state.pt", map_location=device, weights_only=True)

@@ -5,9 +5,10 @@
     results = YOLO(...).predict(frame, conf=0.25)
     tracked = YOLO(...).track(frame, persist=True, tracker="bytetrack.yaml")
     metrics = YOLO(...).val(data="dataset.yaml", imgsz=640)   # P, R, mAP50, mAP50-95, fitness
+    metrics = YOLO(...).train(data="dataset.yaml", epochs=3)  # best.npz / last.npz under runs/detect/train
 
 Runs on the CUDA card unless `device="cpu"` is passed. `.pt` / orbax loading,
-remote and ensemble models, and the train / export modes are not ported.
+remote and ensemble models, and the export mode are not ported.
 """
 
 from __future__ import annotations
@@ -101,4 +102,20 @@ class YOLO:
             validator = validator_for(self.model)
         self.validator = validator(args=args)
         self.metrics = self.validator(model=self.model, params=self.params)
+        return self.metrics
+
+    def train(self, trainer=None, **kwargs):
+        """Train on a dataset (`data`, `epochs`, `imgsz`, `batch`, ...; engine/trainer.py) → the last
+        validation's metrics. The YOLO then holds the trained model (rebuilt when the dataset's nc
+        differs) and the best EMA weights (the last ones without validation), and builds a new
+        predictor at its next predict."""
+        overrides = {"device": str(self.device), **self.overrides, **kwargs, "mode": "train"}
+        if trainer is None:
+            from yolo_tpu_torch.engine.trainer import DetectionTrainer as trainer
+        self.trainer = trainer(overrides=overrides, model=self.model, params=self.params)
+        self.trainer.train()
+        self.model = self.trainer.model
+        self.params = self.trainer.best_params if self.trainer.best_params is not None else self.trainer.params
+        self.predictor = None
+        self.metrics = getattr(self.trainer, "metrics", None)
         return self.metrics

@@ -5,10 +5,20 @@ and yolov8n use: ConvBNAct, Conv2d, Bottleneck, C2f (with the neck's
 Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample and the
 Detect head with its DFL decode.
 
-- Inference only, with fused weights: each conv holds an OIHW `weight` and a
-  `bias` (BN already folded, see nn/tasks.fuse) in the model's compute dtype.
-  `load_jax(p)` takes the module's subtree of a fused JAX parameter tree
-  (HWIO) and converts it.
+- Two forms of the weights live side by side in each conv module.
+  - The inference form, with fused weights: an OIHW `weight` and a `bias`
+    buffer (BN already folded, see nn/tasks.fuse) in the model's compute
+    dtype. `load_jax(p)` takes the module's subtree of a fused JAX parameter
+    tree (HWIO) and converts it. The kernels read this form.
+  - The train form, the JAX package's unfused tree: `conv_weight` (OIHW f32
+    master) and, in a ConvBNAct, `bn` with γ (`weight`) and β (`bias`) as
+    parameters and the running moments as buffers; the head's Conv2d holds
+    `conv_weight` and `conv_bias`. `train_leaves()` names each tensor by its
+    path in the JAX tree, `init(rng)` draws the JAX package's initial tree
+    with the same numpy calls in the same order, and `forward_train` is the
+    JAX walk with `Ctx(train=True)` (no kernel, no neck fold): the conv in
+    the input's dtype with the weight cast from its f32 master, BN on the
+    batch's f32 moments (training mode) or on the running ones (eval mode).
 - Activations cross module boundaries as NHWC tensors, as in the JAX package.
 - Numerics of the fused ConvBNAct path: the conv sums in f32, rounds to the
   compute dtype, adds the bias in that dtype, and SiLU is x * sigmoid(x)
@@ -22,6 +32,8 @@ Detect head with its DFL decode.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -41,14 +53,69 @@ def _vec(v, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.asarray(v, np.float32).copy()).to(device=device, dtype=dtype)
 
 
+BN_EPS = 1e-3  # the BatchNorm eps of the JAX package
+
+
+def _uniform_hwio(rng, c1: int, c2: int, k: int) -> np.ndarray:
+    """The JAX package's conv init: kaiming-uniform over the fan-in, drawn as HWIO."""
+    bound = (1.0 / (c1 * k * k)) ** 0.5 * 3.0**0.5
+    return rng.uniform(-bound, bound, (k, k, c1, c2)).astype(np.float32)
+
+
+class BatchNorm(nn.Module):
+    """The `bn` group of a ConvBNAct: γ and β to train, the running moments beside them."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+
 class ConvBNAct(nn.Module):
-    """Conv ('same' padding) + (folded) BN + SiLU (JAX ConvBNAct), fused form only."""
+    """Conv ('same' padding) + BN + SiLU (JAX ConvBNAct): the fused inference form and the train form."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
         super().__init__()
         self.c1, self.c2, self.k, self.s = c1, c2, k, s
         self.register_buffer("weight", torch.zeros(c2, c1, k, k))
         self.register_buffer("bias", torch.zeros(c2))
+        self.conv_weight = nn.Parameter(torch.zeros(c2, c1, k, k))
+        self.bn = BatchNorm(c2)
+        self.batch_stats = None  # (mean, biased var, count) of the last training forward, held out of the gradient
+
+    def init(self, rng) -> dict:
+        return {
+            "conv": {"weight": _uniform_hwio(rng, self.c1, self.c2, self.k)},
+            "bn": {
+                "weight": np.ones(self.c2, np.float32),
+                "bias": np.zeros(self.c2, np.float32),
+                "running_mean": np.zeros(self.c2, np.float32),
+                "running_var": np.ones(self.c2, np.float32),
+            },
+        }
+
+    def train_leaves(self) -> dict:
+        bn = self.bn
+        return {"conv/weight": self.conv_weight, "bn/weight": bn.weight, "bn/bias": bn.bias,
+                "bn/running_mean": bn.running_mean, "bn/running_var": bn.running_var}
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The train-form conv + BN + SiLU in x's dtype. Training mode: the BN moments of
+        the batch, taken in f32 over N, H and W (the scale rounded to x's dtype), kept
+        in `batch_stats` for `utils.optim.apply_bn_stats`; eval mode: the running ones,
+        exact in f32."""
+        y = conv_nhwc(x, self.conv_weight, self.s, self.k // 2)
+        bn = self.bn
+        if self.training:
+            var, mean = torch.var_mean(y.float(), (0, 1, 2), correction=0)
+            self.batch_stats = (mean.detach(), var.detach(), y.shape[0] * y.shape[1] * y.shape[2])
+        else:
+            mean, var, y = bn.running_mean, bn.running_var, y.float()
+        scale = (bn.weight * torch.rsqrt(var + BN_EPS)).to(y.dtype)
+        y = (y - mean.to(y.dtype)) * scale + bn.bias.to(y.dtype)
+        return silu(y).to(x.dtype)
 
     def load_jax(self, p: dict, device, dtype) -> None:
         if "bn" in p:
@@ -68,6 +135,19 @@ class Conv2d(nn.Module):
         self.c1, self.c2, self.k = c1, c2, k
         self.register_buffer("weight", torch.zeros(c2, c1, k, k))
         self.register_buffer("bias", torch.zeros(c2))
+        self.conv_weight = nn.Parameter(torch.zeros(c2, c1, k, k))
+        self.conv_bias = nn.Parameter(torch.zeros(c2))
+
+    def init(self, rng) -> dict:
+        w = _uniform_hwio(rng, self.c1, self.c2, self.k)
+        bb = (1.0 / (self.c1 * self.k * self.k)) ** 0.5
+        return {"weight": w, "bias": rng.uniform(-bb, bb, (self.c2,)).astype(np.float32)}
+
+    def train_leaves(self) -> dict:
+        return {"weight": self.conv_weight, "bias": self.conv_bias}
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_nhwc(x, self.conv_weight, 1, self.k // 2) + self.conv_bias.to(x.dtype)
 
     def load_jax(self, p: dict, device, dtype) -> None:
         self.weight = _hwio_to_oihw(p["weight"], device, dtype)
@@ -91,6 +171,13 @@ class Bottleneck(nn.Module):
         self.cv1.load_jax(p["cv1"], device, dtype)
         self.cv2.load_jax(p["cv2"], device, dtype)
 
+    def init(self, rng) -> dict:
+        return {"cv1": self.cv1.init(rng), "cv2": self.cv2.init(rng)}
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2.forward_train(self.cv1.forward_train(x))
+        return x + y if self.add else y
+
 
 class C2f(nn.Module):
     """CSP bottleneck with 2 convs (JAX C2f), one fused CUDA kernel per block."""
@@ -111,6 +198,17 @@ class C2f(nn.Module):
         for i, m in enumerate(self.m):
             m.load_jax(p["m"][str(i)], device, dtype)
         self._kw = None
+
+    def init(self, rng) -> dict:
+        return {"cv1": self.cv1.init(rng), "cv2": self.cv2.init(rng), "m": {str(i): m.init(rng) for i, m in enumerate(self.m)}}
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """cv1, split, the bottleneck chain, concat, cv2, through the train form (no kernel)."""
+        y = self.cv1.forward_train(x)
+        parts = [y[..., : self.c], y[..., self.c :]]
+        for m in self.m:
+            parts.append(m.forward_train(parts[-1]))
+        return self.cv2.forward_train(torch.cat(parts, -1))
 
     def kernel_weights(self) -> cuda_c2f.C2fWeights:
         if self._kw is None:
@@ -141,12 +239,21 @@ class SPPF(nn.Module):
         self.cv1.load_jax(p["cv1"], device, dtype)
         self.cv2.load_jax(p["cv2"], device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = [self.cv1(x)]
+    def init(self, rng) -> dict:
+        return {"cv1": self.cv1.init(rng), "cv2": self.cv2.init(rng)}
+
+    def _pooled(self, y0: torch.Tensor) -> torch.Tensor:
+        y = [y0]
         for _ in range(3):
             pooled = F.max_pool2d(y[-1].permute(0, 3, 1, 2), self.k, 1, self.k // 2)
             y.append(pooled.permute(0, 2, 3, 1).contiguous())
-        return self.cv2(torch.cat(y, -1))
+        return torch.cat(y, -1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self._pooled(self.cv1(x)))
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2.forward_train(self._pooled(self.cv1.forward_train(x)))
 
 
 class Concat(nn.Module):
@@ -156,6 +263,9 @@ class Concat(nn.Module):
         super().__init__()
         if dim != 1:
             raise ValueError("only channel concat is supported")
+
+    def init(self, rng) -> dict:
+        return {}
 
     def forward(self, xs) -> torch.Tensor:
         return torch.cat(xs, -1)
@@ -169,6 +279,9 @@ class Upsample(nn.Module):
         if mode != "nearest":
             raise ValueError("only nearest upsampling is supported")
         self.scale = int(scale_factor)
+
+    def init(self, rng) -> dict:
+        return {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.repeat_interleave(self.scale, 1).repeat_interleave(self.scale, 2)
@@ -203,6 +316,38 @@ class Detect(nn.Module):
         )
         self.register_buffer("proj", torch.arange(self.reg_max, dtype=torch.float32))
         self._kw = None
+
+    def init(self, rng) -> dict:
+        """The JAX Detect's draws, level by level, each conv of the box branch before its
+        class-branch twin; the DFL's fixed arange; then the bias priors (`bias_init`)."""
+        p = {"cv2": {}, "cv3": {}}
+        for l in range(self.nl):
+            p["cv2"][str(l)], p["cv3"][str(l)] = {}, {}
+            for j in range(3):
+                p["cv2"][str(l)][str(j)] = self.cv2[l][j].init(rng)
+                p["cv3"][str(l)][str(j)] = self.cv3[l][j].init(rng)
+        p["dfl"] = {"conv": {"weight": np.arange(self.reg_max, dtype=np.float32).reshape(1, 1, self.reg_max, 1)}}
+        return self.bias_init(p)
+
+    def bias_init(self, p: dict) -> dict:
+        """Detection bias priors: box bins 1.0, class logits log(5 / nc / (640 / stride)^2)."""
+        for l, s in enumerate(self.stride):
+            p["cv2"][str(l)]["2"]["bias"] = np.ones_like(np.asarray(p["cv2"][str(l)]["2"]["bias"]))
+            p["cv3"][str(l)]["2"]["bias"] = np.full_like(np.asarray(p["cv3"][str(l)]["2"]["bias"]), math.log(5 / self.nc / (640 / s) ** 2))
+        return p
+
+    def train_leaves(self) -> dict:
+        return {"dfl/conv/weight": self.proj}  # fixed, never trained
+
+    def forward_train(self, xs):
+        """Per-level raw outputs (B, H, W, 4*reg_max + nc) through the train form."""
+        outs = []
+        for l, x in enumerate(xs):
+            b, c = x, x
+            for j in range(3):
+                b, c = self.cv2[l][j].forward_train(b), self.cv3[l][j].forward_train(c)
+            outs.append(torch.cat([b, c], -1))
+        return outs
 
     def load_jax(self, p: dict, device, dtype) -> None:
         for l in range(self.nl):

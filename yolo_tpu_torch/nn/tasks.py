@@ -11,7 +11,10 @@ or on the CPU); `predict_parts` always folds the neck, `predict` unless
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
 (engine/exporter.load_npz): `fuse` folds BN on such a tree with numpy, and
-`params_from_jax` converts a tree into the modules' OIHW buffers.
+`params_from_jax` converts a tree into the modules' OIHW buffers. Training
+(`forward_features`) runs the modules' train form: `load_train_params` loads
+an unfused tree into it as it is, and `params_to_jax` returns it as such a
+tree, which the validator, the checkpoints and the inference path then take.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn import modules as M
 
 CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
-BN_EPS = 1e-3  # BatchNorm eps of the JAX package (and of torch BatchNorm2d's reference models)
+BN_EPS = M.BN_EPS
 
 MODULE_MAP = {
     "Conv": M.ConvBNAct,
@@ -156,10 +159,13 @@ def params_are_fused(params) -> bool:
 
 
 class DetectionModel(nn.Module):
-    """YOLO detection model (JAX DetectionModel), inference on fused weights.
+    """YOLO detection model (JAX DetectionModel): inference on fused weights, training on the unfused ones.
 
-    The modules start with zero weights; `params_from_jax` loads a JAX
-    parameter tree. `device=None` means the CUDA card (raises without one)."""
+    The modules start with zero weights; `params_from_jax` loads a JAX parameter
+    tree into the inference form, `load_train_params` into the train form.
+    `device=None` means the CUDA card (raises without one)."""
+
+    task = "detect"
 
     def __init__(self, cfg="yolov8n.yaml", ch: int = 3, nc: int | None = None, device=None):
         super().__init__()
@@ -176,6 +182,7 @@ class DetectionModel(nn.Module):
         self._build_neck_opt()
         self.device = resolve_device(device)
         self.to(self.device)
+        self.eval()  # the train form's BN follows `.train()` / `.eval()`; the inference form never looks
 
     def _build_neck_opt(self) -> None:
         """Find the Upsample→Concat→C2f chains that C2f.call_upconcat folds
@@ -203,29 +210,24 @@ class DetectionModel(nn.Module):
                 self._neck_skip |= {a, b}
 
     def init(self, seed: int = 0) -> dict:
-        """A seeded random parameter tree in the JAX package's layout (HWIO
-        convs, BN already folded): He-normal conv weights, zero biases, and the
-        Detect head's bias priors. For models built from a YAML; the numbers
-        are the port's own, not those of the JAX package's `init`."""
+        """The JAX package's initial parameter tree for this model, bit for bit: one
+        `np.random.default_rng(seed)` walked through the layers in order, each module
+        drawing as its JAX counterpart does (unfused: `conv` and `bn` groups, HWIO)."""
         rng = np.random.default_rng(seed)
+        return {"model": {str(i): m.init(rng) for i, m in enumerate(self.layers)}}
 
-        def tree(m):
-            if isinstance(m, (M.ConvBNAct, M.Conv2d)):
-                fan_in = m.c1 * m.k * m.k
-                leaf = {
-                    "weight": rng.normal(0.0, math.sqrt(2.0 / fan_in), (m.k, m.k, m.c1, m.c2)).astype(np.float32),
-                    "bias": np.zeros(m.c2, np.float32),
-                }
-                return {"conv": leaf} if isinstance(m, M.ConvBNAct) else leaf
-            return {name: tree(child) for name, child in m.named_children()}
-
-        params = {"model": {str(i): tree(m) for i, m in enumerate(self.layers)}}
-        hp, head = params["model"][str(len(self.layers) - 1)], self.head
-        hp["dfl"] = {"conv": {"weight": np.arange(head.reg_max, dtype=np.float32).reshape(1, 1, head.reg_max, 1)}}
-        for l, s in enumerate(head.stride):
-            hp["cv2"][str(l)]["2"]["bias"][:] = 1.0
-            hp["cv3"][str(l)]["2"]["bias"][:] = math.log(5 / head.nc / (640 / s) ** 2)
-        return params
+    def forward_features(self, x: torch.Tensor):
+        """Per-level raw head outputs [(B, H, W, 4*reg_max + nc)] of NHWC images, computed in
+        x's dtype through the train form (JAX `forward_features`): every layer materialised,
+        no neck fold and no kernel. In training mode (`.train()`) BN takes the batch's
+        moments and each ConvBNAct keeps them for `utils.optim.apply_bn_stats`."""
+        y = {}
+        for i, (m, f) in enumerate(zip(self.layers, self.froms)):
+            x_in = [x if j == -1 else y[j] for j in f] if isinstance(f, list) else (x if f == -1 else y[f])
+            x = m.forward_train(x_in) if hasattr(m, "forward_train") else m(x_in)
+            if i in self.save:
+                y[i] = x
+        return x
 
     def _head_inputs(self, x: torch.Tensor, plain: bool, neck_opt: bool = True):
         """Walk the graph up to the Detect head → its input maps. `neck_opt`
@@ -289,3 +291,55 @@ def install_params(model: DetectionModel, params: dict, device, dtype) -> None:
     model.device = device
     model.to(device)
     params_from_jax(model, params, dtype)
+
+
+def train_leaves(model: DetectionModel) -> dict:
+    """{JAX tree path ('model/<layer>/.../weight'): tensor} over the train form: the
+    parameters, the BN running moments and the DFL's fixed projection, in module order."""
+    out = {}
+    for name, m in model.named_modules():
+        if hasattr(m, "train_leaves"):
+            prefix = "/".join(["model", *name.split(".")[1:]])
+            out.update({f"{prefix}/{rel}": t for rel, t in m.train_leaves().items()})
+    return out
+
+
+def _to_jax_layout(path: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().float().cpu().numpy()
+    if path.endswith("dfl/conv/weight"):
+        return a.reshape(1, 1, -1, 1)
+    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a  # OIHW → HWIO
+
+
+def tree_from_leaves(model: DetectionModel, leaves: dict) -> dict:
+    """{path: tensor} (the train form's, or copies of them such as the EMA) → the JAX
+    package's nested numpy tree, with the empty groups of the parameterless layers."""
+    tree = {"model": {str(i): {} for i in range(len(model.layers))}}
+    for path, t in leaves.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _to_jax_layout(path, t)
+    return tree
+
+
+def params_to_jax(model: DetectionModel) -> dict:
+    """The train form as the JAX package's unfused numpy tree (HWIO convs, `bn` groups)."""
+    return tree_from_leaves(model, train_leaves(model))
+
+
+@torch.no_grad()
+def load_train_params(model: DetectionModel, params: dict) -> DetectionModel:
+    """Load an unfused JAX parameter tree into the train form, in f32, without folding
+    (a fused tree has no BN to train: ValueError)."""
+    if params_are_fused(params):
+        raise ValueError("the train form takes an unfused tree (with `bn` groups), as DetectionModel.init gives")
+    for path, t in train_leaves(model).items():
+        node = params
+        for k in path.split("/"):
+            node = node[k]
+        a = np.asarray(node, np.float32)
+        a = a.reshape(-1) if path.endswith("dfl/conv/weight") else (a.transpose(3, 2, 0, 1) if a.ndim == 4 else a)
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return model

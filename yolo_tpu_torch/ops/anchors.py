@@ -1,4 +1,4 @@
-"""Anchor grids and the distance→box transform (counterpart of yolo_tpu/ops/anchors.py)."""
+"""Anchor grids and the distance↔box transforms (counterpart of yolo_tpu/ops/anchors.py)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,9 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim)
     return torch.cat([x1y1, x2y2], dim)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:
+    """xyxy boxes → (l, t, r, b) distances from the anchor points, clamped to [0, reg_max - 0.01]: the DFL targets."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)

@@ -2,10 +2,13 @@
 
 `xyxy2xywh`, `xywhn2xyxy`, `xyxy2xywhn`, `clip_boxes`, `scale_boxes` and
 `box_iou` take numpy arrays (the host side of the predictor, the validator and
-the MOT trackers) or torch tensors alike; `xywh2xyxy` takes torch tensors.
+the MOT trackers) or torch tensors alike; `xywh2xyxy` and `bbox_iou` (the
+training loss's IoU variants) take torch tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -97,3 +100,42 @@ def box_iou(box1, box2, eps: float = 1e-7):
     area1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
     area2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])
     return inter / (area1[..., :, None] + area2[..., None, :] - inter + eps)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bool = False, DIoU: bool = False,
+             CIoU: bool = False, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU, GIoU, DIoU or CIoU of broadcastable (..., 4) boxes → (...).
+
+    The loss's CIoU and the assigner's overlaps. As in the JAX package, an xyxy
+    box's height carries `eps` and an xywh one's does not, and the CIoU weight
+    `alpha` is held out of the gradient."""
+    if xywh:
+        x1, y1, w1, h1 = box1.unbind(-1)
+        x2, y2, w2, h2 = box2.unbind(-1)
+        b1x1, b1x2, b1y1, b1y2 = x1 - w1 / 2, x1 + w1 / 2, y1 - h1 / 2, y1 + h1 / 2
+        b2x1, b2x2, b2y1, b2y2 = x2 - w2 / 2, x2 + w2 / 2, y2 - h2 / 2, y2 + h2 / 2
+    else:
+        b1x1, b1y1, b1x2, b1y2 = box1.unbind(-1)
+        b2x1, b2y1, b2x2, b2y2 = box2.unbind(-1)
+        w1, h1 = b1x2 - b1x1, b1y2 - b1y1 + eps
+        w2, h2 = b2x2 - b2x1, b2y2 - b2y1 + eps
+    inter = (torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0) * (
+        torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)
+    ).clamp(min=0)
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not (GIoU or DIoU or CIoU):
+        return iou
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)  # enclosing width
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)  # enclosing height
+    if CIoU or DIoU:
+        c2 = cw**2 + ch**2 + eps
+        rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+        if CIoU:
+            v = (4 / math.pi**2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+            with torch.no_grad():
+                alpha = v / (v - iou + (1 + eps))
+            return iou - (rho2 / c2 + v * alpha)
+        return iou - rho2 / c2
+    c_area = cw * ch + eps
+    return iou - (c_area - union) / c_area

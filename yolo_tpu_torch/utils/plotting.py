@@ -1,9 +1,11 @@
-"""The validator's confusion-matrix plot (counterpart of `plot_confusion_matrix` in
-yolo_tpu/utils/plotting.py; nothing else of it is ported). matplotlib is imported
-only when a plot is drawn."""
+"""Plots of the validator and the trainer (counterpart of `plot_confusion_matrix`,
+`plot_labels`, `plot_images` and the box drawing of `Annotator` in
+yolo_tpu/utils/plotting.py; nothing else of it is ported). matplotlib and cv2 are
+imported only when a plot is drawn."""
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 
 import numpy as np
@@ -37,3 +39,96 @@ def plot_confusion_matrix(matrix: np.ndarray, names=None, save_path="confusion_m
     fig.savefig(save_path, dpi=120)
     plt.close(fig)
     return Path(save_path)
+
+
+_COLORS = [
+    (56, 56, 255), (151, 157, 255), (31, 112, 255), (29, 178, 255), (49, 210, 207),
+    (10, 249, 72), (23, 204, 146), (134, 219, 61), (52, 147, 26), (187, 212, 0),
+    (168, 153, 44), (255, 194, 0), (147, 69, 52), (255, 115, 100), (236, 24, 0),
+    (255, 56, 132), (133, 0, 82), (255, 56, 203), (200, 149, 255), (199, 55, 255),
+]
+
+
+def color_for(idx: int):
+    return _COLORS[int(idx) % len(_COLORS)]
+
+
+def box_label(im: np.ndarray, box, label: str, color, lw: int, txt_color=(255, 255, 255)) -> None:
+    """Draw an xyxy box and its label on a BGR image in place (the JAX `Annotator.box_label`)."""
+    import cv2
+
+    p1, p2 = (int(box[0]), int(box[1])), (int(box[2]), int(box[3]))
+    cv2.rectangle(im, p1, p2, color, lw, cv2.LINE_AA)
+    if label:
+        tf = max(lw - 1, 1)
+        wh = cv2.getTextSize(label, 0, lw / 3, tf)[0]
+        outside = p1[1] - wh[1] - 3 >= 0
+        p2t = (p1[0] + wh[0], p1[1] - wh[1] - 3 if outside else p1[1] + wh[1] + 3)
+        cv2.rectangle(im, p1, p2t, color, -1, cv2.LINE_AA)
+        cv2.putText(im, label, (p1[0], p1[1] - 2 if outside else p1[1] + wh[1] + 2), 0, lw / 3, txt_color, tf, cv2.LINE_AA)
+
+
+def plot_images(batch, fname="train_batch.jpg", names=None, max_subplots: int = 16, conf_thres: float = 0.25, save: bool = True):
+    """A mosaic of a collated batch (img (B, H, W, 3) RGB uint8, cls, bboxes normalized xywh,
+    mask_gt; optional conf) with its boxes and labels → written to `fname`, or returned
+    (BGR) with save=False."""
+    import cv2
+
+    imgs = np.asarray(batch["img"])[:max_subplots]
+    B, H, W = imgs.shape[:3]
+    ncols = int(math.ceil(B**0.5))
+    nrows = int(math.ceil(B / ncols))
+    canvas = np.full((nrows * H, ncols * W, 3), 255, np.uint8)
+    names = names or {}
+    confs = batch.get("conf")
+    lw = max(round((H + W) / 2 * 0.003), 2)
+    for i in range(B):
+        r, c = divmod(i, ncols)
+        tile = imgs[i][..., ::-1].copy()  # RGB → BGR for cv2
+        m = np.asarray(batch["mask_gt"][i]) > 0
+        cf = np.asarray(confs[i])[m] if confs is not None else None
+        for j, (b, k) in enumerate(zip(np.asarray(batch["bboxes"][i])[m], np.asarray(batch["cls"][i])[m])):
+            if cf is not None and cf[j] < conf_thres:
+                continue
+            cx, cy, bw, bh = b * [W, H, W, H]
+            label = names.get(int(k), str(int(k))) + (f" {cf[j]:.2f}" if cf is not None else "")
+            box_label(tile, (cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2), label, color_for(int(k)), lw)
+        canvas[r * H : (r + 1) * H, c * W : (c + 1) * W] = tile
+    if save:
+        cv2.imwrite(str(fname), canvas)
+        return None
+    return canvas
+
+
+def plot_labels(boxes, cls, names=None, save_path="labels.png"):
+    """Label statistics of a dataset: the class histogram, box centres, box sizes and
+    their density (normalized xywh boxes) → the PNG's path."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    boxes = np.asarray(boxes).reshape(-1, 4)
+    cls = np.asarray(cls).reshape(-1)
+    fig, axes = plt.subplots(2, 2, figsize=(10, 8), tight_layout=True)
+    names = names or {}
+    nc = int(cls.max()) + 1 if len(cls) else 1
+    axes[0, 0].hist(cls, bins=np.arange(nc + 1) - 0.5, rwidth=0.8)
+    axes[0, 0].set_title("instances per class")
+    if nc <= 30 and names:
+        axes[0, 0].set_xticks(range(nc))
+        axes[0, 0].set_xticklabels([names.get(i, i) for i in range(nc)], rotation=90, fontsize=7)
+    if len(boxes):
+        axes[0, 1].scatter(boxes[:, 0], boxes[:, 1], s=3, alpha=0.4)
+        axes[0, 1].set_title("box centers (x, y)")
+        axes[1, 0].scatter(boxes[:, 2], boxes[:, 3], s=3, alpha=0.4)
+        axes[1, 0].set_title("box sizes (w, h)")
+        axes[1, 1].hist2d(boxes[:, 2], boxes[:, 3], bins=32)
+        axes[1, 1].set_title("w/h density")
+    for ax in axes.flat:
+        ax.set_xlim(0, 1)
+        if ax is not axes[0, 0]:
+            ax.set_ylim(0, 1)
+    fig.savefig(save_path, dpi=120)
+    plt.close(fig)
+    return save_path
