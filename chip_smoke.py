@@ -85,7 +85,24 @@ Phases (any failure stops the run with a non-zero exit code):
    default (bf16) tracker timed. `[grayscale scorer]`: `predict_center_torch`
    on 256 seeded 40x40 ROIs on the card against the numpy scorer (same
    index, score rel 1e-5), timed.
-12. `[val kernels]` (needs cv2): `YOLO(best.npz).val` at imgsz 640, batch 16, on the
+12. serving (needs cv2): `[serve kernels]`: a DetectionServer (yolo_tpu_torch/serve.py) on
+   127.0.0.1 with lane 0 from best.npz and lane 1 from the .pt the port's `YOLO.export(format="pt")`
+   writes, both f32 through the kernels, and a second server f32 through the twins (`plain`);
+   4 client threads x 16 frames of the clip (1- or 3-channel by thread), each frame to both lanes:
+   every reply status 0, no lane out of service, kernels against twins and lane 1 against lane 0
+   at the f32 gates (1e-2 px, conf 1e-4, same counts and classes), kernels 1, 2, 3 and 5 launched
+   and none by the twins' server. `[serve letterbox]`: one 640x512 frame's native and cv2
+   letterbox on the main thread. `[serve run 1]`, `[serve run 2]` (timed, bf16, the default): 8
+   v2 client threads x 64 frames plus one v1 client of 64: frames/s over all clients, request
+   latency p50 / p99, the histogram of padded batch sizes, the worker's split per batch (host:
+   letterbox + assembly, enqueue, wait, Results; CUDA events: upload, device), the device's idle
+   share, the first batch at each B against its median, the launches (kernels 1, 2, 3, 5; not 4);
+   every frame must have gone through the native letterbox. `[remote]`: `YOLO("tcp://...")` over
+   an mp4v file and a PNG directory equals raw v2 replies, and `track` attaches ids.
+   `[predict sources]`: `YOLO(best.npz).predict` over a PNG directory, a glob and a video with
+   save, save_txt and save_crop (the files written), and a 300x500 frame through the native
+   letterbox, f32 kernels against f32 twins;
+13. `[val kernels]` (needs cv2): `YOLO(best.npz).val` at imgsz 640, batch 16, on the
    demo's held-out split (32 frames of 640x512, seed 10,000, written by a copy of
    demos/ir_end_to_end.py::_write_split, letterboxed to 640x640): f32 through the
    kernels against f32 through the twins (P, R, mAP50, mAP50-95 and fitness within
@@ -93,14 +110,14 @@ Phases (any failure stops the run with a non-zero exit code):
    px and conf 1e-4), the f32 mAP beside the JAX demo's recorded one, then bf16 and its
    difference; then kernels 1, 2, 3 and 5 against their twins at TOL on activations
    captured from the first val batch (B = 16, 640x640; NMS at conf 0.001, K = 1024);
-13. `[val]`: the same on a 512-frame split (seed 20,000) in f32 and bf16 at batch 16
+14. `[val]`: the same on a 512-frame split (seed 20,000) in f32 and bf16 at batch 16
    and 32: images/s by the host clock over the `.val(...)` call of a model already warmed
    at that batch and dtype (built and on the card before the clock), the per-batch split (loader
    wait, the host's enqueue, upload + forward + NMS in CUDA events, the copy-back wait,
    host matching), each kernel's launches (6 c2f, 3 c2f_upconcat, 4 head_level, 1
    nms_keep a batch), and at batch 16 a profiled call: the device's busy time and idle
    share, the top device kernels and host ops.
-14. training (needs cv2): the demo's 64-frame training split (seed 0) and its held-out split
+15. training (needs cv2): the demo's 64-frame training split (seed 0) and its held-out split
    (the 32 frames of `[val kernels]`), written by the copy of _write_split. `[train]`:
    YOLO("yolov8-small.yaml").train with the IR recipe of train_small_targets.py:16-45
    (TRAIN_RECIPE: imgsz 640, batch 16, AdamW lr0 8e-4, bf16 `amp`, 8 loader threads; epochs
@@ -1646,6 +1663,352 @@ def grayscale_scorer_phase(card):
 # ------------------------------------------------------------- validation --
 
 
+# --------------------------------------------------------------- serving --
+
+SERVE_CLIENTS, SERVE_FRAMES = 8, 64  # `[serve]`: v2 client threads x frames each, plus one v1 client
+SERVE_KERNEL_CLIENTS, SERVE_KERNEL_FRAMES = 4, 16  # `[serve kernels]`
+SERVE_PATH = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+
+
+@contextlib.contextmanager
+def serving(models, **kw):
+    """A DetectionServer on 127.0.0.1 (any free port) in a thread, its lanes built, or failing;
+    shut down and joined on exit."""
+    import threading
+
+    from yolo_tpu_torch.serve import DetectionServer
+
+    srv = DetectionServer(models, host="127.0.0.1", port=0, batch_window_ms=4.0, **kw)
+    ready = threading.Event()
+    t = threading.Thread(target=srv.serve_forever, args=(ready,), daemon=True)
+    t.start()
+    try:
+        if not ready.wait(60):
+            raise RuntimeError("the server did not start listening")
+        t0 = time.perf_counter()
+        while not all(lane.error or (lane.predictor is not None and lane.predictor.done_warmup) for lane in srv.lanes.values()):
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError("the server's lanes did not build in 600 s")
+            time.sleep(0.05)
+        errors = {mid: lane.error for mid, lane in srv.lanes.items() if lane.error}
+        if errors:
+            raise AssertionError(f"server lanes out of service: {errors}")
+        yield srv
+    finally:
+        srv.shutdown()
+        t.join(30)
+        if t.is_alive():
+            raise RuntimeError("the server did not stop")
+
+
+def v1_request(conn, frame):
+    """One protocol-v1 round trip → (n, 6) detections (v1 has no status field)."""
+    import struct
+
+    import numpy as np
+
+    def recv(n):
+        buf = b""
+        while len(buf) < n:
+            chunk = conn.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("server closed")
+            buf += chunk
+        return buf
+
+    conn.sendall(b"YTPU" + struct.pack("<III", *frame.shape) + frame.tobytes())
+    if recv(4) != b"YTPR":
+        raise AssertionError("bad v1 response magic")
+    (n,) = struct.unpack("<I", recv(4))
+    return np.frombuffer(recv(n * 24), np.float32).reshape(n, 6)
+
+
+def run_clients(port, jobs):
+    """`jobs`: one list a client thread of (lane or "v1", frame). Each thread sends its frames one
+    request at a time (v2 through utils/remote.RemoteModel, which raises on a reply with a status
+    other than 0) → (per thread the replies and each request's seconds, wall s of the whole run)."""
+    import socket
+    import threading
+
+    from yolo_tpu_torch.utils.remote import RemoteModel
+
+    out, failures = [None] * len(jobs), []
+
+    def client(i):
+        replies, lat = [], []
+        models = {}
+        conn = None
+        try:
+            for lane, frame in jobs[i]:
+                t0 = time.perf_counter()
+                if lane == "v1":
+                    conn = conn or socket.create_connection(("127.0.0.1", port), timeout=300)
+                    replies.append(v1_request(conn, frame))
+                else:
+                    rm = models.setdefault(lane, RemoteModel(f"tcp://127.0.0.1:{port}/{lane}"))
+                    replies.append(rm(frame))
+                lat.append(time.perf_counter() - t0)
+            out[i] = (replies, lat)
+        except Exception as e:  # reported below: a client that fails fails the phase
+            failures.append(f"client {i}: {type(e).__name__}: {e}")
+        finally:
+            for rm in models.values():
+                rm.close()
+            if conn is not None:
+                conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(len(jobs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if failures or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serving clients failed: {failures or 'a client did not finish in 600 s'}")
+    return out, wall
+
+
+def same_dets(got, want, what) -> float:
+    """Equal row counts and classes, boxes within 1e-2 px, conf 1e-4 (the f32 gates) → the largest difference."""
+    import numpy as np
+
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(g[:, 5], w[:, 5]):
+            raise AssertionError(f"{what}, reply {k}: {len(g)} vs {len(w)} detections or other classes")
+        if len(g):
+            d = np.abs(g - w)
+            if d[:, :4].max() > 1e-2 or d[:, 4].max() > 1e-4:
+                raise AssertionError(f"{what}, reply {k}: boxes differ by {d[:, :4].max()} px, conf by {d[:, 4].max()}")
+            worst = max(worst, float(d[:, :5].max()))
+    return worst
+
+
+def batch_stats(timings) -> dict:
+    """The worker's batches: histogram of padded sizes B (and of frames n), and per batch the host's
+    letterbox + assembly, enqueue, wait and Results ms and, in CUDA events, upload and device ms."""
+    import numpy as np
+
+    hist, frames = {}, {}
+    for t in timings:
+        hist[t["B"]] = hist.get(t["B"], 0) + 1
+        frames[t["n"]] = frames.get(t["n"], 0) + 1
+    ms = lambda key: np.array([t[key] for t in timings]) * 1e3  # noqa: E731
+    up = np.array([t["events"][0].elapsed_time(t["events"][1]) for t in timings])
+    dev = np.array([t["events"][1].elapsed_time(t["events"][2]) for t in timings])
+    return {"batches": len(timings), "B": dict(sorted(hist.items())), "n": dict(sorted(frames.items())),
+            "pre": ms("pre_s"), "enqueue": ms("enqueue_s"), "wait": ms("wait_s"), "post": ms("post_s"), "upload": up, "device": dev}
+
+
+def serve_kernels_phase(clip, card):
+    """`[serve kernels]`: lane 0 from best.npz and lane 1 from the .pt the port's `YOLO.export(format="pt")`
+    writes, f32 through the kernels; a second server's lane 0 f32 through the twins (`plain`). 4 client
+    threads x 16 frames of 640x512, 1- and 3-channel by thread, each frame to lane 0 and lane 1 (the
+    twins' server: lane 0). Every reply has status 0 and no lane fails; kernels against twins and lane 0
+    against lane 1 within the f32 gates; the kernel server launches kernels 1, 2, 3 and 5, the twins' none."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    frames = [clip[k] if (k // SERVE_KERNEL_FRAMES) % 2 == 0 else np.repeat(clip[k], 3, -1)
+              for k in range(SERVE_KERNEL_CLIENTS * SERVE_KERNEL_FRAMES)]
+    per = [frames[i * SERVE_KERNEL_FRAMES:(i + 1) * SERVE_KERNEL_FRAMES] for i in range(SERVE_KERNEL_CLIENTS)]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        pt = YOLO(str(WEIGHTS)).export(format="pt")
+        f32 = {"compute_dtype": "float32"}
+        with serving({0: str(WEIGHTS), 1: str(pt.resolve())}, predict_args=f32) as srv:
+            for lane in srv.lanes.values():
+                lane.predictor.timings = []
+            (out, wall), launches = counted(SERVE_PATH, lambda: run_clients(srv.port, [[(j, f) for f in fr for j in (0, 1)] for fr in per]))
+            stats = batch_stats([t for lane in srv.lanes.values() for t in lane.predictor.timings])
+            if any(lane.predictor.dtype != torch.float32 for lane in srv.lanes.values()):
+                raise AssertionError("the kernel server's lanes did not compute in f32")
+        with serving({0: str(WEIGHTS)}, predict_args={**f32, "plain": True}) as srv:
+            (twin, _), none = counted(set(), lambda: run_clients(srv.port, [[(0, f) for f in fr] for fr in per]))
+    lane0 = [r for replies, _ in out for r in replies[0::2]]
+    lane1 = [r for replies, _ in out for r in replies[1::2]]
+    plain = [r for replies, _ in twin for r in replies]
+    worst = same_dets(lane0, plain, "serve kernels vs twins")
+    worst_pt = same_dets(lane1, lane0, "serve lane 1 (.pt) vs lane 0 (.npz)")
+    n = sum(len(r) for r in lane0)
+    if n <= 0:
+        raise AssertionError("the server detected nothing")
+    log("serve kernels", card, f"{len(frames)} frames x 2 lanes in {wall:.2f} s from {SERVE_KERNEL_CLIENTS} clients, every status 0, "
+        f"no lane error; {n} detections; kernels vs twins max |diff| {worst:.3e}, lane 1 (.pt) vs lane 0 {worst_pt:.3e}; "
+        f"batches B {stats['B']}; launches {launches} (twins' server: {none})")
+
+
+def serve_phase(clip, card, run_no, srv):
+    """`[serve]` (timed): the bf16 server (the default) on `srv`, SERVE_CLIENTS v2 client threads x
+    SERVE_FRAMES frames of 640x512 (1-channel on even threads, 3 on odd) plus one v1 client of
+    SERVE_FRAMES 3-channel frames: frames/s over all clients (host clock over the run), request
+    latency p50 / p99, the batch-size histogram, the worker's split per batch and its device-busy
+    share, the first batch at each B against that B's median, and the launches (kernels 1, 2, 3, 5)."""
+    import numpy as np
+
+    lane = srv.lanes[0]
+    n_clip = len(clip)
+    jobs = [[(0, clip[(i * SERVE_FRAMES + k) % n_clip] if i % 2 == 0 else np.repeat(clip[(i * SERVE_FRAMES + k) % n_clip], 3, -1))
+             for k in range(SERVE_FRAMES)] for i in range(SERVE_CLIENTS)]
+    jobs.append([("v1", np.repeat(clip[k % n_clip], 3, -1)) for k in range(SERVE_FRAMES)])
+    lane.predictor.timings = []
+    with native_letterboxes() as calls:
+        (out, wall), launches = counted(SERVE_PATH, lambda: run_clients(srv.port, jobs))
+    if launches["head_level_cm"] != 0:
+        raise AssertionError(f"[serve] launched the channel-major head: {launches}")
+    st = batch_stats(lane.predictor.timings)
+    lat = np.array([x for _, ls in out for x in ls]) * 1e3
+    frames = len(lat)
+    if len(calls) != frames:
+        raise AssertionError(f"[serve]: {len(calls)} of {frames} frames went through the native letterbox")
+    busy = float(st["upload"].sum() + st["device"].sum()) / 1e3
+    q = lambda a: f"median {np.median(a):.3f} (p90 {np.percentile(a, 90):.3f})"  # noqa: E731
+    first = {}
+    for t in lane.predictor.timings:
+        first.setdefault(t["B"], (t["pre_s"] + t["enqueue_s"] + t["wait_s"] + t["post_s"]) * 1e3)
+    per_b = {}
+    for t in lane.predictor.timings:
+        per_b.setdefault(t["B"], []).append((t["pre_s"] + t["enqueue_s"] + t["wait_s"] + t["post_s"]) * 1e3)
+    log(f"serve run {run_no}", card, f"{frames} frames from {SERVE_CLIENTS} v2 + 1 v1 clients in {wall:.3f} s = {frames / wall:.1f} "
+        f"frames/s (all letterboxed by the native library); request latency p50 {np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms; "
+        f"{sum(len(r) for rs, _ in out for r in rs)} detections; batches {st['batches']}: B {st['B']}, frames per batch {st['n']}")
+    log(f"serve run {run_no}", card, f"worker per batch (ms): letterbox + assembly {q(st['pre'])}, enqueue {q(st['enqueue'])}, "
+        f"wait {q(st['wait'])}, Results {q(st['post'])} (host clock); upload {q(st['upload'])}, device {q(st['device'])} "
+        f"(CUDA events); device busy {busy:.3f} s of {wall:.3f} s: idle {100 * (1 - busy / wall):.1f}%")
+    log(f"serve run {run_no}", card, "first batch at each B against that B's median (ms, host): " + ", ".join(
+        f"B={b}: {first[b]:.2f} / {np.median(per_b[b]):.2f} ({len(per_b[b])} batches)" for b in sorted(first)))
+    log(f"serve run {run_no}", card, f"kernel launches in that run: {launches}")
+    return launches
+
+
+def letterbox_cost(clip, card):
+    """The host's cost of one 640x512 BGR frame's letterbox into 640x640 on the main thread, nothing
+    else running: the native library (the server's route; a row copy at ratio 1) against the
+    port's LetterBox (a numpy pad at ratio 1); ms per frame over 64 frames."""
+    import numpy as np
+
+    from yolo_tpu_torch import native
+    from yolo_tpu_torch.ops.letterbox import LetterBox
+
+    frames = [np.ascontiguousarray(np.repeat(f, 3, -1)) for f in clip[:64]]
+    lb = LetterBox((640, 640), auto=False)
+    cost = {}
+    for name, fn in (("native", lambda f: native.letterbox(f, (640, 640))), ("LetterBox", lambda f: lb(f, return_meta=True))):
+        fn(frames[0])
+        t0 = time.perf_counter()
+        outs = [fn(f) for f in frames]
+        cost[name] = (time.perf_counter() - t0) / len(frames) * 1e3
+    if not all(np.array_equal(a[0], b[0]) for a, b in zip(outs, [native.letterbox(f, (640, 640)) for f in frames])):
+        raise AssertionError("at ratio 1 the native letterbox and the padding differ")
+    log("serve letterbox", card, "one 640x512x3 frame into 640x640 on the main thread: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in cost.items()) + " (equal pixels)")
+
+
+def write_bgr_video(path: Path, frames) -> Path:
+    """(n, h, w, 1) IR frames as a 30 fps mp4v file of BGR frames."""
+    import cv2
+    import numpy as np
+
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30, (frames.shape[2], frames.shape[1]))
+    for frame in frames:
+        vw.write(np.repeat(frame, 3, -1))
+    vw.release()
+    return path
+
+
+def remote_phase(clip, card, srv):
+    """`[remote]`: `YOLO("tcp://.../0")` on the `[serve]` server (bf16) over a 16-frame mp4v file and a
+    directory of 8 PNGs: each Results equals a raw v2 request for the frame it decoded (one client,
+    so every call is B = 1); `track` over the video attaches ids."""
+    import cv2
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.utils.remote import RemoteModel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vid, pngs = write_bgr_video(Path(tmp) / "ir.mp4", clip[:16]), Path(tmp) / "pngs"
+        pngs.mkdir()
+        for k in range(8):
+            cv2.imwrite(str(pngs / f"{k:03d}.png"), clip[100 + k])
+        m = YOLO(f"tcp://127.0.0.1:{srv.port}/0")
+        counts = {}
+        with RemoteModel(f"tcp://127.0.0.1:{srv.port}/0") as rm:
+            for name, src in (("video", vid), ("pngs", pngs)):
+                res = m.predict(str(src), conf=0.0, verbose=False)
+                raw = [rm(r.orig_img) for r in res]
+                if [len(r) for r in res] != [len(d) for d in raw] or not all(np.array_equal(r.boxes.data, d) for r, d in zip(res, raw)):
+                    raise AssertionError(f"[remote] {name}: YOLO(tcp://).predict differs from raw v2 replies")
+                counts[name] = (len(res), sum(len(r) for r in res))
+        tracked = m.track(str(vid), conf=0.0, verbose=False)
+        ids = sorted({int(i) for r in tracked if len(r) for i in r.boxes.id})
+        m.predictor.close()
+    if counts["video"][0] != 16 or counts["pngs"][0] != 8 or not ids or not all(r.boxes.is_track for r in tracked if len(r)):
+        raise AssertionError(f"[remote]: frames/detections {counts}, track ids {ids}")
+    log("remote", card, f"YOLO(tcp://) predict = raw v2 replies: video {counts['video'][0]} frames ({counts['video'][1]} detections), "
+        f"PNG dir {counts['pngs'][0]} frames ({counts['pngs'][1]}); track ids {ids}")
+
+
+def predict_sources_phase(clip, card):
+    """`[predict sources]`: `YOLO(best.npz).predict` on the card (bf16) over a directory of 8 PNGs, a glob
+    of 4 of them and a 16-frame mp4v video, with save, save_txt and save_crop: the files each writes.
+    Then a 300x500 frame, which the letterbox resizes: the native letterbox route (required here),
+    f32 kernels against f32 twins at the f32 gates, with the launches."""
+    import cv2
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO, native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pngs, vid = Path(tmp) / "pngs", write_bgr_video(Path(tmp) / "ir.mp4", clip[:16])
+        pngs.mkdir()
+        for k in range(8):
+            cv2.imwrite(str(pngs / f"{k:03d}.png"), clip[200 + k])
+        written = {}
+        for name, src, want in (("dir", pngs, 8), ("glob", pngs / "00[0-3].png", 4), ("video", vid, 16)):
+            out = Path(tmp) / "runs" / name
+            y = YOLO(str(WEIGHTS))  # a predictor keeps the run directory of its first write
+            res, launches = counted(SERVE_PATH, lambda: y.predict(str(src), save=True, save_txt=True, save_crop=True, project=str(out.parent),
+                                                                  name=name, exist_ok=True, verbose=False))
+            files = sorted(str(f.relative_to(out)) for f in out.rglob("*") if f.is_file())
+            kinds = {k: sum(1 for f in files if f.startswith(k)) for k in ("labels/", "crops/")}
+            kinds["images"] = len(files) - sum(kinds.values())
+            if len(res) != want or kinds["images"] < 1 or kinds["labels/"] < 1 or kinds["crops/"] < 1:
+                raise AssertionError(f"[predict sources] {name}: {len(res)} results, files {files}")
+            written[name] = (len(res), sum(len(r) for r in res), kinds, launches["c2f"])
+        log("predict sources", card, "; ".join(f"{k}: {n} frames, {d} detections, written {w} (c2f launches {c})"
+                                               for k, (n, d, w, c) in written.items()))
+
+    small = np.ascontiguousarray(np.repeat(clip[290, 100:400, 50:550], 3, -1))  # 300x500 with 3 targets: scaled by 1.28
+    with native_letterboxes() as calls:
+        got, launches = counted(SERVE_PATH, lambda: YOLO(str(WEIGHTS)).predict(small, compute_dtype="float32", verbose=False)[0])
+    want = YOLO(str(WEIGHTS)).predict(small, compute_dtype="float32", plain=True, verbose=False)[0]
+    worst = same_dets([got.boxes.data], [want.boxes.data], "predict 300x500 kernels vs twins")
+    if calls != [(300, 500, 3)] or len(got) == 0:
+        raise AssertionError(f"300x500 predict: native letterbox calls {calls}, {len(got)} detections")
+    _, meta = native.letterbox(small, (640, 640))
+    log("predict sources", card, f"300x500 frame through the native letterbox (ratio {meta[0][0]!r}, pad {meta[1]}): f32 kernels "
+        f"{len(got)} detections = twins', max |diff| {worst:.3e}; launches {launches}")
+
+
+@contextlib.contextmanager
+def native_letterboxes():
+    """Record the shape of every image the predictor letterboxes through the native library in
+    the block (it must have built: the card's machine has g++)."""
+    from yolo_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError("the native letterbox library did not build (g++)")
+    calls, real = [], native.letterbox
+    native.letterbox = lambda img, *a, **k: (calls.append(img.shape), real(img, *a, **k))[1]
+    try:
+        yield calls
+    finally:
+        native.letterbox = real
+
+
 def write_split(root: Path, n: int, seed: int, w: int = 640, h: int = 512, split: str = "val") -> Path:
     """A copy of demos/ir_end_to_end.py::_write_split at its defaults (the training
     distribution): n seeded 640x512 IR frames as PNGs under root/images/<split>, 1-3 small
@@ -2224,6 +2587,14 @@ def main(argv) -> int:
     motion_compare_phase(model, params, pan, card)
     grayscale_phase(clip, card)
     grayscale_scorer_phase(card)
+
+    serve_kernels_phase(clip, card)
+    letterbox_cost(clip, card)
+    with serving({0: str(WEIGHTS)}) as srv:  # bf16, the default
+        for run in (1, 2):
+            serve_phase(clip, card, run, srv)
+        remote_phase(clip, card, srv)
+    predict_sources_phase(clip, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

@@ -454,3 +454,47 @@ def test_train_val_kernels_match_plain(card, tmp_path):
     y.train(data=str(data), project=str(tmp_path), name="t", plots=False, **{**chip_smoke.TRAIN_RECIPE, "epochs": 1, "batch": 8})
     assert y.metrics["mAP50"] > 0.5
     chip_smoke.train_val_kernels_phase({"finetune": y}, data, "card test")
+
+
+def _ir_frames(n, h=512, w=640):
+    """`n` seeded (h, w, 1) IR frames with two 4-px-sigma targets moving across."""
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for f in range(n):
+        img = 30 + rng.normal(0, 2, (h, w))
+        for x0, y0, vx, vy in ((100, 120, 6, 2), (400, 300, -5, 3)):
+            img = img + 170 * np.exp(-((xx - x0 - vx * f) ** 2 + (yy - y0 - vy * f) ** 2) / (2 * 4.0**2))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8)[..., None])
+    return frames
+
+
+def test_server_kernels_match_plain(card):
+    """A DetectionServer on the card answering 8 frames of 640x512 from 2 client threads (1- and 3-channel),
+    f32 through the kernels, against a second server f32 through the twins (`plain`): every status 0,
+    equal counts and classes, boxes 1e-2 px, conf 1e-4; kernels 1, 2, 3 and 5 launched by the first only."""
+    import chip_smoke
+
+    frames = _ir_frames(8)
+    jobs = [[(0, f) for f in frames[:4]], [(0, np.repeat(f, 3, -1)) for f in frames[4:]]]
+    replies = []
+    for plain, path in ((False, chip_smoke.SERVE_PATH), (True, set())):
+        with chip_smoke.serving({0: str(chip_smoke.WEIGHTS)}, predict_args={"compute_dtype": "float32", "plain": plain}) as srv:
+            (out, _), _ = chip_smoke.counted(path, lambda: chip_smoke.run_clients(srv.port, jobs))
+        replies.append([r for rs, _ in out for r in rs])
+    assert sum(len(r) for r in replies[0]) >= 8
+    chip_smoke.same_dets(*replies, "server kernels vs twins")
+
+
+def test_predict_resized_frame_native_route(card):
+    """YOLO(best.npz).predict of a 300x500 frame (the letterbox scales it by 1.28) on the card through the
+    native letterbox, f32 kernels against f32 twins at the f32 gates."""
+    import chip_smoke
+    from yolo_tpu_torch import YOLO
+
+    frame = np.ascontiguousarray(np.repeat(_ir_frames(1)[0][100:400, 50:550], 3, -1))  # both targets inside
+    with chip_smoke.native_letterboxes() as calls:
+        got = YOLO(str(chip_smoke.WEIGHTS)).predict(frame, compute_dtype="float32", verbose=False)[0]
+    want = YOLO(str(chip_smoke.WEIGHTS)).predict(frame, compute_dtype="float32", plain=True, verbose=False)[0]
+    assert calls == [(300, 500, 3)] and len(got) == 2
+    chip_smoke.same_dets([got.boxes.data], [want.boxes.data], "predict 300x500")

@@ -75,6 +75,17 @@ def test_port_imports_no_jax():
         "assert [gmd.detect_motion(f)[3] for f in frames] == [False, False]\n"
         "best, score = predict_center_torch(torch.from_numpy(frames[0, :40, :40, 0]))\n"
         "assert best.shape == (2,) and float(score) > 0\n"
+        "import threading\n"
+        "from yolo_tpu_torch import YOLO, native\n"
+        "from yolo_tpu_torch.serve import DetectionServer\n"
+        "from yolo_tpu_torch.data.loaders import load_inference_source\n"
+        "from yolo_tpu_torch.nn import torch_export, torch_import\n"
+        "srv = DetectionServer(str(chip_smoke.WEIGHTS), port=0, imgsz=64, batch_window_ms=1.0, device='cpu')\n"
+        "ready = threading.Event(); t = threading.Thread(target=srv.serve_forever, args=(ready,), daemon=True); t.start()\n"
+        "assert ready.wait(60)\n"
+        "r = YOLO(f'tcp://127.0.0.1:{srv.port}/0').predict(frames, conf=0.0, verbose=False)\n"
+        "assert len(r) == 2\n"
+        "srv.shutdown(); t.join(30)\n"
         "bad = sorted(k for k in sys.modules if k == 'yolo_tpu' or k.startswith('yolo_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

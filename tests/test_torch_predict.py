@@ -223,6 +223,64 @@ def test_results_containers_match_jax():
         PR.Boxes(np.zeros((2, 5), np.float32), (4, 4))
 
 
+@pytest.mark.parametrize("tracked", [False, True])
+def test_results_plot_save_txt_and_json_match_jax(tracked, tmp_path):
+    """The same boxes (some partly outside the image, one class unnamed) in both packages' Results:
+    equal `plot` pixels (default and thin lines, labels off, a gray image), equal `save_txt` lines
+    (with and without conf), equal `summary` / `to_json` (plain and normalised) and `save` files."""
+    from yolo_tpu.utils.files import imread
+
+    rng = np.random.default_rng(15)
+    data = np.concatenate([_boxes(rng, 6), rng.uniform(0, 1, (6, 1)), rng.integers(0, 3, (6, 1))], -1).astype(np.float32)
+    if tracked:
+        data = np.insert(data, 4, np.arange(10, 16), axis=1)
+    img = rng.integers(0, 255, (512, 640, 3), np.uint8)
+    names = {0: "aircraft", 1: "bird"}
+    got, want = PR.Results(img, "dir/f.png", names, boxes=data), JR.Results(img, "dir/f.png", names, boxes=data)
+    for kw in ({}, dict(line_width=1, conf=False), dict(labels=False), dict(img=img[..., 0])):
+        np.testing.assert_array_equal(got.plot(**kw), want.plot(**kw))
+    assert not np.array_equal(got.plot(), img)
+    for conf in (False, True):
+        got.save_txt(tmp_path / f"p{conf}.txt", save_conf=conf)
+        want.save_txt(tmp_path / f"j{conf}.txt", save_conf=conf)
+        assert (tmp_path / f"p{conf}.txt").read_text() == (tmp_path / f"j{conf}.txt").read_text() != ""
+    for normalize in (False, True):
+        assert got.summary(normalize=normalize) == want.summary(normalize=normalize)
+        assert got.to_json(normalize=normalize) == want.to_json(normalize=normalize)
+    assert ("track_id" in got.summary()[0]) == tracked
+    assert got.save(str(tmp_path / "p.png")) == str(tmp_path / "p.png")
+    want.save(str(tmp_path / "j.png"))
+    np.testing.assert_array_equal(imread(tmp_path / "p.png"), imread(tmp_path / "j.png"))
+    empty = PR.Results(img, "a.jpg", names)
+    empty.save_txt(tmp_path / "e.txt")
+    assert (tmp_path / "e.txt").read_text() == "" and empty.to_json() == "[]"
+
+
+@pytest.mark.parametrize("shape,dst", [((512, 640, 3), (640, 640)), ((300, 500, 3), (640, 640)), ((700, 900, 3), (640, 640)),
+                                       ((1080, 1920, 3), (640, 640)), ((100, 80, 1), (64, 96)), ((64, 96, 3), (64, 96)),
+                                       ((100, 80, 1), (100, 96))])
+def test_native_letterbox_matches_jax_library(shape, dst):
+    """The port's native library (its copy of preprocess.cpp, its own build) against the JAX package's
+    on the same input: bit for bit, meta equal (the f32 ratio), one image and a batch of three; the
+    frames that need no resize (512x640 and 100x80 padded, 64x96 as it is) take the port's row copy."""
+    from yolo_tpu_torch import native as PNAT
+
+    rng = np.random.default_rng(16)
+    img = rng.integers(0, 255, shape, np.uint8)
+    got, got_meta = PNAT.letterbox(img, dst)
+    want, want_meta = yolo_tpu.native.letterbox(img, dst)
+    assert got_meta == want_meta and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    frames = rng.integers(0, 255, (3, *shape), np.uint8)
+    got_b, got_bmeta = PNAT.letterbox_batch(frames, dst)
+    want_b, want_bmeta = yolo_tpu.native.letterbox_batch(frames, dst)
+    assert got_bmeta == want_bmeta
+    np.testing.assert_array_equal(got_b, want_b)
+    np.testing.assert_array_equal(got_b[1], PNAT.letterbox(frames[1], dst)[0])
+    with pytest.raises(ValueError, match="uint8"):
+        PNAT.letterbox(img.astype(np.float32), dst)
+
+
 # --- engine/predictor + engine/model ------------------------------------------------------------
 
 
@@ -272,6 +330,35 @@ def test_yolo_predict_matches_jax(yolos):
         py.predict(frames[0], augment=True)
 
 
+def _ir_targets(rng, h, w, sigma):
+    """An (h, w, 3) IR frame with three bright targets of `sigma` px at fixed fractions of the frame."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = 30 + rng.normal(0, 2, (h, w))
+    for fx, fy in ((0.2, 0.3), (0.6, 0.7), (0.8, 0.2)):
+        img = img + 170 * np.exp(-((xx - fx * w) ** 2 + (yy - fy * h) ** 2) / (2 * sigma**2))
+    return np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3, -1)
+
+
+@pytest.mark.parametrize("route", ["native", "cv2"])
+def test_yolo_predict_resized_frames_match_jax(yolos, route, monkeypatch):
+    """Frames the letterbox resizes into imgsz 640 (300x500 and 700x900 scale up, 1080x1920 down),
+    f32 in both packages: the default route letterboxes with the native library on both sides,
+    YOLO_TPU_NATIVE_PRE=0 with cv2 on both. Same counts and classes, boxes within 1e-2 px, conf 1e-4."""
+    from yolo_tpu_torch import native
+
+    if route == "cv2":
+        monkeypatch.setenv("YOLO_TPU_NATIVE_PRE", "0")
+    else:
+        assert native.available() and yolo_tpu.native.available()
+    jy, py = yolos
+    rng = np.random.default_rng(14)
+    frames = [_ir_targets(rng, h, w, 4.0 * max(1.0, max(h, w) / 640)) for h, w in ((300, 500), (700, 900), (1080, 1920))]
+    kw = dict(conf=0.1, iou=0.6, imgsz=640, verbose=False, batch=1, compute_dtype="float32")
+    want, got = jy.predict(frames, **kw), py.predict(frames, **kw)
+    assert [len(r) for r in got] == [3, 3, 3]
+    _assert_same_results(got, want, box_atol=1e-2)
+
+
 def test_yolo_predict_letterboxed_source_matches_jax(yolos):
     """A (N, H, W, 3) array batch that needs padding (64x128 into 128x128): the
     boxes come back in source coordinates, clipped to the source."""
@@ -288,6 +375,70 @@ def test_yolo_predict_letterboxed_source_matches_jax(yolos):
     assert all(r.boxes.xyxy[:, [1, 3]].max() <= 64 for r in got if len(r))
 
 
+def _write_media(root, rng):
+    """Two PNG frames and a 3-frame mp4v video of 96x128 IR frames with one target each."""
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    for i, (cx, cy) in enumerate(((40, 30), (90, 60))):
+        cv2.imwrite(str(root / f"f{i}.png"), np.repeat(_ir_frame(rng, 96, 128, cx, cy)[..., None], 3, -1))
+    vw = cv2.VideoWriter(str(root / "clip.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 10, (128, 96))
+    for cx in (20, 60, 100):
+        vw.write(np.repeat(_ir_frame(rng, 96, 128, cx, 50)[..., None], 3, -1))
+    vw.release()
+    return root
+
+
+def test_predictor_save_outputs_match_jax(yolos, tmp_path):
+    """`save`, `save_txt` (with conf), `save_crop` and `save_frames` from a BasePredictor of each package
+    on a directory of two PNGs and a video (f32, conf 0.1): the same files under <project>/<name>
+    (<stem>.jpg, <stem>.mp4 and its frames, labels/<stem>[_<frame>].txt, crops/<class>/...), label lines
+    with the same classes and values within 1e-4 (a box 1e-2 px of 128), the same video frame count."""
+    import cv2
+
+    jy, py = yolos
+    media = _write_media(tmp_path / "media", np.random.default_rng(17))
+    kw = {"conf": 0.1, "iou": 0.6, "imgsz": (96, 128), "batch": 1, "compute_dtype": "float32", "verbose": False, "save": True,
+          "save_txt": True, "save_conf": True, "save_crop": True, "save_frames": True, "exist_ok": True, "name": "pred"}
+    jp = yolo_tpu.engine.predictor.BasePredictor(jy.model, jy.params, overrides={**kw, "project": str(tmp_path / "jax")}, names=jy.names)
+    pp = BasePredictor(py.model, py.params, overrides={**kw, "project": str(tmp_path / "port"), "device": "cpu"}, names=py.names)
+    want, got = jp(str(media)), pp(str(media))
+    assert [len(r) for r in got] == [len(r) for r in want] == [1] * 5
+    assert pp.save_dir == tmp_path / "port" / "pred"
+    files = lambda d: sorted(str(f.relative_to(d)) for f in d.rglob("*") if f.is_file())  # noqa: E731
+    assert files(pp.save_dir) == files(jp.save_dir) == sorted([
+        "f0.jpg", "f1.jpg", "clip.mp4", "clip_frames/0.jpg", "clip_frames/1.jpg", "clip_frames/2.jpg",
+        "labels/f0.txt", "labels/f1.txt", "labels/clip_0.txt", "labels/clip_1.txt", "labels/clip_2.txt",
+        "crops/aircraft/f0_0_0.jpg", "crops/aircraft/f1_0_0.jpg",
+        "crops/aircraft/clip_0_0.jpg", "crops/aircraft/clip_1_0.jpg", "crops/aircraft/clip_2_0.jpg"])
+    for f in files(pp.save_dir):
+        if f.endswith(".txt"):
+            g, w = (np.loadtxt(d / f, ndmin=2) for d in (pp.save_dir, jp.save_dir))
+            np.testing.assert_array_equal(g[:, 0], w[:, 0])
+            np.testing.assert_allclose(g[:, 1:], w[:, 1:], rtol=0, atol=1e-4)
+        elif f.endswith(".jpg"):
+            g, w = (cv2.imread(str(d / f)) for d in (pp.save_dir, jp.save_dir))
+            assert g.shape == w.shape and np.abs(g.astype(int) - w.astype(int)).mean() < 1.0
+    counts = [int(cv2.VideoCapture(str(d / "clip.mp4")).get(cv2.CAP_PROP_FRAME_COUNT)) for d in (pp.save_dir, jp.save_dir)]
+    assert counts == [3, 3]
+
+
+def test_yolo_predict_save_crop_like_jax(yolos, tmp_path, monkeypatch):
+    """`YOLO.predict(..., save_crop=True)` from the working directory: crops under runs/detect/predict/crops
+    in both packages, the same names; `save=False` (the facade's default) writes no image."""
+    jy, py = yolos
+    frame = np.repeat(_ir_frame(np.random.default_rng(18), 96, 128, 50, 40)[..., None], 3, -1)
+    kw = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=1, compute_dtype="float32", save_crop=True)
+    names = {}
+    for pkg, y in (("jax", jy), ("port", py)):
+        (tmp_path / pkg).mkdir()
+        monkeypatch.chdir(tmp_path / pkg)
+        assert len(y.predict(frame, **kw)[0]) == 1
+        y.predictor.args.save_crop = False  # the facade keeps a setting on its predictor
+        names[pkg] = sorted(str(f.relative_to(tmp_path / pkg)) for f in (tmp_path / pkg).rglob("*") if f.is_file())
+    assert names["port"] == names["jax"] == ["runs/detect/predict/crops/aircraft/array_0_0.jpg"]
+
+
 def test_predictor_pieces():
     assert [_snap_batch(n) for n in (1, 2, 3, 5, 16, 17)] == [1, 2, 4, 8, 16, 32]
     a = PredictArgs()
@@ -296,12 +447,14 @@ def test_predictor_pieces():
     f = np.zeros((8, 8, 3), np.uint8)
     assert [(p, i) for _, p, i in _iter_source([f, f])] == [("array0", 0), ("array1", 0)]
     assert [p for _, p, _ in _iter_source(np.zeros((2, 8, 8, 3), np.uint8))] == ["image0.jpg", "image1.jpg"]
-    with pytest.raises(ValueError, match="uint8"):
-        list(_iter_source(np.zeros((2, 8, 8, 3), np.float32)))
-    with pytest.raises(ValueError, match="unsupported source"):
-        list(_iter_source("frames.txt"))
-    with pytest.raises(FileNotFoundError):
-        list(_iter_source("no_such_clip.mp4"))
+    # a float batch is (B, 3, H, W) or (B, H, W, 3) in [0, 1], as the JAX LoadTensor takes it
+    halves = [im for im, _, _ in _iter_source(np.full((2, 3, 8, 8), 0.5, np.float32))]
+    assert len(halves) == 2 and halves[0].shape == (8, 8, 3) and (halves[0] == 128).all()
+    with pytest.raises(ValueError, match="normalized"):
+        list(_iter_source(np.full((2, 8, 8, 3), 2.0, np.float32)))
+    for missing in ("frames.txt", "no_such_clip.mp4"):  # a missing source: FileNotFoundError, as in JAX
+        with pytest.raises(FileNotFoundError):
+            list(_iter_source(missing))
 
 
 def test_predictor_runs_on_the_card_by_default(monkeypatch):
@@ -318,7 +471,7 @@ def test_predictor_runs_on_the_card_by_default(monkeypatch):
     with pytest.raises(NotImplementedError, match="detect"):
         yolo_tpu_torch.YOLO("yolov8n.yaml", task="segment", device="cpu")
     with pytest.raises(ValueError, match="unsupported model source"):
-        yolo_tpu_torch.YOLO("weights.pt", device="cpu")
+        yolo_tpu_torch.YOLO("weights.onnx", device="cpu")
 
 
 def test_reused_yolo_takes_half_and_back():
@@ -407,7 +560,7 @@ def test_predict_settings_that_ask_for_unported_features_raise():
     one = py.predict(frame, classes=[0], **kw)
     np.testing.assert_array_equal(py.predict(frame, classes=[0, 3], **kw)[0].boxes.data, one[0].boxes.data)
     assert len(one[0]) > 0 and len(py.predict(frame, classes=[3], **kw)[0]) == 0
-    for bad in (dict(save=True), dict(show=True), dict(save_txt=True), dict(visualize=True), dict(int8=True), dict(embed=[21])):
+    for bad in (dict(show=True), dict(visualize=True), dict(int8=True), dict(embed=[21])):
         with pytest.raises(NotImplementedError, match=next(iter(bad))):
             py.predict(frame, **kw, **bad)
     with pytest.raises(TypeError, match="'no_such_key' is not a setting"):

@@ -1,8 +1,9 @@
 """yolo_tpu_torch: the PyTorch/CUDA port of yolo_tpu for NVIDIA Hopper: the fused detect+track
 pipeline, the `YOLO(...).predict` facade with the per-object Kalman clip loop,
 `YOLO(...).track` with the ByteTrack / BoT-SORT trackers, `YOLO(...).val`, the
-detect validator (`DetectionValidator`: P, R, mAP50, mAP50-95), and `YOLO(...).train`,
-the detect trainer (`engine/trainer.py`).
+detect validator (`DetectionValidator`: P, R, mAP50, mAP50-95), `YOLO(...).train`,
+the detect trainer (`engine/trainer.py`), and the detection server
+(`python -m yolo_tpu_torch.serve`) with its client, `YOLO("tcp://host:port/<id>")`.
 
 The JAX package `yolo_tpu` is the reference; this package imports nothing of
 it (nor JAX). Entry points run on the CUDA card unless the caller passes

@@ -1,5 +1,6 @@
 """The `.npz` checkpoints of both packages (counterpart of save_npz / load_npz in
-yolo_tpu/engine/exporter.py), and the trainer's full train state.
+yolo_tpu/engine/exporter.py), `Exporter` (`YOLO.export`: npz and pt), and the
+trainer's full train state.
 
 The file holds `param::<dotted.path>` arrays (HWIO convs, BN groups unless the
 model was fused before saving), the model config as JSON bytes under
@@ -18,18 +19,8 @@ from pathlib import Path
 
 import numpy as np
 
+from yolo_tpu_torch.nn.torch_export import flatten_tree
 from yolo_tpu_torch.utils import LOGGER
-
-
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        key = f"{prefix}.{k}" if prefix else str(k)
-        if isinstance(v, dict):
-            out.update(_flatten(v, key))
-        else:
-            out[key] = np.asarray(v)
-    return out
 
 
 def _unflatten(flat: dict) -> dict:
@@ -71,7 +62,7 @@ def save_npz(model, params: dict, filename="model.npz", meta: dict | None = None
     JAX package's keys."""
     filename = Path(filename)
     filename.parent.mkdir(parents=True, exist_ok=True)
-    payload = {f"param::{k}": v for k, v in _flatten(params).items()}
+    payload = {f"param::{k}": np.asarray(v) for k, v in flatten_tree(params).items()}
     payload["__yaml__"] = np.frombuffer(json.dumps(model.yaml, default=str).encode(), dtype=np.uint8)
     payload["__meta__"] = np.frombuffer(
         json.dumps({"names": getattr(model, "names", {}), "task": getattr(model, "task", "detect"), **(meta or {})},
@@ -81,6 +72,30 @@ def save_npz(model, params: dict, filename="model.npz", meta: dict | None = None
     np.savez(filename, **payload)
     LOGGER.info(f"saved {filename} ({filename.stat().st_size / 1e6:.1f} MB)")
     return filename
+
+
+class Exporter:
+    """`YOLO.export`: the format in `args` ('npz', its aliases 'savedmodel' and '-', or 'pt'),
+    written to <the model's stem>.<suffix> in the working directory, as the JAX package names it.
+    Its 'orbax', 'stablehlo' and 'tflite' formats are not ported."""
+
+    def __init__(self, args=None):
+        from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, get_cfg
+
+        self.args = get_cfg(overrides={k: v for k, v in (args or {}).items() if k in DEFAULT_CFG_DICT})
+
+    def __call__(self, model, params) -> Path:
+        fmt = (self.args.format or "npz").lower()
+        name = Path(str(self.args.model or "model")).stem
+        if fmt in ("npz", "savedmodel", "-"):
+            return save_npz(model, params, f"{name}.npz")
+        if fmt == "pt":
+            from yolo_tpu_torch.nn.torch_export import save_pt
+
+            return save_pt(model, params, f"{name}.pt", names=getattr(model, "names", None))
+        if fmt in ("orbax", "stablehlo", "tflite"):
+            raise NotImplementedError(f"export format '{fmt}' is not ported (npz | pt)")
+        raise ValueError(f"unsupported export format '{fmt}' (npz | orbax | stablehlo | pt | tflite)")
 
 
 def save_train_state(dirname, state: dict) -> Path:

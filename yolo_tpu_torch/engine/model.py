@@ -2,19 +2,23 @@
 
     YOLO("yolov8-small.yaml")      # fresh DetectionModel, seeded random weights
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
-    results = YOLO(...).predict(frame, conf=0.25)
+    YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
+    YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
+    results = YOLO(...).predict(frame, conf=0.25)   # or files, directories, globs, videos, streams
     tracked = YOLO(...).track(frame, persist=True, tracker="bytetrack.yaml")
     metrics = YOLO(...).val(data="dataset.yaml", imgsz=640)   # P, R, mAP50, mAP50-95, fitness
     metrics = YOLO(...).train(data="dataset.yaml", epochs=3)  # best.npz / last.npz under runs/detect/train
+    YOLO(...).export(format="pt")  # <stem>.pt (or npz) in the working directory
 
-Runs on the CUDA card unless `device="cpu"` is passed. `.pt` / orbax loading,
-remote and ensemble models, and the export mode are not ported.
+Runs on the CUDA card unless `device="cpu"` is passed. Orbax checkpoints and
+ensembles are not ported, nor the orbax, stablehlo and tflite exports.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
+from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn.tasks import DetectionModel, fuse
 
@@ -26,28 +30,56 @@ class YOLO:
         if task not in (None, "detect"):
             raise NotImplementedError(f"only the detect task is ported, got task '{task}'")
         self.task = "detect"
-        self.device = resolve_device(device)
-        self.overrides: dict = {}
         self.predictor = None
         self.ckpt_path = None
+        self.remote = None
         model = str(model)
+        if model.startswith("tcp://"):
+            self._load_remote(model)
+            return
+        self.device = resolve_device(device)
+        self.overrides: dict = {}
         if model.endswith((".yaml", ".yml")):
             self._new(model)
         else:
             self._load(model)
+        self.overrides["model"] = model
+        self.overrides["task"] = self.task
 
     def _new(self, cfg: str) -> None:
         self.model = DetectionModel(cfg, device=self.device)
         self.params = self.model.init(0)
 
     def _load(self, weights: str) -> None:
+        """A .npz, or a .pt whose `train_args` become the overrides (all cfg keys but model, data, device)."""
         path = Path(weights)
-        if path.suffix != ".npz":
-            raise ValueError(f"unsupported model source: {weights} (a model YAML or a .npz checkpoint)")
-        from yolo_tpu_torch.engine.exporter import load_npz
-
         self.ckpt_path = str(path)
-        self.model, self.params, _ = load_npz(path, device=self.device)
+        if path.suffix == ".pt":
+            from yolo_tpu_torch.nn.torch_import import load_pt
+
+            self.model, self.params, meta = load_pt(path, device=self.device)
+            if meta.get("names"):
+                self.model.names = dict(meta["names"])
+            if meta.get("train_args"):
+                self.overrides = {k: v for k, v in dict(meta["train_args"]).items()
+                                  if k in DEFAULT_CFG_DICT and k not in ("model", "data", "device")}
+        elif path.suffix == ".npz":
+            from yolo_tpu_torch.engine.exporter import load_npz
+
+            self.model, self.params, _ = load_npz(path, device=self.device)
+        else:
+            raise ValueError(f"unsupported model source: {weights} (a model YAML, a .npz or .pt checkpoint, or a tcp:// URL)")
+
+    def _load_remote(self, url: str) -> None:
+        """Predict and track through lane <id> of a detection server; nothing runs here."""
+        from types import SimpleNamespace
+
+        from yolo_tpu_torch.utils.remote import RemoteModel
+
+        self.remote = RemoteModel(url)
+        self.device = None
+        self.overrides = {"model": url, "task": self.task}
+        self.model = SimpleNamespace(task=self.task, names={})
 
     @property
     def names(self):
@@ -67,7 +99,13 @@ class YOLO:
 
     def predict(self, source=None, stream: bool = False, predictor=None, **kwargs):
         """Run inference → list of Results (a generator with `stream=True`)."""
-        args = {**self.overrides, "conf": 0.25, "batch": 1, **kwargs}
+        args = {**self.overrides, "conf": 0.25, "batch": 1, "save": False, "mode": "predict", **kwargs}
+        if self.remote is not None:
+            from yolo_tpu_torch.engine.remote_predictor import RemotePredictor
+
+            if self.predictor is None:
+                self.predictor = RemotePredictor(self.remote, overrides=args, names=self.model.names)
+            return self.predictor(source, stream=stream, **kwargs)
         if self.predictor is None or predictor is not None:
             if predictor is None:
                 from yolo_tpu_torch.engine.predictor import BasePredictor as predictor
@@ -91,10 +129,18 @@ class YOLO:
 
         return attach_tracker(self, results, persist=persist, stream=stream, tracker_cfg=kwargs.get("tracker"))
 
+    def _require_local(self, mode: str) -> None:
+        if self.remote is not None:
+            raise RuntimeError(
+                f"{mode} needs the local params tree; a tcp:// remote model only supports predict/track "
+                f"(load the checkpoint locally instead of {self.overrides.get('model')})"
+            )
+
     def val(self, validator=None, **kwargs) -> dict:
         """Validate on a dataset split (`data`, `split`, `imgsz`, `batch`, `conf`, ...) →
         {precision, recall, mAP50, mAP50-95, fitness}, also kept in `self.metrics`. The
         forward computes in f32 unless `half=True`; `plain=True` runs the kernels' twins."""
+        self._require_local("val")
         args = {"device": str(self.device), **self.overrides, **kwargs, "mode": "val"}
         if validator is None:
             from yolo_tpu_torch.engine.validator import validator_for
@@ -109,6 +155,7 @@ class YOLO:
         validation's metrics. The YOLO then holds the trained model (rebuilt when the dataset's nc
         differs) and the best EMA weights (the last ones without validation), and builds a new
         predictor at its next predict."""
+        self._require_local("train")
         overrides = {"device": str(self.device), **self.overrides, **kwargs, "mode": "train"}
         if trainer is None:
             from yolo_tpu_torch.engine.trainer import DetectionTrainer as trainer
@@ -119,3 +166,15 @@ class YOLO:
         self.predictor = None
         self.metrics = getattr(self.trainer, "metrics", None)
         return self.metrics
+
+    def export(self, **kwargs) -> Path:
+        """Write the model in `format` ('npz' or 'pt') to <the model's stem>.<suffix> in the working directory."""
+        self._require_local("export")
+        from yolo_tpu_torch.engine.exporter import Exporter
+
+        return Exporter(args={**self.overrides, **kwargs, "mode": "export"})(model=self.model, params=self.params)
+
+    def save(self, filename="model.npz") -> Path:
+        from yolo_tpu_torch.engine.exporter import save_npz
+
+        return save_npz(self.model, self.params, filename)

@@ -1,16 +1,18 @@
 """Streaming predictor of the detect task (counterpart of yolo_tpu/engine/predictor.py).
 
-Host side: source iteration, letterbox, batching (batch sizes snap to powers
-of two), then the inverse letterbox and the Results. Device side, one pass per
-batch: uint8 BGR → RGB in [0, 1], forward through the C2f and head kernels,
-DFL decode and fixed-shape NMS, with one device synchronisation where the
-outputs are copied to the host. The other tasks' branches, test-time
-augmentation, int8, lazy decode, the native letterbox and saving/plotting are
-not ported.
+Host side: source iteration (`data/loaders.py`), letterbox (the native C++
+library, or cv2), batching (batch sizes snap to powers of two), then the
+inverse letterbox, the Results and what `save`, `save_txt` and `save_crop`
+write. Device side, one pass per batch: uint8 BGR → RGB in [0, 1], forward
+through the C2f and head kernels, DFL decode and fixed-shape NMS, with one
+device synchronisation where the outputs are copied to the host. The other
+tasks' branches, test-time augmentation, int8, lazy decode, `show` and
+`visualize` are not ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -18,15 +20,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT
+from yolo_tpu_torch import native
+from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, get_save_dir
+from yolo_tpu_torch.data.loaders import VID_FORMATS
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.results import Results
 from yolo_tpu_torch.nn.tasks import install_params
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
 from yolo_tpu_torch.ops.nms import non_max_suppression
-
-VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv", "webm"}
+from yolo_tpu_torch.utils.files import imwrite
 
 
 def _snap_batch(n: int) -> int:
@@ -39,15 +42,15 @@ def _snap_batch(n: int) -> int:
 
 # cfg settings the detect predictor would act on but the port does not have, with
 # the value that asks for nothing; any other value raises NotImplementedError
-UNPORTED = {"save": False, "save_txt": False, "save_crop": False, "show": False, "augment": False,
-            "visualize": False, "embed": None, "int8": False}
+UNPORTED = {"show": False, "augment": False, "visualize": False, "embed": None, "int8": False}
 
 
 @dataclass
 class PredictArgs:
     """The settings the detect predictor reads, with the defaults of the JAX package's
     cfg/default.yaml: bf16 compute (`half` or compute_dtype 'bfloat16' selects bf16;
-    compute_dtype 'float32' without `half` selects f32)."""
+    compute_dtype 'float32' without `half` selects f32). `save` defaults to False: the
+    cfg's True is the trainer's (checkpoints), and `YOLO.predict` passes False in both packages."""
 
     conf: float = 0.25
     iou: float = 0.7
@@ -62,6 +65,22 @@ class PredictArgs:
     verbose: bool = True
     device: str | None = None
     plain: bool = False  # the kernels' plain twins instead of the kernels (the reference on the card)
+    stream_buffer: bool = False
+    # outputs: annotated images / videos, YOLO label files, crops, under <project>/<name>
+    save: bool = False
+    save_txt: bool = False
+    save_conf: bool = False
+    save_crop: bool = False
+    save_frames: bool = False
+    project: str | None = None
+    name: str | None = None
+    exist_ok: bool = False
+    line_width: int | None = None
+    show_labels: bool = True
+    show_conf: bool = True
+    show_boxes: bool = True
+    task: str = "detect"
+    mode: str = DEFAULT_CFG_DICT["mode"]
 
     def update(self, overrides: dict) -> None:
         """Take settings by name. Every cfg key is accepted (`persist` too, which
@@ -80,7 +99,12 @@ class PredictArgs:
 
 
 class BasePredictor:
-    """Detection predictor over a DetectionModel and a JAX-style parameter tree."""
+    """Detection predictor over a DetectionModel and a JAX-style parameter tree.
+
+    `timings`, when set to a list, gets one dict a batch from `_run_batch`: the frame
+    count and padded batch size, host seconds of the letterbox and assembly, of the
+    enqueue (upload, forward and NMS issued), of the wait for the outputs and of the
+    Results, and on a card the CUDA events around the upload and the device pass."""
 
     def __init__(self, model, params, overrides: dict | None = None, names: dict | None = None):
         self.args = PredictArgs()
@@ -89,6 +113,10 @@ class BasePredictor:
             self.args.conf = 0.25
         self.model = model
         self.names = names or getattr(model, "names", {})
+        self.done_warmup = False
+        self.save_dir = None
+        self.timings = None
+        self._vid_writers = {}
         self.set_params(params)
 
     @property
@@ -120,11 +148,20 @@ class BasePredictor:
             max_det=a.max_det, plain=a.plain,
         )
 
+    def warmup(self, imgsz=(1, 640, 640, 3)) -> None:
+        """One zero batch of shape `imgsz` (B, H, W, 3) through the device pass, waited for: on a
+        card it builds the kernels and plans that batch size."""
+        out = self._predict(torch.zeros(tuple(imgsz), dtype=torch.uint8, device=self.device))
+        out["valid"].cpu()  # waits for the pass
+        self.done_warmup = True
+
     # --- host pipeline ---------------------------------------------------------
 
     def pre_transform(self, im: np.ndarray):
-        """Letterbox one image to the target size → (img, (ratio, pad)).
-        Grayscale inputs (2-D or single-channel) are expanded to 3 channels."""
+        """Letterbox one image to the target size → (img, (ratio, pad)). Grayscale inputs (2-D or
+        single-channel) are expanded to 3 channels. A uint8 image goes through the native library
+        (ratio in f32, as the JAX package's) unless it is unavailable or YOLO_TPU_NATIVE_PRE is "0"
+        (the JAX package's setting), then through cv2; the two resizers differ by one grey level."""
         if im.ndim == 2:
             im = im[..., None]
         if im.shape[-1] == 1:
@@ -132,6 +169,8 @@ class BasePredictor:
         imgsz = self.args.imgsz
         if isinstance(imgsz, int):
             imgsz = (imgsz, imgsz)
+        if im.dtype == np.uint8 and native.available() and os.environ.get("YOLO_TPU_NATIVE_PRE", "1") != "0":
+            return native.letterbox(im, tuple(imgsz))
         lb = LetterBox(tuple(imgsz), auto=False, stride=max(self.model.stride))
         return lb(im, return_meta=True)
 
@@ -145,14 +184,17 @@ class BasePredictor:
         self.set_params(self._params)  # `half` or `device` may have changed
         batch_imgs, batch_meta = [], []
         max_b = max(1, int(self.args.batch)) if self.args.batch and self.args.batch > 0 else 16
-        for img, path, frame_info in _iter_source(source, vid_stride=self.args.vid_stride):
-            batch_imgs.append(img)
-            batch_meta.append((path, frame_info))
-            if len(batch_imgs) >= max_b:
+        try:
+            for img, path, frame_info in _iter_source(source, self.args.vid_stride, self.args.stream_buffer):
+                batch_imgs.append(img)
+                batch_meta.append((path, frame_info))
+                if len(batch_imgs) >= max_b:
+                    yield from self._run_batch(batch_imgs, batch_meta)
+                    batch_imgs, batch_meta = [], []
+            if batch_imgs:
                 yield from self._run_batch(batch_imgs, batch_meta)
-                batch_imgs, batch_meta = [], []
-        if batch_imgs:
-            yield from self._run_batch(batch_imgs, batch_meta)
+        finally:
+            self.close()
 
     def _run_batch(self, imgs: list, metas: list) -> list:
         t0 = time.perf_counter()
@@ -168,7 +210,17 @@ class BasePredictor:
             batch[i] = p
 
         t1 = time.perf_counter()
-        out = self._predict(torch.from_numpy(batch).to(self.device))
+        events = None
+        if self.timings is not None and self.device.type == "cuda":
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+        x = torch.from_numpy(batch).to(self.device)
+        if events:
+            events[1].record()
+        out = self._predict(x)
+        if events:
+            events[2].record()
+        t_enq = time.perf_counter()
         out = {k: v.cpu().numpy() for k, v in out.items()}  # the batch's one wait for the device
 
         t2 = time.perf_counter()
@@ -186,47 +238,118 @@ class BasePredictor:
             r.speed = speed
             if self.args.verbose:
                 print(f"{path}: {r.verbose()}{speed['inference']:.1f}ms")
+        if self.timings is not None:
+            self.timings.append({"n": n, "B": len(batch), "pre_s": t1 - t0, "enqueue_s": t_enq - t1, "wait_s": t2 - t_enq,
+                                 "post_s": t3 - t2, "events": events})
+        if self.args.save or self.args.save_txt or self.args.save_crop:
+            self._write_results(results, metas)
         return results
 
+    def _plot_kwargs(self) -> dict:
+        a = self.args
+        return {"line_width": a.line_width, "labels": a.show_labels, "conf": a.show_conf, "boxes": a.show_boxes}
 
-def _iter_source(source, vid_stride: int = 1):
-    """Yield (bgr_image, path, frame_idx) from an ndarray frame, an (N, H, W, C)
-    ndarray batch, a list of either, or the path of a video file (opened with
-    cv2, imported here only)."""
-    if isinstance(source, np.ndarray):
-        if source.ndim == 4:
-            if source.dtype != np.uint8 or source.shape[-1] not in (1, 3):
-                raise ValueError(f"an array batch is (N, H, W, 1 or 3) uint8, got {source.shape} {source.dtype}")
-            for i, frame in enumerate(source):
-                yield frame, f"image{i}.jpg", 0
-        else:
-            yield source, "array", 0
+    def _write_results(self, results, metas) -> None:
+        """What `save`, `save_txt` and `save_crop` ask for, under the run directory (made at the
+        first write): <stem>.jpg (a video's frames into <stem>.mp4 at its fps over `vid_stride`,
+        and <stem>_frames/<i>.jpg with `save_frames`), labels/<stem>[_<frame>].txt, and
+        crops/<class>/<stem>_<frame>_<j>.jpg (the box squared, x1.02 + 10 px, clipped)."""
+        import cv2
+
+        if self.save_dir is None:
+            self.save_dir = get_save_dir(self.args)
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            self._vid_writers = {}
+        for r, (path, frame_idx) in zip(results, metas):
+            stem = Path(str(path)).stem or "image"
+            is_vid = Path(str(path)).suffix.lower().lstrip(".") in VID_FORMATS
+            if self.args.save_txt:
+                txt_stem = f"{stem}_{frame_idx}" if is_vid else stem
+                r.save_txt(self.save_dir / "labels" / f"{txt_stem}.txt", save_conf=self.args.save_conf)
+            if self.args.save_crop:
+                H, W = r.orig_img.shape[:2]
+                for j, b in enumerate(np.asarray(r.boxes.xyxy)):
+                    cx, cy = (b[0] + b[2]) / 2, (b[1] + b[3]) / 2
+                    side = max(b[2] - b[0], b[3] - b[1]) * 1.02 / 2 + 10
+                    x1, y1 = max(int(cx - side), 0), max(int(cy - side), 0)
+                    x2, y2 = min(int(cx + side), W), min(int(cy + side), H)
+                    if x2 <= x1 or y2 <= y1:
+                        continue
+                    cname = self.names.get(int(r.boxes.cls[j]), str(int(r.boxes.cls[j])))
+                    d = self.save_dir / "crops" / str(cname)
+                    d.mkdir(parents=True, exist_ok=True)
+                    imwrite(str(d / f"{stem}_{frame_idx}_{j}.jpg"), r.orig_img[y1:y2, x1:x2])
+            if self.args.save:
+                annotated = r.plot(**self._plot_kwargs())
+                if is_vid and self.args.save_frames:
+                    d = self.save_dir / f"{stem}_frames"
+                    d.mkdir(parents=True, exist_ok=True)
+                    imwrite(str(d / f"{frame_idx}.jpg"), annotated)
+                if is_vid:
+                    if path not in self._vid_writers:
+                        h, w = annotated.shape[:2]
+                        cap = cv2.VideoCapture(str(path))
+                        fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+                        cap.release()
+                        fps = max(fps / max(1, int(self.args.vid_stride or 1)), 1.0)
+                        self._vid_writers[path] = cv2.VideoWriter(
+                            str(self.save_dir / f"{stem}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), float(fps), (w, h))
+                    self._vid_writers[path].write(annotated)
+                else:
+                    imwrite(str(self.save_dir / f"{stem}.jpg"), annotated)
+
+    def close(self) -> None:
+        """Finish the videos `save` is writing."""
+        for w in self._vid_writers.values():
+            w.release()
+        self._vid_writers = {}
+
+
+def _drain_loader(loader):
+    """(bgr_image, path, frame_idx) from any loader of data/loaders.py."""
+    from yolo_tpu_torch.data.loaders import LoadStreams
+
+    if isinstance(loader, LoadStreams):  # one (sources, frames, infos) a tick
+        idx = 0
+        try:
+            for srcs, frames_, _ in loader:
+                for j, im in enumerate(frames_):
+                    yield im, str(srcs[j]), idx
+                idx += 1
+        finally:
+            loader.close()
+    else:
+        for path, frame, idx in loader:
+            yield frame, path, idx
+
+
+def _iter_source(source, vid_stride: int = 1, stream_buffer: bool = False):
+    """Yield (bgr_image, path, frame_idx) from any source: a single ndarray frame ("array") or
+    PIL image ("pil") here, a list item by item ("array<i>" for its frames; a list of stream
+    URLs or webcam indices as one multi-stream loader), and everything else (4-D arrays and
+    tensors, files, directories, globs, videos, streams, "screen") through
+    `data.loaders.load_inference_source`."""
+    from yolo_tpu_torch.data.loaders import _is_stream, load_inference_source
+
+    if isinstance(source, np.ndarray) and source.ndim != 4:
+        yield source, "array", 0
         return
+    try:
+        from PIL import Image
+
+        if isinstance(source, Image.Image):
+            yield np.asarray(source.convert("RGB"))[..., ::-1], "pil", 0
+            return
+    except ImportError:
+        pass
     if isinstance(source, (list, tuple)):
+        if source and all(_is_stream(s) for s in source):
+            yield from _drain_loader(load_inference_source(list(source), vid_stride=vid_stride, stream_buffer=stream_buffer))
+            return
         for i, s in enumerate(source):
             if isinstance(s, np.ndarray) and s.ndim != 4:
                 yield s, f"array{i}", 0
             else:
-                yield from _iter_source(s, vid_stride)
+                yield from _iter_source(s, vid_stride, stream_buffer)
         return
-    path = Path(str(source))
-    if path.suffix.lower().lstrip(".") not in VID_FORMATS:
-        raise ValueError(f"unsupported source {source!r}: pass an ndarray, a list of ndarrays or a video file")
-    if not path.exists():
-        raise FileNotFoundError(f"video not found: {path}")
-    import cv2
-
-    cap = cv2.VideoCapture(str(path))
-    try:
-        if not cap.isOpened():
-            raise RuntimeError(f"cannot open video: {path}")
-        idx = 0
-        while True:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            if idx % max(1, int(vid_stride)) == 0:
-                yield frame, str(path), idx
-            idx += 1
-    finally:
-        cap.release()
+    yield from _drain_loader(load_inference_source(source, vid_stride=vid_stride, stream_buffer=stream_buffer))

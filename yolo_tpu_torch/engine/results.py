@@ -2,15 +2,18 @@
 
 Host-side and numpy-backed: the predictor hands over the valid rows of the
 fixed-shape NMS output, and these classes expose the `.boxes.xyxy/conf/cls`
-views the Kalman clip loop consumes, and the track id column `YOLO.track` adds.
-Plotting and saving are not ported.
+views the Kalman clip loop consumes, and the track id column `YOLO.track` adds;
+`Results` draws its boxes (`plot`, `save`), writes YOLO label lines (`save_txt`)
+and summarises itself (`summary`, `to_json`) as the JAX package's does.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
-from yolo_tpu_torch.ops.boxes import xyxy2xywh
+from yolo_tpu_torch.ops.boxes import xyxy2xywh, xyxy2xywhn
 
 
 class Boxes:
@@ -77,6 +80,7 @@ class Results:
         has = boxes is not None and len(boxes)
         self.boxes = Boxes(boxes if has else np.zeros((0, 6), np.float32), self.orig_shape)
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
+        self.save_dir = None
 
     def __len__(self):
         return len(self.boxes)
@@ -102,3 +106,67 @@ class Results:
             n = int((cls == c).sum())
             parts.append(f"{n} {self.names.get(c, str(c))}{'s' if n > 1 else ''}")
         return f"{h}x{w} " + ", ".join(parts) + ", "
+
+    def plot(self, conf: bool = True, line_width: int | None = None, labels: bool = True, boxes: bool = True,
+             img: np.ndarray | None = None) -> np.ndarray:
+        """A copy of the image (BGR; a gray one made BGR) with each box in its class's colour and its
+        label: 'name conf', with 'id:N ' before it for a tracked box."""
+        import cv2
+
+        from yolo_tpu_torch.utils.plotting import Annotator, color_for
+
+        im = (img if img is not None else self.orig_img).copy()
+        if im.ndim == 2:
+            im = cv2.cvtColor(im, cv2.COLOR_GRAY2BGR)
+        ann = Annotator(im, line_width=line_width)
+        if boxes:
+            for row in self.boxes.data:
+                c = int(row[-1])
+                name = self.names.get(c, str(c))
+                if self.boxes.is_track:
+                    name = f"id:{int(row[4])} {name}"
+                label = (f"{name} {float(row[-2]):.2f}" if conf else name) if labels else ""
+                ann.box_label(row[:4], label, color=color_for(c))
+        return ann.result()
+
+    def save(self, filename: str | None = None) -> str:
+        """Write `plot()` to `filename` (default 'results_<the source's name>') → the name."""
+        from yolo_tpu_torch.utils.files import imwrite
+
+        filename = filename or f"results_{Path(self.path).name or 'image.jpg'}"
+        imwrite(str(filename), self.plot())
+        return filename
+
+    def save_txt(self, txt_file, save_conf: bool = False) -> None:
+        """Append one YOLO label line a box to `txt_file`: 'cls cx cy w h' normalised by the image
+        (`%.6g`), the confidence after them with `save_conf`."""
+        lines = []
+        for row in self.boxes.data:
+            xywhn = xyxy2xywhn(row[None, :4], w=self.orig_shape[1], h=self.orig_shape[0])[0]
+            vals = [int(row[-1]), *xywhn.tolist()] + ([float(row[-2])] if save_conf else [])
+            lines.append(" ".join(f"{v:.6g}" if isinstance(v, float) else str(v) for v in vals))
+        Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
+        with open(txt_file, "a", encoding="utf-8") as f:
+            f.write("\n".join(lines) + ("\n" if lines else ""))
+
+    def summary(self, normalize: bool = False, decimals: int = 5) -> list:
+        """One dict a box: name, class, confidence, box {x1, y1, x2, y2} (divided by the image's
+        size with `normalize`), and track_id for a tracked box; rounded to `decimals`."""
+        h, w = self.orig_shape if normalize else (1, 1)
+        out = []
+        for i in range(len(self.boxes)):
+            xy = {}
+            for j, (bx, by) in enumerate(np.asarray(self.boxes.xyxy[i]).reshape(-1, 2)):
+                xy[f"x{j + 1}"] = round(float(bx) / w, decimals)
+                xy[f"y{j + 1}"] = round(float(by) / h, decimals)
+            c = int(self.boxes.cls[i])
+            res = {"name": self.names.get(c, str(c)), "class": c, "confidence": round(float(self.boxes.conf[i]), decimals), "box": xy}
+            if self.boxes.is_track:
+                res["track_id"] = int(self.boxes.id[i])
+            out.append(res)
+        return out
+
+    def to_json(self, normalize: bool = False) -> str:
+        import json
+
+        return json.dumps(self.summary(normalize=normalize), indent=2)

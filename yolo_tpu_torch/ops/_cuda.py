@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
@@ -26,6 +27,7 @@ BUILD = PKG / "_build"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
+_LOCK = threading.Lock()  # a server's worker thread may load the kernels while another thread does
 
 
 def _nvcc() -> str:
@@ -93,11 +95,12 @@ def build(extra=()) -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
-    if _lib is None:
-        cdll = ctypes.CDLL(str(build()))
-        cdll.yt_error_string.argtypes = [ctypes.c_int]
-        cdll.yt_error_string.restype = ctypes.c_char_p
-        _lib = cdll
+    with _LOCK:
+        if _lib is None:
+            cdll = ctypes.CDLL(str(build()))
+            cdll.yt_error_string.argtypes = [ctypes.c_int]
+            cdll.yt_error_string.restype = ctypes.c_char_p
+            _lib = cdll
     return _lib
 
 

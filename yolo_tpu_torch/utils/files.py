@@ -1,6 +1,6 @@
-"""Image reading that takes any path, and run-directory numbering (counterpart of
-`imread` and `increment_path` in yolo_tpu/utils/files.py; nothing else of it is
-ported). cv2 is imported only to decode."""
+"""Image reading and writing that take any path, and run-directory numbering (counterpart
+of `imread`, `imwrite` and `increment_path` in yolo_tpu/utils/files.py; nothing else of
+it is ported). cv2 is imported only to decode and encode."""
 
 from __future__ import annotations
 
@@ -23,6 +23,21 @@ def imread(filename, flags=None):
     if buf.size == 0:
         return None
     return cv2.imdecode(buf, flags)
+
+
+def imwrite(filename, img, params=None) -> bool:
+    """cv2.imwrite for any path, non-ASCII ones included: cv2 encodes by the suffix (PNG without
+    one) and numpy writes the bytes → whether the file was written."""
+    import cv2
+
+    try:
+        ok, buf = cv2.imencode(Path(str(filename)).suffix or ".png", img, params or [])
+        if not ok:
+            return False
+        buf.tofile(str(filename))
+        return True
+    except (cv2.error, OSError):
+        return False
 
 
 def increment_path(path, exist_ok: bool = False, sep: str = "", mkdir: bool = False) -> Path:

@@ -1,7 +1,7 @@
-"""Plots of the validator and the trainer (counterpart of `plot_confusion_matrix`,
-`plot_labels`, `plot_images` and the box drawing of `Annotator` in
-yolo_tpu/utils/plotting.py; nothing else of it is ported). matplotlib and cv2 are
-imported only when a plot is drawn."""
+"""Plots of the validator and the trainer, and the box drawing of `Results.plot`
+(counterpart of `plot_confusion_matrix`, `plot_labels`, `plot_images` and the box
+drawing of `Annotator` in yolo_tpu/utils/plotting.py; nothing else of it is ported).
+matplotlib and cv2 are imported only when a plot is drawn."""
 
 from __future__ import annotations
 
@@ -66,6 +66,21 @@ def box_label(im: np.ndarray, box, label: str, color, lw: int, txt_color=(255, 2
         p2t = (p1[0] + wh[0], p1[1] - wh[1] - 3 if outside else p1[1] + wh[1] + 3)
         cv2.rectangle(im, p1, p2t, color, -1, cv2.LINE_AA)
         cv2.putText(im, label, (p1[0], p1[1] - 2 if outside else p1[1] + wh[1] + 2), 0, lw / 3, txt_color, tf, cv2.LINE_AA)
+
+
+class Annotator:
+    """Boxes and labels drawn on a BGR image (a read-only image is copied first); the line
+    width defaults to 0.3% of the image's mean side, at least 2."""
+
+    def __init__(self, im: np.ndarray, line_width: int | None = None):
+        self.im = im if im.flags.writeable else im.copy()
+        self.lw = line_width or max(round(sum(im.shape[:2]) / 2 * 0.003), 2)
+
+    def box_label(self, box, label: str = "", color=(128, 128, 128), txt_color=(255, 255, 255)):
+        box_label(self.im, box, label, color, self.lw, txt_color)
+
+    def result(self):
+        return self.im
 
 
 def plot_images(batch, fname="train_batch.jpg", names=None, max_subplots: int = 16, conf_thres: float = 0.25, save: bool = True):
