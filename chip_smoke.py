@@ -129,6 +129,20 @@ Phases (any failure stops the run with a non-zero exit code):
    only): YOLO(best.npz), the demo's trained weights, one epoch of the recipe, mAP before
    and after. `[train val kernels]`: both trained models validated in f32 through the
    kernels and the twins, held as `[val kernels]` holds them.
+16. the newer paths, each with best.npz at full width and each f32 run through the kernels held
+   against the same run through the twins at the f32 gates (1e-2 px, conf 1e-4), kernels 1, 2, 3
+   and 5 held against their twins on one frame's activations at the path's shapes (TOL, NMS bit
+   for bit; `hold_path_kernels`): `[pipeline options]` (right after `[pipeline]`): `run_clip` in
+   bf16 with collect_outputs=False and with prefetch 1 and 4, stats equal to `[pipeline]`'s;
+   `[tiled]`: the clip's first 64 frames as BGR through `ops.tiling.tiled_predict` (tile 256,
+   overlap 0.25: 9 tiles a frame in one batch, padded to B = 16), f32 then bf16 timed; `[tta]`:
+   the 64 frames through `predict(augment=True, imgsz=640)` (640, 544 and 448 square on the
+   device), the launches per shape; `[ensemble]`: `YOLO([best.npz, last.npz])` over them;
+   `[embed]`: `YOLO.embed` of them (vectors within 1e-4), ms/frame; `[enhance]`:
+   `otherplan.enhance_small_targets_torch` on 128 frames on the card against the host's cv2
+   enhancement and against itself on the CPU (1e-3, equal `classical_detect` boxes); `[detect_only]`
+   and `[single target]`: the clip's first 128 frames as an mp4v file through
+   `otherplan.detect_only` and `run_single_target_tracking` with the port's YOLO as the detector.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -964,7 +978,7 @@ def pipeline_phase(tag, model, params, clip, card, head_cm):
     log(f"{tag} bf16", card, f"kernel launches in that run: {launches}")
     if not all(len(o["bbox"]) == CHUNK and o["bbox"].shape[1:] == (64, 4) for o in ob):
         raise AssertionError("unexpected packed output shape")
-    return ft, launches
+    return ft, launches, (ob, sb)
 
 
 def bgr_phase(model, params, clip, card):
@@ -2500,6 +2514,317 @@ def train_finetune_phase(data, run_dir, card):
     return y
 
 
+# ------------------------------------------- otherplan, tiles, TTA, ensembles, embed --
+
+TILE, TILE_OVERLAP = 256, 0.25  # 9 tiles of a 640x512 frame, one batch padded to B = 16
+SLICE_FRAMES = 64  # frames of the `[tiled]`, `[tta]`, `[ensemble]` and `[embed]` phases
+ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 128, 16
+VIDEO_FRAMES = 128  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
+
+
+def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024):
+    """Kernels 1, 2, 3 and 5 against their twins on the activations of one f32 forward of the NHWC
+    images `x` through each model (loaded in f32 on the card): every C2f and upconcat instance and
+    every Detect level at TOL, the NMS keep mask over the models' candidates joined on the anchor
+    axis (K = max_nms at `conf`, as the predictor forms them) bit for bit → {kernel: max |err|}."""
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_nms
+
+    kernels = {"c2f": (cuda_c2f.fused_c2f, cuda_c2f.c2f_plain), "c2f_upconcat": (cuda_c2f.fused_c2f_upconcat, cuda_c2f.c2f_upconcat_plain),
+               "head_level": (cuda_head.fused_head_level, cuda_head.head_level_plain)}
+    worst, parts, n = {}, [], 0
+    for model in models:
+        rec, boxes, scores = capture_instances(model, x)
+        parts.append((boxes, scores))
+        for name, args in rec:
+            kern, plain = kernels[name]
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            errs = hold(name, f"{tag} {tuple(args[-3 if name == 'c2f_upconcat' else 0].shape)}", "float32", got, want)
+            worst[name] = max(worst.get(name, 0.0), *errs.values())
+            n += 1
+    cand, top = nms_candidates(torch.cat([b for b, _ in parts], 1), torch.cat([s for _, s in parts], 1), conf, max_nms)
+    got, want = cuda_nms.nms_keep(cand, top, iou), cuda_nms.nms_keep_plain(cand, top, iou)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"nms_keep {tag}: keep mask differs from the plain twin in {int((got != want).sum())} slots")
+    worst["nms_keep"] = 0.0
+    log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {n} C2f / Detect instances "
+        f"within atol = rtol = 1e-3 (max |err| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items() if k != "nms_keep")
+        + f"), NMS B={cand.shape[0]} K={cand.shape[1]} kept {int(got.sum())} of {int((top > 0).sum())} valid, bit for bit")
+    return worst
+
+
+def letterboxed(frame, imgsz=640):
+    """One BGR frame as the predictor feeds the device: the native letterbox, RGB in [0, 1], f32 (1, H, W, 3)."""
+    import torch
+
+    from yolo_tpu_torch import native
+
+    img, _ = native.letterbox(frame, (imgsz, imgsz))
+    return torch.from_numpy(img[None]).cuda().flip(-1).float() / 255.0
+
+
+def merged_rows(out):
+    """tiled_predict's (boxes, scores, cls) → (M, 6) rows, as same_dets takes them."""
+    import numpy as np
+
+    boxes, scores, cls = out
+    return np.concatenate([boxes, scores[:, None], cls[:, None]], 1)
+
+
+def timed_frames(fn, frames):
+    """`fn(frame)` over the frames (each call ends in its device wait) → (outputs, seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = [fn(f) for f in frames]
+    return out, time.perf_counter() - t0
+
+
+def tiled_phase(clip, card):
+    """`[tiled]`: the clip's first 64 frames as BGR through `ops.tiling.tiled_predict` (tile 256, overlap
+    0.25: 9 tiles, one batch padded to B = 16 a frame), f32 through the kernels against the same
+    calls through the twins (merged boxes at the f32 gates), kernels 1, 2, 3 and 5 held against their
+    twins on one frame's tile batch, then bf16, timed: frames/s, the padded B, the launches."""
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.engine.predictor import _snap_batch
+    from yolo_tpu_torch.ops.tiling import slice_tiles, tile_grid, tiled_predict
+
+    frames = np.repeat(clip[:SLICE_FRAMES], 3, -1)
+    grid = tile_grid(*HW, TILE, TILE_OVERLAP)
+    kw = dict(tile=TILE, overlap=TILE_OVERLAP, conf=0.15, iou=0.6)
+    yk, yp = YOLO(str(WEIGHTS)), YOLO(str(WEIGHTS))
+    (got, wk), launches = counted(SERVE_PATH, lambda: timed_frames(lambda f: tiled_predict(yk, f, compute_dtype="float32", **kw), frames))
+    want, wp = timed_frames(lambda f: tiled_predict(yp, f, compute_dtype="float32", plain=True, **kw), frames)
+    worst = same_dets([merged_rows(g) for g in got], [merged_rows(w) for w in want], "tiled kernels vs twins")
+    n_det = sum(len(g[0]) for g in got)
+    if n_det <= 0 or launches["c2f"] != 6 * SLICE_FRAMES:
+        raise AssertionError(f"[tiled] {n_det} detections, launches {launches} (one batch a frame expected)")
+    log("tiled f32", card, f"{len(grid)} tiles a frame; kernels {n_det} merged detections in {wk:.2f} s | twins in {wp:.2f} s | equal "
+        f"counts and classes, max |box/conf diff| {worst:.3e}; launches {launches}")
+    tiles = np.zeros((_snap_batch(len(grid)), TILE, TILE, 3), np.uint8)
+    tiles[: len(grid)] = slice_tiles(frames[-1], grid, TILE)
+    import torch
+
+    hold_path_kernels([yk.model], torch.from_numpy(tiles).cuda().flip(-1).float() / 255.0, "tiled f32", card)
+
+    yb = YOLO(str(WEIGHTS))
+    tiled_predict(yb, frames[0], **kw)  # warm-up: the plans of B = 16 at 256x256, the allocator
+    yb.predictor.timings = []
+    (bf, wb), launches = counted(SERVE_PATH, lambda: timed_frames(lambda f: tiled_predict(yb, f, **kw), frames))
+    padded = sorted({t["B"] for t in yb.predictor.timings})
+    same = sum(len(a[0]) == len(b[0]) for a, b in zip(bf, got))
+    log("tiled bf16", card, f"{SLICE_FRAMES} frames in {wb:.3f} s = {SLICE_FRAMES / wb:.1f} frames/s (host clock; one predict of "
+        f"{len(grid)} tiles a frame, padded B {padded}); {sum(len(b[0]) for b in bf)} detections, counts equal to f32 on "
+        f"{same}/{SLICE_FRAMES} frames; launches {launches}")
+    if padded != [16]:
+        raise AssertionError(f"[tiled] the tiles went in batches of {padded}, not one of 16")
+
+
+def launches_by_shape(model):
+    """Count each kernel's launches per input size of `model.predict` (an instance attribute
+    wraps the method until `del model.predict`) → {(H, W): {kernel: launches}}."""
+    counters, per, real = launch_counters(), {}, model.predict
+
+    def predict(x, *a, **k):
+        before = {n: f.launches for n, f in counters.items()}
+        out = real(x, *a, **k)
+        d = per.setdefault(tuple(x.shape[1:3]), dict.fromkeys(counters, 0))
+        for n, f in counters.items():
+            d[n] += f.launches - before[n]
+        return out
+
+    model.predict = predict
+    return per
+
+
+def tta_phase(clip, card):
+    """`[tta]`: 64 BGR frames through `YOLO(best.npz).predict(augment=True, imgsz=640)` (the scales 1,
+    0.83 flipped and 0.67: 640x640, 544x544 and 448x448 on the device), f32 through the kernels against
+    the twins (the f32 gates), the launches per shape, kernels 1, 2, 3 and 5 held against their twins
+    at each scaled image of one frame; then bf16, timed."""
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.tasks import AUGMENT_FLIPS, AUGMENT_SCALES, _scale_img
+
+    frames = np.repeat(clip[:SLICE_FRAMES], 3, -1)
+    kw = dict(augment=True, imgsz=640, conf=0.15, iou=0.6, verbose=False)
+    yk, yp = YOLO(str(WEIGHTS)), YOLO(str(WEIGHTS))
+    per = launches_by_shape(yk.model)
+    (got, wk), launches = counted(SERVE_PATH, lambda: timed_frames(
+        lambda f: yk.predict(f, compute_dtype="float32", **kw)[0].boxes.data, frames))
+    del yk.model.predict
+    want, wp = timed_frames(lambda f: yp.predict(f, compute_dtype="float32", plain=True, **kw)[0].boxes.data, frames)
+    worst = same_dets(got, want, "tta kernels vs twins")
+    if sum(len(g) for g in got) <= 0 or sorted(per) != [(448, 448), (544, 544), (640, 640)]:
+        raise AssertionError(f"[tta] {sum(len(g) for g in got)} detections, shapes {sorted(per)}")
+    log("tta f32", card, f"kernels {sum(len(g) for g in got)} detections in {wk:.2f} s ({SLICE_FRAMES / wk:.1f} frames/s) | twins in "
+        f"{wp:.2f} s | equal counts and classes, max |box/conf diff| {worst:.3e}; launches {launches}; per shape "
+        + "; ".join(f"{h}x{w}: " + ", ".join(f"{k} {v}" for k, v in d.items() if v) for (h, w), d in sorted(per.items(), reverse=True)))
+    x = letterboxed(frames[-1])
+    gs = int(max(yk.model.stride))
+    for ratio, flip in zip(AUGMENT_SCALES, AUGMENT_FLIPS):
+        hold_path_kernels([yk.model], _scale_img(x.flip(2) if flip else x, ratio, gs), f"tta f32 scale {ratio}", card)
+
+    yb = YOLO(str(WEIGHTS))
+    yb.predict(frames[0], **kw)  # warm-up: the three shapes' plans
+    (bf, wb), launches = counted(SERVE_PATH, lambda: timed_frames(lambda f: yb.predict(f, **kw)[0].boxes.data, frames))
+    log("tta bf16", card, f"{SLICE_FRAMES} frames in {wb:.3f} s = {SLICE_FRAMES / wb:.1f} frames/s (host clock, one predict a frame, "
+        f"three forwards); {sum(len(b) for b in bf)} detections; launches {launches}")
+
+
+def ensemble_phase(clip, card):
+    """`[ensemble]`: `YOLO([best.npz, last.npz])`, the two members' predictions in one NMS, over 64 BGR
+    frames: f32 through the kernels against the twins (the f32 gates), kernels 1, 2, 3 and 5 held against
+    their twins through both members on one frame (NMS over the joined candidates); then bf16, timed."""
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+
+    members = [str(WEIGHTS), str(WEIGHTS.with_name("last.npz"))]
+    frames = np.repeat(clip[:SLICE_FRAMES], 3, -1)
+    kw = dict(imgsz=640, conf=0.15, iou=0.6, verbose=False)
+    yk, yp = YOLO(members), YOLO(members)
+    (got, wk), launches = counted(SERVE_PATH, lambda: timed_frames(lambda f: yk.predict(f, compute_dtype="float32", **kw)[0].boxes.data, frames))
+    want, wp = timed_frames(lambda f: yp.predict(f, compute_dtype="float32", plain=True, **kw)[0].boxes.data, frames)
+    worst = same_dets(got, want, "ensemble kernels vs twins")
+    if sum(len(g) for g in got) <= 0 or launches["c2f"] != 2 * 6 * SLICE_FRAMES:
+        raise AssertionError(f"[ensemble] {sum(len(g) for g in got)} detections, launches {launches}")
+    log("ensemble f32", card, f"2 members; kernels {sum(len(g) for g in got)} detections in {wk:.2f} s ({SLICE_FRAMES / wk:.1f} "
+        f"frames/s) | twins in {wp:.2f} s | equal counts and classes, max |box/conf diff| {worst:.3e}; launches {launches}")
+    hold_path_kernels(yk.model.models, letterboxed(frames[-1]), "ensemble f32", card)
+    yb = YOLO(members)
+    yb.predict(frames[0], **kw)
+    (bf, wb), launches = counted(SERVE_PATH, lambda: timed_frames(lambda f: yb.predict(f, **kw)[0].boxes.data, frames))
+    log("ensemble bf16", card, f"{SLICE_FRAMES} frames in {wb:.3f} s = {SLICE_FRAMES / wb:.1f} frames/s (host clock, one predict a "
+        f"frame); {sum(len(b) for b in bf)} detections; launches {launches}")
+
+
+def embed_phase(clip, card):
+    """`[embed]`: `YOLO(best.npz).embed` of 64 BGR frames (square letterbox to 640, f32, the layer before
+    the head, the neck folded): through the kernels against through the twins within 1e-4, kernels 1 and
+    2 launched (no head, no NMS); ms/frame; kernels 1, 2, 3 and 5 held on the embed input of one frame."""
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.ops.letterbox import LetterBox
+
+    frames = np.repeat(clip[:SLICE_FRAMES], 3, -1)
+    y = YOLO(str(WEIGHTS))
+    y.embed(frames[0])  # warm-up
+    (got, wk), launches = counted({"c2f", "c2f_upconcat"}, lambda: timed_frames(lambda f: y.embed(f)[0], frames))
+    want, wp = timed_frames(lambda f: y.embed(f, plain=True)[0], frames)
+    diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    if diff > 1e-4 or got[0].ndim != 1 or not all(np.isfinite(g).all() for g in got):
+        raise AssertionError(f"[embed] kernels vs twins differ by {diff}, or shape {got[0].shape}")
+    log("embed f32", card, f"{SLICE_FRAMES} vectors of {got[0].shape[0]} in {wk * 1e3 / SLICE_FRAMES:.3f} ms/frame (twins "
+        f"{wp * 1e3 / SLICE_FRAMES:.3f}); max |diff| {diff:.3e} (gate 1e-4); launches {launches}")
+    import torch
+
+    x = torch.from_numpy(np.ascontiguousarray(LetterBox((640, 640), auto=False)(frames[-1])[None, ..., ::-1], np.float32) / 255.0).cuda()
+    hold_path_kernels([y.model], x, "embed f32", card)
+
+
+def enhance_phase(clip, card):
+    """`[enhance]`: `otherplan.enhance_small_targets_torch` on a 128-frame 640x512 batch on the card against
+    the host's cv2 `enhance_small_targets` frame by frame (ms/frame each), the largest difference from the
+    same torch function on the CPU (16 frames), and `classical_detect` on the card's and the CPU's
+    enhancement of those frames (equal box lists required), and on the host's cv2 enhancement (reported)."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.otherplan import classical_detect, enhance_small_targets, enhance_small_targets_torch
+
+    gray = np.ascontiguousarray(clip[:ENHANCE_FRAMES, ..., 0])
+    dev = torch.from_numpy(gray).cuda()
+    card_out = enhance_small_targets_torch(dev)
+    ms = cuda_ms(lambda: enhance_small_targets_torch(dev), iters=3, warmup=1) / ENHANCE_FRAMES
+    t0 = time.perf_counter()
+    host = [enhance_small_targets(g) for g in gray]
+    host_ms = (time.perf_counter() - t0) * 1e3 / ENHANCE_FRAMES
+    cpu = enhance_small_targets_torch(torch.from_numpy(gray[:ENHANCE_CPU_FRAMES]))
+    ours = card_out[:ENHANCE_CPU_FRAMES].cpu()
+    diff = float((ours - cpu).abs().max())
+    boxes_card = [classical_detect(g, enhanced=e.numpy().astype(np.uint8)) for g, e in zip(gray, ours)]
+    boxes_cpu = [classical_detect(g, enhanced=e.numpy().astype(np.uint8)) for g, e in zip(gray, cpu)]
+    boxes_host = [classical_detect(g, enhanced=e) for g, e in zip(gray, host)]
+    if card_out.shape != dev.shape or not torch.isfinite(card_out).all() or diff > 1e-3 or boxes_card != boxes_cpu:
+        raise AssertionError(f"[enhance] card vs CPU differ by {diff} (gate 1e-3 on 0-255) or in classical_detect's boxes")
+    host_diff = float(np.abs(card_out.cpu().numpy() - np.stack(host).astype(np.float32)).max())
+    log("enhance", card, f"{ENHANCE_FRAMES} frames of 640x512: card {ms:.4f} ms/frame (events) | host cv2 {host_ms:.3f} ms/frame; "
+        f"card vs CPU torch max |diff| {diff:.3e} on {ENHANCE_CPU_FRAMES} frames (gate 1e-3), classical_detect box lists equal "
+        f"({sum(len(b) for b in boxes_card)} boxes); vs the cv2 enhancement (another border and kernel): max |diff| {host_diff:.1f}, "
+        f"box lists equal on {sum(a == b for a, b in zip(boxes_card, boxes_host))}/{ENHANCE_CPU_FRAMES} frames")
+
+
+def video_phases(clip, card):
+    """`[detect_only]`: the clip's first 128 frames as an mp4v file through `otherplan.detect_only` with
+    its default detector (`YOLO(best.npz)`, fused, bf16, on the card), timed, and with f32 detectors
+    through the kernels and the twins (equal stats). `[single target]`: `run_single_target_tracking` over
+    the file with the port's YOLO (bf16) as the detector: frames/s, stats and the CSV's rows."""
+    import csv
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.kalman.pipeline import yolo_detector
+    from yolo_tpu_torch.otherplan import detect_only, run_single_target_tracking
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vid = write_bgr_video(Path(tmp) / "clip.mp4", clip[:VIDEO_FRAMES])
+        detect_only(vid, model=str(WEIGHTS), max_frames=2)  # warm-up
+        t0 = time.perf_counter()
+        stats, launches = counted(SERVE_PATH, lambda: detect_only(vid, model=str(WEIGHTS), output_video=Path(tmp) / "det.mp4"))
+        wall = time.perf_counter() - t0
+        f32 = []
+        for plain in (False, True):
+            y = YOLO(str(WEIGHTS)).fuse()
+            f32.append(detect_only(vid, detector=lambda f, y=y, plain=plain: y.predict(
+                f, conf=0.15, compute_dtype="float32", plain=plain, verbose=False)[0].boxes.data))
+        if f32[0] != f32[1] or stats["frames"] != VIDEO_FRAMES or stats["total_detections"] <= 0:
+            raise AssertionError(f"[detect_only] bf16 {stats}; f32 kernels {f32[0]} vs twins {f32[1]}")
+        log("detect_only", card, f"{stats} in {wall:.2f} s = {stats['frames'] / wall:.1f} frames/s (decode, bf16 predict, drawing "
+            f"and writing); f32 kernels {f32[0]} = twins'; launches {launches}")
+
+        det = yolo_detector(YOLO(str(WEIGHTS)).fuse(), 0.15, imgsz=640)
+        det(clip[0])
+        t0 = time.perf_counter()
+        stats, launches = counted(SERVE_PATH, lambda: run_single_target_tracking(vid, detector=det, csv_path=Path(tmp) / "traj.csv"))
+        wall = time.perf_counter() - t0
+        with open(Path(tmp) / "traj.csv") as f:
+            rows = list(csv.DictReader(f))
+        by = {s: sum(r["source"] == s for r in rows) for s in ("yolo", "classical", "none")}
+        if len(rows) != stats["frames"] or stats["frames"] <= 0:
+            raise AssertionError(f"[single target] {stats}, {len(rows)} CSV rows")
+        log("single target", card, f"{stats} in {wall:.2f} s = {stats['frames'] / wall:.1f} frames/s; {len(rows)} CSV rows by source "
+            f"{by}; launches {launches}")
+
+
+def pipeline_options_phase(model, params, clip, card, want_outs, want_stats):
+    """`[pipeline options]`: `run_clip` of the 512-frame clip in bf16 with collect_outputs=False (no
+    outputs kept), and with prefetch 1 and 4 (the pinned ring's depth): the stats must equal `[pipeline]`'s
+    bf16 run's, and the outputs too where they are kept; frames/s each."""
+    import numpy as np
+    import torch
+
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    for opts in (dict(collect_outputs=False), dict(prefetch=1), dict(prefetch=4)):
+        ft = make_pipeline(model, params, torch.bfloat16, plain=False)
+        ft.run_clip(clip[:CHUNK], collect_outputs=False)
+        ft.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (outs, stats), launches = counted(path, lambda: ft.run_clip(clip, **opts))
+        wall = time.perf_counter() - t0
+        if stats != want_stats or len(outs) != (0 if opts.get("collect_outputs") is False else len(want_outs)):
+            raise AssertionError(f"[pipeline options] {opts}: stats {stats} vs {want_stats}, {len(outs)} outputs")
+        same = sum(all(np.array_equal(o[k], w[k]) for k in o) for o, w in zip(outs, want_outs))
+        log("pipeline options", card, f"{opts}: {stats} = [pipeline]'s; {len(outs)} chunk outputs"
+            + (f", {same} of them equal to [pipeline]'s in every column" if outs else "")
+            + f"; {FRAMES} frames in {wall:.3f} s = {FRAMES / wall:.1f} frames/s; launches {launches}")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -2554,8 +2879,9 @@ def main(argv) -> int:
     head_edges_phase(card)
     nms_edges_phase(card)
 
-    ft, launches = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
-    _, launches_cm = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)
+    ft, launches, bf16_run = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
+    pipeline_options_phase(model, params, clip, card, *bf16_run)
+    _, launches_cm, _ = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)
     if launches_cm["head_level_cm"] != 4 * (FRAMES // CHUNK):
         raise AssertionError(f"head_level_cm: {launches_cm['head_level_cm']} launches, expected one per level and chunk")
     launches["head_level_cm"] = launches_cm["head_level_cm"]
@@ -2595,6 +2921,13 @@ def main(argv) -> int:
             serve_phase(clip, card, run, srv)
         remote_phase(clip, card, srv)
     predict_sources_phase(clip, card)
+
+    tiled_phase(clip, card)
+    tta_phase(clip, card)
+    ensemble_phase(clip, card)
+    embed_phase(clip, card)
+    enhance_phase(clip, card)
+    video_phases(clip, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

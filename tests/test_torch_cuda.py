@@ -498,3 +498,81 @@ def test_predict_resized_frame_native_route(card):
     want = YOLO(str(chip_smoke.WEIGHTS)).predict(frame, compute_dtype="float32", plain=True, verbose=False)[0]
     assert calls == [(300, 500, 3)] and len(got) == 2
     chip_smoke.same_dets([got.boxes.data], [want.boxes.data], "predict 300x500")
+
+
+def _slice_input(kind, card):
+    """The device input of one 640x512 IR frame on a new path: its 9 tiles of 256x256 padded to B = 16
+    (tiled inference), or its 640x640 letterbox at one of test-time augmentation's scales (1, 0.83
+    flipped, 0.67: 640, 544 and 448 square)."""
+    import chip_smoke
+    from yolo_tpu_torch.engine.predictor import _snap_batch
+    from yolo_tpu_torch.nn.tasks import _scale_img
+    from yolo_tpu_torch.ops.tiling import slice_tiles, tile_grid
+
+    frame = np.repeat(_ir_frames(1)[0], 3, -1)
+    if kind == "tiles":
+        grid = tile_grid(512, 640, chip_smoke.TILE, chip_smoke.TILE_OVERLAP)
+        tiles = np.zeros((_snap_batch(len(grid)), chip_smoke.TILE, chip_smoke.TILE, 3), np.uint8)
+        tiles[: len(grid)] = slice_tiles(frame, grid, chip_smoke.TILE)
+        return torch.from_numpy(tiles).to(card).flip(-1).float() / 255.0
+    ratio = float(kind)
+    x = chip_smoke.letterboxed(frame)
+    return _scale_img(x.flip(2) if ratio == 0.83 else x, ratio, 32)
+
+
+@pytest.mark.parametrize("kind, shape", [("tiles", (16, 256, 256, 3)), ("1.0", (1, 640, 640, 3)), ("0.83", (1, 544, 544, 3)),
+                                         ("0.67", (1, 448, 448, 3))], ids=["tiles-B16-256", "tta-640", "tta-544", "tta-448"])
+def test_kernels_at_the_tile_and_tta_shapes(card, kind, shape):
+    """Kernels 1, 2, 3 and 5 against their twins (f32, TOL; NMS bit for bit) on best.npz's activations at
+    the shapes tiled inference and test-time augmentation give them (P2 64x64 at B = 16; 160, 136, 112)."""
+    import chip_smoke
+    from yolo_tpu_torch import load_npz, params_from_jax
+
+    model, params, _ = load_npz(chip_smoke.WEIGHTS, device=card)
+    params_from_jax(model, params, torch.float32)
+    x = _slice_input(kind, card)
+    assert tuple(x.shape) == shape
+    worst = chip_smoke.hold_path_kernels([model], x, f"{kind} {shape}", "card test")
+    assert set(worst) == {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+
+
+@pytest.mark.parametrize("phase", ["tiled_phase", "tta_phase", "ensemble_phase", "embed_phase", "enhance_phase", "video_phases"])
+def test_slice_phases_on_the_card(card, phase, monkeypatch):
+    """chip_smoke's phases of the new paths on 4 frames (8 for the enhancement and the video): tiled
+    inference, TTA, the ensemble of best.npz and last.npz, embed (f32 kernels against twins at the f32
+    gates, each kernel of the path launched), the enhancement on the card against the CPU, and the
+    detect_only / single-target video loops."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "SLICE_FRAMES", 4)
+    monkeypatch.setattr(chip_smoke, "ENHANCE_FRAMES", 8)
+    monkeypatch.setattr(chip_smoke, "ENHANCE_CPU_FRAMES", 4)
+    monkeypatch.setattr(chip_smoke, "VIDEO_FRAMES", 8)
+    getattr(chip_smoke, phase)(np.stack(_ir_frames(8)), "card test")
+
+
+def test_run_clip_options_on_the_card(card):
+    """FusedDetectTrack on the card (f32, 16 frames in chunks of 8): prefetch 1 and 4 give the default
+    run's outputs and stats exactly, collect_outputs=False no outputs and the same stats,
+    collect_stats=False {}; put_frames stages a chunk on the card that process_chunk_device takes."""
+    import chip_smoke
+    from yolo_tpu_torch import FusedDetectTrack, load_npz
+
+    model, params, _ = load_npz(chip_smoke.WEIGHTS, device=card)
+    clip = np.stack(_ir_frames(16))
+    ft = FusedDetectTrack(model, params, chunk=8, dtype=torch.float32)
+    want_outs, want_stats = ft.run_clip(clip)
+    assert want_stats["detection_frames"] > 0
+    for opts in (dict(prefetch=1), dict(prefetch=4), dict(collect_outputs=False), dict(collect_stats=False)):
+        ft.reset()
+        outs, stats = ft.run_clip(clip, **opts)
+        assert stats == ({} if opts.get("collect_stats") is False else want_stats)
+        assert len(outs) == (0 if opts.get("collect_outputs") is False else 2)
+        for o, w in zip(outs, want_outs):
+            for k in o:
+                np.testing.assert_array_equal(o[k], w[k], err_msg=f"{opts} {k}")
+    ft.reset()
+    staged = ft.put_frames(clip[:8])
+    assert staged.is_cuda and torch.equal(staged.cpu(), torch.from_numpy(clip[:8]))
+    np.testing.assert_array_equal(ft.process_chunk_device(staged).cpu().numpy()[..., 8], want_outs[0]["track_num"])

@@ -86,6 +86,9 @@ def test_port_imports_no_jax():
         "r = YOLO(f'tcp://127.0.0.1:{srv.port}/0').predict(frames, conf=0.0, verbose=False)\n"
         "assert len(r) == 2\n"
         "srv.shutdown(); t.join(30)\n"
+        "from yolo_tpu_torch.otherplan import classical_detect, detect_only, enhance_small_targets_torch\n"
+        "from yolo_tpu_torch.ops.tiling import tiled_predict\n"
+        "assert enhance_small_targets_torch(frames[:, :, :, 0]).shape == (2, 64, 80)\n"
         "bad = sorted(k for k in sys.modules if k == 'yolo_tpu' or k.startswith('yolo_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -110,3 +113,56 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedDetectTrack(model, params, frame_hw=(64, 64), chunk=8)
     assert FusedDetectTrack(model, params, frame_hw=(64, 64), chunk=8, device="cpu").device == torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    """One JAX and one port FusedDetectTrack (yolov8n init(0) fused, f32, 64x64, chunks of 8) and a
+    16-frame clip with a bright square: each test resets them."""
+    jm = JaxDetectionModel("yolov8n.yaml")
+    jp = jm.fuse(jm.init(0))
+    clip = np.random.default_rng(2).integers(0, 255, (16, 64, 64, 1), np.uint8)
+    clip[:, 20:28, 30:38] = 255
+    kw = dict(frame_hw=(64, 64), chunk=8, conf=1e-4, n_max=8, d_max=4)
+    jft = JaxFusedDetectTrack(jm, jp, dtype=jnp.float32, **kw)
+    ft = FusedDetectTrack(DetectionModel("yolov8n.yaml", device="cpu"), jax.tree_util.tree_map(np.asarray, jp),
+                          dtype=torch.float32, device="cpu", **kw)
+    return jft, ft, clip
+
+
+@pytest.mark.parametrize("opts", [dict(collect_outputs=False), dict(collect_stats=False), dict(prefetch=1), dict(prefetch=4),
+                                  dict(prefetch=0, collect_outputs=False, collect_stats=False)],
+                         ids=["no-outputs", "no-stats", "prefetch1", "prefetch4", "none"])
+def test_run_clip_options_match_jax(pipelines, opts):
+    """`run_clip`'s collect_outputs, collect_stats and prefetch return what JAX's return: no outputs
+    ([]), no stats ({}), and otherwise the outputs (floats 1e-3, the rest exactly) and stats of the
+    default run; the stats accumulate on the device either way."""
+    jft, ft, clip = pipelines
+    jft.reset(), ft.reset()
+    want_outs, want_stats = jft.run_clip(clip, **opts)
+    got_outs, got_stats = ft.run_clip(clip, **opts)
+    assert got_stats == want_stats and len(got_outs) == len(want_outs)
+    assert (got_outs == []) == (opts.get("collect_outputs") is False) and (got_stats == {}) == (opts.get("collect_stats") is False)
+    for got, want in zip(got_outs, want_outs):
+        for k in ("emit", "status", "track_num", "time_since_update", "det_count"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for k in ("bbox", "confidence", "velocity"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-3, err_msg=k)
+    assert int(ft.stats["frames"]) == int(np.asarray(jft.stats["frames"])) == 16
+
+
+def test_put_frames_feeds_process_chunk_device(pipelines):
+    """`put_frames` stages a chunk (here on the CPU: the frames as a uint8 tensor) that
+    `process_chunk_device` takes; chunk by chunk it equals `run_clip` and JAX's chunks."""
+    jft, ft, clip = pipelines
+    jft.reset(), ft.reset()
+    staged = ft.put_frames(clip[:8])
+    assert staged.dtype == torch.uint8 and staged.device == ft.device and np.array_equal(staged.numpy(), clip[:8])
+    first = ft.process_chunk_device(staged).numpy()
+    second = ft.process_chunk_device(ft.put_frames(clip[8:])).numpy()
+    want = [np.asarray(jft.process_chunk_device(clip[i : i + 8])) for i in (0, 8)]
+    for got, w in zip((first, second), want):
+        np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-3)
+    ft.reset()
+    outs, _ = ft.run_clip(clip)
+    np.testing.assert_array_equal(outs[1]["track_num"], second[..., 8].astype(np.int32))

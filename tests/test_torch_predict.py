@@ -326,8 +326,9 @@ def test_yolo_predict_matches_jax(yolos):
     np.testing.assert_allclose(one[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-4)
     # plain=True (the twins by name) is the same route on the CPU (a batch of 1, so sums differ in the last bit)
     np.testing.assert_allclose(py.predict(frames[0], plain=True, **kw)[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="augment"):
-        py.predict(frames[0], augment=True)
+    # augment=True is test-time augmentation (held against JAX in test_yolo_predict_augment_matches_jax)
+    assert len(py.predict(frames[0], augment=True, **kw)) == 1
+    py.predictor.args.augment = False  # settings persist on a reused predictor; the module's other tests run at one scale
 
 
 def _ir_targets(rng, h, w, sigma):
@@ -573,3 +574,173 @@ def test_predict_settings_that_ask_for_unported_features_raise():
     from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT as PORT_CFG_DICT  # the key set `PredictArgs.update` accepts
 
     assert set(PORT_CFG_DICT) == set(DEFAULT_CFG_DICT)
+
+
+# --- the three repairs: settings checks, Boxes.cpu()/numpy() and Results.new(), the re-exports ---
+
+
+@pytest.mark.parametrize("bad, error", [
+    (dict(conf=1.5), ValueError), (dict(iou=-0.1), ValueError), (dict(save_txt=1), TypeError),
+    (dict(max_det=10.0), TypeError), (dict(conf="0.3"), TypeError),
+])
+def test_predict_checks_its_settings_like_jax(bad, error):
+    """A fresh YOLO's predict raises JAX's error type, naming the setting, before any forward."""
+    frame = np.zeros((64, 64, 3), np.uint8)
+    name = next(iter(bad))
+    for y in (yolo_tpu.YOLO("yolov8-small.yaml"), yolo_tpu_torch.YOLO("yolov8-small.yaml", device="cpu")):
+        with pytest.raises(error, match=name):
+            y.predict(frame, imgsz=64, verbose=False, **bad)
+    a = PredictArgs()
+    with pytest.raises(error, match=name):
+        a.update(bad)
+
+
+def test_boxes_cpu_numpy_and_results_new_match_jax(yolos):
+    jy, py = yolos
+    frame = np.repeat(_ir_frame(np.random.default_rng(15), 96, 128, 60, 40)[..., None], 3, -1)
+    kw = dict(conf=1e-4, iou=0.6, imgsz=(96, 128), verbose=False, compute_dtype="float32")
+    want, got = jy.predict(frame, **kw)[0], py.predict(frame, **kw)[0]
+    assert got.boxes.cpu() is got.boxes and got.boxes.numpy() is got.boxes
+    assert len(got) == len(want) >= 1
+    np.testing.assert_allclose(got.boxes.cpu().numpy().xyxy, want.boxes.cpu().numpy().xyxy, rtol=0, atol=1e-2)
+    for g, w in ((got.new(), want.new()), (got.new(got.boxes.data[:3]), want.new(want.boxes.data[:3]))):
+        assert type(g) is PR.Results and len(g) == len(w) and g.orig_shape == w.orig_shape and g.path == w.path
+        assert g.speed is got.speed and g.orig_img is got.orig_img and g.names == w.names
+        np.testing.assert_allclose(g.boxes.data, w.boxes.data, rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("sub", ["kalman", "pipeline", "nn", "ops"])
+def test_subpackages_reexport_like_jax(sub):
+    import importlib
+
+    jax_pkg, port_pkg = (importlib.import_module(f"{p}.{sub}") for p in ("yolo_tpu", "yolo_tpu_torch"))
+    assert port_pkg.__all__ == jax_pkg.__all__
+    for name in jax_pkg.__all__:
+        assert getattr(port_pkg, name).__name__ == getattr(jax_pkg, name).__name__
+    from yolo_tpu_torch.kalman import EnhancedMultiTargetTracker  # README's object API
+    from yolo_tpu_torch.ops import ltwh2xyxy, non_max_suppression, xyxy2ltwh  # noqa: F401
+    from yolo_tpu_torch.pipeline import FusedDetectTrack  # noqa: F401
+
+    assert EnhancedMultiTargetTracker is yolo_tpu_torch.kalman.multi_tracker.EnhancedMultiTargetTracker
+
+
+@pytest.mark.parametrize("as_torch", [False, True])
+def test_ltwh_helpers_match_jax(as_torch):
+    b = _boxes(np.random.default_rng(16), 7)
+    arg = torch.from_numpy(b) if as_torch else b
+    for fn in ("ltwh2xyxy", "xyxy2ltwh"):
+        got = getattr(PB, fn)(arg)
+        assert torch.is_tensor(got) == as_torch
+        np.testing.assert_array_equal(got.numpy() if as_torch else got, getattr(JB, fn)(b))
+
+
+# --- test-time augmentation, ensembles, info, embed ---------------------------------
+
+
+@pytest.mark.parametrize("ratio", [0.83, 0.67, 1.25])
+def test_scale_img_matches_jax_resize(ratio):
+    """The TTA resize: JAX's antialiased bilinear `jax.image.resize` and the 0.447 pad, within 1e-5."""
+    from yolo_tpu.nn.tasks import _scale_img as jax_scale
+    from yolo_tpu_torch.nn.tasks import _scale_img
+
+    x = np.random.default_rng(17).uniform(0, 1, (2, 96, 128, 3)).astype(np.float32)
+    want = np.asarray(jax_scale(jnp.asarray(x), ratio, 32))
+    got = _scale_img(torch.from_numpy(x), ratio, 32).numpy()
+    assert got.shape == want.shape and got.shape[1] % 32 == 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_predict_augment_matches_jax():
+    """yolov8-small (P2, four levels: the tail clip counts anchors per level) from init(0), two
+    96x128 images: the (B, 4 + nc, A') predictions within 1e-3 px and 1e-4 in the scores."""
+    jm = JaxDetectionModel("yolov8-small.yaml")
+    jp = jm.init(0)
+    pm = DetectionModel("yolov8-small.yaml", device="cpu")
+    params_from_jax(pm, jax.tree_util.tree_map(np.asarray, jp), torch.float32)
+    x = np.random.default_rng(18).uniform(0, 1, (2, 96, 128, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(jm.predict_augment)(jp, jnp.asarray(x)))
+    got = pm.predict_augment(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape and got.shape[-1] < 3 * pm.predict(torch.from_numpy(x)).shape[-1]
+    np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got[:, 4:], want[:, 4:], rtol=0, atol=1e-4)
+
+
+def test_yolo_predict_augment_matches_jax():
+    """`predict(augment=True)` on best.npz, f32, three IR frames: the same detections as JAX
+    (1e-2 px, conf 1e-4, the facade's gates)."""
+    jy, py = yolo_tpu.YOLO(str(WEIGHTS)), yolo_tpu_torch.YOLO(str(WEIGHTS), device="cpu")
+    rng = np.random.default_rng(19)
+    frames = [np.repeat(_ir_frame(rng, 96, 128, cx, cy)[..., None], 3, -1) for cx, cy in ((40, 30), (90, 60), (20, 80))]
+    kw = dict(conf=0.05, iou=0.6, imgsz=(96, 128), verbose=False, batch=3, compute_dtype="float32", augment=True)
+    want, got = jy.predict(frames, **kw), py.predict(frames, **kw)
+    _assert_same_results(got, want, box_atol=1e-2)
+    assert sum(len(r) for r in got) >= 3
+
+
+def test_ensemble_matches_jax(tmp_path):
+    """As tests/test_model.py::test_ensemble_nms_concat: yolov8n init(0) + yolov8s init(1) joined on
+    the anchor axis (1e-4); `Ensemble.init` is JAX's tuple bit for bit; `YOLO([a, b])` predicts as
+    JAX's (f32, the facade's gates), augment=True falls back to one scale; members must share nc."""
+    from yolo_tpu.nn.tasks import Ensemble as JaxEnsemble
+    from yolo_tpu_torch.nn.tasks import Ensemble
+
+    ja, jb = JaxDetectionModel("yolov8n.yaml"), JaxDetectionModel("yolov8s.yaml")
+    pa, pb = DetectionModel("yolov8n.yaml", device="cpu"), DetectionModel("yolov8s.yaml", device="cpu")
+    jens, ens = JaxEnsemble([(ja, None), (jb, None)]), Ensemble([pa, pb])
+    jparams, params = jens.init(0), ens.init(0)
+    for g, w in zip(params, jparams):
+        for (kg, vg), (kw_, vw) in zip(jax.tree_util.tree_leaves_with_path(g), jax.tree_util.tree_leaves_with_path(w)):
+            assert kg == kw_
+            np.testing.assert_array_equal(vg, np.asarray(vw))
+    assert ens.stride == jens.stride and ens.nc == jens.nc and ens.names == jens.names
+    for m, p in zip(ens.models, params):
+        params_from_jax(m, p, torch.float32)
+    x = np.random.default_rng(20).normal(size=(1, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(jens.predict)(jparams, jnp.asarray(x)))
+    got = ens.predict(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+    a, b = tmp_path / "a.npz", tmp_path / "b.npz"
+    yolo_tpu.YOLO("yolov8n.yaml").save(a)
+    yolo_tpu.YOLO("yolov8s.yaml").save(b)
+    jy, py = yolo_tpu.YOLO([a, b]), yolo_tpu_torch.YOLO([a, b], device="cpu")
+    assert isinstance(py.model, Ensemble) and py.overrides["model"] == jy.overrides["model"]
+    img = np.random.default_rng(21).integers(0, 255, (96, 96, 3), dtype=np.uint8)
+    kw = dict(imgsz=64, conf=0.01, verbose=False, compute_dtype="float32")
+    want, got = jy.predict(img, **kw), py.predict(img, **kw)
+    _assert_same_results(got, want, box_atol=1e-2)
+    aug = py.predict(img, **kw, augment=True)  # TTA is for a plain DetectionModel: a warning, then one scale
+    np.testing.assert_array_equal(aug[0].boxes.data, got[0].boxes.data)
+    assert type(py.fuse().params) is tuple
+    np.testing.assert_allclose(py.predict(img, **kw)[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="nc"):
+        Ensemble([pa, DetectionModel("yolov8n.yaml", nc=3, device="cpu")])
+
+
+@pytest.mark.parametrize("source", ["yaml", "npz"])
+def test_info_matches_jax(source):
+    """{layers, parameters, stride} equal JAX's, fused and not (best.npz: 2,282,908 parameters)."""
+    path = "yolov8-small.yaml" if source == "yaml" else str(WEIGHTS)
+    jy, py = yolo_tpu.YOLO(path), yolo_tpu_torch.YOLO(path, device="cpu")
+    for _ in range(2):
+        got, want = py.info(verbose=False), jy.info(verbose=False)
+        assert got == want and got["layers"] == 26
+        jy.fuse(), py.fuse()
+    if source == "npz":
+        assert got["parameters"] == 2_282_908
+
+
+@pytest.mark.parametrize("layers", [None, [9, 12, 15], [10, 11, 12]], ids=["default", "folded", "unfolded"])
+def test_embed_matches_jax(layers):
+    """As tests/test_engine.py::test_model_embed_facade (yolov8n, two 80x100 images, imgsz 64), each
+    vector within 1e-4 of JAX's. [9, 12, 15]: C2f 12 and 15 close folded chains; [10, 11, 12] names an
+    Upsample and a Concat, so the walk does not fold. plain=True (the twins by name) the same."""
+    jy, py = yolo_tpu.YOLO("yolov8n.yaml"), yolo_tpu_torch.YOLO("yolov8n.yaml", device="cpu")
+    imgs = [np.random.default_rng(i).integers(0, 255, (80, 100, 3), np.uint8) for i in range(2)]
+    want, got = jy.embed(imgs, layers=layers, imgsz=64), py.embed(imgs, layers=layers, imgsz=64)
+    assert len(got) == 2 and got[0].dtype == np.float32 and got[0].shape == want[0].shape
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    assert not np.allclose(got[0], got[1])
+    np.testing.assert_allclose(py.embed(imgs[0], layers=layers, imgsz=64, plain=True)[0], got[0], rtol=0, atol=1e-5)

@@ -4,23 +4,31 @@
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
     YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
+    YOLO(["a.npz", "b.npz"])       # an NMS ensemble of the listed models
     results = YOLO(...).predict(frame, conf=0.25)   # or files, directories, globs, videos, streams
+    results = YOLO(...).predict(frame, augment=True)  # test-time augmentation: 3 scales, one flipped
+    YOLO(...).info()               # {layers, parameters, stride}
+    vectors = YOLO(...).embed(frames, imgsz=640)      # pooled features of the layer before the head
     tracked = YOLO(...).track(frame, persist=True, tracker="bytetrack.yaml")
     metrics = YOLO(...).val(data="dataset.yaml", imgsz=640)   # P, R, mAP50, mAP50-95, fitness
     metrics = YOLO(...).train(data="dataset.yaml", epochs=3)  # best.npz / last.npz under runs/detect/train
     YOLO(...).export(format="pt")  # <stem>.pt (or npz) in the working directory
 
-Runs on the CUDA card unless `device="cpu"` is passed. Orbax checkpoints and
-ensembles are not ported, nor the orbax, stablehlo and tflite exports.
+Runs on the CUDA card unless `device="cpu"` is passed. Orbax checkpoints are not
+ported, nor the orbax, stablehlo and tflite exports.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
+import numpy as np
+import torch
+
 from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT
 from yolo_tpu_torch.device import resolve_device
-from yolo_tpu_torch.nn.tasks import DetectionModel, fuse
+from yolo_tpu_torch.nn.tasks import DetectionModel, Ensemble, fuse, install_params, param_count
+from yolo_tpu_torch.utils import LOGGER
 
 
 class YOLO:
@@ -33,6 +41,9 @@ class YOLO:
         self.predictor = None
         self.ckpt_path = None
         self.remote = None
+        if isinstance(model, (list, tuple)):
+            self._load_ensemble([str(m) for m in model], device)
+            return
         model = str(model)
         if model.startswith("tcp://"):
             self._load_remote(model)
@@ -70,6 +81,14 @@ class YOLO:
         else:
             raise ValueError(f"unsupported model source: {weights} (a model YAML, a .npz or .pt checkpoint, or a tcp:// URL)")
 
+    def _load_ensemble(self, weights: list, device) -> None:
+        """An NMS ensemble of the listed sources (each a YAML, .npz or .pt), on one device."""
+        members = [YOLO(w, device=device) for w in weights]
+        self.device = members[0].device
+        self.overrides = {"model": ",".join(weights), "task": self.task}
+        self.model = Ensemble([m.model for m in members])
+        self.params = tuple(m.params for m in members)
+
     def _load_remote(self, url: str) -> None:
         """Predict and track through lane <id> of a detection server; nothing runs here."""
         from types import SimpleNamespace
@@ -91,8 +110,33 @@ class YOLO:
 
     def fuse(self):
         """Fold BN into the convs of the parameter tree (inference form)."""
-        self.params = fuse(self.params)
+        self.params = self.model.fuse(self.params) if isinstance(self.model, Ensemble) else fuse(self.params)
         return self
+
+    def info(self, verbose: bool = True) -> dict:
+        """{layers, parameters (the values of the parameter tree as it stands: fused or not), stride}."""
+        n_params = param_count(self.params)
+        n_layers = len(self.model.layers)
+        if verbose:
+            LOGGER.info(f"model: {n_layers} layers, {n_params:,} params, strides {self.model.stride}")
+        return {"layers": n_layers, "parameters": n_params, "stride": self.model.stride}
+
+    def embed(self, source=None, layers=None, imgsz: int = 640, plain: bool = False) -> list:
+        """Pooled embeddings, one f32 vector per image of `source` (any predict source): each image
+        letterboxed square to `imgsz` (cv2, no stride snap), RGB in [0, 1], walked in f32 through
+        the inference modules (C2f through the kernel; `plain=True`: its twin) and the outputs of
+        `layers` (default the one before the head) mean-pooled and concatenated."""
+        self._require_local("embed")
+        from yolo_tpu_torch.engine.predictor import _iter_source
+        from yolo_tpu_torch.ops.letterbox import LetterBox
+
+        install_params(self.model, self.params, self.device, torch.float32)
+        lb = LetterBox((imgsz, imgsz), auto=False)
+        out = []
+        for img, _path, _ in _iter_source(source):
+            x = torch.from_numpy(np.ascontiguousarray(lb(img)[None, ..., ::-1], np.float32) / 255.0).to(self.device)
+            out.append(self.model.embed_features(x, idx=layers, plain=plain)[0].cpu().numpy())
+        return out
 
     def __call__(self, source=None, stream: bool = False, **kwargs):
         return self.predict(source, stream, **kwargs)

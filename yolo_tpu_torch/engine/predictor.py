@@ -5,9 +5,10 @@ library, or cv2), batching (batch sizes snap to powers of two), then the
 inverse letterbox, the Results and what `save`, `save_txt` and `save_crop`
 write. Device side, one pass per batch: uint8 BGR → RGB in [0, 1], forward
 through the C2f and head kernels, DFL decode and fixed-shape NMS, with one
-device synchronisation where the outputs are copied to the host. The other
-tasks' branches, test-time augmentation, int8, lazy decode, `show` and
-`visualize` are not ported.
+device synchronisation where the outputs are copied to the host. `augment=True`
+runs test-time augmentation (`DetectionModel.predict_augment`); an Ensemble's
+members' predictions meet in one NMS. The other tasks' branches, int8, lazy
+decode, `show` and `visualize` are not ported.
 """
 
 from __future__ import annotations
@@ -21,14 +22,15 @@ import numpy as np
 import torch
 
 from yolo_tpu_torch import native
-from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, get_save_dir
+from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, check_cfg, get_save_dir
 from yolo_tpu_torch.data.loaders import VID_FORMATS
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.results import Results
-from yolo_tpu_torch.nn.tasks import install_params
+from yolo_tpu_torch.nn.tasks import DetectionModel, install_params
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
 from yolo_tpu_torch.ops.nms import non_max_suppression
+from yolo_tpu_torch.utils import LOGGER
 from yolo_tpu_torch.utils.files import imwrite
 
 
@@ -42,7 +44,7 @@ def _snap_batch(n: int) -> int:
 
 # cfg settings the detect predictor would act on but the port does not have, with
 # the value that asks for nothing; any other value raises NotImplementedError
-UNPORTED = {"show": False, "augment": False, "visualize": False, "embed": None, "int8": False}
+UNPORTED = {"show": False, "visualize": False, "embed": None, "int8": False}
 
 
 @dataclass
@@ -59,6 +61,7 @@ class PredictArgs:
     compute_dtype: str = "bfloat16"
     classes: list | None = None
     agnostic_nms: bool = False
+    augment: bool = False  # test-time augmentation, for a plain DetectionModel
     max_det: int = 300
     batch: int = 16
     vid_stride: int = 1
@@ -87,7 +90,9 @@ class PredictArgs:
         `YOLO.track` sends): the ones above are set, the others change nothing
         here (train, val, export, plotting and tracker keys), except those in
         UNPORTED, which raise NotImplementedError when they ask for something.
-        A name no cfg has raises TypeError."""
+        A name no cfg has raises TypeError; a value of the wrong type TypeError, and a
+        fraction (conf, iou) outside [0, 1] ValueError, as the JAX package's `get_cfg`."""
+        check_cfg(dict(overrides))
         for k, v in overrides.items():
             if hasattr(self, k):
                 setattr(self, k, v)
@@ -142,11 +147,24 @@ class BasePredictor:
         under the settings as they stand now: RGB in [0, 1], forward, NMS."""
         a = self.args
         x = imgs.flip(-1).to(self.dtype) / 255.0
-        preds = self.model.predict(x, neck_opt=True, plain=a.plain)
+        if a.augment and self._takes_augment():
+            preds = self.model.predict_augment(x, plain=a.plain)
+        else:
+            preds = self.model.predict(x, neck_opt=True, plain=a.plain)
         return non_max_suppression(
             preds, conf_thres=a.conf, iou_thres=a.iou, classes=a.classes, agnostic=a.agnostic_nms,
             max_det=a.max_det, plain=a.plain,
         )
+
+    def _takes_augment(self) -> bool:
+        """Test-time augmentation is for a plain DetectionModel (as in the JAX package); for
+        another model (an Ensemble) `augment=True` warns once and predicts at one scale."""
+        if type(self.model) is DetectionModel:
+            return True
+        if not getattr(self, "_augment_warned", False):
+            LOGGER.warning("model does not support augment=True, using single-scale prediction")
+            self._augment_warned = True
+        return False
 
     def warmup(self, imgsz=(1, 640, 640, 3)) -> None:
         """One zero batch of shape `imgsz` (B, H, W, 3) through the device pass, waited for: on a

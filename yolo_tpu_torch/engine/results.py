@@ -68,6 +68,13 @@ class Boxes:
     def xywhn(self):
         return self._normalised(xyxy2xywh(self.xyxy))
 
+    def cpu(self):
+        """The boxes themselves: they already live on the host (the `.cpu().numpy()` idiom)."""
+        return self
+
+    def numpy(self):
+        return self
+
 
 class Results:
     """Single-image inference result (boxes only)."""
@@ -89,6 +96,10 @@ class Results:
         """One row, a slice, or a list / array of row indices (the tracker's subset)."""
         sel = idx if isinstance(idx, (slice, list, np.ndarray)) else [idx]
         return Results(self.orig_img, self.path, self.names, boxes=self.boxes.data[sel], speed=self.speed)
+
+    def new(self, boxes: np.ndarray | None = None):
+        """A Results of the same image, path, names and speed with other boxes (none by default)."""
+        return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed)
 
     def update(self, boxes: np.ndarray | None = None):
         """Replace the boxes: (n, 6) [x1, y1, x2, y2, conf, cls] or, tracked, (n, 7) with the id before conf."""

@@ -6,7 +6,9 @@ depth), 1)), the same static stride propagation, the neck fold detection of
 `_build_neck_opt`, `predict_parts` and `predict`. Every C2f and Detect level
 goes through the hand-written kernels (their plain twins with `plain=True`,
 or on the CPU); `predict_parts` always folds the neck, `predict` unless
-`neck_opt=False`.
+`neck_opt=False`. `predict_augment` (test-time augmentation: three scales, one
+flipped, through `predict`), `embed_features` (pooled layer outputs) and the
+NMS `Ensemble` of several models are the JAX package's too.
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -25,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from yolo_tpu_torch.device import resolve_device
@@ -229,15 +232,16 @@ class DetectionModel(nn.Module):
                 y[i] = x
         return x
 
-    def _head_inputs(self, x: torch.Tensor, plain: bool, neck_opt: bool = True):
-        """Walk the graph up to the Detect head → its input maps. `neck_opt`
-        folds the Upsample→Concat→C2f chains into `C2f.call_upconcat`."""
-        y = {}
-        for i, (m, f) in enumerate(zip(self.layers, self.froms)):
+    def _walk(self, x: torch.Tensor, plain: bool, neck_opt: bool = True, upto: int | None = None, collect=()):
+        """Walk the inference modules over layers [0, upto) → (the Detect head's input maps, or
+        the last layer's output where the walk ends before the head; {i: output} of the layers in
+        `collect`). `neck_opt` folds the Upsample→Concat→C2f chains into `C2f.call_upconcat`."""
+        y, col = {}, {}
+        for i, (m, f) in enumerate(zip(self.layers[:upto], self.froms[:upto])):
             if neck_opt and i in self._neck_skip:
                 continue
             if isinstance(m, M.Detect):
-                return [x if j == -1 else y[j] for j in f]
+                return [x if j == -1 else y[j] for j in f], col
             if neck_opt and i in self._upconcat:
                 x = m.call_upconcat(x, y[self._upconcat[i]], plain=plain)
             else:
@@ -245,7 +249,16 @@ class DetectionModel(nn.Module):
                 x = m(x_in, plain=plain) if isinstance(m, M.C2f) else m(x_in)
             if i in self.save:
                 y[i] = x
-        raise ValueError("the model has no Detect head")
+            if i in collect:
+                col[i] = x
+        return x, col
+
+    def _head_inputs(self, x: torch.Tensor, plain: bool, neck_opt: bool = True):
+        """The Detect head's input maps (the graph walked up to the head)."""
+        xs, _ = self._walk(x, plain, neck_opt)
+        if not isinstance(xs, list):
+            raise ValueError("the model has no Detect head")
+        return xs
 
     @torch.no_grad()
     def predict_parts(self, x: torch.Tensor, plain: bool = False, head_cm: bool = False):
@@ -266,6 +279,104 @@ class DetectionModel(nn.Module):
         xs = self._head_inputs(x, plain, neck_opt)
         return self.head.pack(*self.head.decode_from_inputs(xs, plain=plain))
 
+    @torch.no_grad()
+    def predict_augment(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """Test-time augmentation (JAX `predict_augment`): the images at scales 1, 0.83 (flipped
+        left-right) and 0.67, each through `predict` (the neck folded, the kernels), boxes mapped
+        back to the input's pixels; the full-scale pass drops its coarsest level's anchors and the
+        smallest pass its finest level's, then all three join on the anchor axis → (B, 4 + nc, A')."""
+        W = x.shape[2]
+        gs = int(max(self.stride))
+        ys = []
+        for ratio, flip in zip(AUGMENT_SCALES, AUGMENT_FLIPS):
+            yi = self.predict(_scale_img(x.flip(2) if flip else x, ratio, gs), plain=plain)
+            bx = yi[:, 0:1] / ratio
+            if flip:
+                bx = W - bx
+            ys.append(torch.cat([bx, yi[:, 1:2] / ratio, yi[:, 2:4] / ratio, yi[:, 4:]], 1))
+        nl = len(self.stride)
+        g = sum(4**k for k in range(nl))  # anchors per coarsest-level anchor, the levels 2x apart
+        ys[0] = ys[0][..., : -(ys[0].shape[-1] // g)]
+        ys[-1] = ys[-1][..., (ys[-1].shape[-1] // g) * 4 ** (nl - 1) :]
+        return torch.cat(ys, -1)
+
+    @torch.no_grad()
+    def embed_features(self, x: torch.Tensor, idx=None, plain: bool = False) -> torch.Tensor:
+        """Pooled embeddings (JAX `embed_features`): the outputs of layers `idx` (default the one
+        before the head) of NHWC images, each mean-pooled over the map to (B, C), concatenated. The
+        walk folds the neck unless a requested layer is an Upsample or Concat the fold skips."""
+        idx = sorted(set(idx or [len(self.layers) - 2]))
+        _, col = self._walk(x, plain, neck_opt=not set(idx) & self._neck_skip, upto=max(idx) + 1, collect=set(idx))
+        return torch.cat([col[i].mean(dim=(1, 2)) if col[i].ndim == 4 else col[i] for i in idx if i in col], -1)
+
+
+AUGMENT_SCALES = (1.0, 0.83, 0.67)
+AUGMENT_FLIPS = (False, True, False)
+AUGMENT_PAD = 0.447  # the gray of the padded border, after /255
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of `jax.image.resize(..., "bilinear")` along one axis: JAX's
+    scale_and_translate with the triangle kernel, widened by 1/scale when it shrinks (antialias,
+    JAX's default), columns normalised, samples outside the input zeroed."""
+    inv = torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / torch.clamp(inv, min=1.0)
+    w = torch.clamp(1.0 - dist.abs(), min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps), w / torch.where(total != 0, total, 1.0), 0.0)
+    return torch.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+
+
+def _scale_img(x: torch.Tensor, ratio: float, gs: int) -> torch.Tensor:
+    """NHWC images scaled by `ratio` (JAX's antialiased bilinear resize, in x's dtype), then padded
+    at the bottom and right to multiples of `gs` with AUGMENT_PAD."""
+    if ratio == 1.0:
+        return x
+    B, H, W, C = x.shape
+    h, w = int(H * ratio), int(W * ratio)
+    wh = _resize_weights(H, h).to(device=x.device, dtype=x.dtype)
+    ww = _resize_weights(W, w).to(device=x.device, dtype=x.dtype)
+    xi = torch.einsum("bhwc,hH,wW->bHWc", x, wh, ww)
+    return F.pad(xi, (0, 0, 0, -w % gs, 0, -h % gs), value=AUGMENT_PAD)
+
+
+def param_count(params) -> int:
+    """The number of values in a parameter tree (nested dicts, lists or tuples of arrays)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return int(np.size(params))
+
+
+class Ensemble:
+    """NMS ensemble of detection models (JAX `Ensemble`): every member's decoded predictions
+    joined on the anchor axis, which the predictor's NMS merges. The members must agree on nc;
+    names, task and yaml are the first member's; `stride` is the coarsest member's, which the
+    predictor snaps sizes to. The parameter tree is a tuple of the members' trees."""
+
+    def __init__(self, models):
+        if not models:
+            raise ValueError("an ensemble needs at least one model")
+        ncs = {m.nc for m in models}
+        if len(ncs) != 1:
+            raise ValueError(f"ensemble members disagree on nc: {ncs}")
+        self.models = list(models)
+        first = self.models[0]
+        self.nc, self.names, self.yaml = first.nc, first.names, first.yaml
+        self.stride = [max(int(max(m.stride)) for m in self.models)]
+
+    def init(self, seed: int = 0) -> tuple:
+        return tuple(m.init(seed + i) for i, m in enumerate(self.models))
+
+    def fuse(self, params) -> tuple:
+        return tuple(fuse(p) for p in params)
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False) -> torch.Tensor:
+        return torch.cat([m.predict(x, neck_opt=neck_opt, plain=plain) for m in self.models], -1)
+
 
 def params_from_jax(model: DetectionModel, params: dict, dtype=None) -> DetectionModel:
     """Load a JAX parameter tree ({"model": {"<layer>": subtree}}, numpy or JAX
@@ -281,10 +392,15 @@ def params_from_jax(model: DetectionModel, params: dict, dtype=None) -> Detectio
     return model
 
 
-def install_params(model: DetectionModel, params: dict, device, dtype) -> None:
+def install_params(model, params, device, dtype) -> None:
     """Move `model` to `device` and load `params` in `dtype`, unless the model already
     holds this very tree there in that dtype. The record lives on the model, so its
-    users (the predictor, the validator) each see what the other installed."""
+    users (the predictor, the validator) each see what the other installed. An
+    Ensemble installs each member's tree in its member."""
+    if isinstance(model, Ensemble):
+        for m, p in zip(model.models, params):
+            install_params(m, p, device, dtype)
+        return
     held = getattr(model, "held", None)
     if held is not None and held[0] is params and held[1:] == (device, dtype):
         return

@@ -1,7 +1,7 @@
 """Box-format conversions, the inverse letterbox and pairwise IoU (counterpart of yolo_tpu/ops/boxes.py).
 
-`xyxy2xywh`, `xywhn2xyxy`, `xyxy2xywhn`, `clip_boxes`, `scale_boxes` and
-`box_iou` take numpy arrays (the host side of the predictor, the validator and
+`xyxy2xywh`, `xywhn2xyxy`, `xyxy2xywhn`, `ltwh2xyxy`, `xyxy2ltwh`, `clip_boxes`,
+`scale_boxes` and `box_iou` take numpy arrays (the host side of the predictor, the validator and
 the MOT trackers) or torch tensors alike; `xywh2xyxy` and `bbox_iou` (the
 training loss's IoU variants) take torch tensors.
 """
@@ -45,6 +45,18 @@ def xyxy2xywhn(x, w: int = 640, h: int = 640, clip: bool = False, eps: float = 0
     return _stack([
         (x[..., 0] + x[..., 2]) / 2 / w, (x[..., 1] + x[..., 3]) / 2 / h, (x[..., 2] - x[..., 0]) / w, (x[..., 3] - x[..., 1]) / h,
     ], x)
+
+
+def ltwh2xyxy(x):
+    """(left, top, w, h) → (x1, y1, x2, y2) over the last axis."""
+    x = _as_array(x)
+    return _stack([x[..., 0], x[..., 1], x[..., 0] + x[..., 2], x[..., 1] + x[..., 3]], x)
+
+
+def xyxy2ltwh(x):
+    """(x1, y1, x2, y2) → (left, top, w, h) over the last axis."""
+    x = _as_array(x)
+    return _stack([x[..., 0], x[..., 1], x[..., 2] - x[..., 0], x[..., 3] - x[..., 1]], x)
 
 
 def clip_boxes(boxes, shape):

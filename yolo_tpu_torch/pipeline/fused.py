@@ -13,8 +13,9 @@ Counterpart of yolo_tpu/pipeline/fused.py::FusedDetectTrack:
   3-channel frames are BGR and are flipped to RGB.
 - The contract stats (detection / prediction frame counts, state changes,
   including the status edge between two chunks) stay on the device.
-- `run_clip` uploads each chunk from pinned memory on a side stream, enqueues
-  every chunk without waiting, and synchronises once at the end.
+- `run_clip` uploads each chunk from a ring of `prefetch` pinned buffers on a
+  side stream, enqueues every chunk without waiting, and synchronises once at
+  the end; `put_frames` stages one chunk for `process_chunk_device`.
 
 `head_cm=True` sends the Detect levels through the channel-major head kernel
 (ops/cuda_head_cm.py), the JAX package's `pallas_head2`. Its TPU-only knobs
@@ -212,18 +213,27 @@ class FusedDetectTrack:
             self.timings.append(marks)
         return packed
 
+    def put_frames(self, frames) -> torch.Tensor:
+        """Stage a uint8 chunk (T, H, W, C) on the device, through pinned memory on a card (the
+        copy is asynchronous); `process_chunk_device` takes the result."""
+        host = torch.from_numpy(np.ascontiguousarray(frames))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
     def process_chunk(self, frames: np.ndarray) -> dict:
         """frames: (T, H, W, C) uint8 with T == chunk → dict of per-frame outputs."""
-        dev = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-        return _unpack(self.process_chunk_device(dev).cpu().numpy())
+        return _unpack(self.process_chunk_device(self.put_frames(frames)).cpu().numpy())
 
-    def run_clip(self, clip: np.ndarray):
+    def run_clip(self, clip: np.ndarray, collect_stats: bool = True, collect_outputs: bool = True, prefetch: int = 2):
         """Stream a whole clip → (list of per-chunk output dicts, contract stats).
 
-        On the card each chunk is copied into one of two pinned host buffers
-        and uploaded on a side stream; the compute stream waits for that upload
-        only. The host waits only before it refills a pinned buffer whose
-        upload may still be running, and once at the end for the results."""
+        On the card each chunk is copied into one of `prefetch` (at least one) pinned host
+        buffers and uploaded on a side stream; the compute stream waits for that upload only.
+        The host waits only before it refills a pinned buffer whose upload may still be
+        running, and once at the end. `collect_outputs=False` keeps no packed output (the
+        list is empty) and `collect_stats=False` returns {} for the stats; the stats still
+        accumulate on the device."""
         T = self.chunk
         n_chunks = len(clip) // T
         if len(clip) % T:
@@ -233,13 +243,14 @@ class FusedDetectTrack:
             )
         packed_all = []
         if self.device.type == "cuda":
+            depth = max(1, prefetch)
             main = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             shape = (T,) + tuple(clip.shape[1:])
-            pinned = [torch.empty(shape, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
-            uploaded = [None, None]
+            pinned = [torch.empty(shape, dtype=torch.uint8, pin_memory=True) for _ in range(depth)]
+            uploaded = [None] * depth
             for ci in range(n_chunks):
-                k = ci % 2
+                k = ci % depth
                 if uploaded[k] is not None:
                     uploaded[k].synchronize()  # the upload that read pinned[k] is done
                 pinned[k].numpy()[...] = clip[ci * T : (ci + 1) * T]
@@ -249,12 +260,15 @@ class FusedDetectTrack:
                     uploaded[k].record(side)
                 main.wait_event(uploaded[k])
                 dev.record_stream(main)
-                packed_all.append(self.process_chunk_device(dev))
+                packed = self.process_chunk_device(dev)
+                if collect_outputs:
+                    packed_all.append(packed)
             torch.cuda.synchronize(self.device)
         else:
             for ci in range(n_chunks):
-                chunk = torch.from_numpy(np.ascontiguousarray(clip[ci * T : (ci + 1) * T]))
-                packed_all.append(self.process_chunk_device(chunk))
+                packed = self.process_chunk_device(self.put_frames(clip[ci * T : (ci + 1) * T]))
+                if collect_outputs:
+                    packed_all.append(packed)
         outs = [_unpack(p.cpu().numpy()) for p in packed_all]
-        stats = {k: int(v) for k, v in self.stats.items() if not k.startswith("prev_")}
+        stats = {k: int(v) for k, v in self.stats.items() if not k.startswith("prev_")} if collect_stats else {}
         return outs, stats
