@@ -35,7 +35,7 @@ Phases (any failure stops the run with a non-zero exit code):
    through the kernels and in f32 through the plain twins (tracks, ids and
    stats must be equal, boxes close), then in bf16, timed, with the per-stage
    split and the launch count of every kernel in that run;
-4. `[pipeline head_cm]`: the same with `head_cm=True`, the Detect levels
+4. `[pipeline head_cm]`: the same with `pallas_head2=True`, the Detect levels
    through the channel-major head kernel (16 launches per 512 frames, none of
    the default head kernel);
 5. `[pipeline bgr]`: one chunk of 3-channel BGR frames through
@@ -143,6 +143,16 @@ Phases (any failure stops the run with a non-zero exit code):
    enhancement and against itself on the CPU (1e-3, equal `classical_detect` boxes); `[detect_only]`
    and `[single target]`: the clip's first 128 frames as an mp4v file through
    `otherplan.detect_only` and `run_single_target_tracking` with the port's YOLO as the detector.
+17. the detect task's last settings (`int8_pipeline_phase`, right after `[pipeline options]`):
+   `[pipeline int8]` (calibrated on the clip's first chunk) on the 512-frame clip: f32 through the
+   NMS kernel against f32 through its twin (tracks, ids, statuses, detection counts and stats
+   equal, boxes 1e-2 px), the frames whose detection count differs from `[pipeline]`'s f32 run
+   (reported), then bf16 timed beside `[pipeline]`'s frames/s with its launches (kernel 5 only).
+   After `[predict]`: `[predict int8]`, `[predict visualize]` (the files written) and `[predict
+   show]` (no display: one warning, the same Results). Last, `[train settings]`: a 4-step epoch
+   each of the default, remat and multi_scale + RAM cache + mosaic9 + cutmix (losses, device ms a
+   step, peak memory), then `train(batch=-1)` at 640: autobatch's pick with the trainer's step as
+   its probe, and one epoch of full batches at that pick (finite losses, peak memory).
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -916,7 +926,7 @@ def make_pipeline(model, params, dtype, plain, head_cm=False, channels=1):
     from yolo_tpu_torch import FusedDetectTrack
 
     return FusedDetectTrack(model, params, frame_hw=HW, channels=channels, chunk=CHUNK, conf=0.15, iou=0.6, n_max=64,
-                            d_max=16, dtype=dtype, plain=plain, head_cm=head_cm)
+                            d_max=16, dtype=dtype, plain=plain, pallas_head2=head_cm)
 
 
 def launch_counters() -> dict:
@@ -978,7 +988,7 @@ def pipeline_phase(tag, model, params, clip, card, head_cm):
     log(f"{tag} bf16", card, f"kernel launches in that run: {launches}")
     if not all(len(o["bbox"]) == CHUNK and o["bbox"].shape[1:] == (64, 4) for o in ob):
         raise AssertionError("unexpected packed output shape")
-    return ft, launches, (ob, sb)
+    return ft, launches, (ob, sb), (ok_, sk), FRAMES / wb
 
 
 def bgr_phase(model, params, clip, card):
@@ -2825,6 +2835,209 @@ def pipeline_options_phase(model, params, clip, card, want_outs, want_stats):
             + f"; {FRAMES} frames in {wall:.3f} s = {FRAMES / wall:.1f} frames/s; launches {launches}")
 
 
+def int8_pipeline_phase(model, params, clip, card, default_f32, default_fps):
+    """`[pipeline int8]`: FusedDetectTrack(int8=True) calibrated on the clip's first chunk, on the 512-frame
+    clip: f32 through the kernels against f32 through the twins (tracks, ids, statuses, detection counts and
+    stats equal, boxes 1e-2 px), the frames whose detection count differs from `[pipeline]`'s f32 run
+    (reported, not gated), then the timed bf16 run with its launches (the NMS kernel only), beside
+    `[pipeline]`'s frames/s from this call."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import FusedDetectTrack
+
+    tag = "pipeline int8"
+
+    def make(dtype, plain):
+        return FusedDetectTrack(model, params, frame_hw=HW, chunk=CHUNK, conf=0.15, iou=0.6, n_max=64, d_max=16, dtype=dtype,
+                                plain=plain, int8=True, int8_calib=clip[:CHUNK])
+
+    t0 = time.perf_counter()
+    fk = make(torch.float32, plain=False)
+    t_make = time.perf_counter() - t0
+    if not fk.model.int8:
+        raise AssertionError(f"[{tag}] the model holds no int8 conv")
+    ok_, sk, wk = timed_run(fk, clip)
+    op_, sp, wp = timed_run(make(torch.float32, plain=True), clip)
+    worst = compare_runs(ok_, op_, sk, sp)
+    d_outs, d_stats = default_f32
+    differ = sum(int((a["det_count"] != b["det_count"]).sum()) for a, b in zip(ok_, d_outs))
+    log(f"{tag} f32", card, f"kernels {sk} in {wk:.2f} s | plain equal in tracks, ids, statuses, detection counts, stats "
+        f"(max |box/conf/vel diff| {worst:.3e}; plain {wp:.2f} s); against [pipeline] f32: stats {sk} vs {d_stats}, detection "
+        f"count differs on {differ}/{FRAMES} frames (not gated); calibrated and built in {t_make:.2f} s")
+    ft = make(torch.bfloat16, plain=False)
+    ft.run_clip(clip[:CHUNK])  # warm-up
+    ft.reset()
+    ft.timings = []
+    (ob, sb, wb), launches = counted({"nms_keep"}, lambda: timed_run(ft, clip))
+    split = {}
+    for marks in ft.timings:
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            split[name] = split.get(name, 0.0) + a.elapsed_time(b)
+    same = sum(int((a["det_count"] == b["det_count"]).sum()) for a, b in zip(ob, ok_))
+    if not all(np.isfinite(o["bbox"]).all() for o in ob):
+        raise AssertionError(f"[{tag}] non-finite boxes in the bf16 run")
+    log(f"{tag} bf16", card, f"{sb}; {FRAMES} frames in {wb:.3f} s = {FRAMES / wb:.1f} frames/s end to end against [pipeline]'s "
+        f"{default_fps:.1f} in this call; device split per {FRAMES} frames: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"; det_count equal to its f32 run on {same}/{FRAMES} frames; launches {launches}")
+
+
+def predict_settings_phase(clip, card):
+    """`[predict int8]`: YOLO(best.npz).predict(int8=True) on 16 BGR frames of the clip (dynamic
+    activation scales, the int8 convs; the NMS kernel the only kernel), f32 kernel against its twin
+    (equal detections, boxes 1e-2 px), then bf16 timed. `[predict visualize]`: one frame with
+    visualize=True, the files written (a .npy per layer before the head, and a .png where matplotlib
+    imports). `[predict show]`: show=True with no display named: one warning, `show` off, the Results
+    of show=False."""
+    import io
+    import logging
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.utils import LOGGER
+
+    frames = list(np.repeat(clip[:16], 3, -1))
+    kw = dict(conf=0.15, iou=0.6, imgsz=640, verbose=False, batch=16)
+
+    def dets(results):
+        return [r.boxes.data for r in results]
+
+    y = YOLO(str(WEIGHTS))
+    (rk, launches) = counted({"nms_keep"}, lambda: y.predict(frames, int8=True, compute_dtype="float32", **kw))
+    rp = YOLO(str(WEIGHTS)).predict(frames, int8=True, compute_dtype="float32", plain=True, **kw)
+    worst = 0.0
+    for a, b in zip(dets(rk), dets(rp)):
+        if a.shape != b.shape:
+            raise AssertionError(f"[predict int8] detections differ: kernel {a.shape} vs plain {b.shape}")
+        if len(a):
+            worst = max(worst, float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()))
+    if worst > 1e-2 or not y.model.int8 or sum(len(d) for d in dets(rk)) == 0:
+        raise AssertionError(f"[predict int8] max |diff| {worst}, int8 {y.model.int8}, {sum(len(d) for d in dets(rk))} detections")
+    f32 = YOLO(str(WEIGHTS)).predict(frames, compute_dtype="float32", **kw)
+    y.predict(frames, int8=True, **kw)  # warm-up in bf16
+    t0 = time.perf_counter()
+    rb = y.predict(frames, int8=True, **kw)
+    wb = time.perf_counter() - t0
+    log("predict int8", card, f"f32 kernel = plain ({sum(len(d) for d in dets(rk))} detections, max |diff| {worst:.3e}); against the float "
+        f"model: counts {[len(r) for r in rk]} vs {[len(r) for r in f32]}; bf16 {len(frames) / wb:.1f} frames/s ({len(frames)} frames, one "
+        f"predict), {sum(len(r) for r in rb)} detections; launches in the f32 kernel run {launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        YOLO(str(WEIGHTS)).predict(frames[0], visualize=True, project=tmp, name="vis", **{**kw, "batch": 1})
+        files = sorted(p.name for p in (Path(tmp) / "vis").iterdir())
+    n_npy = sum(f.endswith(".npy") for f in files)
+    if n_npy != 25:  # every layer of best.npz's 26 but the head
+        raise AssertionError(f"[predict visualize] {n_npy} feature arrays: {files}")
+    log("predict visualize", card, f"{len(files)} files: {n_npy} .npy and {len(files) - n_npy} .png (matplotlib {'present' if len(files) > n_npy else 'absent'})")
+
+    seen = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    h = Catch(level=logging.WARNING)
+    LOGGER.addHandler(h)
+    try:
+        with environ(DISPLAY="", WAYLAND_DISPLAY=""):
+            ys = YOLO(str(WEIGHTS))
+            with contextlib.redirect_stdout(io.StringIO()):
+                shown = ys.predict(frames[:4], show=True, **{**kw, "batch": 4})
+                ys.predict(frames[:4], show=True, **{**kw, "batch": 4})
+    finally:
+        LOGGER.removeHandler(h)
+    plain_run = YOLO(str(WEIGHTS)).predict(frames[:4], **{**kw, "batch": 4})
+    if len(seen) != 1 or ys.predictor.args.show or [r.boxes.data.tolist() for r in shown] != [r.boxes.data.tolist() for r in plain_run]:
+        raise AssertionError(f"[predict show] warnings {seen}, show {ys.predictor.args.show}")
+    log("predict show", card, f"headless (DISPLAY and WAYLAND_DISPLAY empty, was {os.environ.get('DISPLAY')!r}): one warning "
+        f"({seen[0]!r}), show turned off, the Results of show=False")
+
+
+# `train(batch=-1)` at 640: one epoch, no validation; the split holds 256 images, so a pick up to 256
+# trains in full batches (the loader resizes the small frames to 640)
+AUTOBATCH_RUN = dict(batch=-1, epochs=1, imgsz=640, amp=True, val=False, plots=False, workers=8, close_mosaic=0, exist_ok=True)
+AUTOBATCH_IMAGES = 256
+
+
+def autobatch_split(root: Path) -> Path:
+    """256 seeded 160x128 IR frames with their labels under root/images/train and 4 under images/val → the yaml."""
+    write_split(root, AUTOBATCH_IMAGES, 5, w=160, h=128, split="train")
+    return write_split(root, 4, 6, w=160, h=128)
+
+
+def _peak_after_search():
+    """A DetectionTrainer that empties the cache and restarts the peak count once autobatch has picked (its
+    failed probe peaks near the card's memory), so the run's peak is the training's own."""
+    import torch
+
+    from yolo_tpu_torch.engine.trainer import DetectionTrainer
+
+    class PeakAfterSearch(DetectionTrainer):
+        def _autobatch(self, trainset):
+            b = super()._autobatch(trainset)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return b
+
+    return PeakAfterSearch
+
+
+def train_settings_phase(data, run_dir, card):
+    """`[train settings]`: one epoch (4 steps of 16, no validation) of the recipe from yolov8-small.yaml with
+    each of the trainer's last settings: the default, remat (peak memory beside the default's), and
+    multi_scale with cache='ram', mosaic 1.0 with mosaic_n = 9 and cutmix 0.5: finite losses, device ms a
+    step, peak memory. Then `train(batch=-1)` at 640 on a 256-image split: autobatch's pick (the trainer's
+    own step as its probe, at least 16 and at most the split) and one epoch of full batches at it."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.data import augment as PA
+
+    base_kw = {**TRAIN_RECIPE, "epochs": 1, "close_mosaic": 0, "val": False, "plots": False}
+    runs = {"default": {}, "remat": dict(remat=True),
+            "multi_scale + RAM cache + mosaic9 + cutmix": dict(multi_scale=True, cache="ram", mosaic=1.0, cutmix=0.5),
+            "batch=-1": None}
+    peaks = {}
+    for name, kw in runs.items():
+        y = YOLO("yolov8-small.yaml")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        PA.TrainTransforms.mosaic_n = 9 if "mosaic9" in name else 4
+        try:
+            t0 = time.perf_counter()
+            if kw is None:
+                y.train(data=str(autobatch_split(run_dir / "autobatch_split")), trainer=_peak_after_search(), project=str(run_dir),
+                        name="settings_auto", **AUTOBATCH_RUN)
+            else:
+                y.train(data=str(data), project=str(run_dir), name=f"settings_{len(peaks)}", exist_ok=True, **{**base_kw, **kw})
+            wall = time.perf_counter() - t0
+        finally:
+            PA.TrainTransforms.mosaic_n = 4
+        t = y.trainer
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        row = t._last_row
+        losses = [row[f"train/{k}_loss"] for k in ("box", "cls", "dfl")]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[train settings] {name}: losses {losses}")
+        if kw is None and not (16 <= t.args.batch <= AUTOBATCH_IMAGES and len(t.timings) == len(t.train_loader) >= 1):
+            raise AssertionError(f"[train settings] batch=-1 picked {t.args.batch}, {len(t.timings)} steps")
+        steps = t.timings[1:]
+        step_ms = sum(s["forward"] + s["backward"] + s["optimizer"] for s in steps) / max(len(steps), 1)
+        log("train settings", card, f"{name}: {len(t.timings)} steps of {t.args.batch}, losses box/cls/dfl "
+            + "/".join(f"{v:.4f}" for v in losses) + f"; epoch {t.epoch_time:.2f} s, the .train call {wall:.1f} s; device per step after "
+            f"the first {step_ms:.1f} ms (events); peak memory {peaks[name]:.2f} GiB")
+    log("train settings", card, f"remat peak memory {peaks['remat']:.2f} GiB against the default's {peaks['default']:.2f} GiB "
+        f"({peaks['remat'] / peaks['default']:.2f}x); batch=-1 at 640 trained at its pick, peak {peaks['batch=-1']:.2f} GiB after the "
+        f"search (the probes' peaks in the autobatch lines above) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -2879,15 +3092,17 @@ def main(argv) -> int:
     head_edges_phase(card)
     nms_edges_phase(card)
 
-    ft, launches, bf16_run = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
+    ft, launches, bf16_run, f32_run, fps = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
     pipeline_options_phase(model, params, clip, card, *bf16_run)
-    _, launches_cm, _ = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)
+    int8_pipeline_phase(model, params, clip, card, f32_run, fps)
+    _, launches_cm, _, _, _ = pipeline_phase("pipeline head_cm", model, params, clip, card, head_cm=True)
     if launches_cm["head_level_cm"] != 4 * (FRAMES // CHUNK):
         raise AssertionError(f"head_level_cm: {launches_cm['head_level_cm']} launches, expected one per level and chunk")
     launches["head_level_cm"] = launches_cm["head_level_cm"]
     bgr_phase(model, params, clip, card)
     batched_tracker_phase(card)
     predict_phase(clip, card)
+    predict_settings_phase(clip, card)
     host_rows = track_phase("track bytetrack", clip, card, "bytetrack.yaml")
     with tempfile.TemporaryDirectory() as tmp:
         botsort = Path(tmp) / "botsort_none.yaml"
@@ -2948,6 +3163,7 @@ def main(argv) -> int:
         train_step_f32_phase(train_data, card)
         tuned = train_finetune_phase(train_data, Path(tmp) / "runs", card)
         train_val_kernels_phase({"train": trained, "finetune": tuned}, train_data, card)
+        train_settings_phase(train_data, Path(tmp) / "runs", card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

@@ -221,8 +221,8 @@ def test_fused_detect_track_d_max_300_kernels_match_plain(card):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-2, err_msg=k)
 
 
-@pytest.mark.parametrize("head_cm", [False, True])
-def test_fused_detect_track_bgr_kernels_match_plain(card, head_cm):
+@pytest.mark.parametrize("pallas_head2", [False, True])
+def test_fused_detect_track_bgr_kernels_match_plain(card, pallas_head2):
     """3-channel BGR chunks through FusedDetectTrack on the card: f32 through
     the kernels equals f32 through the twins in tracks, ids, statuses and stats."""
     from yolo_tpu_torch import DetectionModel, FusedDetectTrack
@@ -231,8 +231,8 @@ def test_fused_detect_track_bgr_kernels_match_plain(card, head_cm):
     params = model.init(0)
     clip = np.random.default_rng(3).integers(0, 255, (16, 64, 64, 3), np.uint8)
     clip[:, 20:28, 30:38] = 255
-    kw = dict(frame_hw=(64, 64), channels=3, chunk=8, conf=1e-4, n_max=8, d_max=4, dtype=torch.float32, head_cm=head_cm)
-    name = cuda_head_cm.head_level_cm if head_cm else cuda_head.fused_head_level
+    kw = dict(frame_hw=(64, 64), channels=3, chunk=8, conf=1e-4, n_max=8, d_max=4, dtype=torch.float32, pallas_head2=pallas_head2)
+    name = cuda_head_cm.head_level_cm if pallas_head2 else cuda_head.fused_head_level
     before = name.launches
     got_outs, got_stats = FusedDetectTrack(model, params, **kw).run_clip(clip)
     assert name.launches == before + 2 * len(model.stride)
@@ -576,3 +576,97 @@ def test_run_clip_options_on_the_card(card):
     staged = ft.put_frames(clip[:8])
     assert staged.is_cuda and torch.equal(staged.cpu(), torch.from_numpy(clip[:8]))
     np.testing.assert_array_equal(ft.process_chunk_device(staged).cpu().numpy()[..., 8], want_outs[0]["track_num"])
+
+
+@pytest.mark.parametrize("k, s, cin, cout, B, H, W", [(3, 1, 192, 64, 2, 20, 26), (3, 2, 1, 16, 2, 64, 80), (1, 1, 48, 40, 1, 2, 3),
+                                                       (3, 1, 64, 64, 8, 128, 160)])
+def test_int8_conv_on_the_card_equals_cpu(card, k, s, cin, cout, B, H, W):
+    """The int8 conv (im2col into torch._int_mm, K, N and M padded for the card's int8 GEMM) on the card
+    equals the CPU's exactly, a one-row map (M = 6 < 17) included."""
+    from yolo_tpu_torch.nn import quantize as PQ
+
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
+    w = rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
+    want = PQ.int8_conv(x, PQ.weight_matrix(w, "cpu"), k, s, cout)
+    got = PQ.int8_conv(x.to(card), PQ.weight_matrix(w, card), k, s, cout)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fused_int8_on_the_card_matches_plain(card, monkeypatch):
+    """FusedDetectTrack(int8=True) on best.npz, 16 frames of 512x640 in chunks of 8, f32, calibrated on the
+    first chunk (its scales within three bf16 ulps between the devices; the runs use the CPU's): the card's
+    run (the NMS kernel, the only kernel on the route) equals its twins' run on the card in tracks, ids,
+    statuses and stats, boxes within 1e-2 px. Its codes follow each f32 SiLU, whose last bit the card's and
+    the CPU's logistic may round apart, and a flipped code moves a box by a quantization step."""
+    import chip_smoke
+    import yolo_tpu_torch.pipeline.fused as PF
+    from yolo_tpu_torch import FusedDetectTrack, load_npz
+    from yolo_tpu_torch.nn import quantize as PQ
+
+    model, params, _ = load_npz(chip_smoke.WEIGHTS, device="cpu")
+    clip = np.stack(_ir_frames(16))
+    kw = dict(chunk=8, conf=0.15, iou=0.6, dtype=torch.float32, int8=True, int8_calib=clip[:8])
+    cpu_scales = {}
+    real = PQ.calibrate_act_scales
+
+    def calibrate(m, p, cal):
+        if not cpu_scales:
+            cpu_scales.update(real(m, p, cal))
+            on_card = real(type(m)(m.yaml, ch=p["model"]["0"]["conv"]["weight"].shape[2], device=card), p, cal)
+            assert all(abs(on_card[k] - v) <= 3 * 2**-7 * v for k, v in cpu_scales.items())
+        return dict(cpu_scales)
+
+    monkeypatch.setattr(PF, "calibrate_act_scales", calibrate)
+    want_outs, want_stats = FusedDetectTrack(model, params, device=card, plain=True, **kw).run_clip(clip)
+    got_outs, got_stats = chip_smoke.counted({"nms_keep"}, lambda: FusedDetectTrack(model, params, device=card, **kw).run_clip(clip))[0]
+    assert got_stats == want_stats and want_stats["detection_frames"] > 0
+    chip_smoke.compare_runs(got_outs, want_outs, got_stats, want_stats)
+
+
+def test_predict_settings_phases_on_the_card(card):
+    """chip_smoke's `[predict int8]` (f32 kernel against twin, then bf16), `[predict visualize]` (25 arrays)
+    and `[predict show]` (headless: one warning, the same Results) on 16 frames."""
+    import chip_smoke
+
+    chip_smoke.predict_settings_phase(np.stack(_ir_frames(16)), "card test")
+
+
+def test_remat_train_step_on_the_card(card):
+    """The train form on the card in f32: remat gives the loss of the plain walk within 1e-4 relative and its
+    gradients within `[train step f32]`'s tolerance (1e-3 of each tensor's largest)."""
+    from yolo_tpu_torch.nn.tasks import DetectionModel, load_train_params, train_leaves
+
+    m = DetectionModel("yolov8-small.yaml", device=card)
+    load_train_params(m, m.init(0))
+    m.train()
+    x = torch.from_numpy(np.stack(_ir_frames(2, 128, 160)).repeat(3, -1)).to(card)
+    runs = []
+    for remat in (False, True):
+        for p in train_leaves(m).values():
+            p.grad = None
+        loss = sum(o.square().mean() for o in m.forward_features(x.float() / 255.0, remat=remat))
+        loss.backward()
+        runs.append((loss.item(), [p.grad.clone() for p in train_leaves(m).values() if isinstance(p, torch.nn.Parameter)]))
+    loss, grads = runs[1]
+    assert abs(loss - runs[0][0]) <= 1e-4 * abs(runs[0][0])
+    for a, b in zip(grads, runs[0][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * float(b.abs().max()) + 1e-7)
+    m.eval()
+
+
+def test_train_autobatch_at_640_completes_a_step(card, tmp_path):
+    """`YOLO("yolov8-small.yaml").train(batch=-1)` at 640 in bf16: autobatch probes with the trainer's own step
+    and picks a batch of at least 16, and steps at that batch run (one epoch of full batches over a 256-image
+    split, finite losses)."""
+    import chip_smoke
+    from yolo_tpu_torch import YOLO
+
+    data = chip_smoke.autobatch_split(tmp_path)
+    y = YOLO("yolov8-small.yaml")
+    y.train(data=str(data), project=str(tmp_path), name="auto", **chip_smoke.AUTOBATCH_RUN)
+    t = y.trainer
+    row = t._last_row
+    assert 16 <= t.args.batch <= chip_smoke.AUTOBATCH_IMAGES and t.train_loader.batch_size == t.args.batch
+    assert len(t.timings) == len(t.train_loader) >= 1
+    assert all(np.isfinite(row[f"train/{k}_loss"]) for k in ("box", "cls", "dfl"))

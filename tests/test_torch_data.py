@@ -128,12 +128,24 @@ def test_label_cache_is_the_ports_own(dataset_root):
         p.unlink()
 
 
-@pytest.mark.parametrize("kw, what", [({"augment": True, "hyp": PC.get_cfg({"cutmix": 0.5})}, "cutmix"),
-                                      ({"cache": "ram"}, "RAM cache"), ({"cache": True}, "RAM cache")], ids=["augment", "ram", "true"])
-def test_training_settings_raise(dataset_root, kw, what):
-    """The training settings left unported raise, naming themselves: cutmix among the augmentations, the image cache."""
-    with pytest.raises(NotImplementedError, match=what):
-        PD.YOLODataset(str(dataset_root / "images" / "val"), **kw)
+@pytest.mark.parametrize("cache", ["ram", True])
+def test_ram_cache_matches_jax(dataset_root, cache):
+    """cache='ram' (or True) keeps each decoded image after its first read: load_raw gives the JAX
+    dataset's images and labels, each read a copy (an augmentation writing into it leaves the cache
+    as it was), and the labels cache beside the images stays on."""
+    img_path = str(dataset_root / "images" / "val")
+    got, want = PD.YOLODataset(img_path, cache=cache), JD.YOLODataset(img_path, cache=cache)
+    for i in range(len(got)):
+        a, b = got.load_raw(i), want.load_raw(i)
+        _same_sample(a, b, f"image {i}")
+        a["img"][...] = 0
+        np.testing.assert_array_equal(got.load_raw(i)["img"], b["img"])
+    assert sorted(got._im_cache) == list(range(len(got))) and PD.YOLODataset(img_path, cache=False)._im_cache is None
+    rp, rj = random.Random(3), random.Random(3)
+    hyp = dict(mosaic=1.0, cutmix=0.5)
+    pt, jt = PA.TrainTransforms(got, 64, PC.get_cfg(hyp)), JA.TrainTransforms(want, 64, jax_get_cfg(overrides=hyp))
+    for i in list(range(len(got))) * 2:
+        _same_sample(pt(got.load_raw(i), rp), jt(want.load_raw(i), rj), f"augmented image {i}")
 
 
 @pytest.mark.parametrize("imgsz", [64, 48])  # pad only, and cv2 resizes
@@ -245,7 +257,8 @@ DEMO_RECIPE = dict(hsv_h=0.0, hsv_s=0.0, hsv_v=0.3, degrees=0.0, translate=0.05,
                    fliplr=0.5, flipud=0.1)  # demos/ir_end_to_end.py:120-125
 ALL_ON = dict(degrees=10.0, shear=2.0, perspective=0.0005, mosaic=0.8, mixup=0.5, copy_paste=0.6, copy_paste_mode="mixup",
               bgr=0.5, augment_photometric=0.3)  # every augmentation, with the cfg's HSV gains
-RECIPES = {"ir": IR_RECIPE, "demo": DEMO_RECIPE, "all_on": ALL_ON}
+CUTMIX = dict(mosaic=0.8, mixup=0.3, cutmix=0.5, copy_paste=0.3)  # cutmix beside the other mixers
+RECIPES = {"ir": IR_RECIPE, "demo": DEMO_RECIPE, "all_on": ALL_ON, "cutmix": CUTMIX}
 
 
 def _same_sample(a, b, what=""):
@@ -269,6 +282,8 @@ STEPS = {
     "mixup": lambda m, ds, rng: m.mixup(_raw(ds, 0), _raw(ds, 3), rng=rng),
     "photometric": lambda m, ds, rng: {"img": m.random_photometric(_raw(ds, 1)["img"], p=1.0, rng=rng), "bboxes": np.zeros(0),
                                        "cls": np.zeros(0)},
+    "mosaic9": lambda m, ds, rng: m.mosaic9([_raw(ds, i) for i in (0, 1, 4, 6, 2, 3, 5, 0, 4)], 64, rng=rng),
+    "cutmix": lambda m, ds, rng: m.cutmix(_raw(ds, 0), m.mosaic4([_raw(ds, i) for i in (4, 6, 4, 6)], 32, rng=rng), rng=rng),
 }
 
 
@@ -314,6 +329,37 @@ def test_train_transforms_match_jax(dataset_root, recipe):
             a, b = got.transforms(got.load_raw(i), rp), want.transforms(want.load_raw(i), rj)
             _same_sample(a, b, f"{recipe} image {i} closed={closed}")
             assert a["img"].shape == (64, 64, 3)
+
+
+def test_mosaic9_transforms_match_jax(dataset_root):
+    """TrainTransforms with mosaic_n = 9 (the 3x3 mosaic) under the all-on recipe, every image twice from
+    one RNG per package: the same images, boxes and classes, bit for bit."""
+    got, want = _train_datasets(dataset_root, ALL_ON)
+    got.transforms.mosaic_n = want.transforms.mosaic_n = 9
+    rp, rj = random.Random(11), random.Random(11)
+    for i in list(range(len(got))) * 2:
+        a, b = got.transforms(got.load_raw(i), rp), want.transforms(want.load_raw(i), rj)
+        _same_sample(a, b, f"mosaic9 image {i}")
+        assert a["img"].shape == (64, 64, 3)
+
+
+@pytest.mark.parametrize("recipe", [dict(cutmix=1.0), dict(mosaic=1.0, mixup=1.0)], ids=["cutmix", "mixup"])
+def test_mixers_that_never_end_are_refused(dataset_root, recipe):
+    """cutmix >= 1, or mixup >= 1 with mosaic >= 1, draws a donor for every donor: the port refuses the
+    dataset with a ValueError naming the setting, where the JAX package recurses until RecursionError."""
+    import sys
+
+    with pytest.raises(ValueError, match=next(iter(k for k in recipe if k != "mosaic"))):
+        _train_datasets(dataset_root, {**IR_RECIPE, **recipe})
+    j = JD.YOLODataset(str(dataset_root / "images" / "val"), imgsz=64, augment=True,
+                       hyp=jax_get_cfg(overrides={**IR_RECIPE, **recipe}), cache=False)
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(300)
+    try:
+        with pytest.raises(RecursionError):
+            j.transforms(j.load_raw(0), random.Random(0))
+    finally:
+        sys.setrecursionlimit(limit)
 
 
 @pytest.mark.parametrize("recipe,workers", [("ir", 2), ("all_on", 3)])

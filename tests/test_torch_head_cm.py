@@ -1,6 +1,6 @@
 """The port's channel-major Detect level (ops/cuda_head_cm plain twin on the
 CPU) against the JAX package's channel-major Pallas head kernel in interpret
-mode, then `predict_parts(head_cm=True)` and `FusedDetectTrack(head_cm=True)`
+mode, then `predict_parts(head_cm=True)` and `FusedDetectTrack(pallas_head2=True)`
 against the JAX package's `pallas_head2` routes. f32 throughout; tolerances
 stated at each comparison (summation order differs, nothing else)."""
 
@@ -159,7 +159,7 @@ def test_fused_detect_track_head_cm_matches_jax(channels):
 
     params = jax.tree_util.tree_map(np.asarray, jp)
     ft = FusedDetectTrack(DetectionModel("yolov8n.yaml", device="cpu"), params, dtype=torch.float32, device="cpu",
-                          head_cm=True, **kw)
+                          pallas_head2=True, **kw)
     got_outs, got_stats = ft.run_clip(clip)
     assert got_stats == want_stats and got_stats["detection_frames"] > 0
     for got, want in zip(got_outs, want_outs):

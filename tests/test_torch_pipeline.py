@@ -88,6 +88,10 @@ def test_port_imports_no_jax():
         "srv.shutdown(); t.join(30)\n"
         "from yolo_tpu_torch.otherplan import classical_detect, detect_only, enhance_small_targets_torch\n"
         "from yolo_tpu_torch.ops.tiling import tiled_predict\n"
+        "from yolo_tpu_torch.nn import quantize\n"
+        "from yolo_tpu_torch.utils import integrations, profilers, settings, tb_logger\n"
+        "q = FusedDetectTrack(m, p, frame_hw=(64, 64), chunk=2, device='cpu', int8=True, int8_calib=np.zeros((2, 64, 64, 1), np.uint8))\n"
+        "assert q.run_clip(np.zeros((2, 64, 64, 1), np.uint8))[1]['frames'] == 2\n"
         "assert enhance_small_targets_torch(frames[:, :, :, 0]).shape == (2, 64, 80)\n"
         "bad = sorted(k for k in sys.modules if k == 'yolo_tpu' or k.startswith('yolo_tpu.'))\n"
         "assert not bad, bad\n"
@@ -166,3 +170,48 @@ def test_put_frames_feeds_process_chunk_device(pipelines):
     ft.reset()
     outs, _ = ft.run_clip(clip)
     np.testing.assert_array_equal(outs[1]["track_num"], second[..., 8].astype(np.int32))
+
+
+@pytest.mark.parametrize("opts", [dict(neck_opt=False), dict(pallas_head2=True), dict(pallas_head=True, pallas_c2f=True, unroll=4)],
+                         ids=["neck_opt-off", "pallas_head2", "kernel-flags"])
+def test_signature_routes_match_jax(pipelines, opts):
+    """The JAX signature's other settings: neck_opt=False (the neck's upsample and concat
+    materialised), pallas_head2=True (the channel-major head kernel) and the kernel flags and
+    `unroll`, which change nothing in the port's route: the outputs of JAX's default run (floats 1e-3,
+    the rest exactly) and its stats."""
+    jft, _, clip = pipelines
+    jft.reset()
+    want_outs, want_stats = jft.run_clip(clip)
+    jm = JaxDetectionModel("yolov8n.yaml")
+    jp = jax.tree_util.tree_map(np.asarray, jm.fuse(jm.init(0)))
+    ft = FusedDetectTrack(DetectionModel("yolov8n.yaml", device="cpu"), jp, dtype=torch.float32, device="cpu",
+                          frame_hw=(64, 64), chunk=8, conf=1e-4, n_max=8, d_max=4, **opts)
+    assert ft.neck_opt == opts.get("neck_opt", True) and ft.pallas_head2 == opts.get("pallas_head2", False)
+    got_outs, got_stats = ft.run_clip(clip)
+    assert got_stats == want_stats
+    for got, want in zip(got_outs, want_outs):
+        for k in ("emit", "status", "track_num", "time_since_update", "det_count"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for k in ("bbox", "confidence", "velocity"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-3, err_msg=k)
+
+
+@pytest.mark.parametrize("unroll, env, error", [(0, None, None), (None, "x8", None), (None, "0", None),
+                                                (None, "16", None), ("mesh", None, NotImplementedError)])
+def test_unroll_and_mesh_settings_like_jax(monkeypatch, unroll, env, error):
+    """`unroll` and YOLO_TPU_SCAN_UNROLL are taken and change nothing: the port's step loop runs frame
+    by frame, so no value is refused (the JAX package refuses those that are not an integer >= 1).
+    `mesh` raises NotImplementedError naming ROADMAP item 7."""
+    if env is not None:
+        monkeypatch.setenv("YOLO_TPU_SCAN_UNROLL", env)
+    jm = JaxDetectionModel("yolov8n.yaml")
+    jp = jax.tree_util.tree_map(np.asarray, jm.fuse(jm.init(0)))
+    kw = dict(frame_hw=(64, 64), chunk=8, device="cpu")
+    kw.update({"mesh": object()} if unroll == "mesh" else {"unroll": unroll})
+    model = DetectionModel("yolov8n.yaml", device="cpu")
+    if error is None:
+        ft = FusedDetectTrack(model, jp, **kw)
+        assert not hasattr(ft, "unroll") and ft.run_clip(np.zeros((8, 64, 64, 1), np.uint8))[1]["frames"] == 8
+        return
+    with pytest.raises(error, match="ROADMAP item 7"):
+        FusedDetectTrack(model, jp, **kw)

@@ -561,9 +561,6 @@ def test_predict_settings_that_ask_for_unported_features_raise():
     one = py.predict(frame, classes=[0], **kw)
     np.testing.assert_array_equal(py.predict(frame, classes=[0, 3], **kw)[0].boxes.data, one[0].boxes.data)
     assert len(one[0]) > 0 and len(py.predict(frame, classes=[3], **kw)[0]) == 0
-    for bad in (dict(show=True), dict(visualize=True), dict(int8=True), dict(embed=[21])):
-        with pytest.raises(NotImplementedError, match=next(iter(bad))):
-            py.predict(frame, **kw, **bad)
     with pytest.raises(TypeError, match="'no_such_key' is not a setting"):
         py.predict(frame, no_such_key=1, **kw)
     a = PredictArgs()
@@ -744,3 +741,88 @@ def test_embed_matches_jax(layers):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
     assert not np.allclose(got[0], got[1])
     np.testing.assert_allclose(py.embed(imgs[0], layers=layers, imgsz=64, plain=True)[0], got[0], rtol=0, atol=1e-5)
+
+
+# --- the settings ported last: embed (taken, changes nothing), show (headless), visualize ---
+
+
+def test_predict_embed_setting_changes_nothing_like_jax(yolos):
+    """`predict(embed=[5])` returns the ordinary Results, as the JAX predictor (which never reads the
+    key) does: the same as without it, and the same as JAX's (boxes 1e-2 px, conf 1e-4)."""
+    jy, py = yolos
+    frame = np.repeat(_ir_frame(np.random.default_rng(21), 96, 128, 60, 40)[..., None], 3, -1)
+    kw = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=1, compute_dtype="float32")
+    want = jy.predict(frame, embed=[5], **kw)
+    got = py.predict(frame, embed=[5], **kw)
+    assert len(got[0]) == 1
+    _assert_same_results(got, want, box_atol=1e-2)
+    np.testing.assert_array_equal(py.predict(frame, **kw)[0].boxes.data, got[0].boxes.data)
+
+
+def test_predict_show_without_a_display_warns_once(yolos, monkeypatch):
+    """show=True where no display exists: JAX's warning once (its own cv2.imshow aborts the process
+    there, so JAX runs with show=False), `show` off after it, and the same Results as JAX's."""
+    import logging
+
+    from yolo_tpu_torch.utils import LOGGER
+
+    jy, py = yolos
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    monkeypatch.setattr(BasePredictor, "_show_warned", False, raising=False)
+    frame = np.repeat(_ir_frame(np.random.default_rng(22), 96, 128, 40, 60)[..., None], 3, -1)
+    kw = dict(conf=0.1, iou=0.6, imgsz=(96, 128), verbose=False, batch=2, compute_dtype="float32")
+    want = jy.predict([frame, frame], **kw)
+    seen = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    h = Catch(level=logging.WARNING)
+    LOGGER.addHandler(h)
+    try:
+        got = py.predict([frame, frame], show=True, **kw)
+        again = py.predict(frame, show=True, **kw)
+    finally:
+        LOGGER.removeHandler(h)
+    assert [m for m in seen if "show=True unavailable (headless?)" in m] == seen and len(seen) == 1
+    assert py.predictor.args.show is False
+    _assert_same_results(got, want, box_atol=1e-2)
+    np.testing.assert_allclose(again[0].boxes.data, got[0].boxes.data, rtol=0, atol=1e-4)  # B = 1 sums in another order
+
+
+class _Axis:
+    def imshow(self, *a, **k):
+        pass
+
+    def axis(self, *a, **k):
+        pass
+
+
+def test_predict_visualize_writes_jax_feature_maps(yolos, tmp_path, monkeypatch):
+    """visualize=True writes the JAX package's files for the batch's first image: the same
+    stage{i}_{Module}_features.png / .npy names, each .npy within 1e-4 of JAX's (an f32 walk).
+    matplotlib's drawing is stubbed in both packages (a grid takes ~1 s to draw; its .png is
+    written empty), so the test holds the names and the arrays."""
+    import matplotlib.pyplot as plt
+
+    monkeypatch.setattr(plt, "subplots", lambda r, c, **k: (None, np.array([_Axis() for _ in range(r * c)])))
+    monkeypatch.setattr(plt, "subplots_adjust", lambda **k: None)
+    monkeypatch.setattr(plt, "savefig", lambda f, **k: open(f, "wb").close())
+    monkeypatch.setattr(plt, "close", lambda *a: None)
+    jy, py = yolos
+    frame = np.repeat(_ir_frame(np.random.default_rng(23), 64, 64, 30, 20)[..., None], 3, -1)
+    kw = dict(conf=0.1, imgsz=64, verbose=False, batch=1, visualize=True, exist_ok=True, project=str(tmp_path))
+    for y, name in ((jy, "jax"), (py, "torch")):
+        y.predictor = None  # a fresh predictor, so each writes under its own run directory
+        y.predict(frame, name=name, **kw)
+        y.predictor = None
+    want = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    got = sorted(p.name for p in (tmp_path / "torch").iterdir())
+    assert got == want and len(want) == 2 * (len(py.model.layers) - 1)  # every layer but the head: a grid and its array
+    for name in want:
+        if name.endswith(".npy"):
+            a, b = np.load(tmp_path / "torch" / name), np.load(tmp_path / "jax" / name)
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=name)

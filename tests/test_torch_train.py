@@ -261,18 +261,9 @@ def test_resume_goes_on_at_the_next_epoch(tiny_dataset, tmp_path):  # noqa: F811
         assert (tmp_path / "full" / name).stat().st_size > 0
 
 
-@pytest.mark.parametrize("kw, what", [
-    ({"multi_scale": True}, "multi_scale"), ({"remat": True}, "remat"), ({"n_devices": 2}, "n_devices"),
-    ({"batch": -1}, "autobatch"), ({"cache": "ram"}, "RAM cache"), ({"s2d": True}, "s2d"), ({"integrations": True}, "integration"),
-])
+@pytest.mark.parametrize("kw, what", [pytest.param({"n_devices": 2}, "n_devices", id="kw2-n_devices")])
 def test_unported_training_settings_raise(tiny_dataset, tmp_path, monkeypatch, kw, what):  # noqa: F811
-    """Each setting that asks for something unported raises NotImplementedError naming it."""
-    from yolo_tpu_torch.utils.callbacks import add_integration_callbacks
-
+    """Each setting that asks for something unported raises NotImplementedError naming it: the mesh
+    (n_devices > 1, ROADMAP item 7) is the one left."""
     with pytest.raises(NotImplementedError, match=what):
-        if "s2d" in kw:
-            monkeypatch.setenv("YOLO_TPU_TRAIN_S2D", "4")
-            kw = {}
-        if "integrations" in kw:
-            add_integration_callbacks({})
         DetectionTrainer(overrides={"data": tiny_dataset, "device": "cpu", "project": str(tmp_path), **kw}).train()

@@ -9,8 +9,11 @@ The code is the JAX package's, kept call for call, so the same
 the original (h, w)}, and 'segments' (a pixel polygon per box, None for a box
 row) where the label files hold polygons: the geometric transforms move them
 along, and the random perspective takes a polygon's box from its warped points.
-The keypoints and rotated boxes of the other tasks are not ported. `mosaic9`, `cutmix` and `rand_augment` are not ported: they
-raise NotImplementedError, as does a cfg that asks for them.
+`TrainTransforms.mosaic_n = 9` takes the 3x3 mosaic (`mosaic9`) instead of mosaic4, and
+the cfg's `cutmix` probability pastes a region of another augmented sample (`cutmix`),
+each drawing from the same `random` instance in the JAX package's order.
+The keypoints and rotated boxes of the other tasks are not ported, nor is
+`rand_augment`, the classify task's augmentation (it raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -301,26 +304,147 @@ def random_photometric(img, p: float = 0.01, rng=None):
     return img
 
 
+def _bbox_ioa(box1, box2, eps=1e-7):
+    """Intersection over box2 area; box1 (n,4), box2 (m,4) → (n, m)."""
+    ix1 = np.maximum(box1[:, None, 0], box2[None, :, 0])
+    iy1 = np.maximum(box1[:, None, 1], box2[None, :, 1])
+    ix2 = np.minimum(box1[:, None, 2], box2[None, :, 2])
+    iy2 = np.minimum(box1[:, None, 3], box2[None, :, 3])
+    inter = np.clip(ix2 - ix1, 0, None) * np.clip(iy2 - iy1, 0, None)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area2[None] + eps)
+
+
 def mosaic9(items, imgsz: int, rng=None):
-    raise NotImplementedError("mosaic9 (the 3x3 mosaic) is not ported")
+    """Nine images around a centre tile on a 3·imgsz canvas (114 elsewhere), each first resized so
+    its long side is imgsz, then the centre 2·imgsz crop, as mosaic4's canvas; boxes (and polygons)
+    shifted along and clipped to it."""
+    import cv2
+
+    rng = rng or random
+    s = imgsz
+    canvas = np.full((s * 3, s * 3, items[0]["img"].shape[-1]), 114, dtype=np.uint8)
+    all_boxes, all_cls = [], []
+    all_segs = [] if any(it.get("segments") for it in items) else None
+    hp = wp = h0 = w0 = 0
+    for i, it in enumerate(items[:9]):
+        img = it["img"]
+        r = s / max(img.shape[:2])
+        if r != 1:
+            img = cv2.resize(img, (int(img.shape[1] * r), int(img.shape[0] * r)))
+        h, w = img.shape[:2]
+        if i == 0:  # center
+            h0, w0 = h, w
+            c = s, s, s + w, s + h
+        elif i == 1:  # top
+            c = s, s - h, s + w, s
+        elif i == 2:  # top right
+            c = s + wp, s - h, s + wp + w, s
+        elif i == 3:  # right
+            c = s + w0, s, s + w0 + w, s + h
+        elif i == 4:  # bottom right
+            c = s + w0, s + hp, s + w0 + w, s + hp + h
+        elif i == 5:  # bottom
+            c = s + w0 - w, s + h0, s + w0, s + h0 + h
+        elif i == 6:  # bottom left
+            c = s + w0 - wp - w, s + h0, s + w0 - wp, s + h0 + h
+        elif i == 7:  # left
+            c = s - w, s + h0 - h, s, s + h0
+        else:  # top left
+            c = s - w, s + h0 - hp - h, s, s + h0 - hp
+        padw, padh = c[:2]
+        x1, y1, x2, y2 = (max(x, 0) for x in c)
+        canvas[y1:y2, x1:x2] = img[y1 - padh :, x1 - padw :]
+        hp, wp = h, w
+        if len(it["bboxes"]):
+            # labels live on the eventual 2s canvas: shift by pad − s/2 crop
+            off = np.array([padw - s // 2, padh - s // 2] * 2, np.float32)
+            all_boxes.append(it["bboxes"] * r + off)
+            all_cls.append(it["cls"])
+            if all_segs is not None:
+                segs = it.get("segments") or [None] * len(it["bboxes"])
+                all_segs.extend(sg * r + off[:2] if sg is not None else None for sg in segs)
+    bboxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4), np.float32)
+    cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.float32)
+    bboxes = _clip_bboxes(bboxes, 2 * s, 2 * s)
+    out = {
+        "img": canvas[s // 2 : s // 2 + 2 * s, s // 2 : s // 2 + 2 * s],
+        "bboxes": bboxes,
+        "cls": cls,
+        "shape": (2 * s, 2 * s),
+    }
+    if all_segs is not None:
+        out["segments"] = all_segs
+    return out
 
 
 def cutmix(labels, other, p: float = 1.0, beta: float = 1.0, num_areas: int = 3, rng=None):
-    raise NotImplementedError("cutmix is not ported")
+    """Paste a region of `other` into the image: of `num_areas` random regions (sides √(1 − λ),
+    λ ~ Beta(beta, beta)), one that covers no box of the image; the donor boxes it covers by at
+    least a tenth come along, clipped to it."""
+    rng = rng or random
+    img = labels["img"]
+    h, w = img.shape[:2]
+    areas = []
+    for _ in range(num_areas):
+        lam = rng.betavariate(beta, beta) if hasattr(rng, "betavariate") else np.random.beta(beta, beta)
+        cut_ratio = math.sqrt(1.0 - lam)
+        cw, chh = int(w * cut_ratio), int(h * cut_ratio)
+        cx, cy = rng.randrange(w), rng.randrange(h)
+        areas.append([
+            np.clip(cx - cw // 2, 0, w), np.clip(cy - chh // 2, 0, h),
+            np.clip(cx + cw // 2, 0, w), np.clip(cy + chh // 2, 0, h),
+        ])
+    areas = np.asarray(areas, np.float32)
+    if len(labels["bboxes"]):
+        ioa1 = _bbox_ioa(areas, labels["bboxes"])
+        ok = np.nonzero(ioa1.sum(1) <= 0)[0]
+    else:
+        ok = np.arange(num_areas)
+    if len(ok) == 0:
+        return labels
+    area = areas[ok[rng.randrange(len(ok))]]
+    if len(other["bboxes"]) == 0:
+        return labels
+    ioa2 = _bbox_ioa(area[None], other["bboxes"])[0]
+    take = np.nonzero(ioa2 >= 0.1)[0]
+    if len(take) == 0:
+        return labels
+    x1, y1, x2, y2 = area.astype(np.int32)
+    labels["img"][y1:y2, x1:x2] = other["img"][y1:y2, x1:x2]
+    nb = other["bboxes"][take].copy()
+    nb[:, [0, 2]] = nb[:, [0, 2]].clip(x1, x2)  # restrain to the pasted window
+    nb[:, [1, 3]] = nb[:, [1, 3]].clip(y1, y2)
+    labels["bboxes"] = np.concatenate([labels["bboxes"], nb])
+    labels["cls"] = np.concatenate([labels["cls"], other["cls"][take]])
+    if labels.get("segments") is not None:
+        donor_segs = other.get("segments")
+        labels["segments"] = list(labels["segments"]) + [
+            donor_segs[t] if donor_segs is not None and t < len(donor_segs) else None for t in take
+        ]
+    return labels
 
 
 def rand_augment(img, rng=None, n_ops: int = 2, magnitude: float = 9.0):
-    raise NotImplementedError("rand_augment (the classify task's auto-augment) is not ported")
+    raise NotImplementedError("rand_augment is the classify task's augmentation, which is not ported")
 
 
 class TrainTransforms:
-    """The training pipeline of one sample: mosaic (else a letterbox to imgsz that may
-    enlarge), copy-paste, random perspective, mixup, photometric, HSV, flips, the channel swap.
-    `close_mosaic()` on the dataset turns off mosaic, copy-paste and mixup."""
+    """The training pipeline of one sample: mosaic (4 images, or 9 with `mosaic_n = 9`; else a
+    letterbox to imgsz that may enlarge), copy-paste, random perspective, mixup, cutmix,
+    photometric, HSV, flips, the channel swap. `close_mosaic()` on the dataset turns off mosaic,
+    copy-paste, mixup and cutmix."""
+
+    mosaic_n = 4
 
     def __init__(self, dataset, imgsz: int, hyp):
-        if getattr(hyp, "cutmix", 0.0):
-            raise NotImplementedError(f"cutmix={hyp.cutmix}: cutmix is not ported")
+        # mixup and cutmix augment their donor through this same pipeline: at p >= 1 every sample
+        # draws another without end (the JAX package recurses until RecursionError)
+        if getattr(hyp, "cutmix", 0.0) >= 1:
+            raise ValueError(f"cutmix={hyp.cutmix}: a probability below 1 (each cutmix donor is itself augmented)")
+        if hyp.mixup >= 1 and hyp.mosaic >= 1:
+            raise ValueError(f"mixup={hyp.mixup} with mosaic={hyp.mosaic}: a probability below 1 for either "
+                             "(each mixup donor is itself augmented)")
         self.dataset = dataset
         self.imgsz = imgsz
         self.hyp = hyp
@@ -331,8 +455,8 @@ class TrainTransforms:
         h = self.hyp
         use_mosaic = self.mosaic_enabled and rng.random() < h.mosaic
         if use_mosaic:
-            others = [self.dataset.load_raw(rng.randrange(len(self.dataset))) for _ in range(3)]
-            labels = mosaic4([labels, *others], self.imgsz, rng)
+            others = [self.dataset.load_raw(rng.randrange(len(self.dataset))) for _ in range(self.mosaic_n - 1)]
+            labels = (mosaic9 if self.mosaic_n == 9 else mosaic4)([labels, *others], self.imgsz, rng)
             border = (-self.imgsz // 2, -self.imgsz // 2)
         else:
             lb = LetterBox((self.imgsz, self.imgsz), scaleup=True)
@@ -366,6 +490,9 @@ class TrainTransforms:
         if use_mosaic and rng.random() < h.mixup:
             other = self(self.dataset.load_raw(rng.randrange(len(self.dataset))), rng)
             labels = mixup(labels, other, rng)
+        if self.mosaic_enabled and getattr(h, "cutmix", 0.0) and rng.random() < h.cutmix:
+            other = self(self.dataset.load_raw(rng.randrange(len(self.dataset))), rng)
+            labels = cutmix(labels, other, rng=rng)
 
         labels["img"] = random_photometric(labels["img"], p=getattr(h, "augment_photometric", 0.01), rng=rng)
         labels["img"] = random_hsv(labels["img"], h.hsv_h, h.hsv_s, h.hsv_v, rng)

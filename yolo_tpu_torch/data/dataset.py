@@ -6,8 +6,9 @@ batches.
 
 Box rows (`cls cx cy w h`, normalized) and polygon rows (`cls x1 y1 x2 y2 ...`,
 turned into their boxes; the training augmentations warp the polygons) are read;
-the masks, keypoints and rotated boxes of the other tasks, and the image RAM cache,
-are not ported.
+the masks, keypoints and rotated boxes of the other tasks are not ported.
+`cache='ram'` (or True) keeps each decoded image in memory after its first read
+and hands out copies (the augmentations write into the image).
 """
 
 from __future__ import annotations
@@ -89,8 +90,6 @@ class YOLODataset:
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = False, hyp=None, stride: int = 32,
                  single_cls: bool = False, fraction: float = 1.0, names=None, cache=None):
-        if cache in ("ram", True):
-            raise NotImplementedError(f"cache={cache!r}: the image RAM cache is not ported")
         from yolo_tpu_torch.data.augment import TrainTransforms, ValTransforms
 
         self.img_path = img_path
@@ -101,8 +100,9 @@ class YOLODataset:
         self.im_files = self._list_images(img_path, fraction)
         if not self.im_files:
             raise FileNotFoundError(f"no images found in {img_path}")
-        # `cache` switches only the label cache: on unless it is False
+        # the label cache is on unless `cache` is False; 'ram' / True also keep the decoded images
         self.labels = self._load_labels(cache is not False)
+        self._im_cache = {} if cache in ("ram", True) else None
         self.transforms = TrainTransforms(self, imgsz, hyp) if augment and hyp is not None else ValTransforms(imgsz, stride)
 
     @staticmethod
@@ -169,9 +169,14 @@ class YOLODataset:
         from yolo_tpu_torch.ops.boxes import xywhn2xyxy
         from yolo_tpu_torch.utils.files import imread
 
-        img = imread(self.im_files[i])
-        if img is None:
-            raise FileNotFoundError(self.im_files[i])
+        if self._im_cache is not None and i in self._im_cache:
+            img = self._im_cache[i].copy()  # the augmentations write into the image
+        else:
+            img = imread(self.im_files[i])
+            if img is None:
+                raise FileNotFoundError(self.im_files[i])
+            if self._im_cache is not None:
+                self._im_cache[i] = img.copy()
         h, w = img.shape[:2]
         lb = self.labels[i]
         bboxes = xywhn2xyxy(lb["bboxes"], w=w, h=h) if len(lb["bboxes"]) else np.zeros((0, 4), np.float32)

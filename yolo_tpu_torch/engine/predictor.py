@@ -7,13 +7,22 @@ write. Device side, one pass per batch: uint8 BGR → RGB in [0, 1], forward
 through the C2f and head kernels, DFL decode and fixed-shape NMS, with one
 device synchronisation where the outputs are copied to the host. `augment=True`
 runs test-time augmentation (`DetectionModel.predict_augment`); an Ensemble's
-members' predictions meet in one NMS. The other tasks' branches, int8, lazy
-decode, `show` and `visualize` are not ported.
+members' predictions meet in one NMS. `int8=True` quantizes the fused tree
+(nn/quantize.py, dynamic activation scales) and re-quantizes it when the
+parameters change. YOLO_TPU_LAZY_DECODE=1 runs the default route: the JAX
+package's lazy decode computes the same outputs and was not faster on the H100
+(ROADMAP.md). `visualize` writes each layer's feature maps of the batch's first
+image; `show` opens a window where a display exists and warns once where none
+does (the JAX package's cv2.imshow aborts the process there). `embed` is taken
+and changes nothing, as in the JAX predictor (`YOLO.embed` gives embeddings).
+The other tasks' branches are not ported.
 """
 
 from __future__ import annotations
 
+import copy
 import os
+import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -26,7 +35,8 @@ from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, check_cfg, get_save_dir
 from yolo_tpu_torch.data.loaders import VID_FORMATS
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.results import Results
-from yolo_tpu_torch.nn.tasks import DetectionModel, install_params
+from yolo_tpu_torch.nn.quantize import quantize_params
+from yolo_tpu_torch.nn.tasks import DetectionModel, Ensemble, fuse, install_params, params_from_jax
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
 from yolo_tpu_torch.ops.nms import non_max_suppression
@@ -42,9 +52,11 @@ def _snap_batch(n: int) -> int:
     return b
 
 
-# cfg settings the detect predictor would act on but the port does not have, with
-# the value that asks for nothing; any other value raises NotImplementedError
-UNPORTED = {"show": False, "visualize": False, "embed": None, "int8": False}
+def _has_display() -> bool:
+    """Whether a window can open: on Linux an X or Wayland display must be named."""
+    if not sys.platform.startswith("linux"):
+        return True
+    return bool(os.environ.get("DISPLAY") or os.environ.get("WAYLAND_DISPLAY"))
 
 
 @dataclass
@@ -62,6 +74,9 @@ class PredictArgs:
     classes: list | None = None
     agnostic_nms: bool = False
     augment: bool = False  # test-time augmentation, for a plain DetectionModel
+    int8: bool = False  # PTQ int8 convs, dynamic activation scales (nn/quantize.py)
+    show: bool = False  # a window per image, where a display exists
+    visualize: bool = False  # per-layer feature maps of each batch's first image, under the run directory
     max_det: int = 300
     batch: int = 16
     vid_stride: int = 1
@@ -88,17 +103,13 @@ class PredictArgs:
     def update(self, overrides: dict) -> None:
         """Take settings by name. Every cfg key is accepted (`persist` too, which
         `YOLO.track` sends): the ones above are set, the others change nothing
-        here (train, val, export, plotting and tracker keys), except those in
-        UNPORTED, which raise NotImplementedError when they ask for something.
-        A name no cfg has raises TypeError; a value of the wrong type TypeError, and a
+        here (train, val, export, plotting and tracker keys, and `embed`, as in
+        the JAX predictor). A name no cfg has raises TypeError; a value of the wrong type TypeError, and a
         fraction (conf, iou) outside [0, 1] ValueError, as the JAX package's `get_cfg`."""
         check_cfg(dict(overrides))
         for k, v in overrides.items():
             if hasattr(self, k):
                 setattr(self, k, v)
-            elif k in UNPORTED:
-                if v != UNPORTED[k]:
-                    raise NotImplementedError(f"predict setting {k}={v!r} is not ported (only {k}={UNPORTED[k]!r})")
             elif k != "persist" and k not in DEFAULT_CFG_DICT:
                 raise TypeError(f"'{k}' is not a setting of the detect predictor nor a cfg key")
 
@@ -134,12 +145,19 @@ class BasePredictor:
         return torch.bfloat16 if self.args.half or str(self.args.compute_dtype) == "bfloat16" else torch.float32
 
     def set_params(self, params) -> None:
-        """Install a parameter tree: BN folded (`params_from_jax` fuses), on the
-        device and in the compute dtype the settings name now. The model records
-        what it holds, so the tree is reloaded only when another user of the
-        model (the validator) or a change of `device` or dtype replaced it."""
+        """Install a parameter tree: BN folded (`params_from_jax` fuses), and with `int8`
+        quantized (re-quantized when the tree changes, as JAX `set_params`), on the device
+        and in the compute dtype the settings name now. The model records what it holds, so
+        the tree is reloaded only when another user of the model (the validator) or a change
+        of `device`, dtype or `int8` replaced it."""
         self._params = params
-        install_params(self.model, params, self.device, self.dtype)
+        tree = params
+        if self.args.int8:
+            if getattr(self, "_quantized", (None,))[0] is not params:
+                fused = self.model.fuse(params) if isinstance(self.model, Ensemble) else fuse(params)
+                self._quantized = (params, quantize_params(fused))
+            tree = self._quantized[1]
+        install_params(self.model, tree, self.device, self.dtype)
 
     @torch.no_grad()
     def _predict(self, imgs: torch.Tensor) -> dict:
@@ -149,8 +167,8 @@ class BasePredictor:
         x = imgs.flip(-1).to(self.dtype) / 255.0
         if a.augment and self._takes_augment():
             preds = self.model.predict_augment(x, plain=a.plain)
-        else:
-            preds = self.model.predict(x, neck_opt=True, plain=a.plain)
+        else:  # an int8 model walks without the neck fold
+            preds = self.model.predict(x, neck_opt=not getattr(self.model, "int8", False), plain=a.plain)
         return non_max_suppression(
             preds, conf_thres=a.conf, iou_thres=a.iou, classes=a.classes, agnostic=a.agnostic_nms,
             max_det=a.max_det, plain=a.plain,
@@ -240,8 +258,10 @@ class BasePredictor:
             events[2].record()
         t_enq = time.perf_counter()
         out = {k: v.cpu().numpy() for k, v in out.items()}  # the batch's one wait for the device
-
         t2 = time.perf_counter()
+        if self.args.visualize and isinstance(self.model, DetectionModel):
+            self._visualize_features(batch[:1])
+
         results = []
         for i in range(n):
             valid = out["valid"][i]
@@ -256,12 +276,54 @@ class BasePredictor:
             r.speed = speed
             if self.args.verbose:
                 print(f"{path}: {r.verbose()}{speed['inference']:.1f}ms")
+        if self.args.show:
+            self._show_results(results)
         if self.timings is not None:
             self.timings.append({"n": n, "B": len(batch), "pre_s": t1 - t0, "enqueue_s": t_enq - t1, "wait_s": t2 - t_enq,
                                  "post_s": t3 - t2, "events": events})
         if self.args.save or self.args.save_txt or self.args.save_crop:
             self._write_results(results, metas)
         return results
+
+    def _show_results(self, results) -> None:
+        """One window frame per result. Without a display (or where cv2 cannot open one) the JAX
+        package's warning, once, and `show` turns off; the Results are unchanged."""
+        reason = None if _has_display() else "no display (DISPLAY and WAYLAND_DISPLAY are unset)"
+        if reason is None:
+            import cv2
+
+            try:
+                for r in results:
+                    cv2.imshow("yolo_tpu", r.plot(**self._plot_kwargs()))
+                    cv2.waitKey(1)
+                return
+            except cv2.error as e:
+                reason = e
+        if not getattr(self, "_show_warned", False):
+            LOGGER.warning(f"show=True unavailable (headless?): {reason}")
+            self._show_warned = True
+        self.args.show = False
+
+    def _visualize_features(self, imgs: np.ndarray) -> None:
+        """Every layer's output for image 0 of the batch (uint8 BGR), from an f32 walk without the neck
+        fold (a copy of the model holding the same tree in f32) → stage{i}_{Module}_features.png / .npy
+        under the run directory (`utils.plotting.feature_visualization`); the head's and int8 outputs
+        are skipped, as in the JAX package."""
+        from yolo_tpu_torch.utils.plotting import feature_visualization
+
+        if self.save_dir is None:
+            self.save_dir = get_save_dir(self.args)
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            self._vid_writers = {}
+        model = copy.deepcopy(self.model)
+        params_from_jax(model, self.model.held[0], torch.float32)
+        x = torch.from_numpy(np.ascontiguousarray(imgs[..., ::-1]).astype(np.float32) / 255.0).to(self.device)
+        with torch.no_grad():
+            _, col = model._walk(x, plain=self.args.plain, neck_opt=False, collect=set(range(len(model.layers))))
+        for i, m in enumerate(model.layers):
+            out = col.get(i)
+            if isinstance(out, torch.Tensor):
+                feature_visualization(out.float().cpu().numpy(), type(m).__name__, i, save_dir=self.save_dir)
 
     def _plot_kwargs(self) -> dict:
         a = self.args

@@ -18,9 +18,17 @@ results.csv with the JAX columns, args.yaml and early stopping on fitness.
 The full train state goes to weights/train_state/state.pt, which `resume`
 reads with last.npz.
 
-Not ported, each raising NotImplementedError: multi_scale, remat, the s2d train
-stem, n_devices > 1 (the mesh), batch=-1 (autobatch), cache='ram', the
-integration callbacks, and the other tasks' trainers.
+The JAX trainer's other settings: `multi_scale` (each batch resized on the host by
+a factor of the static ladder 0.5-1.5 drawn from np.random.default_rng(step)),
+`remat` (every layer but the head under torch.utils.checkpoint), `batch=-1` (the
+largest power-of-two batch whose train step fits, utils/profilers.autobatch with
+this trainer's step as the probe), `cache='ram'` (data/dataset.py) and the
+integration callbacks (TensorBoard under save_dir/tb, and the trackers whose SDK
+imports). YOLO_TPU_TRAIN_S2D=4 is taken with the JAX trainer's checks and
+warning and trains the standard stem: the JAX package's space-to-depth train
+stem computes the same activations and was slower a step on the H100 (ROADMAP.md).
+Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 7)
+and the other tasks' trainers.
 """
 
 from __future__ import annotations
@@ -38,9 +46,16 @@ from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
 from yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
 from yolo_tpu_torch.data.dataset import check_det_dataset
 from yolo_tpu_torch.device import resolve_device
-from yolo_tpu_torch.nn.tasks import DetectionModel, load_train_params, params_to_jax, train_leaves, tree_from_leaves
+from yolo_tpu_torch.nn.tasks import (
+    DetectionModel,
+    load_train_params,
+    params_to_jax,
+    train_leaves,
+    tree_from_leaves,
+    validate_s2d_stem,
+)
 from yolo_tpu_torch.utils import LOGGER, yaml_save
-from yolo_tpu_torch.utils.callbacks import default_callbacks, run_callbacks
+from yolo_tpu_torch.utils.callbacks import add_integration_callbacks, default_callbacks, run_callbacks
 from yolo_tpu_torch.utils.loss import v8DetectionLoss
 from yolo_tpu_torch.utils.optim import apply_bn_stats, build_optimizer
 
@@ -109,12 +124,13 @@ class DetectionTrainer:
     def __init__(self, overrides: dict | None = None, model=None, params=None):
         overrides = {k: v for k, v in (overrides or {}).items() if k in DEFAULT_CFG_DICT}
         self.args = get_cfg(overrides=overrides)
-        self._refuse_unported()
+        if (self.args.n_devices or 1) > 1:
+            raise NotImplementedError(f"n_devices={self.args.n_devices}: data-parallel training over a mesh is not ported (ROADMAP item 7)")
         self.device = resolve_device(self.args.device or None)
         self.args.device = str(self.device)
         self.save_dir = get_save_dir(self.args)
         self.wdir = self.save_dir / "weights"
-        self.callbacks = default_callbacks()
+        self.callbacks = add_integration_callbacks(dict(default_callbacks()))
         self.metrics = None
         self.best_fitness = 0.0
         self.best_params = None
@@ -157,17 +173,23 @@ class DetectionTrainer:
             self.model.device = self.device
             self.model.to(self.device)
 
-    def _refuse_unported(self) -> None:
-        a = self.args
-        for key in ("multi_scale", "remat"):
-            if getattr(a, key, False):
-                raise NotImplementedError(f"{key}=True is not ported")
-        if os.environ.get("YOLO_TPU_TRAIN_S2D", "0") not in ("", "0"):
-            raise NotImplementedError("the s2d train stem (YOLO_TPU_TRAIN_S2D) is not ported")
-        if (a.n_devices or 1) > 1:
-            raise NotImplementedError(f"n_devices={a.n_devices}: data-parallel training over a mesh is not ported")
-        if a.batch == -1:
-            raise NotImplementedError("batch=-1 (autobatch) is not ported")
+    def _check_train_s2d(self) -> None:
+        """YOLO_TPU_TRAIN_S2D (0 off a TPU in JAX, the default here): the JAX trainer's checks, r = 4
+        only, the yolov8 stem, layers 0-1 feeding no skip, no multi_scale, each warning where it fails.
+        Either way the standard stem trains (the module docstring)."""
+        r = int(os.environ.get("YOLO_TPU_TRAIN_S2D", "0") or 0)
+        if not r:
+            return
+        try:
+            if r != 4:
+                raise ValueError(f"train s2d supports r=4 only, got {r}")
+            validate_s2d_stem(self.model)
+            if any(i < 2 for i in self.model.save):
+                raise ValueError("layers 0-1 are skip sources")
+            if self.args.multi_scale:
+                raise ValueError("multi_scale resizes per step")
+        except ValueError as e:
+            LOGGER.warning(f"train s2d stem disabled: {e}")
 
     def _check_resume(self) -> None:
         """Resume the weights and the epoch from last.npz (the full state, where saved, in `train`)."""
@@ -208,13 +230,66 @@ class DetectionTrainer:
     # --- one step ---------------------------------------------------------------------
 
     def _upload(self, batch: dict):
+        """The uint8 images and the targets on the device."""
         x = torch.from_numpy(batch["img"])
         targets = {k: torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask_gt")}
         if self.device.type == "cuda":
             x = x.pin_memory()
             targets = {k: v.pin_memory() for k, v in targets.items()}
-        x = x.to(self.device, non_blocking=True).to(self.dtype) / 255.0
-        return x, {k: v.to(self.device, non_blocking=True) for k, v in targets.items()}
+        return x.to(self.device, non_blocking=True), {k: v.to(self.device, non_blocking=True) for k, v in targets.items()}
+
+    def _features(self, img: torch.Tensor):
+        """The train forward of a uint8 batch: /255 in the compute dtype, then the walk (remat as set)."""
+        return self.model.forward_features(img.to(self.dtype) / 255.0, remat=bool(self.args.remat))
+
+    def _autobatch(self, trainset) -> int:
+        """batch=-1: `utils.profilers.autobatch` with this trainer's step as the probe: the train forward
+        (remat as set), the loss over the loader's label capacity, every label valid, and the backward, in
+        the compute dtype, at the largest side a step takes (x1.5 under multi_scale) → the largest
+        power-of-two batch from 8 to 512 whose step fits."""
+        from yolo_tpu_torch.data.build import _derive_max_boxes
+        from yolo_tpu_torch.utils.profilers import autobatch
+
+        args = self.args
+        stride = int(max(self.model.stride))
+        side = args.imgsz if isinstance(args.imgsz, int) else max(args.imgsz)
+        if args.multi_scale:
+            side = max(int(side * 1.5) // stride * stride, stride)
+        n = _derive_max_boxes(trainset)
+        load_train_params(self.model, self.params)
+        self.model.train()
+        g = torch.Generator().manual_seed(0)
+
+        def step(b: int) -> None:
+            wh = torch.full((b, n, 2), 0.05)
+            targets = {"cls": torch.zeros((b, n)), "bboxes": torch.cat([torch.rand((b, n, 2), generator=g) * 0.9 + 0.05, wh], -1),
+                       "mask_gt": torch.ones((b, n))}
+            img = torch.zeros((b, side, side, 3), dtype=torch.uint8, device=self.device)
+            total, _ = self.loss_fn(self._features(img), {k: v.to(self.device) for k, v in targets.items()})
+            total.backward()
+
+        try:
+            return autobatch(step, self.device)
+        finally:
+            for p in self.model.parameters():
+                p.grad = None
+
+    @staticmethod
+    def multi_scale(batch: dict, ni: int, stride: int) -> dict:
+        """The batch's images resized on the host (cv2) by one factor of the static ladder (0.5, 0.75,
+        1, 1.25, 1.5), drawn by np.random.default_rng(ni), each side rounded down to the stride; the
+        labels are normalized and stay. The JAX trainer's multi_scale."""
+        import cv2
+
+        bh, bw = batch["img"].shape[1:3]
+        ladder = (0.5, 0.75, 1.0, 1.25, 1.5)
+        sf = ladder[np.random.default_rng(ni).integers(len(ladder))]
+        sh = max(int(bh * sf) // stride * stride, stride)
+        sw = max(int(bw * sf) // stride * stride, stride)
+        if (sh, sw) == (bh, bw):
+            return batch
+        resized = (cv2.resize(im, (sw, sh)) for im in batch["img"])  # cv2 drops a trailing 1-channel axis
+        return {**batch, "img": np.stack([r[..., None] if r.ndim == 2 else r for r in resized])}
 
     def _build_state(self, iterations: int) -> None:
         """Load the tree into the train form and set up the optimizer, the frozen layers and the EMA."""
@@ -247,8 +322,8 @@ class DetectionTrainer:
     def _step(self, batch: dict, lr: float, mom: float, lr_bias: float, marks: list) -> torch.Tensor:
         """Forward and loss, backward, `_update` → the detached (box, cls, dfl) components on the
         device. `marks` gets a time mark (a CUDA event on the card, the host clock elsewhere) after each."""
-        x, targets = self._upload(batch)
-        total, comps = self.loss_fn(self.model.forward_features(x), targets)
+        img, targets = self._upload(batch)
+        total, comps = self.loss_fn(self._features(img), targets)
         marks.append(self._mark())
         for p in self.opt.params:
             p.grad = None
@@ -290,11 +365,6 @@ class DetectionTrainer:
                 plot_labels(all_b, all_c, names=self.data.get("names", {}), save_path=self.save_dir / "labels.png")
             except Exception as e:
                 LOGGER.warning(f"label plot failed: {e}")
-        self.train_loader = build_dataloader(trainset, args.batch, workers=args.workers, shuffle=True, seed=args.seed,
-                                             drop_last=len(trainset) > args.batch)
-        nb = max(len(self.train_loader), 1)
-        iterations = math.ceil(len(trainset) / max(args.batch, args.nbs)) * args.epochs
-
         if args.amp:
             from yolo_tpu_torch.utils.checks import check_amp
 
@@ -302,8 +372,15 @@ class DetectionTrainer:
                 LOGGER.warning("AMP sanity check failed — training with float32")
                 args.amp = False
         self.dtype = torch.bfloat16 if args.amp else torch.float32
+        if args.batch == -1:
+            args.batch = self._autobatch(trainset)
+        self.train_loader = build_dataloader(trainset, args.batch, workers=args.workers, shuffle=True, seed=args.seed,
+                                             drop_last=len(trainset) > args.batch)
+        nb = max(len(self.train_loader), 1)
+        iterations = math.ceil(len(trainset) / max(args.batch, args.nbs)) * args.epochs
 
         model = self.model
+        self._check_train_s2d()
         self._build_state(iterations)
         leaves = self.leaves
         state_dir = self.wdir / "train_state"
@@ -358,6 +435,8 @@ class DetectionTrainer:
                     mom = float(np.interp(ni, xi, [args.warmup_momentum, args.momentum]))
                 else:
                     lr, mom, lr_bias = lr_epoch, args.momentum, lr_epoch
+                if args.multi_scale:
+                    batch = self.multi_scale(batch, ni, stride)
                 marks = [self._mark()]
                 comps.append(self._step(batch, lr, mom, lr_bias, marks))
                 steps.append((t_wait, t_got, marks))

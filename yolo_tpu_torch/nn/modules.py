@@ -29,10 +29,18 @@ Detect head with its DFL decode.
   against on the card.
   Every other conv (stem, stride-2 convs, SPPF) is torch.nn.functional.conv2d,
   as the JAX package leaves those to XLA.
+- A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
+  instead, and may emit a `QTensor`; the blocks then walk their convs module by module
+  (the JAX package's QTensor flow: split, concat, upsample and max-pool stay int8, a
+  residual add or a float conv dequantizes). While `quantize.capture` runs on a model, each
+  of its float ConvBNActs records the amax of its input and output for `calibrate_act_scales`.
+- The int8 head is the Detect head's `forward` (the branches conv by conv) and
+  `decode_parts` (the DFL decode).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -40,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolo_tpu_torch.nn import quantize as Q
 from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_head_cm
 from yolo_tpu_torch.ops.conv import conv_nhwc, silu
 
@@ -54,6 +63,11 @@ def _vec(v, device, dtype) -> torch.Tensor:
 
 
 BN_EPS = 1e-3  # the BatchNorm eps of the JAX package
+
+
+def _dtype_of(m) -> torch.dtype:
+    """The compute dtype `params_from_jax` loaded a module in (f32 before any load)."""
+    return getattr(m, "compute_dtype", torch.float32)
 
 
 def _uniform_hwio(rng, c1: int, c2: int, k: int) -> np.ndarray:
@@ -84,6 +98,10 @@ class ConvBNAct(nn.Module):
         self.conv_weight = nn.Parameter(torch.zeros(c2, c1, k, k))
         self.bn = BatchNorm(c2)
         self.batch_stats = None  # (mean, biased var, count) of the last training forward, held out of the gradient
+        self.q = None  # the int8 form (nn/quantize.py) when load_jax took a quantized subtree
+        self.path = ""  # the JAX tree path ('model/3/cv1'), the key of its calibrated scales
+        self.calib = None  # while `quantize.capture` runs on this model: the {path: amax} store
+        self.record_bn = True  # cleared while a rematerialised layer is recomputed (`recording_bn`)
 
     def init(self, rng) -> dict:
         return {
@@ -110,7 +128,8 @@ class ConvBNAct(nn.Module):
         bn = self.bn
         if self.training:
             var, mean = torch.var_mean(y.float(), (0, 1, 2), correction=0)
-            self.batch_stats = (mean.detach(), var.detach(), y.shape[0] * y.shape[1] * y.shape[2])
+            if self.record_bn:
+                self.batch_stats = (mean.detach(), var.detach(), y.shape[0] * y.shape[1] * y.shape[2])
         else:
             mean, var, y = bn.running_mean, bn.running_var, y.float()
         scale = (bn.weight * torch.rsqrt(var + BN_EPS)).to(y.dtype)
@@ -120,11 +139,56 @@ class ConvBNAct(nn.Module):
     def load_jax(self, p: dict, device, dtype) -> None:
         if "bn" in p:
             raise ValueError("load_jax takes fused parameters (fold BN with nn.tasks.fuse first)")
-        self.weight = _hwio_to_oihw(p["conv"]["weight"], device, dtype)
-        self.bias = _vec(p["conv"]["bias"], device, dtype)
+        c = p["conv"]
+        if "w_int8" in c:
+            def scale(k):
+                return None if c.get(k) is None else torch.tensor(float(np.float32(c[k])), dtype=torch.float32, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return silu(conv_nhwc(x, self.weight, self.s, self.k // 2) + self.bias)
+            self.q = {"w": Q.weight_matrix(c["w_int8"], device), "w_scale": _vec(c["w_scale"], device, torch.float32),
+                      "bias": _vec(c["bias"], device, torch.float32), "x_scale": scale("x_scale"),
+                      "y_scale": scale("y_scale")}
+            return
+        self.q = None
+        self.weight = _hwio_to_oihw(c["weight"], device, dtype)
+        self.bias = _vec(c["bias"], device, dtype)
+
+    def forward(self, x):
+        if self.q is not None:
+            return self._forward_int8(x)
+        x = Q.deq(x, self.weight.dtype)  # a quantized producer may feed a float conv
+        if self.calib is not None:
+            Q.record(self.calib, self.path, x)
+        y = silu(conv_nhwc(x, self.weight, self.s, self.k // 2) + self.bias)
+        if self.calib is not None:
+            Q.record(self.calib, f"OUT::{self.path}", y)
+        return y
+
+    def _forward_int8(self, x):
+        """The int8 conv (JAX `ConvBNAct._call_int8`): a QTensor input rides in as it is, a dense one
+        is quantized (static x_scale, else dynamic); int32 sums scaled by s_x · w_scale, bias and SiLU
+        in f32; requantized to a QTensor where a y_scale was calibrated, else the compute dtype."""
+        q = self.q
+        xq, sx = (x.q, x.s) if isinstance(x, Q.QTensor) else Q.quantize_input(x, q["x_scale"])
+        y = Q.int8_conv(xq, q["w"], self.k, self.s, self.c2).float()
+        y = y * (sx * q["w_scale"]) + q["bias"]
+        y = y * torch.sigmoid(y)
+        if q["y_scale"] is not None:
+            return Q.QTensor(torch.clamp(torch.round(y / q["y_scale"]), -127, 127).to(torch.int8), q["y_scale"])
+        return y.to(_dtype_of(self))
+
+
+@contextlib.contextmanager
+def recording_bn(module: nn.Module, on: bool):
+    """Whether the ConvBNActs inside `module` keep their BN batch moments (`batch_stats`) in
+    training forwards while the block runs; a flag on each, so no other module changes."""
+    convs = [c for c in module.modules() if isinstance(c, ConvBNAct)]
+    for c in convs:
+        c.record_bn = on
+    try:
+        yield
+    finally:
+        for c in convs:
+            c.record_bn = True
 
 
 class Conv2d(nn.Module):
@@ -153,8 +217,8 @@ class Conv2d(nn.Module):
         self.weight = _hwio_to_oihw(p["weight"], device, dtype)
         self.bias = _vec(p["bias"], device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_nhwc(x, self.weight, 1, self.k // 2) + self.bias
+    def forward(self, x) -> torch.Tensor:
+        return conv_nhwc(Q.deq(x, self.weight.dtype), self.weight, 1, self.k // 2) + self.bias
 
 
 class Bottleneck(nn.Module):
@@ -177,6 +241,15 @@ class Bottleneck(nn.Module):
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv2.forward_train(self.cv1.forward_train(x))
         return x + y if self.add else y
+
+    def forward(self, x):
+        """Conv by conv (the C2f module walk); a residual across int8 maps adds them dense."""
+        y = self.cv2(self.cv1(x))
+        if not self.add:
+            return y
+        if isinstance(x, Q.QTensor) or isinstance(y, Q.QTensor):
+            return Q.deq(x, _dtype_of(self)) + Q.deq(y, _dtype_of(self))
+        return x + y
 
 
 class C2f(nn.Module):
@@ -215,12 +288,30 @@ class C2f(nn.Module):
             self._kw = cuda_c2f.C2fWeights.from_convs(self.cv1, [(m.cv1, m.cv2) for m in self.m], self.cv2)
         return self._kw
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x, plain: bool = False):
+        """One C2f block through the kernel (`plain`: its twin); int8 weights, an int8 input or a
+        calibration capture walk the convs module by module instead (`forward_modules`)."""
+        if self.cv1.q is not None or isinstance(x, Q.QTensor) or self.cv1.calib is not None:
+            return self.forward_modules(x)
         fn = cuda_c2f.c2f_plain if plain else cuda_c2f.fused_c2f
         return fn(x, self.kernel_weights(), shortcut=self.shortcut)
 
+    def forward_modules(self, x):
+        """cv1, split, the bottleneck chain, concat, cv2 conv by conv (JAX `C2f.__call__` without a
+        kernel): an int8 cv1 output splits as int8, the concat stays int8 when every part is."""
+        y = self.cv1(x)
+        if isinstance(y, Q.QTensor):
+            parts = [Q.QTensor(y.q[..., : self.c], y.s), Q.QTensor(y.q[..., self.c :], y.s)]
+        else:
+            parts = [y[..., : self.c], y[..., self.c :]]
+        for m in self.m:
+            parts.append(m(parts[-1]))
+        return self.cv2(Q.qconcat(parts, _dtype_of(self)))
+
     def call_upconcat(self, small: torch.Tensor, skip: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """C2f(concat(up2x_nearest(small), skip)) without the upsampled map or the concat."""
+        if self.cv1.q is not None:
+            raise ValueError("the neck fold needs fused float weights, not int8 (neck_opt=False)")
         fn = cuda_c2f.c2f_upconcat_plain if plain else cuda_c2f.fused_c2f_upconcat
         return fn(small, skip, self.kernel_weights(), shortcut=self.shortcut)
 
@@ -242,15 +333,23 @@ class SPPF(nn.Module):
     def init(self, rng) -> dict:
         return {"cv1": self.cv1.init(rng), "cv2": self.cv2.init(rng)}
 
+    def _pool(self, y: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(y.permute(0, 3, 1, 2), self.k, 1, self.k // 2).permute(0, 2, 3, 1).contiguous()
+
     def _pooled(self, y0: torch.Tensor) -> torch.Tensor:
         y = [y0]
         for _ in range(3):
-            pooled = F.max_pool2d(y[-1].permute(0, 3, 1, 2), self.k, 1, self.k // 2)
-            y.append(pooled.permute(0, 2, 3, 1).contiguous())
+            y.append(self._pool(y[-1]))
         return torch.cat(y, -1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cv2(self._pooled(self.cv1(x)))
+    def forward(self, x):
+        y0 = self.cv1(x)
+        if not isinstance(y0, Q.QTensor):
+            return self.cv2(self._pooled(y0))
+        y = [y0]  # max is monotone in q: pool the codes (exact in f32), the scale rides along
+        for _ in range(3):
+            y.append(Q.QTensor(self._pool(y[-1].q.float()).to(torch.int8), y0.s))
+        return self.cv2(Q.qconcat(y, _dtype_of(self)))
 
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv2.forward_train(self._pooled(self.cv1.forward_train(x)))
@@ -267,8 +366,8 @@ class Concat(nn.Module):
     def init(self, rng) -> dict:
         return {}
 
-    def forward(self, xs) -> torch.Tensor:
-        return torch.cat(xs, -1)
+    def forward(self, xs):
+        return Q.qconcat(list(xs), _dtype_of(self))
 
 
 class Upsample(nn.Module):
@@ -283,7 +382,9 @@ class Upsample(nn.Module):
     def init(self, rng) -> dict:
         return {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if isinstance(x, Q.QTensor):  # nearest replication commutes with the scale
+            return Q.QTensor(self.forward(x.q), x.s)
         return x.repeat_interleave(self.scale, 1).repeat_interleave(self.scale, 2)
 
 

@@ -5,10 +5,11 @@ math (c2 = make_divisible(min(c2, max_channels) * width, 8), n = max(round(n *
 depth), 1)), the same static stride propagation, the neck fold detection of
 `_build_neck_opt`, `predict_parts` and `predict`. Every C2f and Detect level
 goes through the hand-written kernels (their plain twins with `plain=True`,
-or on the CPU); `predict_parts` always folds the neck, `predict` unless
-`neck_opt=False`. `predict_augment` (test-time augmentation: three scales, one
-flipped, through `predict`), `embed_features` (pooled layer outputs) and the
-NMS `Ensemble` of several models are the JAX package's too.
+or on the CPU); both fold the neck unless `neck_opt=False`. An int8 tree
+(nn/quantize.py) walks without the fold and without the C2f and head kernels.
+`predict_augment` (test-time augmentation: three scales, one flipped, through
+`predict`), `embed_features` (pooled layer outputs) and the NMS `Ensemble` of
+several models are the JAX package's too.
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -183,6 +184,10 @@ class DetectionModel(nn.Module):
         self.head = self.layers[-1]
         self.stride = self.head.stride
         self._build_neck_opt()
+        for name, m in self.named_modules():
+            if isinstance(m, M.ConvBNAct):
+                m.path = "/".join(["model", *name.split(".")[1:]])
+        self.int8 = False  # whether the loaded inference form holds int8 convs (nn/quantize.py); params_from_jax sets it
         self.device = resolve_device(device)
         self.to(self.device)
         self.eval()  # the train form's BN follows `.train()` / `.eval()`; the inference form never looks
@@ -219,15 +224,36 @@ class DetectionModel(nn.Module):
         rng = np.random.default_rng(seed)
         return {"model": {str(i): m.init(rng) for i, m in enumerate(self.layers)}}
 
-    def forward_features(self, x: torch.Tensor):
+    def int8_flow_paths(self) -> set:
+        """Tree paths of the convs that may emit int8 (JAX `int8_flow_paths`): every plain ConvBNAct
+        layer, SPPF's two, a C2f's cv1 and cv2 and its bottlenecks' cv1 (and cv2 without a residual)."""
+        paths = set()
+        for i, m in enumerate(self.layers):
+            base = f"model/{i}"
+            if isinstance(m, M.C2f):
+                paths |= {f"{base}/cv1", f"{base}/cv2"}
+                for j, b in enumerate(m.m):
+                    paths |= {f"{base}/m/{j}/cv1"} if b.add else {f"{base}/m/{j}/cv1", f"{base}/m/{j}/cv2"}
+            elif isinstance(m, M.SPPF):
+                paths |= {f"{base}/cv1", f"{base}/cv2"}
+            elif isinstance(m, M.ConvBNAct):
+                paths.add(base)
+        return paths
+
+    def forward_features(self, x: torch.Tensor, remat: bool = False):
         """Per-level raw head outputs [(B, H, W, 4*reg_max + nc)] of NHWC images, computed in
         x's dtype through the train form (JAX `forward_features`): every layer materialised,
         no neck fold and no kernel. In training mode (`.train()`) BN takes the batch's
-        moments and each ConvBNAct keeps them for `utils.optim.apply_bn_stats`."""
+        moments and each ConvBNAct keeps them for `utils.optim.apply_bn_stats`. `remat`
+        checkpoints every layer but the head (torch.utils.checkpoint): its activations are
+        recomputed in the backward, its BN moments recorded once."""
         y = {}
         for i, (m, f) in enumerate(zip(self.layers, self.froms)):
             x_in = [x if j == -1 else y[j] for j in f] if isinstance(f, list) else (x if f == -1 else y[f])
-            x = m.forward_train(x_in) if hasattr(m, "forward_train") else m(x_in)
+            if remat and not isinstance(m, M.Detect):
+                x = _remat(m, x_in)
+            else:
+                x = m.forward_train(x_in) if hasattr(m, "forward_train") else m(x_in)
             if i in self.save:
                 y[i] = x
         return x
@@ -260,24 +286,31 @@ class DetectionModel(nn.Module):
             raise ValueError("the model has no Detect head")
         return xs
 
+    def _decode_head(self, xs, plain: bool, head_cm: bool = False):
+        if self.int8:  # no kernel takes int8: the head conv by conv
+            return self.head.decode_parts(self.head(xs))
+        decode = self.head.decode_from_inputs_cm if head_cm else self.head.decode_from_inputs
+        return decode(xs, plain=plain)
+
     @torch.no_grad()
-    def predict_parts(self, x: torch.Tensor, plain: bool = False, head_cm: bool = False):
+    def predict_parts(self, x: torch.Tensor, plain: bool = False, head_cm: bool = False, neck_opt: bool | None = None):
         """Decoded (boxes (B, A, 4) px xywh, scores (B, A, nc)), f32, from NHWC
         images in the model's dtype. `plain=True` runs the kernels' plain twins.
         `head_cm=True` sends the Detect levels through the channel-major head
-        kernel instead of the default one."""
-        xs = self._head_inputs(x, plain)
-        decode = self.head.decode_from_inputs_cm if head_cm else self.head.decode_from_inputs
-        return decode(xs, plain=plain)
+        kernel instead of the default one. `neck_opt` (None: on for a float model,
+        off for an int8 one) folds the neck."""
+        xs = self._head_inputs(x, plain, not self.int8 if neck_opt is None else neck_opt)
+        return self._decode_head(xs, plain, head_cm)
 
     @torch.no_grad()
     def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False) -> torch.Tensor:
         """Decoded predictions (B, 4 + nc, A): px xywh boxes, then sigmoid
         scores, the layout `ops.nms.non_max_suppression` takes. The C2f blocks
         and the Detect levels go through the kernels (`plain=True`: their
-        twins); `neck_opt=False` materialises the neck's upsample and concat."""
+        twins); `neck_opt=False` materialises the neck's upsample and concat.
+        An int8 model walks its convs one by one (pass neck_opt=False)."""
         xs = self._head_inputs(x, plain, neck_opt)
-        return self.head.pack(*self.head.decode_from_inputs(xs, plain=plain))
+        return self.head.pack(*self._decode_head(xs, plain))
 
     @torch.no_grad()
     def predict_augment(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -289,7 +322,7 @@ class DetectionModel(nn.Module):
         gs = int(max(self.stride))
         ys = []
         for ratio, flip in zip(AUGMENT_SCALES, AUGMENT_FLIPS):
-            yi = self.predict(_scale_img(x.flip(2) if flip else x, ratio, gs), plain=plain)
+            yi = self.predict(_scale_img(x.flip(2) if flip else x, ratio, gs), neck_opt=not self.int8, plain=plain)
             bx = yi[:, 0:1] / ratio
             if flip:
                 bx = W - bx
@@ -385,9 +418,12 @@ def params_from_jax(model: DetectionModel, params: dict, dtype=None) -> Detectio
     records what it holds in `held` (this tree, its device, the dtype)."""
     dtype = dtype or torch.float32
     mp = (params if params_are_fused(params) else fuse(params))["model"]
+    for m in model.modules():
+        m.compute_dtype = dtype
     for i, m in enumerate(model.layers):
         if hasattr(m, "load_jax"):
             m.load_jax(mp[str(i)], model.device, dtype)
+    model.int8 = any(m.q is not None for m in model.modules() if isinstance(m, M.ConvBNAct))
     model.held = (params, model.device, dtype)
     return model
 
@@ -407,6 +443,36 @@ def install_params(model, params, device, dtype) -> None:
     model.device = device
     model.to(device)
     params_from_jax(model, params, dtype)
+
+
+def _remat(m, x_in):
+    """One train-form layer under torch.utils.checkpoint: its activations are dropped after the
+    forward and recomputed in the backward. The recompute keeps no BN moments: the first forward
+    recorded them (JAX `_apply_layer` under ctx.remat)."""
+    from torch.utils.checkpoint import checkpoint
+
+    calls = [0]
+    multi = isinstance(x_in, list)
+
+    def fn(*xs):
+        calls[0] += 1
+        with M.recording_bn(m, calls[0] == 1):
+            inp = list(xs) if multi else xs[0]
+            return m.forward_train(inp) if hasattr(m, "forward_train") else m(inp)
+
+    return checkpoint(fn, *(x_in if multi else [x_in]), use_reentrant=False)
+
+
+def validate_s2d_stem(model) -> None:
+    """The JAX package's check of a space-to-depth stem setting: layers 0 and 1 are the yolov8
+    stem, plain 3x3 stride-2 convs (the port's ConvBNAct pads k // 2, has no groups or dilation
+    and ends in SiLU). ValueError otherwise."""
+    for i in (0, 1):
+        m = model.layers[i]
+        if type(m) is not M.ConvBNAct:
+            raise ValueError(f"s2d stem fold: layer {i} is {type(m).__name__}, not a plain stem conv")
+        if (m.k, m.s) != (3, 2):
+            raise ValueError(f"s2d stem fold: layer {i} has k, s = {(m.k, m.s)}, not (3, 2)")
 
 
 def train_leaves(model: DetectionModel) -> dict:

@@ -17,10 +17,22 @@ Counterpart of yolo_tpu/pipeline/fused.py::FusedDetectTrack:
   side stream, enqueues every chunk without waiting, and synchronises once at
   the end; `put_frames` stages one chunk for `process_chunk_device`.
 
-`head_cm=True` sends the Detect levels through the channel-major head kernel
-(ops/cuda_head_cm.py), the JAX package's `pallas_head2`. Its TPU-only knobs
-(mesh, s2d, int8, sparse head, lazy decode, frame-format upload, scan unroll)
-are not ported.
+The JAX package's signature, each setting off unless asked for, as there:
+- `pallas_head2=True` sends the Detect levels through the channel-major head
+  kernel (ops/cuda_head_cm.py);
+- `int8=True` (nn/quantize.py): PTQ convs, static activation scales and the
+  int8-resident flow when `int8_calib` frames are given (calibrated on the
+  gray-folded tree, the /255 fold skipped), dynamic scales otherwise; no C2f or
+  head kernel takes int8, the NMS kernel runs;
+- `neck_opt` (None: on for a fused float tree, off for int8);
+- `s2d=4|8`, `sparse_head=True` (or YOLO_TPU_SPARSE_HEAD=1), lazy decode
+  (YOLO_TPU_LAZY_DECODE=1), `pallas_head`, `pallas_c2f` and `unroll` are taken,
+  with the JAX package's argument checks, and run the default route: the JAX
+  package's space-to-depth stem, sparse box head and lazy decode compute the
+  default route's outputs in another order, and on the H100 none of them was
+  faster than it (ROADMAP.md); the port's kernels are always its route, and its
+  step loop runs frame by frame.
+`mesh` raises NotImplementedError: sharding over cards is ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -33,7 +45,8 @@ import torch
 
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.kalman.batched import STATUS_DETECTED, STATUS_NONE, STATUS_PREDICTED, init_state, make_step
-from yolo_tpu_torch.nn.tasks import fuse, params_are_fused, params_from_jax
+from yolo_tpu_torch.nn.quantize import calibrate_act_scales, params_are_fused_float, quantize_params
+from yolo_tpu_torch.nn.tasks import fuse, params_are_fused, params_from_jax, validate_s2d_stem
 from yolo_tpu_torch.ops.nms import non_max_suppression_parts
 
 # packed (T, N, 12) column layout; track_num rides an f32 column, exact up to 2^24 ids
@@ -68,15 +81,15 @@ def init_stats(n_max: int, device=None) -> dict:
     }
 
 
-def _fold_stem(params: dict, gray: bool) -> dict:
-    """The /255 fold, and for single-channel frames the gray fold, into the
-    (fused) stem conv of a JAX parameter tree."""
+def _fold_stem(params: dict, gray: bool, norm: bool = True) -> dict:
+    """For single-channel frames the gray fold (conv(broadcast(x, 3), W) == conv(x, sum_c W)),
+    and with `norm` the /255 fold, into the (fused) stem conv of a JAX parameter tree."""
     stem = params["model"]["0"]["conv"]
     w = np.asarray(stem["weight"], np.float32)
     if gray and w.shape[2] == 3:
         w = w.sum(axis=2, keepdims=True)
     model = dict(params["model"])
-    model["0"] = {**params["model"]["0"], "conv": {**stem, "weight": w / 255.0}}
+    model["0"] = {**params["model"]["0"], "conv": {**stem, "weight": w / 255.0 if norm else w}}
     return {**params, "model": model}
 
 
@@ -87,8 +100,7 @@ class FusedDetectTrack:
     `params` a JAX parameter tree (fused or not). `dtype` is the compute dtype
     of the forward (bf16 by default). `plain=True` runs the kernels' plain
     PyTorch twins instead of the CUDA kernels: the reference on the card.
-    `head_cm=True` runs the Detect levels through the channel-major head
-    kernel instead of the default one."""
+    The other settings are the JAX package's (the module docstring)."""
 
     def __init__(
         self,
@@ -105,22 +117,61 @@ class FusedDetectTrack:
         n_max: int = 64,
         d_max: int = 16,
         dtype=None,
+        int8: bool = False,
+        int8_calib=None,
+        mesh=None,
+        s2d: int = 0,
         max_nms: int = 0,
+        pallas_head: bool = False,
+        neck_opt: bool | None = None,
+        pallas_c2f: bool = False,
+        unroll: int | None = None,
+        sparse_head: bool | None = None,
+        pallas_head2: bool = False,
         device=None,
         plain: bool = False,
-        head_cm: bool = False,
     ):
         if channels not in (1, 3):
             raise ValueError(f"frames have 1 (IR) or 3 (BGR) channels, got {channels}")
+        if mesh is not None:
+            raise NotImplementedError("FusedDetectTrack(mesh=...): sharding the pipeline over cards is not ported (ROADMAP item 7)")
+        if s2d:
+            if int8:
+                raise ValueError("s2d and int8 are mutually exclusive")
+            if frame_hw[0] % s2d or frame_hw[1] % s2d:
+                raise ValueError(f"frame {tuple(frame_hw)} not divisible by s2d={s2d}")
+            validate_s2d_stem(model)
+        if sparse_head and int8:
+            raise ValueError("the sparse box head takes fused float weights, not int8")
         self.device = resolve_device(device)
         if not params_are_fused(params):
             params = fuse(params)
-        params = _fold_stem(params, gray=channels == 1)
+        # the gray fold runs before quantization (int8 rows summed could overflow ±127); the /255
+        # fold is skipped for int8 (its scales calibrate on /255 inputs)
+        self.norm_folded = not int8
+        params = _fold_stem(params, gray=channels == 1, norm=self.norm_folded)
         self.channels = channels
-        self.head_cm = head_cm
+        self.pallas_head2 = pallas_head2
         self.model = copy.deepcopy(model)
         self.model.device = self.device
         self.dtype = dtype or torch.bfloat16
+        if int8:
+            scales = None
+            if int8_calib is not None:  # static scales from representative uint8 frames (B, H, W, C)
+                cal = np.asarray(int8_calib).astype(np.float32) / 255.0
+                in_ch = np.asarray(params["model"]["0"]["conv"]["weight"]).shape[2]
+                if cal.shape[-1] == 1 and in_ch == 3:
+                    cal = np.broadcast_to(cal, cal.shape[:-1] + (3,))
+                elif cal.shape[-1] == 3 and in_ch == 1:
+                    cal = cal.mean(axis=-1, keepdims=True)
+                scales = calibrate_act_scales(self.model, params, cal)
+            params = quantize_params(params, act_scales=scales, flow_paths=self.model.int8_flow_paths())
+        if neck_opt is None:
+            neck_opt = not int8 and params_are_fused_float(params)
+        elif neck_opt and int8:
+            raise ValueError("neck_opt needs fused float weights, not int8")
+        self.neck_opt = neck_opt
+        self.int8 = int8
         params_from_jax(self.model, params, self.dtype)
         self.frame_hw = tuple(frame_hw)
         self.chunk = chunk
@@ -153,15 +204,15 @@ class FusedDetectTrack:
             raise ValueError(f"a chunk is {(self.chunk, *self.frame_hw, self.channels)} frames, got {tuple(frames.shape)}")
         marks = [] if self.timings is not None and frames.is_cuda else None
         self._mark(marks, "start")
-        x = frames.to(self.dtype)  # /255 lives in the stem weights
+        x = frames.to(self.dtype)
+        if not self.norm_folded:
+            x = x / 255.0
         if self.channels == 3:
             x = x.flip(-1)  # BGR → RGB
-        boxes_xywh, scores = self.model.predict_parts(x, plain=self.plain, head_cm=self.head_cm)
+        parts = self.model.predict_parts(x, plain=self.plain, head_cm=self.pallas_head2, neck_opt=self.neck_opt)
         self._mark(marks, "forward")
-        det = non_max_suppression_parts(
-            boxes_xywh, scores, conf_thres=self.conf, iou_thres=self.iou, max_det=self.d_max, max_nms=self.max_nms,
-            plain=self.plain,
-        )
+        det = non_max_suppression_parts(*parts, conf_thres=self.conf, iou_thres=self.iou, max_det=self.d_max,
+                                        max_nms=self.max_nms, plain=self.plain)
         self._mark(marks, "nms")
         det_boxes = det["boxes"]
         det_mask = det["valid"] & (det["scores"] > self.conf)

@@ -1,6 +1,7 @@
 """The trainer's event hooks (counterpart of yolo_tpu/utils/callbacks.py): the same
-hook names, each a list of functions called with the trainer. The experiment-tracker
-integrations (TensorBoard, W&B, MLflow, ClearML, Comet, DVC) are not ported."""
+hook names, each a list of functions called with the trainer. `add_integration_callbacks`
+attaches TensorBoard (utils/tb_logger.py) and the experiment trackers whose SDK imports
+(utils/integrations.py), as the JAX trainer does at its construction."""
 
 from __future__ import annotations
 
@@ -23,8 +24,14 @@ def default_callbacks() -> dict:
     return {h: [] for h in HOOKS}
 
 
-def add_integration_callbacks(callbacks: dict):
-    raise NotImplementedError("the experiment-tracker integration callbacks (TensorBoard, W&B, MLflow, ClearML, Comet, DVC) are not ported")
+def add_integration_callbacks(callbacks: dict) -> dict:
+    """Attach the TensorBoard writer and every tracker integration that imports → `callbacks`."""
+    from yolo_tpu_torch.utils.integrations import attach
+    from yolo_tpu_torch.utils.tb_logger import callbacks as tb
+
+    for k, v in tb.items():
+        callbacks.setdefault(k, []).append(v)
+    return attach(callbacks)
 
 
 def run_callbacks(callbacks: dict, hook: str, obj) -> None:

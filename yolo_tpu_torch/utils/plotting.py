@@ -1,5 +1,5 @@
 """Plots of the validator and the trainer, and the box drawing of `Results.plot`
-(counterpart of `plot_confusion_matrix`, `plot_labels`, `plot_images` and the box
+(counterpart of `plot_confusion_matrix`, `plot_labels`, `plot_images`, `feature_visualization` and the box
 drawing of `Annotator` in yolo_tpu/utils/plotting.py; nothing else of it is ported).
 matplotlib and cv2 are imported only when a plot is drawn."""
 
@@ -147,3 +147,46 @@ def plot_labels(boxes, cls, names=None, save_path="labels.png"):
     fig.savefig(save_path, dpi=120)
     plt.close(fig)
     return save_path
+
+
+_MPL_WARNED = [False]
+
+
+def feature_visualization(x: np.ndarray, module_type: str, stage: int, n: int = 32, save_dir=Path("runs/detect/exp")) -> None:
+    """One layer's NHWC feature maps (image 0) → save_dir/stage{stage}_{module}_features.png, a grid of
+    its first `n` channels, and the .npy of the map (JAX `feature_visualization`). Head outputs and
+    1-pixel maps are skipped. Without matplotlib only the .npy is written, with one warning."""
+    from yolo_tpu_torch.utils import LOGGER
+
+    if any(m in module_type for m in ("Detect", "Segment", "Pose", "Classify", "OBB", "RTDETRDecoder")):
+        return
+    x = np.asarray(x)
+    if x.ndim != 4 or x.shape[1] <= 1 or x.shape[2] <= 1:
+        return
+    if x.dtype not in (np.float32, np.float64):
+        x = x.astype(np.float32)
+    f = Path(save_dir) / f"stage{stage}_{module_type.rsplit('.', 1)[-1]}_features.png"
+    f.parent.mkdir(parents=True, exist_ok=True)
+    channels = x.shape[-1]
+    n = min(n, channels)
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        if not _MPL_WARNED[0]:
+            LOGGER.warning("visualize: matplotlib is not installed; writing the feature maps' .npy files only")
+            _MPL_WARNED[0] = True
+    else:
+        _, ax = plt.subplots(math.ceil(n / 8), 8, tight_layout=True)
+        ax = np.atleast_1d(ax).ravel()
+        plt.subplots_adjust(wspace=0.05, hspace=0.05)
+        for i in range(len(ax)):
+            if i < n:
+                ax[i].imshow(x[0, :, :, i])
+            ax[i].axis("off")
+        LOGGER.info(f"Saving {f}... ({n}/{channels})")
+        plt.savefig(f, dpi=150, bbox_inches="tight")
+        plt.close()
+    np.save(str(f.with_suffix(".npy")), x[0])
