@@ -153,6 +153,18 @@ Phases (any failure stops the run with a non-zero exit code):
    each of the default, remat and multi_scale + RAM cache + mosaic9 + cutmix (losses, device ms a
    step, peak memory), then `train(batch=-1)` at 640: autobatch's pick with the trainer's step as
    its probe, and one epoch of full batches at that pick (finite losses, peak memory).
+18. the slice of YOLO.benchmark, YOLO.tune, COCOeval and the classify task: `[track botsort reid]`
+   (after `[track botsort]`): the BoT-SORT run with its crop-and-embed ReID encoder on
+   (`model: yolov8n.yaml`, the GMC off), f32 kernels (detector and encoder) against the twins, then
+   bf16 timed with the encoder's host ms/frame; `[benchmark]` (after `[detect_only]`): best.npz's
+   decoded forward at 640², B = 8 and 32, f32 kernels against twins with kernels 1, 2, 3 and 5 held
+   at those activations, then `YOLO.benchmark(imgsz=640)` in bf16 and f32 and `benchmark_formats`;
+   `[val coco]` (after `[val]`): the 512-frame split with a COCO annotations file, `save_json=True`,
+   the COCOeval keys against a rerun on the written files; `[tune]` (after `[train settings]`): two
+   iterations of `YOLO("yolov8-small.yaml").tune` on a 32-frame split at 640; `[classify]` (last):
+   yolov8n-cls at full width, predict f32 kernel against twin then bf16, the C2f kernel held at its
+   four instances (f32 and bf16, B = 1 and 32), 3 epochs of training on a seeded 4-class folder
+   dataset (top1 >= 0.9) and `val` through the kernel against the twin.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -1136,11 +1148,14 @@ def environ(**env):
                 os.environ[k] = v
 
 
-def track_run(frames, tracker, half, plain, device_tracker=False, d_max=320, n_max=512):
+def track_run(frames, tracker, half, plain, device_tracker=False, d_max=320, n_max=512, encoder_s=None):
     """`YOLO(best.npz).track` one BGR frame per call with persist=True at the track
     defaults (conf 0.1, max_det 300, imgsz 640) → (Results rows per frame, wall s,
     tracker s, tracker class). The tracker is made first, as the first call would
-    make it (create_tracker), so that its update can be timed; one predict warms up."""
+    make it (create_tracker), so that its update can be timed; one predict warms up.
+    A BoT-SORT ReID encoder embeds through the C2f kernel's twin too with `plain`, is
+    warmed up on one crop, and adds its host seconds to `encoder_s["encoder"]`."""
+    import numpy as np
     import torch
 
     from yolo_tpu_torch import YOLO
@@ -1152,6 +1167,13 @@ def track_run(frames, tracker, half, plain, device_tracker=False, d_max=320, n_m
         # cuDNN plans, allocator, first launches
         model.predict(frames[0], conf=0.1, half=half, plain=plain, compute_dtype=compute_dtype(half), verbose=False)
         model._tracker = trk = create_tracker(tracker, device=model.device)
+    encoder = getattr(trk, "encoder", None)
+    if encoder is not None:
+        if plain:
+            embed = encoder.model.embed
+            encoder.model.embed = lambda *a, **k: embed(*a, plain=True, **k)
+        encoder(frames[0], np.array([[64.0, 64.0, 32.0, 32.0]], np.float32))  # plans, cuDNN, allocator
+        time_calls(trk, "encoder", encoder_s if encoder_s is not None else {})
     spent, update = [0.0], trk.update
 
     def timed_update(*args, **kw):
@@ -1236,6 +1258,48 @@ def track_device_phase(clip, card, host_rows):
             f"frames/s; predict {(wb - tb) / TRACK_FRAMES * 1e3:.3f} ms/frame, batched tracker update {tb / TRACK_FRAMES * 1e3:.3f} "
             f"ms/frame (host clock, ends in its copy to the host); tracked rows {sum(len(r) for r in rb if r.shape[-1] == 7)}; "
             f"kernel launches {launches}")
+
+
+def reid_tracker_yaml(path: Path) -> Path:
+    """The shipped botsort.yaml with the GMC off and the ReID encoder on (`model: yolov8n.yaml`), at `path`."""
+    text = (ROOT / "yolo_tpu_torch" / "cfg" / "trackers" / "botsort.yaml").read_text()
+    text = text.replace("gmc_method: sparseOptFlow", "gmc_method: none").replace("with_reid: False", "with_reid: True")
+    text = "\n".join("model: yolov8n.yaml" if line.startswith("model:") else line for line in text.splitlines()) + "\n"
+    if "with_reid: True" not in text or "model: yolov8n.yaml" not in text:
+        raise AssertionError(f"botsort.yaml no longer has the with_reid / model keys this phase sets:\n{text}")
+    path.write_text(text)
+    return path
+
+
+def track_reid_phase(clip, card):
+    """`[track botsort reid]`: YOLO(best.npz).track over the first TRACK_FRAMES BGR frames with BoT-SORT's
+    crop-and-embed ReID encoder (`YOLO("yolov8n.yaml").embed` of each detection's crop at imgsz 128, on the
+    card, f32, through the C2f kernel; the JAX package's initial tree) and the GMC off: f32 kernels (the
+    detector's and the encoder's) against the twins (rows and ids equal, boxes 1e-2 px, conf 1e-4), then the
+    bf16 detector, timed: frames/s, predict, tracker and the encoder's host ms/frame, launches."""
+    import numpy as np
+
+    frames = np.repeat(clip[:TRACK_FRAMES], 3, -1)
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = str(reid_tracker_yaml(Path(tmp) / "botsort_reid.yaml"))
+        enc_k, enc_p, enc_b = {}, {}, {}
+        (rk, wk, _, name), launches_f32 = counted(path, lambda: track_run(frames, cfg, half=False, plain=False, encoder_s=enc_k))
+        rp, wp, _, _ = track_run(frames, cfg, half=False, plain=True, encoder_s=enc_p)
+        worst, n_rows, ids = compare_tracks(rk, rp, 1e-2, 1e-4, "track botsort reid: kernels against plain")
+        if n_rows <= 0 or not enc_k.get("encoder") or not enc_p.get("encoder"):
+            raise AssertionError(f"track botsort reid: {n_rows} tracked rows, encoder seconds {enc_k} / {enc_p}")
+        log("track botsort reid f32", card, f"{name} + ReID(yolov8n.yaml, imgsz 128): kernels in {wk:.2f} s | plain in {wp:.2f} s | "
+            f"rows and ids equal on every frame ({n_rows} tracked rows, ids {sorted(int(i) for i in ids)}); max |box diff| "
+            f"{worst:.3e} px; encoder {enc_k['encoder'] * 1e3 / TRACK_FRAMES:.3f} ms/frame (twins "
+            f"{enc_p['encoder'] * 1e3 / TRACK_FRAMES:.3f}); launches {launches_f32}")
+        (rb, wb, tb, _), launches = counted(path, lambda: track_run(frames, cfg, half=True, plain=False, encoder_s=enc_b))
+    same = sum(len(a) == len(b) for a, b in zip(rb, rk))
+    enc = enc_b["encoder"]
+    log("track botsort reid bf16", card, f"{TRACK_FRAMES} frames in {wb:.3f} s = {TRACK_FRAMES / wb:.1f} frames/s (host clock, one "
+        f"frame per track call); predict {(wb - tb) / TRACK_FRAMES * 1e3:.3f} ms/frame, tracker {(tb - enc) / TRACK_FRAMES * 1e3:.3f} "
+        f"ms/frame and its ReID encoder {enc / TRACK_FRAMES * 1e3:.3f} ms/frame (f32); rows per frame equal "
+        f"to f32 on {same}/{TRACK_FRAMES} frames; kernel launches {launches}")
 
 
 def byte_scan_phase(model, params, clip, card):
@@ -2811,6 +2875,50 @@ def video_phases(clip, card):
             f"{by}; launches {launches}")
 
 
+def benchmark_phase(model, params, clip, card):
+    """`[benchmark]`: best.npz's decoded forward (`DetectionModel.predict`, no NMS) on the clip's first
+    frames letterboxed to 640x640 at B = 8 and 32, f32 through the kernels against the twins (boxes
+    1e-2 px, scores 1e-4), with kernels 1, 2, 3 and 5 held against their twins on those activations;
+    then `YOLO(best.npz).benchmark(imgsz=640)` (bf16) and `half=False` (f32): latency and frames/s at
+    B = 1, 8, 32 with the launches of each call (no NMS); then `benchmark_formats` at 640, B = 1."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.tasks import install_params
+    from yolo_tpu_torch.utils.benchmarks import benchmark_formats
+
+    frames = np.repeat(clip[:32], 3, -1)
+    x32 = torch.cat([letterboxed(f) for f in frames])
+    install_params(model, params, model.device, torch.float32)
+    for B in (8, 32):
+        x = x32[:B]
+        got, want = model.predict(x), model.predict(x, plain=True)
+        torch.cuda.synchronize()
+        box, score = float((got[:, :4] - want[:, :4]).abs().max()), float((got[:, 4:] - want[:, 4:]).abs().max())
+        if got.shape != want.shape or not torch.isfinite(got).all() or box > 1e-2 or score > 1e-4:
+            raise AssertionError(f"benchmark B={B}: decoded forward kernels vs twins: boxes {box} px, scores {score}, {tuple(got.shape)}")
+        log("benchmark f32", card, f"B={B} 640x640 decoded forward {tuple(got.shape)}: kernels against twins max |box| {box:.3e} px, "
+            f"|score| {score:.3e}")
+        hold_path_kernels([model], x, f"benchmark B={B}", card)
+    y = YOLO(str(WEIGHTS))
+    path = {"c2f", "c2f_upconcat", "head_level"}
+    for half in (True, False):
+        rows, launches = counted(path, lambda: y.benchmark(imgsz=640, half=half))
+        if [r["batch"] for r in rows] != [1, 8, 32] or not all(r["fps"] > 0 for r in rows):
+            raise AssertionError(f"benchmark: rows {rows}")
+        log(f"benchmark {'bf16' if half else 'f32'}", card, "; ".join(f"B={r['batch']} {r['latency_ms']} ± {r['std_ms']} ms = "
+                                                                      f"{r['fps']} frames/s" for r in rows)
+            + f" (2 warm-ups + 10 timed calls a batch, each ended by torch.cuda.synchronize); launches {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, launches = counted(path, lambda: benchmark_formats(y.model, y.params, imgsz=640, batch=1, workdir=tmp))
+    status = [(r["format"], r["status"]) for r in rows]
+    if status != [("native-jit", "✅"), ("npz", "✅"), ("orbax", "❌ NotImplementedError"), ("stablehlo", "❌ NotImplementedError")]:
+        raise AssertionError(f"benchmark_formats: {rows}")
+    log("benchmark formats", card, "; ".join(f"{r['format']} {r['status']} {r['size_MB']} MB {r['latency_ms']} ms {r['fps']} frames/s"
+                                            for r in rows) + f" (f32, B=1, 640); launches {launches}")
+
+
 def pipeline_options_phase(model, params, clip, card, want_outs, want_stats):
     """`[pipeline options]`: `run_clip` of the 512-frame clip in bf16 with collect_outputs=False (no
     outputs kept), and with prefetch 1 and 4 (the pinned ring's depth): the stats must equal `[pipeline]`'s
@@ -3038,6 +3146,231 @@ def train_settings_phase(data, run_dir, card):
         f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
 
 
+TUNE_SET = (32, 30_000)  # `[tune]`: frames and seed of its split (the same frames as train and val)
+TUNE_RUN = dict(iterations=2, epochs=1, imgsz=640, batch=16, workers=8, plots=False)
+
+
+def tune_phase(root: Path, card):
+    """`[tune]`: YOLO("yolov8-small.yaml").tune(TUNE_RUN) on a seeded 32-frame 640x512 split (write_split,
+    its frames both the train and the val split): each iteration a fresh model trained one epoch in bf16
+    and validated (kernels 1, 2, 3 and 5 on the card); the fitness of both iterations, the CSV's columns,
+    the seconds of the whole call and of each training's loop, best_hyperparameters.yaml and best.npz written."""
+    import csv
+
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+
+    write_split(root, *TUNE_SET, split="train")
+    data = write_split(root, *TUNE_SET, split="val")
+    t0 = time.perf_counter()
+    best, launches = counted({"c2f", "c2f_upconcat", "head_level", "nms_keep"}, lambda: YOLO("yolov8-small.yaml").tune(
+        data=str(data), project=str(root / "runs"), **TUNE_RUN))
+    wall = time.perf_counter() - t0
+    tune_dir = root / "runs" / "tune"
+
+    def csv_rows(path):
+        with open(path) as f:
+            return list(csv.DictReader(f))
+
+    rows = csv_rows(tune_dir / "tune_results.csv")
+    spent = [float(csv_rows(tune_dir / f"iter{r['iteration']}" / "results.csv")[-1]["time"]) for r in rows]
+    if len(rows) != TUNE_RUN["iterations"] or not all(np.isfinite(float(r["fitness"])) for r in rows) \
+            or not (tune_dir / "best_hyperparameters.yaml").exists() or not (tune_dir / "best.npz").exists():
+        raise AssertionError(f"tune: rows {rows}, files {sorted(p.name for p in tune_dir.iterdir())}")
+    log("tune", card, f"{len(rows)} iterations in {wall:.1f} s (each training's loop {', '.join(f'{t:.1f}' for t in spent)} s, "
+        f"results.csv): fitness "
+        + ", ".join(f"iter {r['iteration']} {float(r['fitness']):.4f}" for r in rows) + f"; best iteration {best['best_iteration']}; "
+        f"CSV columns {list(rows[0])}; launches {launches}")
+
+
+def coco_annotations(data) -> Path:
+    """annotations/instances_val2017.json beside a write_split dataset, from its val labels: image ids
+    the numeric file stems, boxes (ltwh) in the 640x512 frames' pixels, category 0 → the file."""
+    root = Path(data).parent
+    images, anns = [], []
+    for f in sorted((root / "labels" / "val").glob("*.txt"), key=lambda f: int(f.stem)):
+        images.append({"id": int(f.stem), "width": HW[1], "height": HW[0]})
+        for line in f.read_text().splitlines():
+            c, x, y, w, h = (float(v) for v in line.split())
+            box = [(x - w / 2) * HW[1], (y - h / 2) * HW[0], w * HW[1], h * HW[0]]
+            anns.append({"id": len(anns), "image_id": int(f.stem), "category_id": int(c), "iscrowd": 0, "bbox": box,
+                         "area": box[2] * box[3]})
+    out = root / "annotations" / "instances_val2017.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"images": images, "annotations": anns, "categories": [{"id": 0, "name": "aircraft"}]}))
+    return out
+
+
+def val_coco_phase(data, run_dir: Path, card):
+    """`[val coco]`: `[val]`'s 512-frame split with annotations/instances_val2017.json written from its labels,
+    YOLO(best.npz).val(save_json=True) at imgsz 640, batch 32, f32 (the kernels): predictions.json holds as
+    many rows as the validator kept detections; the coco/* keys beside the validator's mAP50 / mAP50-95, each
+    equal to the port's coco_evaluate rerun on the written files; the seconds of each. The annotations file
+    is removed afterwards."""
+    from yolo_tpu_torch.utils.coco_eval import coco_evaluate
+
+    anno = coco_annotations(data)
+    try:
+        t0 = time.perf_counter()
+        (res, v), launches = counted({"c2f", "c2f_upconcat", "head_level", "nms_keep"}, lambda: val_run(
+            data, batch=32, save_json=True, project=str(run_dir), exist_ok=True))
+        wall = time.perf_counter() - t0
+        written = run_dir / "val" / "predictions.json"
+        rows = json.loads(written.read_text())
+        kept = sum(int((o[..., 6] > 0).sum()) for o in v.outs)
+        t1 = time.perf_counter()
+        again = coco_evaluate(str(anno), str(written))
+        t_coco = time.perf_counter() - t1
+    finally:
+        anno.unlink()
+    coco = {k: res[k] for k in res if k.startswith("coco/")}
+    if len(rows) != kept or not coco or coco != {f"coco/{k}": x for k, x in again.items()}:
+        raise AssertionError(f"val coco: {len(rows)} json rows for {kept} kept detections; coco keys {coco} vs rerun {again}")
+    log("val coco", card, f"{len(rows)} json rows = the validator's kept detections; validator mAP50 {res['mAP50']:.4f} mAP50-95 "
+        f"{res['mAP50-95']:.4f}; COCOeval " + " ".join(f"{k[5:]} {x:.4f}" for k, x in coco.items()) + f" (equal to the rerun on the "
+        f"written files, {t_coco:.1f} s); the .val call {wall:.1f} s; launches {launches}")
+
+
+CLS_SHAPES = ("bright_circle", "bright_triangle", "dark_bar", "dark_square")
+CLS_TRAIN, CLS_VAL = (512, 0), (128, 1)  # `[classify]`'s folder dataset: images and seed of each split
+# 3 epochs of the 512 images at batch 8, lr0 1e-3 (the cfg's 0.01 otherwise), bf16, RandAugment and erasing off as
+# tests/test_classify.py trains its toy set. At batch 32 the 48 steps leave the BN running moments (momentum 0.03)
+# 23% at their initial values, and validation (eval mode) read top1 0.25-0.75 in CPU rehearsals at lr0 1e-3 and 0.01
+CLS_RUN = dict(epochs=3, imgsz=224, batch=8, lr0=1e-3, amp=True, auto_augment="", erasing=0.0, plots=False, exist_ok=True)
+
+
+def write_cls_split(root: Path, n: int, seed: int, imgsz: int = 224, split: str = "train") -> Path:
+    """n seeded imgsz x imgsz images under root/<split>/<class>/, the classes in turn, drawn like
+    tests/test_classify.py's toy set (a noisy grey field, one filled shape) with four separable
+    shapes at a random place and size: a bright circle or triangle, a dark bar or square → root."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = imgsz / 64
+    for k in range(n):
+        cname = CLS_SHAPES[k % len(CLS_SHAPES)]
+        d = root / split / cname
+        d.mkdir(parents=True, exist_ok=True)
+        img = rng.normal(120, 10, (imgsz, imgsz, 3)).clip(0, 255).astype(np.uint8)
+        (x, y), r = (int(v) for v in rng.uniform(24, 40, 2) * s), int(rng.uniform(12, 18) * s)
+        if cname == "dark_square":
+            cv2.rectangle(img, (x - r, y - r), (x + r, y + r), (10, 10, 10), -1)
+        elif cname == "dark_bar":
+            cv2.rectangle(img, (x - r, y - r // 4), (x + r, y + r // 4), (10, 10, 10), -1)
+        elif cname == "bright_circle":
+            cv2.circle(img, (x, y), r, (250, 250, 250), -1)
+        else:
+            cv2.fillPoly(img, [np.array([[x, y - r], [x - r, y + r], [x + r, y + r]], np.int32)], (250, 250, 250))
+        cv2.imwrite(str(d / f"{k}.png"), img)
+    return root
+
+
+def classify_c2f_holds(y, frames, card):
+    """The C2f kernel against its twin at yolov8n-cls's four instances (c = 16, 32, 64, 128 on 56², 28², 14²
+    and 7² maps at 224), captured from the model's own forward of the frames resized to 224, in f32 and bf16,
+    at B = 1 and 32, with each instance's plan."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import install_params
+    from yolo_tpu_torch.ops import cuda_c2f
+
+    x224 = np.stack([cv2.resize(f, (224, 224), interpolation=cv2.INTER_LINEAR) for f in frames[:32]])
+    plain = cuda_c2f.c2f_plain
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        install_params(y.model, y.params, y.device, dtype)
+        for B in (1, 32):
+            rec = []
+            cuda_c2f.c2f_plain = lambda x, kw, shortcut: (rec.append((x, kw, shortcut)), plain(x, kw, shortcut))[1]
+            try:
+                y.model.predict(torch.from_numpy(x224[:B]).to(y.device).flip(-1).to(dtype) / 255.0, plain=True)
+            finally:
+                cuda_c2f.c2f_plain = plain
+            if len(rec) != 4:
+                raise AssertionError(f"classify: {len(rec)} C2f instances captured, expected 4")
+            for x, kw, shortcut in rec:
+                got, want = cuda_c2f.fused_c2f(x, kw, shortcut), plain(x, kw, shortcut)
+                torch.cuda.synchronize()
+                _, H, W, c1 = x.shape
+                desc = f"B={B} {H}x{W} {c1}->{kw.w2.shape[1]} c={kw.c} n={kw.n}{' shortcut' if shortcut else ''}"
+                errs = hold("c2f", f"classify {desc}", dn, got, want)
+                log(f"classify c2f {dn}", card, f"{desc:36s} max_abs_err={max(errs.values()):.3e} "
+                    f"{c2f_plan_text(B, H, W, c1, 0, kw, dtype)}")
+
+
+def classify_phase(clip, root: Path, card):
+    """`[classify]`: yolov8n-cls at full width (scale n, nc 1000, the JAX package's initial tree), imgsz 224.
+    64 frames of the clip as BGR through `predict`, one per call (a square resize, softmax probabilities,
+    no NMS): f32 through the C2f kernel against the twin (probabilities 1e-4, top-1 equal), then bf16,
+    frames/s; the C2f kernel held against its twin at the model's four instances (`classify_c2f_holds`).
+    Then a seeded 4-class folder dataset (write_cls_split: 512 train and 128 val images at 224) trained
+    with CLS_RUN (bf16, batch 8, lr0 1e-3; RandAugment and erasing off, as tests/test_classify.py trains
+    its toy set): per-epoch loss, top1 / top5 of each epoch's f32 validation, images/s over the whole train call,
+    peak memory; top1 >= 0.9 required. `val` of the trained model on the val split, f32 through the
+    kernel against the twin (equal metrics). Kernel 1's launches in each run (the only kernel there)."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    frames = np.repeat(clip[:PREDICT_FRAMES], 3, -1)
+    y = YOLO("yolov8n-cls.yaml")
+    if (y.task, y.model.nc, y.model.stride) != ("classify", 1000, [1]):
+        raise AssertionError(f"classify: task {y.task}, nc {y.model.nc}, stride {y.model.stride}")
+
+    def probs(half, plain):
+        return lambda f: y.predict(f, imgsz=224, half=half, plain=plain, compute_dtype=compute_dtype(half), verbose=False)[0].probs.data
+
+    probs(False, False)(frames[0])  # warm-up
+    (pk, wk), launches_f32 = counted({"c2f"}, lambda: timed_frames(probs(False, False), frames))
+    pp, wp = timed_frames(probs(False, True), frames)
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(pk, pp))
+    top1 = sum(int(a.argmax() == b.argmax()) for a, b in zip(pk, pp))
+    if diff > 1e-4 or top1 != PREDICT_FRAMES or pk[0].shape != (1000,) or not all(np.isfinite(a).all() for a in pk):
+        raise AssertionError(f"classify predict f32: kernels vs twins differ by {diff}, top-1 equal on {top1}/{PREDICT_FRAMES}")
+    log("classify predict f32", card, f"{PREDICT_FRAMES} frames, one per call: kernels {PREDICT_FRAMES / wk:.1f} frames/s, twins "
+        f"{PREDICT_FRAMES / wp:.1f}; probabilities max |diff| {diff:.3e} (gate 1e-4), top-1 equal on every frame; launches {launches_f32}")
+    probs(True, False)(frames[0])
+    (pb, wb), launches = counted({"c2f"}, lambda: timed_frames(probs(True, False), frames))
+    same = sum(int(a.argmax() == b.argmax()) for a, b in zip(pb, pk))
+    log("classify predict bf16", card, f"{PREDICT_FRAMES} frames in {wb:.3f} s = {PREDICT_FRAMES / wb:.1f} frames/s (host clock, one "
+        f"frame per predict call); top-1 equal to f32 on {same}/{PREDICT_FRAMES}; launches {launches}")
+    classify_c2f_holds(y, frames, card)
+
+    t0 = time.perf_counter()
+    write_cls_split(root, *CLS_TRAIN)
+    write_cls_split(root, *CLS_VAL, split="val")
+    print(f"[classify split] {CLS_TRAIN[0]} train + {CLS_VAL[0]} val images of 224x224, {len(CLS_SHAPES)} classes, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    yt = YOLO("yolov8n-cls.yaml")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, launches = counted({"c2f"}, lambda: yt.train(data=str(root), project=str(root / "runs"), name="train", **CLS_RUN))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    losses = yt.trainer.losses
+    if not all(np.isfinite(losses)) or metrics["top1"] < 0.9 or yt.model.nc != len(CLS_SHAPES):
+        raise AssertionError(f"classify train: losses {losses}, metrics {metrics}, nc {yt.model.nc}")
+    n = CLS_RUN["epochs"] * CLS_TRAIN[0]
+    log("classify train", card, f"{CLS_RUN['epochs']} epochs of {CLS_TRAIN[0]} images at batch {CLS_RUN['batch']}, bf16: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; best top1 {metrics['top1']:.4f} top5 {metrics['top5']:.4f}; {n / wall:.1f} "
+        f"images/s over the whole .train call ({wall:.1f} s: loading and augmenting on the host, the steps, each epoch's f32 "
+        f"validation of {CLS_VAL[0]} images); peak memory {peak:.2f} GiB (max_memory_allocated, over the {base / 2**30:.2f} GiB "
+        f"held before); launches {launches}")
+    vk, launches = counted({"c2f"}, lambda: yt.val(data=str(root), imgsz=224, batch=32))
+    vp = yt.val(data=str(root), imgsz=224, batch=32, plain=True)
+    if {k: float(x) for k, x in vk.items()} != {k: float(x) for k, x in vp.items()} or vk["top1"] < 0.9:
+        raise AssertionError(f"classify val: kernels {vk} vs twins {vp}")
+    log("classify val", card, f"{CLS_VAL[0]} images, f32: top1 {vk['top1']:.4f} top5 {vk['top5']:.4f} fitness {vk['fitness']:.4f}, "
+        f"equal through the twin; launches {launches}")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -3111,6 +3444,7 @@ def main(argv) -> int:
         print(f"[track botsort] gmc_method none, the GMC off (a machine without cv2 runs only this form); "
               f"cv2 here: {cv2_version()}")
         track_phase("track botsort", clip, card, str(botsort))
+    track_reid_phase(clip, card)
     if cv2_version():  # the default yaml's sparse optical flow, where cv2 imports
         track_phase("track botsort sparseOptFlow", clip, card, "botsort.yaml")
     track_device_phase(clip, card, host_rows)
@@ -3143,6 +3477,7 @@ def main(argv) -> int:
     embed_phase(clip, card)
     enhance_phase(clip, card)
     video_phases(clip, card)
+    benchmark_phase(model, params, clip, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -3152,6 +3487,7 @@ def main(argv) -> int:
         val_phase(big, heldout, card)
         if profiling:
             val_workers_sweep(big, heldout, card)
+        val_coco_phase(big, Path(tmp) / "val_coco", card)
 
         t0 = time.perf_counter()
         train_root = Path(tmp) / "train"
@@ -3164,6 +3500,8 @@ def main(argv) -> int:
         tuned = train_finetune_phase(train_data, Path(tmp) / "runs", card)
         train_val_kernels_phase({"train": trained, "finetune": tuned}, train_data, card)
         train_settings_phase(train_data, Path(tmp) / "runs", card)
+        tune_phase(Path(tmp) / "tune", card)
+        classify_phase(clip, Path(tmp) / "cls", card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

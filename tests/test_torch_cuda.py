@@ -670,3 +670,69 @@ def test_train_autobatch_at_640_completes_a_step(card, tmp_path):
     assert 16 <= t.args.batch <= chip_smoke.AUTOBATCH_IMAGES and t.train_loader.batch_size == t.args.batch
     assert len(t.timings) == len(t.train_loader) >= 1
     assert all(np.isfinite(row[f"train/{k}_loss"]) for k in ("box", "cls", "dfl"))
+
+
+# yolov8n-cls's C2f instances at imgsz 224: (c1, c2, n, H = W), all with the residual
+CLS_C2F = [(32, 32, 1, 56), (64, 64, 2, 28), (128, 128, 2, 14), (256, 256, 1, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("c1,c2,n,hw", CLS_C2F, ids=[f"c{c1 // 2}-{hw}x{hw}" for c1, _, _, hw in CLS_C2F])
+def test_c2f_kernel_at_the_classify_shapes(card, dtype, B, c1, c2, n, hw):
+    """The C2f kernel against its twin at the four yolov8n-cls instances (c = 16, 32, 64, 128 on 56² to
+    7²), B = 1 (predict) and 32 (validation), seeded weights; one launch counted, a plan within the map."""
+    mod = PM.C2f(c1, c2, n=n, shortcut=True)
+    _random_convs(mod, np.random.default_rng(c1), dtype)
+    kw = mod.kernel_weights()
+    x = torch.randn(B, hw, hw, c1, device=card, generator=torch.Generator(card).manual_seed(B)).to(dtype)
+    before = cuda_c2f.fused_c2f.launches
+    got, want = cuda_c2f.fused_c2f(x, kw, True), cuda_c2f.c2f_plain(x, kw, True)
+    torch.cuda.synchronize()
+    assert cuda_c2f.fused_c2f.launches == before + 1
+    plan = cuda_c2f.plan(B, hw, hw, c1, 0, kw.c, c2, n, dtype)
+    assert plan["tile"][0] <= hw and plan["tile"][1] <= hw and plan["smem"] <= 232448
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_classify_forward_on_the_card_matches_twins(card):
+    """yolov8n-cls at full width (nc 1000, the JAX package's initial tree): the f32 probabilities through the
+    kernel against the twins (1e-4, top-1 equal) and against the CPU's (1e-4) on 4 seeded 224² images, kernel 1
+    launched 4 times a forward; bf16 through the kernel against the bf16 twins (6e-2)."""
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.tasks import install_params
+
+    y = YOLO("yolov8n-cls.yaml")
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (4, 224, 224, 3)).astype(np.float32))
+    install_params(y.model, y.params, card, torch.float32)
+    before = cuda_c2f.fused_c2f.launches
+    got = y.model.predict(x.to(card))
+    assert cuda_c2f.fused_c2f.launches == before + 4
+    want = y.model.predict(x.to(card), plain=True)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got.argmax(-1), want.argmax(-1)) and got.shape == (4, 1000)
+    cpu = YOLO("yolov8n-cls.yaml", device="cpu")
+    install_params(cpu.model, cpu.params, torch.device("cpu"), torch.float32)
+    torch.testing.assert_close(got.cpu(), cpu.model.predict(x), atol=1e-4, rtol=0)
+    install_params(y.model, y.params, card, torch.bfloat16)
+    xb = x.to(card, torch.bfloat16)
+    torch.testing.assert_close(y.model.predict(xb), y.model.predict(xb, plain=True), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("phase", ["track_reid_phase", "benchmark_phase", "classify_phase"])
+def test_new_phases_on_the_card(card, phase, monkeypatch, tmp_path):
+    """chip_smoke's `[track botsort reid]`, `[benchmark]` and `[classify]` phases on 8 frames of the IR clip."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+    from yolo_tpu_torch import load_npz
+
+    monkeypatch.setattr(chip_smoke, "TRACK_FRAMES", 8)
+    monkeypatch.setattr(chip_smoke, "PREDICT_FRAMES", 8)
+    clip = np.stack(_ir_frames(32))
+    if phase == "benchmark_phase":
+        model, params, _ = load_npz(chip_smoke.WEIGHTS)
+        chip_smoke.benchmark_phase(model, params, clip, "card test")
+    elif phase == "classify_phase":
+        chip_smoke.classify_phase(clip, tmp_path, "card test")
+    else:
+        chip_smoke.track_reid_phase(clip, "card test")

@@ -93,6 +93,14 @@ def test_port_imports_no_jax():
         "q = FusedDetectTrack(m, p, frame_hw=(64, 64), chunk=2, device='cpu', int8=True, int8_calib=np.zeros((2, 64, 64, 1), np.uint8))\n"
         "assert q.run_clip(np.zeros((2, 64, 64, 1), np.uint8))[1]['frames'] == 2\n"
         "assert enhance_small_targets_torch(frames[:, :, :, 0]).shape == (2, 64, 80)\n"
+        "from yolo_tpu_torch.utils import benchmarks, coco_eval\n"
+        "from yolo_tpu_torch.engine import classify, tuner\n"
+        "cy = YOLO('yolov8n-cls.yaml', device='cpu')\n"
+        "r = cy.predict(frames[0], imgsz=32, verbose=False)[0]\n"
+        "assert cy.task == 'classify' and r.probs.data.shape == (1000,), r.probs.data.shape\n"
+        "assert coco_eval.coco_evaluate({'images': [{'id': 0}], 'annotations': [{'image_id': 0, 'category_id': 1, 'bbox': [0, 0, 9, 9]}]},"
+        " [{'image_id': 0, 'category_id': 1, 'bbox': [0, 0, 9, 9], 'score': 0.9}])['mAP50'] == 1.0\n"
+        "assert tuner.Tuner({})._mutate({k: 0.5 for k in tuner.DEFAULT_SPACE})\n"
         "bad = sorted(k for k in sys.modules if k == 'yolo_tpu' or k.startswith('yolo_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -34,6 +34,7 @@ from yolo_tpu_torch.trackers import matching as PM
 from yolo_tpu_torch.trackers import track as PT
 
 from tests.conftest import ROOT
+from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 
@@ -247,10 +248,41 @@ def test_botsort_appearance_features_match_jax():
         np.testing.assert_allclose(g.smooth_feat, w.smooth_feat, rtol=0, atol=1e-6)
 
 
-def test_botsort_reid_encoder_is_not_ported():
-    _, pa = _args(tracker_type="botsort", gmc_method="none", with_reid=True, model="yolov8n-cls.yaml")
-    with pytest.raises(NotImplementedError, match="Model.embed"):
-        PBS.BOTSORT(pa)
+def _same_tracks(got, want, feat_tol=1e-4):
+    """Tracked, lost and removed tracks alike: ids and states equal, features within feat_tol."""
+    for kind in ("tracked_stracks", "lost_stracks", "removed_stracks"):
+        g = sorted(getattr(got, kind), key=lambda t: t.track_id)
+        w = sorted(getattr(want, kind), key=lambda t: t.track_id)
+        assert [(t.track_id, t.state) for t in g] == [(t.track_id, t.state) for t in w], kind
+        for a, b in zip(g, w):
+            for f in ("curr_feat", "smooth_feat"):
+                assert (getattr(a, f) is None) == (getattr(b, f) is None), (kind, f)
+                if getattr(a, f) is not None:
+                    np.testing.assert_allclose(getattr(a, f), getattr(b, f), rtol=0, atol=feat_tol, err_msg=f"{kind} {f}")
+
+
+def test_botsort_reid_encoder_matches_jax(two_threads):
+    """with_reid and a named model: the crop-and-embed encoder, `YOLO("yolov8n.yaml").embed` of each
+    detection's crop at imgsz 128 (both packages draw the same initial tree), L2-normalised. JAX's
+    `test_botsort_reid_encoder_path` scenario (a 128x160 seeded frame, three updates), then _rich_stream
+    with a seeded 480x640 frame each: rows 1e-5, ids and states equal, features 1e-4 (the f32
+    tolerance of `test_embed_matches_jax`). The namespace's `device` puts the port's encoder on the CPU."""
+    ja, pa = _args(tracker_type="botsort", gmc_method="none", with_reid=True, model="yolov8n.yaml")
+    pa.device = "cpu"
+    got, want = PBS.BOTSORT(pa), JBS.BOTSORT(ja)
+    assert isinstance(got.encoder, PBS.ReID) and got.encoder.model.device == torch.device("cpu")
+    img = np.random.default_rng(0).integers(0, 255, (128, 160, 3), np.uint8)
+    _run_pair(got, want, [[([40 + 2 * f, 60, 30, 24], 0.9, 0)] for f in range(3)], imgs=[img] * 3)
+    assert len(got.tracked_stracks) == 1 and abs(float(np.linalg.norm(got.tracked_stracks[0].smooth_feat)) - 1) < 1e-3
+    _same_tracks(got, want)
+
+    frames = _rich_stream(n_frames=30, seed=7)
+    frames[5].append(([700.0, 300.0, 30.0, 20.0], 0.9, 0))  # a box outside the frame: the 8x8 black crop
+    rng = np.random.default_rng(11)
+    imgs = [rng.integers(0, 255, (480, 640, 3), np.uint8) for _ in frames]
+    got, want = PBS.BOTSORT(pa), JBS.BOTSORT(ja)
+    assert _run_pair(got, want, frames, np.random.default_rng(12), imgs=imgs) > len(frames)
+    _same_tracks(got, want)
 
 
 # --- the batched twin -----------------------------------------------------------------------------

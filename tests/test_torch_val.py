@@ -134,14 +134,14 @@ def test_val_plots_and_a_failing_plot(splits, two_threads, tmp_path, monkeypatch
 
 
 def test_unported_tasks_and_the_coco_cross_check_raise(tmp_path):
+    """The tasks without a validator raise naming themselves; classify has its own validator. The
+    COCOeval cross-check no longer raises: tests/test_torch_coco_eval.py holds it against JAX."""
+    from yolo_tpu_torch.engine.classify import ClassificationValidator
+
     for model, task in ((SimpleNamespace(task="segment"), "segment"), (SimpleNamespace(task="obb"), "obb"),
                         (SimpleNamespace(task="pose"), "pose"), (SimpleNamespace(is_rtdetr=True), "rtdetr")):
         with pytest.raises(NotImplementedError, match=task):
             PV.validator_for(model)
     assert PV.validator_for(SimpleNamespace()) is PV.DetectionValidator
-    (tmp_path / "annotations").mkdir()
-    (tmp_path / "annotations" / "instances_val2017.json").write_text("{}")
-    v = PV.DetectionValidator(args={"save_json": True}, data={"path": str(tmp_path), "val": str(tmp_path), "names": {0: "a"}})
-    with pytest.raises(NotImplementedError, match="coco_eval"):
-        v(SimpleNamespace(stride=[32]), {})
+    assert PV.validator_for(SimpleNamespace(task="classify")) is ClassificationValidator
     assert PV.DetectionValidator(args={"conf": None, "unknown_key": 1}).args.conf == 0.001  # cfg keys only, as in JAX

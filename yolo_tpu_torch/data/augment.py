@@ -12,8 +12,8 @@ along, and the random perspective takes a polygon's box from its warped points.
 `TrainTransforms.mosaic_n = 9` takes the 3x3 mosaic (`mosaic9`) instead of mosaic4, and
 the cfg's `cutmix` probability pastes a region of another augmented sample (`cutmix`),
 each drawing from the same `random` instance in the JAX package's order.
-The keypoints and rotated boxes of the other tasks are not ported, nor is
-`rand_augment`, the classify task's augmentation (it raises NotImplementedError).
+`rand_augment` is the classify task's RandAugment (engine/classify.py), on the RNG
+it is given. The keypoints and rotated boxes of the other tasks are not ported.
 """
 
 from __future__ import annotations
@@ -426,7 +426,78 @@ def cutmix(labels, other, p: float = 1.0, beta: float = 1.0, num_areas: int = 3,
 
 
 def rand_augment(img, rng=None, n_ops: int = 2, magnitude: float = 9.0):
-    raise NotImplementedError("rand_augment is the classify task's augmentation, which is not ported")
+    """RandAugment of a uint8 BGR (or gray) image for classification (JAX `rand_augment`): `n_ops`
+    ops drawn from twelve photometric and affine ones, each at magnitude `magnitude` / 30 and a
+    random sign, every draw from `rng` (default numpy's global RNG: `np.random.seed(k)` fixes the
+    result) in the JAX package's order, so the same seed gives the same image."""
+    import cv2
+
+    rng = rng or np.random
+    m = magnitude / 30.0  # normalized magnitude in [0, 1]
+
+    def _blend(a, b, alpha):
+        return np.clip(a.astype(np.float32) * (1 - alpha) + b.astype(np.float32) * alpha, 0, 255).astype(np.uint8)
+
+    def autocontrast(x, _):
+        lo, hi = np.percentile(x, 0.5), np.percentile(x, 99.5)
+        if hi <= lo:
+            return x
+        return np.clip((x.astype(np.float32) - lo) * 255.0 / (hi - lo), 0, 255).astype(np.uint8)
+
+    def equalize(x, _):
+        if x.ndim == 2:
+            return cv2.equalizeHist(x)
+        ycc = cv2.cvtColor(x, cv2.COLOR_BGR2YCrCb)
+        ycc[..., 0] = cv2.equalizeHist(ycc[..., 0])
+        return cv2.cvtColor(ycc, cv2.COLOR_YCrCb2BGR)
+
+    def posterize(x, v):  # keep 8..4 bits
+        bits = max(4, 8 - int(round(v * 4)))
+        return (x >> (8 - bits)) << (8 - bits)
+
+    def solarize(x, v):
+        thr = int(255 - v * 110)
+        return np.where(x >= thr, 255 - x, x).astype(np.uint8)
+
+    def brightness(x, v):
+        return _blend(np.zeros_like(x), x, 1.0 + (v if rng.random() < 0.5 else -v) * 0.9)
+
+    def contrast(x, v):
+        mean = np.full_like(x, int(x.mean()))
+        return _blend(mean, x, 1.0 + (v if rng.random() < 0.5 else -v) * 0.9)
+
+    def sharpness(x, v):
+        blur = cv2.GaussianBlur(x, (3, 3), 0)
+        return _blend(blur, x, 1.0 + (v if rng.random() < 0.5 else -v) * 0.9)
+
+    def _warp(x, M):
+        return cv2.warpAffine(x, M, (x.shape[1], x.shape[0]), borderValue=(128, 128, 128))
+
+    def rotate(x, v):
+        a = (v if rng.random() < 0.5 else -v) * 30.0
+        return _warp(x, cv2.getRotationMatrix2D((x.shape[1] / 2, x.shape[0] / 2), a, 1.0))
+
+    def shear_x(x, v):
+        s = (v if rng.random() < 0.5 else -v) * 0.3
+        return _warp(x, np.float32([[1, s, 0], [0, 1, 0]]))
+
+    def shear_y(x, v):
+        s = (v if rng.random() < 0.5 else -v) * 0.3
+        return _warp(x, np.float32([[1, 0, 0], [s, 1, 0]]))
+
+    def translate_x(x, v):
+        t = (v if rng.random() < 0.5 else -v) * 0.45 * x.shape[1]
+        return _warp(x, np.float32([[1, 0, t], [0, 1, 0]]))
+
+    def translate_y(x, v):
+        t = (v if rng.random() < 0.5 else -v) * 0.45 * x.shape[0]
+        return _warp(x, np.float32([[1, 0, 0], [0, 1, t]]))
+
+    ops = [autocontrast, equalize, posterize, solarize, brightness, contrast,
+           sharpness, rotate, shear_x, shear_y, translate_x, translate_y]
+    for _ in range(n_ops):
+        img = ops[rng.randint(len(ops))](np.ascontiguousarray(img), m)
+    return img
 
 
 class TrainTransforms:

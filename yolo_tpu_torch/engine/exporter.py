@@ -35,19 +35,18 @@ def _unflatten(flat: dict) -> dict:
 
 
 def load_npz(filename, device=None):
-    """→ (DetectionModel built from the embedded config, numpy parameter tree, meta).
+    """→ (the model its config and task name, built: DetectionModel or ClassificationModel; numpy
+    parameter tree; meta). Another task's checkpoint raises NotImplementedError.
 
     The model's modules are empty until `params_from_jax(model, params)` (or a
     FusedDetectTrack built from them) loads the tree; `device=None` is the card."""
-    from yolo_tpu_torch.nn.tasks import DetectionModel
+    from yolo_tpu_torch.nn.tasks import model_class_for
 
     with np.load(filename, allow_pickle=False) as data:
         cfg = json.loads(bytes(data["__yaml__"]).decode())
         meta = json.loads(bytes(data["__meta__"]).decode()) if "__meta__" in data.files else {}
         flat = {k[len("param::") :]: np.asarray(data[k]) for k in data.files if k.startswith("param::")}
-    if meta.get("task", "detect") != "detect":
-        raise NotImplementedError(f"only detection checkpoints are ported, got task '{meta['task']}'")
-    model = DetectionModel(cfg, device=device)
+    model = model_class_for(cfg, meta.get("task"))(cfg, device=device)
     if meta.get("names"):
         model.names = {int(k): v for k, v in meta["names"].items()}
     params = _unflatten(flat)

@@ -1,6 +1,7 @@
-"""YOLO model facade of the detect task (counterpart of yolo_tpu/engine/model.py).
+"""YOLO model facade of the detect and classify tasks (counterpart of yolo_tpu/engine/model.py).
 
     YOLO("yolov8-small.yaml")      # fresh DetectionModel, seeded random weights
+    YOLO("yolov8n-cls.yaml")       # fresh ClassificationModel (a name with '-cls', or task="classify")
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
     YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
@@ -13,9 +14,13 @@
     metrics = YOLO(...).val(data="dataset.yaml", imgsz=640)   # P, R, mAP50, mAP50-95, fitness
     metrics = YOLO(...).train(data="dataset.yaml", epochs=3)  # best.npz / last.npz under runs/detect/train
     YOLO(...).export(format="pt")  # <stem>.pt (or npz) in the working directory
+    rows = YOLO(...).benchmark(imgsz=640)                     # latency / fps at batch 1, 8, 32
+    best = YOLO(...).tune(data="dataset.yaml", iterations=10, epochs=10)  # hyperparameter evolution
 
+A classify YOLO predicts Results with `probs` (top-5 and their confidences), validates to
+top1 / top5 / fitness and trains on a folder-per-class dataset (engine/classify.py).
 Runs on the CUDA card unless `device="cpu"` is passed. Orbax checkpoints are not
-ported, nor the orbax, stablehlo and tflite exports.
+ported, nor the orbax, stablehlo and tflite exports, nor the segment, pose and obb tasks.
 """
 
 from __future__ import annotations
@@ -27,27 +32,40 @@ import torch
 
 from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT
 from yolo_tpu_torch.device import resolve_device
-from yolo_tpu_torch.nn.tasks import DetectionModel, Ensemble, fuse, install_params, param_count
+from yolo_tpu_torch.nn.tasks import ClassificationModel, DetectionModel, Ensemble, fuse, install_params, param_count
 from yolo_tpu_torch.utils import LOGGER
+
+PORTED_TASKS = ("detect", "classify")
+
+
+def _task_of(model: str, task: str | None) -> str:
+    """The task named, else the JAX package's guess from a model yaml's name ('-cls' classify, '-seg'
+    segment, '-pose' pose, '-obb' obb, else detect); a task the port lacks raises NotImplementedError."""
+    task = task or ("classify" if "-cls" in model else "segment" if "-seg" in model else "pose" if "-pose" in model
+                    else "obb" if "-obb" in model else "detect")
+    if task not in PORTED_TASKS:
+        raise NotImplementedError(f"the {task} task is not ported (only detect and classify)")
+    return task
 
 
 class YOLO:
-    """User-facing model handle: a DetectionModel, its parameter tree and a lazily built predictor."""
+    """User-facing model handle: a DetectionModel or ClassificationModel, its parameter tree and a
+    lazily built predictor."""
 
     def __init__(self, model="yolov8n.yaml", task: str | None = None, device=None):
-        if task not in (None, "detect"):
-            raise NotImplementedError(f"only the detect task is ported, got task '{task}'")
-        self.task = "detect"
         self.predictor = None
         self.ckpt_path = None
         self.remote = None
         if isinstance(model, (list, tuple)):
+            self.task = _task_of("", task)
             self._load_ensemble([str(m) for m in model], device)
             return
         model = str(model)
         if model.startswith("tcp://"):
+            self.task = _task_of("", task)
             self._load_remote(model)
             return
+        self.task = _task_of(model if model.endswith((".yaml", ".yml")) else "", task)  # a checkpoint names its own
         self.device = resolve_device(device)
         self.overrides: dict = {}
         if model.endswith((".yaml", ".yml")):
@@ -58,7 +76,7 @@ class YOLO:
         self.overrides["task"] = self.task
 
     def _new(self, cfg: str) -> None:
-        self.model = DetectionModel(cfg, device=self.device)
+        self.model = (ClassificationModel if self.task == "classify" else DetectionModel)(cfg, device=self.device)
         self.params = self.model.init(0)
 
     def _load(self, weights: str) -> None:
@@ -80,6 +98,7 @@ class YOLO:
             self.model, self.params, _ = load_npz(path, device=self.device)
         else:
             raise ValueError(f"unsupported model source: {weights} (a model YAML, a .npz or .pt checkpoint, or a tcp:// URL)")
+        self.task = self.model.task  # the checkpoint's own task wins over the name's
 
     def _load_ensemble(self, weights: list, device) -> None:
         """An NMS ensemble of the listed sources (each a YAML, .npz or .pt), on one device."""
@@ -182,8 +201,9 @@ class YOLO:
 
     def val(self, validator=None, **kwargs) -> dict:
         """Validate on a dataset split (`data`, `split`, `imgsz`, `batch`, `conf`, ...) →
-        {precision, recall, mAP50, mAP50-95, fitness}, also kept in `self.metrics`. The
-        forward computes in f32 unless `half=True`; `plain=True` runs the kernels' twins."""
+        {precision, recall, mAP50, mAP50-95, fitness} (classify: {top1, top5, fitness}), also kept
+        in `self.metrics`. The forward computes in f32 unless `half=True`; `plain=True` runs the
+        kernels' twins."""
         self._require_local("val")
         args = {"device": str(self.device), **self.overrides, **kwargs, "mode": "val"}
         if validator is None:
@@ -195,13 +215,16 @@ class YOLO:
         return self.metrics
 
     def train(self, trainer=None, **kwargs):
-        """Train on a dataset (`data`, `epochs`, `imgsz`, `batch`, ...; engine/trainer.py) → the last
-        validation's metrics. The YOLO then holds the trained model (rebuilt when the dataset's nc
-        differs) and the best EMA weights (the last ones without validation), and builds a new
-        predictor at its next predict."""
+        """Train on a dataset (`data`, `epochs`, `imgsz`, `batch`, ...; engine/trainer.py, classify:
+        engine/classify.py on a folder-per-class dataset) → the last validation's metrics. The YOLO
+        then holds the trained model (rebuilt when the dataset's nc differs) and the best EMA weights
+        (the last ones without validation; classify: the best top-1's), and builds a new predictor at
+        its next predict."""
         self._require_local("train")
         overrides = {"device": str(self.device), **self.overrides, **kwargs, "mode": "train"}
-        if trainer is None:
+        if trainer is None and self.task == "classify":
+            from yolo_tpu_torch.engine.classify import ClassificationTrainer as trainer
+        elif trainer is None:
             from yolo_tpu_torch.engine.trainer import DetectionTrainer as trainer
         self.trainer = trainer(overrides=overrides, model=self.model, params=self.params)
         self.trainer.train()
@@ -210,6 +233,28 @@ class YOLO:
         self.predictor = None
         self.metrics = getattr(self.trainer, "metrics", None)
         return self.metrics
+
+    def tune(self, iterations: int = 10, use_ray: bool = False, **kwargs):
+        """Hyperparameter evolution (engine/tuner.py): `iterations` short trainings of a fresh model
+        built from this one's source, on this YOLO's device → {best_fitness, best_hyperparameters,
+        best_iteration}. `use_ray=True` runs the Ray Tune search instead (needs ray)."""
+        self._require_local("tune")
+        if use_ray:
+            from yolo_tpu_torch.engine.tuner import run_ray_tune
+
+            return run_ray_tune(self, max_samples=iterations, **kwargs)
+        from yolo_tpu_torch.engine.tuner import Tuner
+
+        args = {"device": str(self.device), **self.overrides, **kwargs, "mode": "train"}
+        return Tuner(args=args)(model=self, iterations=iterations, **kwargs)
+
+    def benchmark(self, **kwargs) -> list:
+        """Latency and frames/s of this model's forward at batch 1, 8 and 32 (utils/benchmarks.py):
+        `imgsz` (640), `half` (True: bf16; False: f32)."""
+        self._require_local("benchmark")
+        from yolo_tpu_torch.utils.benchmarks import benchmark
+
+        return benchmark(model=self, **kwargs)
 
     def export(self, **kwargs) -> Path:
         """Write the model in `format` ('npz' or 'pt') to <the model's stem>.<suffix> in the working directory."""

@@ -15,7 +15,10 @@ package's lazy decode computes the same outputs and was not faster on the H100
 image; `show` opens a window where a display exists and warns once where none
 does (the JAX package's cv2.imshow aborts the process there). `embed` is taken
 and changes nothing, as in the JAX predictor (`YOLO.embed` gives embeddings).
-The other tasks' branches are not ported.
+A classify model's route: each image resized square to `imgsz` by cv2 (no
+letterbox, as the classify dataset trains), the forward to softmax
+probabilities (the C2f kernel), no NMS, and Results with `probs`. The other
+tasks' branches are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from yolo_tpu_torch.data.loaders import VID_FORMATS
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.results import Results
 from yolo_tpu_torch.nn.quantize import quantize_params
-from yolo_tpu_torch.nn.tasks import DetectionModel, Ensemble, fuse, install_params, params_from_jax
+from yolo_tpu_torch.nn.tasks import BaseModel, DetectionModel, Ensemble, fuse, install_params, params_from_jax
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
 from yolo_tpu_torch.ops.nms import non_max_suppression
@@ -165,6 +168,8 @@ class BasePredictor:
         under the settings as they stand now: RGB in [0, 1], forward, NMS."""
         a = self.args
         x = imgs.flip(-1).to(self.dtype) / 255.0
+        if self._classify:
+            return {"probs": self.model.predict(x, plain=a.plain)}
         if a.augment and self._takes_augment():
             preds = self.model.predict_augment(x, plain=a.plain)
         else:  # an int8 model walks without the neck fold
@@ -173,6 +178,10 @@ class BasePredictor:
             preds, conf_thres=a.conf, iou_thres=a.iou, classes=a.classes, agnostic=a.agnostic_nms,
             max_det=a.max_det, plain=a.plain,
         )
+
+    @property
+    def _classify(self) -> bool:
+        return getattr(self.model, "task", "detect") == "classify"
 
     def _takes_augment(self) -> bool:
         """Test-time augmentation is for a plain DetectionModel (as in the JAX package); for
@@ -188,14 +197,14 @@ class BasePredictor:
         """One zero batch of shape `imgsz` (B, H, W, 3) through the device pass, waited for: on a
         card it builds the kernels and plans that batch size."""
         out = self._predict(torch.zeros(tuple(imgsz), dtype=torch.uint8, device=self.device))
-        out["valid"].cpu()  # waits for the pass
+        next(iter(out.values())).cpu()  # waits for the pass
         self.done_warmup = True
 
     # --- host pipeline ---------------------------------------------------------
 
     def pre_transform(self, im: np.ndarray):
-        """Letterbox one image to the target size → (img, (ratio, pad)). Grayscale inputs (2-D or
-        single-channel) are expanded to 3 channels. A uint8 image goes through the native library
+        """Letterbox one image to the target size → (img, (ratio, pad)); a classify model's image is
+        resized square instead. Grayscale inputs (2-D or single-channel) are expanded to 3 channels. A uint8 image goes through the native library
         (ratio in f32, as the JAX package's) unless it is unavailable or YOLO_TPU_NATIVE_PRE is "0"
         (the JAX package's setting), then through cv2; the two resizers differ by one grey level."""
         if im.ndim == 2:
@@ -205,6 +214,10 @@ class BasePredictor:
         imgsz = self.args.imgsz
         if isinstance(imgsz, int):
             imgsz = (imgsz, imgsz)
+        if self._classify:  # square-resized, as the classify dataset trains and validates
+            import cv2
+
+            return cv2.resize(im, (imgsz[1], imgsz[0]), interpolation=cv2.INTER_LINEAR), ((1.0, 1.0), (0.0, 0.0))
         if im.dtype == np.uint8 and native.available() and os.environ.get("YOLO_TPU_NATIVE_PRE", "1") != "0":
             return native.letterbox(im, tuple(imgsz))
         lb = LetterBox(tuple(imgsz), auto=False, stride=max(self.model.stride))
@@ -259,11 +272,14 @@ class BasePredictor:
         t_enq = time.perf_counter()
         out = {k: v.cpu().numpy() for k, v in out.items()}  # the batch's one wait for the device
         t2 = time.perf_counter()
-        if self.args.visualize and isinstance(self.model, DetectionModel):
+        if self.args.visualize and isinstance(self.model, BaseModel):
             self._visualize_features(batch[:1])
 
         results = []
         for i in range(n):
+            if "probs" in out:  # classify: probabilities, no boxes
+                results.append(Results(imgs[i], metas[i][0], self.names, probs=out["probs"][i]))
+                continue
             valid = out["valid"][i]
             boxes = scale_boxes((h, w), out["boxes"][i][valid], imgs[i].shape[:2], ratio_pad=lb_meta[i])
             data = np.concatenate(

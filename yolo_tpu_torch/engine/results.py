@@ -1,10 +1,13 @@
-"""Inference result containers of the detect task (counterpart of yolo_tpu/engine/results.py).
+"""Inference result containers of the detect and classify tasks (counterpart of
+yolo_tpu/engine/results.py).
 
 Host-side and numpy-backed: the predictor hands over the valid rows of the
 fixed-shape NMS output, and these classes expose the `.boxes.xyxy/conf/cls`
 views the Kalman clip loop consumes, and the track id column `YOLO.track` adds;
-`Results` draws its boxes (`plot`, `save`), writes YOLO label lines (`save_txt`)
-and summarises itself (`summary`, `to_json`) as the JAX package's does.
+a classify result carries `probs` (`Probs`: top1, top5 and their confidences)
+and no boxes. `Results` draws its boxes or its top-5 block (`plot`, `save`),
+writes YOLO label lines or top-5 lines (`save_txt`) and summarises itself
+(`summary`, `to_json`) as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -76,16 +79,48 @@ class Boxes:
         return self
 
 
-class Results:
-    """Single-image inference result (boxes only)."""
+class Probs:
+    """Classification probabilities of one image (JAX Probs)."""
 
-    def __init__(self, orig_img: np.ndarray, path: str, names: dict, boxes: np.ndarray | None = None, speed: dict | None = None):
+    def __init__(self, probs: np.ndarray):
+        self.data = np.asarray(probs, np.float32)
+
+    @property
+    def top1(self) -> int:
+        return int(np.argmax(self.data))
+
+    @property
+    def top5(self) -> list:
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data[self.top1])
+
+    @property
+    def top5conf(self) -> np.ndarray:
+        return self.data[self.top5]
+
+    def cpu(self):
+        """The probabilities themselves: they already live on the host."""
+        return self
+
+    def numpy(self):
+        return self
+
+
+class Results:
+    """Single-image inference result: boxes (detect) or class probabilities (`probs`, classify)."""
+
+    def __init__(self, orig_img: np.ndarray, path: str, names: dict, boxes: np.ndarray | None = None, speed: dict | None = None,
+                 probs: np.ndarray | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         has = boxes is not None and len(boxes)
         self.boxes = Boxes(boxes if has else np.zeros((0, 6), np.float32), self.orig_shape)
+        self.probs = Probs(probs) if probs is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
         self.save_dir = None
 
@@ -107,7 +142,10 @@ class Results:
             self.boxes = Boxes(boxes, self.orig_shape)
 
     def verbose(self) -> str:
-        """Per-image log fragment: '512x640 2 aircrafts, ' or '512x640 (no detections), '."""
+        """Per-image log fragment: '512x640 2 aircrafts, ' or '512x640 (no detections), '; a classify
+        result's top-1 class and confidence."""
+        if self.probs is not None:
+            return f"{self.names.get(self.probs.top1, self.probs.top1)} {self.probs.top1conf:.2f}, "
         h, w = self.orig_shape
         if not len(self.boxes):
             return f"{h}x{w} (no detections), "
@@ -119,9 +157,10 @@ class Results:
         return f"{h}x{w} " + ", ".join(parts) + ", "
 
     def plot(self, conf: bool = True, line_width: int | None = None, labels: bool = True, boxes: bool = True,
-             img: np.ndarray | None = None) -> np.ndarray:
+             img: np.ndarray | None = None, probs: bool = True) -> np.ndarray:
         """A copy of the image (BGR; a gray one made BGR) with each box in its class's colour and its
-        label: 'name conf', with 'id:N ' before it for a tracked box."""
+        label: 'name conf', with 'id:N ' before it for a tracked box; a classify result's top five
+        'name p' lines in its top-left corner instead."""
         import cv2
 
         from yolo_tpu_torch.utils.plotting import Annotator, color_for
@@ -130,6 +169,10 @@ class Results:
         if im.ndim == 2:
             im = cv2.cvtColor(im, cv2.COLOR_GRAY2BGR)
         ann = Annotator(im, line_width=line_width)
+        if self.probs is not None and probs:
+            for k, j in enumerate(self.probs.top5):
+                ann.text((8, 8 + k * (ann.lw * 12)), f"{self.names.get(j, j)} {self.probs.data[j]:.2f}", box_color=(64, 64, 64))
+            return ann.result()
         if boxes:
             for row in self.boxes.data:
                 c = int(row[-1])
@@ -150,8 +193,9 @@ class Results:
 
     def save_txt(self, txt_file, save_conf: bool = False) -> None:
         """Append one YOLO label line a box to `txt_file`: 'cls cx cy w h' normalised by the image
-        (`%.6g`), the confidence after them with `save_conf`."""
-        lines = []
+        (`%.6g`), the confidence after them with `save_conf`; a classify result's top five as
+        'p name' lines."""
+        lines = [f"{self.probs.data[j]:.2f} {self.names.get(j, j)}" for j in self.probs.top5] if self.probs is not None else []
         for row in self.boxes.data:
             xywhn = xyxy2xywhn(row[None, :4], w=self.orig_shape[1], h=self.orig_shape[0])[0]
             vals = [int(row[-1]), *xywhn.tolist()] + ([float(row[-2])] if save_conf else [])
@@ -162,7 +206,11 @@ class Results:
 
     def summary(self, normalize: bool = False, decimals: int = 5) -> list:
         """One dict a box: name, class, confidence, box {x1, y1, x2, y2} (divided by the image's
-        size with `normalize`), and track_id for a tracked box; rounded to `decimals`."""
+        size with `normalize`), and track_id for a tracked box; rounded to `decimals`. A classify
+        result: one dict, its top-1 class."""
+        if self.probs is not None:
+            top1 = self.probs.top1
+            return [{"name": self.names.get(top1, str(top1)), "class": top1, "confidence": round(self.probs.top1conf, decimals)}]
         h, w = self.orig_shape if normalize else (1, 1)
         out = []
         for i in range(len(self.boxes)):

@@ -8,8 +8,12 @@ uint8); the device pass uploads the batch from pinned memory, scales it to
 (the NMS kernel) at `conf` (0.001 unless set), `iou` and `max_det`, and packs
 the outputs into one tensor that is copied back once; the host then matches
 each image's detections to its labels at ten IoU thresholds and updates the
-metrics and the confusion matrix. The other tasks' validators and the COCOeval
-cross-check are not ported.
+metrics and the confusion matrix. With `save_json` the kept detections go to
+<run>/predictions.json as COCO rows, and where the dataset has
+annotations/instances_val2017.json the port's copy of the COCOeval protocol
+(utils/coco_eval.py) scores them against it: `coco/<key>` entries join the
+results. The classify task's validator is engine/classify.py; the other tasks'
+are not ported.
 """
 
 from __future__ import annotations
@@ -34,10 +38,14 @@ from yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, match_pred
 
 
 def validator_for(model):
-    """The validator class of a model's task: the detect task's; the other tasks raise NotImplementedError."""
+    """The validator class of a model's task: detect's or classify's; the other tasks raise NotImplementedError."""
     task = "rtdetr" if getattr(model, "is_rtdetr", False) else getattr(model, "task", "detect")
+    if task == "classify":
+        from yolo_tpu_torch.engine.classify import ClassificationValidator
+
+        return ClassificationValidator
     if task != "detect":
-        raise NotImplementedError(f"validation of the {task} task is not ported (only detect)")
+        raise NotImplementedError(f"validation of the {task} task is not ported (only detect and classify)")
     return DetectionValidator
 
 
@@ -74,9 +82,6 @@ class DetectionValidator:
     def __call__(self, model, params) -> dict:
         a = self.args
         data = self.data or check_det_dataset(a.data)
-        anno = Path(data.get("path", ".")) / "annotations" / "instances_val2017.json"
-        if a.save_json and anno.exists():
-            raise NotImplementedError(f"the COCOeval cross-check against {anno} (utils/coco_eval.py coco_evaluate) is not ported")
         split = data.get(a.split) or data.get("val") or data.get("train")
         dataset = build_yolo_dataset(a, split, data, stride=int(max(model.stride)))
         batch_size = min(int(a.batch) if a.batch and a.batch > 0 else 16, len(dataset))
@@ -129,6 +134,13 @@ class DetectionValidator:
             save_dir.mkdir(parents=True, exist_ok=True)
             (save_dir / "predictions.json").write_text(json.dumps(self._json_dets))
             LOGGER.info(f"saved {save_dir / 'predictions.json'}")
+            anno = Path(data.get("path", ".")) / "annotations" / "instances_val2017.json"
+            if anno.exists():  # the COCOeval protocol's numbers beside the validator's
+                from yolo_tpu_torch.utils.coco_eval import coco_evaluate
+
+                stats = coco_evaluate(str(anno), self._json_dets)
+                LOGGER.info("COCOeval cross-check: " + " ".join(f"{k} {v:.4f}" for k, v in stats.items()))
+                results.update({f"coco/{k}": v for k, v in stats.items()})
         if a.plots:
             try:  # a failed PNG is a warning: the metrics stand
                 from yolo_tpu_torch.utils.plotting import plot_confusion_matrix

@@ -1,9 +1,9 @@
 """The YOLO modules of the detect+track main path, as PyTorch modules.
 
-Counterpart of yolo_tpu/nn/modules.py for the blocks that yolov8-small (P2)
-and yolov8n use: ConvBNAct, Conv2d, Bottleneck, C2f (with the neck's
-Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample and the
-Detect head with its DFL decode.
+Counterpart of yolo_tpu/nn/modules.py for the blocks that yolov8-small (P2),
+yolov8n and yolov8n-cls use: ConvBNAct, Conv2d, Bottleneck, C2f (with the
+neck's Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample, the
+Detect head with its DFL decode and the Classify head.
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -523,3 +523,59 @@ class Detect(nn.Module):
         fn = cuda_head_cm.head_level_cm_plain if plain else cuda_head_cm.head_level_cm
         dists, clss = zip(*(fn(x, self.kernel_weights(l)) for l, x in enumerate(xs)))
         return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])
+
+
+class Classify(nn.Module):
+    """Classification head (JAX Classify): a ConvBNAct to 1280 channels, the global mean, dropout
+    on the pooled features (training only), then an f32 linear layer → logits (B, c2) in f32.
+
+    The inference form's linear is `self.linear` (torch's (c2, 1280) weight); the train form's
+    `linear_weight` keeps the JAX tree's (1280, c2) layout. `drop` is (rate, torch.Generator)
+    while a trainer wants dropout: inverted dropout, each feature kept with probability
+    1 - rate by a draw from that generator (JAX keys it with jax.random, whose bits torch
+    cannot reproduce)."""
+
+    c_ = 1280  # efficientnet_b0's width, as in the JAX package
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p=None, g: int = 1):
+        super().__init__()
+        if p not in (None, k // 2) or g != 1:
+            raise NotImplementedError(f"Classify with padding {p} and groups {g} is not ported (the port's ConvBNAct pads k // 2)")
+        self.c2 = c2
+        self.conv = ConvBNAct(c1, self.c_, k, s)
+        self.linear = nn.Linear(self.c_, c2).requires_grad_(False)
+        self.linear_weight = nn.Parameter(torch.zeros(self.c_, c2))
+        self.linear_bias = nn.Parameter(torch.zeros(c2))
+        self.drop = None
+
+    def init(self, rng) -> dict:
+        bound = math.sqrt(1.0 / self.c_)
+        return {
+            "conv": self.conv.init(rng),
+            "linear": {
+                "weight": rng.uniform(-bound, bound, (self.c_, self.c2)).astype(np.float32),
+                "bias": rng.uniform(-bound, bound, (self.c2,)).astype(np.float32),
+            },
+        }
+
+    def train_leaves(self) -> dict:
+        return {"linear/weight": self.linear_weight, "linear/bias": self.linear_bias}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        self.conv.load_jax(p["conv"], device, dtype)
+        w = torch.from_numpy(np.ascontiguousarray(np.asarray(p["linear"]["weight"], np.float32).T))
+        self.linear.weight.data = w.to(device)
+        self.linear.bias.data = _vec(p["linear"]["bias"], device, torch.float32)
+
+    def forward(self, x) -> torch.Tensor:
+        pooled = Q.deq(self.conv(x), _dtype_of(self)).mean(dim=(1, 2))
+        return F.linear(pooled.float(), self.linear.weight, self.linear.bias)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = self.conv.forward_train(x).mean(dim=(1, 2))
+        if self.training and self.drop is not None and self.drop[0] > 0:
+            rate, gen = self.drop
+            keep = 1.0 - float(rate)
+            mask = torch.rand(pooled.shape, generator=gen, device=gen.device) < keep
+            pooled = torch.where(mask.to(pooled.device), pooled / keep, torch.zeros((), dtype=pooled.dtype, device=pooled.device))
+        return pooled.float() @ self.linear_weight + self.linear_bias

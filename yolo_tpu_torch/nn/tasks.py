@@ -1,6 +1,6 @@
-"""YAML → model builder, the BN fold, the weight bridge and the detection model.
+"""YAML → model builder, the BN fold, the weight bridge, the detection and classification models.
 
-Counterpart of yolo_tpu/nn/tasks.py for the detect main path: the same scale
+Counterpart of yolo_tpu/nn/tasks.py for the detect and classify tasks: the same scale
 math (c2 = make_divisible(min(c2, max_channels) * width, 8), n = max(round(n *
 depth), 1)), the same static stride propagation, the neck fold detection of
 `_build_neck_opt`, `predict_parts` and `predict`. Every C2f and Detect level
@@ -9,7 +9,9 @@ or on the CPU); both fold the neck unless `neck_opt=False`. An int8 tree
 (nn/quantize.py) walks without the fold and without the C2f and head kernels.
 `predict_augment` (test-time augmentation: three scales, one flipped, through
 `predict`), `embed_features` (pooled layer outputs) and the NMS `Ensemble` of
-several models are the JAX package's too.
+several models are the JAX package's too. `ClassificationModel` (the classify
+task, a Classify head) shares the build and both walks (`BaseModel`);
+`model_class_for` picks a checkpoint's class from its config and task.
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -43,6 +45,7 @@ MODULE_MAP = {
     "SPPF": M.SPPF,
     "Concat": M.Concat,
     "Detect": M.Detect,
+    "Classify": M.Classify,
     "nn.Upsample": M.Upsample,
 }
 
@@ -93,7 +96,7 @@ def parse_model(d: dict, ch: int):
             {"nc": nc, "True": True, "False": False, "None": None}.get(a, a) if isinstance(a, str) else a for a in args
         ]
         n = max(round(n * depth), 1) if n > 1 else n
-        if mcls in (M.ConvBNAct, M.C2f, M.SPPF):
+        if mcls in (M.ConvBNAct, M.C2f, M.SPPF, M.Classify):
             c1, c2 = chs[f], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
@@ -162,16 +165,17 @@ def params_are_fused(params) -> bool:
     return "bn" not in params and all(params_are_fused(v) for v in params.values())
 
 
-class DetectionModel(nn.Module):
-    """YOLO detection model (JAX DetectionModel): inference on fused weights, training on the unfused ones.
+class BaseModel(nn.Module):
+    """A model built from a YAML (JAX BaseModel): the layers, the graph walk of the inference form
+    (`_walk`, `embed_features`) and of the train form (`forward_features`), and `init`.
 
     The modules start with zero weights; `params_from_jax` loads a JAX parameter
     tree into the inference form, `load_train_params` into the train form.
     `device=None` means the CUDA card (raises without one)."""
 
-    task = "detect"
+    task = None
 
-    def __init__(self, cfg="yolov8n.yaml", ch: int = 3, nc: int | None = None, device=None):
+    def __init__(self, cfg, ch: int = 3, nc: int | None = None, device=None):
         super().__init__()
         self.yaml = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
         if nc and nc != self.yaml.get("nc"):
@@ -181,8 +185,6 @@ class DetectionModel(nn.Module):
         layers, self.froms, self.save = parse_model(self.yaml, ch)
         self.layers = nn.ModuleList(layers)
         _compute_strides(self.layers, self.froms)
-        self.head = self.layers[-1]
-        self.stride = self.head.stride
         self._build_neck_opt()
         for name, m in self.named_modules():
             if isinstance(m, M.ConvBNAct):
@@ -279,6 +281,28 @@ class DetectionModel(nn.Module):
                 col[i] = x
         return x, col
 
+    @torch.no_grad()
+    def embed_features(self, x: torch.Tensor, idx=None, plain: bool = False) -> torch.Tensor:
+        """Pooled embeddings (JAX `embed_features`): the outputs of layers `idx` (default the one
+        before the head) of NHWC images, each mean-pooled over the map to (B, C), concatenated. The
+        walk folds the neck unless a requested layer is an Upsample or Concat the fold skips."""
+        idx = sorted(set(idx or [len(self.layers) - 2]))
+        _, col = self._walk(x, plain, neck_opt=not set(idx) & self._neck_skip, upto=max(idx) + 1, collect=set(idx))
+        return torch.cat([col[i].mean(dim=(1, 2)) if col[i].ndim == 4 else col[i] for i in idx if i in col], -1)
+
+
+class DetectionModel(BaseModel):
+    """YOLO detection model (JAX DetectionModel): inference on fused weights, training on the unfused ones."""
+
+    task = "detect"
+
+    def __init__(self, cfg="yolov8n.yaml", ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+        self.head = self.layers[-1]
+        if not isinstance(self.head, M.Detect):
+            raise ValueError(f"a DetectionModel's last layer is a Detect head, not {type(self.head).__name__}")
+        self.stride = self.head.stride
+
     def _head_inputs(self, x: torch.Tensor, plain: bool, neck_opt: bool = True):
         """The Detect head's input maps (the graph walked up to the head)."""
         xs, _ = self._walk(x, plain, neck_opt)
@@ -333,16 +357,6 @@ class DetectionModel(nn.Module):
         ys[-1] = ys[-1][..., (ys[-1].shape[-1] // g) * 4 ** (nl - 1) :]
         return torch.cat(ys, -1)
 
-    @torch.no_grad()
-    def embed_features(self, x: torch.Tensor, idx=None, plain: bool = False) -> torch.Tensor:
-        """Pooled embeddings (JAX `embed_features`): the outputs of layers `idx` (default the one
-        before the head) of NHWC images, each mean-pooled over the map to (B, C), concatenated. The
-        walk folds the neck unless a requested layer is an Upsample or Concat the fold skips."""
-        idx = sorted(set(idx or [len(self.layers) - 2]))
-        _, col = self._walk(x, plain, neck_opt=not set(idx) & self._neck_skip, upto=max(idx) + 1, collect=set(idx))
-        return torch.cat([col[i].mean(dim=(1, 2)) if col[i].ndim == 4 else col[i] for i in idx if i in col], -1)
-
-
 AUGMENT_SCALES = (1.0, 0.83, 0.67)
 AUGMENT_FLIPS = (False, True, False)
 AUGMENT_PAD = 0.447  # the gray of the padded border, after /255
@@ -381,6 +395,57 @@ def param_count(params) -> int:
     if isinstance(params, (list, tuple)):
         return sum(param_count(v) for v in params)
     return int(np.size(params))
+
+
+class ClassificationModel(BaseModel):
+    """YOLO classification model (JAX ClassificationModel): the backbone (its C2f blocks through the
+    kernel, `plain=True`: the twin) and the Classify head; `stride` is [1] (no multi-scale head)."""
+
+    task = "classify"
+
+    def __init__(self, cfg="yolov8n-cls.yaml", ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+        self.head = self.layers[-1]
+        if not isinstance(self.head, M.Classify):
+            raise ValueError(f"a ClassificationModel's last layer is a Classify head, not {type(self.head).__name__}")
+        self.stride = [1]
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """Class probabilities (B, nc) in f32 from NHWC images in the model's dtype: the softmax of
+        the head's f32 logits."""
+        logits, _ = self._walk(x, plain, neck_opt=False)
+        return torch.softmax(logits.float(), -1)
+
+
+def guess_model_task(cfg: dict) -> str:
+    """The task of a model yaml, from its head module (JAX `guess_model_task`)."""
+    rows = list(cfg.get("head", [])) or list(cfg.get("backbone", []))
+    head = str(rows[-1][2]) if rows else "Detect"
+    if head in ("Classify",):
+        return "classify"
+    if head in ("Segment", "YOLOESegment"):
+        return "segment"
+    if head in ("Pose",):
+        return "pose"
+    if head in ("OBB",):
+        return "obb"
+    return "detect"
+
+
+def model_class_for(cfg: dict, task: str | None = None):
+    """The model class of a checkpoint's config and task (JAX `model_class_for`): DetectionModel or
+    ClassificationModel; the other tasks and families raise NotImplementedError naming them."""
+    rows = list(cfg.get("head", []))
+    head = str(rows[-1][2]) if rows else "Detect"
+    if head in ("RTDETRDecoder", "WorldDetect", "YOLOEDetect", "YOLOESegment"):
+        raise NotImplementedError(f"models with a {head} head are not ported (ROADMAP item 9)")
+    task = task or guess_model_task(cfg)
+    if task == "classify":
+        return ClassificationModel
+    if task != "detect":
+        raise NotImplementedError(f"the {task} task is not ported (only detect and classify)")
+    return DetectionModel
 
 
 class Ensemble:

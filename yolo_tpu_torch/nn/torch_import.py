@@ -91,10 +91,11 @@ def state_dict_to_params(state_dict: dict, params_template: dict) -> dict:
 
 
 def load_pt(path, model=None, device=None):
-    """A `.pt` → (DetectionModel built from its embedded config, or `model`; the parameter tree;
-    the metadata). The model's modules are empty until the tree is installed; `device=None`
+    """A `.pt` → (the model its embedded config and task name, built: DetectionModel or
+    ClassificationModel, or `model`; the parameter tree; the metadata). Another task raises
+    NotImplementedError. The model's modules are empty until the tree is installed; `device=None`
     is the card."""
-    from yolo_tpu_torch.nn.tasks import DetectionModel
+    from yolo_tpu_torch.nn.tasks import model_class_for
 
     sd, meta = load_torch_checkpoint(path)
     if model is None:
@@ -102,8 +103,6 @@ def load_pt(path, model=None, device=None):
         if yaml_cfg is None:
             raise ValueError(f"{path} has no embedded yaml; pass model= explicitly")
         task = (meta.get("train_args") or {}).get("task") if isinstance(meta.get("train_args"), dict) else None
-        if task not in (None, "detect"):
-            raise NotImplementedError(f"only detection checkpoints are ported, got task '{task}'")
-        model = DetectionModel(dict(yaml_cfg), device=device)
+        model = model_class_for(dict(yaml_cfg), task)(dict(yaml_cfg), device=device)
     params = state_dict_to_params(sd, model.init(0))
     return model, params, meta

@@ -3,9 +3,11 @@
 
 XYWH Kalman state, the GMC warp of the track states each frame, and IoU
 costs gated by `proximity_thresh` before the appearance cost is fused in.
-Appearance features come with the detections (`update(feats=...)`, the
-`model: auto` form); the crop-and-embed ReID encoder (a named `model`) needs
-`Model.embed` and a classify model, neither ported, and raises.
+With `with_reid`, appearance features come with the detections
+(`update(feats=...)`, the `model: auto` form) or, where `model` names a model,
+from the crop-and-embed `ReID` encoder: each detection's crop of the frame
+through that model's `YOLO.embed` (pooled features of the layer before its
+head, on the card unless the tracker is given another device).
 """
 
 from __future__ import annotations
@@ -90,17 +92,16 @@ class BOTrack(STrack):
 class BOTSORT(BYTETracker):
     """BoT-SORT manager."""
 
-    def __init__(self, args, frame_rate: int = 30):
-        if args.with_reid and getattr(args, "model", "auto") != "auto":
-            raise NotImplementedError(
-                f"BoT-SORT's ReID encoder (with_reid with model '{args.model}') embeds detection crops through "
-                "Model.embed of a classify model, and neither is ported; use model: auto and pass the "
-                "detections' features to update(feats=...)"
-            )
+    def __init__(self, args, frame_rate: int = 30, device=None):
+        """`device`: where the ReID encoder's model runs (None: `args.device` where the
+        namespace has one, else the card); `YOLO.track` passes its predictor's device."""
         super().__init__(args, frame_rate)
         self.gmc = GMC(method=args.gmc_method)
         self.proximity_thresh = args.proximity_thresh
         self.appearance_thresh = args.appearance_thresh
+        self.encoder = None
+        if args.with_reid and getattr(args, "model", "auto") != "auto":
+            self.encoder = ReID(args.model, device=device if device is not None else getattr(args, "device", None))
 
     def get_kalmanfilter(self):
         return KalmanFilterXYWH()
@@ -108,6 +109,8 @@ class BOTSORT(BYTETracker):
     def init_track(self, dets, scores, cls, img=None, feats=None):
         if len(dets) == 0:
             return []
+        if self.args.with_reid and self.encoder is not None and img is not None and feats is None:
+            feats = self.encoder(img, np.asarray(dets)[:, :4])
         if self.args.with_reid and feats is not None:
             return [BOTrack(xywh, s, c, f) for (xywh, s, c, f) in zip(dets, scores, cls, feats)]
         return [BOTrack(xywh, s, c) for (xywh, s, c) in zip(dets, scores, cls)]
@@ -132,3 +135,25 @@ class BOTSORT(BYTETracker):
     def reset(self):
         super().reset()
         self.gmc.reset_params()
+
+
+class ReID:
+    """Crop-and-embed re-identification encoder (JAX `ReID`): `YOLO(model)` on `device`, each
+    detection's crop embedded at `imgsz` by `YOLO.embed` and L2-normalised."""
+
+    def __init__(self, model: str = "yolov8n.yaml", imgsz: int = 128, device=None):
+        from yolo_tpu_torch.engine.model import YOLO
+
+        self.model = YOLO(model, device=device)
+        self.imgsz = imgsz
+
+    def __call__(self, img: np.ndarray, dets_xywh: np.ndarray) -> list:
+        """img BGR; dets (N, 4) centre xywh → N unit vectors (an 8x8 black crop for a box outside the frame)."""
+        h, w = img.shape[:2]
+        crops = []
+        for cx, cy, bw, bh in np.asarray(dets_xywh, np.float32):
+            x1, y1 = max(int(cx - bw / 2), 0), max(int(cy - bh / 2), 0)
+            x2, y2 = min(int(cx + bw / 2), w), min(int(cy + bh / 2), h)
+            crops.append(img[y1:y2, x1:x2] if x2 > x1 and y2 > y1 else np.zeros((8, 8, 3), np.uint8))
+        feats = self.model.embed(crops, imgsz=self.imgsz)
+        return [f / max(float(np.linalg.norm(f)), 1e-12) for f in feats]

@@ -40,10 +40,11 @@ def create_tracker(tracker: str | None, frame_rate: int = 30, device=None):
     card), sized by YOLO_TPU_DEVICE_TRACKER_DMAX / _NMAX (320 / 512: the
     predictor's max_det 300 fits). The JAX package picks the twin by default
     only on a TPU backend; on the port's backends the default is the host
-    tracker. BoT-SORT always runs on the host."""
+    tracker. BoT-SORT always runs on the host; its ReID encoder's model, where the yaml
+    names one, on `device`."""
     cfg = load_tracker_cfg(tracker)
     if cfg.tracker_type == "botsort":
-        return BOTSORT(args=cfg, frame_rate=frame_rate)
+        return BOTSORT(args=cfg, frame_rate=frame_rate, device=device)
     if os.getenv("YOLO_TPU_DEVICE_TRACKER") == "1":
         d_max = int(os.getenv("YOLO_TPU_DEVICE_TRACKER_DMAX", "320"))
         n_max = int(os.getenv("YOLO_TPU_DEVICE_TRACKER_NMAX", "512"))
@@ -55,7 +56,9 @@ def attach_tracker(model, results, persist: bool = False, stream: bool = False, 
     """Track over an iterable of Results → the same kind of iterable (a generator with `stream`).
     A new tracker is made unless `persist` and the model already holds one."""
     if not persist or getattr(model, "_tracker", None) is None:
-        model._tracker = create_tracker(tracker_cfg, device=getattr(model, "device", None))
+        predictor = getattr(model, "predictor", None)  # the device the results were computed on
+        device = getattr(predictor, "device", None) if predictor is not None else None
+        model._tracker = create_tracker(tracker_cfg, device=device if device is not None else getattr(model, "device", None))
     tracker = model._tracker
 
     def process(r):

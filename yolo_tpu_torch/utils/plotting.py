@@ -79,6 +79,19 @@ class Annotator:
     def box_label(self, box, label: str = "", color=(128, 128, 128), txt_color=(255, 255, 255)):
         box_label(self.im, box, label, color, self.lw, txt_color)
 
+    def text(self, xy, text: str, txt_color=(255, 255, 255), anchor: str = "top", box_color=()):
+        """A line of text with its top-left corner at `xy` (its baseline with anchor 'bottom'), on a
+        filled `box_color` box where one is given (JAX `Annotator.text`)."""
+        import cv2
+
+        tf = max(self.lw - 1, 1)
+        wh = cv2.getTextSize(text, 0, self.lw / 3, tf)[0]
+        x, y = int(xy[0]), int(xy[1])
+        y = y - 2 if anchor == "bottom" else y + wh[1] + 2
+        if box_color:
+            cv2.rectangle(self.im, (x, y - wh[1] - 3), (x + wh[0], y + 3), box_color, -1, cv2.LINE_AA)
+        cv2.putText(self.im, text, (x, y), 0, self.lw / 3, txt_color, tf, cv2.LINE_AA)
+
     def result(self):
         return self.im
 
