@@ -165,6 +165,17 @@ Phases (any failure stops the run with a non-zero exit code):
    yolov8n-cls at full width, predict f32 kernel against twin then bf16, the C2f kernel held at its
    four instances (f32 and bf16, B = 1 and 32), 3 epochs of training on a seeded 4-class folder
    dataset (top1 >= 0.9) and `val` through the kernel against the twin.
+19. the segment task (last; `segment_phases`), on a seeded polygon dataset (`write_seg_split`: 256 train and
+   64 val 640x512 IR-like frames as BGR, 1-4 bright ellipses each, some overlapping, nc 1): `[segment train]`
+   (YOLO("yolov8n-seg.yaml") from the JAX package's init(0), rebuilt at nc 1, SEG_RUN: 3 epochs at batch 16,
+   640, bf16, AdamW lr0 8e-4: losses and box / mask metrics per epoch, images/s over the call, the step's split,
+   peak memory), `[segment train step f32]` (one f32 step on the card against the CPU, TRAIN_STEP_TOL),
+   `[segment val kernels]` (f32 kernels against twins: every box and mask key within 1e-4; then bf16 images/s),
+   `[segment predict]` (the 64 val frames one per call, each frame's ten best detections, f32 kernels against
+   twins with retina_masks off and on: boxes 1e-2 px, conf 1e-4, each mask's IoU >= 0.99; then bf16 frames/s
+   with the host split) and `[segment forward]` (yolov8n-seg at full width, nc 80, 640², B = 8 and 32: preds,
+   coefficients and prototypes of the kernels against the twins, NMS with the coefficients as extras, kernels
+   1, 2, 3 and 5 held at those activations). Each phase launches kernels 1, 2, 3 and 5.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -2484,33 +2495,37 @@ def train_phase(data, run_dir, card, profiling):
     return y, launches
 
 
-def train_step_f32_phase(data, card):
+def train_step_f32_phase(data, card, cfg_name="yolov8-small.yaml", tag="train step f32", recipe=None):
     """`[train step f32]`: one f32 step of the trainer's path (forward, loss, backward, AdamW at the
     recipe's lr0 with its weight decay at batch 16, BN moments) on the card and on the CPU, from
-    DetectionModel("yolov8-small.yaml").init(0) and the first batch of the training loader (B = 16,
+    DetectionModel("yolov8-small.yaml").init(0) (or `cfg_name`'s model at the dataset's nc: a segment
+    model with its loss and the batch's masks) and the first batch of the training loader (B = 16,
     640x640): within TRAIN_STEP_TOL, or the run fails."""
     import numpy as np
     import torch
 
     from yolo_tpu_torch.cfg import get_cfg
     from yolo_tpu_torch.data import build_dataloader, build_yolo_dataset, check_det_dataset
-    from yolo_tpu_torch.nn.tasks import DetectionModel, load_train_params, train_leaves
-    from yolo_tpu_torch.utils.loss import v8DetectionLoss
+    from yolo_tpu_torch.nn.tasks import guess_model_task, load_train_params, model_class_for, train_leaves, yaml_model_load
+    from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8SegmentationLoss
     from yolo_tpu_torch.utils.optim import AdamW, apply_bn_stats
 
-    cfg = get_cfg(overrides=TRAIN_RECIPE)
+    cfg = get_cfg(overrides=recipe or TRAIN_RECIPE)
     d = check_det_dataset(str(data))
     batch = next(iter(build_dataloader(build_yolo_dataset(cfg, d["train"], d, mode="train"), cfg.batch, workers=8, shuffle=True)))
     lr, decay = cfg.lr0, cfg.weight_decay * cfg.batch * max(round(cfg.nbs / cfg.batch), 1) / cfg.nbs
+    yaml_cfg = yaml_model_load(cfg_name)
+    model_cls = model_class_for(yaml_cfg)
+    loss_cls = v8SegmentationLoss if guess_model_task(yaml_cfg) == "segment" else v8DetectionLoss
     runs = {}
     for dev in ("cuda", "cpu"):
-        m = DetectionModel("yolov8-small.yaml", device=dev)
+        m = model_cls(cfg_name, nc=d["nc"], device=dev)
         load_train_params(m, m.init(0))
         m.train()
         x = torch.from_numpy(batch["img"]).to(dev).float() / 255.0
-        tb = {k: torch.from_numpy(batch[k]).to(dev) for k in ("cls", "bboxes", "mask_gt")}
+        tb = {k: torch.from_numpy(batch[k]).to(dev) for k in ("cls", "bboxes", "mask_gt", "masks") if k in batch}
         t0 = time.perf_counter()
-        total, comps = v8DetectionLoss(m, cfg)(m.forward_features(x), tb)
+        total, comps = loss_cls(m, cfg)(m.forward_features(x), tb)
         total.backward()
         leaves = train_leaves(m)
         params = {k: t for k, t in leaves.items() if isinstance(t, torch.nn.Parameter)}
@@ -2535,8 +2550,8 @@ def train_step_f32_phase(data, card):
         err["param"] = max(err["param"], float(excess.max()))
         apart += int((torch.sign(gc[k]) != torch.sign(gp[k])).sum())
     if any(v > TRAIN_STEP_TOL[k] for k, v in err.items()):
-        raise AssertionError(f"train step f32: card vs CPU {err} beyond {TRAIN_STEP_TOL}")
-    log("train step f32", card, f"loss {tc:.6f} (CPU {tp:.6f}), components {np.round(cc, 6).tolist()} (CPU "
+        raise AssertionError(f"{tag}: card vs CPU {err} beyond {TRAIN_STEP_TOL}")
+    log(tag, card, f"{cfg_name}: loss {tc:.6f} (CPU {tp:.6f}), components {np.round(cc, 6).tolist()} (CPU "
         f"{np.round(cp, 6).tolist()}); largest differences, as TRAIN_STEP_TOL measures them: {err}; {apart} gradient "
         f"elements of opposite sign (near zero); the step took "
         f"{sc:.2f} s on the card (its first) and {sp:.2f} s on the CPU; all {len(gp)} gradients and {len(pp)} tensors held")
@@ -3371,6 +3386,223 @@ def classify_phase(clip, root: Path, card):
         f"equal through the twin; launches {launches}")
 
 
+# ------------------------------------------------------------------------ the segment task --
+
+SEG_TRAIN, SEG_VAL = (256, 40_000), (64, 40_001)  # `[segment ...]`'s polygon splits: frames and seed
+SEG_PATH = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+# yolov8n-seg from the JAX package's init(0), rebuilt at nc 1: the IR recipe's optimizer, lr0 and batch at 640 in bf16,
+# 3 epochs (close_mosaic 1), the cfg's augmentations otherwise
+SEG_RUN = dict(epochs=3, batch=16, imgsz=640, optimizer="AdamW", lr0=8e-4, amp=True, workers=8, seed=0, close_mosaic=1,
+               plots=False, exist_ok=True)
+# `[segment predict]`: each frame's ten best detections (a 3-epoch model's scores sit near 0.01, its box mAP50 near 0.07)
+SEG_PREDICT = dict(conf=0.001, max_det=10)
+
+
+def write_seg_split(root: Path, n: int, seed: int, split: str, w: int = 640, h: int = 512) -> Path:
+    """n seeded 640x512 IR-like frames (a cloudy background) written as BGR PNGs under root/images/<split>,
+    each with 1-4 bright filled ellipses (radii 12-60 px; about a third placed over the one before, so
+    instances overlap), their 30-point polygons as YOLO segment labels under root/labels/<split>, nc 1 →
+    the dataset yaml, which names every split written under root."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / f"images/{split}").mkdir(parents=True, exist_ok=True)
+    (root / f"labels/{split}").mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img = cv2.resize(rng.normal(30, 10, (h // 16, w // 16)).astype(np.float32), (w, h), interpolation=cv2.INTER_CUBIC)
+        img += rng.normal(0, 2, (h, w))
+        lines, prev = [], None
+        for _ in range(rng.integers(1, 5)):
+            ax, ay = (int(v) for v in rng.uniform(12, 60, 2))
+            if prev is not None and rng.uniform() < 0.35:
+                cx, cy = (int(v) for v in np.clip(prev + rng.uniform(-40, 40, 2), [ax, ay], [w - ax, h - ay]))
+            else:
+                cx, cy = int(rng.uniform(ax, w - ax)), int(rng.uniform(ay, h - ay))
+            pts = cv2.ellipse2Poly((cx, cy), (ax, ay), int(rng.uniform(0, 180)), 0, 360, 12)[:-1]
+            cv2.fillPoly(img, [pts], float(rng.uniform(140, 220)))
+            lines.append("0 " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in pts))
+            prev = np.array([cx, cy], np.float64)
+        gray = np.clip(img, 0, 255).astype(np.uint8)
+        cv2.imwrite(str(root / f"images/{split}/{i}.png"), cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
+    (root / "data.yaml").write_text(f"path: {root}\n{splits}names:\n  0: target\n")
+    return root / "data.yaml"
+
+
+def segment_train_phase(data, run_dir, card):
+    """`[segment train]`: YOLO("yolov8n-seg.yaml").train with SEG_RUN on the 256-frame polygon split, validating
+    on the 64 held-out frames each epoch: per epoch the four loss components and the box and mask metrics; images/s
+    over the whole .train call; peak memory; the launches of check_amp and the validations → the trained YOLO."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    epochs = []
+    y = YOLO("yolov8n-seg.yaml")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, launches = counted(SEG_PATH, lambda: y.train(trainer=train_epoch_recorder(epochs), data=str(data),
+                                                          project=str(run_dir), name="segment", **SEG_RUN))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if y.task != "segment" or y.model.nc != 1 or not y.trainer.args.amp or metrics is None:
+        raise AssertionError(f"segment train: task {y.task}, nc {y.model.nc}, amp {y.trainer.args.amp}, metrics {metrics}")
+    for e in epochs:
+        r = e["row"]
+        losses = [r[f"train/{k}_loss"] for k in ("box", "seg", "cls", "dfl")]
+        if not all(np.isfinite(losses)) or min(losses) <= 0:
+            raise AssertionError(f"segment train: epoch {r['epoch']} losses {losses}")
+        log("segment train", card, f"epoch {r['epoch'] + 1}/{SEG_RUN['epochs']}: box {losses[0]:.4f} seg {losses[1]:.4f} cls "
+            f"{losses[2]:.4f} dfl {losses[3]:.4f}; box mAP50 {r['metrics/mAP50']:.4f} mAP50-95 {r['metrics/mAP50-95']:.4f}, mask mAP50 "
+            f"{r['metrics/mask_mAP50']:.4f} mAP50-95 {r['metrics/mask_mAP50-95']:.4f}; epoch {e['epoch_s']:.2f} s, val {e['val_s']:.2f} s")
+    n = SEG_RUN["epochs"] * SEG_TRAIN[0]
+    steps = [t for e in epochs for t in e["timings"][1:]]
+    mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
+    log("segment train", card, f"{SEG_RUN['epochs']} epochs of {SEG_TRAIN[0]} frames at batch {SEG_RUN['batch']}, 640, bf16: "
+        f"{n / wall:.1f} images/s over the whole .train call ({wall:.1f} s: check_amp, the loader, the steps, each epoch's f32 "
+        f"validation of {SEG_VAL[0]} frames); per step after each epoch's first: loader wait {mean['loader']:.2f} ms (host), "
+        f"forward+loss {mean['forward']:.2f} ms, backward {mean['backward']:.2f} ms, optimizer+BN+EMA {mean['optimizer']:.2f} ms "
+        f"(events); peak memory {peak:.2f} GiB (max_memory_allocated, over the {base / 2**30:.2f} GiB held before); launches {launches}")
+    return y
+
+
+def segment_val_kernels_phase(y, data, card):
+    """`[segment val kernels]`: the trained model on the held-out split, f32 through the kernels against f32
+    through the twins (every box and mask key within 1e-4), then bf16 images/s over a warmed .val call."""
+    path = SEG_PATH
+    rk, launches = counted(path, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False))
+    rp = y.val(data=str(data), imgsz=640, batch=16, plots=False, plain=True)
+    diff = {k: abs(rk[k] - rp[k]) for k in rk}
+    if set(rk) != set(rp) or max(diff.values()) > 1e-4 or "mask_mAP50-95" not in rk:
+        raise AssertionError(f"segment val: kernels {rk} vs twins {rp}")
+    log("segment val kernels", card, "f32 kernels: " + ", ".join(f"{k} {v:.4f}" for k, v in rk.items())
+        + f"; every key within {max(diff.values()):.2e} of the twins'; launches {launches}")
+    y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True)  # warm: bf16 weights and plans
+    t0 = time.perf_counter()
+    rb, launches = counted(path, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True))
+    wall = time.perf_counter() - t0
+    log("segment val bf16", card, f"{SEG_VAL[0]} frames in {wall:.2f} s = {SEG_VAL[0] / wall:.1f} images/s (host clock, the .val "
+        f"call); box mAP50-95 {rb['mAP50-95']:.4f} (f32 {rk['mAP50-95']:.4f}), mask mAP50-95 {rb['mask_mAP50-95']:.4f} "
+        f"(f32 {rk['mask_mAP50-95']:.4f}); launches {launches}")
+
+
+def _mask_iou(a, b) -> float:
+    inter, union = (a & b).sum(), (a | b).sum()
+    return 1.0 if union == 0 else float(inter / union)
+
+
+def segment_predict_phase(y, frames, card):
+    """`[segment predict]`: the trained model over held-out BGR frames, one per predict call, at SEG_PREDICT's
+    conf and max_det, f32 through the kernels against f32 through the twins: equal detection counts, boxes within
+    1e-2 px, conf within 1e-4, every mask's IoU with the twin's at least 0.99; with retina_masks off and on. Then
+    bf16 frames/s (host clock) with the host split: the predict call and, inside it, the masks' upsampling."""
+    import numpy as np
+
+    def run(half, plain, retina):
+        out = []
+        for f in frames:
+            r = y.predict(f, half=half, plain=plain, compute_dtype=compute_dtype(half), retina_masks=retina, verbose=False,
+                          **SEG_PREDICT)[0]
+            out.append((r.boxes.data.copy(), r.masks.data.copy()))
+        return out
+
+    for retina in (False, True):
+        run(False, False, retina)  # warm-up
+        pk, launches = counted(SEG_PATH, lambda: run(False, False, retina))
+        pp = run(False, True, retina)
+        n_det, worst_box, worst_conf, worst_iou = 0, 0.0, 0.0, 1.0
+        for (bk, mk), (bp, mp) in zip(pk, pp):
+            if bk.shape != bp.shape or mk.shape != mp.shape:
+                raise AssertionError(f"segment predict retina={retina}: {bk.shape} / {mk.shape} vs twins {bp.shape} / {mp.shape}")
+            if len(bk):
+                worst_box = max(worst_box, float(np.abs(bk[:, :4] - bp[:, :4]).max()))
+                worst_conf = max(worst_conf, float(np.abs(bk[:, 4] - bp[:, 4]).max()))
+                worst_iou = min(worst_iou, *(_mask_iou(a, b) for a, b in zip(mk, mp)))
+            n_det += len(bk)
+        if n_det == 0 or worst_box > 1e-2 or worst_conf > 1e-4 or worst_iou < 0.99:
+            raise AssertionError(f"segment predict retina={retina}: {n_det} detections, |box| {worst_box}, |conf| {worst_conf}, "
+                                 f"mask IoU {worst_iou}")
+        confs = np.concatenate([b[:, 4] for b, _ in pk])
+        areas = np.concatenate([m.sum((1, 2)) for _, m in pk])
+        log("segment predict f32", card, f"retina_masks={retina}: {len(frames)} frames, {n_det} detections equal to the twins' "
+            f"(max |box| {worst_box:.3e} px, |conf| {worst_conf:.3e}, least mask IoU {worst_iou:.6f}), masks {pk[0][1].shape[1:]} "
+            f"a frame; conf {confs.min():.4f}-{confs.max():.4f}, mask areas {int(areas.min())}-{int(areas.max())} px; "
+            f"launches {launches}")
+    y.predictor.timings = []
+    y.predict(frames[0], half=True, compute_dtype="bfloat16", verbose=False, **SEG_PREDICT)  # warm: bf16 weights
+    y.predictor.timings = []
+    t0 = time.perf_counter()
+    _, launches = counted(SEG_PATH, lambda: run(True, False, False))
+    wall = time.perf_counter() - t0
+    ts = y.predictor.timings
+    y.predictor.timings = None
+    call = sum(t["pre_s"] + t["enqueue_s"] + t["wait_s"] + t["post_s"] for t in ts) / len(ts) * 1e3
+    up = sum(t.get("masks_s", 0.0) for t in ts) / len(ts) * 1e3
+    log("segment predict bf16", card, f"{len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.1f} frames/s (host clock, one "
+        f"frame per predict call); host ms/frame: letterbox + upload + forward + NMS + masks + copy-back + Results {call:.3f}, of "
+        f"which the masks' upsampling (cv2, valid masks only) {up:.3f}; launches {launches}")
+
+
+def segment_forward_phase(frames, card):
+    """`[segment forward]`: yolov8n-seg at full width (nc 80, the JAX package's init(0)) at 640x640, B = 8 and 32, f32
+    through the kernels against the twins: boxes within 1e-2 px, scores 1e-4, mask coefficients and prototypes 1e-3;
+    kernels 1, 2, 3 and 5 held against their twins on those activations (`hold_path_kernels`); NMS with the
+    coefficients as extra columns, kernel against twin: equal kept slots, extras equal for the same slots. NMS runs
+    at conf 0, since the initial tree's scores sit near 1e-3: every anchor is a candidate, K = 1024."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import SegmentationModel, params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression
+
+    m = SegmentationModel("yolov8n-seg.yaml")
+    params_from_jax(m, m.init(0), torch.float32)
+    x32 = torch.cat([letterboxed(frames[i % len(frames)]) for i in range(32)])
+
+    def forward_nms(x, plain):
+        preds, protos = m.predict(x, plain=plain)
+        return preds, protos, non_max_suppression(preds, conf_thres=0.0, iou_thres=0.7, max_det=300, nc=m.nc, plain=plain)
+
+    for B in (8, 32):
+        x = x32[:B]
+        (pk, prk, ok), launches = counted(SEG_PATH, lambda: forward_nms(x, False))
+        pp, prp, op = forward_nms(x, True)
+        torch.cuda.synchronize()
+        err = {"box": float((pk[:, :4] - pp[:, :4]).abs().max()), "score": float((pk[:, 4:84] - pp[:, 4:84]).abs().max()),
+               "coef": float((pk[:, 84:] - pp[:, 84:]).abs().max()), "proto": float((prk - prp).abs().max())}
+        same = bool(torch.equal(ok["valid"], op["valid"]))
+        ex = float((ok["extra"] - op["extra"]).abs().max())
+        if (pk.shape != (B, 116, 8400) or prk.shape != (B, 160, 160, 32) or not torch.isfinite(pk).all() or err["box"] > 1e-2
+                or err["score"] > 1e-4 or err["coef"] > 1e-3 or err["proto"] > 1e-3 or not same or ex > 1e-3):
+            raise AssertionError(f"segment forward B={B}: {err}, NMS valid equal {same}, extras {ex}, {tuple(pk.shape)}, {tuple(prk.shape)}")
+        log("segment forward", card, f"B={B} 640x640: preds {tuple(pk.shape)}, protos {tuple(prk.shape)}; kernels against twins max "
+            + ", ".join(f"|{k}| {v:.3e}" for k, v in err.items()) + f"; NMS {int(ok['valid'].sum())} kept slots equal, extras "
+            f"within {ex:.3e}; launches {launches}")
+        hold_path_kernels([m], x, f"segment forward B={B}", card, conf=0.0, iou=0.7)
+
+
+def segment_phases(root: Path, card):
+    """The segment task's four phases on the polygon splits written under `root`."""
+    import cv2
+    import numpy as np
+
+    t0 = time.perf_counter()
+    write_seg_split(root, *SEG_TRAIN, split="train")
+    data = write_seg_split(root, *SEG_VAL, split="val")
+    print(f"[segment split] {SEG_TRAIN[0]} train + {SEG_VAL[0]} val frames of 640x512 with polygon labels written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    y = segment_train_phase(data, root / "runs", card)
+    train_step_f32_phase(data, card, cfg_name="yolov8n-seg.yaml", tag="segment train step f32", recipe=SEG_RUN)
+    segment_val_kernels_phase(y, data, card)
+    frames = [cv2.imread(str(root / f"images/val/{i}.png")) for i in range(SEG_VAL[0])]
+    segment_predict_phase(y, frames, card)
+    segment_forward_phase(np.stack(frames), card)
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -3502,6 +3734,7 @@ def main(argv) -> int:
         train_settings_phase(train_data, Path(tmp) / "runs", card)
         tune_phase(Path(tmp) / "tune", card)
         classify_phase(clip, Path(tmp) / "cls", card)
+        segment_phases(Path(tmp) / "seg", card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

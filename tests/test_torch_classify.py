@@ -115,17 +115,19 @@ def test_classify_head_and_model_match_jax(two_threads):
 
 def test_yolo_cls_yaml_matches_jax_init_and_routing():
     """YOLO("yolov8n-cls.yaml") holds JAX's initial tree bit for bit (scale n, nc 1000, 1280-wide head);
-    the task comes from the name or `task=`; -seg, -pose and -obb raise naming their task, a ResNet
-    backbone names its module; guess_model_task and model_class_for follow JAX's."""
+    the task comes from the name or `task=`; -pose and -obb raise naming their task (-seg builds a
+    segment model since the segment task was ported), a ResNet backbone names its module;
+    guess_model_task and model_class_for follow JAX's."""
     py, jy = yolo_tpu_torch.YOLO("yolov8n-cls.yaml", device="cpu"), yolo_tpu.YOLO("yolov8n-cls.yaml")
     got, want = _flat(py.params), _flat(jy.params)
     assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
     assert want["model.9.linear.weight"].shape == (1280, 1000)
     assert py.task == jy.task == "classify" and py.info(verbose=False) == jy.info(verbose=False)
     assert yolo_tpu_torch.YOLO("yolov8n-cls.yaml", task="classify", device="cpu").overrides == {"model": "yolov8n-cls.yaml", "task": "classify"}
-    for name, task in (("yolov8n-seg.yaml", "segment"), ("yolov8n-pose.yaml", "pose"), ("yolov8n-obb.yaml", "obb")):
+    for name, task in (("yolov8n-pose.yaml", "pose"), ("yolov8n-obb.yaml", "obb")):
         with pytest.raises(NotImplementedError, match=task):
             yolo_tpu_torch.YOLO(name, device="cpu")
+    assert yolo_tpu_torch.YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
     with pytest.raises(NotImplementedError, match="ResNetLayer"):
         yolo_tpu_torch.YOLO("yolov8n-cls-resnet50.yaml", device="cpu")
     for cfg in ("yolov8n-cls.yaml", "yolov8n.yaml", "yolov8n-seg.yaml", "yolov8n-pose.yaml", "yolov8n-obb.yaml"):
@@ -133,8 +135,9 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
         assert PT.guess_model_task(d) == JT.guess_model_task(d)
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-cls.yaml")) is PT.ClassificationModel
     assert PT.model_class_for(JT.yaml_model_load("yolov8n.yaml")) is PT.DetectionModel
-    with pytest.raises(NotImplementedError, match="segment"):
-        PT.model_class_for(JT.yaml_model_load("yolov8n-seg.yaml"))
+    assert PT.model_class_for(JT.yaml_model_load("yolov8n-seg.yaml")) is PT.SegmentationModel
+    with pytest.raises(NotImplementedError, match="pose"):
+        PT.model_class_for(JT.yaml_model_load("yolov8n-pose.yaml"))
 
 
 @pytest.mark.parametrize("k", range(8))

@@ -736,3 +736,57 @@ def test_new_phases_on_the_card(card, phase, monkeypatch, tmp_path):
         chip_smoke.classify_phase(clip, tmp_path, "card test")
     else:
         chip_smoke.track_reid_phase(clip, "card test")
+
+
+@pytest.mark.parametrize("nc", [80, 1])
+def test_segment_forward_and_nms_on_the_card_match_twins(card, nc):
+    """yolov8n-seg at full width from the JAX package's initial tree (nc 80, and nc 1: the head's c3 = 64), two
+    seeded 128² images: the f32 predictions and prototypes through kernels 1, 2 and 3 against the twins (boxes
+    1e-2 px, scores 1e-4, coefficients and prototypes 1e-3) and against the CPU's (the same), 8 C2f and 3 head
+    launches a forward; NMS with the coefficients as extra columns through kernel 5 against its twin (equal
+    slots, extras 1e-6); bf16 against the bf16 twins at 6e-2."""
+    from yolo_tpu_torch.nn.tasks import SegmentationModel, params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression
+
+    m, cpu = SegmentationModel("yolov8n-seg.yaml", nc=nc), SegmentationModel("yolov8n-seg.yaml", nc=nc, device="cpu")
+    params = m.init(0)
+    for l in range(3):  # class priors at 0: detections at conf 0.25
+        params["model"]["22"]["cv3"][str(l)]["2"]["bias"][:] = 0.0
+    params_from_jax(m, params, torch.float32)
+    params_from_jax(cpu, params, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 128, 128, 3)).astype(np.float32))
+    before = (cuda_c2f.fused_c2f.launches + cuda_c2f.fused_c2f_upconcat.launches, cuda_head.fused_head_level.launches)
+    preds, protos = m.predict(x.to(card))
+    after = (cuda_c2f.fused_c2f.launches + cuda_c2f.fused_c2f_upconcat.launches, cuda_head.fused_head_level.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (8, 3)
+    assert preds.shape == (2, 4 + nc + 32, 336) and protos.shape == (2, 32, 32, 32)
+    for want, want_protos in (m.predict(x.to(card), plain=True), cpu.predict(x)):
+        want, want_protos = want.to(card), want_protos.to(card)
+        torch.testing.assert_close(preds[:, :4], want[:, :4], atol=1e-2, rtol=0)
+        torch.testing.assert_close(preds[:, 4 : 4 + nc], want[:, 4 : 4 + nc], atol=1e-4, rtol=0)
+        torch.testing.assert_close(preds[:, 4 + nc :], want[:, 4 + nc :], atol=1e-3, rtol=0)
+        torch.testing.assert_close(protos, want_protos, atol=1e-3, rtol=0)
+    n0 = cuda_nms.nms_keep.launches
+    got = non_max_suppression(preds, conf_thres=0.25, nc=nc)
+    assert cuda_nms.nms_keep.launches == n0 + 1
+    want = non_max_suppression(preds, conf_thres=0.25, nc=nc, plain=True)
+    assert got["valid"].any() and torch.equal(got["valid"], want["valid"]) and got["extra"].shape == (2, 300, 32)
+    for k in ("boxes", "scores", "cls", "extra"):
+        torch.testing.assert_close(got[k], want[k], atol=1e-6, rtol=0)
+    params_from_jax(m, params, torch.bfloat16)
+    xb = x.to(card, torch.bfloat16)
+    (pk, prk), (pp, prp) = m.predict(xb), m.predict(xb, plain=True)
+    torch.testing.assert_close(pk[:, 4:], pp[:, 4:], **TOL[torch.bfloat16])
+    torch.testing.assert_close(prk.float(), prp.float(), **TOL[torch.bfloat16])
+
+
+def test_segment_phases_on_the_card(card, monkeypatch, tmp_path):
+    """chip_smoke's segment phases (`[segment train]`, `[segment train step f32]`, `[segment val kernels]`,
+    `[segment predict]`, `[segment forward]`) cut to 32 train and 8 val frames, one epoch at batch 8."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "SEG_TRAIN", (32, 40_000))
+    monkeypatch.setattr(chip_smoke, "SEG_VAL", (8, 40_001))
+    monkeypatch.setattr(chip_smoke, "SEG_RUN", {**chip_smoke.SEG_RUN, "epochs": 1, "batch": 8, "close_mosaic": 0})
+    chip_smoke.segment_phases(tmp_path, "card test")

@@ -170,8 +170,8 @@ def test_collate_matches_jax(dataset_root, max_boxes):
     got, _ = _datasets(str(dataset_root / "images" / "val"), imgsz=64)
     samples = [got[i] for i in range(len(got))]
     a, b = PD.collate_batch(samples, max_boxes), JD.collate_batch(samples, max_boxes)
-    assert set(a) == {"img", "cls", "bboxes", "mask_gt", "meta"} <= set(b)
-    for k in ("img", "cls", "bboxes", "mask_gt"):
+    assert set(a) == set(b) == {"img", "cls", "bboxes", "mask_gt", "meta", "masks"}  # the polygon rows draw masks
+    for k in ("img", "cls", "bboxes", "mask_gt", "masks"):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert a["meta"] == b["meta"]
     np.testing.assert_array_equal(a["img"][0], samples[0]["img"][..., ::-1])  # RGB

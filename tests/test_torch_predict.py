@@ -135,8 +135,11 @@ def test_non_max_suppression_matches_jax(plain, classes, agnostic):
     np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=0, atol=1e-4)
     if classes is not None:
         assert set(got["cls"][got["valid"]].tolist()) <= set(classes)
-    with pytest.raises(ValueError, match="4 \\+ nc"):
-        PN.non_max_suppression(torch.from_numpy(pred), nc=2)
+    # with nc given, the rows after 4 + nc ride through as extras (the segment task's coefficients), as in JAX
+    want, got = JN.non_max_suppression(jnp.asarray(pred), nc=2, **kw), PN.non_max_suppression(torch.from_numpy(pred), nc=2, plain=plain, **kw)
+    assert set(got) == set(want) == {"boxes", "scores", "cls", "valid", "extra"}
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=1e-4, err_msg=k)
 
 
 # --- Detect.decode / DetectionModel.predict ---------------------------------------------
@@ -470,7 +473,7 @@ def test_predictor_runs_on_the_card_by_default(monkeypatch):
     out = pred._predict(torch.zeros((1, 64, 64, 3), dtype=torch.uint8))
     assert out["boxes"].shape == (1, 300, 4) and out["valid"].dtype == torch.bool
     with pytest.raises(NotImplementedError, match="detect"):
-        yolo_tpu_torch.YOLO("yolov8n.yaml", task="segment", device="cpu")
+        yolo_tpu_torch.YOLO("yolov8n.yaml", task="pose", device="cpu")
     with pytest.raises(ValueError, match="unsupported model source"):
         yolo_tpu_torch.YOLO("weights.onnx", device="cpu")
 

@@ -134,11 +134,13 @@ def test_val_plots_and_a_failing_plot(splits, two_threads, tmp_path, monkeypatch
 
 
 def test_unported_tasks_and_the_coco_cross_check_raise(tmp_path):
-    """The tasks without a validator raise naming themselves; classify has its own validator. The
-    COCOeval cross-check no longer raises: tests/test_torch_coco_eval.py holds it against JAX."""
+    """The tasks without a validator raise naming themselves; classify and segment have their own
+    validators. The COCOeval cross-check no longer raises: tests/test_torch_coco_eval.py holds it
+    against JAX."""
     from yolo_tpu_torch.engine.classify import ClassificationValidator
 
-    for model, task in ((SimpleNamespace(task="segment"), "segment"), (SimpleNamespace(task="obb"), "obb"),
+    assert PV.validator_for(SimpleNamespace(task="segment")) is PV.SegmentationValidator
+    for model, task in ((SimpleNamespace(task="obb"), "obb"),
                         (SimpleNamespace(task="pose"), "pose"), (SimpleNamespace(is_rtdetr=True), "rtdetr")):
         with pytest.raises(NotImplementedError, match=task):
             PV.validator_for(model)

@@ -48,7 +48,7 @@ class DataLoader:
     yielded in order; a worker's exception is raised in the consumer."""
 
     def __init__(self, dataset: YOLODataset, batch_size: int = 16, shuffle: bool = False, workers: int = 4, seed: int = 0,
-                 max_boxes: int = 64, drop_last: bool = False):
+                 max_boxes: int = 64, drop_last: bool = False, overlap_mask: bool = True, mask_ratio: int = 4):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -56,6 +56,7 @@ class DataLoader:
         self.seed = seed
         self.max_boxes = max_boxes
         self.drop_last = drop_last
+        self.overlap_mask, self.mask_ratio = overlap_mask, mask_ratio  # the masks of polygon labels (collate_batch)
         self.epoch = 0
 
     def __len__(self):
@@ -95,7 +96,8 @@ class DataLoader:
             rng = random.Random(self.seed * 1000003 + self.epoch * 131 + worker_id)
             try:
                 for bi in range(worker_id, len(batches), self.workers):
-                    if not put((bi, collate_batch([self._sample(j, rng) for j in batches[bi]], self.max_boxes))):
+                    samples = [self._sample(j, rng) for j in batches[bi]]
+                    if not put((bi, collate_batch(samples, self.max_boxes, self.overlap_mask, self.mask_ratio))):
                         return
             except BaseException as e:  # handed to the consumer, which would otherwise wait for this batch forever
                 put(("error", e))
@@ -126,8 +128,11 @@ def _derive_max_boxes(dataset) -> int:
 
 
 def build_dataloader(dataset, batch: int, workers: int = 4, shuffle: bool = False, seed: int = 0,
-                     max_boxes: int | None = None, drop_last: bool = False) -> DataLoader:
+                     max_boxes: int | None = None, drop_last: bool = False, overlap_mask: bool = True,
+                     mask_ratio: int = 4) -> DataLoader:
     """The loader over `dataset` (the validator's form unless `shuffle` / `drop_last` are set);
-    `max_boxes` defaults to `_derive_max_boxes`."""
+    `max_boxes` defaults to `_derive_max_boxes`; `overlap_mask` and `mask_ratio` shape the masks of
+    polygon labels (`collate_batch`)."""
     return DataLoader(dataset, batch_size=batch, shuffle=shuffle, workers=workers, seed=seed,
-                      max_boxes=max_boxes or _derive_max_boxes(dataset), drop_last=drop_last)
+                      max_boxes=max_boxes or _derive_max_boxes(dataset), drop_last=drop_last,
+                      overlap_mask=overlap_mask, mask_ratio=mask_ratio)

@@ -6,7 +6,8 @@ batches.
 
 Box rows (`cls cx cy w h`, normalized) and polygon rows (`cls x1 y1 x2 y2 ...`,
 turned into their boxes; the training augmentations warp the polygons) are read;
-the masks, keypoints and rotated boxes of the other tasks are not ported.
+where a batch has polygons the collate draws their masks (the segment task); the
+keypoints and rotated boxes of the other tasks are not ported.
 `cache='ram'` (or True) keeps each decoded image in memory after its first read
 and hands out copies (the augmentations write into the image).
 """
@@ -195,10 +196,16 @@ class YOLODataset:
             self.transforms.mosaic_enabled = False
 
 
-def collate_batch(samples: list[dict], max_boxes: int = 64) -> dict:
+def collate_batch(samples: list[dict], max_boxes: int = 64, overlap: bool = True, mask_ratio: int = 4) -> dict:
     """Stack letterboxed samples into fixed-shape arrays: img (B, H, W, 3) uint8 RGB,
     cls (B, N), bboxes (B, N, 4) normalized xywh, mask_gt (B, N), and `meta`, a list
-    of {im_file, shape, ratio_pad}. Labels beyond `max_boxes` are dropped, with a warning."""
+    of {im_file, shape, ratio_pad}. Labels beyond `max_boxes` are dropped, with a warning.
+
+    Where a sample has polygons, `masks` too, at (H / r, W / r) for r = `mask_ratio`, each polygon
+    drawn with cv2.fillPoly at its points rounded by np.round (half to even) from pixels / r:
+    `overlap=True` gives one f32 index map (B, h, w) a batch, instance j drawn as j + 1, the largest
+    contour area first (a stable sort, so ties keep the label order) so a smaller instance keeps its
+    pixels where it overlaps a larger one; `overlap=False` gives per-instance uint8 masks (B, N, h, w)."""
     from yolo_tpu_torch.ops.boxes import xyxy2xywhn
 
     B = len(samples)
@@ -222,4 +229,26 @@ def collate_batch(samples: list[dict], max_boxes: int = 64) -> dict:
             bboxes[i, :n] = np.asarray(xyxy2xywhn(s["bboxes"][:n], w=W, h=H), np.float32)
             mask[i, :n] = 1.0
         meta.append({"im_file": s.get("im_file"), "shape": s.get("shape"), "ratio_pad": s.get("ratio_pad")})
-    return {"img": imgs, "cls": cls, "bboxes": bboxes, "mask_gt": mask, "meta": meta}
+    batch = {"img": imgs, "cls": cls, "bboxes": bboxes, "mask_gt": mask, "meta": meta}
+    if any(s.get("segments") for s in samples):
+        batch["masks"] = _draw_masks(samples, max_boxes, overlap, max(int(mask_ratio), 1), (H, W))
+    return batch
+
+
+def _draw_masks(samples: list[dict], max_boxes: int, overlap: bool, r: int, hw) -> np.ndarray:
+    """The `masks` of `collate_batch`: polygons (pixels) drawn at 1 / r of the image's size."""
+    import cv2
+
+    mh, mw = hw[0] // r, hw[1] // r
+    maps = np.zeros((len(samples), mh, mw), np.float32) if overlap else np.zeros((len(samples), max_boxes, mh, mw), np.uint8)
+    for i, s in enumerate(samples):
+        polys = [(j, np.round(sg / r).astype(np.int32)) for j, sg in enumerate((s.get("segments") or [])[:max_boxes])
+                 if sg is not None and len(sg) >= 3]
+        if overlap:
+            polys.sort(key=lambda t: -cv2.contourArea(t[1].reshape(-1, 1, 2).astype(np.float32)))
+            for j, pts in polys:
+                cv2.fillPoly(maps[i], [pts], float(j + 1))
+        else:
+            for j, pts in polys:
+                cv2.fillPoly(maps[i, j], [pts], 1)
+    return maps

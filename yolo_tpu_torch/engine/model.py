@@ -1,7 +1,8 @@
-"""YOLO model facade of the detect and classify tasks (counterpart of yolo_tpu/engine/model.py).
+"""YOLO model facade of the detect, segment and classify tasks (counterpart of yolo_tpu/engine/model.py).
 
     YOLO("yolov8-small.yaml")      # fresh DetectionModel, seeded random weights
     YOLO("yolov8n-cls.yaml")       # fresh ClassificationModel (a name with '-cls', or task="classify")
+    YOLO("yolov8n-seg.yaml")       # fresh SegmentationModel (a name with '-seg', or task="segment")
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
     YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
@@ -18,9 +19,12 @@
     best = YOLO(...).tune(data="dataset.yaml", iterations=10, epochs=10)  # hyperparameter evolution
 
 A classify YOLO predicts Results with `probs` (top-5 and their confidences), validates to
-top1 / top5 / fitness and trains on a folder-per-class dataset (engine/classify.py).
+top1 / top5 / fitness and trains on a folder-per-class dataset (engine/classify.py). A segment
+YOLO predicts Results with `masks` (engine/segment_predictor.py), validates to box and `mask_`
+metrics and trains on polygon labels (the detect trainer with the segmentation loss); its
+`track`, `benchmark`, `tune` and ensembles raise NotImplementedError (ROADMAP item 5).
 Runs on the CUDA card unless `device="cpu"` is passed. Orbax checkpoints are not
-ported, nor the orbax, stablehlo and tflite exports, nor the segment, pose and obb tasks.
+ported, nor the orbax, stablehlo and tflite exports, nor the pose and obb tasks.
 """
 
 from __future__ import annotations
@@ -32,10 +36,19 @@ import torch
 
 from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT
 from yolo_tpu_torch.device import resolve_device
-from yolo_tpu_torch.nn.tasks import ClassificationModel, DetectionModel, Ensemble, fuse, install_params, param_count
+from yolo_tpu_torch.nn.tasks import (
+    ClassificationModel,
+    DetectionModel,
+    Ensemble,
+    SegmentationModel,
+    fuse,
+    install_params,
+    param_count,
+)
 from yolo_tpu_torch.utils import LOGGER
 
-PORTED_TASKS = ("detect", "classify")
+PORTED_TASKS = ("detect", "segment", "classify")
+MODEL_CLASS = {"detect": DetectionModel, "segment": SegmentationModel, "classify": ClassificationModel}
 
 
 def _task_of(model: str, task: str | None) -> str:
@@ -44,7 +57,7 @@ def _task_of(model: str, task: str | None) -> str:
     task = task or ("classify" if "-cls" in model else "segment" if "-seg" in model else "pose" if "-pose" in model
                     else "obb" if "-obb" in model else "detect")
     if task not in PORTED_TASKS:
-        raise NotImplementedError(f"the {task} task is not ported (only detect and classify)")
+        raise NotImplementedError(f"the {task} task is not ported (only detect, segment and classify)")
     return task
 
 
@@ -76,7 +89,7 @@ class YOLO:
         self.overrides["task"] = self.task
 
     def _new(self, cfg: str) -> None:
-        self.model = (ClassificationModel if self.task == "classify" else DetectionModel)(cfg, device=self.device)
+        self.model = MODEL_CLASS[self.task](cfg, device=self.device)
         self.params = self.model.init(0)
 
     def _load(self, weights: str) -> None:
@@ -103,6 +116,8 @@ class YOLO:
     def _load_ensemble(self, weights: list, device) -> None:
         """An NMS ensemble of the listed sources (each a YAML, .npz or .pt), on one device."""
         members = [YOLO(w, device=device) for w in weights]
+        if any(m.task == "segment" for m in members):
+            raise NotImplementedError("an ensemble of segment models is not ported (ROADMAP item 5)")
         self.device = members[0].device
         self.overrides = {"model": ",".join(weights), "task": self.task}
         self.model = Ensemble([m.model for m in members])
@@ -170,7 +185,9 @@ class YOLO:
                 self.predictor = RemotePredictor(self.remote, overrides=args, names=self.model.names)
             return self.predictor(source, stream=stream, **kwargs)
         if self.predictor is None or predictor is not None:
-            if predictor is None:
+            if predictor is None and self.task == "segment":
+                from yolo_tpu_torch.engine.segment_predictor import SegmentationPredictor as predictor
+            elif predictor is None:
                 from yolo_tpu_torch.engine.predictor import BasePredictor as predictor
             self.predictor = predictor(
                 self.model, self.params, overrides={"device": str(self.device), **args}, names=self.model.names
@@ -184,6 +201,7 @@ class YOLO:
         """Predict, then track (trackers/track.py) → Results whose boxes carry track ids.
         `conf` defaults to 0.1 and `batch` to 1; `persist=True` keeps the tracker
         of the previous call, so frames passed one call at a time form one stream."""
+        self._refuse_segment("track")
         kwargs.setdefault("conf", 0.1)
         kwargs.setdefault("batch", 1)
         kwargs["mode"] = "track"
@@ -191,6 +209,10 @@ class YOLO:
         from yolo_tpu_torch.trackers.track import attach_tracker
 
         return attach_tracker(self, results, persist=persist, stream=stream, tracker_cfg=kwargs.get("tracker"))
+
+    def _refuse_segment(self, what: str) -> None:
+        if self.task == "segment":
+            raise NotImplementedError(f"YOLO.{what} with a segment model is not ported (ROADMAP item 5)")
 
     def _require_local(self, mode: str) -> None:
         if self.remote is not None:
@@ -239,6 +261,7 @@ class YOLO:
         built from this one's source, on this YOLO's device → {best_fitness, best_hyperparameters,
         best_iteration}. `use_ray=True` runs the Ray Tune search instead (needs ray)."""
         self._require_local("tune")
+        self._refuse_segment("tune")
         if use_ray:
             from yolo_tpu_torch.engine.tuner import run_ray_tune
 
@@ -252,6 +275,7 @@ class YOLO:
         """Latency and frames/s of this model's forward at batch 1, 8 and 32 (utils/benchmarks.py):
         `imgsz` (640), `half` (True: bf16; False: f32)."""
         self._require_local("benchmark")
+        self._refuse_segment("benchmark")
         from yolo_tpu_torch.utils.benchmarks import benchmark
 
         return benchmark(model=self, **kwargs)

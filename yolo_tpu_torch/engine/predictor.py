@@ -79,6 +79,7 @@ class PredictArgs:
     augment: bool = False  # test-time augmentation, for a plain DetectionModel
     int8: bool = False  # PTQ int8 convs, dynamic activation scales (nn/quantize.py)
     show: bool = False  # a window per image, where a display exists
+    retina_masks: bool = False  # segment: masks resized once from prototype scale to the original image
     visualize: bool = False  # per-layer feature maps of each batch's first image, under the run directory
     max_det: int = 300
     batch: int = 16
@@ -270,22 +271,13 @@ class BasePredictor:
         if events:
             events[2].record()
         t_enq = time.perf_counter()
-        out = {k: v.cpu().numpy() for k, v in out.items()}  # the batch's one wait for the device
+        out = self._fetch(out)  # the batch's wait for the device
         t2 = time.perf_counter()
         if self.args.visualize and isinstance(self.model, BaseModel):
             self._visualize_features(batch[:1])
 
-        results = []
-        for i in range(n):
-            if "probs" in out:  # classify: probabilities, no boxes
-                results.append(Results(imgs[i], metas[i][0], self.names, probs=out["probs"][i]))
-                continue
-            valid = out["valid"][i]
-            boxes = scale_boxes((h, w), out["boxes"][i][valid], imgs[i].shape[:2], ratio_pad=lb_meta[i])
-            data = np.concatenate(
-                [boxes, out["scores"][i][valid][:, None], out["cls"][i][valid][:, None].astype(np.float32)], axis=-1
-            )
-            results.append(Results(imgs[i], metas[i][0], self.names, boxes=data))
+        self._host_s = {}
+        results = [self._result(imgs[i], metas[i][0], {k: v[i] for k, v in out.items()}, (h, w), lb_meta[i]) for i in range(n)]
         t3 = time.perf_counter()
         speed = {"preprocess": (t1 - t0) * 1e3 / n, "inference": (t2 - t1) * 1e3 / n, "postprocess": (t3 - t2) * 1e3 / n}
         for r, (path, _) in zip(results, metas):
@@ -296,10 +288,24 @@ class BasePredictor:
             self._show_results(results)
         if self.timings is not None:
             self.timings.append({"n": n, "B": len(batch), "pre_s": t1 - t0, "enqueue_s": t_enq - t1, "wait_s": t2 - t_enq,
-                                 "post_s": t3 - t2, "events": events})
+                                 "post_s": t3 - t2, "events": events, **self._host_s})
         if self.args.save or self.args.save_txt or self.args.save_crop:
             self._write_results(results, metas)
         return results
+
+    def _fetch(self, out: dict) -> dict:
+        """The device pass's outputs as numpy arrays on the host."""
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _result(self, img: np.ndarray, path, out: dict, hw, lb_meta) -> Results:
+        """The Results of one image from its rows of the fetched outputs: its valid boxes mapped back
+        through the letterbox (`hw` the letterboxed size), or a classify model's probabilities."""
+        if "probs" in out:  # classify: probabilities, no boxes
+            return Results(img, path, self.names, probs=out["probs"])
+        valid = out["valid"]
+        boxes = scale_boxes(hw, out["boxes"][valid], img.shape[:2], ratio_pad=lb_meta)
+        data = np.concatenate([boxes, out["scores"][valid][:, None], out["cls"][valid][:, None].astype(np.float32)], axis=-1)
+        return Results(img, path, self.names, boxes=data)
 
     def _show_results(self, results) -> None:
         """One window frame per result. Without a display (or where cv2 cannot open one) the JAX

@@ -5,9 +5,11 @@ Host-side and numpy-backed: the predictor hands over the valid rows of the
 fixed-shape NMS output, and these classes expose the `.boxes.xyxy/conf/cls`
 views the Kalman clip loop consumes, and the track id column `YOLO.track` adds;
 a classify result carries `probs` (`Probs`: top1, top5 and their confidences)
-and no boxes. `Results` draws its boxes or its top-5 block (`plot`, `save`),
-writes YOLO label lines or top-5 lines (`save_txt`) and summarises itself
-(`summary`, `to_json`) as the JAX package's does.
+and no boxes; a segment result carries `masks` (`Masks`: one boolean map a box at
+the original image's size, its contour polygons `xy` / `xyn`). `Results` draws its
+boxes, masks or top-5 block (`plot`, `save`), writes YOLO label lines or top-5 lines
+(`save_txt`) and summarises itself (`summary`, `to_json`, with each mask's contour as
+`segments`) as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -109,8 +111,47 @@ class Probs:
         return self
 
 
+class Masks:
+    """Instance masks of one image (JAX Masks): `data` (N, H, W) at the original image's size."""
+
+    def __init__(self, masks: np.ndarray, orig_shape):
+        self.data = np.asarray(masks)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        return Masks(self.data[idx], self.orig_shape)
+
+    @property
+    def xy(self) -> list:
+        """Each mask's largest external contour as (K, 2) f32 pixel points (cv2, CHAIN_APPROX_SIMPLE;
+        (0, 2) for an empty mask)."""
+        import cv2
+
+        polys = []
+        for m in self.data:
+            cnts, _ = cv2.findContours((m > 0.5).astype(np.uint8), cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+            polys.append(max(cnts, key=cv2.contourArea).reshape(-1, 2).astype(np.float32) if cnts else np.zeros((0, 2), np.float32))
+        return polys
+
+    @property
+    def xyn(self) -> list:
+        h, w = self.orig_shape
+        return [p / np.array([w, h], np.float32) for p in self.xy]
+
+    def cpu(self):
+        """The masks themselves: they already live on the host."""
+        return self
+
+    def numpy(self):
+        return self
+
+
 class Results:
-    """Single-image inference result: boxes (detect) or class probabilities (`probs`, classify)."""
+    """Single-image inference result: boxes (detect; with `masks`, segment) or class probabilities
+    (`probs`, classify)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: dict, boxes: np.ndarray | None = None, speed: dict | None = None,
                  probs: np.ndarray | None = None):
@@ -121,6 +162,7 @@ class Results:
         has = boxes is not None and len(boxes)
         self.boxes = Boxes(boxes if has else np.zeros((0, 6), np.float32), self.orig_shape)
         self.probs = Probs(probs) if probs is not None else None
+        self.masks = None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
         self.save_dir = None
 
@@ -128,12 +170,16 @@ class Results:
         return len(self.boxes)
 
     def __getitem__(self, idx):
-        """One row, a slice, or a list / array of row indices (the tracker's subset)."""
+        """One row, a slice, or a list / array of row indices (the tracker's subset), with their masks."""
         sel = idx if isinstance(idx, (slice, list, np.ndarray)) else [idx]
-        return Results(self.orig_img, self.path, self.names, boxes=self.boxes.data[sel], speed=self.speed)
+        r = Results(self.orig_img, self.path, self.names, boxes=self.boxes.data[sel], speed=self.speed)
+        if self.masks is not None:
+            r.masks = Masks(np.asarray(self.masks.data)[sel], self.orig_shape)
+        return r
 
     def new(self, boxes: np.ndarray | None = None):
-        """A Results of the same image, path, names and speed with other boxes (none by default)."""
+        """A Results of the same image, path, names and speed with other boxes (none by default) and no
+        masks, as the JAX package's."""
         return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed)
 
     def update(self, boxes: np.ndarray | None = None):
@@ -157,10 +203,10 @@ class Results:
         return f"{h}x{w} " + ", ".join(parts) + ", "
 
     def plot(self, conf: bool = True, line_width: int | None = None, labels: bool = True, boxes: bool = True,
-             img: np.ndarray | None = None, probs: bool = True) -> np.ndarray:
-        """A copy of the image (BGR; a gray one made BGR) with each box in its class's colour and its
-        label: 'name conf', with 'id:N ' before it for a tracked box; a classify result's top five
-        'name p' lines in its top-left corner instead."""
+             img: np.ndarray | None = None, probs: bool = True, masks: bool = True) -> np.ndarray:
+        """A copy of the image (BGR; a gray one made BGR) with each mask blended in its box's class colour
+        (`masks`), then each box in its class's colour and its label: 'name conf', with 'id:N ' before it
+        for a tracked box; a classify result's top five 'name p' lines in its top-left corner instead."""
         import cv2
 
         from yolo_tpu_torch.utils.plotting import Annotator, color_for
@@ -173,6 +219,9 @@ class Results:
             for k, j in enumerate(self.probs.top5):
                 ann.text((8, 8 + k * (ann.lw * 12)), f"{self.names.get(j, j)} {self.probs.data[j]:.2f}", box_color=(64, 64, 64))
             return ann.result()
+        if self.masks is not None and masks and len(self.masks.data):
+            cols = [color_for(int(c)) for c in self.boxes.cls] if len(self.boxes) else [color_for(j) for j in range(len(self.masks.data))]
+            ann.masks(self.masks.data, cols)
         if boxes:
             for row in self.boxes.data:
                 c = int(row[-1])
@@ -206,8 +255,8 @@ class Results:
 
     def summary(self, normalize: bool = False, decimals: int = 5) -> list:
         """One dict a box: name, class, confidence, box {x1, y1, x2, y2} (divided by the image's
-        size with `normalize`), and track_id for a tracked box; rounded to `decimals`. A classify
-        result: one dict, its top-1 class."""
+        size with `normalize`), track_id for a tracked box, and `segments` {x, y} (the mask's contour)
+        for a segment result; rounded to `decimals`. A classify result: one dict, its top-1 class."""
         if self.probs is not None:
             top1 = self.probs.top1
             return [{"name": self.names.get(top1, str(top1)), "class": top1, "confidence": round(self.probs.top1conf, decimals)}]
@@ -222,6 +271,9 @@ class Results:
             res = {"name": self.names.get(c, str(c)), "class": c, "confidence": round(float(self.boxes.conf[i]), decimals), "box": xy}
             if self.boxes.is_track:
                 res["track_id"] = int(self.boxes.id[i])
+            if self.masks is not None and i < len(self.masks.data):
+                poly = self.masks[i : i + 1].xy[0]
+                res["segments"] = {"x": (poly[:, 0] / w).round(decimals).tolist(), "y": (poly[:, 1] / h).round(decimals).tolist()}
             out.append(res)
         return out
 

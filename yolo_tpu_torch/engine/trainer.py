@@ -1,4 +1,4 @@
-"""Detection trainer (counterpart of yolo_tpu/engine/trainer.py DetectionTrainer).
+"""Detection trainer, and the segment task's (counterpart of yolo_tpu/engine/trainer.py DetectionTrainer).
 
 One step: upload the uint8 batch, /255 in the compute dtype (bf16 with `amp`,
 else f32; no fp16 and no loss scaler, as in the JAX package), the train-form
@@ -27,8 +27,11 @@ integration callbacks (TensorBoard under save_dir/tb, and the trackers whose SDK
 imports). YOLO_TPU_TRAIN_S2D=4 is taken with the JAX trainer's checks and
 warning and trains the standard stem: the JAX package's space-to-depth train
 stem computes the same activations and was slower a step on the H100 (ROADMAP.md).
+A segment model trains with `v8SegmentationLoss` (components box / seg / cls / dfl), the
+loader drawing its polygons as masks (`overlap_mask`, `mask_ratio`), multi_scale skipped
+for batches that carry masks, and `SegmentationValidator` each epoch, as in the JAX trainer.
 Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 7)
-and the other tasks' trainers.
+and the pose and obb tasks' trainers.
 """
 
 from __future__ import annotations
@@ -56,10 +59,10 @@ from yolo_tpu_torch.nn.tasks import (
 )
 from yolo_tpu_torch.utils import LOGGER, yaml_save
 from yolo_tpu_torch.utils.callbacks import add_integration_callbacks, default_callbacks, run_callbacks
-from yolo_tpu_torch.utils.loss import v8DetectionLoss
+from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8SegmentationLoss
 from yolo_tpu_torch.utils.optim import apply_bn_stats, build_optimizer
 
-COMPONENTS = ("box", "cls", "dfl")
+COMPONENTS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl")}
 
 
 class EarlyStopping:
@@ -148,8 +151,8 @@ class DetectionTrainer:
         else:
             self.model = DetectionModel(self.args.model or "yolov8n.yaml", nc=nc, device=self.device)
             self.params = self.model.init(self.args.seed)
-        if getattr(self.model, "task", "detect") != "detect":
-            raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect)")
+        if getattr(self.model, "task", "detect") not in COMPONENTS:
+            raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect and segment)")
         if isinstance(self.args.pretrained, str):  # initialise from a checkpoint's weights, shape by shape
             from yolo_tpu_torch.engine.exporter import load_npz
 
@@ -158,14 +161,14 @@ class DetectionTrainer:
             pretrained = True
         if self.data and self.model.nc != self.data["nc"]:
             old = self.params
-            self.model = DetectionModel(self.model.yaml, nc=self.data["nc"], device=self.device)
+            self.model = type(self.model)(self.model.yaml, nc=self.data["nc"], device=self.device)  # keeps the task
             self.params = self.model.init(self.args.seed)
             if pretrained:  # keep every tensor whose shape survives the nc change
                 self.params, kept, total = _transfer_matching(old, self.params)
                 LOGGER.info(f"transferred {kept}/{total} pretrained tensors (nc {self.model.nc} head re-initialized)")
         if self.data:
             self.model.names = self.data["names"]
-        self.loss_fn = v8DetectionLoss(self.model, self.args)
+        self.loss_fn = self._make_loss()
         self.stopper = EarlyStopping(self.args.patience)
         self.start_epoch = 0
         self._check_resume()
@@ -202,9 +205,16 @@ class DetectionTrainer:
         if not ckpt.exists():
             raise FileNotFoundError(f"resume checkpoint not found: {ckpt}")
         self.model, self.params, meta = load_npz(ckpt, device=self.device)
-        self.loss_fn = v8DetectionLoss(self.model, self.args)
+        self.loss_fn = self._make_loss()
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         LOGGER.info(f"resuming from {ckpt} at epoch {self.start_epoch}")
+
+    @property
+    def task(self) -> str:
+        return getattr(self.model, "task", "detect")
+
+    def _make_loss(self):
+        return (v8SegmentationLoss if self.task == "segment" else v8DetectionLoss)(self.model, self.args)
 
     def build_optimizer(self, named_params, iterations: int):
         """SGD or AdamW by name, or 'auto': SGD (lr 0.01) past 10,000 iterations, else AdamW at
@@ -230,9 +240,9 @@ class DetectionTrainer:
     # --- one step ---------------------------------------------------------------------
 
     def _upload(self, batch: dict):
-        """The uint8 images and the targets on the device."""
+        """The uint8 images and the targets (with the masks a segment batch carries) on the device."""
         x = torch.from_numpy(batch["img"])
-        targets = {k: torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask_gt")}
+        targets = {k: torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask_gt", "masks") if k in batch}
         if self.device.type == "cuda":
             x = x.pin_memory()
             targets = {k: v.pin_memory() for k, v in targets.items()}
@@ -264,6 +274,9 @@ class DetectionTrainer:
             wh = torch.full((b, n, 2), 0.05)
             targets = {"cls": torch.zeros((b, n)), "bboxes": torch.cat([torch.rand((b, n, 2), generator=g) * 0.9 + 0.05, wh], -1),
                        "mask_gt": torch.ones((b, n))}
+            if self.task == "segment":  # an overlap-index map at the loader's mask ratio
+                r = int(args.mask_ratio or 4)
+                targets["masks"] = torch.zeros((b, side // r, side // r))
             img = torch.zeros((b, side, side, 3), dtype=torch.uint8, device=self.device)
             total, _ = self.loss_fn(self._features(img), {k: v.to(self.device) for k, v in targets.items()})
             total.backward()
@@ -375,7 +388,8 @@ class DetectionTrainer:
         if args.batch == -1:
             args.batch = self._autobatch(trainset)
         self.train_loader = build_dataloader(trainset, args.batch, workers=args.workers, shuffle=True, seed=args.seed,
-                                             drop_last=len(trainset) > args.batch)
+                                             drop_last=len(trainset) > args.batch, overlap_mask=bool(args.overlap_mask),
+                                             mask_ratio=int(args.mask_ratio or 4))
         nb = max(len(self.train_loader), 1)
         iterations = math.ceil(len(trainset) / max(args.batch, args.nbs)) * args.epochs
 
@@ -401,7 +415,8 @@ class DetectionTrainer:
         csv_rows = []
         t_train = time.time()
         ni = self.start_epoch * nb
-        last_comps = np.zeros(len(COMPONENTS))
+        comp_names = COMPONENTS[self.task]
+        last_comps = np.zeros(len(comp_names))
         for epoch in range(self.start_epoch, args.epochs):
             run_callbacks(self.callbacks, "on_train_epoch_start", self)
             self.epoch = epoch
@@ -435,7 +450,7 @@ class DetectionTrainer:
                     mom = float(np.interp(ni, xi, [args.warmup_momentum, args.momentum]))
                 else:
                     lr, mom, lr_bias = lr_epoch, args.momentum, lr_epoch
-                if args.multi_scale:
+                if args.multi_scale and "masks" not in batch:  # as in JAX: a batch with masks keeps its size
                     batch = self.multi_scale(batch, ni, stride)
                 marks = [self._mark()]
                 comps.append(self._step(batch, lr, mom, lr_bias, marks))
@@ -462,13 +477,13 @@ class DetectionTrainer:
                     self.best_params = ema_tree
                     self.save_checkpoint(self.wdir / "best.npz", ema_tree)
             self.val_time = time.time() - t_val
-            comp_str = " ".join(f"{n} {v:.4f}" for n, v in zip(COMPONENTS, last_comps))
+            comp_str = " ".join(f"{n} {v:.4f}" for n, v in zip(comp_names, last_comps))
             LOGGER.info(f"epoch {epoch + 1}/{args.epochs} {comp_str} lr {lr_epoch:.5f} {self.epoch_time:.1f}s"
                         + (f" fitness {fitness:.4f}" if fitness is not None else ""))
             row = {
                 "epoch": epoch,
                 "time": time.time() - t_train,
-                **{f"train/{n}_loss": float(v) for n, v in zip(COMPONENTS, last_comps)},
+                **{f"train/{n}_loss": float(v) for n, v in zip(comp_names, last_comps)},
                 "lr": lr_epoch,
                 **{f"metrics/{k}": v for k, v in (self.metrics or {}).items()},
             }
@@ -498,10 +513,11 @@ class DetectionTrainer:
         return self.metrics
 
     def validate(self, params: dict) -> dict:
-        """The port's DetectionValidator on a parameter tree (the EMA's) with the run's settings."""
-        from yolo_tpu_torch.engine.validator import DetectionValidator
+        """The port's validator of the model's task (DetectionValidator, SegmentationValidator) on a
+        parameter tree (the EMA's) with the run's settings."""
+        from yolo_tpu_torch.engine.validator import validator_for
 
-        return DetectionValidator(args={**vars(self.args), "mode": "val"}, data=self.data)(model=self.model, params=params)
+        return validator_for(self.model)(args={**vars(self.args), "mode": "val"}, data=self.data)(model=self.model, params=params)
 
     def save_checkpoint(self, path, params: dict, extra: dict | None = None) -> None:
         from yolo_tpu_torch.engine.exporter import save_npz

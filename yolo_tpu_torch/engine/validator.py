@@ -12,8 +12,11 @@ metrics and the confusion matrix. With `save_json` the kept detections go to
 <run>/predictions.json as COCO rows, and where the dataset has
 annotations/instances_val2017.json the port's copy of the COCOeval protocol
 (utils/coco_eval.py) scores them against it: `coco/<key>` entries join the
-results. The classify task's validator is engine/classify.py; the other tasks'
-are not ported.
+results. `SegmentationValidator` adds the mask metrics (`mask_`-prefixed keys; fitness
+the sum of both): each kept detection's mask at prototype resolution against the
+ground-truth masks of the collate, their IoUs computed on the device and copied back
+with the detections. The classify task's validator is engine/classify.py; the pose and
+obb tasks' are not ported.
 """
 
 from __future__ import annotations
@@ -32,20 +35,24 @@ from yolo_tpu_torch.data.dataset import check_det_dataset
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn.tasks import install_params
 from yolo_tpu_torch.ops.boxes import scale_boxes, xywhn2xyxy, xyxy2xywh
+from yolo_tpu_torch.ops.masks import process_mask
 from yolo_tpu_torch.ops.nms import non_max_suppression
 from yolo_tpu_torch.utils import LOGGER
-from yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
+from yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, match_predictions, match_predictions_iou
 
 
 def validator_for(model):
-    """The validator class of a model's task: detect's or classify's; the other tasks raise NotImplementedError."""
+    """The validator class of a model's task: detect's, segment's or classify's; the other tasks raise
+    NotImplementedError."""
     task = "rtdetr" if getattr(model, "is_rtdetr", False) else getattr(model, "task", "detect")
     if task == "classify":
         from yolo_tpu_torch.engine.classify import ClassificationValidator
 
         return ClassificationValidator
+    if task == "segment":
+        return SegmentationValidator
     if task != "detect":
-        raise NotImplementedError(f"validation of the {task} task is not ported (only detect and classify)")
+        raise NotImplementedError(f"validation of the {task} task is not ported (only detect, segment and classify)")
     return DetectionValidator
 
 
@@ -85,7 +92,7 @@ class DetectionValidator:
         split = data.get(a.split) or data.get("val") or data.get("train")
         dataset = build_yolo_dataset(a, split, data, stride=int(max(model.stride)))
         batch_size = min(int(a.batch) if a.batch and a.batch > 0 else 16, len(dataset))
-        loader = build_dataloader(dataset, batch_size, workers=a.workers)
+        loader = build_dataloader(dataset, batch_size, workers=a.workers, overlap_mask=bool(a.overlap_mask))
         device, dtype = resolve_device(a.device), torch.bfloat16 if a.half else torch.float32
         install_params(model, params, device, dtype)
         names = getattr(model, "names", {})
@@ -109,7 +116,7 @@ class DetectionValidator:
                 if device.type == "cuda":
                     ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     ev[0].record()
-                out = self._device_pass(model, batch["img"], device, dtype)
+                out = self._batch_pass(model, batch, device, dtype)
                 if device.type == "cuda":
                     ev[1].record()
                 t2 = time.perf_counter()
@@ -124,7 +131,7 @@ class DetectionValidator:
                     "copy": (t3 - t2) * 1e3,
                     "host": (t4 - t3) * 1e3,
                 })
-        results = metrics.process()
+        results = self._results(metrics)
         LOGGER.info(f"val: {n_img} images in {time.time() - t_start:.1f}s — P {results['precision']:.4f} R {results['recall']:.4f} "
                     f"mAP50 {results['mAP50']:.4f} mAP50-95 {results['mAP50-95']:.4f}")
         self.confusion_matrix, self.metrics = cm, metrics
@@ -151,6 +158,12 @@ class DetectionValidator:
             except Exception as e:
                 LOGGER.warning(f"plotting failed: {e}")
         return results
+
+    def _batch_pass(self, model, batch: dict, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        return self._device_pass(model, batch["img"], device, dtype)
+
+    def _results(self, metrics: DetMetrics) -> dict:
+        return metrics.process()
 
     def _update(self, batch: dict, out: np.ndarray, metrics: DetMetrics, cm: ConfusionMatrix, cat_map) -> int:
         """Match each image's detections to its labels; update the metrics, the matrix and
@@ -181,3 +194,66 @@ class DetectionValidator:
                 "bbox": [round(float(v), 3) for v in [b[0] - b[2] / 2, b[1] - b[3] / 2, b[2], b[3]]],
                 "score": round(float(s), 5),
             })
+
+
+class SegmentationValidator(DetectionValidator):
+    """Box mAP and mask mAP of a segment model (JAX SegmentationValidator). Each kept detection's mask is
+    its coefficients times the prototypes, sigmoid > 0.5, cropped to its box at prototype scale; each
+    ground truth's is its instance in the collate's overlap-index map (or its per-instance mask with
+    `overlap_mask=False`), nearest-downsampled by stride to prototype resolution. Their IoUs are
+    computed on the device and ride back as extra columns of the packed detections."""
+
+    def __call__(self, model, params) -> dict:
+        self.mask_metrics = DetMetrics(names=getattr(model, "names", {}))
+        return super().__call__(model, params)
+
+    @torch.no_grad()
+    def _batch_pass(self, model, batch: dict, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """→ (B, max_det, 7 + N): the detect columns, then the mask IoU of each slot with each of the
+        batch's N ground-truth rows (zero without polygon labels)."""
+        a = self.args
+        x = torch.from_numpy(batch["img"])
+        if device.type == "cuda":
+            x = x.pin_memory()
+        x = x.to(device, non_blocking=True).to(dtype) / 255.0
+        preds, protos = model.predict(x, plain=self.plain)
+        out = non_max_suppression(preds, conf_thres=float(a.conf), iou_thres=float(a.iou), max_det=int(a.max_det),
+                                  nc=model.nc, plain=self.plain)
+        B, N = batch["cls"].shape
+        mh, mw = protos.shape[1:3]
+        miou = torch.zeros((B, out["boxes"].shape[1], N), dtype=torch.float32, device=device)
+        if "masks" in batch:
+            pm = (process_mask(protos, out["extra"], out["boxes"], x.shape[1:3], upsample=False) > 0.5).float()
+            gmap = torch.from_numpy(batch["masks"]).to(device)
+            if gmap.ndim == 4:  # per-instance (B, N, h, w)
+                sy, sx = max(gmap.shape[2] // mh, 1), max(gmap.shape[3] // mw, 1)
+                gm = (gmap[:, :, ::sy, ::sx][:, :, :mh, :mw] > 0).float()
+            else:  # overlap-index map (B, h, w): instance j drawn as j + 1
+                sy, sx = max(gmap.shape[1] // mh, 1), max(gmap.shape[2] // mw, 1)
+                g = gmap[:, ::sy, ::sx][:, :mh, :mw].float()
+                gm = (g[:, None] == torch.arange(1, N + 1, dtype=torch.float32, device=device)[None, :, None, None]).float()
+            pm, gm = pm.reshape(B, pm.shape[1], -1), gm.reshape(B, N, -1)
+            inter = (pm @ gm.transpose(1, 2)).clamp(min=0)  # (B, max_det, N)
+            miou = inter / (pm.sum(-1)[..., None] + gm.sum(-1)[:, None] - inter + 1e-7)
+        cols = [out["boxes"], out["scores"][..., None], out["cls"][..., None], out["valid"][..., None], miou]
+        return torch.cat([c.to(torch.float32) for c in cols], -1)
+
+    def _update(self, batch: dict, out: np.ndarray, metrics: DetMetrics, cm: ConfusionMatrix, cat_map) -> int:
+        n = super()._update(batch, out[..., :7], metrics, cm, cat_map)
+        for i in range(n):
+            valid = out[i, :, 6] > 0
+            m = batch["mask_gt"][i] > 0
+            pcls, gt_cls = out[i, valid, 5], batch["cls"][i][m]
+            iou = out[i][valid][:, 7:][:, m].T  # (n_gt, n_pred)
+            tp = match_predictions_iou(pcls, gt_cls, iou, self.iou_thresholds) if "masks" in batch else \
+                np.zeros((len(pcls), len(self.iou_thresholds)), bool)
+            self.mask_metrics.update(tp, out[i, valid, 4], pcls, gt_cls)
+        return n
+
+    def _results(self, metrics: DetMetrics) -> dict:
+        rb, rm = metrics.process(), self.mask_metrics.process()
+        LOGGER.info(f"val(seg): mask mAP50 {rm['mAP50']:.4f} mAP50-95 {rm['mAP50-95']:.4f}")
+        results = dict(rb)
+        results.update({f"mask_{k}": v for k, v in rm.items()})
+        results["fitness"] = rb.get("fitness", 0.0) + rm.get("fitness", 0.0)
+        return results

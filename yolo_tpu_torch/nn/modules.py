@@ -1,9 +1,10 @@
 """The YOLO modules of the detect+track main path, as PyTorch modules.
 
 Counterpart of yolo_tpu/nn/modules.py for the blocks that yolov8-small (P2),
-yolov8n and yolov8n-cls use: ConvBNAct, Conv2d, Bottleneck, C2f (with the
-neck's Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample, the
-Detect head with its DFL decode and the Classify head.
+yolov8n, yolov8n-cls and yolov8n-seg use: ConvBNAct, Conv2d, Bottleneck, C2f (with
+the neck's Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample, the
+Detect head with its DFL decode, the Classify head, and the Segment head with its
+Proto and ConvTranspose.
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -27,8 +28,9 @@ Detect head with its DFL decode and the Classify head.
   (ops/cuda_c2f.py, ops/cuda_head.py, ops/cuda_head_cm.py); `plain=True` runs
   their plain PyTorch twins instead, the reference the kernels are held
   against on the card.
-  Every other conv (stem, stride-2 convs, SPPF) is torch.nn.functional.conv2d,
-  as the JAX package leaves those to XLA.
+  Every other conv (stem, stride-2 convs, SPPF, the Segment head's coefficient
+  branch and prototypes) is torch.nn.functional.conv2d (conv_transpose2d for
+  Proto's upsample), as the JAX package leaves those to XLA.
 - A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
   instead, and may emit a `QTensor`; the blocks then walk their convs module by module
   (the JAX package's QTensor flow: split, concat, upsample and max-pool stay int8, a
@@ -523,6 +525,149 @@ class Detect(nn.Module):
         fn = cuda_head_cm.head_level_cm_plain if plain else cuda_head_cm.head_level_cm
         dists, clss = zip(*(fn(x, self.kernel_weights(l)) for l, x in enumerate(xs)))
         return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])
+
+
+class ConvTranspose(nn.Module):
+    """Transposed conv + optional BN + optional SiLU (JAX ConvTranspose): Proto's 2x upsample.
+
+    The JAX tree keeps the kernel as (kh, kw, c2, c1); both forms here hold torch's
+    conv_transpose2d layout (c1, c2, kh, kw). The transposed conv runs in the input's dtype,
+    the bias (or BN) and SiLU in f32, and the result is cast back, in the JAX order. With BN
+    the inference form takes the tree `nn.tasks.fuse` folds: {conv_transpose: {weight}, bias}."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0, bn: bool = True, act: bool = True):
+        super().__init__()
+        self.c1, self.c2, self.k, self.s, self.p, self.act = c1, c2, k, s, p, act
+        self.register_buffer("weight", torch.zeros(c1, c2, k, k))
+        self.register_buffer("bias", torch.zeros(c2))
+        self.conv_weight = nn.Parameter(torch.zeros(c1, c2, k, k))
+        self.bn = BatchNorm(c2) if bn else None
+        self.conv_bias = None if bn else nn.Parameter(torch.zeros(c2))
+        self.batch_stats = None  # as ConvBNAct's: (mean, biased var, count) of the last training forward
+        self.record_bn = True
+
+    def init(self, rng) -> dict:
+        fan_in = self.c1 * self.k * self.k
+        bound = math.sqrt(1.0 / fan_in) * math.sqrt(3.0)
+        w = rng.uniform(-bound, bound, (self.k, self.k, self.c2, self.c1)).astype(np.float32)
+        if self.bn is not None:
+            return {"conv_transpose": {"weight": w}, "bn": {
+                "weight": np.ones(self.c2, np.float32), "bias": np.zeros(self.c2, np.float32),
+                "running_mean": np.zeros(self.c2, np.float32), "running_var": np.ones(self.c2, np.float32)}}
+        bb = math.sqrt(1.0 / fan_in)
+        return {"weight": w, "bias": rng.uniform(-bb, bb, (self.c2,)).astype(np.float32)}
+
+    def train_leaves(self) -> dict:
+        if self.bn is None:
+            return {"weight": self.conv_weight, "bias": self.conv_bias}
+        bn = self.bn
+        return {"conv_transpose/weight": self.conv_weight, "bn/weight": bn.weight, "bn/bias": bn.bias,
+                "bn/running_mean": bn.running_mean, "bn/running_var": bn.running_var}
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The transposed conv of an NHWC map in x's dtype → an f32 NHWC map."""
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None, self.s, self.p)
+        return y.permute(0, 2, 3, 1).float()
+
+    def _out(self, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return (silu(y) if self.act else y).to(dtype)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The train form: BN on the f32 batch moments in training mode (kept in `batch_stats`), on the
+        running ones in eval mode; without BN the bias."""
+        y = self._conv(x, self.conv_weight)
+        if self.bn is None:
+            return self._out(y + self.conv_bias, x.dtype)
+        bn = self.bn
+        if self.training:
+            var, mean = torch.var_mean(y, (0, 1, 2), correction=0)
+            if self.record_bn:
+                self.batch_stats = (mean.detach(), var.detach(), y.shape[0] * y.shape[1] * y.shape[2])
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        return self._out((y - mean) * (bn.weight * torch.rsqrt(var + BN_EPS)) + bn.bias, x.dtype)
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        if "bn" in p:
+            raise ValueError("load_jax takes fused parameters (fold BN with nn.tasks.fuse first)")
+        w = p["conv_transpose"]["weight"] if "conv_transpose" in p else p["weight"]
+        self.weight = torch.from_numpy(np.ascontiguousarray(np.asarray(w, np.float32).transpose(3, 2, 0, 1))).to(device, dtype)
+        self.bias = _vec(p["bias"], device, torch.float32) if "bias" in p else torch.zeros(self.c2, device=device)
+
+    def forward(self, x) -> torch.Tensor:
+        x = Q.deq(x, self.weight.dtype)
+        return self._out(self._conv(x, self.weight) + self.bias, x.dtype)
+
+
+class Proto(nn.Module):
+    """Mask prototypes (JAX Proto): ConvBNAct 3x3, ConvTranspose 2x2 / 2 with a bias, ConvBNAct 3x3,
+    ConvBNAct 1x1 → (B, 2H, 2W, c2) in the compute dtype. Plain torch convs (no kernel), as the
+    JAX package leaves them to XLA."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c_, 3)
+        self.upsample = ConvTranspose(c_, c_, 2, 2, 0, bn=False, act=False)
+        self.cv2 = ConvBNAct(c_, c_, 3)
+        self.cv3 = ConvBNAct(c_, c2)
+
+    def init(self, rng) -> dict:
+        return {"cv1": self.cv1.init(rng), "upsample": self.upsample.init(rng), "cv2": self.cv2.init(rng),
+                "cv3": self.cv3.init(rng)}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        for name in ("cv1", "upsample", "cv2", "cv3"):
+            getattr(self, name).load_jax(p[name], device, dtype)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3.forward_train(self.cv2.forward_train(self.upsample.forward_train(self.cv1.forward_train(x))))
+
+    def forward(self, x) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+class Segment(Detect):
+    """Detect + mask coefficients + prototypes (JAX Segment). The box and class branches are the
+    Detect head's (the head kernel at inference); the coefficient branch `cv4` (3x3, 3x3, 1x1 a
+    level) and `proto` are plain torch convs, as the JAX package computes them outside any kernel."""
+
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: tuple = ()):
+        super().__init__(nc, ch)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(nn.ModuleList([ConvBNAct(x, c4, 3), ConvBNAct(c4, c4, 3), Conv2d(c4, nm, 1)]) for x in ch)
+
+    def init(self, rng) -> dict:
+        """Detect's draws and bias priors, then the proto's (cv1, upsample, cv2, cv3), then cv4 level by level."""
+        p = super().init(rng)
+        p["proto"] = self.proto.init(rng)
+        p["cv4"] = {str(l): {str(j): self.cv4[l][j].init(rng) for j in range(3)} for l in range(self.nl)}
+        return p
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        super().load_jax(p, device, dtype)
+        self.proto.load_jax(p["proto"], device, dtype)
+        for l in range(self.nl):
+            for j in range(3):
+                self.cv4[l][j].load_jax(p["cv4"][str(l)][str(j)], device, dtype)
+
+    def _coefs(self, xs, train: bool):
+        outs = []
+        for l, x in enumerate(xs):
+            for m in self.cv4[l]:
+                x = m.forward_train(x) if train else m(x)
+            outs.append(x)
+        return outs
+
+    def forward_train(self, xs):
+        """(per-level raw box + class outputs, per-level coefficients (B, H, W, nm), protos (B, h, w, nm))
+        through the train form: what `v8SegmentationLoss` takes."""
+        return super().forward_train(xs), self._coefs(xs, True), self.proto.forward_train(xs[0])
+
+    def coefficients(self, xs) -> torch.Tensor:
+        """The mask coefficients of every anchor (B, A, nm), levels in order, in the compute dtype."""
+        return torch.cat([m.reshape(m.shape[0], -1, self.nm) for m in self._coefs(xs, False)], 1)
 
 
 class Classify(nn.Module):

@@ -1,6 +1,6 @@
-"""YAML → model builder, the BN fold, the weight bridge, the detection and classification models.
+"""YAML → model builder, the BN fold, the weight bridge, the detection, segmentation and classification models.
 
-Counterpart of yolo_tpu/nn/tasks.py for the detect and classify tasks: the same scale
+Counterpart of yolo_tpu/nn/tasks.py for the detect, segment and classify tasks: the same scale
 math (c2 = make_divisible(min(c2, max_channels) * width, 8), n = max(round(n *
 depth), 1)), the same static stride propagation, the neck fold detection of
 `_build_neck_opt`, `predict_parts` and `predict`. Every C2f and Detect level
@@ -9,9 +9,10 @@ or on the CPU); both fold the neck unless `neck_opt=False`. An int8 tree
 (nn/quantize.py) walks without the fold and without the C2f and head kernels.
 `predict_augment` (test-time augmentation: three scales, one flipped, through
 `predict`), `embed_features` (pooled layer outputs) and the NMS `Ensemble` of
-several models are the JAX package's too. `ClassificationModel` (the classify
-task, a Classify head) shares the build and both walks (`BaseModel`);
-`model_class_for` picks a checkpoint's class from its config and task.
+several models are the JAX package's too. `SegmentationModel` (the segment task,
+a Segment head: the detection forward plus mask coefficients and prototypes) and
+`ClassificationModel` (the classify task, a Classify head) share the build and both
+walks (`BaseModel`); `model_class_for` picks a checkpoint's class from its config and task.
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -45,6 +46,7 @@ MODULE_MAP = {
     "SPPF": M.SPPF,
     "Concat": M.Concat,
     "Detect": M.Detect,
+    "Segment": M.Segment,
     "Classify": M.Classify,
     "nn.Upsample": M.Upsample,
 }
@@ -109,6 +111,9 @@ def parse_model(d: dict, ch: int):
         elif mcls is M.Detect:
             args = [args[0], [chs[x] for x in f]]
             c2 = None
+        elif mcls is M.Segment:  # npr width-scales, as in the JAX package
+            args = [args[0], args[1], make_divisible(min(args[2], max_channels) * width, 8), [chs[x] for x in f]]
+            c2 = None
         else:
             c2 = chs[f]
         if n > 1:
@@ -140,21 +145,26 @@ def _compute_strides(layers, froms) -> None:
 
 
 def _fold_bn(p: dict) -> dict:
+    """A ConvBNAct's `conv` + `bn` → {conv: {weight, bias}}; a ConvTranspose's `conv_transpose` + `bn` →
+    {conv_transpose: {weight}, bias} (its kernel (kh, kw, c2, c1) scaled on the output axis 2)."""
     bn = p["bn"]
-    w = np.asarray(p["conv"]["weight"], np.float32)
     scale = np.asarray(bn["weight"], np.float32) / np.sqrt(np.asarray(bn["running_var"], np.float32) + BN_EPS)
     b = np.asarray(bn["bias"], np.float32) - np.asarray(bn["running_mean"], np.float32) * scale
+    if "conv_transpose" in p:
+        w = np.asarray(p["conv_transpose"]["weight"], np.float32)
+        return {"conv_transpose": {"weight": w * scale[None, None, :, None]}, "bias": b}
+    w = np.asarray(p["conv"]["weight"], np.float32)
     return {"conv": {"weight": w * scale[None, None, None, :], "bias": b}}
 
 
 def fuse(params: dict) -> dict:
     """Fold every conv's BN into its weight and bias (exact inference form), with numpy.
 
-    Every subtree holding `conv` and `bn` groups is a ConvBNAct of the JAX
-    package; other leaves pass through as numpy arrays."""
+    Every subtree holding `conv` (or `conv_transpose`) and `bn` groups is a ConvBNAct (a
+    ConvTranspose) of the JAX package; other leaves pass through as numpy arrays."""
     if not isinstance(params, dict):
         return np.asarray(params)
-    if "bn" in params and "conv" in params:
+    if "bn" in params and ("conv" in params or "conv_transpose" in params):
         return _fold_bn(params)
     return {k: fuse(v) for k, v in params.items()}
 
@@ -418,6 +428,30 @@ class ClassificationModel(BaseModel):
         return torch.softmax(logits.float(), -1)
 
 
+class SegmentationModel(DetectionModel):
+    """YOLO segmentation model (JAX SegmentationModel): the detection graph with a Segment head."""
+
+    task = "segment"
+
+    def __init__(self, cfg="yolov8n-seg.yaml", ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+        if not isinstance(self.head, M.Segment):
+            raise ValueError(f"a SegmentationModel's last layer is a Segment head, not {type(self.head).__name__}")
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False):
+        """(preds (B, 4 + nc + nm, A) f32: px xywh boxes, sigmoid scores, mask coefficients; protos
+        (B, H/4, W/4, nm) in the model's dtype) from NHWC images in the model's dtype. The C2f blocks, the
+        neck fold and the box and class branches go through the kernels (`plain=True`: their twins); the
+        coefficient branch and the prototypes are plain torch convs."""
+        if self.int8:
+            raise NotImplementedError("int8 inference of a segment model is not ported (ROADMAP item 5)")
+        xs = self._head_inputs(x, plain, neck_opt)
+        boxes, scores = self._decode_head(xs, plain)
+        coefs = self.head.coefficients(xs)
+        return torch.cat([boxes, scores, coefs.float()], -1).transpose(1, 2), self.head.proto(xs[0])
+
+
 def guess_model_task(cfg: dict) -> str:
     """The task of a model yaml, from its head module (JAX `guess_model_task`)."""
     rows = list(cfg.get("head", [])) or list(cfg.get("backbone", []))
@@ -434,8 +468,9 @@ def guess_model_task(cfg: dict) -> str:
 
 
 def model_class_for(cfg: dict, task: str | None = None):
-    """The model class of a checkpoint's config and task (JAX `model_class_for`): DetectionModel or
-    ClassificationModel; the other tasks and families raise NotImplementedError naming them."""
+    """The model class of a checkpoint's config and task (JAX `model_class_for`): DetectionModel,
+    SegmentationModel or ClassificationModel; the other tasks and families raise NotImplementedError
+    naming them."""
     rows = list(cfg.get("head", []))
     head = str(rows[-1][2]) if rows else "Detect"
     if head in ("RTDETRDecoder", "WorldDetect", "YOLOEDetect", "YOLOESegment"):
@@ -443,8 +478,10 @@ def model_class_for(cfg: dict, task: str | None = None):
     task = task or guess_model_task(cfg)
     if task == "classify":
         return ClassificationModel
+    if task == "segment":
+        return SegmentationModel
     if task != "detect":
-        raise NotImplementedError(f"the {task} task is not ported (only detect and classify)")
+        raise NotImplementedError(f"the {task} task is not ported (only detect, segment and classify)")
     return DetectionModel
 
 

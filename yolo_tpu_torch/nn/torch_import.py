@@ -4,8 +4,8 @@ yolo_tpu/nn/torch_import.py).
 
 The tree's paths are torch submodule names: each leaf takes the tensor of its
 dotted path, converted from the torch layout (OIHW → HWIO for 4-D conv weights,
-so the DFL's (1, c, 1, 1) becomes (1, 1, c, 1)); BN's `num_batches_tracked` has
-no leaf. The tree is the port's JAX-style numpy tree, which `params_from_jax`
+so the DFL's (1, c, 1, 1) becomes (1, 1, c, 1), and a ConvTranspose's (c1, c2, kh, kw)
+becomes (kh, kw, c2, c1)); BN's `num_batches_tracked` has no leaf. The tree is the port's JAX-style numpy tree, which `params_from_jax`
 installs.
 """
 
@@ -91,8 +91,8 @@ def state_dict_to_params(state_dict: dict, params_template: dict) -> dict:
 
 
 def load_pt(path, model=None, device=None):
-    """A `.pt` → (the model its embedded config and task name, built: DetectionModel or
-    ClassificationModel, or `model`; the parameter tree; the metadata). Another task raises
+    """A `.pt` → (the model its embedded config and task name, built: DetectionModel, SegmentationModel
+    or ClassificationModel, or `model`; the parameter tree; the metadata). Another task raises
     NotImplementedError. The model's modules are empty until the tree is installed; `device=None`
     is the card."""
     from yolo_tpu_torch.nn.tasks import model_class_for

@@ -6,7 +6,9 @@
 2. greedy suppression over the K candidates (strict IoU >): the keep mask of
    the CUDA kernel (ops/cuda_nms.py), then the select step of the JAX
    package's Pallas route, a stable sort of the kept scores;
-3. the top max_det kept → fixed (B, max_det) boxes, scores, cls, valid.
+3. the top max_det kept → fixed (B, max_det) boxes, scores, cls, valid, and
+   `extra` (B, max_det, E) where extra columns ride along (the segment task's
+   mask coefficients), gathered with the same indices, zero where not valid.
 
 `plain=True` replaces step 2 by `nms_fixed`, the JAX package's default
 select-max route, the reference the kernel route is held against.
@@ -52,15 +54,16 @@ def non_max_suppression(
     max_nms: int = 1024,
     plain: bool = False,
 ) -> dict:
-    """Fixed-shape NMS over decoded predictions (B, 4 + nc, A): xywh boxes, then
-    per-class scores (the layout of `DetectionModel.predict`). Same outputs as
-    `non_max_suppression_parts`."""
+    """Fixed-shape NMS over decoded predictions (B, 4 + nc + E, A): xywh boxes, per-class
+    scores, then E extra rows (the layout of `DetectionModel.predict`, and with the mask
+    coefficients of `SegmentationModel.predict`). The rows beyond 4 + nc are extras only when
+    `nc` is given (else every row after the boxes is a class). Same outputs as
+    `non_max_suppression_parts`, with out["extra"] (B, max_det, E) when E > 0."""
     nc = nc or (prediction.shape[1] - 4)
-    if prediction.shape[1] != 4 + nc:
-        raise ValueError(f"prediction has {prediction.shape[1]} rows, expected 4 + nc = {4 + nc} (detect task only)")
+    extra = prediction[:, 4 + nc :].transpose(1, 2) if prediction.shape[1] > 4 + nc else None
     return non_max_suppression_parts(
-        prediction[:, :4].transpose(1, 2), prediction[:, 4:].transpose(1, 2), conf_thres=conf_thres,
-        iou_thres=iou_thres, classes=classes, agnostic=agnostic, max_det=max_det, max_nms=max_nms, plain=plain,
+        prediction[:, :4].transpose(1, 2), prediction[:, 4 : 4 + nc].transpose(1, 2), conf_thres=conf_thres,
+        iou_thres=iou_thres, classes=classes, agnostic=agnostic, max_det=max_det, max_nms=max_nms, plain=plain, extra=extra,
     )
 
 
@@ -74,12 +77,15 @@ def non_max_suppression_parts(
     max_det: int = 300,
     max_nms: int = 1024,
     plain: bool = False,
+    extra: torch.Tensor | None = None,
 ) -> dict:
-    """Fixed-shape NMS over anchors-major decode parts: boxes (B, A, 4) xywh, scores (B, A, nc).
+    """Fixed-shape NMS over anchors-major decode parts: boxes (B, A, 4) xywh, scores (B, A, nc),
+    and optional `extra` columns (B, A, E) that ride with their anchors.
 
     `classes` keeps only those class ids (the others score 0); `agnostic`
     suppresses across classes (no per-class box offset).
-    Returns boxes (B, max_det, 4) xyxy | scores (B, max_det) | cls (B, max_det) | valid (B, max_det)."""
+    Returns boxes (B, max_det, 4) xyxy | scores (B, max_det) | cls (B, max_det) | valid (B, max_det),
+    and extra (B, max_det, E) (zero where not valid) when `extra` has columns."""
     K = min(max_nms, boxes_xywh.shape[1])
     if classes is not None:
         # ids in [-nc, nc) count, negative ones from the end; the others select nothing (as in JAX)
@@ -95,11 +101,16 @@ def non_max_suppression_parts(
     b = xywh2xyxy(torch.gather(boxes_xywh, 1, top_idx[..., None].expand(-1, -1, 4)))
     c = torch.gather(cls_id, 1, top_idx)
     offset = torch.zeros_like(top_conf) if agnostic else c.to(b.dtype) * MAX_WH
-    return _suppress_tail(b, c, top_conf, offset, iou_thres, max_det, plain)
+    if extra is not None and extra.shape[-1]:
+        extra = torch.gather(extra, 1, top_idx[..., None].expand(-1, -1, extra.shape[-1]))
+    else:
+        extra = None
+    return _suppress_tail(b, c, top_conf, offset, iou_thres, max_det, plain, extra)
 
 
-def _suppress_tail(b, c, top_conf, offset, iou_thres, max_det, plain):
-    """IoU suppression over the per-frame top-K candidates → the fixed outputs."""
+def _suppress_tail(b, c, top_conf, offset, iou_thres, max_det, plain, extra=None):
+    """IoU suppression over the per-frame top-K candidates → the fixed outputs (the extra columns
+    of the candidates, (B, K, E), gathered with the kept boxes)."""
     shifted = b + offset[..., None]
     if plain:
         sel, keep_valid = nms_fixed(shifted, top_conf, iou_thres, max_det)
@@ -113,9 +124,13 @@ def _suppress_tail(b, c, top_conf, offset, iou_thres, max_det, plain):
         sel = torch.cat([sel, sel.new_zeros((sel.shape[0], pad))], 1)
         keep_valid = torch.cat([keep_valid, keep_valid.new_zeros((sel.shape[0], pad))], 1)
     boxes = torch.gather(b, 1, sel[..., None].expand(-1, -1, 4))
-    return {
+    out = {
         "boxes": torch.where(keep_valid[..., None], boxes, 0.0),
         "scores": torch.where(keep_valid, torch.gather(top_conf, 1, sel), 0.0),
         "cls": torch.where(keep_valid, torch.gather(c, 1, sel), -1),
         "valid": keep_valid,
     }
+    if extra is not None:
+        ex = torch.gather(extra, 1, sel[..., None].expand(-1, -1, extra.shape[-1]))
+        out["extra"] = torch.where(keep_valid[..., None], ex, 0.0)
+    return out

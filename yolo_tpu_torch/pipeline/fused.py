@@ -131,6 +131,8 @@ class FusedDetectTrack:
         device=None,
         plain: bool = False,
     ):
+        if getattr(model, "task", "detect") == "segment":
+            raise NotImplementedError("FusedDetectTrack with a segment model is not ported (ROADMAP item 5)")
         if channels not in (1, 3):
             raise ValueError(f"frames have 1 (IR) or 3 (BGR) channels, got {channels}")
         if mesh is not None:

@@ -62,8 +62,11 @@ class _ModelLane:
             from yolo_tpu_torch.engine.model import YOLO
 
             self.yolo = YOLO(source, device=str(device))
+            if self.yolo.task == "segment":
+                raise NotImplementedError("serving a segment model is not ported (ROADMAP item 5)")
             self.yolo.fuse()
         except Exception as e:
+            self.yolo = None
             self.error = f"model '{source}' failed to load: {e}"
             LOGGER.warning(self.error)
 

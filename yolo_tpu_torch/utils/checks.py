@@ -12,8 +12,9 @@ from yolo_tpu_torch.utils import LOGGER
 @torch.no_grad()
 def check_amp(model, params) -> bool:
     """bf16 against f32 `DetectionModel.predict` (the C2f and head kernels on the card) on a
-    seeded 64x64 input: boxes within 2 px and scores within 0.05 → True. The model keeps the
-    bf16 inference weights afterwards."""
+    seeded 64x64 input: boxes within 2 px and scores within 0.05 → True; a segment model's mask
+    coefficients and prototypes are not compared (the JAX check skips a segment model, whose
+    predict returns a pair). The model keeps the bf16 inference weights afterwards."""
     from yolo_tpu_torch.nn.tasks import install_params
 
     device = model.device
@@ -21,7 +22,9 @@ def check_amp(model, params) -> bool:
     ys = []
     for dtype in (torch.float32, torch.bfloat16):
         install_params(model, params, device, dtype)
-        ys.append(model.predict(x.to(dtype)).float().cpu().numpy())
+        y = model.predict(x.to(dtype))
+        y = y[0][:, : 4 + model.nc] if isinstance(y, tuple) else y
+        ys.append(y.float().cpu().numpy())
     y32, y16 = ys
     ok = np.allclose(y32[:, :4], y16[:, :4], atol=2.0) and np.allclose(y32[:, 4:], y16[:, 4:], atol=0.05)
     if not ok:

@@ -1,5 +1,6 @@
-"""YOLOv8 detection loss: BCE classification, CIoU box and DFL terms (counterpart of
-yolo_tpu/utils/loss.py `_df_loss` and `v8DetectionLoss`, its per-level compact path).
+"""YOLOv8 detection and segmentation losses: BCE classification, CIoU box and DFL terms, and the
+mask BCE (counterpart of yolo_tpu/utils/loss.py `_df_loss`, `v8DetectionLoss`, its per-level
+compact path, and `v8SegmentationLoss`).
 
 The assigner (topk 10, α 0.5, β 6) sees the decode of every anchor, held out of
 the gradient. The gradient-carrying terms stay per level: the classification
@@ -7,6 +8,8 @@ BCE is summed level by level, and the box terms run on a fixed table of M = topk
 slots gathered from the levels, which holds every foreground anchor (the assigner
 gives each ground truth at most topk) and, beyond them, background anchors whose
 weight is zero. Ground truths come padded to N rows, so no shape depends on the data.
+The mask BCE runs on the top `max_fg` foreground anchors of each image by target score,
+gathered into a fixed slot table as well.
 """
 
 from __future__ import annotations
@@ -46,10 +49,15 @@ class v8DetectionLoss:
         self.assigner = TaskAlignedAssigner(topk=tal_topk, num_classes=self.nc, alpha=0.5, beta=6.0)
 
     @staticmethod
-    def _fg_slots(fg_mask, weight, max_slots: int):
+    def _fg_slots(fg_mask, weight, max_slots: int, stable: bool = False):
         """The slot table: the indices of every foreground anchor, then background ones
-        (B, M), and the slots' weights (B, M), zero on background."""
-        slot_idx = torch.topk(torch.where(fg_mask, weight, -1.0), max_slots, dim=1).indices
+        (B, M), and the slots' weights (B, M), zero on background. `stable` ranks by a stable
+        sort, so equal weights keep the lowest anchor index first (jax.lax.top_k's order)."""
+        key = torch.where(fg_mask, weight, -1.0)
+        if stable:
+            slot_idx = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :max_slots]
+        else:
+            slot_idx = torch.topk(key, max_slots, dim=1).indices
         s_fg = torch.gather(fg_mask.to(weight.dtype), 1, slot_idx)
         return slot_idx, s_fg, torch.gather(weight, 1, slot_idx) * s_fg
 
@@ -91,6 +99,14 @@ class v8DetectionLoss:
         """feats: the per-level (B, H, W, no) raw head outputs; batch: 'cls' (B, N), 'bboxes'
         (B, N, 4) normalized xywh, 'mask_gt' (B, N), tensors on the device of `feats` →
         (total × B, the detached (box, cls, dfl) components (3,))."""
+        loss_iou, loss_cls, loss_dfl, _ = self._terms(feats, batch)
+        loss = torch.stack([loss_iou * self.hyp.box, loss_cls * self.hyp.cls, loss_dfl * self.hyp.dfl])
+        return loss.sum() * feats[0].shape[0], loss.detach()
+
+    def _terms(self, feats, batch, mask_slots: int = 0):
+        """(loss_iou, loss_cls, loss_dfl, aux). With `mask_slots`, one stable ranking of the anchors
+        serves the box slots and the top `mask_slots` foreground ones, which `aux` returns ('slots',
+        'slot_valid') with the assigner's targets and the input size."""
         B, dev = feats[0].shape[0], feats[0].device
         levels = [f.reshape(B, -1, self.no) for f in feats]
         feat_shapes = [(f.shape[1], f.shape[2]) for f in feats]
@@ -113,12 +129,18 @@ class v8DetectionLoss:
             ], 1)  # (B, A, 4)
             scores = torch.cat([lv[..., r4:].float().sigmoid() for lv in levels], 1)  # (B, A, nc)
             pred_bboxes = dist2bbox(dist, anchor_points[None], xywh=False)  # grid units
-            _, target_bboxes, target_scores, fg_mask, _ = self.assigner(
+            _, target_bboxes, target_scores, fg_mask, target_gt_idx = self.assigner(
                 scores, pred_bboxes * stride_tensor[None], anchor_points * stride_tensor, gt_labels, gt_bboxes, mask_gt
             )
             target_scores_sum = target_scores.sum().clamp(min=1.0)
             weight = target_scores.sum(-1) * fg_mask.float()  # (B, A)
-            slot_idx, _, s_w = self._fg_slots(fg_mask, weight, M)
+            aux = {"target_bboxes": target_bboxes, "target_gt_idx": target_gt_idx, "imgsz": (ih, iw)}
+            if mask_slots:
+                slot_full, s_fg_full, s_w_full = self._fg_slots(fg_mask, weight, min(max(M, mask_slots), a), stable=True)
+                slot_idx, s_w = slot_full[:, :M], s_w_full[:, :M]
+                aux.update(slots=slot_full[:, :mask_slots], slot_valid=s_fg_full[:, :mask_slots])
+            else:
+                slot_idx, _, s_w = self._fg_slots(fg_mask, weight, M)
 
         loss_cls, off = torch.zeros((), dtype=torch.float32, device=dev), 0
         for lv in levels:  # BCE with logits, level by level
@@ -133,5 +155,55 @@ class v8DetectionLoss:
         loss_iou, loss_dfl = self._slot_terms(
             s_distri, slot_idx, anchor_points, stride_tensor, target_bboxes, s_w, target_scores_sum, proj
         )
-        loss = torch.stack([loss_iou * self.hyp.box, loss_cls * self.hyp.cls, loss_dfl * self.hyp.dfl])
+        return loss_iou, loss_cls, loss_dfl, aux
+
+
+class v8SegmentationLoss(v8DetectionLoss):
+    """The detection terms plus the prototype-mask BCE (JAX `v8SegmentationLoss`) over the top
+    `max_fg` foreground anchors of each image by target score (the lowest index first on ties),
+    each slot's ground truth taken from the overlap-index map (instance k drawn as k + 1) or,
+    with per-instance masks (B, N, h, w), by its assigned ground truth; masks of another size
+    than the prototypes are nearest-downsampled by stride. The BCE is cropped to the slot's
+    target box, averaged over the map, divided by the box's area in mask pixels (at least 1),
+    and averaged over the valid slots."""
+
+    def __init__(self, model, hyp, tal_topk: int = 10, max_fg: int = 64):
+        super().__init__(model, hyp, tal_topk)
+        self.nm = model.head.nm
+        self.max_fg = max_fg
+
+    def __call__(self, preds, batch):
+        """preds: (per-level raw box + class outputs, per-level coefficients (B, H, W, nm), protos
+        (B, h, w, nm)); batch: the detection keys and 'masks' → (total × B, the detached (box, seg,
+        cls, dfl) components (4,)), seg weighted by the box gain as in the JAX package."""
+        feats, mask_outs, protos = preds
+        B = feats[0].shape[0]
+        slots = min(self.max_fg, sum(f.shape[1] * f.shape[2] for f in feats))
+        loss_iou, loss_cls, loss_dfl, aux = self._terms(feats, batch, mask_slots=slots)
+        slot_idx, slot_valid = aux["slots"], aux["slot_valid"]
+        ih, iw = aux["imgsz"]
+        mh, mw = protos.shape[1:3]
+        gt_masks = batch["masks"].float()  # (B, h, w) overlap map, or (B, N, h, w) per instance
+        if gt_masks.shape[-2:] != (mh, mw):
+            sy, sx = gt_masks.shape[-2] // mh, gt_masks.shape[-1] // mw
+            gt_masks = gt_masks[..., ::sy, ::sx][..., :mh, :mw]
+        coefs = self._gather_levels([m.reshape(B, -1, self.nm).float() for m in mask_outs], slot_idx)  # (B, S, nm)
+        tb = self._gather(aux["target_bboxes"], slot_idx)  # (B, S, 4) px
+        tgi = torch.gather(aux["target_gt_idx"], 1, slot_idx)  # (B, S)
+        if gt_masks.ndim == 4:
+            gt_m = torch.gather(gt_masks, 1, tgi[..., None, None].expand(-1, -1, mh, mw))
+        else:
+            gt_m = (gt_masks[:, None] == (tgi + 1).float()[..., None, None]).float()
+        pred_m = torch.einsum("bmn,bhn->bmh", coefs, protos.reshape(B, mh * mw, self.nm).float()).reshape(B, slots, mh, mw)
+        mask_bce = pred_m.clamp(min=0) - pred_m * gt_m + torch.log1p(torch.exp(-pred_m.abs()))
+        bx = tb * tb.new_tensor([mw, mh, mw, mh]) / tb.new_tensor([iw, ih, iw, ih])  # px → mask pixels, JAX's order
+        ys = torch.arange(mh, dtype=torch.float32, device=tb.device)[:, None]
+        xs = torch.arange(mw, dtype=torch.float32, device=tb.device)[None, :]
+        b = bx[..., None, None, :]
+        inside = (xs >= b[..., 0]) & (xs < b[..., 2]) & (ys >= b[..., 1]) & (ys < b[..., 3])
+        area = (((tb[..., 2] - tb[..., 0]) / iw) * ((tb[..., 3] - tb[..., 1]) / ih) * mh * mw).clamp(min=1.0)
+        per_slot = (mask_bce * inside).mean((-2, -1)) * (mh * mw) / area
+        loss_seg = (per_slot * slot_valid).sum() / slot_valid.sum().clamp(min=1.0)
+        h = self.hyp
+        loss = torch.stack([loss_iou * h.box, loss_seg * h.box, loss_cls * h.cls, loss_dfl * h.dfl])
         return loss.sum() * B, loss.detach()

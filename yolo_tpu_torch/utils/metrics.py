@@ -3,8 +3,8 @@ confusion matrix (counterpart of yolo_tpu/utils/metrics.py; numpy, once per batc
 and once per run). 101-point interpolated AP, the F1-max operating point of the
 smoothed mean F1 curve, fitness = 0.1 * mAP50 + 0.9 * mAP50-95.
 
-Box matching only: the rotated (probiou) matching waits for the OBB task, mask
-and keypoint IoUs for the segment and pose tasks.
+Box and mask matching (`mask_iou`, the segment task); the rotated (probiou) matching
+waits for the OBB task, the keypoint similarity for the pose task.
 """
 
 from __future__ import annotations
@@ -101,6 +101,16 @@ def match_predictions_iou(pred_cls, gt_cls, iou, iou_thresholds=None):
             matches = matches[np.unique(matches[:, 0], return_index=True)[1]]
             tp[matches[:, 1], t] = True
     return tp
+
+
+def mask_iou(mask1, mask2, eps: float = 1e-7) -> np.ndarray:
+    """IoU of flattened binary masks (JAX `mask_iou`): mask1 (N, n) ground truths, mask2 (M, n)
+    predictions → (N, M), in f32."""
+    mask1 = np.asarray(mask1, np.float32)
+    mask2 = np.asarray(mask2, np.float32)
+    intersection = np.clip(mask1 @ mask2.T, 0, None)
+    union = mask1.sum(1)[:, None] + mask2.sum(1)[None] - intersection
+    return intersection / (union + eps)
 
 
 class ConfusionMatrix:

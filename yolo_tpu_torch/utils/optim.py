@@ -151,9 +151,7 @@ def build_optimizer(name: str, named_params, weight_decay: float):
 def apply_bn_stats(model, bn_momentum: float = 0.03) -> None:
     """Fold the batch moments of the last training forward into every BN's running ones
     (momentum 0.03, the unbiased variance), the JAX trainer's update after the optimizer."""
-    from yolo_tpu_torch.nn.modules import ConvBNAct
-
-    convs = [m for m in model.modules() if isinstance(m, ConvBNAct) and m.batch_stats is not None]
+    convs = [m for m in model.modules() if getattr(m, "batch_stats", None) is not None]  # ConvBNAct, ConvTranspose
     if not convs:
         return
     means = [m.bn.running_mean for m in convs]

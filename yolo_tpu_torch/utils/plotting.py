@@ -1,6 +1,6 @@
-"""Plots of the validator and the trainer, and the box drawing of `Results.plot`
-(counterpart of `plot_confusion_matrix`, `plot_labels`, `plot_images`, `feature_visualization` and the box
-drawing of `Annotator` in yolo_tpu/utils/plotting.py; nothing else of it is ported).
+"""Plots of the validator and the trainer, and the box and mask drawing of `Results.plot`
+(counterpart of `plot_confusion_matrix`, `plot_labels`, `plot_images`, `feature_visualization` and the box,
+text and mask drawing of `Annotator` in yolo_tpu/utils/plotting.py; nothing else of it is ported).
 matplotlib and cv2 are imported only when a plot is drawn."""
 
 from __future__ import annotations
@@ -91,6 +91,16 @@ class Annotator:
         if box_color:
             cv2.rectangle(self.im, (x, y - wh[1] - 3), (x + wh[0], y + 3), box_color, -1, cv2.LINE_AA)
         cv2.putText(self.im, text, (x, y), 0, self.lw / 3, txt_color, tf, cv2.LINE_AA)
+
+    def masks(self, masks, colors, alpha: float = 0.5):
+        """Blend each (H, W) mask (> 0.5) into the image in its BGR colour at `alpha`, in f32, then
+        truncate to uint8 (JAX `Annotator.masks`)."""
+        if masks is None or len(masks) == 0:
+            return
+        im = self.im.astype(np.float32)
+        for m, c in zip(np.asarray(masks), colors):
+            im = np.where((np.asarray(m) > 0.5)[..., None], im * (1 - alpha) + alpha * np.array(c, np.float32), im)
+        self.im[:] = im.astype(np.uint8)
 
     def result(self):
         return self.im
