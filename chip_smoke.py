@@ -176,6 +176,20 @@ Phases (any failure stops the run with a non-zero exit code):
    with the host split) and `[segment forward]` (yolov8n-seg at full width, nc 80, 640², B = 8 and 32: preds,
    coefficients and prototypes of the kernels against the twins, NMS with the coefficients as extras, kernels
    1, 2, 3 and 5 held at those activations). Each phase launches kernels 1, 2, 3 and 5.
+20. the pose task (last; `pose_phases`), on a seeded keypoint dataset (`write_pose_split`: 256 train and 64 val
+   640x512 IR-like frames as BGR, 1-3 bright stick figures each with COCO's 17 keypoints in coco8-pose.yaml's order
+   and flip_idx, some at visibility 1 and some at 0, nc 1): `[pose train]` (YOLO("yolov8n-pose.yaml") from the JAX
+   package's init(0), POSE_RUN: 3 epochs at batch 16, 640, bf16, AdamW lr0 8e-4: the five losses and box / pose
+   metrics per epoch, images/s over the call, the step's split, peak memory), `[pose train step f32]` (one f32 step
+   on the card against the CPU, TRAIN_STEP_TOL), `[pose val kernels]` (f32 kernels against twins: every box and
+   `pose_` key within 1e-4; then bf16 images/s), `[pose predict]` (the 64 val frames one per call, each frame's ten
+   best, f32 kernels against twins: boxes 1e-2 px, conf 1e-4, keypoint x, y 1e-2 px, visibility 1e-4; then bf16
+   frames/s with the host split), `[pose forward]` (yolov8n-pose at full width, nc 1, 640², B = 8 and 32: preds of
+   the kernels against the twins, NMS with the 51 keypoint rows as extras kernel against twin bit for bit, kernels
+   1, 2, 3 and 5 held at those activations) and `[pose track]` (YOLO.track of the trained model over the 64 frames,
+   ByteTrack at thresholds fitted to its scores: rows, ids and each track's keypoints of the kernels equal the twins';
+   `[segment track]` the same with the segment phases' model and each track's mask; then bf16 frames/s). Each phase
+   launches kernels 1, 2, 3 and 5.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -2499,15 +2513,15 @@ def train_step_f32_phase(data, card, cfg_name="yolov8-small.yaml", tag="train st
     """`[train step f32]`: one f32 step of the trainer's path (forward, loss, backward, AdamW at the
     recipe's lr0 with its weight decay at batch 16, BN moments) on the card and on the CPU, from
     DetectionModel("yolov8-small.yaml").init(0) (or `cfg_name`'s model at the dataset's nc: a segment
-    model with its loss and the batch's masks) and the first batch of the training loader (B = 16,
-    640x640): within TRAIN_STEP_TOL, or the run fails."""
+    or pose model with its loss and the batch's masks or keypoints) and the first batch of the training
+    loader (B = 16, 640x640): within TRAIN_STEP_TOL, or the run fails."""
     import numpy as np
     import torch
 
     from yolo_tpu_torch.cfg import get_cfg
     from yolo_tpu_torch.data import build_dataloader, build_yolo_dataset, check_det_dataset
     from yolo_tpu_torch.nn.tasks import guess_model_task, load_train_params, model_class_for, train_leaves, yaml_model_load
-    from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8SegmentationLoss
+    from yolo_tpu_torch.engine.trainer import LOSSES
     from yolo_tpu_torch.utils.optim import AdamW, apply_bn_stats
 
     cfg = get_cfg(overrides=recipe or TRAIN_RECIPE)
@@ -2516,14 +2530,14 @@ def train_step_f32_phase(data, card, cfg_name="yolov8-small.yaml", tag="train st
     lr, decay = cfg.lr0, cfg.weight_decay * cfg.batch * max(round(cfg.nbs / cfg.batch), 1) / cfg.nbs
     yaml_cfg = yaml_model_load(cfg_name)
     model_cls = model_class_for(yaml_cfg)
-    loss_cls = v8SegmentationLoss if guess_model_task(yaml_cfg) == "segment" else v8DetectionLoss
+    loss_cls = LOSSES[guess_model_task(yaml_cfg)]
     runs = {}
     for dev in ("cuda", "cpu"):
         m = model_cls(cfg_name, nc=d["nc"], device=dev)
         load_train_params(m, m.init(0))
         m.train()
         x = torch.from_numpy(batch["img"]).to(dev).float() / 255.0
-        tb = {k: torch.from_numpy(batch[k]).to(dev) for k in ("cls", "bboxes", "mask_gt", "masks") if k in batch}
+        tb = {k: torch.from_numpy(batch[k]).to(dev) for k in ("cls", "bboxes", "mask_gt", "masks", "keypoints") if k in batch}
         t0 = time.perf_counter()
         total, comps = loss_cls(m, cfg)(m.forward_features(x), tb)
         total.backward()
@@ -3586,7 +3600,8 @@ def segment_forward_phase(frames, card):
 
 
 def segment_phases(root: Path, card):
-    """The segment task's four phases on the polygon splits written under `root`."""
+    """The segment task's four phases on the polygon splits written under `root` → (the trained YOLO, the val
+    frames), which `[pose track]` tracks with."""
     import cv2
     import numpy as np
 
@@ -3601,6 +3616,358 @@ def segment_phases(root: Path, card):
     frames = [cv2.imread(str(root / f"images/val/{i}.png")) for i in range(SEG_VAL[0])]
     segment_predict_phase(y, frames, card)
     segment_forward_phase(np.stack(frames), card)
+    return y, frames
+
+
+POSE_PATH = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+POSE_TRAIN, POSE_VAL = (256, 50_000), (64, 50_001)  # `[pose ...]`'s keypoint splits: frames and seed
+# yolov8n-pose from the JAX package's init(0) (nc 1, COCO's 17 keypoints): the IR recipe's optimizer, lr0 and batch
+# at 640 in bf16, 3 epochs (close_mosaic 1), the cfg's augmentations otherwise
+POSE_RUN = dict(epochs=3, batch=16, imgsz=640, optimizer="AdamW", lr0=8e-4, amp=True, workers=8, seed=0, close_mosaic=1,
+                plots=False, exist_ok=True)
+# `[pose predict]`, `[pose track]`: each frame's ten best detections (a 3-epoch model's scores are low, as
+# `[segment predict]`'s; conf 0 keeps ten a frame however low)
+POSE_PREDICT = dict(conf=0.0, max_det=10)
+# COCO's 17 keypoints in coco8-pose.yaml's order (nose, eyes, ears, shoulders, elbows, wrists, hips, knees, ankles;
+# left before right) on a figure one unit tall, x to the figure's left, y down from its hips; and coco8-pose's flip_idx
+POSE_TEMPLATE = ((0.0, -0.44), (0.025, -0.46), (-0.025, -0.46), (0.05, -0.45), (-0.05, -0.45), (0.11, -0.32), (-0.11, -0.32),
+                 (0.16, -0.15), (-0.16, -0.15), (0.18, 0.0), (-0.18, 0.0), (0.07, 0.0), (-0.07, 0.0), (0.08, 0.25),
+                 (-0.08, 0.25), (0.09, 0.5), (-0.09, 0.5))
+POSE_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+POSE_LIMBS = ((16, 14), (14, 12), (17, 15), (15, 13), (12, 13), (6, 12), (7, 13), (6, 7), (6, 8), (7, 9), (8, 10), (9, 11),
+              (1, 6), (1, 7))  # 1-based pairs: COCO's skeleton below the face, the nose to each shoulder
+
+
+def write_pose_split(root: Path, n: int, seed: int, split: str, w: int = 640, h: int = 512) -> Path:
+    """n seeded 640x512 IR-like frames (a cloudy background) written as BGR PNGs under root/images/<split>, each with
+    1-3 bright stick figures 90-240 px tall (limbs drawn between COCO's 17 keypoints, jittered, a head disc at the
+    nose), their pose rows (`0 cx cy w h` then 17 × `x y v`, normalized; the box the keypoints' extent padded by 5% of
+    the height) under root/labels/<split>: about 75% of the keypoints at visibility 2, 15% at 1 and 10% at 0 (x = y =
+    0, COCO's unlabelled form), nc 1 → the dataset yaml, with kpt_shape [17, 3] and coco8-pose's flip_idx."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / f"images/{split}").mkdir(parents=True, exist_ok=True)
+    (root / f"labels/{split}").mkdir(parents=True, exist_ok=True)
+    tpl = np.array(POSE_TEMPLATE, np.float64)
+    for i in range(n):
+        img = cv2.resize(rng.normal(30, 10, (h // 16, w // 16)).astype(np.float32), (w, h), interpolation=cv2.INTER_CUBIC)
+        img += rng.normal(0, 2, (h, w))
+        lines = []
+        for _ in range(rng.integers(1, 4)):
+            H = rng.uniform(90, 240)
+            cx, cy = rng.uniform(0.25 * H, w - 0.25 * H), rng.uniform(0.55 * H, h - 0.55 * H)
+            pts = (tpl + rng.normal(0, 0.02, tpl.shape)) * H * [rng.choice([-1, 1]) * rng.uniform(0.8, 1.1), 1.0] + [cx, cy]
+            val = float(rng.uniform(140, 220))
+            th = max(2, int(H / 30))
+            for a, b in POSE_LIMBS:
+                cv2.line(img, tuple(int(v) for v in pts[a - 1]), tuple(int(v) for v in pts[b - 1]), val, th, cv2.LINE_AA)
+            cv2.circle(img, tuple(int(v) for v in pts[0]), int(H * 0.06), val, -1, cv2.LINE_AA)
+            x1, y1 = np.clip(pts.min(0) - 0.05 * H, 0, [w, h])
+            x2, y2 = np.clip(pts.max(0) + 0.05 * H, 0, [w, h])
+            vis = rng.choice([2, 1, 0], 17, p=[0.75, 0.15, 0.10])
+            kp = np.where(vis[:, None] > 0, pts / [w, h], 0.0)
+            lines.append(f"0 {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} {(x2 - x1) / w:.6f} {(y2 - y1) / h:.6f} "
+                         + " ".join(f"{x:.6f} {y:.6f} {v}" for (x, y), v in zip(kp, vis)))
+        gray = np.clip(img, 0, 255).astype(np.uint8)
+        cv2.imwrite(str(root / f"images/{split}/{i}.png"), cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
+    (root / "data.yaml").write_text(f"path: {root}\n{splits}kpt_shape: [17, 3]\nflip_idx: {POSE_FLIP_IDX}\n"
+                                    "names:\n  0: person\n")
+    return root / "data.yaml"
+
+
+def pose_train_phase(data, run_dir, card):
+    """`[pose train]`: YOLO("yolov8n-pose.yaml").train with POSE_RUN on the 256-frame keypoint split, validating on
+    the 64 held-out frames each epoch: per epoch the five loss components and the box and pose metrics; images/s over
+    the whole .train call; the step's split in events; peak memory; the launches of check_amp and the validations
+    → the trained YOLO."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    epochs = []
+    y = YOLO("yolov8n-pose.yaml")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, launches = counted(POSE_PATH, lambda: y.train(trainer=train_epoch_recorder(epochs), data=str(data),
+                                                           project=str(run_dir), name="pose", **POSE_RUN))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if y.task != "pose" or y.model.head.kpt_shape != (17, 3) or not y.trainer.args.amp or metrics is None:
+        raise AssertionError(f"pose train: task {y.task}, kpt_shape {y.model.head.kpt_shape}, amp {y.trainer.args.amp}, metrics {metrics}")
+    names = ("box", "pose", "kobj", "cls", "dfl")
+    for e in epochs:
+        r = e["row"]
+        losses = [r[f"train/{k}_loss"] for k in names]
+        if not all(np.isfinite(losses)) or min(losses) <= 0:
+            raise AssertionError(f"pose train: epoch {r['epoch']} losses {losses}")
+        log("pose train", card, f"epoch {r['epoch'] + 1}/{POSE_RUN['epochs']}: " + " ".join(f"{k} {v:.4f}" for k, v in zip(names, losses))
+            + f"; box mAP50 {r['metrics/mAP50']:.4f} mAP50-95 {r['metrics/mAP50-95']:.4f}, pose mAP50 {r['metrics/pose_mAP50']:.4f} "
+            f"mAP50-95 {r['metrics/pose_mAP50-95']:.4f}; epoch {e['epoch_s']:.2f} s, val {e['val_s']:.2f} s")
+    n = POSE_RUN["epochs"] * POSE_TRAIN[0]
+    steps = [t for e in epochs for t in e["timings"][1:]]
+    mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
+    log("pose train", card, f"{POSE_RUN['epochs']} epochs of {POSE_TRAIN[0]} frames at batch {POSE_RUN['batch']}, 640, bf16: "
+        f"{n / wall:.1f} images/s over the whole .train call ({wall:.1f} s: check_amp, the loader, the steps, each epoch's f32 "
+        f"validation of {POSE_VAL[0]} frames); per step after each epoch's first: loader wait {mean['loader']:.2f} ms (host), "
+        f"forward+loss {mean['forward']:.2f} ms, backward {mean['backward']:.2f} ms, optimizer+BN+EMA {mean['optimizer']:.2f} ms "
+        f"(events; {sum(mean[k] for k in ('forward', 'backward', 'optimizer')):.2f} ms a step); peak memory {peak:.2f} GiB "
+        f"(max_memory_allocated, over the {base / 2**30:.2f} GiB held before); launches {launches}")
+    return y
+
+
+def pose_val_kernels_phase(y, data, card):
+    """`[pose val kernels]`: the trained model on the held-out split, f32 through the kernels against f32 through the
+    twins (every box and `pose_` key within 1e-4), then bf16 images/s over a warmed .val call."""
+    rk, launches = counted(POSE_PATH, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False))
+    rp = y.val(data=str(data), imgsz=640, batch=16, plots=False, plain=True)
+    diff = {k: abs(rk[k] - rp[k]) for k in rk}
+    if set(rk) != set(rp) or max(diff.values()) > 1e-4 or "pose_mAP50-95" not in rk:
+        raise AssertionError(f"pose val: kernels {rk} vs twins {rp}")
+    log("pose val kernels", card, "f32 kernels: " + ", ".join(f"{k} {v:.4f}" for k, v in rk.items())
+        + f"; every key within {max(diff.values()):.2e} of the twins'; launches {launches}")
+    y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True)  # warm: bf16 weights and plans
+    t0 = time.perf_counter()
+    rb, launches = counted(POSE_PATH, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True))
+    wall = time.perf_counter() - t0
+    log("pose val bf16", card, f"{POSE_VAL[0]} frames in {wall:.2f} s = {POSE_VAL[0] / wall:.1f} images/s (host clock, the .val "
+        f"call); box mAP50-95 {rb['mAP50-95']:.4f} (f32 {rk['mAP50-95']:.4f}), pose mAP50-95 {rb['pose_mAP50-95']:.4f} "
+        f"(f32 {rk['pose_mAP50-95']:.4f}); launches {launches}")
+
+
+def _kpt_diffs(a, b):
+    """Largest |x, y| and |visibility| differences of two (n, 17, 3) keypoint sets."""
+    import numpy as np
+
+    if not len(a):
+        return 0.0, 0.0
+    return float(np.abs(a[..., :2] - b[..., :2]).max()), float(np.abs(a[..., 2] - b[..., 2]).max())
+
+
+def _paired(bk, bp, box_tol=1e-2, tie=1e-6):
+    """Pair each kernel row with the twin's row of the nearest box, each used once: two detections whose scores
+    differ by less than f32's rounding may leave NMS in either order. The rows without a twin within `box_tol` px
+    must match the twin's unpaired rows score for score within `tie`: of two overlapping candidates of one score
+    (an undertrained model predicts the same box at neighbouring anchors), NMS keeps whichever its sort put first,
+    and the kernel and the twin may put them the other way round → (kernel rows, twin rows, unpaired rows)."""
+    import numpy as np
+
+    d = np.abs(bk[:, None, :4] - bp[None, :, :4]).max(-1) if len(bk) else np.zeros((0, len(bp)))
+    pairs, free = [], set(range(len(bp)))
+    for i in np.argsort(d.min(1) if len(bp) else np.zeros(len(bk)), kind="stable"):
+        j = min(free, key=lambda j: d[i, j])
+        if d[i, j] <= box_tol:
+            pairs.append((i, j))
+            free.discard(j)
+    ki = sorted(set(range(len(bk))) - {i for i, _ in pairs})
+    sk, sp = np.sort(bk[ki, 4]), np.sort(bp[sorted(free), 4])
+    if len(sk) != len(sp) or (len(sk) and float(np.abs(sk - sp).max()) > tie):
+        raise AssertionError(f"rows without a twin: kernel {bk[ki]}, twin {bp[sorted(free)]}")
+    pairs.sort()
+    return np.array([i for i, _ in pairs], int), np.array([j for _, j in pairs], int), len(ki)
+
+
+def pose_predict_phase(y, frames, card):
+    """`[pose predict]`: the trained model over held-out BGR frames, one per predict call, at POSE_PREDICT's conf and
+    max_det, f32 through the kernels against f32 through the twins: equal detection counts, and for each kernel row
+    the twin's with the nearest box (`_paired`; of two overlapping candidates of one score either may be kept): equal
+    classes, boxes within 1e-2 px, conf 1e-4, keypoint x, y 1e-2 px,
+    visibilities 1e-4. Then bf16 frames/s (host clock) with the host's
+    split per frame (letterbox + assembly, enqueue, the wait for the device, the Results with the keypoints'
+    inverse letterbox) → each frame's f32 kernel rows."""
+    import numpy as np
+
+    def run(half, plain):
+        out = []
+        for f in frames:
+            r = y.predict(f, half=half, plain=plain, compute_dtype=compute_dtype(half), verbose=False, **POSE_PREDICT)[0]
+            out.append((r.boxes.data.copy(), r.keypoints.data.copy()))
+        return out
+
+    run(False, False)  # warm-up
+    pk, launches = counted(POSE_PATH, lambda: run(False, False))
+    pp = run(False, True)
+    n_det, n_tied, worst = 0, 0, {"box": 0.0, "conf": 0.0, "kpt": 0.0, "vis": 0.0}
+    for (bk, kk), (bp, kp) in zip(pk, pp):
+        if bk.shape != bp.shape or kk.shape != kp.shape or kk.shape[1:] != (17, 3):
+            raise AssertionError(f"pose predict: {bk.shape} / {kk.shape} vs twins {bp.shape} / {kp.shape}")
+        if len(bk):
+            i, j, tied = _paired(bk, bp)
+            bk, kk, bp, kp = bk[i], kk[i], bp[j], kp[j]
+            n_tied += tied
+            if not np.array_equal(bk[:, 5], bp[:, 5]):
+                raise AssertionError(f"pose predict: classes {bk[:, 5]} vs twins {bp[:, 5]}")
+            worst["box"] = max(worst["box"], float(np.abs(bk[:, :4] - bp[:, :4]).max()))
+            worst["conf"] = max(worst["conf"], float(np.abs(bk[:, 4] - bp[:, 4]).max()))
+            dk, dv = _kpt_diffs(kk, kp)
+            worst["kpt"], worst["vis"] = max(worst["kpt"], dk), max(worst["vis"], dv)
+        n_det += len(bk)
+    if n_det == 0 or worst["box"] > 1e-2 or worst["conf"] > 1e-4 or worst["kpt"] > 1e-2 or worst["vis"] > 1e-4:
+        raise AssertionError(f"pose predict: {n_det} detections, {worst}")
+    confs = np.concatenate([b[:, 4] for b, _ in pk])
+    vis = np.concatenate([k[..., 2].ravel() for _, k in pk])
+    log("pose predict f32", card, f"{len(frames)} frames, {n_det} detections equal to the twins' ({n_tied} of them replaced "
+        f"by an overlapping one of the same score; max |box| {worst['box']:.3e} px, "
+        f"|conf| {worst['conf']:.3e}, |keypoint x, y| {worst['kpt']:.3e} px, |visibility| {worst['vis']:.3e}); conf "
+        f"{confs.min():.4f}-{confs.max():.4f}, visibility {vis.min():.3f}-{vis.max():.3f}; launches {launches}")
+    y.predict(frames[0], half=True, compute_dtype="bfloat16", verbose=False, **POSE_PREDICT)  # warm: bf16 weights
+    y.predictor.timings = []
+    t0 = time.perf_counter()
+    _, launches = counted(POSE_PATH, lambda: run(True, False))
+    wall = time.perf_counter() - t0
+    ts = y.predictor.timings
+    y.predictor.timings = None
+    split = {k: sum(t[f"{k}_s"] for t in ts) / len(ts) * 1e3 for k in ("pre", "enqueue", "wait", "post")}
+    log("pose predict bf16", card, f"{len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.1f} frames/s (host clock, one "
+        f"frame per predict call); host ms/frame: letterbox + assembly {split['pre']:.3f}, enqueue {split['enqueue']:.3f}, wait "
+        f"{split['wait']:.3f}, Results with the keypoints {split['post']:.3f}; launches {launches}")
+    return pk
+
+
+def pose_forward_phase(frames, card):
+    """`[pose forward]`: yolov8n-pose at full width (nc 1, the JAX package's init(0)) at 640x640, B = 8 and 32, f32
+    through the kernels against the twins: boxes within 1e-2 px, scores 1e-4, keypoint x, y 1e-2 px, visibilities
+    1e-4; NMS with the 51 keypoint rows as extra columns, the kernel against its twin on the same predictions: every
+    output equal, bit for bit; kernels 1, 2, 3 and 5 held against their twins on those activations
+    (`hold_path_kernels`). NMS runs at conf 0, since the initial tree's scores sit near 1e-3: every anchor is a
+    candidate, K = 1024."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import PoseModel, params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression
+
+    m = PoseModel("yolov8n-pose.yaml")
+    params_from_jax(m, m.init(0), torch.float32)
+    x32 = torch.cat([letterboxed(frames[i % len(frames)]) for i in range(32)])
+    xy = torch.zeros(56, dtype=torch.bool)
+    xy[5:] = torch.arange(51) % 3 != 2
+
+    def nms(preds, plain):
+        return non_max_suppression(preds, conf_thres=0.0, iou_thres=0.7, max_det=300, nc=m.nc, plain=plain)
+
+    for B in (8, 32):
+        x = x32[:B]
+        (pk, ok), launches = counted(POSE_PATH, lambda: (lambda p: (p, nms(p, False)))(m.predict(x)))
+        pp = m.predict(x, plain=True)
+        op = nms(pk, True)
+        torch.cuda.synchronize()
+        d = (pk - pp).abs()
+        err = {"box": float(d[:, :4].max()), "score": float(d[:, 4].max()), "kpt": float(d[:, xy].max()),
+               "vis": float(d[:, 5:][:, ~xy[5:]].max())}
+        same = all(torch.equal(ok[k], op[k]) for k in ok) and set(ok) == set(op)
+        if (pk.shape != (B, 56, 8400) or not torch.isfinite(pk).all() or err["box"] > 1e-2 or err["score"] > 1e-4
+                or err["kpt"] > 1e-2 or err["vis"] > 1e-4 or not same or ok["extra"].shape != (B, 300, 51)):
+            raise AssertionError(f"pose forward B={B}: {err}, NMS kernel == twin {same}, {tuple(pk.shape)}")
+        log("pose forward", card, f"B={B} 640x640: preds {tuple(pk.shape)}; kernels against twins max "
+            + ", ".join(f"|{k}| {v:.3e}" for k, v in err.items()) + f"; NMS with 51 extras: kernel and twin equal in every "
+            f"output ({int(ok['valid'].sum())} kept slots); launches {launches}")
+        hold_path_kernels([m], x, f"pose forward B={B}", card, conf=0.0, iou=0.7)
+
+
+def track_yaml_for(y, frames, path: Path, **kw) -> tuple:
+    """A ByteTrack yaml for a briefly trained model (its scores sit far below bytetrack.yaml's 0.25): the high and
+    new-track thresholds at the median over `frames` of each frame's best f32 score, the low one at a quarter of it,
+    and no score fused into the IoU cost (at scores near 0.01 it leaves every cost above match_thresh) → (the yaml,
+    the predict conf: that quarter)."""
+    import numpy as np
+
+    best = [float(r.boxes.conf.max()) if len(r) else 0.0
+            for f in frames for r in y.predict(f, half=False, plain=False, compute_dtype="float32", verbose=False, **kw, **POSE_PREDICT)]
+    hi = float(np.median(best))
+    text = (ROOT / "yolo_tpu_torch" / "cfg" / "trackers" / "bytetrack.yaml").read_text()
+    for key, v in (("track_high_thresh", f"{hi:.6f}"), ("track_low_thresh", f"{hi / 4:.6f}"), ("new_track_thresh", f"{hi:.6f}"),
+                   ("fuse_score", "False")):
+        text = "\n".join(f"{key}: {v}" if line.startswith(f"{key}:") else line for line in text.splitlines())
+    path.write_text(text + "\n")
+    return path, hi / 4
+
+
+def moving_clip(frames, n: int, steps: int = 16, dx: int = 3):
+    """n frames that move: each of `frames` in turn rolled right by dx px a frame for `steps` frames (the held-out
+    frames are independent images, on which no track would live past its first frame)."""
+    import numpy as np
+
+    return [np.ascontiguousarray(np.roll(frames[(i // steps) % len(frames)], dx * (i % steps), axis=1)) for i in range(n)]
+
+
+def pose_track_phase(y, frames, seg, tmp: Path, card):
+    """`[pose track]`: YOLO.track of the trained pose model over a 64-frame clip made of the held-out frames
+    (`moving_clip`), one frame per call with persist=True, ByteTrack at thresholds fitted to the model's scores
+    (`track_yaml_for`), f32 through the kernels against f32 through the twins: equal rows and ids per frame (boxes
+    1e-2 px, conf 1e-4) and each track's keypoints (x, y 1e-2 px, visibility 1e-4); then bf16 frames/s. `[segment
+    track]`: the same with the trained yolov8n-seg of the segment phases over a clip of its frames, the tracks' masks
+    against the twins' (their summed intersection over their summed union >= 0.99; the least IoU of one track's mask
+    printed: a box edge within 1e-4 px of a prototype pixel's centre crops a whole column of a small mask one way or
+    the other)."""
+    import numpy as np
+
+    def run(model, frames, yaml, conf, half, plain, extra):
+        model._tracker = None
+        out = []
+        for f in frames:
+            r = model.track(f, persist=True, tracker=str(yaml), conf=conf, max_det=POSE_PREDICT["max_det"], half=half, plain=plain,
+                            compute_dtype=compute_dtype(half), verbose=False, **extra)[0]
+            out.append((r.boxes.data.copy(), (r.keypoints if r.keypoints is not None else r.masks).data.copy()))
+        return out
+
+    fitted = {}
+    frames = moving_clip(frames, TRACK_FRAMES)
+    for tag, model, fr, extra in (("pose track", y, frames, {}),
+                                  ("segment track", seg[0], moving_clip(seg[1], TRACK_FRAMES), {"retina_masks": False})):
+        yaml, conf = fitted[tag] = track_yaml_for(model, fr, tmp / f"{tag.split()[0]}_bytetrack.yaml", **extra)
+        rk, launches = counted(POSE_PATH, lambda: run(model, fr, yaml, conf, False, False, extra))
+        rp = run(model, fr, yaml, conf, False, True, extra)
+        worst, n_rows, ids = compare_tracks([b for b, _ in rk], [b for b, _ in rp], 1e-2, 1e-4, f"{tag}: kernels against plain")
+        least = {"kpt": 0.0, "vis": 0.0, "iou": 1.0}
+        inter = union = 0
+        for (bk, ek), (bp, ep) in zip(rk, rp):
+            ok, op = np.argsort(bk[:, 4], kind="stable"), np.argsort(bp[:, 4], kind="stable")
+            if tag == "pose track":
+                dk, dv = _kpt_diffs(ek[ok], ep[op])
+                least["kpt"], least["vis"] = max(least["kpt"], dk), max(least["vis"], dv)
+            else:
+                least["iou"] = min(least["iou"], *(_mask_iou(a, b) for a, b in zip(ek[ok], ep[op])), 1.0)
+                inter, union = inter + int((ek[ok] & ep[op]).sum()), union + int((ek[ok] | ep[op]).sum())
+        overall = inter / union if union else 1.0
+        if n_rows <= 0 or least["kpt"] > 1e-2 or least["vis"] > 1e-4 or overall < 0.99:
+            raise AssertionError(f"{tag}: {n_rows} tracked rows, per-track {least}, masks' summed IoU {overall}")
+        per = (f"keypoints per track within {least['kpt']:.3e} px / visibility {least['vis']:.3e}" if tag == "pose track"
+               else f"the tracks' masks: summed IoU with the twins' {overall:.6f}, the least one track's {least['iou']:.6f}")
+        log(f"{tag} f32", card, f"ByteTrack at high/new {conf * 4:.4f}, low {conf:.4f}: rows and ids equal on every frame "
+            f"({n_rows} tracked rows, {len(ids)} ids), max |box diff| {worst:.3e} px; {per}; launches {launches}")
+    yaml, conf = fitted["pose track"]
+    run(y, frames[:2], yaml, conf, True, False, {})  # warm: bf16 weights
+    t0 = time.perf_counter()
+    rb, launches = counted(POSE_PATH, lambda: run(y, frames, yaml, conf, True, False, {}))
+    wall = time.perf_counter() - t0
+    log("pose track bf16", card, f"{len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.1f} frames/s (host clock, one "
+        f"frame per track call); {sum(len(b) for b, _ in rb)} tracked rows; launches {launches}")
+
+
+def pose_phases(root: Path, card, seg):
+    """The pose task's six phases on the keypoint splits written under `root`; `seg` is the segment phases' trained
+    YOLO and its frames, which `[segment track]` tracks."""
+    import cv2
+    import numpy as np
+
+    t0 = time.perf_counter()
+    write_pose_split(root, *POSE_TRAIN, split="train")
+    data = write_pose_split(root, *POSE_VAL, split="val")
+    print(f"[pose split] {POSE_TRAIN[0]} train + {POSE_VAL[0]} val frames of 640x512 with 17-keypoint labels written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    y = pose_train_phase(data, root / "runs", card)
+    train_step_f32_phase(data, card, cfg_name="yolov8n-pose.yaml", tag="pose train step f32", recipe=POSE_RUN)
+    pose_val_kernels_phase(y, data, card)
+    frames = [cv2.imread(str(root / f"images/val/{i}.png")) for i in range(POSE_VAL[0])]
+    pose_predict_phase(y, frames, card)
+    pose_forward_phase(np.stack(frames), card)
+    pose_track_phase(y, frames, seg, root, card)
 
 
 def compare_runs(a, b, stats_a, stats_b):
@@ -3734,7 +4101,8 @@ def main(argv) -> int:
         train_settings_phase(train_data, Path(tmp) / "runs", card)
         tune_phase(Path(tmp) / "tune", card)
         classify_phase(clip, Path(tmp) / "cls", card)
-        segment_phases(Path(tmp) / "seg", card)
+        seg = segment_phases(Path(tmp) / "seg", card)
+        pose_phases(Path(tmp) / "pose", card, seg)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

@@ -115,8 +115,8 @@ def test_classify_head_and_model_match_jax(two_threads):
 
 def test_yolo_cls_yaml_matches_jax_init_and_routing():
     """YOLO("yolov8n-cls.yaml") holds JAX's initial tree bit for bit (scale n, nc 1000, 1280-wide head);
-    the task comes from the name or `task=`; -pose and -obb raise naming their task (-seg builds a
-    segment model since the segment task was ported), a ResNet backbone names its module;
+    the task comes from the name or `task=`; -obb raises naming its task (-seg and -pose build a
+    segment and a pose model since those tasks were ported), a ResNet backbone names its module;
     guess_model_task and model_class_for follow JAX's."""
     py, jy = yolo_tpu_torch.YOLO("yolov8n-cls.yaml", device="cpu"), yolo_tpu.YOLO("yolov8n-cls.yaml")
     got, want = _flat(py.params), _flat(jy.params)
@@ -124,10 +124,10 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     assert want["model.9.linear.weight"].shape == (1280, 1000)
     assert py.task == jy.task == "classify" and py.info(verbose=False) == jy.info(verbose=False)
     assert yolo_tpu_torch.YOLO("yolov8n-cls.yaml", task="classify", device="cpu").overrides == {"model": "yolov8n-cls.yaml", "task": "classify"}
-    for name, task in (("yolov8n-pose.yaml", "pose"), ("yolov8n-obb.yaml", "obb")):
-        with pytest.raises(NotImplementedError, match=task):
-            yolo_tpu_torch.YOLO(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="obb"):
+        yolo_tpu_torch.YOLO("yolov8n-obb.yaml", device="cpu")
     assert yolo_tpu_torch.YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
+    assert yolo_tpu_torch.YOLO("yolov8n-pose.yaml", device="cpu").task == "pose"
     with pytest.raises(NotImplementedError, match="ResNetLayer"):
         yolo_tpu_torch.YOLO("yolov8n-cls-resnet50.yaml", device="cpu")
     for cfg in ("yolov8n-cls.yaml", "yolov8n.yaml", "yolov8n-seg.yaml", "yolov8n-pose.yaml", "yolov8n-obb.yaml"):
@@ -136,8 +136,9 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-cls.yaml")) is PT.ClassificationModel
     assert PT.model_class_for(JT.yaml_model_load("yolov8n.yaml")) is PT.DetectionModel
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-seg.yaml")) is PT.SegmentationModel
-    with pytest.raises(NotImplementedError, match="pose"):
-        PT.model_class_for(JT.yaml_model_load("yolov8n-pose.yaml"))
+    assert PT.model_class_for(JT.yaml_model_load("yolov8n-pose.yaml")) is PT.PoseModel
+    with pytest.raises(NotImplementedError, match="obb"):
+        PT.model_class_for(JT.yaml_model_load("yolov8n-obb.yaml"))
 
 
 @pytest.mark.parametrize("k", range(8))

@@ -790,3 +790,65 @@ def test_segment_phases_on_the_card(card, monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "SEG_VAL", (8, 40_001))
     monkeypatch.setattr(chip_smoke, "SEG_RUN", {**chip_smoke.SEG_RUN, "epochs": 1, "batch": 8, "close_mosaic": 0})
     chip_smoke.segment_phases(tmp_path, "card test")
+
+
+def test_pose_forward_and_nms_on_the_card_match_twins(card):
+    """yolov8n-pose at full width from the JAX package's initial tree (nc 1, 17 keypoints; class priors at 0), two
+    seeded 128² images: the f32 predictions through kernels 1, 2 and 3 against the twins and against the CPU's (boxes
+    and keypoint x, y 1e-2 px, scores and visibilities 1e-4), 8 C2f and 3 head launches a forward; NMS with the 51
+    keypoint rows as extra columns through kernel 5 against its twin on the same predictions (every output equal);
+    bf16 against the bf16 twins at 6e-2."""
+    from yolo_tpu_torch.nn.tasks import PoseModel, params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression
+
+    m, cpu = PoseModel("yolov8n-pose.yaml"), PoseModel("yolov8n-pose.yaml", device="cpu")
+    params = m.init(0)
+    for l in range(3):
+        params["model"]["22"]["cv3"][str(l)]["2"]["bias"][:] = 0.0
+    params_from_jax(m, params, torch.float32)
+    params_from_jax(cpu, params, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 128, 128, 3)).astype(np.float32))
+    before = (cuda_c2f.fused_c2f.launches + cuda_c2f.fused_c2f_upconcat.launches, cuda_head.fused_head_level.launches)
+    preds = m.predict(x.to(card))
+    after = (cuda_c2f.fused_c2f.launches + cuda_c2f.fused_c2f_upconcat.launches, cuda_head.fused_head_level.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (8, 3) and preds.shape == (2, 56, 336)
+    px = torch.zeros(56, dtype=torch.bool, device=card)
+    px[:4] = True
+    px[5:] = torch.arange(51, device=card) % 3 != 2
+    for want in (m.predict(x.to(card), plain=True), cpu.predict(x).to(card)):
+        torch.testing.assert_close(preds[:, px], want[:, px], atol=1e-2, rtol=0)
+        torch.testing.assert_close(preds[:, ~px], want[:, ~px], atol=1e-4, rtol=0)
+    n0 = cuda_nms.nms_keep.launches
+    got = non_max_suppression(preds, conf_thres=0.25, nc=1)
+    assert cuda_nms.nms_keep.launches == n0 + 1
+    want = non_max_suppression(preds, conf_thres=0.25, nc=1, plain=True)
+    assert got["valid"].any() and got["extra"].shape == (2, 300, 51) and set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    params_from_jax(m, params, torch.bfloat16)
+    xb = x.to(card, torch.bfloat16)
+    torch.testing.assert_close(m.predict(xb)[:, 4:], m.predict(xb, plain=True)[:, 4:], **TOL[torch.bfloat16])
+
+
+def test_pose_phases_on_the_card(card, monkeypatch, tmp_path):
+    """chip_smoke's pose phases (`[pose train]`, `[pose train step f32]`, `[pose val kernels]`, `[pose predict]`,
+    `[pose forward]`, `[pose track]` with a fresh yolov8n-seg whose masks are confident for `[segment track]`) cut to
+    32 train and 8 val frames, one epoch at batch 8."""
+    pytest.importorskip("cv2")
+    import cv2
+    import chip_smoke
+
+    from yolo_tpu_torch import YOLO
+
+    monkeypatch.setattr(chip_smoke, "POSE_TRAIN", (32, 50_000))
+    monkeypatch.setattr(chip_smoke, "POSE_VAL", (8, 50_001))
+    monkeypatch.setattr(chip_smoke, "POSE_RUN", {**chip_smoke.POSE_RUN, "epochs": 1, "batch": 8, "close_mosaic": 0})
+    seg_root = tmp_path / "seg"
+    chip_smoke.write_seg_split(seg_root, 4, 1, split="val")
+    frames = [cv2.imread(str(seg_root / f"images/val/{i}.png")) for i in range(4)]
+    seg = YOLO("yolov8n-seg.yaml")
+    head = seg.params["model"]["22"]  # coefficients 1 and prototypes near 3: mask logits far from 0
+    for l in range(3):
+        head["cv4"][str(l)]["2"]["bias"][:] = 1.0
+    head["proto"]["cv3"]["bn"]["bias"][:] = 3.0
+    chip_smoke.pose_phases(tmp_path / "pose", "card test", (seg, frames))

@@ -482,14 +482,15 @@ def test_segment_train_writes_its_losses_and_metrics(tmp_path, two_threads):
 
 def test_segment_entry_points_left_out_raise(seg_pair, tmp_path):
     """The slice's left-out entry points name themselves with NotImplementedError where the JAX package would
-    run them with a segment model: track, benchmark, tune, ensembles, tiled inference, FusedDetectTrack, int8
-    predict; a server lane that loads one is out of service."""
+    run them with a segment model: benchmark, tune, ensembles, tiled inference, FusedDetectTrack, int8 predict;
+    a server lane that loads one is out of service. (`track` takes a segment model since the pose slice:
+    tests/test_torch_pose.py holds its masks against JAX's.)"""
     from yolo_tpu_torch.ops.tiling import tiled_predict
     from yolo_tpu_torch.pipeline.fused import FusedDetectTrack
     from yolo_tpu_torch.serve import _ModelLane
 
     _, py, frames = seg_pair
-    for call, what in ((lambda: py.track(frames[0]), "track"), (lambda: py.benchmark(imgsz=64), "benchmark"),
+    for call, what in ((lambda: py.benchmark(imgsz=64), "benchmark"),
                        (lambda: py.tune(data="x.yaml"), "tune"), (lambda: tiled_predict(py, frames[0], tile=64), "tiled"),
                        (lambda: FusedDetectTrack(py.model, py.params, device="cpu"), "FusedDetectTrack"),
                        (lambda: py.predict(frames[0], int8=True, imgsz=64), "int8"),

@@ -134,14 +134,14 @@ def test_val_plots_and_a_failing_plot(splits, two_threads, tmp_path, monkeypatch
 
 
 def test_unported_tasks_and_the_coco_cross_check_raise(tmp_path):
-    """The tasks without a validator raise naming themselves; classify and segment have their own
+    """The tasks without a validator raise naming themselves; classify, segment and pose have their own
     validators. The COCOeval cross-check no longer raises: tests/test_torch_coco_eval.py holds it
     against JAX."""
     from yolo_tpu_torch.engine.classify import ClassificationValidator
 
     assert PV.validator_for(SimpleNamespace(task="segment")) is PV.SegmentationValidator
-    for model, task in ((SimpleNamespace(task="obb"), "obb"),
-                        (SimpleNamespace(task="pose"), "pose"), (SimpleNamespace(is_rtdetr=True), "rtdetr")):
+    assert PV.validator_for(SimpleNamespace(task="pose")) is PV.PoseValidator
+    for model, task in ((SimpleNamespace(task="obb"), "obb"), (SimpleNamespace(is_rtdetr=True), "rtdetr")):
         with pytest.raises(NotImplementedError, match=task):
             PV.validator_for(model)
     assert PV.validator_for(SimpleNamespace()) is PV.DetectionValidator

@@ -8,12 +8,18 @@ The code is the JAX package's, kept call for call, so the same
 {'img': HWC uint8 BGR, 'cls': (n,), 'bboxes': (n, 4) pixel xyxy, 'shape':
 the original (h, w)}, and 'segments' (a pixel polygon per box, None for a box
 row) where the label files hold polygons: the geometric transforms move them
-along, and the random perspective takes a polygon's box from its warped points.
+along, and the random perspective takes a polygon's box from its warped points;
+'keypoints' (n, K, ndim) in pixels where they hold keypoints: every transform moves
+them with their boxes, a keypoint the perspective throws off the canvas loses its
+visibility, a horizontal flip swaps left and right by the dataset's `flip_idx`, and
+rows that a paste or cutmix adds get invisible keypoints.
 `TrainTransforms.mosaic_n = 9` takes the 3x3 mosaic (`mosaic9`) instead of mosaic4, and
 the cfg's `cutmix` probability pastes a region of another augmented sample (`cutmix`),
-each drawing from the same `random` instance in the JAX package's order.
-`rand_augment` is the classify task's RandAugment (engine/classify.py), on the RNG
-it is given. The keypoints and rotated boxes of the other tasks are not ported.
+each drawing from the same `random` instance in the JAX package's order. mosaic9 carries
+the keypoints too, which the JAX package's mosaic9 drops (its output has no keypoints, so a
+pose batch loses them); the draws and every other label are the same. `rand_augment` is the
+classify task's RandAugment (engine/classify.py), on the RNG it is given. The rotated boxes
+of the obb task are not ported.
 """
 
 from __future__ import annotations
@@ -64,27 +70,53 @@ def random_hsv(img, hgain=0.5, sgain=0.5, vgain=0.5, rng=None):
     return img
 
 
-def random_flip(labels, lr_p=0.5, ud_p=0.0, rng=None):
-    """Vertical (with probability ud_p, drawn first) and horizontal (lr_p) flips, boxes moved along."""
+def _flip_kpts(kp, axis: int, size: int):
+    """Keypoints mirrored along x (axis 0) or y (axis 1) in an image `size` wide or tall; the labelled
+    ones only (visibility ≠ 0, or all without a visibility column)."""
+    kp = kp.copy()
+    vis = kp[..., 2] != 0 if kp.shape[-1] == 3 else np.ones(kp.shape[:-1], bool)
+    kp[..., axis] = np.where(vis, size - kp[..., axis], kp[..., axis])
+    return kp
+
+
+def random_flip(labels, lr_p=0.5, ud_p=0.0, rng=None, flip_idx=None):
+    """Vertical (with probability ud_p, drawn first) and horizontal (lr_p) flips, boxes, polygons and
+    keypoints moved along; a horizontal flip reorders the keypoints by `flip_idx` (left and right swap).
+    Keypoints without `flip_idx` are never flipped horizontally: lr_p turns to 0 (no draw) with a
+    warning, once, as in the JAX package, since mirrored unswapped keypoints train the wrong side."""
     rng = rng or random
     img = labels["img"]
     h, w = img.shape[:2]
     b = labels["bboxes"]
+    kp = labels.get("keypoints")
     segs = labels.get("segments")
+    if lr_p and kp is not None and flip_idx is None:
+        if not getattr(random_flip, "_warned_flip_idx", False):
+            random_flip._warned_flip_idx = True
+            from yolo_tpu_torch.utils import LOGGER
+
+            LOGGER.warning("no 'flip_idx' in the dataset yaml: disabling fliplr for keypoints")
+        lr_p = 0.0
     if ud_p and rng.random() < ud_p:
         img = np.flipud(img)
         b = b.copy()
         b[:, [1, 3]] = h - b[:, [3, 1]]
+        if kp is not None and len(kp):
+            kp = _flip_kpts(kp, 1, h)
         if segs:
             segs = [np.stack([sg[:, 0], h - sg[:, 1]], 1) if sg is not None else None for sg in segs]
     if lr_p and rng.random() < lr_p:
         img = np.fliplr(img)
         b = b.copy()
         b[:, [0, 2]] = w - b[:, [2, 0]]
+        if kp is not None and len(kp):
+            kp = _flip_kpts(kp, 0, w)[:, list(flip_idx)]
         if segs:
             segs = [np.stack([w - sg[:, 0], sg[:, 1]], 1) if sg is not None else None for sg in segs]
     labels["img"] = np.ascontiguousarray(img)
     labels["bboxes"] = b
+    if kp is not None:
+        labels["keypoints"] = kp
     if segs is not None:
         labels["segments"] = segs
     return labels
@@ -93,7 +125,8 @@ def random_flip(labels, lr_p=0.5, ud_p=0.0, rng=None):
 def random_perspective(labels, degrees=0.0, translate=0.1, scale=0.5, shear=0.0, perspective=0.0, border=(0, 0), rng=None):
     """Affine (or perspective) warp onto a canvas grown by `border`, 114 outside; boxes
     warped by their corners, clipped, and kept when wider and taller than 2 px with more
-    than a tenth of their scaled area left."""
+    than a tenth of their scaled area left; keypoints warped with their boxes, those that
+    land outside the canvas made invisible (unclipped)."""
     import cv2
 
     rng = rng or random
@@ -127,6 +160,7 @@ def random_perspective(labels, degrees=0.0, translate=0.1, scale=0.5, shear=0.0,
             img = cv2.warpAffine(img, M[:2], dsize=(width, height), borderValue=(114, 114, 114))
 
     bboxes, cls = labels["bboxes"], labels["cls"]
+    kpts = labels.get("keypoints")
     segments = labels.get("segments")
     n = len(bboxes)
     if n and segments:  # each polygon warped; its box is that of its warped points
@@ -168,22 +202,38 @@ def random_perspective(labels, degrees=0.0, translate=0.1, scale=0.5, shear=0.0,
         oh = (orig_scaled[:, 3] - orig_scaled[:, 1]) + 1e-16
         keep &= ((new[:, 2] - new[:, 0]) * (new[:, 3] - new[:, 1]) / (ow * oh)) > 0.1
         bboxes, cls = new[keep], cls[keep]
+        if kpts is not None and len(kpts):
+            nk = kpts.shape[1]
+            kxy = np.ones((n * nk, 3))
+            kxy[:, :2] = kpts[..., :2].reshape(n * nk, 2)
+            kxy = kxy @ M.T
+            kxy = (kxy[:, :2] / kxy[:, 2:3] if perspective else kxy[:, :2]).reshape(n, nk, 2)
+            out_of = (kxy[..., 0] < 0) | (kxy[..., 0] > width) | (kxy[..., 1] < 0) | (kxy[..., 1] > height)
+            kpts = kpts.copy()
+            kpts[..., :2] = kxy
+            if kpts.shape[-1] == 3:
+                kpts[..., 2] = np.where(out_of, 0.0, kpts[..., 2])
+            kpts = kpts[keep]
     labels["img"] = img
     labels["bboxes"] = bboxes
     labels["cls"] = cls
+    if kpts is not None:
+        labels["keypoints"] = kpts
     return labels
 
 
 def mosaic4(items, imgsz: int, rng=None):
     """Four images around a random centre of a 2·imgsz canvas (114 elsewhere), each first
-    resized so its long side is imgsz; boxes shifted along and clipped to the canvas."""
+    resized so its long side is imgsz; boxes (polygons, keypoints) shifted along, boxes clipped
+    to the canvas; a tile without keypoints gets invisible ones where another tile has them."""
     rng = rng or random
     s = imgsz
     yc = int(rng.uniform(s // 2, 2 * s - s // 2))
     xc = int(rng.uniform(s // 2, 2 * s - s // 2))
     canvas = np.full((s * 2, s * 2, items[0]["img"].shape[-1]), 114, dtype=np.uint8)
     has_segs = any(it.get("segments") for it in items)
-    all_boxes, all_cls, all_segs = [], [], []
+    kpt_dims = next((it["keypoints"].shape[1:] for it in items if it.get("keypoints") is not None), None)
+    all_boxes, all_cls, all_segs, all_kpts = [], [], [], []
     for i, it in enumerate(items):
         img = it["img"]
         r = s / max(img.shape[:2])
@@ -212,6 +262,8 @@ def mosaic4(items, imgsz: int, rng=None):
             b[:, [1, 3]] += padh
             all_boxes.append(b)
             all_cls.append(it["cls"])
+            if kpt_dims is not None:
+                all_kpts.append(_shift_kpts(it.get("keypoints"), len(b), kpt_dims, r, padw, padh))
             if has_segs:
                 segs = it.get("segments") or [None] * len(b)
                 all_segs.extend(sg * r + np.array([padw, padh], np.float32) if sg is not None else None for sg in segs)
@@ -219,14 +271,26 @@ def mosaic4(items, imgsz: int, rng=None):
     cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.float32)
     bboxes = _clip_bboxes(bboxes, 2 * s, 2 * s)
     out = {"img": canvas, "bboxes": bboxes, "cls": cls, "shape": (2 * s, 2 * s)}
+    if all_kpts:
+        out["keypoints"] = np.concatenate(all_kpts)
     if has_segs:
         out["segments"] = all_segs
     return out
 
 
+def _shift_kpts(kp, n: int, kpt_dims, r: float, padw: float, padh: float):
+    """A mosaic tile's keypoints scaled by r and shifted by the pads (invisible zeros for a tile without any)."""
+    kp = np.zeros((n, *kpt_dims), np.float32) if kp is None else kp.copy()
+    kp[..., :2] *= r
+    kp[..., 0] += padw
+    kp[..., 1] += padh
+    return kp
+
+
 def copy_paste(labels, donor, p=0.5, rng=None):
     """Box-level copy-paste: each donor box, with probability p, is blitted at a random
-    place of this image unless it covers more than 30% of an existing box there."""
+    place of this image unless it covers more than 30% of an existing box there; a pasted
+    box gets invisible keypoints where the image has keypoints."""
     rng = rng or random
     if p <= 0 or len(donor["bboxes"]) == 0:
         return labels
@@ -262,6 +326,8 @@ def copy_paste(labels, donor, p=0.5, rng=None):
     n_new = sum(len(b) for b in new_boxes) - len(labels["bboxes"])
     labels["bboxes"] = np.concatenate(new_boxes).astype(np.float32)
     labels["cls"] = np.concatenate(new_cls).astype(np.float32)
+    if labels.get("keypoints") is not None and n_new:
+        labels["keypoints"] = np.concatenate([labels["keypoints"], np.zeros((n_new, *labels["keypoints"].shape[1:]), np.float32)])
     if labels.get("segments") is not None and n_new:  # a pasted patch's polygon: its box's corners
         bb = labels["bboxes"][-n_new:]
         labels["segments"] = list(labels["segments"]) + [
@@ -277,6 +343,11 @@ def mixup(labels, other, rng=None):
     labels["img"] = (labels["img"].astype(np.float32) * r + other["img"].astype(np.float32) * (1 - r)).astype(np.uint8)
     labels["bboxes"] = np.concatenate([labels["bboxes"], other["bboxes"]])
     labels["cls"] = np.concatenate([labels["cls"], other["cls"]])
+    if labels.get("keypoints") is not None:
+        ok = other.get("keypoints")
+        if ok is None:
+            ok = np.zeros((len(other["bboxes"]), *labels["keypoints"].shape[1:]), np.float32)
+        labels["keypoints"] = np.concatenate([labels["keypoints"], ok])
     if labels.get("segments") is not None:
         labels["segments"] = list(labels["segments"]) + list(other.get("segments") or [None] * len(other["bboxes"]))
     return labels
@@ -317,8 +388,8 @@ def _bbox_ioa(box1, box2, eps=1e-7):
 
 def mosaic9(items, imgsz: int, rng=None):
     """Nine images around a centre tile on a 3·imgsz canvas (114 elsewhere), each first resized so
-    its long side is imgsz, then the centre 2·imgsz crop, as mosaic4's canvas; boxes (and polygons)
-    shifted along and clipped to it."""
+    its long side is imgsz, then the centre 2·imgsz crop, as mosaic4's canvas; boxes (and polygons and
+    keypoints) shifted along, boxes clipped to it."""
     import cv2
 
     rng = rng or random
@@ -326,6 +397,8 @@ def mosaic9(items, imgsz: int, rng=None):
     canvas = np.full((s * 3, s * 3, items[0]["img"].shape[-1]), 114, dtype=np.uint8)
     all_boxes, all_cls = [], []
     all_segs = [] if any(it.get("segments") for it in items) else None
+    kpt_dims = next((it["keypoints"].shape[1:] for it in items[:9] if it.get("keypoints") is not None), None)
+    all_kpts = []
     hp = wp = h0 = w0 = 0
     for i, it in enumerate(items[:9]):
         img = it["img"]
@@ -361,6 +434,8 @@ def mosaic9(items, imgsz: int, rng=None):
             off = np.array([padw - s // 2, padh - s // 2] * 2, np.float32)
             all_boxes.append(it["bboxes"] * r + off)
             all_cls.append(it["cls"])
+            if kpt_dims is not None:
+                all_kpts.append(_shift_kpts(it.get("keypoints"), len(it["bboxes"]), kpt_dims, r, off[0], off[1]))
             if all_segs is not None:
                 segs = it.get("segments") or [None] * len(it["bboxes"])
                 all_segs.extend(sg * r + off[:2] if sg is not None else None for sg in segs)
@@ -373,6 +448,8 @@ def mosaic9(items, imgsz: int, rng=None):
         "cls": cls,
         "shape": (2 * s, 2 * s),
     }
+    if all_kpts:
+        out["keypoints"] = np.concatenate(all_kpts)
     if all_segs is not None:
         out["segments"] = all_segs
     return out
@@ -381,7 +458,7 @@ def mosaic9(items, imgsz: int, rng=None):
 def cutmix(labels, other, p: float = 1.0, beta: float = 1.0, num_areas: int = 3, rng=None):
     """Paste a region of `other` into the image: of `num_areas` random regions (sides √(1 − λ),
     λ ~ Beta(beta, beta)), one that covers no box of the image; the donor boxes it covers by at
-    least a tenth come along, clipped to it."""
+    least a tenth come along, clipped to it, with invisible keypoints where the image has keypoints."""
     rng = rng or random
     img = labels["img"]
     h, w = img.shape[:2]
@@ -417,6 +494,8 @@ def cutmix(labels, other, p: float = 1.0, beta: float = 1.0, num_areas: int = 3,
     nb[:, [1, 3]] = nb[:, [1, 3]].clip(y1, y2)
     labels["bboxes"] = np.concatenate([labels["bboxes"], nb])
     labels["cls"] = np.concatenate([labels["cls"], other["cls"][take]])
+    if labels.get("keypoints") is not None:
+        labels["keypoints"] = np.concatenate([labels["keypoints"], np.zeros((len(take), *labels["keypoints"].shape[1:]), np.float32)])
     if labels.get("segments") is not None:
         donor_segs = other.get("segments")
         labels["segments"] = list(labels["segments"]) + [
@@ -536,6 +615,10 @@ class TrainTransforms:
             b[:, [0, 2]] += pad[0]
             b[:, [1, 3]] += pad[1]
             labels = {**labels, "img": img, "bboxes": b}
+            if labels.get("keypoints") is not None:
+                kp = labels["keypoints"].copy()
+                kp[..., :2] = kp[..., :2] * ratio[0] + np.array([pad[0], pad[1]], np.float32)
+                labels["keypoints"] = kp
             if labels.get("segments"):
                 labels["segments"] = [sg * ratio[0] + np.array([pad[0], pad[1]], np.float32) if sg is not None else None
                                       for sg in labels["segments"]]
@@ -567,7 +650,7 @@ class TrainTransforms:
 
         labels["img"] = random_photometric(labels["img"], p=getattr(h, "augment_photometric", 0.01), rng=rng)
         labels["img"] = random_hsv(labels["img"], h.hsv_h, h.hsv_s, h.hsv_v, rng)
-        labels = random_flip(labels, lr_p=h.fliplr, ud_p=h.flipud, rng=rng)
+        labels = random_flip(labels, lr_p=h.fliplr, ud_p=h.flipud, rng=rng, flip_idx=getattr(self.dataset, "flip_idx", None))
         # with probability `bgr` the image keeps its BGR order through the collate's swap to RGB
         if getattr(h, "bgr", 0.0) and labels["img"].ndim == 3 and labels["img"].shape[-1] == 3 and rng.random() < h.bgr:
             labels["img"] = np.ascontiguousarray(labels["img"][..., ::-1])
@@ -575,7 +658,8 @@ class TrainTransforms:
 
 
 class ValTransforms:
-    """Letterbox to (imgsz, imgsz) without upscaling; pixel xyxy boxes scaled and shifted; `ratio_pad` kept."""
+    """Letterbox to (imgsz, imgsz) without upscaling; pixel xyxy boxes (and polygons and keypoints) scaled
+    and shifted; `ratio_pad` kept."""
 
     def __init__(self, imgsz: int, stride: int = 32):
         self.lb = LetterBox((imgsz, imgsz), scaleup=False, stride=stride)
@@ -586,4 +670,12 @@ class ValTransforms:
         if len(b):
             b[:, [0, 2]] += pad[0]
             b[:, [1, 3]] += pad[1]
-        return {**labels, "img": img, "bboxes": b, "ratio_pad": (ratio, pad)}
+        out = {**labels, "img": img, "bboxes": b, "ratio_pad": (ratio, pad)}
+        if labels.get("segments"):
+            out["segments"] = [sg * ratio[0] + np.array([pad[0], pad[1]], np.float32) if sg is not None else None
+                               for sg in labels["segments"]]
+        if labels.get("keypoints") is not None:
+            kp = labels["keypoints"].copy()
+            kp[..., :2] = kp[..., :2] * ratio[0] + np.array([pad[0], pad[1]], np.float32)
+            out["keypoints"] = kp
+        return out

@@ -20,7 +20,8 @@ from yolo_tpu_torch.data.dataset import YOLODataset, collate_batch
 
 def build_yolo_dataset(cfg, img_path, data: dict, mode: str = "val", stride: int = 32) -> YOLODataset:
     """The dataset of a split from the settings and the dataset dict: augmented with the
-    settings as `hyp` (and `fraction` applied) when `mode` is 'train', letterboxed otherwise."""
+    settings as `hyp` (and `fraction` applied) when `mode` is 'train', letterboxed otherwise;
+    the dict's `kpt_shape` and `flip_idx` for a pose dataset."""
     return YOLODataset(
         img_path,
         imgsz=cfg.imgsz if isinstance(cfg.imgsz, int) else max(cfg.imgsz),
@@ -31,6 +32,8 @@ def build_yolo_dataset(cfg, img_path, data: dict, mode: str = "val", stride: int
         fraction=cfg.fraction if mode == "train" else 1.0,
         cache=getattr(cfg, "cache", None) or None,
         names=data.get("names"),
+        kpt_shape=data.get("kpt_shape"),
+        flip_idx=data.get("flip_idx"),
     )
 
 

@@ -4,10 +4,12 @@ cache, image loading, the validation letterbox or the training augmentations
 (`augment=True` with the settings as `hyp`), and the collate into fixed-shape
 batches.
 
-Box rows (`cls cx cy w h`, normalized) and polygon rows (`cls x1 y1 x2 y2 ...`,
-turned into their boxes; the training augmentations warp the polygons) are read;
-where a batch has polygons the collate draws their masks (the segment task); the
-keypoints and rotated boxes of the other tasks are not ported.
+Box rows (`cls cx cy w h`, normalized), polygon rows (`cls x1 y1 x2 y2 ...`,
+turned into their boxes; the training augmentations warp the polygons) and, where the
+dataset yaml names a `kpt_shape` (K, ndim), pose rows (`cls cx cy w h` then K keypoints
+of `x y [v]`, normalized) are read; where a batch has polygons the collate draws their
+masks (the segment task), where it has keypoints it pads them to (B, N, K, ndim) (the
+pose task). The rotated boxes of the obb task are not ported.
 `cache='ram'` (or True) keeps each decoded image in memory after its first read
 and hands out copies (the augmentations write into the image).
 """
@@ -61,16 +63,24 @@ def img2label_path(img_path: str) -> str:
     return str(p.with_suffix(".txt"))
 
 
-def _parse_label_file(path: str, single_cls: bool):
-    """→ (cls (n,), bboxes (n, 4) normalized xywh, segments) of one label file, or None when it is
-    missing. `segments` lists each row's normalized polygon (None for a box row), or is None when
-    the file has no polygon row; the training augmentations warp polygons, not their boxes."""
+def _parse_label_file(path: str, single_cls: bool, kpt_shape=None):
+    """→ (cls (n,), bboxes (n, 4) normalized xywh, segments, keypoints) of one label file, or None when
+    it is missing. `segments` lists each row's normalized polygon (None for a box row), or is None when
+    the file has no polygon row; the training augmentations warp polygons, not their boxes. With
+    `kpt_shape` (K, ndim) a row of 5 + K · ndim numbers is a pose row: `keypoints` (n, K, ndim)
+    normalized, zero for the file's other rows, or None when it has no pose row."""
     if not Path(path).exists():
         return None
-    cls, boxes, segments = [], [], []
+    nk = kpt_shape[0] * kpt_shape[1] if kpt_shape else 0
+    cls, boxes, segments, kpts = [], [], [], []
     for line in Path(path).read_text().splitlines():
         parts = line.split()
-        if len(parts) >= 7 and len(parts) % 2 == 1:  # a polygon of three points or more → its box
+        kp = None
+        if nk and len(parts) == 5 + nk:  # cls cx cy w h, then K keypoints of x y [v]
+            boxes.append([float(x) for x in parts[1:5]])
+            segments.append(None)
+            kp = np.array([float(x) for x in parts[5:]], np.float32).reshape(kpt_shape)
+        elif len(parts) >= 7 and len(parts) % 2 == 1:  # a polygon of three points or more → its box
             poly = np.array([float(x) for x in parts[1:]], np.float32).reshape(-1, 2)
             (x1, y1), (x2, y2) = poly.min(0), poly.max(0)
             boxes.append([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1])
@@ -81,16 +91,22 @@ def _parse_label_file(path: str, single_cls: bool):
         else:
             continue
         cls.append(0.0 if single_cls else float(parts[0]))
+        kpts.append(kp)
     segments = segments if any(sg is not None for sg in segments) else None
-    return np.array(cls, np.float32), np.array(boxes, np.float32).reshape(-1, 4), segments
+    keypoints = None
+    if any(k is not None for k in kpts):
+        keypoints = np.stack([np.zeros(kpt_shape, np.float32) if k is None else k for k in kpts])
+    return np.array(cls, np.float32), np.array(boxes, np.float32).reshape(-1, 4), segments, keypoints
 
 
 class YOLODataset:
     """Detection dataset over a directory, a glob or a list file of images: letterboxed for
-    validation, or augmented for training when `augment` is set and `hyp` holds the settings."""
+    validation, or augmented for training when `augment` is set and `hyp` holds the settings.
+    `kpt_shape` reads pose rows; `flip_idx` (the dataset yaml's) swaps left and right keypoints
+    on a horizontal flip."""
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = False, hyp=None, stride: int = 32,
-                 single_cls: bool = False, fraction: float = 1.0, names=None, cache=None):
+                 single_cls: bool = False, fraction: float = 1.0, names=None, cache=None, kpt_shape=None, flip_idx=None):
         from yolo_tpu_torch.data.augment import TrainTransforms, ValTransforms
 
         self.img_path = img_path
@@ -98,6 +114,8 @@ class YOLODataset:
         self.stride = stride
         self.single_cls = single_cls
         self.names = names or {}
+        self.kpt_shape = tuple(kpt_shape) if kpt_shape else None
+        self.flip_idx = list(flip_idx) if flip_idx else None
         self.im_files = self._list_images(img_path, fraction)
         if not self.im_files:
             raise FileNotFoundError(f"no images found in {img_path}")
@@ -120,9 +138,9 @@ class YOLODataset:
 
     def _load_labels(self, cache: bool = True) -> list[dict]:
         """Parse the label files, or read them from the JSON cache beside the first
-        image, keyed by the file lists, the label files' sizes and times, `single_cls` and
-        the format (it holds the polygons since the training augmentations need them). The
-        file is the port's own, written and read by the port alone."""
+        image, keyed by the file lists, the label files' sizes and times, `single_cls`, `kpt_shape`
+        and the format (it holds the polygons since the training augmentations need them, and the
+        keypoints). The file is the port's own, written and read by the port alone."""
         label_files = [img2label_path(f) for f in self.im_files]
 
         def sig(p):
@@ -132,30 +150,35 @@ class YOLODataset:
             except OSError:
                 return "missing"
 
-        key = hashlib.sha1(("".join(self.im_files + label_files) + ";".join(map(sig, label_files)) + f":sc{self.single_cls}:polygons").encode())
+        kpt = self.kpt_shape
+        key = hashlib.sha1(("".join(self.im_files + label_files) + ";".join(map(sig, label_files))
+                            + f":sc{self.single_cls}:polygons:kpt{kpt}").encode())
         cache_path = Path(self.im_files[0]).parent / f".labels_{key.hexdigest()[:16]}.torch.cache.json"
         if cache and cache_path.exists():
             try:
                 return [{"cls": np.array(r["cls"], np.float32), "bboxes": np.array(r["bboxes"], np.float32).reshape(-1, 4),
                          "segments": [None if sg is None else np.array(sg, np.float32).reshape(-1, 2) for sg in r["segments"]]
-                         if r.get("segments") else None}
+                         if r.get("segments") else None,
+                         "keypoints": np.array(r["keypoints"], np.float32).reshape(-1, *kpt)
+                         if kpt and r.get("keypoints") is not None else None}
                         for r in json.loads(cache_path.read_text())]
             except (ValueError, KeyError, TypeError):
                 pass  # an unreadable cache is parsed again and rewritten
         labels, n_missing = [], 0
         for lf in label_files:
-            parsed = _parse_label_file(lf, self.single_cls)
+            parsed = _parse_label_file(lf, self.single_cls, kpt)
             if parsed is None:
                 n_missing += 1
-                parsed = np.zeros(0, np.float32), np.zeros((0, 4), np.float32), None
-            labels.append(dict(zip(("cls", "bboxes", "segments"), parsed)))
+                parsed = np.zeros(0, np.float32), np.zeros((0, 4), np.float32), None, None
+            labels.append(dict(zip(("cls", "bboxes", "segments", "keypoints"), parsed)))
         if n_missing:
             LOGGER.warning(f"{n_missing}/{len(label_files)} label files missing (treated as background)")
         if cache:
             try:
                 cache_path.write_text(json.dumps([
                     {"cls": lb["cls"].tolist(), "bboxes": lb["bboxes"].tolist(),
-                     "segments": [None if sg is None else sg.tolist() for sg in lb["segments"]] if lb["segments"] else None}
+                     "segments": [None if sg is None else sg.tolist() for sg in lb["segments"]] if lb["segments"] else None,
+                     "keypoints": None if lb["keypoints"] is None else lb["keypoints"].tolist()}
                     for lb in labels]))
             except OSError:
                 pass  # a read-only dataset: no cache
@@ -165,8 +188,8 @@ class YOLODataset:
         return len(self.im_files)
 
     def load_raw(self, i: int) -> dict:
-        """Image i (BGR, as decoded) with its labels as pixel xyxy boxes (and polygons, where the
-        label file has them), before any transform."""
+        """Image i (BGR, as decoded) with its labels as pixel xyxy boxes (and polygons and keypoints,
+        where the label file has them, in pixels), before any transform."""
         from yolo_tpu_torch.ops.boxes import xywhn2xyxy
         from yolo_tpu_torch.utils.files import imread
 
@@ -185,6 +208,11 @@ class YOLODataset:
                "im_file": self.im_files[i]}
         if lb.get("segments"):
             out["segments"] = [None if sg is None else sg * np.array([w, h], np.float32) for sg in lb["segments"]]
+        if lb.get("keypoints") is not None:
+            kp = lb["keypoints"].copy()
+            kp[..., 0] *= w
+            kp[..., 1] *= h
+            out["keypoints"] = kp
         return out
 
     def __getitem__(self, i: int) -> dict:
@@ -200,6 +228,9 @@ def collate_batch(samples: list[dict], max_boxes: int = 64, overlap: bool = True
     """Stack letterboxed samples into fixed-shape arrays: img (B, H, W, 3) uint8 RGB,
     cls (B, N), bboxes (B, N, 4) normalized xywh, mask_gt (B, N), and `meta`, a list
     of {im_file, shape, ratio_pad}. Labels beyond `max_boxes` are dropped, with a warning.
+
+    Where a sample has keypoints, `keypoints` too: (B, N, K, ndim) f32, x and y normalized by the image's
+    size like the boxes, the visibility as it is, zero on the padded rows and on samples without any.
 
     Where a sample has polygons, `masks` too, at (H / r, W / r) for r = `mask_ratio`, each polygon
     drawn with cv2.fillPoly at its points rounded by np.round (half to even) from pixels / r:
@@ -230,6 +261,17 @@ def collate_batch(samples: list[dict], max_boxes: int = 64, overlap: bool = True
             mask[i, :n] = 1.0
         meta.append({"im_file": s.get("im_file"), "shape": s.get("shape"), "ratio_pad": s.get("ratio_pad")})
     batch = {"img": imgs, "cls": cls, "bboxes": bboxes, "mask_gt": mask, "meta": meta}
+    if any(s.get("keypoints") is not None for s in samples):
+        ks = next(s["keypoints"].shape[1:] for s in samples if s.get("keypoints") is not None)
+        kpts = np.zeros((B, max_boxes, *ks), np.float32)
+        for i, s in enumerate(samples):
+            kp = s.get("keypoints")
+            if kp is not None and len(kp):
+                k = kp[:max_boxes].copy()
+                k[..., 0] /= W
+                k[..., 1] /= H
+                kpts[i, : len(k)] = k
+        batch["keypoints"] = kpts
     if any(s.get("segments") for s in samples):
         batch["masks"] = _draw_masks(samples, max_boxes, overlap, max(int(mask_ratio), 1), (H, W))
     return batch

@@ -35,7 +35,7 @@ def _unflatten(flat: dict) -> dict:
 
 
 def load_npz(filename, device=None):
-    """→ (the model its config and task name, built: DetectionModel, SegmentationModel or
+    """→ (the model its config and task name, built: DetectionModel, SegmentationModel, PoseModel or
     ClassificationModel; numpy parameter tree; meta). Another task's checkpoint raises NotImplementedError.
 
     The model's modules are empty until `params_from_jax(model, params)` (or a
@@ -58,19 +58,24 @@ def load_npz(filename, device=None):
 
 def save_npz(model, params: dict, filename="model.npz", meta: dict | None = None) -> Path:
     """Write a numpy parameter tree and the model's config (and `meta`) to one .npz, in the
-    JAX package's keys."""
+    JAX package's keys; a pose model's meta names its `kpt_shape` too (its config holds it)."""
     filename = Path(filename)
     filename.parent.mkdir(parents=True, exist_ok=True)
     payload = {f"param::{k}": np.asarray(v) for k, v in flatten_tree(params).items()}
     payload["__yaml__"] = np.frombuffer(json.dumps(model.yaml, default=str).encode(), dtype=np.uint8)
     payload["__meta__"] = np.frombuffer(
-        json.dumps({"names": getattr(model, "names", {}), "task": getattr(model, "task", "detect"), **(meta or {})},
+        json.dumps({"names": getattr(model, "names", {}), "task": getattr(model, "task", "detect"), **_kpt_meta(model), **(meta or {})},
                    default=str).encode(),
         dtype=np.uint8,
     )
     np.savez(filename, **payload)
     LOGGER.info(f"saved {filename} ({filename.stat().st_size / 1e6:.1f} MB)")
     return filename
+
+
+def _kpt_meta(model) -> dict:
+    kpt_shape = getattr(getattr(model, "head", None), "kpt_shape", None)
+    return {"kpt_shape": list(kpt_shape)} if kpt_shape else {}
 
 
 class Exporter:

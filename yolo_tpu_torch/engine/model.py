@@ -1,8 +1,9 @@
-"""YOLO model facade of the detect, segment and classify tasks (counterpart of yolo_tpu/engine/model.py).
+"""YOLO model facade of the detect, segment, pose and classify tasks (counterpart of yolo_tpu/engine/model.py).
 
     YOLO("yolov8-small.yaml")      # fresh DetectionModel, seeded random weights
     YOLO("yolov8n-cls.yaml")       # fresh ClassificationModel (a name with '-cls', or task="classify")
     YOLO("yolov8n-seg.yaml")       # fresh SegmentationModel (a name with '-seg', or task="segment")
+    YOLO("yolov8n-pose.yaml")      # fresh PoseModel (a name with '-pose', or task="pose")
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
     YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
@@ -21,10 +22,12 @@
 A classify YOLO predicts Results with `probs` (top-5 and their confidences), validates to
 top1 / top5 / fitness and trains on a folder-per-class dataset (engine/classify.py). A segment
 YOLO predicts Results with `masks` (engine/segment_predictor.py), validates to box and `mask_`
-metrics and trains on polygon labels (the detect trainer with the segmentation loss); its
-`track`, `benchmark`, `tune` and ensembles raise NotImplementedError (ROADMAP item 5).
-Runs on the CUDA card unless `device="cpu"` is passed. Orbax checkpoints are not
-ported, nor the orbax, stablehlo and tflite exports, nor the pose and obb tasks.
+metrics and trains on polygon labels (the detect trainer with the segmentation loss). A pose
+YOLO predicts Results with `keypoints` (engine/pose_predictor.py), validates to box and `pose_`
+(OKS) metrics and trains on keypoint labels (the detect trainer with the pose loss). Both track
+(their masks or keypoints follow their boxes); their `benchmark`, `tune` and ensembles raise
+NotImplementedError (ROADMAP item 5). Runs on the CUDA card unless `device="cpu"` is passed.
+Orbax checkpoints are not ported, nor the orbax, stablehlo and tflite exports, nor the obb task.
 """
 
 from __future__ import annotations
@@ -37,9 +40,11 @@ import torch
 from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn.tasks import (
+    EXTRA_OUTPUT_TASKS,
     ClassificationModel,
     DetectionModel,
     Ensemble,
+    PoseModel,
     SegmentationModel,
     fuse,
     install_params,
@@ -47,8 +52,8 @@ from yolo_tpu_torch.nn.tasks import (
 )
 from yolo_tpu_torch.utils import LOGGER
 
-PORTED_TASKS = ("detect", "segment", "classify")
-MODEL_CLASS = {"detect": DetectionModel, "segment": SegmentationModel, "classify": ClassificationModel}
+PORTED_TASKS = ("detect", "segment", "pose", "classify")
+MODEL_CLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "classify": ClassificationModel}
 
 
 def _task_of(model: str, task: str | None) -> str:
@@ -57,13 +62,13 @@ def _task_of(model: str, task: str | None) -> str:
     task = task or ("classify" if "-cls" in model else "segment" if "-seg" in model else "pose" if "-pose" in model
                     else "obb" if "-obb" in model else "detect")
     if task not in PORTED_TASKS:
-        raise NotImplementedError(f"the {task} task is not ported (only detect, segment and classify)")
+        raise NotImplementedError(f"the {task} task is not ported (only detect, segment, pose and classify)")
     return task
 
 
 class YOLO:
-    """User-facing model handle: a DetectionModel or ClassificationModel, its parameter tree and a
-    lazily built predictor."""
+    """User-facing model handle: a DetectionModel (or its segment or pose subclass) or a
+    ClassificationModel, its parameter tree and a lazily built predictor."""
 
     def __init__(self, model="yolov8n.yaml", task: str | None = None, device=None):
         self.predictor = None
@@ -116,8 +121,9 @@ class YOLO:
     def _load_ensemble(self, weights: list, device) -> None:
         """An NMS ensemble of the listed sources (each a YAML, .npz or .pt), on one device."""
         members = [YOLO(w, device=device) for w in weights]
-        if any(m.task == "segment" for m in members):
-            raise NotImplementedError("an ensemble of segment models is not ported (ROADMAP item 5)")
+        for m in members:
+            if m.task in EXTRA_OUTPUT_TASKS:
+                raise NotImplementedError(f"an ensemble of {m.task} models is not ported (ROADMAP item 5)")
         self.device = members[0].device
         self.overrides = {"model": ",".join(weights), "task": self.task}
         self.model = Ensemble([m.model for m in members])
@@ -187,6 +193,8 @@ class YOLO:
         if self.predictor is None or predictor is not None:
             if predictor is None and self.task == "segment":
                 from yolo_tpu_torch.engine.segment_predictor import SegmentationPredictor as predictor
+            elif predictor is None and self.task == "pose":
+                from yolo_tpu_torch.engine.pose_predictor import PosePredictor as predictor
             elif predictor is None:
                 from yolo_tpu_torch.engine.predictor import BasePredictor as predictor
             self.predictor = predictor(
@@ -198,10 +206,10 @@ class YOLO:
         return self.predictor(source, stream=stream)
 
     def track(self, source=None, stream: bool = False, persist: bool = False, **kwargs):
-        """Predict, then track (trackers/track.py) → Results whose boxes carry track ids.
-        `conf` defaults to 0.1 and `batch` to 1; `persist=True` keeps the tracker
-        of the previous call, so frames passed one call at a time form one stream."""
-        self._refuse_segment("track")
+        """Predict, then track (trackers/track.py) → Results whose boxes carry track ids, a segment or
+        pose result's masks or keypoints kept with their boxes. `conf` defaults to 0.1 and `batch` to 1;
+        `persist=True` keeps the tracker of the previous call, so frames passed one call at a time form
+        one stream."""
         kwargs.setdefault("conf", 0.1)
         kwargs.setdefault("batch", 1)
         kwargs["mode"] = "track"
@@ -210,9 +218,9 @@ class YOLO:
 
         return attach_tracker(self, results, persist=persist, stream=stream, tracker_cfg=kwargs.get("tracker"))
 
-    def _refuse_segment(self, what: str) -> None:
-        if self.task == "segment":
-            raise NotImplementedError(f"YOLO.{what} with a segment model is not ported (ROADMAP item 5)")
+    def _refuse_extra_outputs(self, what: str) -> None:
+        if self.task in EXTRA_OUTPUT_TASKS:
+            raise NotImplementedError(f"YOLO.{what} with a {self.task} model is not ported (ROADMAP item 5)")
 
     def _require_local(self, mode: str) -> None:
         if self.remote is not None:
@@ -261,7 +269,7 @@ class YOLO:
         built from this one's source, on this YOLO's device → {best_fitness, best_hyperparameters,
         best_iteration}. `use_ray=True` runs the Ray Tune search instead (needs ray)."""
         self._require_local("tune")
-        self._refuse_segment("tune")
+        self._refuse_extra_outputs("tune")
         if use_ray:
             from yolo_tpu_torch.engine.tuner import run_ray_tune
 
@@ -275,7 +283,7 @@ class YOLO:
         """Latency and frames/s of this model's forward at batch 1, 8 and 32 (utils/benchmarks.py):
         `imgsz` (640), `half` (True: bf16; False: f32)."""
         self._require_local("benchmark")
-        self._refuse_segment("benchmark")
+        self._refuse_extra_outputs("benchmark")
         from yolo_tpu_torch.utils.benchmarks import benchmark
 
         return benchmark(model=self, **kwargs)

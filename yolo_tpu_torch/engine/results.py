@@ -1,4 +1,4 @@
-"""Inference result containers of the detect and classify tasks (counterpart of
+"""Inference result containers of the detect, segment, pose and classify tasks (counterpart of
 yolo_tpu/engine/results.py).
 
 Host-side and numpy-backed: the predictor hands over the valid rows of the
@@ -6,10 +6,12 @@ fixed-shape NMS output, and these classes expose the `.boxes.xyxy/conf/cls`
 views the Kalman clip loop consumes, and the track id column `YOLO.track` adds;
 a classify result carries `probs` (`Probs`: top1, top5 and their confidences)
 and no boxes; a segment result carries `masks` (`Masks`: one boolean map a box at
-the original image's size, its contour polygons `xy` / `xyn`). `Results` draws its
-boxes, masks or top-5 block (`plot`, `save`), writes YOLO label lines or top-5 lines
-(`save_txt`) and summarises itself (`summary`, `to_json`, with each mask's contour as
-`segments`) as the JAX package's does.
+the original image's size, its contour polygons `xy` / `xyn`); a pose result carries
+`keypoints` (`Keypoints`: (N, K, 2 or 3) x, y and visibility at the original image's size).
+`Results` draws its boxes, masks, keypoints with their skeleton or top-5 block (`plot`,
+`save`), writes YOLO label lines or top-5 lines (`save_txt`) and summarises itself
+(`summary`, `to_json`, with each mask's contour as `segments` and each instance's
+`keypoints`) as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -149,9 +151,45 @@ class Masks:
         return self
 
 
+class Keypoints:
+    """The keypoints of one image (JAX Keypoints): `data` (N, K, 2 or 3), x and y in the original image's
+    pixels, then the visibility where the model predicts one."""
+
+    def __init__(self, keypoints: np.ndarray, orig_shape):
+        self.data = np.asarray(keypoints, np.float32)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        return Keypoints(self.data[idx], self.orig_shape)
+
+    @property
+    def xy(self) -> np.ndarray:
+        return self.data[..., :2]
+
+    @property
+    def xyn(self) -> np.ndarray:
+        h, w = self.orig_shape
+        return self.xy / np.array([w, h], np.float32)
+
+    @property
+    def conf(self):
+        """The visibility (N, K), or None for keypoints without one."""
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+    def cpu(self):
+        """The keypoints themselves: they already live on the host."""
+        return self
+
+    def numpy(self):
+        return self
+
+
 class Results:
-    """Single-image inference result: boxes (detect; with `masks`, segment) or class probabilities
-    (`probs`, classify)."""
+    """Single-image inference result: boxes (detect; with `masks`, segment; with `keypoints`, pose) or
+    class probabilities (`probs`, classify)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: dict, boxes: np.ndarray | None = None, speed: dict | None = None,
                  probs: np.ndarray | None = None):
@@ -163,6 +201,7 @@ class Results:
         self.boxes = Boxes(boxes if has else np.zeros((0, 6), np.float32), self.orig_shape)
         self.probs = Probs(probs) if probs is not None else None
         self.masks = None
+        self.keypoints = None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
         self.save_dir = None
 
@@ -170,16 +209,19 @@ class Results:
         return len(self.boxes)
 
     def __getitem__(self, idx):
-        """One row, a slice, or a list / array of row indices (the tracker's subset), with their masks."""
+        """One row, a slice, or a list / array of row indices (the tracker's subset), with their masks
+        and keypoints."""
         sel = idx if isinstance(idx, (slice, list, np.ndarray)) else [idx]
         r = Results(self.orig_img, self.path, self.names, boxes=self.boxes.data[sel], speed=self.speed)
         if self.masks is not None:
             r.masks = Masks(np.asarray(self.masks.data)[sel], self.orig_shape)
+        if self.keypoints is not None:
+            r.keypoints = Keypoints(np.asarray(self.keypoints.data)[sel], self.orig_shape)
         return r
 
     def new(self, boxes: np.ndarray | None = None):
         """A Results of the same image, path, names and speed with other boxes (none by default) and no
-        masks, as the JAX package's."""
+        masks or keypoints, as the JAX package's."""
         return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed)
 
     def update(self, boxes: np.ndarray | None = None):
@@ -203,10 +245,12 @@ class Results:
         return f"{h}x{w} " + ", ".join(parts) + ", "
 
     def plot(self, conf: bool = True, line_width: int | None = None, labels: bool = True, boxes: bool = True,
-             img: np.ndarray | None = None, probs: bool = True, masks: bool = True) -> np.ndarray:
+             img: np.ndarray | None = None, probs: bool = True, masks: bool = True, kpt_radius: int = 5,
+             kpt_line: bool = True) -> np.ndarray:
         """A copy of the image (BGR; a gray one made BGR) with each mask blended in its box's class colour
         (`masks`), then each box in its class's colour and its label: 'name conf', with 'id:N ' before it
-        for a tracked box; a classify result's top five 'name p' lines in its top-left corner instead."""
+        for a tracked box, then each instance's keypoints (`kpt_radius`) and, for 17 of them, the COCO
+        skeleton (`kpt_line`); a classify result's top five 'name p' lines in its top-left corner instead."""
         import cv2
 
         from yolo_tpu_torch.utils.plotting import Annotator, color_for
@@ -230,6 +274,9 @@ class Results:
                     name = f"id:{int(row[4])} {name}"
                 label = (f"{name} {float(row[-2]):.2f}" if conf else name) if labels else ""
                 ann.box_label(row[:4], label, color=color_for(c))
+        if self.keypoints is not None:
+            for k in np.asarray(self.keypoints.data):
+                ann.kpts(k, radius=kpt_radius, kpt_line=kpt_line)
         return ann.result()
 
     def save(self, filename: str | None = None) -> str:
@@ -255,8 +302,9 @@ class Results:
 
     def summary(self, normalize: bool = False, decimals: int = 5) -> list:
         """One dict a box: name, class, confidence, box {x1, y1, x2, y2} (divided by the image's
-        size with `normalize`), track_id for a tracked box, and `segments` {x, y} (the mask's contour)
-        for a segment result; rounded to `decimals`. A classify result: one dict, its top-1 class."""
+        size with `normalize`), track_id for a tracked box, `segments` {x, y} (the mask's contour)
+        for a segment result and `keypoints` {x, y, visible} for a pose one; rounded to `decimals`. A
+        classify result: one dict, its top-1 class."""
         if self.probs is not None:
             top1 = self.probs.top1
             return [{"name": self.names.get(top1, str(top1)), "class": top1, "confidence": round(self.probs.top1conf, decimals)}]
@@ -274,6 +322,10 @@ class Results:
             if self.masks is not None and i < len(self.masks.data):
                 poly = self.masks[i : i + 1].xy[0]
                 res["segments"] = {"x": (poly[:, 0] / w).round(decimals).tolist(), "y": (poly[:, 1] / h).round(decimals).tolist()}
+            if self.keypoints is not None and i < len(self.keypoints.data):
+                k = np.asarray(self.keypoints.data[i], np.float64)
+                res["keypoints"] = {"x": (k[:, 0] / w).round(decimals).tolist(), "y": (k[:, 1] / h).round(decimals).tolist(),
+                                    "visible": k[:, 2].round(decimals).tolist() if k.shape[-1] == 3 else [1.0] * len(k)}
             out.append(res)
         return out
 

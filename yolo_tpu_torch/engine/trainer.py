@@ -1,4 +1,4 @@
-"""Detection trainer, and the segment task's (counterpart of yolo_tpu/engine/trainer.py DetectionTrainer).
+"""Detection trainer, and the segment and pose tasks' (counterpart of yolo_tpu/engine/trainer.py DetectionTrainer).
 
 One step: upload the uint8 batch, /255 in the compute dtype (bf16 with `amp`,
 else f32; no fp16 and no loss scaler, as in the JAX package), the train-form
@@ -30,8 +30,11 @@ stem computes the same activations and was slower a step on the H100 (ROADMAP.md
 A segment model trains with `v8SegmentationLoss` (components box / seg / cls / dfl), the
 loader drawing its polygons as masks (`overlap_mask`, `mask_ratio`), multi_scale skipped
 for batches that carry masks, and `SegmentationValidator` each epoch, as in the JAX trainer.
+A pose model trains with `v8PoseLoss` (components box / pose / kobj / cls / dfl) on the loader's
+keypoints and validates with `PoseValidator`; a dataset whose `kpt_shape` differs from the model
+yaml's rebuilds the model at the dataset's (the tensors whose shape survives kept when pretrained).
 Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 7)
-and the pose and obb tasks' trainers.
+and the obb task's trainer.
 """
 
 from __future__ import annotations
@@ -59,10 +62,11 @@ from yolo_tpu_torch.nn.tasks import (
 )
 from yolo_tpu_torch.utils import LOGGER, yaml_save
 from yolo_tpu_torch.utils.callbacks import add_integration_callbacks, default_callbacks, run_callbacks
-from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8SegmentationLoss
+from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8PoseLoss, v8SegmentationLoss
 from yolo_tpu_torch.utils.optim import apply_bn_stats, build_optimizer
 
-COMPONENTS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl")}
+COMPONENTS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl")}
+LOSSES = {"detect": v8DetectionLoss, "segment": v8SegmentationLoss, "pose": v8PoseLoss}
 
 
 class EarlyStopping:
@@ -152,7 +156,7 @@ class DetectionTrainer:
             self.model = DetectionModel(self.args.model or "yolov8n.yaml", nc=nc, device=self.device)
             self.params = self.model.init(self.args.seed)
         if getattr(self.model, "task", "detect") not in COMPONENTS:
-            raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect and segment)")
+            raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect, segment and pose)")
         if isinstance(self.args.pretrained, str):  # initialise from a checkpoint's weights, shape by shape
             from yolo_tpu_torch.engine.exporter import load_npz
 
@@ -166,6 +170,14 @@ class DetectionTrainer:
             if pretrained:  # keep every tensor whose shape survives the nc change
                 self.params, kept, total = _transfer_matching(old, self.params)
                 LOGGER.info(f"transferred {kept}/{total} pretrained tensors (nc {self.model.nc} head re-initialized)")
+        kpt_shape = self.data.get("kpt_shape") if self.data else None
+        if kpt_shape and getattr(self.model.head, "kpt_shape", None) not in (None, tuple(kpt_shape)):
+            old = self.params  # the dataset's kpt_shape overrides the model yaml's
+            self.model = type(self.model)({**self.model.yaml, "kpt_shape": list(kpt_shape)}, nc=self.data["nc"], device=self.device)
+            self.params = self.model.init(self.args.seed)
+            if pretrained:
+                self.params, kept, total = _transfer_matching(old, self.params)
+                LOGGER.info(f"transferred {kept}/{total} pretrained tensors (kpt head re-initialized)")
         if self.data:
             self.model.names = self.data["names"]
         self.loss_fn = self._make_loss()
@@ -214,7 +226,7 @@ class DetectionTrainer:
         return getattr(self.model, "task", "detect")
 
     def _make_loss(self):
-        return (v8SegmentationLoss if self.task == "segment" else v8DetectionLoss)(self.model, self.args)
+        return LOSSES[self.task](self.model, self.args)
 
     def build_optimizer(self, named_params, iterations: int):
         """SGD or AdamW by name, or 'auto': SGD (lr 0.01) past 10,000 iterations, else AdamW at
@@ -240,9 +252,9 @@ class DetectionTrainer:
     # --- one step ---------------------------------------------------------------------
 
     def _upload(self, batch: dict):
-        """The uint8 images and the targets (with the masks a segment batch carries) on the device."""
+        """The uint8 images and the targets (with the masks or keypoints a segment or pose batch carries) on the device."""
         x = torch.from_numpy(batch["img"])
-        targets = {k: torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask_gt", "masks") if k in batch}
+        targets = {k: torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask_gt", "masks", "keypoints") if k in batch}
         if self.device.type == "cuda":
             x = x.pin_memory()
             targets = {k: v.pin_memory() for k, v in targets.items()}
@@ -277,6 +289,8 @@ class DetectionTrainer:
             if self.task == "segment":  # an overlap-index map at the loader's mask ratio
                 r = int(args.mask_ratio or 4)
                 targets["masks"] = torch.zeros((b, side // r, side // r))
+            if self.task == "pose":
+                targets["keypoints"] = torch.zeros((b, n, *self.model.head.kpt_shape))
             img = torch.zeros((b, side, side, 3), dtype=torch.uint8, device=self.device)
             total, _ = self.loss_fn(self._features(img), {k: v.to(self.device) for k, v in targets.items()})
             total.backward()
@@ -513,8 +527,8 @@ class DetectionTrainer:
         return self.metrics
 
     def validate(self, params: dict) -> dict:
-        """The port's validator of the model's task (DetectionValidator, SegmentationValidator) on a
-        parameter tree (the EMA's) with the run's settings."""
+        """The port's validator of the model's task (DetectionValidator, SegmentationValidator, PoseValidator)
+        on a parameter tree (the EMA's) with the run's settings."""
         from yolo_tpu_torch.engine.validator import validator_for
 
         return validator_for(self.model)(args={**vars(self.args), "mode": "val"}, data=self.data)(model=self.model, params=params)

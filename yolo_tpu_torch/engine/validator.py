@@ -15,8 +15,11 @@ annotations/instances_val2017.json the port's copy of the COCOeval protocol
 results. `SegmentationValidator` adds the mask metrics (`mask_`-prefixed keys; fitness
 the sum of both): each kept detection's mask at prototype resolution against the
 ground-truth masks of the collate, their IoUs computed on the device and copied back
-with the detections. The classify task's validator is engine/classify.py; the pose and
-obb tasks' are not ported.
+with the detections. `PoseValidator` adds the keypoint metrics (`pose_`-prefixed keys; fitness
+the sum of both): each kept detection's decoded keypoints ride back as extra columns of the
+packed detections and are matched on the host by object keypoint similarity, each gt box's
+area × 0.53 its scale. The classify task's validator is engine/classify.py; the obb task's is
+not ported.
 """
 
 from __future__ import annotations
@@ -38,12 +41,19 @@ from yolo_tpu_torch.ops.boxes import scale_boxes, xywhn2xyxy, xyxy2xywh
 from yolo_tpu_torch.ops.masks import process_mask
 from yolo_tpu_torch.ops.nms import non_max_suppression
 from yolo_tpu_torch.utils import LOGGER
-from yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, match_predictions, match_predictions_iou
+from yolo_tpu_torch.utils.metrics import (
+    OKS_SIGMA,
+    ConfusionMatrix,
+    DetMetrics,
+    kpt_iou,
+    match_predictions,
+    match_predictions_iou,
+)
 
 
 def validator_for(model):
-    """The validator class of a model's task: detect's, segment's or classify's; the other tasks raise
-    NotImplementedError."""
+    """The validator class of a model's task: detect's, segment's, pose's or classify's; the other tasks
+    raise NotImplementedError."""
     task = "rtdetr" if getattr(model, "is_rtdetr", False) else getattr(model, "task", "detect")
     if task == "classify":
         from yolo_tpu_torch.engine.classify import ClassificationValidator
@@ -51,8 +61,10 @@ def validator_for(model):
         return ClassificationValidator
     if task == "segment":
         return SegmentationValidator
+    if task == "pose":
+        return PoseValidator
     if task != "detect":
-        raise NotImplementedError(f"validation of the {task} task is not ported (only detect, segment and classify)")
+        raise NotImplementedError(f"validation of the {task} task is not ported (only detect, segment, pose and classify)")
     return DetectionValidator
 
 
@@ -256,4 +268,57 @@ class SegmentationValidator(DetectionValidator):
         results = dict(rb)
         results.update({f"mask_{k}": v for k, v in rm.items()})
         results["fitness"] = rb.get("fitness", 0.0) + rm.get("fitness", 0.0)
+        return results
+
+
+class PoseValidator(DetectionValidator):
+    """Box mAP and keypoint (OKS) mAP of a pose model (JAX PoseValidator). NMS gets the model's nc, so each kept
+    detection's decoded keypoints (x, y in the letterboxed image's pixels, the visibility) ride back as extra
+    columns; on the host each image's OKS against its gt keypoints (x and y in pixels), with each gt box's area
+    × 0.53 and COCO's sigmas for (17, 3) keypoints (else 1 / K), is matched at the ten thresholds."""
+
+    def __call__(self, model, params) -> dict:
+        self.kpt_shape = tuple(model.head.kpt_shape)
+        K = self.kpt_shape[0]
+        self.sigma = OKS_SIGMA if self.kpt_shape == (17, 3) else np.ones(K) / K
+        self.pose_metrics = DetMetrics(names=getattr(model, "names", {}))
+        return super().__call__(model, params)
+
+    @torch.no_grad()
+    def _device_pass(self, model, imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """→ (B, max_det, 7 + K · ndim): the detect columns, then each slot's keypoints."""
+        a = self.args
+        x = torch.from_numpy(imgs)
+        if device.type == "cuda":
+            x = x.pin_memory()
+        x = x.to(device, non_blocking=True).to(dtype) / 255.0
+        out = non_max_suppression(model.predict(x, plain=self.plain), conf_thres=float(a.conf), iou_thres=float(a.iou),
+                                  max_det=int(a.max_det), nc=model.nc, plain=self.plain)
+        cols = [out["boxes"], out["scores"][..., None], out["cls"][..., None], out["valid"][..., None], out["extra"]]
+        return torch.cat([c.to(torch.float32) for c in cols], -1)
+
+    def _update(self, batch: dict, out: np.ndarray, metrics: DetMetrics, cm: ConfusionMatrix, cat_map) -> int:
+        n = super()._update(batch, out[..., :7], metrics, cm, cat_map)
+        K, ndim = self.kpt_shape
+        H, W = batch["img"].shape[1:3]
+        gk = batch.get("keypoints")  # a batch of background images collates without keypoints
+        if gk is None:
+            gk = np.zeros((*batch["cls"].shape, K, ndim), np.float32)
+        for i in range(n):
+            valid = out[i, :, 6] > 0
+            m = batch["mask_gt"][i] > 0
+            pcls, gt_cls = out[i, valid, 5], batch["cls"][i][m]
+            gt_boxes = np.asarray(xywhn2xyxy(batch["bboxes"][i][m], w=W, h=H))
+            gt_kpts = gk[i][m] * np.array([W, H] + [1.0] * (ndim - 2), np.float32)
+            area = (gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]) * 0.53
+            oks = kpt_iou(gt_kpts, out[i, valid, 7:].reshape(-1, K, ndim), area, self.sigma)
+            self.pose_metrics.update(match_predictions_iou(pcls, gt_cls, oks, self.iou_thresholds), out[i, valid, 4], pcls, gt_cls)
+        return n
+
+    def _results(self, metrics: DetMetrics) -> dict:
+        rb, rp = metrics.process(), self.pose_metrics.process()
+        LOGGER.info(f"val(pose): pose mAP50 {rp['mAP50']:.4f} mAP50-95 {rp['mAP50-95']:.4f}")
+        results = dict(rb)
+        results.update({f"pose_{k}": v for k, v in rp.items()})
+        results["fitness"] = rb.get("fitness", 0.0) + rp.get("fitness", 0.0)
         return results

@@ -1,10 +1,10 @@
 """The YOLO modules of the detect+track main path, as PyTorch modules.
 
 Counterpart of yolo_tpu/nn/modules.py for the blocks that yolov8-small (P2),
-yolov8n, yolov8n-cls and yolov8n-seg use: ConvBNAct, Conv2d, Bottleneck, C2f (with
-the neck's Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample, the
-Detect head with its DFL decode, the Classify head, and the Segment head with its
-Proto and ConvTranspose.
+yolov8n, yolov8n-cls, yolov8n-seg and yolov8n-pose use: ConvBNAct, Conv2d, Bottleneck,
+C2f (with the neck's Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample,
+the Detect head with its DFL decode, the Classify head, the Segment head with its
+Proto and ConvTranspose, and the Pose head.
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -29,7 +29,7 @@ Proto and ConvTranspose.
   their plain PyTorch twins instead, the reference the kernels are held
   against on the card.
   Every other conv (stem, stride-2 convs, SPPF, the Segment head's coefficient
-  branch and prototypes) is torch.nn.functional.conv2d (conv_transpose2d for
+  branch and prototypes, the Pose head's keypoint branch) is torch.nn.functional.conv2d (conv_transpose2d for
   Proto's upsample), as the JAX package leaves those to XLA.
 - A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
   instead, and may emit a `QTensor`; the blocks then walk their convs module by module
@@ -668,6 +668,59 @@ class Segment(Detect):
     def coefficients(self, xs) -> torch.Tensor:
         """The mask coefficients of every anchor (B, A, nm), levels in order, in the compute dtype."""
         return torch.cat([m.reshape(m.shape[0], -1, self.nm) for m in self._coefs(xs, False)], 1)
+
+
+class Pose(Detect):
+    """Detect + keypoint regression (JAX Pose). The box and class branches are the Detect head's (the head
+    kernel at inference); the keypoint branch `cv4` (3x3, 3x3, 1x1 to nk = K · ndim a level) is plain torch
+    convs, as the JAX package computes it outside any kernel."""
+
+    def __init__(self, nc: int = 80, kpt_shape: tuple = (17, 3), ch: tuple = ()):
+        super().__init__(nc, ch)
+        self.kpt_shape = tuple(kpt_shape)
+        self.nk = self.kpt_shape[0] * self.kpt_shape[1]
+        c4 = max(ch[0] // 4, self.nk)
+        self.cv4 = nn.ModuleList(nn.ModuleList([ConvBNAct(x, c4, 3), ConvBNAct(c4, c4, 3), Conv2d(c4, self.nk, 1)]) for x in ch)
+
+    def init(self, rng) -> dict:
+        """Detect's draws and bias priors, then cv4 level by level."""
+        p = super().init(rng)
+        p["cv4"] = {str(l): {str(j): self.cv4[l][j].init(rng) for j in range(3)} for l in range(self.nl)}
+        return p
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        super().load_jax(p, device, dtype)
+        for l in range(self.nl):
+            for j in range(3):
+                self.cv4[l][j].load_jax(p["cv4"][str(l)][str(j)], device, dtype)
+
+    def _raw_kpts(self, xs, train: bool):
+        outs = []
+        for l, x in enumerate(xs):
+            for m in self.cv4[l]:
+                x = m.forward_train(x) if train else m(x)
+            outs.append(x)
+        return outs
+
+    def forward_train(self, xs):
+        """(per-level raw box + class outputs, per-level raw keypoints (B, H, W, nk)) through the train form:
+        what `v8PoseLoss` takes."""
+        return super().forward_train(xs), self._raw_kpts(xs, True)
+
+    def keypoints(self, xs) -> torch.Tensor:
+        """The decoded keypoints of every anchor (B, A, nk) in f32 (JAX `decode_with_kpts`): x, y =
+        (raw · 2 + anchor − 0.5) · stride in pixels, the visibility's sigmoid where ndim is 3."""
+        from yolo_tpu_torch.ops.anchors import make_anchors
+
+        raw = self._raw_kpts(xs, False)
+        B = raw[0].shape[0]
+        K, ndim = self.kpt_shape
+        anchors, strides = make_anchors([(x.shape[1], x.shape[2]) for x in xs], self.stride, 0.5, device=raw[0].device)
+        y = torch.cat([k.reshape(B, -1, self.nk) for k in raw], 1).float().reshape(B, -1, K, ndim)
+        xk = (y[..., 0] * 2.0 + (anchors[None, :, None, 0] - 0.5)) * strides[None, :, None, 0]
+        yk = (y[..., 1] * 2.0 + (anchors[None, :, None, 1] - 0.5)) * strides[None, :, None, 0]
+        parts = [xk[..., None], yk[..., None]] + ([torch.sigmoid(y[..., 2:3])] if ndim == 3 else [])
+        return torch.cat(parts, -1).reshape(B, -1, self.nk)
 
 
 class Classify(nn.Module):

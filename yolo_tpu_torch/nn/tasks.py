@@ -1,6 +1,6 @@
-"""YAML → model builder, the BN fold, the weight bridge, the detection, segmentation and classification models.
+"""YAML → model builder, the BN fold, the weight bridge, the detection, segmentation, pose and classification models.
 
-Counterpart of yolo_tpu/nn/tasks.py for the detect, segment and classify tasks: the same scale
+Counterpart of yolo_tpu/nn/tasks.py for the detect, segment, pose and classify tasks: the same scale
 math (c2 = make_divisible(min(c2, max_channels) * width, 8), n = max(round(n *
 depth), 1)), the same static stride propagation, the neck fold detection of
 `_build_neck_opt`, `predict_parts` and `predict`. Every C2f and Detect level
@@ -10,7 +10,8 @@ or on the CPU); both fold the neck unless `neck_opt=False`. An int8 tree
 `predict_augment` (test-time augmentation: three scales, one flipped, through
 `predict`), `embed_features` (pooled layer outputs) and the NMS `Ensemble` of
 several models are the JAX package's too. `SegmentationModel` (the segment task,
-a Segment head: the detection forward plus mask coefficients and prototypes) and
+a Segment head: the detection forward plus mask coefficients and prototypes), `PoseModel`
+(the pose task, a Pose head: the detection forward plus decoded keypoints) and
 `ClassificationModel` (the classify task, a Classify head) share the build and both
 walks (`BaseModel`); `model_class_for` picks a checkpoint's class from its config and task.
 
@@ -39,6 +40,7 @@ from yolo_tpu_torch.nn import modules as M
 
 CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
 BN_EPS = M.BN_EPS
+EXTRA_OUTPUT_TASKS = ("segment", "pose")  # masks or keypoints beside the boxes: the detect-only entry points refuse them
 
 MODULE_MAP = {
     "Conv": M.ConvBNAct,
@@ -47,6 +49,7 @@ MODULE_MAP = {
     "Concat": M.Concat,
     "Detect": M.Detect,
     "Segment": M.Segment,
+    "Pose": M.Pose,
     "Classify": M.Classify,
     "nn.Upsample": M.Upsample,
 }
@@ -113,6 +116,9 @@ def parse_model(d: dict, ch: int):
             c2 = None
         elif mcls is M.Segment:  # npr width-scales, as in the JAX package
             args = [args[0], args[1], make_divisible(min(args[2], max_channels) * width, 8), [chs[x] for x in f]]
+            c2 = None
+        elif mcls is M.Pose:  # the yaml's kpt_shape, as in the JAX package
+            args = [args[0], tuple(d["kpt_shape"]) if d.get("kpt_shape") else args[1], [chs[x] for x in f]]
             c2 = None
         else:
             c2 = chs[f]
@@ -452,6 +458,29 @@ class SegmentationModel(DetectionModel):
         return torch.cat([boxes, scores, coefs.float()], -1).transpose(1, 2), self.head.proto(xs[0])
 
 
+class PoseModel(DetectionModel):
+    """YOLO pose model (JAX PoseModel): the detection graph with a Pose head."""
+
+    task = "pose"
+
+    def __init__(self, cfg="yolov8n-pose.yaml", ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+        if not isinstance(self.head, M.Pose):
+            raise ValueError(f"a PoseModel's last layer is a Pose head, not {type(self.head).__name__}")
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False) -> torch.Tensor:
+        """Predictions (B, 4 + nc + nk, A) f32: px xywh boxes, sigmoid scores, then each anchor's keypoints
+        (x, y in pixels and the visibility's sigmoid, keypoint by keypoint) from NHWC images in the model's
+        dtype. The C2f blocks, the neck fold and the box and class branches go through the kernels
+        (`plain=True`: their twins); the keypoint branch is plain torch convs."""
+        if self.int8:
+            raise NotImplementedError("int8 inference of a pose model is not ported (ROADMAP item 5)")
+        xs = self._head_inputs(x, plain, neck_opt)
+        boxes, scores = self._decode_head(xs, plain)
+        return torch.cat([boxes, scores, self.head.keypoints(xs)], -1).transpose(1, 2)
+
+
 def guess_model_task(cfg: dict) -> str:
     """The task of a model yaml, from its head module (JAX `guess_model_task`)."""
     rows = list(cfg.get("head", [])) or list(cfg.get("backbone", []))
@@ -469,8 +498,8 @@ def guess_model_task(cfg: dict) -> str:
 
 def model_class_for(cfg: dict, task: str | None = None):
     """The model class of a checkpoint's config and task (JAX `model_class_for`): DetectionModel,
-    SegmentationModel or ClassificationModel; the other tasks and families raise NotImplementedError
-    naming them."""
+    SegmentationModel, PoseModel or ClassificationModel; the other tasks and families raise
+    NotImplementedError naming them."""
     rows = list(cfg.get("head", []))
     head = str(rows[-1][2]) if rows else "Detect"
     if head in ("RTDETRDecoder", "WorldDetect", "YOLOEDetect", "YOLOESegment"):
@@ -480,8 +509,10 @@ def model_class_for(cfg: dict, task: str | None = None):
         return ClassificationModel
     if task == "segment":
         return SegmentationModel
+    if task == "pose":
+        return PoseModel
     if task != "detect":
-        raise NotImplementedError(f"the {task} task is not ported (only detect, segment and classify)")
+        raise NotImplementedError(f"the {task} task is not ported (only detect, segment, pose and classify)")
     return DetectionModel
 
 

@@ -91,8 +91,8 @@ def state_dict_to_params(state_dict: dict, params_template: dict) -> dict:
 
 
 def load_pt(path, model=None, device=None):
-    """A `.pt` → (the model its embedded config and task name, built: DetectionModel, SegmentationModel
-    or ClassificationModel, or `model`; the parameter tree; the metadata). Another task raises
+    """A `.pt` → (the model its embedded config and task name, built: DetectionModel, SegmentationModel,
+    PoseModel or ClassificationModel, or `model`; the parameter tree; the metadata). Another task raises
     NotImplementedError. The model's modules are empty until the tree is installed; `device=None`
     is the card."""
     from yolo_tpu_torch.nn.tasks import model_class_for

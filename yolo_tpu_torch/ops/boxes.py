@@ -1,9 +1,9 @@
 """Box-format conversions, the inverse letterbox and pairwise IoU (counterpart of yolo_tpu/ops/boxes.py).
 
-`xyxy2xywh`, `xywhn2xyxy`, `xyxy2xywhn`, `ltwh2xyxy`, `xyxy2ltwh`, `clip_boxes`,
-`scale_boxes` and `box_iou` take numpy arrays (the host side of the predictor, the validator and
-the MOT trackers) or torch tensors alike; `xywh2xyxy` and `bbox_iou` (the
-training loss's IoU variants) take torch tensors.
+`xyxy2xywh`, `xywh2xyxy`, `xywhn2xyxy`, `xyxy2xywhn`, `ltwh2xyxy`, `xyxy2ltwh`, `clip_boxes`,
+`scale_boxes` and `box_iou` take numpy arrays (the host side of the predictor, the validator,
+the MOT trackers and `utils.instance`) or torch tensors alike; `bbox_iou` (the training
+loss's IoU variants) takes torch tensors.
 """
 
 from __future__ import annotations
@@ -94,11 +94,12 @@ def scale_boxes(img1_shape, boxes, img0_shape, ratio_pad=None, padding: bool = T
     return boxes if xywh else clip_boxes(boxes, img0_shape)
 
 
-def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+def xywh2xyxy(x):
     """(cx, cy, w, h) → (x1, y1, x2, y2) over the last axis."""
+    x = _as_array(x)
     hw = x[..., 2] / 2
     hh = x[..., 3] / 2
-    return torch.stack([x[..., 0] - hw, x[..., 1] - hh, x[..., 0] + hw, x[..., 1] + hh], dim=-1)
+    return _stack([x[..., 0] - hw, x[..., 1] - hh, x[..., 0] + hw, x[..., 1] + hh], x)
 
 
 def box_iou(box1, box2, eps: float = 1e-7):

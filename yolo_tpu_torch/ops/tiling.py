@@ -89,8 +89,11 @@ def tiled_predict(model, img: np.ndarray, tile: int = 256, overlap: float = 0.25
     """Detect on a tile grid of `img` with a YOLO and merge → (boxes_xyxy, scores, cls) in frame
     coordinates. The tiles go through `model.predict` as one batch (`batch` defaults to the
     tile count); `kwargs` are further predict settings (compute_dtype, plain, ...)."""
-    if getattr(model, "task", "detect") == "segment":
-        raise NotImplementedError("tiled inference with a segment model is not ported (ROADMAP item 5)")
+    from yolo_tpu_torch.nn.tasks import EXTRA_OUTPUT_TASKS
+
+    task = getattr(model, "task", "detect")
+    if task in EXTRA_OUTPUT_TASKS:
+        raise NotImplementedError(f"tiled inference with a {task} model is not ported (ROADMAP item 5)")
     grid = tile_grid(img.shape[0], img.shape[1], tile, overlap)
     tiles = slice_tiles(img, grid, tile)
     kwargs.setdefault("batch", len(tiles))

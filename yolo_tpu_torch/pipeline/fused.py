@@ -46,7 +46,7 @@ import torch
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.kalman.batched import STATUS_DETECTED, STATUS_NONE, STATUS_PREDICTED, init_state, make_step
 from yolo_tpu_torch.nn.quantize import calibrate_act_scales, params_are_fused_float, quantize_params
-from yolo_tpu_torch.nn.tasks import fuse, params_are_fused, params_from_jax, validate_s2d_stem
+from yolo_tpu_torch.nn.tasks import EXTRA_OUTPUT_TASKS, fuse, params_are_fused, params_from_jax, validate_s2d_stem
 from yolo_tpu_torch.ops.nms import non_max_suppression_parts
 
 # packed (T, N, 12) column layout; track_num rides an f32 column, exact up to 2^24 ids
@@ -131,8 +131,9 @@ class FusedDetectTrack:
         device=None,
         plain: bool = False,
     ):
-        if getattr(model, "task", "detect") == "segment":
-            raise NotImplementedError("FusedDetectTrack with a segment model is not ported (ROADMAP item 5)")
+        task = getattr(model, "task", "detect")
+        if task in EXTRA_OUTPUT_TASKS:
+            raise NotImplementedError(f"FusedDetectTrack with a {task} model is not ported (ROADMAP item 5)")
         if channels not in (1, 3):
             raise ValueError(f"frames have 1 (IR) or 3 (BGR) channels, got {channels}")
         if mesh is not None:

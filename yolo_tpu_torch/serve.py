@@ -60,10 +60,11 @@ class _ModelLane:
         self.error: str | None = None  # set when loading, building or warming up failed: the lane is out of service
         try:  # a bad source takes this lane out, not the server
             from yolo_tpu_torch.engine.model import YOLO
+            from yolo_tpu_torch.nn.tasks import EXTRA_OUTPUT_TASKS
 
             self.yolo = YOLO(source, device=str(device))
-            if self.yolo.task == "segment":
-                raise NotImplementedError("serving a segment model is not ported (ROADMAP item 5)")
+            if self.yolo.task in EXTRA_OUTPUT_TASKS:
+                raise NotImplementedError(f"serving a {self.yolo.task} model is not ported (ROADMAP item 5)")
             self.yolo.fuse()
         except Exception as e:
             self.yolo = None

@@ -1,8 +1,10 @@
 """The glue between the predictor and the MOT trackers (counterpart of yolo_tpu/trackers/track.py).
 
 `attach_tracker` feeds each Results of a predict run through one tracker and
-rewrites it with tracked boxes, rows [x1, y1, x2, y2, id, conf, cls]. The
-OBB branch is not ported (the OBB task is not).
+rewrites it with tracked boxes, rows [x1, y1, x2, y2, id, conf, cls]: the Results
+is subset to the tracked rows, so a segment result's masks and a pose result's
+keypoints follow their boxes, in the tracker's order. The OBB branch is not
+ported (the OBB task is not).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""YOLOv8 detection and segmentation losses: BCE classification, CIoU box and DFL terms, and the
-mask BCE (counterpart of yolo_tpu/utils/loss.py `_df_loss`, `v8DetectionLoss`, its per-level
-compact path, and `v8SegmentationLoss`).
+"""YOLOv8 detection, segmentation and pose losses: BCE classification, CIoU box and DFL terms, the
+mask BCE, and the keypoint OKS and objectness terms (counterpart of yolo_tpu/utils/loss.py
+`_df_loss`, `v8DetectionLoss`, its per-level compact path, `v8SegmentationLoss` and `v8PoseLoss`).
 
 The assigner (topk 10, α 0.5, β 6) sees the decode of every anchor, held out of
 the gradient. The gradient-carrying terms stay per level: the classification
@@ -9,7 +9,9 @@ slots gathered from the levels, which holds every foreground anchor (the assigne
 gives each ground truth at most topk) and, beyond them, background anchors whose
 weight is zero. Ground truths come padded to N rows, so no shape depends on the data.
 The mask BCE runs on the top `max_fg` foreground anchors of each image by target score,
-gathered into a fixed slot table as well.
+gathered into a fixed slot table as well. The keypoint terms take the box terms' slot table
+while it is smaller than the anchors (topk · N < A, JAX's compact route), and every anchor
+otherwise (JAX's all-anchor route).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from yolo_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
 from yolo_tpu_torch.ops.boxes import bbox_iou, xywh2xyxy
+from yolo_tpu_torch.utils.metrics import OKS_SIGMA
 from yolo_tpu_torch.utils.tal import TaskAlignedAssigner
 
 
@@ -104,9 +107,10 @@ class v8DetectionLoss:
         return loss.sum() * feats[0].shape[0], loss.detach()
 
     def _terms(self, feats, batch, mask_slots: int = 0):
-        """(loss_iou, loss_cls, loss_dfl, aux). With `mask_slots`, one stable ranking of the anchors
-        serves the box slots and the top `mask_slots` foreground ones, which `aux` returns ('slots',
-        'slot_valid') with the assigner's targets and the input size."""
+        """(loss_iou, loss_cls, loss_dfl, aux): `aux` holds the assigner's targets and foreground mask,
+        the anchors and their strides, the box terms' slot table ('slot_idx', 'slot_fg'; 'compact' when
+        it is smaller than the anchors) and the input size. With `mask_slots`, one stable ranking of the
+        anchors serves the box slots and the top `mask_slots` foreground ones ('slots', 'slot_valid')."""
         B, dev = feats[0].shape[0], feats[0].device
         levels = [f.reshape(B, -1, self.no) for f in feats]
         feat_shapes = [(f.shape[1], f.shape[2]) for f in feats]
@@ -134,13 +138,15 @@ class v8DetectionLoss:
             )
             target_scores_sum = target_scores.sum().clamp(min=1.0)
             weight = target_scores.sum(-1) * fg_mask.float()  # (B, A)
-            aux = {"target_bboxes": target_bboxes, "target_gt_idx": target_gt_idx, "imgsz": (ih, iw)}
+            aux = {"target_bboxes": target_bboxes, "target_gt_idx": target_gt_idx, "imgsz": (ih, iw), "fg_mask": fg_mask,
+                   "anchor_points": anchor_points, "stride_tensor": stride_tensor, "compact": self.assigner.topk * gt_labels.shape[1] < a}
             if mask_slots:
                 slot_full, s_fg_full, s_w_full = self._fg_slots(fg_mask, weight, min(max(M, mask_slots), a), stable=True)
-                slot_idx, s_w = slot_full[:, :M], s_w_full[:, :M]
+                slot_idx, s_fg, s_w = slot_full[:, :M], s_fg_full[:, :M], s_w_full[:, :M]
                 aux.update(slots=slot_full[:, :mask_slots], slot_valid=s_fg_full[:, :mask_slots])
             else:
-                slot_idx, _, s_w = self._fg_slots(fg_mask, weight, M)
+                slot_idx, s_fg, s_w = self._fg_slots(fg_mask, weight, M)
+            aux.update(slot_idx=slot_idx, slot_fg=s_fg)
 
         loss_cls, off = torch.zeros((), dtype=torch.float32, device=dev), 0
         for lv in levels:  # BCE with logits, level by level
@@ -206,4 +212,63 @@ class v8SegmentationLoss(v8DetectionLoss):
         loss_seg = (per_slot * slot_valid).sum() / slot_valid.sum().clamp(min=1.0)
         h = self.hyp
         loss = torch.stack([loss_iou * h.box, loss_seg * h.box, loss_cls * h.cls, loss_dfl * h.dfl])
+        return loss.sum() * B, loss.detach()
+
+
+class v8PoseLoss(v8DetectionLoss):
+    """The detection terms plus the keypoint terms (JAX `v8PoseLoss`): each foreground anchor's keypoints,
+    decoded to grid units (raw · 2 + anchor − 0.5; the visibility stays a logit), against its assigned
+    ground truth's: the OKS loss 1 − exp(−d² / ((2σ)² · 2 · area)) over the labelled keypoints, scaled by
+    K / (labelled count) (`kpt_loss_factor`), and the keypoint-objectness BCE of the visibility logit against
+    labelled or not; both summed over the foreground anchors and divided by their count × K. σ is COCO's
+    OKS_SIGMA for (17, 3) keypoints, else 1 / K."""
+
+    def __init__(self, model, hyp, tal_topk: int = 10):
+        super().__init__(model, hyp, tal_topk)
+        self.kpt_shape = tuple(model.head.kpt_shape)
+        K = self.kpt_shape[0]
+        self.sigmas = torch.tensor(OKS_SIGMA, dtype=torch.float32) if self.kpt_shape == (17, 3) else torch.ones(K) / K
+
+    def __call__(self, preds, batch):
+        """preds: (per-level raw box + class outputs, per-level raw keypoints (B, H, W, K · ndim)); batch: the
+        detection keys and 'keypoints' (B, N, K, ndim), x and y normalized → (total × B, the detached (box,
+        pose, kobj, cls, dfl) components (5,))."""
+        feats, kpt_outs = preds
+        B, dev = feats[0].shape[0], feats[0].device
+        loss_iou, loss_cls, loss_dfl, aux = self._terms(feats, batch)
+        K, ndim = self.kpt_shape
+        ih, iw = aux["imgsz"]
+        levels = [k.reshape(B, -1, K * ndim).float() for k in kpt_outs]
+        gt = batch.get("keypoints")
+        gt = torch.zeros((B, batch["cls"].shape[1], K, ndim), device=dev) if gt is None else gt.float()
+        gt = gt * torch.tensor([iw, ih] + [1.0] * (ndim - 2), dtype=torch.float32, device=dev)
+        n_fg = (aux["fg_mask"].float().sum() * K).clamp(min=1.0)
+        anchors, strides, tb, tgi = aux["anchor_points"], aux["stride_tensor"], aux["target_bboxes"], aux["target_gt_idx"]
+        if aux["compact"]:  # the slot table (B, topk · N)
+            idx = aux["slot_idx"]
+            kp, fg = self._gather_levels(levels, idx), aux["slot_fg"]
+            anchors, strides = anchors[idx], strides[idx]
+            tb, tgi = self._gather(tb, idx) / strides, torch.gather(tgi, 1, idx)
+        else:  # every anchor
+            kp, fg = torch.cat(levels, 1), aux["fg_mask"].float()
+            anchors, strides = anchors[None], strides[None]
+            tb = tb / strides
+        kp = kp.reshape(*kp.shape[:2], K, ndim)
+        kx = kp[..., 0] * 2.0 + (anchors[..., None, 0] - 0.5)
+        ky = kp[..., 1] * 2.0 + (anchors[..., None, 1] - 0.5)
+        sel = torch.gather(gt, 1, tgi.long()[..., None, None].expand(-1, -1, K, ndim))  # each anchor's gt keypoints
+        sel_xy = sel[..., :2] / strides[..., None, :]
+        kpt_mask = (sel[..., 2] != 0).float() if ndim == 3 else torch.ones(sel.shape[:-1], device=dev)
+        d = (kx - sel_xy[..., 0]) ** 2 + (ky - sel_xy[..., 1]) ** 2
+        area = ((tb[..., 2] - tb[..., 0]) * (tb[..., 3] - tb[..., 1]))[..., None]
+        e = d / ((2 * self.sigmas.to(dev)) ** 2 * (area + 1e-9) * 2)
+        factor = K / (kpt_mask.sum(-1) + 1e-9)
+        loss_pose = (factor[..., None] * (1.0 - torch.exp(-e)) * kpt_mask * fg[..., None]).sum() / n_fg
+        if ndim == 3:
+            kl = kp[..., 2]
+            loss_kobj = ((kl.clamp(min=0) - kl * kpt_mask + torch.log1p(torch.exp(-kl.abs()))) * fg[..., None]).sum() / n_fg
+        else:
+            loss_kobj = torch.zeros((), device=dev)
+        h = self.hyp
+        loss = torch.stack([loss_iou * h.box, loss_pose * h.pose, loss_kobj * h.kobj, loss_cls * h.cls, loss_dfl * h.dfl])
         return loss.sum() * B, loss.detach()

@@ -3,8 +3,9 @@ confusion matrix (counterpart of yolo_tpu/utils/metrics.py; numpy, once per batc
 and once per run). 101-point interpolated AP, the F1-max operating point of the
 smoothed mean F1 curve, fitness = 0.1 * mAP50 + 0.9 * mAP50-95.
 
-Box and mask matching (`mask_iou`, the segment task); the rotated (probiou) matching
-waits for the OBB task, the keypoint similarity for the pose task.
+Box, mask and keypoint matching (`mask_iou`, the segment task; `kpt_iou`, the object keypoint
+similarity of the pose task, with COCO's `OKS_SIGMA`); the rotated (probiou) matching waits for
+the OBB task.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from __future__ import annotations
 import numpy as np
 
 from yolo_tpu_torch.ops.boxes import box_iou
+
+# COCO's 17 keypoints' OKS sigmas
+OKS_SIGMA = np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87, 0.89, 0.89]) / 10.0
 
 
 def smooth(y: np.ndarray, f: float = 0.05) -> np.ndarray:
@@ -111,6 +115,19 @@ def mask_iou(mask1, mask2, eps: float = 1e-7) -> np.ndarray:
     intersection = np.clip(mask1 @ mask2.T, 0, None)
     union = mask1.sum(1)[:, None] + mask2.sum(1)[None] - intersection
     return intersection / (union + eps)
+
+
+def kpt_iou(gt_kpts, pred_kpts, area, sigma, eps: float = 1e-7) -> np.ndarray:
+    """Object keypoint similarity (N, M) of gt keypoints (N, K, 3) in pixels against predicted ones (M, K, >= 2),
+    with the gt areas (N,) and per-keypoint sigmas (K,): exp(-d² / ((2σ)² · 2 · area)) averaged over each gt's
+    labelled keypoints (visibility ≠ 0), the cocoeval form."""
+    gt_kpts = np.asarray(gt_kpts, np.float32)
+    pred_kpts = np.asarray(pred_kpts, np.float32)
+    sigma = np.asarray(sigma, np.float32)
+    d = (gt_kpts[:, None, :, 0] - pred_kpts[None, :, :, 0]) ** 2 + (gt_kpts[:, None, :, 1] - pred_kpts[None, :, :, 1]) ** 2
+    kpt_mask = gt_kpts[..., 2] != 0
+    e = d / ((2 * sigma) ** 2 * (area[:, None, None] + eps) * 2)
+    return (np.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
 
 
 class ConfusionMatrix:

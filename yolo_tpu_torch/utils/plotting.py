@@ -1,6 +1,6 @@
-"""Plots of the validator and the trainer, and the box and mask drawing of `Results.plot`
+"""Plots of the validator and the trainer, and the box, mask and keypoint drawing of `Results.plot`
 (counterpart of `plot_confusion_matrix`, `plot_labels`, `plot_images`, `feature_visualization` and the box,
-text and mask drawing of `Annotator` in yolo_tpu/utils/plotting.py; nothing else of it is ported).
+text, mask and keypoint drawing of `Annotator` in yolo_tpu/utils/plotting.py; nothing else of it is ported).
 matplotlib and cv2 are imported only when a plot is drawn."""
 
 from __future__ import annotations
@@ -101,6 +101,31 @@ class Annotator:
         for m, c in zip(np.asarray(masks), colors):
             im = np.where((np.asarray(m) > 0.5)[..., None], im * (1 - alpha) + alpha * np.array(c, np.float32), im)
         self.im[:] = im.astype(np.uint8)
+
+    # the COCO 17-keypoint skeleton, 1-based keypoint pairs
+    SKELETON = [(16, 14), (14, 12), (17, 15), (15, 13), (12, 13), (6, 12), (7, 13), (6, 7),
+                (6, 8), (7, 9), (8, 10), (9, 11), (2, 3), (1, 2), (1, 3), (2, 4), (3, 5), (4, 6), (5, 7)]
+
+    def kpts(self, kpts, radius: int = 5, kpt_line: bool = True, conf_thres: float = 0.25):
+        """One instance's keypoints (K, 2 or 3) as green dots, those with a visibility below `conf_thres` or
+        a coordinate not above 0 left out, and for K = 17 the skeleton's limbs between drawn pairs (JAX
+        `Annotator.kpts`)."""
+        import cv2
+
+        kpts = np.asarray(kpts)
+        has_conf = kpts.shape[-1] == 3
+        for k in kpts:
+            if has_conf and k[2] < conf_thres:
+                continue
+            if k[0] > 0 and k[1] > 0:
+                cv2.circle(self.im, (int(k[0]), int(k[1])), radius, (0, 255, 0), -1, cv2.LINE_AA)
+        if kpt_line and len(kpts) == 17:
+            for a, b in self.SKELETON:
+                ka, kb = kpts[a - 1], kpts[b - 1]
+                if has_conf and (ka[2] < conf_thres or kb[2] < conf_thres):
+                    continue
+                if min(ka[0], ka[1], kb[0], kb[1]) > 0:
+                    cv2.line(self.im, (int(ka[0]), int(ka[1])), (int(kb[0]), int(kb[1])), (255, 128, 0), 2, cv2.LINE_AA)
 
     def result(self):
         return self.im
