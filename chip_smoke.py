@@ -190,6 +190,20 @@ Phases (any failure stops the run with a non-zero exit code):
    ByteTrack at thresholds fitted to its scores: rows, ids and each track's keypoints of the kernels equal the twins';
    `[segment track]` the same with the segment phases' model and each track's mask; then bf16 frames/s). Each phase
    launches kernels 1, 2, 3 and 5.
+21. the obb task (last; `obb_phases`), on a seeded rotated dataset (`write_obb_split`: 256 train and 64 val 640x512
+   IR-like frames as BGR, 1-4 bright rotated rectangles each, elongated like aircraft (aspect 2-6, 20-160 px long) at
+   uniform angles, two classes (solid and hollow), a third of the frames with an overlapping pair; DOTA rows):
+   `[obb train]` (YOLO("yolov8n-obb.yaml") from the JAX package's init(0), rebuilt at nc 2, OBB_RUN: 3 epochs at batch
+   16, 640, bf16, AdamW lr0 8e-4: the three losses and the metrics per epoch, images/s over the call, the step's split,
+   peak memory), `[obb train step f32]` (one f32 step on the card against the CPU, TRAIN_STEP_TOL), `[obb val kernels]`
+   (f32 kernels against twins: every key within 1e-4; then bf16 images/s), `[obb predict]` (the 64 val frames one per
+   call, each frame's ten best, f32 kernels against twins: centres and sizes 1e-2 px, angles 1e-4 rad, conf 1e-4; then
+   bf16 frames/s with the host split), `[obb forward]` (yolov8n-obb at full width, nc 15 as DOTAv1, 640², B = 8 and 32:
+   preds of the kernels against the twins, kernels 1, 2 and 3 held at those activations, the card's rotated NMS at
+   K = 1024 against the same function on the CPU, and its time beside the forward's) and `[obb track]` (YOLO.track of
+   the trained model over a clip of the 64 frames, ByteTrack at thresholds fitted to its scores: rows (xywhr), ids
+   and classes of the kernels equal the twins'; then bf16 frames/s). Each phase launches kernels 1, 2 and 3 and not
+   kernel 5: the rotated NMS is plain torch (it is not greedy).
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -2625,11 +2639,12 @@ ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 128, 16
 VIDEO_FRAMES = 128  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
 
 
-def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024):
+def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024, nms=True):
     """Kernels 1, 2, 3 and 5 against their twins on the activations of one f32 forward of the NHWC
     images `x` through each model (loaded in f32 on the card): every C2f and upconcat instance and
     every Detect level at TOL, the NMS keep mask over the models' candidates joined on the anchor
-    axis (K = max_nms at `conf`, as the predictor forms them) bit for bit → {kernel: max |err|}."""
+    axis (K = max_nms at `conf`, as the predictor forms them) bit for bit, unless `nms` is False (a
+    path without kernel 5) → {kernel: max |err|}."""
     import torch
 
     from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_nms
@@ -2647,6 +2662,10 @@ def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024):
             errs = hold(name, f"{tag} {tuple(args[-3 if name == 'c2f_upconcat' else 0].shape)}", "float32", got, want)
             worst[name] = max(worst.get(name, 0.0), *errs.values())
             n += 1
+    if not nms:
+        log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {n} C2f / Detect instances "
+            f"within atol = rtol = 1e-3 (max |err| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + ")")
+        return worst
     cand, top = nms_candidates(torch.cat([b for b, _ in parts], 1), torch.cat([s for _, s in parts], 1), conf, max_nms)
     got, want = cuda_nms.nms_keep(cand, top, iou), cuda_nms.nms_keep_plain(cand, top, iou)
     torch.cuda.synchronize()
@@ -3870,19 +3889,20 @@ def pose_forward_phase(frames, card):
         hold_path_kernels([m], x, f"pose forward B={B}", card, conf=0.0, iou=0.7)
 
 
-def track_yaml_for(y, frames, path: Path, **kw) -> tuple:
+def track_yaml_for(y, frames, path: Path, decimals: int = 6, **kw) -> tuple:
     """A ByteTrack yaml for a briefly trained model (its scores sit far below bytetrack.yaml's 0.25): the high and
     new-track thresholds at the median over `frames` of each frame's best f32 score, the low one at a quarter of it,
-    and no score fused into the IoU cost (at scores near 0.01 it leaves every cost above match_thresh) → (the yaml,
-    the predict conf: that quarter)."""
+    written with `decimals` digits, and no score fused into the IoU cost (at scores near 0.01 it leaves every cost
+    above match_thresh) → (the yaml, the predict conf: that quarter). An obb model a few steps old scores ~3e-4 on
+    every frame alike, where six digits can round the high threshold above every score: `[obb track]` writes ten."""
     import numpy as np
 
-    best = [float(r.boxes.conf.max()) if len(r) else 0.0
+    best = [float((r.obb if r.obb is not None else r.boxes).conf.max()) if len(r) else 0.0
             for f in frames for r in y.predict(f, half=False, plain=False, compute_dtype="float32", verbose=False, **kw, **POSE_PREDICT)]
     hi = float(np.median(best))
     text = (ROOT / "yolo_tpu_torch" / "cfg" / "trackers" / "bytetrack.yaml").read_text()
-    for key, v in (("track_high_thresh", f"{hi:.6f}"), ("track_low_thresh", f"{hi / 4:.6f}"), ("new_track_thresh", f"{hi:.6f}"),
-                   ("fuse_score", "False")):
+    for key, v in (("track_high_thresh", f"{hi:.{decimals}f}"), ("track_low_thresh", f"{hi / 4:.{decimals}f}"),
+                   ("new_track_thresh", f"{hi:.{decimals}f}"), ("fuse_score", "False")):
         text = "\n".join(f"{key}: {v}" if line.startswith(f"{key}:") else line for line in text.splitlines())
     path.write_text(text + "\n")
     return path, hi / 4
@@ -3968,6 +3988,319 @@ def pose_phases(root: Path, card, seg):
     pose_predict_phase(y, frames, card)
     pose_forward_phase(np.stack(frames), card)
     pose_track_phase(y, frames, seg, root, card)
+
+
+OBB_PATH = {"c2f", "c2f_upconcat", "head_level"}  # the rotated NMS is plain torch: kernel 5 must not launch
+OBB_TRAIN, OBB_VAL = (256, 60_000), (64, 60_001)  # `[obb ...]`'s rotated splits: frames and seed
+# yolov8n-obb from the JAX package's init(0), rebuilt at nc 2: the pose recipe (AdamW lr0 8e-4, batch 16, 640, bf16,
+# 3 epochs with close_mosaic 1), the cfg's augmentations otherwise
+OBB_RUN = dict(epochs=3, batch=16, imgsz=640, optimizer="AdamW", lr0=8e-4, amp=True, workers=8, seed=0, close_mosaic=1,
+               plots=False, exist_ok=True)
+OBB_PREDICT = dict(conf=0.0, max_det=10)  # `[obb predict]`, `[obb track]`: each frame's ten best, however low
+
+
+def _obb_target(rng, w, h, near=None):
+    """A rotated rectangle elongated like an aircraft seen from above (20-160 px long, aspect 2-6, a uniform angle)
+    inside a w x h frame, or, given `near`, one overlapping it (its centre a quarter to half a length along its axis,
+    its angle within 0.2 rad, its size within 20%) → (cx, cy, long side, short side, angle in radians)."""
+    import math
+
+    import numpy as np
+
+    if near is None:
+        L = rng.uniform(20, 160)
+        S, a = L / rng.uniform(2, 6), rng.uniform(0, math.pi)
+        r = 0.5 * math.hypot(L, S)
+        return rng.uniform(r, w - r), rng.uniform(r, h - r), L, S, a
+    cx, cy, L, S, a = near
+    d = rng.uniform(0.25, 0.5) * L * rng.choice([-1, 1])
+    L2, S2, a2 = L * rng.uniform(0.8, 1.2), S * rng.uniform(0.8, 1.2), a + rng.uniform(-0.2, 0.2)
+    r = 0.5 * math.hypot(L2, S2)
+    return (float(np.clip(cx + d * math.cos(a), r, w - r)), float(np.clip(cy + d * math.sin(a), r, h - r)), L2, S2, a2)
+
+
+def write_obb_split(root: Path, n: int, seed: int, split: str, w: int = 640, h: int = 512) -> Path:
+    """n seeded 640x512 IR-like frames (a cloudy background) written as BGR PNGs under root/images/<split>, each with
+    1-4 bright rotated rectangles (`_obb_target`), a third of the frames with one overlapping pair; class 0 solid,
+    class 1 hollow (its outline a quarter of its short side, at least 2 px); their DOTA rows (`cls x1 y1 ... x4 y4`,
+    the corners of cv2.boxPoints normalized) under root/labels/<split>; nc 2 → the dataset yaml."""
+    import math
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / f"images/{split}").mkdir(parents=True, exist_ok=True)
+    (root / f"labels/{split}").mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img = cv2.resize(rng.normal(30, 10, (h // 16, w // 16)).astype(np.float32), (w, h), interpolation=cv2.INTER_CUBIC)
+        img += rng.normal(0, 2, (h, w))
+        targets = [_obb_target(rng, w, h) for _ in range(rng.integers(1, 4))]
+        if i % 3 == 0:
+            targets.append(_obb_target(rng, w, h, near=targets[0]))
+        lines = []
+        for t in targets:
+            c = int(rng.integers(0, 2))
+            pts = cv2.boxPoints(((t[0], t[1]), (t[2], t[3]), math.degrees(t[4])))
+            poly = [np.round(pts).astype(np.int32)]
+            val = float(rng.uniform(150, 230))
+            if c == 0:
+                cv2.fillPoly(img, poly, val)
+            else:
+                cv2.polylines(img, poly, True, val, max(2, int(t[3] / 4)), cv2.LINE_AA)
+            lines.append(f"{c} " + " ".join(f"{v:.6f}" for v in (pts / [w, h]).ravel()))
+        gray = np.clip(img, 0, 255).astype(np.uint8)
+        cv2.imwrite(str(root / f"images/{split}/{i}.png"), cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
+    (root / "data.yaml").write_text(f"path: {root}\n{splits}names:\n  0: solid\n  1: hollow\n")
+    return root / "data.yaml"
+
+
+def obb_train_phase(data, run_dir, card):
+    """`[obb train]`: YOLO("yolov8n-obb.yaml").train with OBB_RUN on the 256-frame rotated split, validating on the 64
+    held-out frames each epoch: per epoch the three loss components and the metrics; images/s over the whole .train
+    call; the step's split in events; peak memory; the launches of check_amp and the validations → the trained YOLO."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    epochs = []
+    y = YOLO("yolov8n-obb.yaml")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, launches = counted(OBB_PATH, lambda: y.train(trainer=train_epoch_recorder(epochs), data=str(data),
+                                                          project=str(run_dir), name="obb", **OBB_RUN))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if y.task != "obb" or y.model.nc != 2 or not y.trainer.args.amp or metrics is None:
+        raise AssertionError(f"obb train: task {y.task}, nc {y.model.nc}, amp {y.trainer.args.amp}, metrics {metrics}")
+    names = ("box", "cls", "dfl")
+    for e in epochs:
+        r = e["row"]
+        losses = [r[f"train/{k}_loss"] for k in names]
+        if not all(np.isfinite(losses)) or min(losses) <= 0:
+            raise AssertionError(f"obb train: epoch {r['epoch']} losses {losses}")
+        log("obb train", card, f"epoch {r['epoch'] + 1}/{OBB_RUN['epochs']}: " + " ".join(f"{k} {v:.4f}" for k, v in zip(names, losses))
+            + f"; P {r['metrics/precision']:.4f} R {r['metrics/recall']:.4f} mAP50 {r['metrics/mAP50']:.4f} "
+            f"mAP50-95 {r['metrics/mAP50-95']:.4f}; epoch {e['epoch_s']:.2f} s, val {e['val_s']:.2f} s")
+    n = OBB_RUN["epochs"] * OBB_TRAIN[0]
+    steps = [t for e in epochs for t in e["timings"][1:]]
+    mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
+    log("obb train", card, f"{OBB_RUN['epochs']} epochs of {OBB_TRAIN[0]} frames at batch {OBB_RUN['batch']}, 640, bf16: "
+        f"{n / wall:.1f} images/s over the whole .train call ({wall:.1f} s: check_amp, the loader, the steps, each epoch's f32 "
+        f"validation of {OBB_VAL[0]} frames); per step after each epoch's first: loader wait {mean['loader']:.2f} ms (host), "
+        f"forward+loss {mean['forward']:.2f} ms, backward {mean['backward']:.2f} ms, optimizer+BN+EMA {mean['optimizer']:.2f} ms "
+        f"(events; {sum(mean[k] for k in ('forward', 'backward', 'optimizer')):.2f} ms a step); peak memory {peak:.2f} GiB "
+        f"(max_memory_allocated, over the {base / 2**30:.2f} GiB held before); launches {launches}")
+    return y
+
+
+def obb_val_kernels_phase(y, data, card):
+    """`[obb val kernels]`: the trained model on the held-out split, f32 through the kernels against f32 through the
+    twins (every key within 1e-4), then bf16 images/s over a warmed .val call."""
+    rk, launches = counted(OBB_PATH, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False))
+    rp = y.val(data=str(data), imgsz=640, batch=16, plots=False, plain=True)
+    diff = {k: abs(rk[k] - rp[k]) for k in rk}
+    if set(rk) != set(rp) or max(diff.values()) > 1e-4:
+        raise AssertionError(f"obb val: kernels {rk} vs twins {rp}")
+    log("obb val kernels", card, "f32 kernels: " + ", ".join(f"{k} {v:.4f}" for k, v in rk.items())
+        + f"; every key within {max(diff.values()):.2e} of the twins'; launches {launches}")
+    y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True)  # warm: bf16 weights and plans
+    t0 = time.perf_counter()
+    rb, launches = counted(OBB_PATH, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True))
+    wall = time.perf_counter() - t0
+    log("obb val bf16", card, f"{OBB_VAL[0]} frames in {wall:.2f} s = {OBB_VAL[0] / wall:.1f} images/s (host clock, the .val "
+        f"call); mAP50 {rb['mAP50']:.4f} mAP50-95 {rb['mAP50-95']:.4f} (f32 {rk['mAP50']:.4f} / {rk['mAP50-95']:.4f}); "
+        f"launches {launches}")
+
+
+def _obb_rows(data):
+    """OBBoxes rows [cx, cy, w, h, angle, conf, cls] → [cx, cy, w, h, conf, cls, angle], the column order `_paired`
+    reads (the box first, then the score)."""
+    return data[:, [0, 1, 2, 3, 5, 6, 4]]
+
+
+def obb_predict_phase(y, frames, card):
+    """`[obb predict]`: the trained model over held-out BGR frames, one per predict call, at OBB_PREDICT's conf and
+    max_det, f32 through the kernels against f32 through the twins: equal detection counts, and for each kernel row
+    the twin's with the nearest box (`_paired`): equal classes, centres and sizes within 1e-2 px, angles 1e-4 rad,
+    conf 1e-4. Then bf16 frames/s (host clock) with the host's split per frame (letterbox + assembly, enqueue, the
+    wait for the device, the Results with the inverse letterbox) → each frame's f32 kernel rows."""
+    import numpy as np
+
+    def run(half, plain):
+        return [_obb_rows(y.predict(f, half=half, plain=plain, compute_dtype=compute_dtype(half), verbose=False,
+                                    **OBB_PREDICT)[0].obb.data.copy()) for f in frames]
+
+    run(False, False)  # warm-up
+    pk, launches = counted(OBB_PATH, lambda: run(False, False))
+    pp = run(False, True)
+    n_det, n_tied, worst = 0, 0, {"box": 0.0, "angle": 0.0, "conf": 0.0}
+    for bk, bp in zip(pk, pp):
+        if bk.shape != bp.shape:
+            raise AssertionError(f"obb predict: {bk.shape} vs twins {bp.shape}")
+        if len(bk):
+            i, j, tied = _paired(bk, bp)
+            bk, bp = bk[i], bp[j]
+            n_tied += tied
+            if not np.array_equal(bk[:, 5], bp[:, 5]):
+                raise AssertionError(f"obb predict: classes {bk[:, 5]} vs twins {bp[:, 5]}")
+            worst["box"] = max(worst["box"], float(np.abs(bk[:, :4] - bp[:, :4]).max()))
+            worst["conf"] = max(worst["conf"], float(np.abs(bk[:, 4] - bp[:, 4]).max()))
+            worst["angle"] = max(worst["angle"], float(np.abs(bk[:, 6] - bp[:, 6]).max()))
+        n_det += len(bk)
+    if n_det == 0 or worst["box"] > 1e-2 or worst["conf"] > 1e-4 or worst["angle"] > 1e-4:
+        raise AssertionError(f"obb predict: {n_det} detections, {worst}")
+    rows = np.concatenate(pk)
+    log("obb predict f32", card, f"{len(frames)} frames, {n_det} detections equal to the twins' ({n_tied} of them replaced "
+        f"by an overlapping one of the same score; max |centre, size| {worst['box']:.3e} px, |angle| {worst['angle']:.3e} "
+        f"rad, |conf| {worst['conf']:.3e}); conf {rows[:, 4].min():.4f}-{rows[:, 4].max():.4f}, angle {rows[:, 6].min():.3f}-"
+        f"{rows[:, 6].max():.3f} rad, classes {sorted(set(rows[:, 5].astype(int).tolist()))}; launches {launches}")
+    y.predict(frames[0], half=True, compute_dtype="bfloat16", verbose=False, **OBB_PREDICT)  # warm: bf16 weights
+    y.predictor.timings = []
+    t0 = time.perf_counter()
+    _, launches = counted(OBB_PATH, lambda: run(True, False))
+    wall = time.perf_counter() - t0
+    ts = y.predictor.timings
+    y.predictor.timings = None
+    split = {k: sum(t[f"{k}_s"] for t in ts) / len(ts) * 1e3 for k in ("pre", "enqueue", "wait", "post")}
+    log("obb predict bf16", card, f"{len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.1f} frames/s (host clock, one "
+        f"frame per predict call); host ms/frame: letterbox + assembly {split['pre']:.3f}, enqueue {split['enqueue']:.3f}, wait "
+        f"{split['wait']:.3f}, Results with the oriented boxes {split['post']:.3f}; launches {launches}")
+    return pk
+
+
+def rotated_nms_near_ties(preds, conf, iou, max_nms=1024):
+    """The pairs of candidates of one image, in the rotated NMS's own order (the top K by score, the class offset on the
+    centres), whose probiou lies within 1e-6 of `iou`: where a card and the CPU may round either way → per image."""
+    import torch
+
+    from yolo_tpu_torch.ops.boxes import probiou
+    from yolo_tpu_torch.ops.nms import MAX_WH
+
+    nc = preds.shape[1] - 5
+    out = []
+    for p in preds:
+        scores, cls = p[4 : 4 + nc].T.max(-1)
+        scores = torch.where(scores > conf, scores, -1.0)
+        top, idx = torch.sort(scores, descending=True, stable=True)
+        top, idx = top[:max_nms], idx[:max_nms]
+        rb = torch.cat([p[:4].T, p[4 + nc :].T], -1)[idx]
+        rb = torch.cat([rb[:, :2] + (cls[idx].to(rb.dtype) * MAX_WH)[:, None], rb[:, 2:]], -1)
+        pi = probiou(rb[:, None], rb[None])[..., 0]
+        live = (top > 0)[:, None] & (top > 0)[None] & torch.ones_like(pi, dtype=torch.bool).triu(1)
+        out.append(int(((pi - iou).abs() <= 1e-6)[live].sum()))
+    return out
+
+
+def obb_forward_phase(frames, card):
+    """`[obb forward]`: yolov8n-obb at full width with nc 15 (DOTAv1's class count; the JAX package's init(0)) at
+    640x640, B = 8 and 32, f32 through the kernels against the twins: boxes within 1e-2 px, scores and angles 1e-4;
+    kernels 1, 2 and 3 held against their twins on those activations (`hold_path_kernels`, no kernel 5); the card's
+    rotated NMS (conf 0: K = 1024 candidates, iou 0.7) against the same function on the CPU on the same predictions:
+    equal outputs on every image with no candidate pair's probiou within 1e-6 of the threshold (counted and printed);
+    the rotated NMS's device time against the forward's (CUDA events)."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import OBBModel, params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression_rotated
+
+    m = OBBModel("yolov8n-obb.yaml", nc=15)
+    params_from_jax(m, m.init(0), torch.float32)
+    x32 = torch.cat([letterboxed(frames[i % len(frames)]) for i in range(32)])
+
+    def nms(preds):
+        return non_max_suppression_rotated(preds, conf_thres=0.0, iou_thres=0.7, max_det=300)
+
+    for B in (8, 32):
+        x = x32[:B]
+        pk, launches = counted(OBB_PATH, lambda: m.predict(x))
+        pp = m.predict(x, plain=True)
+        ok = nms(pk)
+        oc = nms(pk.cpu())
+        torch.cuda.synchronize()
+        d = (pk - pp).abs()
+        err = {"box": float(d[:, :4].max()), "score": float(d[:, 4:-1].max()), "angle": float(d[:, -1].max())}
+        if pk.shape != (B, 4 + 15 + 1, 8400) or not torch.isfinite(pk).all() or err["box"] > 1e-2 or err["score"] > 1e-4 \
+                or err["angle"] > 1e-4:
+            raise AssertionError(f"obb forward B={B}: {err}, {tuple(pk.shape)}")
+        ties = rotated_nms_near_ties(pk.cpu(), 0.0, 0.7)
+        same = [all(torch.equal(ok[k][b].cpu(), oc[k][b]) for k in ok) for b in range(B)]
+        if not all(s for s, t in zip(same, ties) if t == 0):
+            raise AssertionError(f"obb forward B={B}: the card's rotated NMS differs from the CPU's on images without near "
+                                 f"ties: {[b for b in range(B) if not same[b] and ties[b] == 0]}")
+        fwd_ms = cuda_ms(lambda: m.predict(x))
+        nms_ms = cuda_ms(lambda: nms(pk))
+        log("obb forward", card, f"B={B} 640x640: preds {tuple(pk.shape)}; kernels against twins max "
+            + ", ".join(f"|{k}| {v:.3e}" for k, v in err.items()) + f"; rotated NMS (K 1024, iou 0.7) on the card equal to the "
+            f"CPU's on {sum(same)}/{B} images ({int(ok['valid'].sum())} kept slots; {sum(ties)} candidate pairs within 1e-6 "
+            f"of the threshold, on {sum(t > 0 for t in ties)} images); device ms: forward {fwd_ms:.3f}, rotated NMS "
+            f"{nms_ms:.3f} (({B}, 1024, 1024) probiou); launches {launches}")
+        hold_path_kernels([m], x, f"obb forward B={B}", card, conf=0.0, iou=0.7, nms=False)
+
+
+def obb_track_phase(y, frames, tmp: Path, card):
+    """`[obb track]`: YOLO.track of the trained obb model over a 64-frame clip made of the held-out frames
+    (`moving_clip`), one frame per call with persist=True, ByteTrack at thresholds fitted to the model's scores
+    (`track_yaml_for`), f32 through the kernels against f32 through the twins: equal rows (centres and sizes 1e-2 px,
+    angles and conf 1e-4), ids and classes per frame; then bf16 frames/s."""
+    import numpy as np
+
+    def run(yaml, conf, half, plain):
+        y._tracker = None
+        out = []
+        for f in clip:
+            r = y.track(f, persist=True, tracker=str(yaml), conf=conf, max_det=OBB_PREDICT["max_det"], half=half, plain=plain,
+                        compute_dtype=compute_dtype(half), verbose=False)[0]
+            out.append(r.obb.data.copy() if r.obb is not None else np.zeros((0, 8), np.float32))
+        return out
+
+    clip = moving_clip(frames, TRACK_FRAMES)
+    yaml, conf = track_yaml_for(y, clip, tmp / "obb_bytetrack.yaml", decimals=10)
+    rk, launches = counted(OBB_PATH, lambda: run(yaml, conf, False, False))
+    rp = run(yaml, conf, False, True)
+    def rows7(rows):  # [cx, cy, w, h, id, conf, cls]: compare_tracks' tracked-box form
+        return [r[:, [0, 1, 2, 3, 5, 6, 7]] if r.shape[-1] == 8 else r for r in rows]
+
+    worst, n_rows, ids = compare_tracks(rows7(rk), rows7(rp), 1e-2, 1e-4, "obb track: kernels against plain")
+    angle = 0.0
+    for a, b in zip(rk, rp):
+        if len(a) and a.shape[-1] == 8:
+            a, b = a[np.argsort(a[:, 5], kind="stable")], b[np.argsort(b[:, 5], kind="stable")]
+            angle = max(angle, float(np.abs(a[:, 4] - b[:, 4]).max()))
+    if n_rows <= 0 or angle > 1e-4:
+        raise AssertionError(f"obb track: {n_rows} tracked rows, max |angle| {angle}")
+    log("obb track f32", card, f"ByteTrack at high/new {conf * 4:.4f}, low {conf:.4f}: rows and ids equal on every frame "
+        f"({n_rows} tracked rows, {len(ids)} ids), max |centre, size| {worst:.3e} px, |angle| {angle:.3e} rad; launches {launches}")
+    run(yaml, conf, True, False)  # warm: bf16 weights
+    t0 = time.perf_counter()
+    rb, launches = counted(OBB_PATH, lambda: run(yaml, conf, True, False))
+    wall = time.perf_counter() - t0
+    log("obb track bf16", card, f"{len(clip)} frames in {wall:.3f} s = {len(clip) / wall:.1f} frames/s (host clock, one frame "
+        f"per track call); {sum(len(b) for b in rb)} tracked rows; launches {launches}")
+
+
+def obb_phases(root: Path, card):
+    """The obb task's six phases on the rotated splits written under `root`."""
+    import cv2
+    import numpy as np
+
+    t0 = time.perf_counter()
+    write_obb_split(root, *OBB_TRAIN, split="train")
+    data = write_obb_split(root, *OBB_VAL, split="val")
+    print(f"[obb split] {OBB_TRAIN[0]} train + {OBB_VAL[0]} val frames of 640x512 with DOTA rows written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    y = obb_train_phase(data, root / "runs", card)
+    train_step_f32_phase(data, card, cfg_name="yolov8n-obb.yaml", tag="obb train step f32", recipe={**OBB_RUN, "task": "obb"})
+    obb_val_kernels_phase(y, data, card)
+    frames = [cv2.imread(str(root / f"images/val/{i}.png")) for i in range(OBB_VAL[0])]
+    obb_predict_phase(y, frames, card)
+    obb_forward_phase(np.stack(frames), card)
+    obb_track_phase(y, frames, root, card)
 
 
 def compare_runs(a, b, stats_a, stats_b):
@@ -4103,6 +4436,7 @@ def main(argv) -> int:
         classify_phase(clip, Path(tmp) / "cls", card)
         seg = segment_phases(Path(tmp) / "seg", card)
         pose_phases(Path(tmp) / "pose", card, seg)
+        obb_phases(Path(tmp) / "obb", card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

@@ -115,17 +115,16 @@ def test_classify_head_and_model_match_jax(two_threads):
 
 def test_yolo_cls_yaml_matches_jax_init_and_routing():
     """YOLO("yolov8n-cls.yaml") holds JAX's initial tree bit for bit (scale n, nc 1000, 1280-wide head);
-    the task comes from the name or `task=`; -obb raises naming its task (-seg and -pose build a
-    segment and a pose model since those tasks were ported), a ResNet backbone names its module;
-    guess_model_task and model_class_for follow JAX's."""
+    the task comes from the name or `task=`; -seg, -pose and -obb build a segment, a pose and an obb
+    model since those tasks were ported, an RT-DETR head names itself, a ResNet backbone names its
+    module; guess_model_task and model_class_for follow JAX's."""
     py, jy = yolo_tpu_torch.YOLO("yolov8n-cls.yaml", device="cpu"), yolo_tpu.YOLO("yolov8n-cls.yaml")
     got, want = _flat(py.params), _flat(jy.params)
     assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
     assert want["model.9.linear.weight"].shape == (1280, 1000)
     assert py.task == jy.task == "classify" and py.info(verbose=False) == jy.info(verbose=False)
     assert yolo_tpu_torch.YOLO("yolov8n-cls.yaml", task="classify", device="cpu").overrides == {"model": "yolov8n-cls.yaml", "task": "classify"}
-    with pytest.raises(NotImplementedError, match="obb"):
-        yolo_tpu_torch.YOLO("yolov8n-obb.yaml", device="cpu")
+    assert yolo_tpu_torch.YOLO("yolov8n-obb.yaml", device="cpu").task == "obb"
     assert yolo_tpu_torch.YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
     assert yolo_tpu_torch.YOLO("yolov8n-pose.yaml", device="cpu").task == "pose"
     with pytest.raises(NotImplementedError, match="ResNetLayer"):
@@ -137,8 +136,9 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     assert PT.model_class_for(JT.yaml_model_load("yolov8n.yaml")) is PT.DetectionModel
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-seg.yaml")) is PT.SegmentationModel
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-pose.yaml")) is PT.PoseModel
-    with pytest.raises(NotImplementedError, match="obb"):
-        PT.model_class_for(JT.yaml_model_load("yolov8n-obb.yaml"))
+    assert PT.model_class_for(JT.yaml_model_load("yolov8n-obb.yaml")) is PT.OBBModel
+    with pytest.raises(NotImplementedError, match="RTDETRDecoder"):
+        PT.model_class_for(JT.yaml_model_load("rtdetr-l.yaml"))
 
 
 @pytest.mark.parametrize("k", range(8))

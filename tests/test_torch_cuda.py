@@ -852,3 +852,51 @@ def test_pose_phases_on_the_card(card, monkeypatch, tmp_path):
         head["cv4"][str(l)]["2"]["bias"][:] = 1.0
     head["proto"]["cv3"]["bn"]["bias"][:] = 3.0
     chip_smoke.pose_phases(tmp_path / "pose", "card test", (seg, frames))
+
+
+@pytest.mark.parametrize("nc", [15, 2])
+def test_obb_forward_and_rotated_nms_on_the_card_match_twins(card, nc):
+    """yolov8n-obb at full width from the JAX package's initial tree (nc 15 as DOTAv1, and nc 2; class priors at 0),
+    two seeded 128² images: the f32 predictions through kernels 1, 2 and 3 against the twins and against the CPU's
+    (boxes 1e-2 px, scores and angles 1e-4), 8 C2f and 3 head launches a forward and no NMS kernel; the rotated NMS
+    (plain torch, not greedy) on the card against the CPU's on the same predictions (every output equal); bf16
+    against the bf16 twins at 6e-2."""
+    from yolo_tpu_torch.nn.tasks import OBBModel, params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression_rotated
+
+    m, cpu = OBBModel("yolov8n-obb.yaml", nc=nc), OBBModel("yolov8n-obb.yaml", nc=nc, device="cpu")
+    params = m.init(0)
+    for l in range(3):
+        params["model"]["22"]["cv3"][str(l)]["2"]["bias"][:] = 0.0
+    params_from_jax(m, params, torch.float32)
+    params_from_jax(cpu, params, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 128, 128, 3)).astype(np.float32))
+    before = (cuda_c2f.fused_c2f.launches + cuda_c2f.fused_c2f_upconcat.launches, cuda_head.fused_head_level.launches,
+              cuda_nms.nms_keep.launches)
+    preds = m.predict(x.to(card))
+    got = non_max_suppression_rotated(preds, conf_thres=0.25, iou_thres=0.7)
+    after = (cuda_c2f.fused_c2f.launches + cuda_c2f.fused_c2f_upconcat.launches, cuda_head.fused_head_level.launches,
+             cuda_nms.nms_keep.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (8, 3, 0) and preds.shape == (2, 4 + nc + 1, 336)
+    for want in (m.predict(x.to(card), plain=True), cpu.predict(x).to(card)):
+        torch.testing.assert_close(preds[:, :4], want[:, :4], atol=1e-2, rtol=0)
+        torch.testing.assert_close(preds[:, 4:], want[:, 4:], atol=1e-4, rtol=0)
+    want = non_max_suppression_rotated(preds.cpu(), conf_thres=0.25, iou_thres=0.7)
+    assert got["valid"].any() and got["boxes"].shape == (2, 300, 5) and set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    params_from_jax(m, params, torch.bfloat16)
+    xb = x.to(card, torch.bfloat16)
+    torch.testing.assert_close(m.predict(xb)[:, 4:], m.predict(xb, plain=True)[:, 4:], **TOL[torch.bfloat16])
+
+
+def test_obb_phases_on_the_card(card, monkeypatch, tmp_path):
+    """chip_smoke's obb phases (`[obb train]`, `[obb train step f32]`, `[obb val kernels]`, `[obb predict]`,
+    `[obb forward]`, `[obb track]`) cut to 32 train and 8 val frames, one epoch at batch 8."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "OBB_TRAIN", (32, 60_000))
+    monkeypatch.setattr(chip_smoke, "OBB_VAL", (8, 60_001))
+    monkeypatch.setattr(chip_smoke, "OBB_RUN", {**chip_smoke.OBB_RUN, "epochs": 1, "batch": 8, "close_mosaic": 0})
+    chip_smoke.obb_phases(tmp_path, "card test")

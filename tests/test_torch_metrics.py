@@ -113,10 +113,18 @@ def test_match_predictions_iou_and_thresholds_match_jax():
 
 
 def test_rotated_boxes_raise_naming_obb():
+    """Rotated (x, y, w, h, r) boxes, which raised naming the OBB task before it was ported, are matched by probiou as
+    the JAX package matches them: the TP matrix of seeded overlapping boxes equals JAX's at the ten thresholds."""
+    from yolo_tpu.utils.metrics import match_predictions as jax_match
+
     rng = np.random.default_rng(5)
-    rot = rng.random((3, 5)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="OBB"):
-        PM.match_predictions(rot, np.zeros(3), rot, np.zeros(3))
+    gt = np.concatenate([rng.uniform(20, 80, (6, 2)), rng.uniform(8, 30, (6, 2)), rng.uniform(0, 3, (6, 1))], -1).astype(np.float32)
+    pred = (gt[[0, 1, 2, 3, 0, 4, 5, 5]] + rng.normal(0, [1.5, 1.5, 2, 2, 0.1], (8, 5))).astype(np.float32)
+    gt_cls, pred_cls = rng.integers(0, 2, 6).astype(np.float32), rng.integers(0, 2, 8).astype(np.float32)
+    pred_cls[:4] = gt_cls[:4]
+    got, want = PM.match_predictions(pred, pred_cls, gt, gt_cls), jax_match(pred, pred_cls, gt, gt_cls)
+    assert got.shape == (8, 10) and got[:, 0].sum() > 2
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("as_torch", [False, True])

@@ -1,10 +1,12 @@
 """The port's model against the JAX package: box/anchor ops, the yolov8-small P2
-graph (scale math, strides, neck fold) with bridged weights, and the .npz
-loader + BN fold. f32 throughout."""
+graph (scale math, strides, neck fold) with bridged weights, the .npz
+loader + BN fold, and every model yaml of the JAX package through the port's
+`parse_model`. f32 throughout."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from yolo_tpu.engine.exporter import load_npz as jax_load_npz
@@ -73,3 +75,40 @@ def test_load_npz_and_fuse_match_jax_leaf_by_leaf():
     np.testing.assert_array_equal(
         loaded.layers[2].cv1.weight.permute(2, 3, 1, 0).numpy(), np.asarray(jm.fuse(jp)["model"]["2"]["cv1"]["conv"]["weight"])
     )
+
+
+JAX_YAMLS = sorted((ROOT / "yolo_tpu" / "cfg" / "models").rglob("*.yaml"))
+
+
+@pytest.mark.parametrize("path", JAX_YAMLS, ids=[p.name for p in JAX_YAMLS])
+def test_jax_yamls_build_or_name_their_missing_module(path):
+    """Every model yaml of the JAX package is in the port, byte for byte at the same place, and the port's loader finds it
+    by name. Where both packages build it, the port's layer list is JAX's: the module of each row, its sources, the save
+    list and each layer's channels, kernel, stride, repeats, classes, levels and scale where both hold them (no weights
+    are drawn). Where the port lacks a module it raises NotImplementedError naming the first one the rows use, never
+    FileNotFoundError or a bare TypeError (a Conv row with padding, groups, dilation or another activation names Conv)."""
+    import re
+
+    from yolo_tpu.nn import tasks as JT
+    from yolo_tpu_torch.nn import tasks as PT
+
+    rel = path.relative_to(ROOT / "yolo_tpu" / "cfg" / "models")
+    assert (PT.CFG_DIR / "models" / rel).read_bytes() == path.read_bytes()
+    jlayers, jsave = JT.parse_model(JT.yaml_model_load(path), 3)
+    d = PT.yaml_model_load(path.name)
+    rows = d["backbone"] + d["head"]
+    try:
+        layers, froms, save = PT.parse_model(d, 3)
+    except NotImplementedError as e:
+        name = re.search(r"module '([^']+)'", str(e)).group(1)
+        first = next((i for i, r in enumerate(rows) if r[2] == name), None)
+        assert first is not None and name != "OBB", str(e)
+        assert all(r[2] in PT.MODULE_MAP for r in rows[:first]), str(e)  # nothing missing before it
+        assert name not in PT.MODULE_MAP or name == "Conv" or "repeated" in str(e), str(e)
+        return
+    assert len(layers) == len(jlayers) and froms == [s.f for s in jlayers] and save == jsave
+    for m, spec in zip(layers, jlayers):
+        assert type(m) is PT.MODULE_MAP[spec.type], spec.type
+        for k in ("c1", "c2", "k", "s", "n", "nc", "nl", "ne", "scale"):
+            if hasattr(m, k) and hasattr(spec.module, k):
+                assert getattr(m, k) == getattr(spec.module, k), (spec.i, k)

@@ -101,6 +101,10 @@ def test_port_imports_no_jax():
         "assert coco_eval.coco_evaluate({'images': [{'id': 0}], 'annotations': [{'image_id': 0, 'category_id': 1, 'bbox': [0, 0, 9, 9]}]},"
         " [{'image_id': 0, 'category_id': 1, 'bbox': [0, 0, 9, 9], 'score': 0.9}])['mAP50'] == 1.0\n"
         "assert tuner.Tuner({})._mutate({k: 0.5 for k in tuner.DEFAULT_SPACE})\n"
+        "from yolo_tpu_torch.engine import obb_predictor\n"
+        "oy = YOLO('yolov8n-obb.yaml', device='cpu')\n"
+        "r = oy.predict(frames[0], imgsz=32, conf=0.0, max_det=3, verbose=False)[0]\n"
+        "assert oy.task == 'obb' and r.obb.data.shape == (3, 7), r.obb.data.shape\n"
         "bad = sorted(k for k in sys.modules if k == 'yolo_tpu' or k.startswith('yolo_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -473,8 +473,9 @@ def test_predictor_runs_on_the_card_by_default(monkeypatch):
     out = pred._predict(torch.zeros((1, 64, 64, 3), dtype=torch.uint8))
     assert out["boxes"].shape == (1, 300, 4) and out["valid"].dtype == torch.bool
     assert yolo_tpu_torch.YOLO("yolov8n-pose.yaml", task="pose", device="cpu").task == "pose"
-    with pytest.raises(NotImplementedError, match="pose"):  # the ported tasks are named: obb is not among them
-        yolo_tpu_torch.YOLO("yolov8n.yaml", task="obb", device="cpu")
+    assert yolo_tpu_torch.YOLO("yolov8n-obb.yaml", task="obb", device="cpu").task == "obb"
+    with pytest.raises(NotImplementedError, match="pose, obb"):  # the ported tasks are named: an unknown one is not among them
+        yolo_tpu_torch.YOLO("yolov8n.yaml", task="depth", device="cpu")
     with pytest.raises(ValueError, match="unsupported model source"):
         yolo_tpu_torch.YOLO("weights.onnx", device="cpu")
 

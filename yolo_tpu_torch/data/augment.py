@@ -18,8 +18,12 @@ the cfg's `cutmix` probability pastes a region of another augmented sample (`cut
 each drawing from the same `random` instance in the JAX package's order. mosaic9 carries
 the keypoints too, which the JAX package's mosaic9 drops (its output has no keypoints, so a
 pose batch loses them); the draws and every other label are the same. `rand_augment` is the
-classify task's RandAugment (engine/classify.py), on the RNG it is given. The rotated boxes
-of the obb task are not ported.
+classify task's RandAugment (engine/classify.py), on the RNG it is given. 'obb' (n, 4, 2) holds
+the pixel corners of the obb task's rotated boxes (their envelope is the box): the flips, the
+perspective (corners warped and clipped, kept with their boxes), mosaic, both letterboxes and
+mixup move them; a box that copy-paste pastes gets its own corners, one that cutmix adopts the
+donor's corners (or its clipped box's without them). mosaic9 carries them too, which the JAX
+package's mosaic9 drops, like the keypoints.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ def random_flip(labels, lr_p=0.5, ud_p=0.0, rng=None, flip_idx=None):
     h, w = img.shape[:2]
     b = labels["bboxes"]
     kp = labels.get("keypoints")
+    ob = labels.get("obb")
     segs = labels.get("segments")
     if lr_p and kp is not None and flip_idx is None:
         if not getattr(random_flip, "_warned_flip_idx", False):
@@ -103,6 +108,9 @@ def random_flip(labels, lr_p=0.5, ud_p=0.0, rng=None, flip_idx=None):
         b[:, [1, 3]] = h - b[:, [3, 1]]
         if kp is not None and len(kp):
             kp = _flip_kpts(kp, 1, h)
+        if ob is not None and len(ob):
+            ob = ob.copy()
+            ob[..., 1] = h - ob[..., 1]
         if segs:
             segs = [np.stack([sg[:, 0], h - sg[:, 1]], 1) if sg is not None else None for sg in segs]
     if lr_p and rng.random() < lr_p:
@@ -111,12 +119,17 @@ def random_flip(labels, lr_p=0.5, ud_p=0.0, rng=None, flip_idx=None):
         b[:, [0, 2]] = w - b[:, [2, 0]]
         if kp is not None and len(kp):
             kp = _flip_kpts(kp, 0, w)[:, list(flip_idx)]
+        if ob is not None and len(ob):
+            ob = ob.copy()
+            ob[..., 0] = w - ob[..., 0]
         if segs:
             segs = [np.stack([w - sg[:, 0], sg[:, 1]], 1) if sg is not None else None for sg in segs]
     labels["img"] = np.ascontiguousarray(img)
     labels["bboxes"] = b
     if kp is not None:
         labels["keypoints"] = kp
+    if ob is not None:
+        labels["obb"] = ob
     if segs is not None:
         labels["segments"] = segs
     return labels
@@ -161,6 +174,7 @@ def random_perspective(labels, degrees=0.0, translate=0.1, scale=0.5, shear=0.0,
 
     bboxes, cls = labels["bboxes"], labels["cls"]
     kpts = labels.get("keypoints")
+    obb = labels.get("obb")
     segments = labels.get("segments")
     n = len(bboxes)
     if n and segments:  # each polygon warped; its box is that of its warped points
@@ -214,18 +228,28 @@ def random_perspective(labels, degrees=0.0, translate=0.1, scale=0.5, shear=0.0,
             if kpts.shape[-1] == 3:
                 kpts[..., 2] = np.where(out_of, 0.0, kpts[..., 2])
             kpts = kpts[keep]
+        if obb is not None and len(obb):
+            oxy = np.ones((n * 4, 3))
+            oxy[:, :2] = obb.reshape(n * 4, 2)
+            oxy = oxy @ M.T
+            obb = (oxy[:, :2] / oxy[:, 2:3] if perspective else oxy[:, :2]).reshape(n, 4, 2)
+            obb[..., 0] = obb[..., 0].clip(0, width)
+            obb[..., 1] = obb[..., 1].clip(0, height)
+            obb = obb[keep].astype(np.float32)
     labels["img"] = img
     labels["bboxes"] = bboxes
     labels["cls"] = cls
     if kpts is not None:
         labels["keypoints"] = kpts
+    if obb is not None:
+        labels["obb"] = obb
     return labels
 
 
 def mosaic4(items, imgsz: int, rng=None):
     """Four images around a random centre of a 2·imgsz canvas (114 elsewhere), each first
-    resized so its long side is imgsz; boxes (polygons, keypoints) shifted along, boxes clipped
-    to the canvas; a tile without keypoints gets invisible ones where another tile has them."""
+    resized so its long side is imgsz; boxes (polygons, keypoints, corners) shifted along, boxes clipped
+    to the canvas; a tile without keypoints (corners) gets invisible ones (zeros) where another tile has them."""
     rng = rng or random
     s = imgsz
     yc = int(rng.uniform(s // 2, 2 * s - s // 2))
@@ -233,7 +257,8 @@ def mosaic4(items, imgsz: int, rng=None):
     canvas = np.full((s * 2, s * 2, items[0]["img"].shape[-1]), 114, dtype=np.uint8)
     has_segs = any(it.get("segments") for it in items)
     kpt_dims = next((it["keypoints"].shape[1:] for it in items if it.get("keypoints") is not None), None)
-    all_boxes, all_cls, all_segs, all_kpts = [], [], [], []
+    has_obb = any(it.get("obb") is not None for it in items)
+    all_boxes, all_cls, all_segs, all_kpts, all_obbs = [], [], [], [], []
     for i, it in enumerate(items):
         img = it["img"]
         r = s / max(img.shape[:2])
@@ -264,6 +289,8 @@ def mosaic4(items, imgsz: int, rng=None):
             all_cls.append(it["cls"])
             if kpt_dims is not None:
                 all_kpts.append(_shift_kpts(it.get("keypoints"), len(b), kpt_dims, r, padw, padh))
+            if has_obb:
+                all_obbs.append(_shift_kpts(it.get("obb"), len(b), (4, 2), r, padw, padh))
             if has_segs:
                 segs = it.get("segments") or [None] * len(b)
                 all_segs.extend(sg * r + np.array([padw, padh], np.float32) if sg is not None else None for sg in segs)
@@ -273,13 +300,15 @@ def mosaic4(items, imgsz: int, rng=None):
     out = {"img": canvas, "bboxes": bboxes, "cls": cls, "shape": (2 * s, 2 * s)}
     if all_kpts:
         out["keypoints"] = np.concatenate(all_kpts)
+    if all_obbs:
+        out["obb"] = np.concatenate(all_obbs)
     if has_segs:
         out["segments"] = all_segs
     return out
 
 
 def _shift_kpts(kp, n: int, kpt_dims, r: float, padw: float, padh: float):
-    """A mosaic tile's keypoints scaled by r and shifted by the pads (invisible zeros for a tile without any)."""
+    """A mosaic tile's keypoints (or corners) scaled by r and shifted by the pads (zeros for a tile without any)."""
     kp = np.zeros((n, *kpt_dims), np.float32) if kp is None else kp.copy()
     kp[..., :2] *= r
     kp[..., 0] += padw
@@ -290,7 +319,7 @@ def _shift_kpts(kp, n: int, kpt_dims, r: float, padw: float, padh: float):
 def copy_paste(labels, donor, p=0.5, rng=None):
     """Box-level copy-paste: each donor box, with probability p, is blitted at a random
     place of this image unless it covers more than 30% of an existing box there; a pasted
-    box gets invisible keypoints where the image has keypoints."""
+    box gets invisible keypoints where the image has keypoints, and its own corners where it has corners."""
     rng = rng or random
     if p <= 0 or len(donor["bboxes"]) == 0:
         return labels
@@ -328,12 +357,19 @@ def copy_paste(labels, donor, p=0.5, rng=None):
     labels["cls"] = np.concatenate(new_cls).astype(np.float32)
     if labels.get("keypoints") is not None and n_new:
         labels["keypoints"] = np.concatenate([labels["keypoints"], np.zeros((n_new, *labels["keypoints"].shape[1:]), np.float32)])
+    if labels.get("obb") is not None and n_new:  # a pasted box is axis-aligned: its corners
+        labels["obb"] = np.concatenate([labels["obb"], _box_corners(labels["bboxes"][-n_new:])])
     if labels.get("segments") is not None and n_new:  # a pasted patch's polygon: its box's corners
         bb = labels["bboxes"][-n_new:]
         labels["segments"] = list(labels["segments"]) + [
             np.array([[b[0], b[1]], [b[2], b[1]], [b[2], b[3]], [b[0], b[3]]], np.float32) for b in bb
         ]
     return labels
+
+
+def _box_corners(b):
+    """xyxy boxes (n, 4) → their corners (n, 4, 2) f32, clockwise from the top left."""
+    return np.stack([b[:, [0, 1]], b[:, [2, 1]], b[:, [2, 3]], b[:, [0, 3]]], axis=1).astype(np.float32)
 
 
 def mixup(labels, other, rng=None):
@@ -348,6 +384,8 @@ def mixup(labels, other, rng=None):
         if ok is None:
             ok = np.zeros((len(other["bboxes"]), *labels["keypoints"].shape[1:]), np.float32)
         labels["keypoints"] = np.concatenate([labels["keypoints"], ok])
+    if labels.get("obb") is not None and other.get("obb") is not None:
+        labels["obb"] = np.concatenate([labels["obb"], other["obb"]])
     if labels.get("segments") is not None:
         labels["segments"] = list(labels["segments"]) + list(other.get("segments") or [None] * len(other["bboxes"]))
     return labels
@@ -398,7 +436,8 @@ def mosaic9(items, imgsz: int, rng=None):
     all_boxes, all_cls = [], []
     all_segs = [] if any(it.get("segments") for it in items) else None
     kpt_dims = next((it["keypoints"].shape[1:] for it in items[:9] if it.get("keypoints") is not None), None)
-    all_kpts = []
+    has_obb = any(it.get("obb") is not None for it in items[:9])
+    all_kpts, all_obbs = [], []
     hp = wp = h0 = w0 = 0
     for i, it in enumerate(items[:9]):
         img = it["img"]
@@ -436,6 +475,8 @@ def mosaic9(items, imgsz: int, rng=None):
             all_cls.append(it["cls"])
             if kpt_dims is not None:
                 all_kpts.append(_shift_kpts(it.get("keypoints"), len(it["bboxes"]), kpt_dims, r, off[0], off[1]))
+            if has_obb:
+                all_obbs.append(_shift_kpts(it.get("obb"), len(it["bboxes"]), (4, 2), r, off[0], off[1]))
             if all_segs is not None:
                 segs = it.get("segments") or [None] * len(it["bboxes"])
                 all_segs.extend(sg * r + off[:2] if sg is not None else None for sg in segs)
@@ -450,6 +491,8 @@ def mosaic9(items, imgsz: int, rng=None):
     }
     if all_kpts:
         out["keypoints"] = np.concatenate(all_kpts)
+    if all_obbs:
+        out["obb"] = np.concatenate(all_obbs)
     if all_segs is not None:
         out["segments"] = all_segs
     return out
@@ -496,6 +539,10 @@ def cutmix(labels, other, p: float = 1.0, beta: float = 1.0, num_areas: int = 3,
     labels["cls"] = np.concatenate([labels["cls"], other["cls"][take]])
     if labels.get("keypoints") is not None:
         labels["keypoints"] = np.concatenate([labels["keypoints"], np.zeros((len(take), *labels["keypoints"].shape[1:]), np.float32)])
+    if labels.get("obb") is not None:  # the donor's corners, else the adopted clipped boxes'
+        donor_obb = other.get("obb")
+        new_obb = donor_obb[take].copy() if donor_obb is not None and len(donor_obb) >= len(other["bboxes"]) else _box_corners(nb)
+        labels["obb"] = np.concatenate([labels["obb"], new_obb.astype(np.float32)])
     if labels.get("segments") is not None:
         donor_segs = other.get("segments")
         labels["segments"] = list(labels["segments"]) + [
@@ -619,6 +666,8 @@ class TrainTransforms:
                 kp = labels["keypoints"].copy()
                 kp[..., :2] = kp[..., :2] * ratio[0] + np.array([pad[0], pad[1]], np.float32)
                 labels["keypoints"] = kp
+            if labels.get("obb") is not None:
+                labels["obb"] = labels["obb"] * ratio[0] + np.array([pad[0], pad[1]], np.float32)
             if labels.get("segments"):
                 labels["segments"] = [sg * ratio[0] + np.array([pad[0], pad[1]], np.float32) if sg is not None else None
                                       for sg in labels["segments"]]
@@ -658,8 +707,8 @@ class TrainTransforms:
 
 
 class ValTransforms:
-    """Letterbox to (imgsz, imgsz) without upscaling; pixel xyxy boxes (and polygons and keypoints) scaled
-    and shifted; `ratio_pad` kept."""
+    """Letterbox to (imgsz, imgsz) without upscaling; pixel xyxy boxes (and polygons, keypoints and corners)
+    scaled and shifted; `ratio_pad` kept."""
 
     def __init__(self, imgsz: int, stride: int = 32):
         self.lb = LetterBox((imgsz, imgsz), scaleup=False, stride=stride)
@@ -678,4 +727,6 @@ class ValTransforms:
             kp = labels["keypoints"].copy()
             kp[..., :2] = kp[..., :2] * ratio[0] + np.array([pad[0], pad[1]], np.float32)
             out["keypoints"] = kp
+        if labels.get("obb") is not None:
+            out["obb"] = labels["obb"] * ratio[0] + np.array([pad[0], pad[1]], np.float32)
         return out

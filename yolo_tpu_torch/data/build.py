@@ -21,7 +21,7 @@ from yolo_tpu_torch.data.dataset import YOLODataset, collate_batch
 def build_yolo_dataset(cfg, img_path, data: dict, mode: str = "val", stride: int = 32) -> YOLODataset:
     """The dataset of a split from the settings and the dataset dict: augmented with the
     settings as `hyp` (and `fraction` applied) when `mode` is 'train', letterboxed otherwise;
-    the dict's `kpt_shape` and `flip_idx` for a pose dataset."""
+    the dict's `kpt_shape` and `flip_idx` for a pose dataset; the settings' `task` ('obb' reads DOTA rows)."""
     return YOLODataset(
         img_path,
         imgsz=cfg.imgsz if isinstance(cfg.imgsz, int) else max(cfg.imgsz),
@@ -34,6 +34,7 @@ def build_yolo_dataset(cfg, img_path, data: dict, mode: str = "val", stride: int
         names=data.get("names"),
         kpt_shape=data.get("kpt_shape"),
         flip_idx=data.get("flip_idx"),
+        task=getattr(cfg, "task", "detect") or "detect",
     )
 
 

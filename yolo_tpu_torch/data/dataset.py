@@ -9,7 +9,9 @@ turned into their boxes; the training augmentations warp the polygons) and, wher
 dataset yaml names a `kpt_shape` (K, ndim), pose rows (`cls cx cy w h` then K keypoints
 of `x y [v]`, normalized) are read; where a batch has polygons the collate draws their
 masks (the segment task), where it has keypoints it pads them to (B, N, K, ndim) (the
-pose task). The rotated boxes of the obb task are not ported.
+pose task). For the obb task (`task='obb'`) DOTA rows (`cls x1 y1 x2 y2 x3 y3 x4 y4`, the
+normalized corners) are read as their corners ('obb', the envelope their box), and the collate
+gives each box as normalized xywhr through cv2's `minAreaRect`.
 `cache='ram'` (or True) keeps each decoded image in memory after its first read
 and hands out copies (the augmentations write into the image).
 """
@@ -63,20 +65,28 @@ def img2label_path(img_path: str) -> str:
     return str(p.with_suffix(".txt"))
 
 
-def _parse_label_file(path: str, single_cls: bool, kpt_shape=None):
-    """→ (cls (n,), bboxes (n, 4) normalized xywh, segments, keypoints) of one label file, or None when
-    it is missing. `segments` lists each row's normalized polygon (None for a box row), or is None when
+def _parse_label_file(path: str, single_cls: bool, kpt_shape=None, obb: bool = False):
+    """→ (cls (n,), bboxes (n, 4) normalized xywh, segments, keypoints, corners) of one label file, or None
+    when it is missing. `segments` lists each row's normalized polygon (None for a box row), or is None when
     the file has no polygon row; the training augmentations warp polygons, not their boxes. With
     `kpt_shape` (K, ndim) a row of 5 + K · ndim numbers is a pose row: `keypoints` (n, K, ndim)
-    normalized, zero for the file's other rows, or None when it has no pose row."""
+    normalized, zero for the file's other rows, or None when it has no pose row. With `obb` a row of 9
+    numbers is a DOTA row: its box is its corners' envelope, and `corners` (m, 4, 2) stacks the DOTA
+    rows' normalized corners (None when there is none)."""
     if not Path(path).exists():
         return None
     nk = kpt_shape[0] * kpt_shape[1] if kpt_shape else 0
-    cls, boxes, segments, kpts = [], [], [], []
+    cls, boxes, segments, kpts, obbs = [], [], [], [], []
     for line in Path(path).read_text().splitlines():
         parts = line.split()
         kp = None
-        if nk and len(parts) == 5 + nk:  # cls cx cy w h, then K keypoints of x y [v]
+        if obb and len(parts) == 9:  # cls, then the four corners
+            corners = np.array([float(x) for x in parts[1:]], np.float32).reshape(4, 2)
+            (x1, y1), (x2, y2) = corners.min(0), corners.max(0)
+            boxes.append([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1])
+            segments.append(None)
+            obbs.append(corners)
+        elif nk and len(parts) == 5 + nk:  # cls cx cy w h, then K keypoints of x y [v]
             boxes.append([float(x) for x in parts[1:5]])
             segments.append(None)
             kp = np.array([float(x) for x in parts[5:]], np.float32).reshape(kpt_shape)
@@ -96,17 +106,19 @@ def _parse_label_file(path: str, single_cls: bool, kpt_shape=None):
     keypoints = None
     if any(k is not None for k in kpts):
         keypoints = np.stack([np.zeros(kpt_shape, np.float32) if k is None else k for k in kpts])
-    return np.array(cls, np.float32), np.array(boxes, np.float32).reshape(-1, 4), segments, keypoints
+    corners = np.stack(obbs) if obbs else None
+    return np.array(cls, np.float32), np.array(boxes, np.float32).reshape(-1, 4), segments, keypoints, corners
 
 
 class YOLODataset:
     """Detection dataset over a directory, a glob or a list file of images: letterboxed for
     validation, or augmented for training when `augment` is set and `hyp` holds the settings.
     `kpt_shape` reads pose rows; `flip_idx` (the dataset yaml's) swaps left and right keypoints
-    on a horizontal flip."""
+    on a horizontal flip; `task='obb'` reads DOTA rows."""
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = False, hyp=None, stride: int = 32,
-                 single_cls: bool = False, fraction: float = 1.0, names=None, cache=None, kpt_shape=None, flip_idx=None):
+                 single_cls: bool = False, fraction: float = 1.0, names=None, cache=None, kpt_shape=None, flip_idx=None,
+                 task: str = "detect"):
         from yolo_tpu_torch.data.augment import TrainTransforms, ValTransforms
 
         self.img_path = img_path
@@ -116,6 +128,7 @@ class YOLODataset:
         self.names = names or {}
         self.kpt_shape = tuple(kpt_shape) if kpt_shape else None
         self.flip_idx = list(flip_idx) if flip_idx else None
+        self.task = task
         self.im_files = self._list_images(img_path, fraction)
         if not self.im_files:
             raise FileNotFoundError(f"no images found in {img_path}")
@@ -138,9 +151,9 @@ class YOLODataset:
 
     def _load_labels(self, cache: bool = True) -> list[dict]:
         """Parse the label files, or read them from the JSON cache beside the first
-        image, keyed by the file lists, the label files' sizes and times, `single_cls`, `kpt_shape`
-        and the format (it holds the polygons since the training augmentations need them, and the
-        keypoints). The file is the port's own, written and read by the port alone."""
+        image, keyed by the file lists, the label files' sizes and times, `single_cls`, `kpt_shape`,
+        the task and the format (it holds the polygons since the training augmentations need them, the
+        keypoints and the corners). The file is the port's own, written and read by the port alone."""
         label_files = [img2label_path(f) for f in self.im_files]
 
         def sig(p):
@@ -152,7 +165,7 @@ class YOLODataset:
 
         kpt = self.kpt_shape
         key = hashlib.sha1(("".join(self.im_files + label_files) + ";".join(map(sig, label_files))
-                            + f":sc{self.single_cls}:polygons:kpt{kpt}").encode())
+                            + f":sc{self.single_cls}:polygons:kpt{kpt}:{self.task}").encode())
         cache_path = Path(self.im_files[0]).parent / f".labels_{key.hexdigest()[:16]}.torch.cache.json"
         if cache and cache_path.exists():
             try:
@@ -160,17 +173,18 @@ class YOLODataset:
                          "segments": [None if sg is None else np.array(sg, np.float32).reshape(-1, 2) for sg in r["segments"]]
                          if r.get("segments") else None,
                          "keypoints": np.array(r["keypoints"], np.float32).reshape(-1, *kpt)
-                         if kpt and r.get("keypoints") is not None else None}
+                         if kpt and r.get("keypoints") is not None else None,
+                         "obb": np.array(r["obb"], np.float32).reshape(-1, 4, 2) if r.get("obb") is not None else None}
                         for r in json.loads(cache_path.read_text())]
             except (ValueError, KeyError, TypeError):
                 pass  # an unreadable cache is parsed again and rewritten
         labels, n_missing = [], 0
         for lf in label_files:
-            parsed = _parse_label_file(lf, self.single_cls, kpt)
+            parsed = _parse_label_file(lf, self.single_cls, kpt, self.task == "obb")
             if parsed is None:
                 n_missing += 1
-                parsed = np.zeros(0, np.float32), np.zeros((0, 4), np.float32), None, None
-            labels.append(dict(zip(("cls", "bboxes", "segments", "keypoints"), parsed)))
+                parsed = np.zeros(0, np.float32), np.zeros((0, 4), np.float32), None, None, None
+            labels.append(dict(zip(("cls", "bboxes", "segments", "keypoints", "obb"), parsed)))
         if n_missing:
             LOGGER.warning(f"{n_missing}/{len(label_files)} label files missing (treated as background)")
         if cache:
@@ -178,7 +192,8 @@ class YOLODataset:
                 cache_path.write_text(json.dumps([
                     {"cls": lb["cls"].tolist(), "bboxes": lb["bboxes"].tolist(),
                      "segments": [None if sg is None else sg.tolist() for sg in lb["segments"]] if lb["segments"] else None,
-                     "keypoints": None if lb["keypoints"] is None else lb["keypoints"].tolist()}
+                     "keypoints": None if lb["keypoints"] is None else lb["keypoints"].tolist(),
+                     "obb": None if lb["obb"] is None else lb["obb"].tolist()}
                     for lb in labels]))
             except OSError:
                 pass  # a read-only dataset: no cache
@@ -188,8 +203,8 @@ class YOLODataset:
         return len(self.im_files)
 
     def load_raw(self, i: int) -> dict:
-        """Image i (BGR, as decoded) with its labels as pixel xyxy boxes (and polygons and keypoints,
-        where the label file has them, in pixels), before any transform."""
+        """Image i (BGR, as decoded) with its labels as pixel xyxy boxes (and polygons, keypoints and
+        corners, where the label file has them, in pixels), before any transform."""
         from yolo_tpu_torch.ops.boxes import xywhn2xyxy
         from yolo_tpu_torch.utils.files import imread
 
@@ -213,6 +228,8 @@ class YOLODataset:
             kp[..., 0] *= w
             kp[..., 1] *= h
             out["keypoints"] = kp
+        if lb.get("obb") is not None:
+            out["obb"] = lb["obb"] * np.array([w, h], np.float32)
         return out
 
     def __getitem__(self, i: int) -> dict:
@@ -228,6 +245,8 @@ def collate_batch(samples: list[dict], max_boxes: int = 64, overlap: bool = True
     """Stack letterboxed samples into fixed-shape arrays: img (B, H, W, 3) uint8 RGB,
     cls (B, N), bboxes (B, N, 4) normalized xywh, mask_gt (B, N), and `meta`, a list
     of {im_file, shape, ratio_pad}. Labels beyond `max_boxes` are dropped, with a warning.
+    Where a sample has corners (the obb task), bboxes is (B, N, 5) instead: normalized xywhr from
+    `xyxyxyxy2xywhr`, the angle in radians (a batch of background images only stays (B, N, 4)).
 
     Where a sample has keypoints, `keypoints` too: (B, N, K, ndim) f32, x and y normalized by the image's
     size like the boxes, the visibility as it is, zero on the padded rows and on samples without any.
@@ -237,7 +256,7 @@ def collate_batch(samples: list[dict], max_boxes: int = 64, overlap: bool = True
     `overlap=True` gives one f32 index map (B, h, w) a batch, instance j drawn as j + 1, the largest
     contour area first (a stable sort, so ties keep the label order) so a smaller instance keeps its
     pixels where it overlaps a larger one; `overlap=False` gives per-instance uint8 masks (B, N, h, w)."""
-    from yolo_tpu_torch.ops.boxes import xyxy2xywhn
+    from yolo_tpu_torch.ops.boxes import xyxy2xywhn, xyxyxyxy2xywhr
 
     B = len(samples)
     H, W = samples[0]["img"].shape[:2]
@@ -245,9 +264,10 @@ def collate_batch(samples: list[dict], max_boxes: int = 64, overlap: bool = True
     if worst > max_boxes:
         LOGGER.warning(f"collate: an image carries {worst} labels but the static capacity is {max_boxes}: "
                        f"extra labels are dropped (raise max_boxes in build_dataloader to keep them)")
+    is_obb = any(s.get("obb") is not None for s in samples)
     imgs = np.zeros((B, H, W, 3), np.uint8)
     cls = np.zeros((B, max_boxes), np.float32)
-    bboxes = np.zeros((B, max_boxes, 4), np.float32)
+    bboxes = np.zeros((B, max_boxes, 5 if is_obb else 4), np.float32)
     mask = np.zeros((B, max_boxes), np.float32)
     meta = []
     for i, s in enumerate(samples):
@@ -257,7 +277,13 @@ def collate_batch(samples: list[dict], max_boxes: int = 64, overlap: bool = True
         n = min(len(s["cls"]), max_boxes)
         if n:
             cls[i, :n] = s["cls"][:n]
-            bboxes[i, :n] = np.asarray(xyxy2xywhn(s["bboxes"][:n], w=W, h=H), np.float32)
+            if is_obb:
+                xywhr = xyxyxyxy2xywhr(s["obb"][:n])
+                xywhr[:, [0, 2]] /= W
+                xywhr[:, [1, 3]] /= H
+                bboxes[i, :n] = xywhr
+            else:
+                bboxes[i, :n] = np.asarray(xyxy2xywhn(s["bboxes"][:n], w=W, h=H), np.float32)
             mask[i, :n] = 1.0
         meta.append({"im_file": s.get("im_file"), "shape": s.get("shape"), "ratio_pad": s.get("ratio_pad")})
     batch = {"img": imgs, "cls": cls, "bboxes": bboxes, "mask_gt": mask, "meta": meta}

@@ -1,9 +1,10 @@
-"""YOLO model facade of the detect, segment, pose and classify tasks (counterpart of yolo_tpu/engine/model.py).
+"""YOLO model facade of the detect, segment, pose, obb and classify tasks (counterpart of yolo_tpu/engine/model.py).
 
     YOLO("yolov8-small.yaml")      # fresh DetectionModel, seeded random weights
     YOLO("yolov8n-cls.yaml")       # fresh ClassificationModel (a name with '-cls', or task="classify")
     YOLO("yolov8n-seg.yaml")       # fresh SegmentationModel (a name with '-seg', or task="segment")
     YOLO("yolov8n-pose.yaml")      # fresh PoseModel (a name with '-pose', or task="pose")
+    YOLO("yolov8n-obb.yaml")       # fresh OBBModel (a name with '-obb', or task="obb")
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
     YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
@@ -24,10 +25,13 @@ top1 / top5 / fitness and trains on a folder-per-class dataset (engine/classify.
 YOLO predicts Results with `masks` (engine/segment_predictor.py), validates to box and `mask_`
 metrics and trains on polygon labels (the detect trainer with the segmentation loss). A pose
 YOLO predicts Results with `keypoints` (engine/pose_predictor.py), validates to box and `pose_`
-(OKS) metrics and trains on keypoint labels (the detect trainer with the pose loss). Both track
-(their masks or keypoints follow their boxes); their `benchmark`, `tune` and ensembles raise
-NotImplementedError (ROADMAP item 5). Runs on the CUDA card unless `device="cpu"` is passed.
-Orbax checkpoints are not ported, nor the orbax, stablehlo and tflite exports, nor the obb task.
+(OKS) metrics and trains on keypoint labels (the detect trainer with the pose loss). An obb YOLO
+predicts Results with `obb` (oriented boxes, engine/obb_predictor.py), validates to box metrics on
+probiou and trains on DOTA corner labels (the detect trainer with the rotated loss). All three
+track (their masks or keypoints follow their boxes; oriented boxes keep their angle); their
+`benchmark`, `tune` and ensembles raise NotImplementedError (ROADMAP item 2). Runs on the CUDA
+card unless `device="cpu"` is passed. Orbax checkpoints are not ported, nor the orbax, stablehlo
+and tflite exports.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from yolo_tpu_torch.nn.tasks import (
     ClassificationModel,
     DetectionModel,
     Ensemble,
+    OBBModel,
     PoseModel,
     SegmentationModel,
     fuse,
@@ -52,8 +57,9 @@ from yolo_tpu_torch.nn.tasks import (
 )
 from yolo_tpu_torch.utils import LOGGER
 
-PORTED_TASKS = ("detect", "segment", "pose", "classify")
-MODEL_CLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "classify": ClassificationModel}
+PORTED_TASKS = ("detect", "segment", "pose", "obb", "classify")
+MODEL_CLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel,
+               "classify": ClassificationModel}
 
 
 def _task_of(model: str, task: str | None) -> str:
@@ -62,12 +68,12 @@ def _task_of(model: str, task: str | None) -> str:
     task = task or ("classify" if "-cls" in model else "segment" if "-seg" in model else "pose" if "-pose" in model
                     else "obb" if "-obb" in model else "detect")
     if task not in PORTED_TASKS:
-        raise NotImplementedError(f"the {task} task is not ported (only detect, segment, pose and classify)")
+        raise NotImplementedError(f"the {task} task is not ported (only detect, segment, pose, obb and classify)")
     return task
 
 
 class YOLO:
-    """User-facing model handle: a DetectionModel (or its segment or pose subclass) or a
+    """User-facing model handle: a DetectionModel (or its segment, pose or obb subclass) or a
     ClassificationModel, its parameter tree and a lazily built predictor."""
 
     def __init__(self, model="yolov8n.yaml", task: str | None = None, device=None):
@@ -123,7 +129,7 @@ class YOLO:
         members = [YOLO(w, device=device) for w in weights]
         for m in members:
             if m.task in EXTRA_OUTPUT_TASKS:
-                raise NotImplementedError(f"an ensemble of {m.task} models is not ported (ROADMAP item 5)")
+                raise NotImplementedError(f"an ensemble of {m.task} models is not ported (ROADMAP item 2)")
         self.device = members[0].device
         self.overrides = {"model": ",".join(weights), "task": self.task}
         self.model = Ensemble([m.model for m in members])
@@ -195,6 +201,8 @@ class YOLO:
                 from yolo_tpu_torch.engine.segment_predictor import SegmentationPredictor as predictor
             elif predictor is None and self.task == "pose":
                 from yolo_tpu_torch.engine.pose_predictor import PosePredictor as predictor
+            elif predictor is None and self.task == "obb":
+                from yolo_tpu_torch.engine.obb_predictor import OBBPredictor as predictor
             elif predictor is None:
                 from yolo_tpu_torch.engine.predictor import BasePredictor as predictor
             self.predictor = predictor(
@@ -220,7 +228,7 @@ class YOLO:
 
     def _refuse_extra_outputs(self, what: str) -> None:
         if self.task in EXTRA_OUTPUT_TASKS:
-            raise NotImplementedError(f"YOLO.{what} with a {self.task} model is not ported (ROADMAP item 5)")
+            raise NotImplementedError(f"YOLO.{what} with a {self.task} model is not ported (ROADMAP item 2)")
 
     def _require_local(self, mode: str) -> None:
         if self.remote is not None:

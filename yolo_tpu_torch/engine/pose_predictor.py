@@ -24,7 +24,7 @@ class PosePredictor(BasePredictor):
 
     def set_params(self, params) -> None:
         if self.args.int8:
-            raise NotImplementedError("int8 inference of a pose model is not ported (ROADMAP item 5)")
+            raise NotImplementedError("int8 inference of a pose model is not ported (ROADMAP item 2)")
         super().set_params(params)
 
     @torch.no_grad()

@@ -30,7 +30,7 @@ class SegmentationPredictor(BasePredictor):
 
     def set_params(self, params) -> None:
         if self.args.int8:
-            raise NotImplementedError("int8 inference of a segment model is not ported (ROADMAP item 5)")
+            raise NotImplementedError("int8 inference of a segment model is not ported (ROADMAP item 2)")
         super().set_params(params)
 
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Detection trainer, and the segment and pose tasks' (counterpart of yolo_tpu/engine/trainer.py DetectionTrainer).
+"""Detection trainer, and the segment, pose and obb tasks' (counterpart of yolo_tpu/engine/trainer.py DetectionTrainer).
 
 One step: upload the uint8 batch, /255 in the compute dtype (bf16 with `amp`,
 else f32; no fp16 and no loss scaler, as in the JAX package), the train-form
@@ -33,8 +33,9 @@ for batches that carry masks, and `SegmentationValidator` each epoch, as in the 
 A pose model trains with `v8PoseLoss` (components box / pose / kobj / cls / dfl) on the loader's
 keypoints and validates with `PoseValidator`; a dataset whose `kpt_shape` differs from the model
 yaml's rebuilds the model at the dataset's (the tensors whose shape survives kept when pretrained).
-Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 7)
-and the obb task's trainer.
+An obb model trains with `v8OBBLoss` (components box / cls / dfl) on DOTA rows collated as
+xywhr, and validates with `OBBValidator`, as in the JAX trainer.
+Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -62,11 +63,12 @@ from yolo_tpu_torch.nn.tasks import (
 )
 from yolo_tpu_torch.utils import LOGGER, yaml_save
 from yolo_tpu_torch.utils.callbacks import add_integration_callbacks, default_callbacks, run_callbacks
-from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8PoseLoss, v8SegmentationLoss
+from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8OBBLoss, v8PoseLoss, v8SegmentationLoss
 from yolo_tpu_torch.utils.optim import apply_bn_stats, build_optimizer
 
-COMPONENTS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl")}
-LOSSES = {"detect": v8DetectionLoss, "segment": v8SegmentationLoss, "pose": v8PoseLoss}
+COMPONENTS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl"),
+              "obb": ("box", "cls", "dfl")}
+LOSSES = {"detect": v8DetectionLoss, "segment": v8SegmentationLoss, "pose": v8PoseLoss, "obb": v8OBBLoss}
 
 
 class EarlyStopping:
@@ -156,7 +158,8 @@ class DetectionTrainer:
             self.model = DetectionModel(self.args.model or "yolov8n.yaml", nc=nc, device=self.device)
             self.params = self.model.init(self.args.seed)
         if getattr(self.model, "task", "detect") not in COMPONENTS:
-            raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect, segment and pose)")
+            raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect, segment, pose and obb)")
+        self.args.task = self.model.task  # the datasets read the task's label rows (DOTA rows for obb)
         if isinstance(self.args.pretrained, str):  # initialise from a checkpoint's weights, shape by shape
             from yolo_tpu_torch.engine.exporter import load_npz
 
@@ -291,6 +294,8 @@ class DetectionTrainer:
                 targets["masks"] = torch.zeros((b, side // r, side // r))
             if self.task == "pose":
                 targets["keypoints"] = torch.zeros((b, n, *self.model.head.kpt_shape))
+            if self.task == "obb":
+                targets["bboxes"] = torch.cat([targets["bboxes"], torch.zeros((b, n, 1))], -1)
             img = torch.zeros((b, side, side, 3), dtype=torch.uint8, device=self.device)
             total, _ = self.loss_fn(self._features(img), {k: v.to(self.device) for k, v in targets.items()})
             total.backward()
@@ -527,7 +532,7 @@ class DetectionTrainer:
         return self.metrics
 
     def validate(self, params: dict) -> dict:
-        """The port's validator of the model's task (DetectionValidator, SegmentationValidator, PoseValidator)
+        """The port's validator of the model's task (DetectionValidator, SegmentationValidator, PoseValidator, OBBValidator)
         on a parameter tree (the EMA's) with the run's settings."""
         from yolo_tpu_torch.engine.validator import validator_for
 

@@ -18,8 +18,10 @@ ground-truth masks of the collate, their IoUs computed on the device and copied 
 with the detections. `PoseValidator` adds the keypoint metrics (`pose_`-prefixed keys; fitness
 the sum of both): each kept detection's decoded keypoints ride back as extra columns of the
 packed detections and are matched on the host by object keypoint similarity, each gt box's
-area × 0.53 its scale. The classify task's validator is engine/classify.py; the obb task's is
-not ported.
+area × 0.53 its scale. `OBBValidator` scores oriented boxes: the rotated NMS (probiou, plain
+torch) on the model's xywhr predictions, then probiou matching against the labels' xywhr
+scaled to the letterboxed image (no confusion matrix, no json rows, as in the JAX package).
+The classify task's validator is engine/classify.py.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn.tasks import install_params
 from yolo_tpu_torch.ops.boxes import scale_boxes, xywhn2xyxy, xyxy2xywh
 from yolo_tpu_torch.ops.masks import process_mask
-from yolo_tpu_torch.ops.nms import non_max_suppression
+from yolo_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_rotated
 from yolo_tpu_torch.utils import LOGGER
 from yolo_tpu_torch.utils.metrics import (
     OKS_SIGMA,
@@ -52,8 +54,8 @@ from yolo_tpu_torch.utils.metrics import (
 
 
 def validator_for(model):
-    """The validator class of a model's task: detect's, segment's, pose's or classify's; the other tasks
-    raise NotImplementedError."""
+    """The validator class of a model's task: detect's, segment's, pose's, obb's or classify's; the other
+    tasks raise NotImplementedError."""
     task = "rtdetr" if getattr(model, "is_rtdetr", False) else getattr(model, "task", "detect")
     if task == "classify":
         from yolo_tpu_torch.engine.classify import ClassificationValidator
@@ -63,8 +65,10 @@ def validator_for(model):
         return SegmentationValidator
     if task == "pose":
         return PoseValidator
+    if task == "obb":
+        return OBBValidator
     if task != "detect":
-        raise NotImplementedError(f"validation of the {task} task is not ported (only detect, segment, pose and classify)")
+        raise NotImplementedError(f"validation of the {task} task is not ported (only detect, segment, pose, obb and classify)")
     return DetectionValidator
 
 
@@ -85,14 +89,19 @@ class DetectionValidator:
         # for the copy back, the host matching
         self.timings: list[dict] = []
 
+    @staticmethod
+    def _images(imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """A uint8 RGB batch on the device (uploaded from pinned memory to a card) in [0, 1] in `dtype`."""
+        x = torch.from_numpy(imgs)
+        if device.type == "cuda":
+            x = x.pin_memory()
+        return x.to(device, non_blocking=True).to(dtype) / 255.0
+
     @torch.no_grad()
     def _device_pass(self, model, imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
         """One uint8 RGB batch → (B, max_det, 7) f32 on the device: xyxy box, score, class, valid."""
         a = self.args
-        x = torch.from_numpy(imgs)
-        if device.type == "cuda":
-            x = x.pin_memory()
-        x = x.to(device, non_blocking=True).to(dtype) / 255.0
+        x = self._images(imgs, device, dtype)
         out = non_max_suppression(model.predict(x, plain=self.plain), conf_thres=float(a.conf), iou_thres=float(a.iou),
                                   max_det=int(a.max_det), plain=self.plain)
         cols = [out["boxes"], out["scores"][..., None], out["cls"][..., None], out["valid"][..., None]]
@@ -224,10 +233,7 @@ class SegmentationValidator(DetectionValidator):
         """→ (B, max_det, 7 + N): the detect columns, then the mask IoU of each slot with each of the
         batch's N ground-truth rows (zero without polygon labels)."""
         a = self.args
-        x = torch.from_numpy(batch["img"])
-        if device.type == "cuda":
-            x = x.pin_memory()
-        x = x.to(device, non_blocking=True).to(dtype) / 255.0
+        x = self._images(batch["img"], device, dtype)
         preds, protos = model.predict(x, plain=self.plain)
         out = non_max_suppression(preds, conf_thres=float(a.conf), iou_thres=float(a.iou), max_det=int(a.max_det),
                                   nc=model.nc, plain=self.plain)
@@ -288,10 +294,7 @@ class PoseValidator(DetectionValidator):
     def _device_pass(self, model, imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
         """→ (B, max_det, 7 + K · ndim): the detect columns, then each slot's keypoints."""
         a = self.args
-        x = torch.from_numpy(imgs)
-        if device.type == "cuda":
-            x = x.pin_memory()
-        x = x.to(device, non_blocking=True).to(dtype) / 255.0
+        x = self._images(imgs, device, dtype)
         out = non_max_suppression(model.predict(x, plain=self.plain), conf_thres=float(a.conf), iou_thres=float(a.iou),
                                   max_det=int(a.max_det), nc=model.nc, plain=self.plain)
         cols = [out["boxes"], out["scores"][..., None], out["cls"][..., None], out["valid"][..., None], out["extra"]]
@@ -322,3 +325,38 @@ class PoseValidator(DetectionValidator):
         results.update({f"pose_{k}": v for k, v in rp.items()})
         results["fitness"] = rb.get("fitness", 0.0) + rp.get("fitness", 0.0)
         return results
+
+
+class OBBValidator(DetectionValidator):
+    """Box mAP of an obb model on probiou (JAX OBBValidator): the dataset reads DOTA rows, the device pass runs the
+    rotated NMS at `conf`, `iou` and `max_det` (no `classes`, not agnostic), and on the host each image's kept xywhr
+    boxes are matched by probiou to its labels' xywhr, scaled by (W, H, W, H, 1) to the letterboxed image (a batch of
+    background images collates as (N, 4), padded with a zero angle)."""
+
+    def __init__(self, args: dict | None = None, data: dict | None = None):
+        super().__init__(args, data)
+        self.args.task = "obb"
+
+    @torch.no_grad()
+    def _device_pass(self, model, imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """→ (B, max_det, 8): xywhr box, score, class, valid."""
+        a = self.args
+        x = self._images(imgs, device, dtype)
+        out = non_max_suppression_rotated(model.predict(x, plain=self.plain), conf_thres=float(a.conf), iou_thres=float(a.iou),
+                                          max_det=int(a.max_det))
+        cols = [out["boxes"], out["scores"][..., None], out["cls"][..., None], out["valid"][..., None]]
+        return torch.cat([c.to(torch.float32) for c in cols], -1)
+
+    def _update(self, batch: dict, out: np.ndarray, metrics: DetMetrics, cm: ConfusionMatrix, cat_map) -> int:
+        H, W = batch["img"].shape[1:3]
+        for i in range(len(batch["meta"])):
+            valid = out[i, :, 7] > 0
+            m = batch["mask_gt"][i] > 0
+            gt = batch["bboxes"][i][m]
+            if gt.shape[-1] == 4:
+                gt = np.concatenate([gt, np.zeros((len(gt), 1), np.float32)], -1)
+            gt_cls = batch["cls"][i][m]
+            pcls = out[i, valid, 6]
+            tp = match_predictions(out[i, valid, :5], pcls, gt * np.array([W, H, W, H, 1.0], np.float32), gt_cls, self.iou_thresholds)
+            metrics.update(tp, out[i, valid, 5], pcls, gt_cls)
+        return len(batch["meta"])

@@ -1,10 +1,10 @@
 """The YOLO modules of the detect+track main path, as PyTorch modules.
 
 Counterpart of yolo_tpu/nn/modules.py for the blocks that yolov8-small (P2),
-yolov8n, yolov8n-cls, yolov8n-seg and yolov8n-pose use: ConvBNAct, Conv2d, Bottleneck,
+yolov8n, yolov8n-cls, yolov8n-seg, yolov8n-pose and yolov8n-obb use: ConvBNAct, Conv2d, Bottleneck,
 C2f (with the neck's Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample,
 the Detect head with its DFL decode, the Classify head, the Segment head with its
-Proto and ConvTranspose, and the Pose head.
+Proto and ConvTranspose, the Pose head and the OBB head.
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -29,7 +29,7 @@ Proto and ConvTranspose, and the Pose head.
   their plain PyTorch twins instead, the reference the kernels are held
   against on the card.
   Every other conv (stem, stride-2 convs, SPPF, the Segment head's coefficient
-  branch and prototypes, the Pose head's keypoint branch) is torch.nn.functional.conv2d (conv_transpose2d for
+  branch and prototypes, the Pose head's keypoint branch, the OBB head's angle branch) is torch.nn.functional.conv2d (conv_transpose2d for
   Proto's upsample), as the JAX package leaves those to XLA.
 - A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
   instead, and may emit a `QTensor`; the blocks then walk their convs module by module
@@ -400,6 +400,27 @@ def dfl_project(box: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     return (e * proj.float()).sum(-1) / e.sum(-1)
 
 
+def _branch_init(branch, rng) -> dict:
+    """The JAX draws of a head's extra per-level branch (`cv4`: 3x3, 3x3, 1x1 a level), level by level."""
+    return {str(l): {str(j): m.init(rng) for j, m in enumerate(level)} for l, level in enumerate(branch)}
+
+
+def _branch_load(branch, p: dict, device, dtype) -> None:
+    for l, level in enumerate(branch):
+        for j, m in enumerate(level):
+            m.load_jax(p[str(l)][str(j)], device, dtype)
+
+
+def _branch_walk(branch, xs, train: bool) -> list:
+    """Each level's input through its branch, in the train form or the inference form → per-level NHWC maps."""
+    outs = []
+    for level, x in zip(branch, xs):
+        for m in level:
+            x = m.forward_train(x) if train else m(x)
+        outs.append(x)
+    return outs
+
+
 class Detect(nn.Module):
     """Anchor-free detect head with DFL box regression (JAX Detect, legacy v8 branches)."""
 
@@ -507,15 +528,20 @@ class Detect(nn.Module):
         """DFL decode of the raw per-level outputs → (B, 4 + nc, A): px xywh, then sigmoid scores."""
         return self.pack(*self.decode_parts(outs))
 
-    def decode_from_inputs(self, xs, plain: bool = False):
-        """Both branches + DFL per level from the head inputs (NHWC), then the
-        anchor decode: (boxes (B, A, 4) px xywh f32, scores (B, A, nc) f32)."""
+    def head_levels(self, xs, plain: bool = False):
+        """Both branches + DFL per level from the head inputs (NHWC) through the head kernel (`plain`:
+        its twin) → (dists [(B, HW, 4) f32], scores [(B, HW, nc) f32 sigmoid]), level by level."""
         fn = cuda_head.head_level_plain if plain else cuda_head.fused_head_level
         dists, clss = [], []
         for l, x in enumerate(xs):
             d, c = fn(x, self.kernel_weights(l))
             dists.append(d)
             clss.append(torch.sigmoid(c.float()))
+        return dists, clss
+
+    def decode_from_inputs(self, xs, plain: bool = False):
+        """`head_levels`, then the anchor decode: (boxes (B, A, 4) px xywh f32, scores (B, A, nc) f32)."""
+        dists, clss = self.head_levels(xs, plain)
         return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])
 
     def decode_from_inputs_cm(self, xs, plain: bool = False):
@@ -642,32 +668,22 @@ class Segment(Detect):
         """Detect's draws and bias priors, then the proto's (cv1, upsample, cv2, cv3), then cv4 level by level."""
         p = super().init(rng)
         p["proto"] = self.proto.init(rng)
-        p["cv4"] = {str(l): {str(j): self.cv4[l][j].init(rng) for j in range(3)} for l in range(self.nl)}
+        p["cv4"] = _branch_init(self.cv4, rng)
         return p
 
     def load_jax(self, p: dict, device, dtype) -> None:
         super().load_jax(p, device, dtype)
         self.proto.load_jax(p["proto"], device, dtype)
-        for l in range(self.nl):
-            for j in range(3):
-                self.cv4[l][j].load_jax(p["cv4"][str(l)][str(j)], device, dtype)
-
-    def _coefs(self, xs, train: bool):
-        outs = []
-        for l, x in enumerate(xs):
-            for m in self.cv4[l]:
-                x = m.forward_train(x) if train else m(x)
-            outs.append(x)
-        return outs
+        _branch_load(self.cv4, p["cv4"], device, dtype)
 
     def forward_train(self, xs):
         """(per-level raw box + class outputs, per-level coefficients (B, H, W, nm), protos (B, h, w, nm))
         through the train form: what `v8SegmentationLoss` takes."""
-        return super().forward_train(xs), self._coefs(xs, True), self.proto.forward_train(xs[0])
+        return super().forward_train(xs), _branch_walk(self.cv4, xs, True), self.proto.forward_train(xs[0])
 
     def coefficients(self, xs) -> torch.Tensor:
         """The mask coefficients of every anchor (B, A, nm), levels in order, in the compute dtype."""
-        return torch.cat([m.reshape(m.shape[0], -1, self.nm) for m in self._coefs(xs, False)], 1)
+        return torch.cat([m.reshape(m.shape[0], -1, self.nm) for m in _branch_walk(self.cv4, xs, False)], 1)
 
 
 class Pose(Detect):
@@ -685,34 +701,24 @@ class Pose(Detect):
     def init(self, rng) -> dict:
         """Detect's draws and bias priors, then cv4 level by level."""
         p = super().init(rng)
-        p["cv4"] = {str(l): {str(j): self.cv4[l][j].init(rng) for j in range(3)} for l in range(self.nl)}
+        p["cv4"] = _branch_init(self.cv4, rng)
         return p
 
     def load_jax(self, p: dict, device, dtype) -> None:
         super().load_jax(p, device, dtype)
-        for l in range(self.nl):
-            for j in range(3):
-                self.cv4[l][j].load_jax(p["cv4"][str(l)][str(j)], device, dtype)
-
-    def _raw_kpts(self, xs, train: bool):
-        outs = []
-        for l, x in enumerate(xs):
-            for m in self.cv4[l]:
-                x = m.forward_train(x) if train else m(x)
-            outs.append(x)
-        return outs
+        _branch_load(self.cv4, p["cv4"], device, dtype)
 
     def forward_train(self, xs):
         """(per-level raw box + class outputs, per-level raw keypoints (B, H, W, nk)) through the train form:
         what `v8PoseLoss` takes."""
-        return super().forward_train(xs), self._raw_kpts(xs, True)
+        return super().forward_train(xs), _branch_walk(self.cv4, xs, True)
 
     def keypoints(self, xs) -> torch.Tensor:
         """The decoded keypoints of every anchor (B, A, nk) in f32 (JAX `decode_with_kpts`): x, y =
         (raw · 2 + anchor − 0.5) · stride in pixels, the visibility's sigmoid where ndim is 3."""
         from yolo_tpu_torch.ops.anchors import make_anchors
 
-        raw = self._raw_kpts(xs, False)
+        raw = _branch_walk(self.cv4, xs, False)
         B = raw[0].shape[0]
         K, ndim = self.kpt_shape
         anchors, strides = make_anchors([(x.shape[1], x.shape[2]) for x in xs], self.stride, 0.5, device=raw[0].device)
@@ -721,6 +727,49 @@ class Pose(Detect):
         yk = (y[..., 1] * 2.0 + (anchors[None, :, None, 1] - 0.5)) * strides[None, :, None, 0]
         parts = [xk[..., None], yk[..., None]] + ([torch.sigmoid(y[..., 2:3])] if ndim == 3 else [])
         return torch.cat(parts, -1).reshape(B, -1, self.nk)
+
+
+class OBB(Detect):
+    """Detect with oriented boxes (JAX OBB). The box and class branches are the Detect head's (the head
+    kernel at inference); the angle branch `cv4` (3x3, 3x3, 1x1 to ne a level) is plain torch convs, as
+    the JAX package computes it outside any kernel."""
+
+    def __init__(self, nc: int = 80, ne: int = 1, ch: tuple = ()):
+        super().__init__(nc, ch)
+        self.ne = ne
+        c4 = max(ch[0] // 4, ne)
+        self.cv4 = nn.ModuleList(nn.ModuleList([ConvBNAct(x, c4, 3), ConvBNAct(c4, c4, 3), Conv2d(c4, ne, 1)]) for x in ch)
+
+    def init(self, rng) -> dict:
+        """Detect's draws and bias priors, then cv4 level by level."""
+        p = super().init(rng)
+        p["cv4"] = _branch_init(self.cv4, rng)
+        return p
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        super().load_jax(p, device, dtype)
+        _branch_load(self.cv4, p["cv4"], device, dtype)
+
+    def forward_train(self, xs):
+        """(per-level raw box + class outputs, per-level raw angles (B, H, W, ne)) through the train form:
+        what `v8OBBLoss` takes."""
+        return super().forward_train(xs), _branch_walk(self.cv4, xs, True)
+
+    def angles(self, xs) -> torch.Tensor:
+        """The angle of every anchor (B, A, ne) in f32 radians: (sigmoid(raw) − 0.25) · π, in [−π/4, 3π/4)."""
+        raw = _branch_walk(self.cv4, xs, False)
+        B = raw[0].shape[0]
+        return (torch.sigmoid(torch.cat([a.reshape(B, -1, self.ne) for a in raw], 1).float()) - 0.25) * math.pi
+
+    def decode_rotated(self, dists, clss, angle: torch.Tensor, feat_shapes) -> torch.Tensor:
+        """Per-level dist (B, A_l, 4) and scores (B, A_l, nc), the angles (B, A, 1) → (B, 4 + nc + 1, A)
+        (JAX `decode_with_angle`): the rotated (cx, cy, w, h) of `dist2rbox` around the anchors times the
+        stride, the scores, the angle."""
+        from yolo_tpu_torch.ops.anchors import dist2rbox, make_anchors
+
+        anchors, strides = make_anchors(feat_shapes, self.stride, 0.5, device=angle.device)
+        rbox = dist2rbox(torch.cat(dists, 1), angle, anchors[None]) * strides[None]
+        return torch.cat([rbox, torch.cat(clss, 1), angle], -1).transpose(1, 2)
 
 
 class Classify(nn.Module):

@@ -1,6 +1,6 @@
 """YAML → model builder, the BN fold, the weight bridge, the detection, segmentation, pose and classification models.
 
-Counterpart of yolo_tpu/nn/tasks.py for the detect, segment, pose and classify tasks: the same scale
+Counterpart of yolo_tpu/nn/tasks.py for the detect, segment, pose, obb and classify tasks: the same scale
 math (c2 = make_divisible(min(c2, max_channels) * width, 8), n = max(round(n *
 depth), 1)), the same static stride propagation, the neck fold detection of
 `_build_neck_opt`, `predict_parts` and `predict`. Every C2f and Detect level
@@ -12,6 +12,7 @@ or on the CPU); both fold the neck unless `neck_opt=False`. An int8 tree
 several models are the JAX package's too. `SegmentationModel` (the segment task,
 a Segment head: the detection forward plus mask coefficients and prototypes), `PoseModel`
 (the pose task, a Pose head: the detection forward plus decoded keypoints) and
+`OBBModel` (the obb task, an OBB head: the detection forward plus rotated boxes and their angles) and
 `ClassificationModel` (the classify task, a Classify head) share the build and both
 walks (`BaseModel`); `model_class_for` picks a checkpoint's class from its config and task.
 
@@ -40,7 +41,7 @@ from yolo_tpu_torch.nn import modules as M
 
 CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
 BN_EPS = M.BN_EPS
-EXTRA_OUTPUT_TASKS = ("segment", "pose")  # masks or keypoints beside the boxes: the detect-only entry points refuse them
+EXTRA_OUTPUT_TASKS = ("segment", "pose", "obb")  # masks, keypoints or angles beside the boxes: the detect-only entry points refuse them
 
 MODULE_MAP = {
     "Conv": M.ConvBNAct,
@@ -50,6 +51,7 @@ MODULE_MAP = {
     "Detect": M.Detect,
     "Segment": M.Segment,
     "Pose": M.Pose,
+    "OBB": M.OBB,
     "Classify": M.Classify,
     "nn.Upsample": M.Upsample,
 }
@@ -61,12 +63,16 @@ def make_divisible(x, divisor: int = 8) -> int:
 
 def yaml_model_load(cfg) -> dict:
     """Load a model YAML of the package's cfg/, inferring the scale from a
-    letter after the version digits (`yolov8n.yaml` → yolov8.yaml, scale n)."""
+    letter after the version digits (`yolov8n.yaml` → yolov8.yaml, scale n;
+    `yolov5n6.yaml` → yolov5-p6.yaml; `yolo_nas_s.yaml` → yolo_nas.yaml, scale s).
+    A file named exactly wins over the unified one: some families have a graph per scale."""
     import yaml
 
     path = Path(cfg)
-    stem = path.stem
+    stem = re.sub(r"(\d+)([nslmx])6(.+)?$", r"\1\2-p6\3", path.stem)
+    path = path.with_name(stem + path.suffix)
     m = re.search(r"(\d+)([nslmx])(.*)$", stem)
+    nas = re.fullmatch(r"yolo_nas_([sml])", stem)
     scale = ""
 
     def find(name):
@@ -76,7 +82,10 @@ def yaml_model_load(cfg) -> dict:
         return hits[0] if hits else None
 
     found = find(path.name)
-    if found is None and m:
+    if found is None and nas:
+        scale = nas.group(1)
+        found = find(f"yolo_nas{path.suffix}")
+    elif found is None and m:
         scale = m.group(2)
         found = find(f"{stem[: m.start(2)]}{m.group(3)}{path.suffix}")
     if found is None:
@@ -92,6 +101,8 @@ def parse_model(d: dict, ch: int):
     depth, width, max_channels = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")
     if scales:
         depth, width, max_channels = scales[d.get("scale") or next(iter(scales))]
+    if d.get("activation") and "silu" not in str(d["activation"]).lower():
+        raise NotImplementedError(f"module 'Conv' with activation {d['activation']} is not ported yet (the port's ConvBNAct is SiLU)")
     chs, layers, froms, save = [ch], [], [], []
     for i, (f, n, mname, args) in enumerate(d["backbone"] + d["head"]):
         if mname not in MODULE_MAP:
@@ -100,6 +111,9 @@ def parse_model(d: dict, ch: int):
         args = [
             {"nc": nc, "True": True, "False": False, "None": None}.get(a, a) if isinstance(a, str) else a for a in args
         ]
+        if mname == "Conv":
+            _check_conv_args(args)
+            args = args[:3]
         n = max(round(n * depth), 1) if n > 1 else n
         if mcls in (M.ConvBNAct, M.C2f, M.SPPF, M.Classify):
             c1, c2 = chs[f], args[0]
@@ -120,6 +134,9 @@ def parse_model(d: dict, ch: int):
         elif mcls is M.Pose:  # the yaml's kpt_shape, as in the JAX package
             args = [args[0], tuple(d["kpt_shape"]) if d.get("kpt_shape") else args[1], [chs[x] for x in f]]
             c2 = None
+        elif mcls is M.OBB:
+            args = [*args[:2], [chs[x] for x in f]]
+            c2 = None
         else:
             c2 = chs[f]
         if n > 1:
@@ -131,6 +148,20 @@ def parse_model(d: dict, ch: int):
             chs = []
         chs.append(c2)
     return layers, froms, sorted(set(save))
+
+
+def _check_conv_args(args) -> None:
+    """A `Conv` row is [c2, k, s, p, g, d, act]; the port's ConvBNAct takes c2, k and s, pads k // 2 and
+    ends in SiLU. Any other padding, groups, dilation or activation raises NotImplementedError naming it."""
+    k = args[1] if len(args) > 1 else 1
+    names = ("padding", "groups", "dilation", "activation")
+    defaults = ((None, k // 2), (1,), (1,), (True,))
+    for name, v, ok in zip(names, args[3:], defaults):
+        if v not in ok:
+            raise NotImplementedError(f"module 'Conv' with {name} {v!r} is not ported yet (the port's ConvBNAct pads k // 2, "
+                                      "has no groups or dilation and ends in SiLU)")
+    if len(args) > 7:
+        raise NotImplementedError(f"module 'Conv' with arguments {args[7:]!r} is not ported yet")
 
 
 def _compute_strides(layers, froms) -> None:
@@ -451,7 +482,7 @@ class SegmentationModel(DetectionModel):
         neck fold and the box and class branches go through the kernels (`plain=True`: their twins); the
         coefficient branch and the prototypes are plain torch convs."""
         if self.int8:
-            raise NotImplementedError("int8 inference of a segment model is not ported (ROADMAP item 5)")
+            raise NotImplementedError("int8 inference of a segment model is not ported (ROADMAP item 2)")
         xs = self._head_inputs(x, plain, neck_opt)
         boxes, scores = self._decode_head(xs, plain)
         coefs = self.head.coefficients(xs)
@@ -475,10 +506,32 @@ class PoseModel(DetectionModel):
         dtype. The C2f blocks, the neck fold and the box and class branches go through the kernels
         (`plain=True`: their twins); the keypoint branch is plain torch convs."""
         if self.int8:
-            raise NotImplementedError("int8 inference of a pose model is not ported (ROADMAP item 5)")
+            raise NotImplementedError("int8 inference of a pose model is not ported (ROADMAP item 2)")
         xs = self._head_inputs(x, plain, neck_opt)
         boxes, scores = self._decode_head(xs, plain)
         return torch.cat([boxes, scores, self.head.keypoints(xs)], -1).transpose(1, 2)
+
+
+class OBBModel(DetectionModel):
+    """YOLO oriented-box model (JAX OBBModel): the detection graph with an OBB head."""
+
+    task = "obb"
+
+    def __init__(self, cfg="yolov8n-obb.yaml", ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+        if not isinstance(self.head, M.OBB):
+            raise ValueError(f"an OBBModel's last layer is an OBB head, not {type(self.head).__name__}")
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False) -> torch.Tensor:
+        """Predictions (B, 4 + nc + 1, A) f32: the rotated px (cx, cy, w, h), sigmoid scores, then the angle
+        in radians, from NHWC images in the model's dtype. The C2f blocks, the neck fold and the box and class
+        branches go through the kernels (`plain=True`: their twins); the angle branch is plain torch convs."""
+        if self.int8:
+            raise NotImplementedError("int8 inference of an obb model is not ported (ROADMAP item 2)")
+        xs = self._head_inputs(x, plain, neck_opt)
+        dists, clss = self.head.head_levels(xs, plain)
+        return self.head.decode_rotated(dists, clss, self.head.angles(xs), [(x.shape[1], x.shape[2]) for x in xs])
 
 
 def guess_model_task(cfg: dict) -> str:
@@ -498,12 +551,12 @@ def guess_model_task(cfg: dict) -> str:
 
 def model_class_for(cfg: dict, task: str | None = None):
     """The model class of a checkpoint's config and task (JAX `model_class_for`): DetectionModel,
-    SegmentationModel, PoseModel or ClassificationModel; the other tasks and families raise
+    SegmentationModel, PoseModel, OBBModel or ClassificationModel; the other families raise
     NotImplementedError naming them."""
     rows = list(cfg.get("head", []))
     head = str(rows[-1][2]) if rows else "Detect"
     if head in ("RTDETRDecoder", "WorldDetect", "YOLOEDetect", "YOLOESegment"):
-        raise NotImplementedError(f"models with a {head} head are not ported (ROADMAP item 9)")
+        raise NotImplementedError(f"models with a {head} head are not ported (ROADMAP item 5)")
     task = task or guess_model_task(cfg)
     if task == "classify":
         return ClassificationModel
@@ -511,8 +564,10 @@ def model_class_for(cfg: dict, task: str | None = None):
         return SegmentationModel
     if task == "pose":
         return PoseModel
+    if task == "obb":
+        return OBBModel
     if task != "detect":
-        raise NotImplementedError(f"the {task} task is not ported (only detect, segment, pose and classify)")
+        raise NotImplementedError(f"the {task} task is not ported (only detect, segment, pose, obb and classify)")
     return DetectionModel
 
 

@@ -35,3 +35,14 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
     """xyxy boxes → (l, t, r, b) distances from the anchor points, clamped to [0, reg_max - 0.01]: the DFL targets."""
     x1y1, x2y2 = bbox.chunk(2, -1)
     return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
+
+
+def dist2rbox(distance: torch.Tensor, angle: torch.Tensor, anchor_points: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """(l, t, r, b) distances and angles (..., 1) in radians → rotated (cx, cy, w, h) around the anchor
+    points: the offset (r − l, b − t) / 2 turned by the angle, the size l + r, t + b."""
+    lt, rb = distance.chunk(2, dim)
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, dim)
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], dim) + anchor_points, lt + rb], dim)

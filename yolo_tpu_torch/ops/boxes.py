@@ -3,7 +3,8 @@
 `xyxy2xywh`, `xywh2xyxy`, `xywhn2xyxy`, `xyxy2xywhn`, `ltwh2xyxy`, `xyxy2ltwh`, `clip_boxes`,
 `scale_boxes` and `box_iou` take numpy arrays (the host side of the predictor, the validator,
 the MOT trackers and `utils.instance`) or torch tensors alike; `bbox_iou` (the training
-loss's IoU variants) takes torch tensors.
+loss's IoU variants) takes torch tensors. The rotated-box ops of the obb task: `probiou`
+and `xywhr2xyxyxyxy` take either, `xyxyxyxy2xywhr` is host cv2 (`minAreaRect`).
 """
 
 from __future__ import annotations
@@ -152,3 +153,83 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bo
         return iou - rho2 / c2
     c_area = cw * ch + eps
     return iou - (c_area - union) / c_area
+
+
+def _covariance_terms(boxes):
+    """The Gaussian covariance entries (a, b, c) of xywhr boxes, each (..., 1)."""
+    xp = torch if torch.is_tensor(boxes) else np
+    a = boxes[..., 2:3] ** 2 / 12
+    b = boxes[..., 3:4] ** 2 / 12
+    r = boxes[..., 4:5]
+    cos, sin = xp.cos(r), xp.sin(r)
+    cos2, sin2 = cos**2, sin**2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1, obb2, CIoU: bool = False, eps: float = 1e-7):
+    """Probabilistic IoU of broadcastable xywhr boxes (arXiv:2106.06072) → (..., 1): one minus the
+    Hellinger distance of their Gaussians, in the JAX package's order of operations. `CIoU` subtracts
+    the aspect-ratio penalty only, its weight held out of the gradient. Numpy arrays or torch tensors.
+    The values are JAX's; the gradient differs where a box has no area (a zero-padded target): zero
+    there, where JAX's square root gives NaN and poisons the whole backward."""
+    is_t = torch.is_tensor(obb1)
+    xp = torch if is_t else np
+    if not is_t:
+        obb1, obb2 = np.asarray(obb1), np.asarray(obb2)
+    clip = (lambda v, lo, hi: v.clamp(lo, hi)) if is_t else np.clip
+    x1, y1 = obb1[..., 0:1], obb1[..., 1:2]
+    x2, y2 = obb2[..., 0:1], obb2[..., 1:2]
+    a1, b1, c1 = _covariance_terms(obb1)
+    a2, b2, c2 = _covariance_terms(obb2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = (((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom) * 0.25
+    t2 = (((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom) * 0.5
+    det = clip(a1 * b1 - c1**2, 0, None) * clip(a2 * b2 - c2**2, 0, None)
+    if is_t:  # the same root, with a zero gradient where a box is degenerate (JAX's is inf · 0 = NaN there)
+        root = torch.where(det > 0, torch.sqrt(torch.where(det > 0, det, torch.ones_like(det))), torch.zeros_like(det))
+    else:
+        root = np.sqrt(det)
+    t3 = xp.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2) / (4 * root + eps) + eps) * 0.5
+    bd = clip(t1 + t2 + t3, eps, 100.0)
+    iou = 1 - xp.sqrt(1.0 - xp.exp(-bd) + eps)
+    if not CIoU:
+        return iou
+    w1, h1 = obb1[..., 2:3], obb1[..., 3:4]
+    w2, h2 = obb2[..., 2:3], obb2[..., 3:4]
+    atan = torch.atan if is_t else np.arctan
+    v = (4 / math.pi**2) * (atan(w2 / h2) - atan(w1 / h1)) ** 2
+    alpha = v / (v - iou + (1 + eps))
+    return iou - v * (alpha.detach() if is_t else alpha)
+
+
+def xywhr2xyxyxyxy(x):
+    """xywhr → the 4 corners (..., 4, 2): centre ± the rotated half-width vector ± the rotated
+    half-height vector. Numpy arrays or torch tensors."""
+    is_t = torch.is_tensor(x)
+    xp = torch if is_t else np
+    x = x if is_t else np.asarray(x)
+    cat = (lambda v: torch.cat(v, -1)) if is_t else (lambda v: np.concatenate(v, -1))
+    ctr = x[..., :2]
+    w, h, angle = x[..., 2:3], x[..., 3:4], x[..., 4:5]
+    cos, sin = xp.cos(angle), xp.sin(angle)
+    vec1 = cat([w / 2 * cos, w / 2 * sin])
+    vec2 = cat([-h / 2 * sin, h / 2 * cos])
+    pts = [ctr + vec1 + vec2, ctr + vec1 - vec2, ctr - vec1 - vec2, ctr - vec1 + vec2]
+    return torch.stack(pts, -2) if is_t else np.stack(pts, axis=-2)
+
+
+def xyxyxyxy2xywhr(corners) -> np.ndarray:
+    """Corners (n, 8) or (n, 4, 2) → xywhr (n, 5) f32 through cv2's `minAreaRect`, the angle in
+    radians in (0, π/2]. cv2 4.5+ reports that angle in (0°, 90°]; other versions report the same
+    rectangle as (h, w, angle − 90°) with the angle in (−90°, 0°], which is bridged back."""
+    import cv2
+
+    pts = np.asarray(corners, np.float32).reshape(-1, 4, 2)
+    out = []
+    for p in pts:
+        (cx, cy), (w, h), ang = cv2.minAreaRect(p)
+        if ang <= 0:
+            w, h = h, w
+            ang += 90
+        out.append([cx, cy, w, h, ang * math.pi / 180])
+    return np.array(out, np.float32).reshape(-1, 5)

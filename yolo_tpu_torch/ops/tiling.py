@@ -93,7 +93,7 @@ def tiled_predict(model, img: np.ndarray, tile: int = 256, overlap: float = 0.25
 
     task = getattr(model, "task", "detect")
     if task in EXTRA_OUTPUT_TASKS:
-        raise NotImplementedError(f"tiled inference with a {task} model is not ported (ROADMAP item 5)")
+        raise NotImplementedError(f"tiled inference with a {task} model is not ported (ROADMAP item 2)")
     grid = tile_grid(img.shape[0], img.shape[1], tile, overlap)
     tiles = slice_tiles(img, grid, tile)
     kwargs.setdefault("batch", len(tiles))

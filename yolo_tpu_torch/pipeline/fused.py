@@ -133,7 +133,7 @@ class FusedDetectTrack:
     ):
         task = getattr(model, "task", "detect")
         if task in EXTRA_OUTPUT_TASKS:
-            raise NotImplementedError(f"FusedDetectTrack with a {task} model is not ported (ROADMAP item 5)")
+            raise NotImplementedError(f"FusedDetectTrack with a {task} model is not ported (ROADMAP item 2)")
         if channels not in (1, 3):
             raise ValueError(f"frames have 1 (IR) or 3 (BGR) channels, got {channels}")
         if mesh is not None:

@@ -64,7 +64,7 @@ class _ModelLane:
 
             self.yolo = YOLO(source, device=str(device))
             if self.yolo.task in EXTRA_OUTPUT_TASKS:
-                raise NotImplementedError(f"serving a {self.yolo.task} model is not ported (ROADMAP item 5)")
+                raise NotImplementedError(f"serving a {self.yolo.task} model is not ported (ROADMAP item 2)")
             self.yolo.fuse()
         except Exception as e:
             self.yolo = None

@@ -5,7 +5,8 @@ High-score detections match tracked and lost tracks first; low-score
 detections rescue the tracked tracks left over; unconfirmed tracks get one
 more chance at the remaining high-score detections; what is still left above
 `new_track_thresh` starts new tracks; lost tracks expire after
-`track_buffer` frames. Axis-aligned boxes only (OBB tracks are not ported).
+`track_buffer` frames. Oriented boxes (the obb task's xywhr) track too: the Kalman filter
+follows their axis-aligned part and the angle rides along, refreshed on each match.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class STrack(BaseTrack):
 
     def __init__(self, xywh, score, cls):
         super().__init__()
-        # xywh: (cx, cy, w, h) [+ the detection's index]
+        # xywh: (cx, cy, w, h) [+ the detection's index], or (cx, cy, w, h, angle, index) for an oriented box
         self._tlwh = np.asarray(
             [xywh[0] - xywh[2] / 2, xywh[1] - xywh[3] / 2, xywh[2], xywh[3]], dtype=np.float32
         )
@@ -35,6 +36,7 @@ class STrack(BaseTrack):
         self.tracklet_len = 0
         self.cls = cls
         self.idx = xywh[-1] if len(xywh) > 4 else -1
+        self.angle = np.float32(xywh[4]) if len(xywh) == 6 else None
 
     def predict(self):
         mean_state = self.mean.copy()
@@ -93,6 +95,7 @@ class STrack(BaseTrack):
             self.track_id = self.next_id()
         self.score = new_track.score
         self.cls = new_track.cls
+        self.angle = new_track.angle
         self.idx = new_track.idx
 
     def update(self, new_track, frame_id: int):
@@ -105,6 +108,7 @@ class STrack(BaseTrack):
         self.is_activated = True
         self.score = new_track.score
         self.cls = new_track.cls
+        self.angle = new_track.angle
         self.idx = new_track.idx
 
     def convert_coords(self, tlwh):
@@ -132,9 +136,15 @@ class STrack(BaseTrack):
         return ret
 
     @property
+    def xywha(self):
+        """(cx, cy, w, h, angle) of an oriented track."""
+        return np.concatenate([self.xywh, [self.angle]]).astype(np.float32)
+
+    @property
     def result(self):
-        """[x1, y1, x2, y2, track_id, score, cls, det_idx]."""
-        return [*self.xyxy, self.track_id, self.score, self.cls, self.idx]
+        """[x1, y1, x2, y2, track_id, score, cls, det_idx]; an oriented track's coordinates are its xywha (5)."""
+        coords = self.xyxy if self.angle is None else self.xywha
+        return [*coords, self.track_id, self.score, self.cls, self.idx]
 
     @staticmethod
     def tlwh_to_xyah(tlwh):
@@ -162,8 +172,9 @@ class BYTETracker:
 
     def update(self, boxes_xywh, scores, cls, img=None, feats=None) -> np.ndarray:
         """One tracking step over this frame's detections: boxes_xywh (N, 4)
-        centre format, scores (N,), cls (N,) → (M, 8) rows [x1, y1, x2, y2, id,
-        score, cls, det_idx] of the activated tracks."""
+        centre format (or (N, 5) xywhr), scores (N,), cls (N,) → (M, 8) rows [x1, y1,
+        x2, y2, id, score, cls, det_idx] of the activated tracks ((M, 9), the xywha first,
+        for oriented boxes)."""
         self.frame_id += 1
         activated, refind, lost, removed = [], [], [], []
         n = len(scores)

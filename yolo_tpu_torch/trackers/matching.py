@@ -2,8 +2,8 @@
 yolo_tpu/trackers/matching.py), host numpy and scipy.
 
 The IoU cost is computed in numpy at float32, as the JAX package's host path
-computes it, so host rows compare exactly. Rotated boxes (OBB tracks) are not
-ported.
+computes it, so host rows compare exactly; oriented tracks and boxes (5 columns,
+xywha) are compared by probiou.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.optimize
 
-from yolo_tpu_torch.ops.boxes import box_iou
+from yolo_tpu_torch.ops.boxes import box_iou, probiou
 
 
 def linear_assignment(cost_matrix: np.ndarray, thresh: float):
@@ -34,17 +34,20 @@ def linear_assignment(cost_matrix: np.ndarray, thresh: float):
 
 
 def iou_distance(atracks: list, btracks: list) -> np.ndarray:
-    """1 - IoU between two lists of tracks (their `xyxy`) or of xyxy boxes → (len a, len b) float32."""
+    """1 - IoU between two lists of tracks (their `xyxy`; an oriented track's `xywha`) or of boxes → (len a, len b)
+    float32; probiou where both sides have 5 columns."""
 
     def coords(tracks):
         if tracks and not isinstance(tracks[0], np.ndarray):
-            return [t.xyxy for t in tracks]
+            return [t.xywha if getattr(t, "angle", None) is not None else t.xyxy for t in tracks]
         return tracks
 
     atlbrs, btlbrs = coords(atracks), coords(btracks)
     if len(atlbrs) == 0 or len(btlbrs) == 0:
         return np.zeros((len(atlbrs), len(btlbrs)), dtype=np.float32)
     a, b = np.stack(atlbrs).astype(np.float32), np.stack(btlbrs).astype(np.float32)
+    if a.shape[-1] == 5 and b.shape[-1] == 5:
+        return 1.0 - np.asarray(probiou(a[:, None], b[None]), np.float32)[..., 0]
     return 1.0 - box_iou(a, b)
 
 

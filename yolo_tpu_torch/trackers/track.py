@@ -3,8 +3,8 @@
 `attach_tracker` feeds each Results of a predict run through one tracker and
 rewrites it with tracked boxes, rows [x1, y1, x2, y2, id, conf, cls]: the Results
 is subset to the tracked rows, so a segment result's masks and a pose result's
-keypoints follow their boxes, in the tracker's order. The OBB branch is not
-ported (the OBB task is not).
+keypoints follow their boxes, in the tracker's order. An obb result tracks on its
+xywhr (probiou association), its rows [cx, cy, w, h, angle, id, conf, cls].
 """
 
 from __future__ import annotations
@@ -64,16 +64,21 @@ def attach_tracker(model, results, persist: bool = False, stream: bool = False, 
     tracker = model._tracker
 
     def process(r):
-        det = r.boxes
+        is_obb = r.obb is not None and len(r.boxes) == 0
+        det = r.obb if is_obb else r.boxes
         if len(det) == 0:
             return r
         # the frame goes along: BoT-SORT's camera-motion estimate reads its pixels
-        tracks = tracker.update(xyxy2xywh(det.xyxy), det.conf, det.cls, img=r.orig_img)
+        tracks = tracker.update(det.xywhr if is_obb else xyxy2xywh(det.xyxy), det.conf, det.cls, img=r.orig_img)
         if len(tracks) == 0:
             kept = r[[]]
-            kept.update(boxes=np.zeros((0, 7), np.float32))
+            kept.update(**({"obb": np.zeros((0, 8), np.float32)} if is_obb else {"boxes": np.zeros((0, 7), np.float32)}))
             return kept
         kept = r[tracks[:, -1].astype(int).tolist()]
+        if is_obb:  # rows [cx, cy, w, h, angle, id, score, cls, det_idx] → [xywhr, id, conf, cls]
+            obb = np.concatenate([tracks[:, :5], tracks[:, 5:6], kept.obb.conf[:, None], kept.obb.cls[:, None]], axis=-1)
+            kept.update(obb=obb.astype(np.float32))
+            return kept
         boxes = np.concatenate([tracks[:, :4], tracks[:, 4:5], kept.boxes.conf[:, None], kept.boxes.cls[:, None]], axis=-1)
         kept.update(boxes=boxes.astype(np.float32))
         return kept

@@ -16,7 +16,8 @@ def check_amp(model, params) -> bool:
     coefficients and prototypes are not compared (the JAX check skips a segment model, whose
     predict returns a pair); a pose model's keypoints are held as the boxes are, x and y within
     2 px, and the visibilities within 0.05 (the JAX check holds their pixels to 0.05 and so
-    turns bf16 off for every pose model). The model keeps the bf16 inference weights afterwards."""
+    turns bf16 off for every pose model); an obb model's angles are held as the scores are, as in
+    the JAX check. The model keeps the bf16 inference weights afterwards."""
     from yolo_tpu_torch.nn.tasks import install_params
 
     device = model.device

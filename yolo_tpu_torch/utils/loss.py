@@ -1,6 +1,7 @@
-"""YOLOv8 detection, segmentation and pose losses: BCE classification, CIoU box and DFL terms, the
-mask BCE, and the keypoint OKS and objectness terms (counterpart of yolo_tpu/utils/loss.py
-`_df_loss`, `v8DetectionLoss`, its per-level compact path, `v8SegmentationLoss` and `v8PoseLoss`).
+"""YOLOv8 detection, segmentation, pose and oriented-box losses: BCE classification, CIoU box and DFL
+terms, the mask BCE, the keypoint OKS and objectness terms, and the probiou box term (counterpart of
+yolo_tpu/utils/loss.py `_df_loss`, `v8DetectionLoss`, its per-level compact path, `v8SegmentationLoss`,
+`v8PoseLoss` and `v8OBBLoss`).
 
 The assigner (topk 10, α 0.5, β 6) sees the decode of every anchor, held out of
 the gradient. The gradient-carrying terms stay per level: the classification
@@ -11,7 +12,8 @@ weight is zero. Ground truths come padded to N rows, so no shape depends on the 
 The mask BCE runs on the top `max_fg` foreground anchors of each image by target score,
 gathered into a fixed slot table as well. The keypoint terms take the box terms' slot table
 while it is smaller than the anchors (topk · N < A, JAX's compact route), and every anchor
-otherwise (JAX's all-anchor route).
+otherwise (JAX's all-anchor route). The oriented-box loss takes the same two routes by the same test,
+as JAX's does: its slot table while topk · N < A, every anchor otherwise.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from yolo_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
-from yolo_tpu_torch.ops.boxes import bbox_iou, xywh2xyxy
+import math
+
+from yolo_tpu_torch.ops.anchors import bbox2dist, dist2bbox, dist2rbox, make_anchors
+from yolo_tpu_torch.ops.boxes import bbox_iou, probiou, xywh2xyxy
 from yolo_tpu_torch.utils.metrics import OKS_SIGMA
-from yolo_tpu_torch.utils.tal import TaskAlignedAssigner
+from yolo_tpu_torch.utils.tal import RotatedTaskAlignedAssigner, TaskAlignedAssigner
 
 
 def _df_loss(pred_dist: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -271,4 +275,84 @@ class v8PoseLoss(v8DetectionLoss):
             loss_kobj = torch.zeros((), device=dev)
         h = self.hyp
         loss = torch.stack([loss_iou * h.box, loss_pose * h.pose, loss_kobj * h.kobj, loss_cls * h.cls, loss_dfl * h.dfl])
+        return loss.sum() * B, loss.detach()
+
+
+class v8OBBLoss(v8DetectionLoss):
+    """The oriented-box criterion (JAX `v8OBBLoss`): the rotated assigner, BCE classification, the
+    probiou box term and the DFL term on the distances to the target's axis-aligned extent.
+
+    batch['bboxes'] is (B, N, 5): normalized xywh and the angle in radians (a batch of background images, which
+    collates as (B, N, 4), gets a zero angle; the JAX loss takes only (B, N, 5)). Boxes under 2 px on a side
+    leave `mask_gt`, w scaled by the input's height and h by its width, the JAX package's order (the
+    same on a square input). The angle is (sigmoid(raw) − 0.25) · π before the loss. While topk · N < A
+    the box terms run on the slot table of the foreground anchors (the assigner's decode held out of the
+    gradient); otherwise on every anchor, through the assigner's own decode."""
+
+    def __init__(self, model, hyp, tal_topk: int = 10):
+        super().__init__(model, hyp, tal_topk)
+        self.assigner = RotatedTaskAlignedAssigner(topk=tal_topk, num_classes=self.nc, alpha=0.5, beta=6.0)
+
+    def __call__(self, preds, batch):
+        """preds: (per-level raw box + class outputs (B, H, W, no), per-level raw angles (B, H, W, 1));
+        batch: 'cls' (B, N), 'bboxes' (B, N, 5), 'mask_gt' (B, N) → (total × B, the detached (box, cls, dfl)
+        components (3,))."""
+        feats, angle_outs = preds
+        B, dev = feats[0].shape[0], feats[0].device
+        flat = torch.cat([f.reshape(B, -1, self.no) for f in feats], 1)
+        r4 = self.reg_max * 4
+        pred_distri, pred_scores = flat[..., :r4].float(), flat[..., r4:].float()
+        pred_angle = (torch.cat([a.reshape(B, -1, 1) for a in angle_outs], 1).float().sigmoid() - 0.25) * math.pi
+        feat_shapes = [(f.shape[1], f.shape[2]) for f in feats]
+        anchor_points, stride_tensor = make_anchors(feat_shapes, self.stride, 0.5, device=dev)
+        ih, iw = feat_shapes[0][0] * self.stride[0], feat_shapes[0][1] * self.stride[0]
+        proj = torch.arange(self.reg_max, dtype=torch.float32, device=dev)
+
+        gt_labels = batch["cls"][..., None].long()
+        raw = batch["bboxes"].float()
+        if raw.shape[-1] == 4:  # a batch of background images collates as (B, N, 4)
+            raw = torch.cat([raw, torch.zeros_like(raw[..., :1])], -1)
+        scale = torch.tensor([iw, ih, iw, ih], dtype=torch.float32, device=dev)
+        gt_rboxes = torch.cat([raw[..., :4] * scale, raw[..., 4:5]], -1)
+        big_enough = (raw[..., 2] * ih >= 2) & (raw[..., 3] * iw >= 2)
+        mask_gt = (batch["mask_gt"].float() * big_enough.float())[..., None]
+        gt_rboxes = gt_rboxes * mask_gt
+
+        b, a, _ = pred_distri.shape
+        M = self.assigner.topk * gt_labels.shape[1]
+        compact = M < a
+        with torch.no_grad():
+            dist = (pred_distri.reshape(b, a, 4, self.reg_max).softmax(-1) * proj).sum(-1)
+            tal_rboxes = torch.cat([dist2rbox(dist, pred_angle, anchor_points[None]), pred_angle], -1)  # grid units
+            _, target_rboxes, target_scores, fg_mask, _ = self.assigner(
+                pred_scores.sigmoid(), torch.cat([tal_rboxes[..., :4] * stride_tensor[None], tal_rboxes[..., 4:]], -1),
+                anchor_points * stride_tensor, gt_labels, gt_rboxes, mask_gt,
+            )
+        target_scores_sum = target_scores.sum().clamp(min=1.0)
+        bce = pred_scores.clamp(min=0) - pred_scores * target_scores + torch.log1p(torch.exp(-pred_scores.abs()))
+        loss_cls = bce.sum() / target_scores_sum
+
+        fg = fg_mask.float()
+        weight = target_scores.sum(-1) * fg
+        if compact:
+            slot_idx, _, s_w = self._fg_slots(fg_mask, weight, M, stable=True)
+            s_anchor, s_stride = anchor_points[slot_idx], stride_tensor[slot_idx]
+            s_trb = self._gather(target_rboxes, slot_idx)
+            s_tg = torch.cat([s_trb[..., :4] / s_stride, s_trb[..., 4:]], -1)
+            s_distri = self._gather(pred_distri, slot_idx).reshape(b, M, 4, self.reg_max)
+            s_angle = self._gather(pred_angle, slot_idx)
+            s_dist = (s_distri.softmax(-1) * proj).sum(-1)
+            s_pred = torch.cat([dist2rbox(s_dist, s_angle, s_anchor), s_angle], -1)
+            loss_iou = ((1.0 - probiou(s_pred, s_tg)[..., 0]) * s_w).sum() / target_scores_sum
+            dfl = _df_loss(s_distri, bbox2dist(s_anchor, xywh2xyxy(s_tg[..., :4]), self.reg_max - 1))
+            loss_dfl = (dfl * s_w).sum() / target_scores_sum
+        else:
+            dist = (pred_distri.reshape(b, a, 4, self.reg_max).softmax(-1) * proj).sum(-1)
+            pred_rboxes = torch.cat([dist2rbox(dist, pred_angle, anchor_points[None]), pred_angle], -1)
+            target_g = torch.cat([target_rboxes[..., :4] / stride_tensor[None], target_rboxes[..., 4:]], -1)
+            loss_iou = (((1.0 - probiou(pred_rboxes, target_g)[..., 0]) * weight) * fg).sum() / target_scores_sum
+            target_ltrb = bbox2dist(anchor_points[None], xywh2xyxy(target_g[..., :4]), self.reg_max - 1)
+            dfl = _df_loss(pred_distri.reshape(b, a, 4, self.reg_max), target_ltrb)
+            loss_dfl = ((dfl * weight) * fg).sum() / target_scores_sum
+        loss = torch.stack([loss_iou * self.hyp.box, loss_cls * self.hyp.cls, loss_dfl * self.hyp.dfl])
         return loss.sum() * B, loss.detach()

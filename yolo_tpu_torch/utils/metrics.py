@@ -4,15 +4,15 @@ and once per run). 101-point interpolated AP, the F1-max operating point of the
 smoothed mean F1 curve, fitness = 0.1 * mAP50 + 0.9 * mAP50-95.
 
 Box, mask and keypoint matching (`mask_iou`, the segment task; `kpt_iou`, the object keypoint
-similarity of the pose task, with COCO's `OKS_SIGMA`); the rotated (probiou) matching waits for
-the OBB task.
+similarity of the pose task, with COCO's `OKS_SIGMA`) and the obb task's rotated boxes, matched by
+probiou.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from yolo_tpu_torch.ops.boxes import box_iou
+from yolo_tpu_torch.ops.boxes import box_iou, probiou
 
 # COCO's 17 keypoints' OKS sigmas
 OKS_SIGMA = np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87, 0.89, 0.89]) / 10.0
@@ -78,14 +78,17 @@ def ap_per_class(tp: np.ndarray, conf: np.ndarray, pred_cls: np.ndarray, target_
 
 
 def match_predictions(pred_boxes, pred_cls, gt_boxes, gt_cls, iou_thresholds=None):
-    """TP matrix (n_pred, T) of one image: greedy matching of the highest-IoU same-class pairs per threshold."""
+    """TP matrix (n_pred, T) of one image: greedy matching of the highest-IoU same-class pairs per threshold; 5-column
+    (xywhr) boxes are matched by probiou."""
     if iou_thresholds is None:
         iou_thresholds = np.linspace(0.5, 0.95, 10)
     if len(pred_boxes) == 0 or len(gt_boxes) == 0:
         return np.zeros((len(pred_boxes), len(iou_thresholds)), dtype=bool)
-    if pred_boxes.shape[-1] == 5:
-        raise NotImplementedError("rotated (x, y, w, h, r) boxes: the OBB task's probiou matching is not ported")
-    return match_predictions_iou(pred_cls, gt_cls, np.asarray(box_iou(gt_boxes, pred_boxes)), iou_thresholds)
+    if pred_boxes.shape[-1] == 5:  # rotated xywhr boxes (the obb task): probiou
+        iou = np.asarray(probiou(gt_boxes[:, None, :], pred_boxes[None, :, :]))[..., 0]
+    else:
+        iou = np.asarray(box_iou(gt_boxes, pred_boxes))
+    return match_predictions_iou(pred_cls, gt_cls, iou, iou_thresholds)
 
 
 def match_predictions_iou(pred_cls, gt_cls, iou, iou_thresholds=None):

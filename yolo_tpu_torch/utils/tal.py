@@ -4,8 +4,9 @@ ground truth, an anchor claimed by several kept by the largest overlap, target s
 normalised by each ground truth's best metric and overlap.
 
 Shapes are static: ground truths come padded to N rows with `mask_gt` marking the
-real ones, so nothing here branches on the data or waits for the device. The
-rotated assigner waits for the OBB task.
+real ones, so nothing here branches on the data or waits for the device.
+`RotatedTaskAlignedAssigner` is the obb task's: xywhr boxes, an anchor a candidate when
+its projections onto a box's edge vectors fall within the edges, probiou overlaps.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from yolo_tpu_torch.ops.boxes import bbox_iou
+from yolo_tpu_torch.ops.boxes import bbox_iou, probiou, xywhr2xyxyxyxy
 
 
 class TaskAlignedAssigner:
@@ -39,7 +40,7 @@ class TaskAlignedAssigner:
         target_gt_idx, fg, mask_pos = self._resolve_conflicts(mask_pos, overlaps)
 
         tl = torch.gather(gt_labels[..., 0].long(), 1, target_gt_idx).clamp(min=0)  # (B, A)
-        tb = torch.gather(gt_bboxes, 1, target_gt_idx[..., None].expand(-1, -1, 4))  # (B, A, 4)
+        tb = torch.gather(gt_bboxes, 1, target_gt_idx[..., None].expand(-1, -1, gt_bboxes.shape[-1]))  # (B, A, 4 or 5)
         target_scores = torch.where(fg[..., None] > 0, F.one_hot(tl, self.num_classes).float(), 0.0)
 
         align_metric = torch.where(mask_pos, align_metric, 0.0)
@@ -84,3 +85,28 @@ class TaskAlignedAssigner:
         is_max = torch.zeros_like(mask_pos).scatter_(1, overlaps.argmax(-2, keepdim=True), True)
         mask_pos = torch.where(fg[:, None, :] > 1, is_max, mask_pos)
         return mask_pos.to(torch.uint8).argmax(-2), mask_pos.sum(-2), mask_pos
+
+
+class RotatedTaskAlignedAssigner(TaskAlignedAssigner):
+    """The task-aligned assigner of oriented boxes (JAX RotatedTaskAlignedAssigner): pd_bboxes and gt_bboxes
+    are (.., 5) xywhr in pixels; an anchor is a candidate of a box when its projections onto the box's edge
+    vectors from the first corner fall within them (edges included), and the overlaps are probiou's."""
+
+    @staticmethod
+    def _candidates_in_gts(anc_points, gt_bboxes, eps: float = 1e-9):
+        corners = xywhr2xyxyxyxy(gt_bboxes)  # (B, N, 4, 2)
+        a, b, d = corners[..., 0:1, :], corners[..., 1:2, :], corners[..., 3:4, :]
+        ab, ad = b - a, d - a  # (B, N, 1, 2)
+        ap = anc_points[None, None] - a  # (B, N, A, 2)
+        norm_ab, norm_ad = (ab * ab).sum(-1), (ad * ad).sum(-1)
+        ap_ab, ap_ad = (ap * ab).sum(-1), (ap * ad).sum(-1)
+        return (ap_ab >= 0) & (ap_ab <= norm_ab) & (ap_ad >= 0) & (ap_ad <= norm_ad)
+
+    def _box_metrics(self, pd_scores, pd_bboxes, gt_labels, gt_bboxes, mask):
+        """(align metric, probiou overlaps clipped at 0), both (B, N, A) and zero outside `mask`."""
+        scores_t = pd_scores.transpose(1, 2)
+        idx = gt_labels.long().clamp(min=0).expand(-1, -1, scores_t.shape[-1])
+        bbox_scores = torch.where(mask, torch.gather(scores_t, 1, idx), 0.0)
+        overlaps = probiou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :])[..., 0]
+        overlaps = torch.where(mask, overlaps.clamp(min=0), 0.0)
+        return bbox_scores**self.alpha * overlaps**self.beta, overlaps
