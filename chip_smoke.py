@@ -204,6 +204,22 @@ Phases (any failure stops the run with a non-zero exit code):
    the trained model over a clip of the 64 frames, ByteTrack at thresholds fitted to its scores: rows (xywhr), ids
    and classes of the kernels equal the twins'; then bf16 frames/s). Each phase launches kernels 1, 2 and 3 and not
    kernel 5: the rotated NMS is plain torch (it is not greedy).
+22. the seventeenth slice (last; `slice17_phases`, ~50 s): the segment, pose and obb entry points on the JAX
+   package's init(0) trees at full width, each f32 through the kernels against the twins first, then bf16 timed
+   with its launches: `[task benchmark]` (the decoded forward at 640², B = 8, then `YOLO.benchmark(imgsz=640)`'s
+   rows at B = 1 / 8 / 32), `[task int8]` (`predict(int8=True)` of 16 frames: kernel 5 against its twin, the int8
+   tree's predictions on the card against the CPU's at the 99.9th percentile, 0.05 px and 1e-3), `[task tiled]`
+   (segment and pose, one 640x512 frame, tile 256: the merged boxes, kernels 1, 2, 3 and 5 held on the tiles),
+   `[task serve]` (a server with a segment and a pose lane, the obb lane out of service) and `[task tune]` (segment,
+   two one-epoch iterations on a 32-frame polygon split); then the v8 variants: `[variants]` (yolov8n-p6, -seg-p6,
+   -pose-p6 at 1280² on frames of 1280x1024, ghost-p2 and ghost at 640x512, cls-resnet50 at 224: the decoded
+   forward against the twins, kernels 1, 3 and 5 held at the p6 and ghost-p2 shapes on seeded noise through trees
+   whose BN moments come from it (`bn_calibrated`), each held instance's twin depending on its input
+   (`live_share`), bf16 predict with its host split), `[pipeline ghost-p2]`
+   (FusedDetectTrack with yolov8n-ghost-p2's init(0) tree over 256 frames, conf 1e-6: tracks, ids and stats equal,
+   detections on every frame), `[variants train]` (one epoch of yolov8n-ghost-p2 at 640, batch 16, bf16: the
+   step's split; the trained tree's forward against the twin) and `[variants train step f32]` (one f32 step of
+   yolov8n-ghost-p2 on the card against the CPU, TRAIN_STEP_TOL; `zero_grad_leaves` against their BN weight's gradient).
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -1798,9 +1814,9 @@ SERVE_PATH = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
 
 
 @contextlib.contextmanager
-def serving(models, **kw):
-    """A DetectionServer on 127.0.0.1 (any free port) in a thread, its lanes built, or failing;
-    shut down and joined on exit."""
+def serving(models, out_of_service=(), **kw):
+    """A DetectionServer on 127.0.0.1 (any free port) in a thread, its lanes built, or failing (only the
+    lanes in `out_of_service` may be); shut down and joined on exit."""
     import threading
 
     from yolo_tpu_torch.serve import DetectionServer
@@ -1817,8 +1833,8 @@ def serving(models, **kw):
             if time.perf_counter() - t0 > 600:
                 raise RuntimeError("the server's lanes did not build in 600 s")
             time.sleep(0.05)
-        errors = {mid: lane.error for mid, lane in srv.lanes.items() if lane.error}
-        if errors:
+        errors = {mid: lane.error for mid, lane in srv.lanes.items() if lane.error and mid not in out_of_service}
+        if errors or not all(srv.lanes[mid].error for mid in out_of_service):
             raise AssertionError(f"server lanes out of service: {errors}")
         yield srv
     finally:
@@ -2395,6 +2411,20 @@ TRAIN_RECIPE = dict(
 TRAIN_STEP_TOL = {"loss": 1e-4, "grad": 1e-3, "bn": 1e-4, "param": 1e-6}
 
 
+def zero_grad_leaves(model) -> set:
+    """The train leaves whose gradient is zero by construction: the BN bias of the last depth-wise conv (`conv/2/cv2`)
+    of each GhostBottleneck in a C3Ghost, whose output reaches the loss only through 1x1 convs (the next bottleneck's,
+    C3's cv3) into training-mode BNs, which take any constant away. Their gradients are rounding noise of the sum
+    that the same BN's weight gradient takes over the same terms, scaled by the normalised activations: it grows
+    with the map (1e-7 at 64², 2e-5 at 640² and B = 16), so `train_step_f32_phase` holds each against the largest
+    gradient of its BN's weight instead of its own largest."""
+    from yolo_tpu_torch.nn import modules as M
+
+    return {"/".join(["model", *name.split(".")[1:], "m", str(j), "conv", "2", "cv2", "bn", "bias"])
+            for name, m in model.named_modules() if isinstance(m, M.C3)
+            for j, b in enumerate(m.m) if isinstance(b, M.GhostBottleneck) and b.s == 1}
+
+
 def train_epoch_recorder(epochs: list, profile_epoch=None):
     """A DetectionTrainer whose hooks keep each epoch's numbers in `epochs`, and profile
     one epoch's training steps (`profile_epoch`, a dict that gets the result) with torch.profiler."""
@@ -2564,7 +2594,11 @@ def train_step_f32_phase(data, card, cfg_name="yolov8-small.yaml", tag="train st
         runs[dev] = (float(total.detach()), comps.cpu().numpy(), grads, after, time.perf_counter() - t0)
     (tc, cc, gc, pc, sc), (tp, cp, gp, pp, sp) = runs["cuda"], runs["cpu"]
     err = {"loss": max(abs(tc - tp) / abs(tp), float(np.abs(cc - cp).max() / np.abs(cp).max()))}
-    err["grad"] = max(float((gc[k] - gp[k]).abs().max() / gp[k].abs().max().clamp(min=1e-30)) for k in gp)
+    zero = zero_grad_leaves(m)
+    floor = {k: float(gp[k[: -len("bias")] + "weight"].abs().max()) if k in zero else 1e-30 for k in gp}
+    by_leaf = {k: float((gc[k] - gp[k]).abs().max() / gp[k].abs().max().clamp(min=floor[k])) for k in gp}
+    worst_leaf = max(by_leaf, key=by_leaf.get)
+    err["grad"] = by_leaf[worst_leaf]
     err["bn"] = max(float((pc[k] - pp[k]).abs().max()) for k in pp if "running" in k)
     def u(g):  # AdamW's first-step direction of each gradient after the global-norm clip at 10
         g = {k: v.double() for k, v in g.items()}
@@ -2577,11 +2611,16 @@ def train_step_f32_phase(data, card, cfg_name="yolov8-small.yaml", tag="train st
         excess = (pc[k] - pp[k]).double().abs() - lr * (uc[k] - up[k]).abs()
         err["param"] = max(err["param"], float(excess.max()))
         apart += int((torch.sign(gc[k]) != torch.sign(gp[k])).sum())
+    zeros = (f"; the {len(zero)} gradients zero by construction (largest on the CPU {max(float(gp[k].abs().max()) for k in zero):.3e}, "
+             f"card against CPU {max(float((gc[k] - gp[k]).abs().max()) for k in zero):.3e}) held against their BN weight's "
+             f"gradient: {max(by_leaf[k] for k in zero):.3e} of it at most" if zero else "")
     if any(v > TRAIN_STEP_TOL[k] for k, v in err.items()):
-        raise AssertionError(f"{tag}: card vs CPU {err} beyond {TRAIN_STEP_TOL}")
+        raise AssertionError(f"{tag}: card vs CPU {err} beyond {TRAIN_STEP_TOL}; the gradient's worst leaves: "
+                             + ", ".join(f"{k} {by_leaf[k]:.3e} (its largest {float(gp[k].abs().max()):.3e})"
+                                         for k in sorted(by_leaf, key=by_leaf.get)[-5:]) + zeros)
     log(tag, card, f"{cfg_name}: loss {tc:.6f} (CPU {tp:.6f}), components {np.round(cc, 6).tolist()} (CPU "
-        f"{np.round(cp, 6).tolist()}); largest differences, as TRAIN_STEP_TOL measures them: {err}; {apart} gradient "
-        f"elements of opposite sign (near zero); the step took "
+        f"{np.round(cp, 6).tolist()}); largest differences, as TRAIN_STEP_TOL measures them: {err} (the gradient's at "
+        f"{worst_leaf}){zeros}; {apart} gradient elements of opposite sign (near zero); the step took "
         f"{sc:.2f} s on the card (its first) and {sp:.2f} s on the CPU; all {len(gp)} gradients and {len(pp)} tensors held")
 
 
@@ -2639,19 +2678,56 @@ ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 128, 16
 VIDEO_FRAMES = 128  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
 
 
-def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024, nms=True):
+LIVE_SHARE = 0.5  # `hold_path_kernels(live=True)`: the least share of a twin's outputs that must depend on its input maps
+
+
+def bn_calibrated(model, tree, x):
+    """`tree` (unfused) with every BN's running moments taken from one train-mode forward of the NHWC images `x`
+    through `model` in f32: the batch's mean and unbiased variance (`apply_bn_stats` at momentum 1). An initial
+    tree's activations fade through its depth (BN moments 0 and 1 over convs that shrink their input); these keep
+    them near unit scale, as a trained tree's are, so that a kernel held on them can fail. → the unfused tree."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import load_train_params, params_to_jax
+    from yolo_tpu_torch.utils.optim import apply_bn_stats
+
+    load_train_params(model, tree)
+    model.train()
+    with torch.no_grad():
+        model.forward_features(x)
+    apply_bn_stats(model, 1.0)
+    model.eval()
+    return params_to_jax(model)
+
+
+def live_share(name, plain, args, want) -> float:
+    """The share of the twin `plain`'s output elements whose input-dependent part (`want` minus its output with the
+    instance's maps set to zero) exceeds ten times the f32 tolerance: where it is small, a kernel that ignores or
+    misreads its input would still agree with the twin."""
+    import torch
+
+    zeroed = [torch.zeros_like(a) if i in ((0, 1) if name == "c2f_upconcat" else (0,)) else a for i, a in enumerate(args)]
+    base = plain(*zeroed)
+    want, base = (want,) if torch.is_tensor(want) else want, (base,) if torch.is_tensor(base) else base
+    atol, rtol = TOL["float32"]
+    live = sum(int(((w.float() - b.float()).abs() > 10 * (atol + rtol * w.float().abs())).sum()) for w, b in zip(want, base))
+    return live / sum(w.numel() for w in want)
+
+
+def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024, nms=True, live=False):
     """Kernels 1, 2, 3 and 5 against their twins on the activations of one f32 forward of the NHWC
     images `x` through each model (loaded in f32 on the card): every C2f and upconcat instance and
     every Detect level at TOL, the NMS keep mask over the models' candidates joined on the anchor
     axis (K = max_nms at `conf`, as the predictor forms them) bit for bit, unless `nms` is False (a
-    path without kernel 5) → {kernel: max |err|}."""
+    path without kernel 5). `live`: each instance's twin output must also depend on its input maps
+    (`live_share` at least LIVE_SHARE), or the hold could not fail → {kernel: max |err|}."""
     import torch
 
     from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_nms
 
     kernels = {"c2f": (cuda_c2f.fused_c2f, cuda_c2f.c2f_plain), "c2f_upconcat": (cuda_c2f.fused_c2f_upconcat, cuda_c2f.c2f_upconcat_plain),
                "head_level": (cuda_head.fused_head_level, cuda_head.head_level_plain)}
-    worst, parts, n = {}, [], 0
+    worst, parts, n, shares = {}, [], 0, []
     for model in models:
         rec, boxes, scores = capture_instances(model, x)
         parts.append((boxes, scores))
@@ -2659,12 +2735,20 @@ def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024, nm
             kern, plain = kernels[name]
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
-            errs = hold(name, f"{tag} {tuple(args[-3 if name == 'c2f_upconcat' else 0].shape)}", "float32", got, want)
+            desc = f"{tag} {tuple(args[-3 if name == 'c2f_upconcat' else 0].shape)}"
+            errs = hold(name, desc, "float32", got, want)
             worst[name] = max(worst.get(name, 0.0), *errs.values())
             n += 1
+            if live:
+                shares.append(live_share(name, plain, args, want))
+                if shares[-1] < LIVE_SHARE:
+                    raise AssertionError(f"{name} {desc}: only {shares[-1]:.3f} of the twin's outputs depend on the input "
+                                         f"beyond 10x TOL (at least {LIVE_SHARE}): the hold could not fail")
+    held = (f"{n} C2f / Detect instances within atol = rtol = 1e-3 (max |err| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items() if k != "nms_keep") + ")"
+            + (f", each with at least {min(shares):.3f} of its twin's outputs depending on its input beyond 10x that" if live else ""))
     if not nms:
-        log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {n} C2f / Detect instances "
-            f"within atol = rtol = 1e-3 (max |err| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + ")")
+        log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {held}")
         return worst
     cand, top = nms_candidates(torch.cat([b for b, _ in parts], 1), torch.cat([s for _, s in parts], 1), conf, max_nms)
     got, want = cuda_nms.nms_keep(cand, top, iou), cuda_nms.nms_keep_plain(cand, top, iou)
@@ -2672,9 +2756,8 @@ def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024, nm
     if not torch.equal(got, want):
         raise AssertionError(f"nms_keep {tag}: keep mask differs from the plain twin in {int((got != want).sum())} slots")
     worst["nms_keep"] = 0.0
-    log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {n} C2f / Detect instances "
-        f"within atol = rtol = 1e-3 (max |err| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items() if k != "nms_keep")
-        + f"), NMS B={cand.shape[0]} K={cand.shape[1]} kept {int(got.sum())} of {int((top > 0).sum())} valid, bit for bit")
+    log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {held}, NMS "
+        f"B={cand.shape[0]} K={cand.shape[1]} kept {int(got.sum())} of {int((top > 0).sum())} valid, bit for bit")
     return worst
 
 
@@ -4303,6 +4386,391 @@ def obb_phases(root: Path, card):
     obb_track_phase(y, frames, root, card)
 
 
+# ---------------------------------------------------------------- slice 17 --
+
+TASK_YAMLS = {"segment": "yolov8n-seg.yaml", "pose": "yolov8n-pose.yaml", "obb": "yolov8n-obb.yaml"}
+TASK_FORWARD_PATH = {"c2f", "c2f_upconcat", "head_level"}  # a task model's predict: kernels 1-3, no NMS
+TASK_PREDICT = dict(conf=0.0, max_det=10, verbose=False)  # each frame's ten best: an untrained model scores near its bias prior
+TASK_INT8_FRAMES = 16
+TASK_SERVE_FRAMES = 16  # `[task serve]`: frames a client, two clients a lane
+GHOST_P2_FRAMES = 256  # `[pipeline ghost-p2]`: two 128-frame chunks of the clip
+GHOST_P2_CONF = 1e-6  # below every score of the init(0) tree (its bias prior at P2 is 2.4e-6): 16 detections every frame
+
+
+def task_preds_err(model, got, want) -> dict:
+    """|kernel − twin| of a task model's decoded predictions (a segment model's (preds, protos)): `px` over the box rows
+    and pose keypoints' x, y (pixels), `unit` over the scores, coefficients, visibilities, angles and prototypes; both
+    must be finite."""
+    import torch
+
+    if isinstance(got, tuple):
+        err = task_preds_err(model, got[0], want[0])
+        if not torch.isfinite(got[1]).all():
+            raise AssertionError("non-finite prototypes")
+        err["unit"] = max(err["unit"], float((got[1].float() - want[1].float()).abs().max()))
+        return err
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"predictions {tuple(got.shape)} vs {tuple(want.shape)}, finite {bool(torch.isfinite(got).all())}")
+    d = (got.float() - want.float()).abs()
+    nc, rest = model.nc, d[:, 4 + model.nc :]
+    px, unit = [d[:, :4]], [d[:, 4 : 4 + nc]]
+    if getattr(model, "task", "detect") == "pose":
+        K, nd = model.head.kpt_shape
+        r = rest.reshape(d.shape[0], K, nd, -1)
+        px.append(r[:, :, :2])
+        unit.append(r[:, :, 2:])
+    else:
+        unit.append(rest)
+    return {"px": max(float(t.max()) for t in px), "unit": max(float(t.max()) for t in unit if t.numel())}
+
+
+def check_preds(tag, err, px=1e-2, unit=1e-4):
+    if err["px"] > px or err["unit"] > unit:
+        raise AssertionError(f"{tag}: kernels against twins {err} (gates {px} px, {unit})")
+
+
+def result_rows(r):
+    """One Results as rows: an obb result's (n, 7) oriented boxes, else boxes.data with a pose result's keypoints
+    flattened beside them."""
+    import numpy as np
+
+    if getattr(r, "obb", None) is not None:
+        return np.asarray(r.obb.data, np.float64)
+    rows = np.asarray(r.boxes.data, np.float64)
+    if getattr(r, "keypoints", None) is not None:
+        rows = np.concatenate([rows, np.asarray(r.keypoints.data, np.float64).reshape(len(rows), -1)], 1)
+    return rows
+
+
+def task_benchmark_phase(frames, card):
+    """`[task benchmark]`: YOLO("yolov8n-{seg,pose,obb}.yaml") (the JAX package's init(0) trees, full width) at 640²:
+    the decoded forward of 8 letterboxed frames f32 through kernels 1-3 against the twins (boxes and keypoint x, y within
+    1e-2 px, scores, coefficients, visibilities, angles and prototypes 1e-4), then `YOLO.benchmark(imgsz=640)` in bf16:
+    its rows at B = 1 / 8 / 32 and the launches (kernels 1-3; no NMS in a benchmark)."""
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    x = torch.cat([letterboxed(frames[i % len(frames)]) for i in range(8)])
+    for task, name in TASK_YAMLS.items():
+        y = YOLO(name)
+        params_from_jax(y.model, y.params, torch.float32)
+        got, launches = counted(TASK_FORWARD_PATH, lambda: y.model.predict(x))
+        err = task_preds_err(y.model, got, y.model.predict(x, plain=True))
+        check_preds(f"task benchmark {task}", err)
+        t0 = time.perf_counter()
+        rows, lb = counted(TASK_FORWARD_PATH, lambda: y.benchmark(imgsz=640))
+        wall = time.perf_counter() - t0
+        if [r["batch"] for r in rows] != [1, 8, 32] or not all(r["fps"] > 0 for r in rows):
+            raise AssertionError(f"task benchmark {task}: rows {rows}")
+        log(f"task benchmark {task}", card, f"f32 B=8 640x640 kernels against twins max |px| {err['px']:.3e}, |rest| {err['unit']:.3e} "
+            f"(launches {launches}); YOLO.benchmark(imgsz=640) bf16 in {wall:.1f} s: " + ", ".join(
+                f"B={r['batch']} {r['latency_ms']} ms ({r['std_ms']}) = {r['fps']} frames/s" for r in rows) + f"; launches {lb}")
+
+
+def task_int8_phase(frames, card):
+    """`[task int8]`: predict(int8=True) (dynamic activation scales: the int8 convs, no kernel 1-3; the NMS kernel on the
+    segment and pose routes, none on the obb route's rotated NMS) of the three init(0) models on 16 BGR frames at 640,
+    each frame's ten best: f32 through the NMS kernel against its twin (equal rows, 1e-2 px, 1e-4); then the int8 tree's
+    decoded predictions of one frame on the card against the CPU's, whose convs are the same exact int8 products: a
+    dynamic code may flip where the card's f32 rounds an activation to the other side of a code boundary, so the gate
+    is on the 99.9th percentile (boxes 0.05 px, the rest 1e-3) and the largest difference is printed; then bf16 timed."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.quantize import quantize_params
+    from yolo_tpu_torch.nn.tasks import fuse, params_from_jax
+
+    x = letterboxed(frames[0])
+    for task, name in TASK_YAMLS.items():
+        path = set() if task == "obb" else {"nms_keep"}
+        y = YOLO(name)
+        rk, launches = counted(path, lambda: y.predict(frames, int8=True, compute_dtype="float32", imgsz=640, batch=16, **TASK_PREDICT))
+        rp = YOLO(name).predict(frames, int8=True, compute_dtype="float32", imgsz=640, batch=16, plain=True, **TASK_PREDICT)
+        if not y.model.int8:
+            raise AssertionError(f"task int8 {task}: the model does not walk int8")
+        worst = 0.0
+        for a, b in zip(rk, rp):
+            a, b = result_rows(a), result_rows(b)
+            if a.shape != b.shape or len(a) == 0:
+                raise AssertionError(f"task int8 {task}: {a.shape} vs twin {b.shape}")
+            worst = max(worst, float(np.abs(a - b).max()))
+        if worst > 1e-2:
+            raise AssertionError(f"task int8 {task}: kernel against twin max |diff| {worst}")
+        q = quantize_params(fuse(y.params))
+        mc, mh = type(y.model)(name), type(y.model)(name, device="cpu")
+        params_from_jax(mc, q, torch.float32)
+        params_from_jax(mh, q, torch.float32)
+        with torch.no_grad():
+            gc, gh = mc.predict(x, neck_opt=False), mh.predict(x.cpu(), neck_opt=False)
+        pc, ph = (gc[0], gh[0]) if isinstance(gc, tuple) else (gc, gh)
+        d = (pc.cpu().float() - ph.float()).abs()
+        box, rest = d[:, :4].flatten(), d[:, 4:].flatten()
+        q999 = {k: float(torch.quantile(v[:: max(1, v.numel() // 2**24)], 0.999)) for k, v in (("box", box), ("rest", rest))}
+        if not torch.isfinite(pc).all() or q999["box"] > 0.05 or q999["rest"] > 1e-3:
+            raise AssertionError(f"task int8 {task}: card against CPU 99.9th percentiles {q999}")
+        y.predict(frames, int8=True, imgsz=640, batch=16, **TASK_PREDICT)  # warm: bf16
+        t0 = time.perf_counter()
+        rb, lb = counted(path, lambda: y.predict(frames, int8=True, imgsz=640, batch=16, **TASK_PREDICT))
+        wall = time.perf_counter() - t0
+        log(f"task int8 {task}", card, f"f32 kernel = twin on {len(frames)} frames ({sum(len(r) for r in rk)} rows, max |diff| {worst:.3e}; "
+            f"launches {launches}); card against CPU on one frame: |box| max {float(box.max()):.3e} px, 99.9% {q999['box']:.3e}; "
+            f"|rest| max {float(rest.max()):.3e}, 99.9% {q999['rest']:.3e}; bf16 {len(frames) / wall:.1f} frames/s ({len(frames)} "
+            f"frames, one predict); launches {lb}")
+
+
+def task_tiled_phase(frame, card):
+    """`[task tiled]`: segment and pose (init(0) trees) through `ops.tiling.tiled_predict` on one 640x512 BGR frame (tile
+    256, overlap 0.25: 9 tiles, one batch), each tile's ten best: f32 through the kernels against the twins (the merged
+    boxes at the f32 gates), kernels 1, 2, 3 and 5 held against their twins on the tile batch, then bf16 timed over 16
+    calls."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.ops.tiling import slice_tiles, tile_grid, tiled_predict
+
+    grid = tile_grid(frame.shape[0], frame.shape[1], 256, 0.25)
+    tiles = torch.from_numpy(np.stack(slice_tiles(frame, grid, 256))).cuda().flip(-1).float() / 255.0
+    kw = dict(tile=256, overlap=0.25, conf=0.0, max_det=10)
+    for task in ("segment", "pose"):
+        y, yp = YOLO(TASK_YAMLS[task]), YOLO(TASK_YAMLS[task])
+        rk, launches = counted(SEG_PATH, lambda: tiled_predict(y, frame, compute_dtype="float32", **kw))
+        rp = tiled_predict(yp, frame, compute_dtype="float32", plain=True, **kw)
+        worst = same_dets([merged_rows(rk)], [merged_rows(rp)], f"task tiled {task}")
+        hold_path_kernels([y.model], tiles, f"task tiled {task}", card, conf=0.0)
+        tiled_predict(y, frame, **kw)  # warm: bf16
+        t0 = time.perf_counter()
+        rb, lb = counted(SEG_PATH, lambda: [tiled_predict(y, frame, **kw) for _ in range(16)])
+        wall = time.perf_counter() - t0
+        log(f"task tiled {task}", card, f"{len(grid)} tiles of 256: f32 kernels = twins ({len(rk[0])} merged boxes, max |diff| "
+            f"{worst:.3e}; launches {launches}); bf16 {wall / 16 * 1e3:.2f} ms a frame (16 calls), {len(rb[0][0])} merged boxes; "
+            f"launches {lb}")
+
+
+def task_serve_phase(frames, card):
+    """`[task serve]`: one DetectionServer with a segment lane 0, a pose lane 1 (init(0) trees saved as .npz, conf 0,
+    ten detections a frame) and an obb lane 2, which is out of service (its Results hold no axis-aligned boxes). f32
+    through the kernels against a second server f32 through the twins: two clients a lane, 16 frames each, equal
+    replies at the f32 gates; then the bf16 server (the default), timed, with its launches."""
+    from yolo_tpu_torch import YOLO
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = {i: str(YOLO(TASK_YAMLS[t]).save(str(Path(tmp) / f"{t}.npz"))) for i, t in enumerate(TASK_YAMLS)}
+        jobs = [[(lane, frames[(2 * lane + c) * TASK_SERVE_FRAMES + k]) for k in range(TASK_SERVE_FRAMES)]
+                for lane in (0, 1) for c in (0, 1)]
+        kw = dict(conf=0.0, max_det=10, out_of_service=(2,))
+        f32 = {"compute_dtype": "float32"}
+        with serving(src, predict_args=f32, **kw) as srv:
+            if "obb" not in (srv.lanes[2].error or ""):
+                raise AssertionError(f"task serve: the obb lane is not out of service: {srv.lanes[2].error}")
+            (out, wall), launches = counted(SERVE_PATH, lambda: run_clients(srv.port, jobs))
+        with serving(src, predict_args={**f32, "plain": True}, **kw) as srv:
+            (twin, _), none = counted(set(), lambda: run_clients(srv.port, jobs))
+        worst = same_dets([r for rs, _ in out for r in rs], [r for rs, _ in twin for r in rs], "task serve kernels vs twins")
+        with serving(src, **kw) as srv:
+            run_clients(srv.port, [j[:2] for j in jobs])  # warm
+            (out_b, wall_b), lb = counted(SERVE_PATH, lambda: run_clients(srv.port, jobs))
+    n = sum(len(j) for j in jobs)
+    log("task serve", card, f"segment and pose lanes, f32 kernels = twins on {n} requests ({sum(len(r) for rs, _ in out for r in rs)} "
+        f"rows, max |diff| {worst:.3e}; launches {launches}, the twins' server {none}); obb lane out of service; bf16 {n} requests "
+        f"from {len(jobs)} clients in {wall_b:.3f} s = {n / wall_b:.1f} frames/s; launches {lb}")
+
+
+def task_tune_phase(root: Path, card):
+    """`[task tune]`: YOLO("yolov8n-seg.yaml").tune(iterations=2, epochs=1) at 640 on a 32-frame polygon split
+    (write_seg_split, its frames both the train and the val split): each iteration a fresh model trained one epoch in
+    bf16 and validated with the segment validator (kernels 1, 2, 3 and 5); the fitness of both iterations, best.npz a
+    segment checkpoint whose predict of 4 frames f32 through the kernels equals the twins' (1e-2 px, 1e-4)."""
+    import csv
+
+    import cv2
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+
+    write_seg_split(root, *TUNE_SET, split="train")
+    data = write_seg_split(root, *TUNE_SET, split="val")
+    t0 = time.perf_counter()
+    best, launches = counted(SEG_PATH, lambda: YOLO("yolov8n-seg.yaml").tune(data=str(data), project=str(root / "runs"), **TUNE_RUN))
+    wall = time.perf_counter() - t0
+    tune_dir = root / "runs" / "tune"
+    with open(tune_dir / "tune_results.csv") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != TUNE_RUN["iterations"] or not all(np.isfinite(float(r["fitness"])) for r in rows):
+        raise AssertionError(f"task tune: rows {rows}")
+    y = YOLO(str(tune_dir / "best.npz"))
+    frames = [cv2.imread(str(root / f"images/val/{i}.png")) for i in range(4)]
+    kw = dict(compute_dtype="float32", **SEG_PREDICT)
+    rk = [result_rows(y.predict(f, **kw)[0]) for f in frames]
+    rp = [result_rows(y.predict(f, plain=True, **kw)[0]) for f in frames]
+    worst = same_dets(rk, rp, "task tune best.npz")
+    if y.task != "segment":
+        raise AssertionError(f"task tune: best.npz is a {y.task} checkpoint")
+    log("task tune", card, f"yolov8n-seg, {len(rows)} iterations in {wall:.1f} s: fitness " + ", ".join(
+        f"iter {r['iteration']} {float(r['fitness']):.4f}" for r in rows) + f"; best iteration {best['best_iteration']}; launches "
+        f"{launches}; best.npz f32 kernels = twins on 4 frames ({sum(len(r) for r in rk)} rows, max |diff| {worst:.3e})")
+
+
+VARIANT_RUNS = (  # (yaml, predict imgsz, kernels of its predict path)
+    ("yolov8n-p6.yaml", 1280, {"c2f", "head_level", "nms_keep"}),  # the neck is C2: no fold, no kernel 2
+    ("yolov8n-seg-p6.yaml", 1280, {"c2f", "head_level", "nms_keep"}),
+    ("yolov8n-pose-p6.yaml", 1280, {"c2f", "head_level", "nms_keep"}),
+    ("yolov8n-ghost-p2.yaml", (512, 640), {"head_level", "nms_keep"}),  # C3Ghost and GhostConv only: no C2f
+    ("yolov8n-ghost.yaml", (512, 640), {"head_level", "nms_keep"}),
+    ("yolov8n-cls-resnet50.yaml", 224, set()),  # ResNetLayer and Classify: plain torch convs, no kernel
+)
+HELD_VARIANTS = ("yolov8n-p6.yaml", "yolov8n-ghost-p2.yaml")  # kernels 1, 3 and 5 held at their new shapes
+
+
+def variants_phase(frames, card):
+    """`[variants]`: each v8 variant's init(0) tree (full width; nc 80, pose nc 1, classify nc 1000) at its predict
+    size; a p6 model takes the frames upscaled to 1280x1024 first, outside the timing, as its users feed it frames
+    of its size. The decoded forward of 2 letterboxed frames f32 through the kernels against the twins (boxes and
+    keypoint x, y 1e-2 px, the rest 1e-4; a classify model's probabilities on the card against the CPU, 1e-5); at
+    the p6 (1280²) and ghost-p2 (640x512) shapes, kernels 1, 3 and 5 held against their twins on 2 images of seeded
+    uniform noise through the tree with its BN moments from them (`bn_calibrated`), each instance's twin depending
+    on its input (`live`): the initial tree's activations fade through its depth, and on the clip's frames, mostly
+    a uniform sky, moments from the frames leave most of each map near zero (0.11 of P3's head outputs at 1280² live on
+    an H100); then bf16 `predict` of 8 frames one per call, timed, with the launches of that run."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    for name, imgsz, path in VARIANT_RUNS:
+        y = YOLO(name)
+        h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
+        sized = [cv2.resize(f, (1280, 1024)) for f in frames[:8]] if h == 1280 else frames[:8]
+        if y.task == "classify":
+            x = torch.from_numpy(np.stack([cv2.resize(f, (w, h)) for f in sized[:2]])).cuda().flip(-1).float() / 255.0
+        elif (h, w) == sized[0].shape[:2]:  # the frame as the predictor feeds it at its own size: no letterbox
+            x = torch.from_numpy(np.ascontiguousarray(sized[:2])).cuda().flip(-1).float() / 255.0
+        else:
+            x = torch.cat([letterboxed(f, h) for f in sized[:2]])
+        params_from_jax(y.model, y.params, torch.float32)
+        got, launches = counted(path - {"nms_keep"}, lambda: y.model.predict(x))
+        if y.task == "classify":
+            cpu = type(y.model)(name, device="cpu")
+            params_from_jax(cpu, y.params, torch.float32)
+            err = {"px": 0.0, "unit": float((got.cpu() - cpu.predict(x.cpu())).abs().max())}
+            check_preds(f"variants {name}", err, unit=1e-5)
+        else:
+            err = task_preds_err(y.model, got, y.model.predict(x, plain=True))
+            check_preds(f"variants {name}", err)
+        if name in HELD_VARIANTS:
+            noise = torch.rand(x.shape, generator=torch.Generator().manual_seed(0)).cuda()
+            params_from_jax(y.model, bn_calibrated(y.model, y.params, noise), torch.float32)  # predict reloads y.params
+            hold_path_kernels([y.model], noise, f"variants {name}", card, conf=0.0, live=True)
+        kw = {"imgsz": imgsz, **({"verbose": False} if y.task == "classify" else TASK_PREDICT)}
+        y.predict(sized[0], **kw)  # warm: bf16
+        y.predictor.timings = []
+        t0 = time.perf_counter()
+        res, lb = counted(path, lambda: [y.predict(f, **kw)[0] for f in sized])
+        wall = time.perf_counter() - t0
+        ts, y.predictor.timings = y.predictor.timings, None
+        split = {k: sum(t[f"{k}_s"] for t in ts) / len(ts) * 1e3 for k in ("pre", "enqueue", "wait", "post")}
+        what = f"top1 {[int(r.probs.top1) for r in res[:4]]}" if y.task == "classify" else f"{sum(len(r) for r in res)} detections"
+        log("variants", card, f"{name} at {h}x{w} ({sized[0].shape[1]}x{sized[0].shape[0]} frames): {len(y.model.layers)} layers, strides {y.model.stride}; f32 kernels against twins "
+            f"max |px| {err['px']:.3e}, |rest| {err['unit']:.3e} (launches {launches}); bf16 predict {len(sized) / wall:.1f} frames/s ({len(sized)} "
+            f"frames, one per call; host ms/frame: letterbox + assembly {split['pre']:.2f}, enqueue {split['enqueue']:.2f}, wait "
+            f"{split['wait']:.2f}, Results {split['post']:.2f}), {what}; launches {lb}")
+
+
+def ghost_p2_pipeline_phase(clip, card):
+    """`[pipeline ghost-p2]`: FusedDetectTrack with yolov8n-ghost-p2's init(0) tree (full width, nc 80) over the clip's
+    first 256 frames in 128-frame chunks, conf 1e-6 (below every score of the untrained tree, whose features fade
+    through its depth so that its scores sit at the bias prior: 16 detections a frame): f32 through the kernels (3 and
+    5; the model has no C2f) against f32 through the twins: tracks, ids, statuses, detection counts and stats equal;
+    then bf16 frames/s with its launches."""
+    import torch
+
+    from yolo_tpu_torch import FusedDetectTrack, YOLO
+
+    y = YOLO("yolov8n-ghost-p2.yaml")
+    sub = clip[:GHOST_P2_FRAMES]
+
+    def pipe(dtype, plain):
+        return FusedDetectTrack(y.model, y.params, frame_hw=HW, chunk=CHUNK, conf=GHOST_P2_CONF, iou=0.6, n_max=64, d_max=16,
+                                dtype=dtype, plain=plain)
+
+    (ok_, sk, wk), launches = counted({"head_level", "nms_keep"}, lambda: timed_run(pipe(torch.float32, False), sub))
+    op_, sp, wp = timed_run(pipe(torch.float32, True), sub)
+    worst = compare_runs(ok_, op_, sk, sp)
+    per_frame = [int(c) for o in ok_ for c in o["det_count"]]
+    if sk["detection_frames"] <= 0 or min(per_frame) <= 0:
+        raise AssertionError(f"pipeline ghost-p2: stats {sk}, frames without detections {per_frame.count(0)}")
+    ft = pipe(torch.bfloat16, False)
+    ft.run_clip(sub[:CHUNK])  # warm-up
+    ft.reset()
+    (ob, sb, wb), lb = counted({"head_level", "nms_keep"}, lambda: timed_run(ft, sub))
+    log("pipeline ghost-p2", card, f"f32 kernels {sk} in {wk:.2f} s = twins {sp} in {wp:.2f} s: tracks, ids, statuses, detection "
+        f"counts and stats equal (max |box/conf/vel diff| {worst:.3e}); detections on every frame ({min(per_frame)}-{max(per_frame)} a "
+        f"frame, {sum(per_frame)} in all); "
+        f"launches {launches}; bf16 {len(sub)} frames in {wb:.3f} s = {len(sub) / wb:.1f} frames/s end to end; {sb}; launches {lb}")
+
+
+def variants_train_phase(data, run_dir, card):
+    """`[variants train]`: one epoch of YOLO("yolov8n-ghost-p2.yaml").train on the detect split at 640, batch 16,
+    bf16 with the IR recipe, validating once (kernels 3 and 5): the losses, the metrics, the mean step (forward +
+    loss, backward, optimizer in CUDA events) and the launches; then the trained tree's decoded forward of 2 val
+    frames f32 through the head kernel against its twin (1e-2 px, 1e-4). The train step itself runs no kernel; it
+    is held against JAX's on the CPU (tests/test_torch_v8_variants.py)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    epochs = []
+    y = YOLO("yolov8n-ghost-p2.yaml")
+    t0 = time.perf_counter()
+    _, launches = counted({"head_level", "nms_keep"}, lambda: y.train(trainer=train_epoch_recorder(epochs), data=str(data),
+                          project=str(run_dir), name="ghost_p2", exist_ok=True, **{**TRAIN_RECIPE, "epochs": 1}))
+    wall = time.perf_counter() - t0
+    e = epochs[-1]
+    r, steps = e["row"], e["timings"][1:]
+    if not all(np.isfinite(r[f"train/{k}_loss"]) for k in ("box", "cls", "dfl")) or not steps:
+        raise AssertionError(f"variants train: {r}")
+    mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
+    span = e["t_end"] - e["timings"][1]["start"]
+    frames = sorted((Path(data).parent / "images" / "val").glob("*.png"))[:2]
+    x = torch.cat([letterboxed(cv2.imread(str(f))) for f in frames])
+    params_from_jax(y.model, y.params, torch.float32)
+    got, lk = counted({"head_level"}, lambda: y.model.predict(x))
+    err = task_preds_err(y.model, got, y.model.predict(x, plain=True))
+    check_preds("variants train", err)
+    log("variants train", card, f"yolov8n-ghost-p2, 1 epoch of {len(e['timings'])} steps at batch {TRAIN_RECIPE['batch']}, 640, "
+        f"bf16: box {r['train/box_loss']:.4f} cls {r['train/cls_loss']:.4f} dfl {r['train/dfl_loss']:.4f}; mAP50 "
+        f"{r['metrics/mAP50']:.4f}; a step {span / len(steps) * 1e3:.1f} ms (host clock, after the first): forward+loss "
+        f"{mean['forward']:.2f}, backward {mean['backward']:.2f}, optimizer+BN+EMA {mean['optimizer']:.2f} ms (events), loader "
+        f"wait {mean['loader']:.2f} ms; the .train call {wall:.1f} s; launches {launches}; the trained tree f32 kernel against "
+        f"twin on 2 val frames max |px| {err['px']:.3e}, |rest| {err['unit']:.3e} (launches {lk})")
+
+
+def slice17_phases(clip, root: Path, train_data, card):
+    """The seventeenth slice's phases: the task entry points, then the v8 variants (about 150 s together)."""
+    import numpy as np
+
+    bgr = np.repeat(clip[:TASK_SERVE_FRAMES * 4], 3, -1)
+    t0 = time.perf_counter()
+    task_benchmark_phase(bgr, card)
+    task_int8_phase(bgr[:TASK_INT8_FRAMES], card)
+    task_tiled_phase(bgr[0], card)
+    task_serve_phase(bgr, card)
+    task_tune_phase(root / "task_tune", card)
+    variants_phase(bgr, card)
+    ghost_p2_pipeline_phase(clip, card)
+    variants_train_phase(train_data, root / "runs", card)
+    train_step_f32_phase(train_data, card, cfg_name="yolov8n-ghost-p2.yaml", tag="variants train step f32")
+    print(f"[slice 17] its phases took {time.perf_counter() - t0:.1f} s")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -4437,6 +4905,7 @@ def main(argv) -> int:
         seg = segment_phases(Path(tmp) / "seg", card)
         pose_phases(Path(tmp) / "pose", card, seg)
         obb_phases(Path(tmp) / "obb", card)
+        slice17_phases(clip, Path(tmp) / "slice17", train_data, card)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

@@ -116,8 +116,9 @@ def test_classify_head_and_model_match_jax(two_threads):
 def test_yolo_cls_yaml_matches_jax_init_and_routing():
     """YOLO("yolov8n-cls.yaml") holds JAX's initial tree bit for bit (scale n, nc 1000, 1280-wide head);
     the task comes from the name or `task=`; -seg, -pose and -obb build a segment, a pose and an obb
-    model since those tasks were ported, an RT-DETR head names itself, a ResNet backbone names its
-    module; guess_model_task and model_class_for follow JAX's."""
+    model since those tasks were ported, an RT-DETR head names itself, a ResNet backbone builds a classify model
+    since the seventeenth slice and yolo11n-cls names the module it lacks (C3k2); guess_model_task and
+    model_class_for follow JAX's."""
     py, jy = yolo_tpu_torch.YOLO("yolov8n-cls.yaml", device="cpu"), yolo_tpu.YOLO("yolov8n-cls.yaml")
     got, want = _flat(py.params), _flat(jy.params)
     assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
@@ -127,8 +128,10 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     assert yolo_tpu_torch.YOLO("yolov8n-obb.yaml", device="cpu").task == "obb"
     assert yolo_tpu_torch.YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
     assert yolo_tpu_torch.YOLO("yolov8n-pose.yaml", device="cpu").task == "pose"
-    with pytest.raises(NotImplementedError, match="ResNetLayer"):
-        yolo_tpu_torch.YOLO("yolov8n-cls-resnet50.yaml", device="cpu")
+    resnet = yolo_tpu_torch.YOLO("yolov8n-cls-resnet50.yaml", device="cpu")
+    assert resnet.task == "classify" and isinstance(resnet.model, PT.ClassificationModel) and resnet.model.nc == 1000
+    with pytest.raises(NotImplementedError, match="C3k2"):
+        yolo_tpu_torch.YOLO("yolo11n-cls.yaml", device="cpu")
     for cfg in ("yolov8n-cls.yaml", "yolov8n.yaml", "yolov8n-seg.yaml", "yolov8n-pose.yaml", "yolov8n-obb.yaml"):
         d = JT.yaml_model_load(cfg)
         assert PT.guess_model_task(d) == JT.guess_model_task(d)

@@ -441,6 +441,17 @@ def test_train_step_f32_card_matches_cpu(card, tmp_path):
     chip_smoke.train_step_f32_phase(_train_split(tmp_path), "card test")
 
 
+def test_variant_train_step_f32_card_matches_cpu(card, tmp_path):
+    """chip_smoke's `[variants train step f32]`: one f32 step of yolov8n-ghost-p2 (B = 16 at 640x640) on the card and
+    on the CPU, within chip_smoke.TRAIN_STEP_TOL; the BN biases whose gradient is zero by construction
+    (`chip_smoke.zero_grad_leaves`) held against their BN weight's largest gradient."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+
+    chip_smoke.train_step_f32_phase(_train_split(tmp_path), "card test", cfg_name="yolov8n-ghost-p2.yaml",
+                                    tag="variants train step f32")
+
+
 def test_train_val_kernels_match_plain(card, tmp_path):
     """chip_smoke's `[train val kernels]` on weights the trainer made on the card: best.npz after one
     epoch of the IR recipe (batch 8), validated in f32 through the kernels and through the twins:
@@ -900,3 +911,57 @@ def test_obb_phases_on_the_card(card, monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "OBB_VAL", (8, 60_001))
     monkeypatch.setattr(chip_smoke, "OBB_RUN", {**chip_smoke.OBB_RUN, "epochs": 1, "batch": 8, "close_mosaic": 0})
     chip_smoke.obb_phases(tmp_path, "card test")
+
+
+@pytest.mark.parametrize("name, hw, kernels", [("yolov8n-p6.yaml", (1280, 1280), {"c2f", "head_level", "nms_keep"}),
+                                               ("yolov8n-ghost-p2.yaml", (512, 640), {"head_level", "nms_keep"})])
+def test_kernels_at_the_variant_shapes(card, name, hw, kernels):
+    """Kernels 1 and 3 (and 5) against their twins (f32, TOL; NMS bit for bit) on the activations of the variant's
+    init(0) tree, its BN moments taken from the input (`chip_smoke.bn_calibrated`: activations of unit scale, not
+    the initial tree's fading ones), an image of seeded uniform noise (a clip frame is mostly a uniform sky, which
+    such moments set near zero), at its shapes: yolov8n-p6 at 1280² (five backbone C2f up to c = 128, four Detect
+    levels, one at stride 64) and yolov8n-ghost-p2 at 640x512 (four Detect levels, one at stride 4; no C2f); each
+    instance's twin output depends on its input beyond 10x TOL in at least half its elements."""
+    import chip_smoke
+    from yolo_tpu_torch.nn.tasks import DetectionModel, params_from_jax
+
+    m = DetectionModel(name, device=card)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, *hw, 3)).astype(np.float32)).to(card)
+    params_from_jax(m, chip_smoke.bn_calibrated(m, m.init(0), x), torch.float32)
+    worst = chip_smoke.hold_path_kernels([m], x, f"{name} {hw}", "card test", conf=0.0, live=True)
+    assert set(worst) == kernels
+
+
+SLICE17_PHASES = ["task_benchmark_phase", "task_int8_phase", "task_tiled_phase", "task_serve_phase", "task_tune_phase",
+                  "variants_phase", "ghost_p2_pipeline_phase", "variants_train_phase"]
+
+
+@pytest.mark.parametrize("phase", SLICE17_PHASES)
+def test_slice17_phases_on_the_card(card, phase, monkeypatch, tmp_path):
+    """chip_smoke's phases of the seventeenth slice at a few frames: the segment, pose and obb entry points
+    (benchmark, int8 predict, tiled predict, a server with their lanes, tune at 8 frames and batch 8) and the v8
+    variants (predict at their sizes, FusedDetectTrack with yolov8n-ghost-p2 over two 8-frame chunks, one epoch of
+    yolov8n-ghost-p2 on 16 frames at batch 8)."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "TASK_SERVE_FRAMES", 2)
+    monkeypatch.setattr(chip_smoke, "TUNE_SET", (8, 30_000))
+    monkeypatch.setattr(chip_smoke, "TUNE_RUN", {**chip_smoke.TUNE_RUN, "batch": 8})
+    monkeypatch.setattr(chip_smoke, "GHOST_P2_FRAMES", 16)
+    monkeypatch.setattr(chip_smoke, "CHUNK", 8)
+    monkeypatch.setattr(chip_smoke, "TRAIN_RECIPE", {**chip_smoke.TRAIN_RECIPE, "batch": 8})
+    clip = np.stack(_ir_frames(16))
+    bgr = np.repeat(clip, 3, -1)
+    if phase == "ghost_p2_pipeline_phase":
+        chip_smoke.ghost_p2_pipeline_phase(clip, "card test")
+    elif phase == "task_tune_phase":
+        chip_smoke.task_tune_phase(tmp_path, "card test")
+    elif phase == "variants_train_phase":
+        chip_smoke.write_split(tmp_path / "d", 16, 0, split="train")
+        data = chip_smoke.write_split(tmp_path / "d", 8, 10_000)
+        chip_smoke.variants_train_phase(data, tmp_path / "runs", "card test")
+    elif phase == "task_tiled_phase":
+        chip_smoke.task_tiled_phase(bgr[0], "card test")
+    else:
+        getattr(chip_smoke, phase)(bgr[:8], "card test")

@@ -681,19 +681,17 @@ def test_track_obb_matches_jax(obb_pair, tracker, tmp_path):
 
 
 def test_obb_entry_points_left_out_raise(obb_pair, tmp_path):
-    """The slice's left-out entry points name themselves with NotImplementedError: where the JAX package runs them with
-    an obb model (benchmark, tune, tiled inference, int8 predict, a server lane, which stays out of service) they name
-    ROADMAP item 2; where JAX fails too (FusedDetectTrack asserts a plain Detect head; an ensemble) the port refuses.
-    augment=True warns and predicts at one scale (JAX's obb route ignores it)."""
+    """What stays refused for an obb model names itself with NotImplementedError: tiled inference and a server lane
+    (out of service), where the JAX package reads `Results.boxes`, which an obb result leaves empty; FusedDetectTrack
+    (JAX asserts a plain Detect head) and ensembles (JAX's return neither boxes nor oriented boxes). augment=True
+    warns and predicts at one scale (JAX's obb route ignores it). benchmark, tune and int8 predict run since the
+    seventeenth slice (tests/test_torch_task_entry_points.py holds them against JAX)."""
     from yolo_tpu_torch.ops.tiling import tiled_predict
     from yolo_tpu_torch.pipeline.fused import FusedDetectTrack
     from yolo_tpu_torch.serve import _ModelLane
 
     _, py, frames = obb_pair
-    for call, what in ((lambda: py.benchmark(imgsz=64), "benchmark.*ROADMAP item 2"),
-                       (lambda: py.tune(data="x.yaml"), "tune.*ROADMAP item 2"),
-                       (lambda: tiled_predict(py, frames[0], tile=64), "tiled.*ROADMAP item 2"),
-                       (lambda: py.predict(frames[0], int8=True, imgsz=64), "int8.*ROADMAP item 2"),
+    for call, what in ((lambda: tiled_predict(py, frames[0], tile=64), "tiled.*obb"),
                        (lambda: FusedDetectTrack(py.model, py.params, device="cpu"), "FusedDetectTrack"),
                        (lambda: yolo_tpu_torch.YOLO(["yolov8n-obb.yaml", "yolov8n-obb.yaml"], device="cpu"), "ensemble")):
         with pytest.raises(NotImplementedError, match=what):

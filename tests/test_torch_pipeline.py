@@ -213,7 +213,7 @@ def test_signature_routes_match_jax(pipelines, opts):
 def test_unroll_and_mesh_settings_like_jax(monkeypatch, unroll, env, error):
     """`unroll` and YOLO_TPU_SCAN_UNROLL are taken and change nothing: the port's step loop runs frame
     by frame, so no value is refused (the JAX package refuses those that are not an integer >= 1).
-    `mesh` raises NotImplementedError naming ROADMAP item 7."""
+    `mesh` raises NotImplementedError naming ROADMAP item 3."""
     if env is not None:
         monkeypatch.setenv("YOLO_TPU_SCAN_UNROLL", env)
     jm = JaxDetectionModel("yolov8n.yaml")
@@ -225,5 +225,5 @@ def test_unroll_and_mesh_settings_like_jax(monkeypatch, unroll, env, error):
         ft = FusedDetectTrack(model, jp, **kw)
         assert not hasattr(ft, "unroll") and ft.run_clip(np.zeros((8, 64, 64, 1), np.uint8))[1]["frames"] == 8
         return
-    with pytest.raises(error, match="ROADMAP item 7"):
+    with pytest.raises(error, match="ROADMAP item 3"):
         FusedDetectTrack(model, jp, **kw)

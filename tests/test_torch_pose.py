@@ -156,7 +156,8 @@ def test_p2_yaml_builds_and_predicts_as_jax():
 def test_pose_model_init_and_routing_match_jax():
     """PoseModel("yolov8n-pose.yaml").init(0) is the JAX package's tree bit for bit (3,306,482 values, kpt_shape (17, 3),
     nk 51, c4 51); YOLO("yolov8n-pose.yaml") is a pose model; the task helpers route `-pose` yamls and Pose heads as
-    JAX's do; a yaml's kpt_shape reaches the head; yolov8n-pose-p6 names the module it lacks (C2)."""
+    JAX's do; a yaml's kpt_shape reaches the head; yolov8n-pose-p6 (C2 since the seventeenth slice) is a four-level pose
+    model with JAX's strides, and yolo11n-pose names the module it lacks (C3k2)."""
     pm, jm = PT.PoseModel("yolov8n-pose.yaml", device="cpu"), JT.PoseModel("yolov8n-pose.yaml")
     _same_tree(pm.init(0), jm.init(0))
     assert PT.param_count(pm.init(0)) == jm.param_count(jm.init(0)) == 3_306_482
@@ -168,8 +169,10 @@ def test_pose_model_init_and_routing_match_jax():
     jm4, pm4 = _models((4, 2), nc=3)
     assert pm4.head.kpt_shape == jm4.head.kpt_shape == (4, 2) and pm4.nc == 3
     _same_tree(pm4.init(0), jm4.init(0))
-    with pytest.raises(NotImplementedError, match="C2"):
-        PT.PoseModel("yolov8n-pose-p6.yaml", device="cpu")
+    p6 = PT.PoseModel("yolov8n-pose-p6.yaml", device="cpu")
+    assert p6.stride == JT.PoseModel("yolov8n-pose-p6.yaml").stride == [8, 16, 32, 64] and p6.head.kpt_shape == (17, 3)
+    with pytest.raises(NotImplementedError, match="C3k2"):
+        PT.PoseModel("yolo11n-pose.yaml", device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -762,19 +765,15 @@ def test_track_carries_keypoints_and_masks_as_jax(pose_pair, task):
     assert n_tracked > 0
 
 
-def test_pose_entry_points_left_out_raise(pose_pair, tmp_path):
-    """The slice's left-out entry points name themselves with NotImplementedError where the JAX package would run them
-    with a pose model: benchmark, tune, ensembles, tiled inference, FusedDetectTrack, int8 predict; a server lane that
-    loads one is out of service; augment=True warns and predicts at one scale (as JAX's pose route ignores it)."""
-    from yolo_tpu_torch.ops.tiling import tiled_predict
+def test_pose_entry_points_left_out_raise(pose_pair):
+    """What stays refused for a pose model names itself with NotImplementedError: FusedDetectTrack (the JAX package
+    asserts a plain Detect head) and ensembles (JAX's raises AttributeError); augment=True warns and predicts at one
+    scale (as JAX's pose route ignores it). benchmark, tune, tiled inference, int8 predict and a server lane run since
+    the seventeenth slice (tests/test_torch_task_entry_points.py holds them against JAX)."""
     from yolo_tpu_torch.pipeline.fused import FusedDetectTrack
-    from yolo_tpu_torch.serve import _ModelLane
 
     _, py, frames = pose_pair
-    for call, what in ((lambda: py.benchmark(imgsz=64), "benchmark"), (lambda: py.tune(data="x.yaml"), "tune"),
-                       (lambda: tiled_predict(py, frames[0], tile=64), "tiled"),
-                       (lambda: FusedDetectTrack(py.model, py.params, device="cpu"), "FusedDetectTrack"),
-                       (lambda: py.predict(frames[0], int8=True, imgsz=64), "int8"),
+    for call, what in ((lambda: FusedDetectTrack(py.model, py.params, device="cpu"), "FusedDetectTrack"),
                        (lambda: yolo_tpu_torch.YOLO(["yolov8n-pose.yaml", "yolov8n-pose.yaml"], device="cpu"), "ensemble")):
         with pytest.raises(NotImplementedError, match=what):
             call()
@@ -783,6 +782,3 @@ def test_pose_entry_points_left_out_raise(pose_pair, tmp_path):
     aug = py.predict(frames[0], augment=True, **PREDICT_KW)[0]
     np.testing.assert_array_equal(aug.keypoints.data, one.keypoints.data)
     py.predictor = None  # a reused predictor keeps augment
-    path = py.save(str(tmp_path / "pose.npz"))
-    lane = _ModelLane(str(path), 0.25, 0.7, 64, 300, "cpu", {})
-    assert lane.yolo is None and "pose" in lane.error

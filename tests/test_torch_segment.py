@@ -111,7 +111,8 @@ def _tuned(params, nc):
 def test_segmentation_model_init_and_routing_match_jax():
     """SegmentationModel("yolov8n-seg.yaml").init(0) is the JAX package's tree bit for bit (3,421,264
     values, npr 64, nm 32); YOLO("yolov8n-seg.yaml") is a segment model; the task helpers route `-seg`
-    yamls and Segment heads as JAX's do; yolov8n-seg-p6 names the module it lacks (C2)."""
+    yamls and Segment heads as JAX's do; yolov8n-seg-p6 (C2 since the seventeenth slice) is a four-level segment model
+    with JAX's strides, and yolo11n-seg names the module it lacks (C3k2)."""
     pm, jm = PT.SegmentationModel("yolov8n-seg.yaml", device="cpu"), JT.SegmentationModel("yolov8n-seg.yaml")
     got, want = _flat(pm.init(0)), _flat(jm.init(0))
     assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
@@ -121,8 +122,10 @@ def test_segmentation_model_init_and_routing_match_jax():
     assert py.task == "segment" and isinstance(py.model, PT.SegmentationModel)
     d = JT.yaml_model_load("yolov8n-seg.yaml")
     assert PT.model_class_for(d) is PT.SegmentationModel and PT.guess_model_task(d) == JT.guess_model_task(d) == "segment"
-    with pytest.raises(NotImplementedError, match="C2"):
-        PT.SegmentationModel("yolov8n-seg-p6.yaml", device="cpu")
+    p6 = PT.SegmentationModel("yolov8n-seg-p6.yaml", device="cpu")
+    assert p6.stride == JT.SegmentationModel("yolov8n-seg-p6.yaml").stride == [8, 16, 32, 64] and p6.head.nl == 4
+    with pytest.raises(NotImplementedError, match="C3k2"):
+        PT.SegmentationModel("yolo11n-seg.yaml", device="cpu")
 
 
 # --- (b) ConvTranspose ----------------------------------------------------------------------------
@@ -480,23 +483,14 @@ def test_segment_train_writes_its_losses_and_metrics(tmp_path, two_threads):
     assert r.masks is not None and r.masks.data.shape == (len(r), 64, 64)
 
 
-def test_segment_entry_points_left_out_raise(seg_pair, tmp_path):
-    """The slice's left-out entry points name themselves with NotImplementedError where the JAX package would
-    run them with a segment model: benchmark, tune, ensembles, tiled inference, FusedDetectTrack, int8 predict;
-    a server lane that loads one is out of service. (`track` takes a segment model since the pose slice:
-    tests/test_torch_pose.py holds its masks against JAX's.)"""
-    from yolo_tpu_torch.ops.tiling import tiled_predict
+def test_segment_entry_points_left_out_raise(seg_pair):
+    """What stays refused for a segment model names itself with NotImplementedError: FusedDetectTrack (the JAX package
+    asserts a plain Detect head) and ensembles (JAX's raises TypeError). benchmark, tune, tiled inference, int8 predict
+    and a server lane run since the seventeenth slice (tests/test_torch_task_entry_points.py holds them against JAX)."""
     from yolo_tpu_torch.pipeline.fused import FusedDetectTrack
-    from yolo_tpu_torch.serve import _ModelLane
 
-    _, py, frames = seg_pair
-    for call, what in ((lambda: py.benchmark(imgsz=64), "benchmark"),
-                       (lambda: py.tune(data="x.yaml"), "tune"), (lambda: tiled_predict(py, frames[0], tile=64), "tiled"),
-                       (lambda: FusedDetectTrack(py.model, py.params, device="cpu"), "FusedDetectTrack"),
-                       (lambda: py.predict(frames[0], int8=True, imgsz=64), "int8"),
+    _, py, _ = seg_pair
+    for call, what in ((lambda: FusedDetectTrack(py.model, py.params, device="cpu"), "FusedDetectTrack"),
                        (lambda: yolo_tpu_torch.YOLO(["yolov8n-seg.yaml", "yolov8n-seg.yaml"], device="cpu"), "ensemble")):
         with pytest.raises(NotImplementedError, match=what):
             call()
-    path = py.save(str(tmp_path / "seg.npz"))
-    lane = _ModelLane(str(path), 0.25, 0.7, 64, 300, "cpu", {})
-    assert lane.yolo is None and "segment" in lane.error

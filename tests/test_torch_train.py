@@ -264,6 +264,6 @@ def test_resume_goes_on_at_the_next_epoch(tiny_dataset, tmp_path):  # noqa: F811
 @pytest.mark.parametrize("kw, what", [pytest.param({"n_devices": 2}, "n_devices", id="kw2-n_devices")])
 def test_unported_training_settings_raise(tiny_dataset, tmp_path, monkeypatch, kw, what):  # noqa: F811
     """Each setting that asks for something unported raises NotImplementedError naming it: the mesh
-    (n_devices > 1, ROADMAP item 7) is the one left."""
+    (n_devices > 1, ROADMAP item 3) is the one left."""
     with pytest.raises(NotImplementedError, match=what):
         DetectionTrainer(overrides={"data": tiny_dataset, "device": "cpu", "project": str(tmp_path), **kw}).train()

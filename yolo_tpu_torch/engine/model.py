@@ -28,8 +28,9 @@ YOLO predicts Results with `keypoints` (engine/pose_predictor.py), validates to 
 (OKS) metrics and trains on keypoint labels (the detect trainer with the pose loss). An obb YOLO
 predicts Results with `obb` (oriented boxes, engine/obb_predictor.py), validates to box metrics on
 probiou and trains on DOTA corner labels (the detect trainer with the rotated loss). All three
-track (their masks or keypoints follow their boxes; oriented boxes keep their angle); their
-`benchmark`, `tune` and ensembles raise NotImplementedError (ROADMAP item 2). Runs on the CUDA
+track (their masks or keypoints follow their boxes; oriented boxes keep their angle), `benchmark`
+(their `predict` timed), `tune` (their trainer and validator's fitness) and predict with `int8=True`;
+an ensemble of them raises NotImplementedError, as the JAX package fails on one. Runs on the CUDA
 card unless `device="cpu"` is passed. Orbax checkpoints are not ported, nor the orbax, stablehlo
 and tflite exports.
 """
@@ -70,6 +71,26 @@ def _task_of(model: str, task: str | None) -> str:
     if task not in PORTED_TASKS:
         raise NotImplementedError(f"the {task} task is not ported (only detect, segment, pose, obb and classify)")
     return task
+
+
+def predictor_class(task: str):
+    """The predictor of a task: segment, pose and obb have their own (masks, keypoints, oriented boxes); detect and
+    classify share the detection predictor."""
+    if task == "segment":
+        from yolo_tpu_torch.engine.segment_predictor import SegmentationPredictor
+
+        return SegmentationPredictor
+    if task == "pose":
+        from yolo_tpu_torch.engine.pose_predictor import PosePredictor
+
+        return PosePredictor
+    if task == "obb":
+        from yolo_tpu_torch.engine.obb_predictor import OBBPredictor
+
+        return OBBPredictor
+    from yolo_tpu_torch.engine.predictor import BasePredictor
+
+    return BasePredictor
 
 
 class YOLO:
@@ -129,7 +150,7 @@ class YOLO:
         members = [YOLO(w, device=device) for w in weights]
         for m in members:
             if m.task in EXTRA_OUTPUT_TASKS:
-                raise NotImplementedError(f"an ensemble of {m.task} models is not ported (ROADMAP item 2)")
+                raise NotImplementedError(f"an ensemble of {m.task} models is not ported (the JAX package fails on one too)")
         self.device = members[0].device
         self.overrides = {"model": ",".join(weights), "task": self.task}
         self.model = Ensemble([m.model for m in members])
@@ -197,14 +218,7 @@ class YOLO:
                 self.predictor = RemotePredictor(self.remote, overrides=args, names=self.model.names)
             return self.predictor(source, stream=stream, **kwargs)
         if self.predictor is None or predictor is not None:
-            if predictor is None and self.task == "segment":
-                from yolo_tpu_torch.engine.segment_predictor import SegmentationPredictor as predictor
-            elif predictor is None and self.task == "pose":
-                from yolo_tpu_torch.engine.pose_predictor import PosePredictor as predictor
-            elif predictor is None and self.task == "obb":
-                from yolo_tpu_torch.engine.obb_predictor import OBBPredictor as predictor
-            elif predictor is None:
-                from yolo_tpu_torch.engine.predictor import BasePredictor as predictor
+            predictor = predictor or predictor_class(self.task)
             self.predictor = predictor(
                 self.model, self.params, overrides={"device": str(self.device), **args}, names=self.model.names
             )
@@ -225,10 +239,6 @@ class YOLO:
         from yolo_tpu_torch.trackers.track import attach_tracker
 
         return attach_tracker(self, results, persist=persist, stream=stream, tracker_cfg=kwargs.get("tracker"))
-
-    def _refuse_extra_outputs(self, what: str) -> None:
-        if self.task in EXTRA_OUTPUT_TASKS:
-            raise NotImplementedError(f"YOLO.{what} with a {self.task} model is not ported (ROADMAP item 2)")
 
     def _require_local(self, mode: str) -> None:
         if self.remote is not None:
@@ -277,7 +287,6 @@ class YOLO:
         built from this one's source, on this YOLO's device → {best_fitness, best_hyperparameters,
         best_iteration}. `use_ray=True` runs the Ray Tune search instead (needs ray)."""
         self._require_local("tune")
-        self._refuse_extra_outputs("tune")
         if use_ray:
             from yolo_tpu_torch.engine.tuner import run_ray_tune
 
@@ -291,7 +300,6 @@ class YOLO:
         """Latency and frames/s of this model's forward at batch 1, 8 and 32 (utils/benchmarks.py):
         `imgsz` (640), `half` (True: bf16; False: f32)."""
         self._require_local("benchmark")
-        self._refuse_extra_outputs("benchmark")
         from yolo_tpu_torch.utils.benchmarks import benchmark
 
         return benchmark(model=self, **kwargs)

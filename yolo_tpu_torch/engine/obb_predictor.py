@@ -7,7 +7,8 @@ size go back through the inverse letterbox (`scale_boxes(..., xywh=True)`: the c
 pad, all four over the gain, nothing clipped) and its angle is kept, into an `OBBoxes` on its
 Results, which carries no axis-aligned boxes. `save`, `show` and `verbose` act as the detection
 predictor's. Test-time augmentation is the detect task's: `augment=True` warns and predicts at
-one scale; int8 is not ported for this task.
+one scale. `int8=True` quantizes the fused tree as the detection predictor does (dynamic
+activation scales) and walks the convs without the kernels 1-3.
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ from yolo_tpu_torch.ops.nms import non_max_suppression_rotated
 
 class OBBPredictor(BasePredictor):
     """Predictor of an OBBModel: Results with oriented boxes."""
-
-    def set_params(self, params) -> None:
-        if self.args.int8:
-            raise NotImplementedError("int8 inference of an obb model is not ported (ROADMAP item 2)")
-        super().set_params(params)
 
     @torch.no_grad()
     def _predict(self, imgs: torch.Tensor) -> dict:

@@ -6,7 +6,8 @@ honouring `classes` and `agnostic_nms` as the JAX pose route does. On the host e
 detection's keypoints go back through the inverse letterbox, x and y clipped to the frame and
 the visibility column kept, into a `Keypoints` on its Results. `save`, `show` and `verbose`
 act as the detection predictor's. Test-time augmentation is the detect task's: `augment=True`
-warns and predicts at one scale; int8 is not ported for this task.
+warns and predicts at one scale. `int8=True` quantizes the fused tree as the detection predictor does (dynamic
+activation scales) and walks the convs without the kernels 1-3.
 """
 
 from __future__ import annotations
@@ -21,11 +22,6 @@ from yolo_tpu_torch.ops.nms import non_max_suppression
 
 class PosePredictor(BasePredictor):
     """Predictor of a PoseModel: Results with boxes and keypoints."""
-
-    def set_params(self, params) -> None:
-        if self.args.int8:
-            raise NotImplementedError("int8 inference of a pose model is not ported (ROADMAP item 2)")
-        super().set_params(params)
 
     @torch.no_grad()
     def _predict(self, imgs: torch.Tensor) -> dict:

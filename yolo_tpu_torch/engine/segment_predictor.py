@@ -8,7 +8,8 @@ slots only, undoes the letterbox on them with cv2 and attaches a `Masks` (the pr
 once, straight to the original image (JAX's route); otherwise each mask is resized to the
 letterboxed input, then through the inverse letterbox. `save`, `show` and `verbose` act as
 the detection predictor's. Test-time augmentation is the detect task's: `augment=True`
-warns and predicts at one scale; int8 is not ported for this task.
+warns and predicts at one scale. `int8=True` quantizes the fused tree as the detection predictor does (dynamic
+activation scales) and walks the convs without the kernels 1-3.
 """
 
 from __future__ import annotations
@@ -27,11 +28,6 @@ from yolo_tpu_torch.ops.nms import non_max_suppression
 
 class SegmentationPredictor(BasePredictor):
     """Predictor of a SegmentationModel: Results with boxes and masks."""
-
-    def set_params(self, params) -> None:
-        if self.args.int8:
-            raise NotImplementedError("int8 inference of a segment model is not ported (ROADMAP item 2)")
-        super().set_params(params)
 
     @torch.no_grad()
     def _predict(self, imgs: torch.Tensor) -> dict:

@@ -35,7 +35,7 @@ keypoints and validates with `PoseValidator`; a dataset whose `kpt_shape` differ
 yaml's rebuilds the model at the dataset's (the tensors whose shape survives kept when pretrained).
 An obb model trains with `v8OBBLoss` (components box / cls / dfl) on DOTA rows collated as
 xywhr, and validates with `OBBValidator`, as in the JAX trainer.
-Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 7).
+Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 3).
 """
 
 from __future__ import annotations
@@ -134,7 +134,7 @@ class DetectionTrainer:
         overrides = {k: v for k, v in (overrides or {}).items() if k in DEFAULT_CFG_DICT}
         self.args = get_cfg(overrides=overrides)
         if (self.args.n_devices or 1) > 1:
-            raise NotImplementedError(f"n_devices={self.args.n_devices}: data-parallel training over a mesh is not ported (ROADMAP item 7)")
+            raise NotImplementedError(f"n_devices={self.args.n_devices}: data-parallel training over a mesh is not ported (ROADMAP item 3)")
         self.device = resolve_device(self.args.device or None)
         self.args.device = str(self.device)
         self.save_dir = get_save_dir(self.args)

@@ -1,10 +1,13 @@
 """The YOLO modules of the detect+track main path, as PyTorch modules.
 
 Counterpart of yolo_tpu/nn/modules.py for the blocks that yolov8-small (P2),
-yolov8n, yolov8n-cls, yolov8n-seg, yolov8n-pose and yolov8n-obb use: ConvBNAct, Conv2d, Bottleneck,
-C2f (with the neck's Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample,
-the Detect head with its DFL decode, the Classify head, the Segment head with its
-Proto and ConvTranspose, the Pose head and the OBB head.
+yolov8n, yolov8n-cls, yolov8n-seg, yolov8n-pose and yolov8n-obb use: ConvBNAct (with JAX's
+padding, groups and activation on or off), Conv2d, Bottleneck, C2f (with the neck's
+Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample, the Detect head with its
+DFL decode, the Classify head, the Segment head with its Proto and ConvTranspose, the Pose head
+and the OBB head; and for the v8 variants (yolov8-p6, -ghost*, -seg-p6, -pose-p6, -cls-resnet*)
+and yolov5: MaxPool2d, DWConv, C3, C2, GhostConv, GhostBottleneck, C3Ghost, ResNetBlock and
+ResNetLayer.
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -29,8 +32,10 @@ Proto and ConvTranspose, the Pose head and the OBB head.
   their plain PyTorch twins instead, the reference the kernels are held
   against on the card.
   Every other conv (stem, stride-2 convs, SPPF, the Segment head's coefficient
-  branch and prototypes, the Pose head's keypoint branch, the OBB head's angle branch) is torch.nn.functional.conv2d (conv_transpose2d for
-  Proto's upsample), as the JAX package leaves those to XLA.
+  branch and prototypes, the Pose head's keypoint branch, the OBB head's angle branch, and
+  every conv of the variants' C3, C2, GhostConv, GhostBottleneck and ResNetLayer blocks) is
+  torch.nn.functional.conv2d (conv_transpose2d for Proto's upsample), as the JAX package
+  leaves those to XLA.
 - A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
   instead, and may emit a `QTensor`; the blocks then walk their convs module by module
   (the JAX package's QTensor flow: split, concat, upsample and max-pool stay int8, a
@@ -72,10 +77,15 @@ def _dtype_of(m) -> torch.dtype:
     return getattr(m, "compute_dtype", torch.float32)
 
 
-def _uniform_hwio(rng, c1: int, c2: int, k: int) -> np.ndarray:
-    """The JAX package's conv init: kaiming-uniform over the fan-in, drawn as HWIO."""
-    bound = (1.0 / (c1 * k * k)) ** 0.5 * 3.0**0.5
-    return rng.uniform(-bound, bound, (k, k, c1, c2)).astype(np.float32)
+def autopad(k: int, p: int | None = None) -> int:
+    """'Same' padding of an odd kernel unless a padding is given (JAX `autopad`, dilation 1)."""
+    return k // 2 if p is None else p
+
+
+def _uniform_hwio(rng, c1: int, c2: int, k: int, g: int = 1) -> np.ndarray:
+    """The JAX package's conv init: kaiming-uniform over the fan-in (c1 / g · k²), drawn as HWIO."""
+    bound = (1.0 / (c1 // g * k * k)) ** 0.5 * 3.0**0.5
+    return rng.uniform(-bound, bound, (k, k, c1 // g, c2)).astype(np.float32)
 
 
 class BatchNorm(nn.Module):
@@ -90,14 +100,22 @@ class BatchNorm(nn.Module):
 
 
 class ConvBNAct(nn.Module):
-    """Conv ('same' padding) + BN + SiLU (JAX ConvBNAct): the fused inference form and the train form."""
+    """Conv + BN + SiLU or no activation (JAX ConvBNAct): the fused inference form and the train form.
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+    `p` is the padding (None: k // 2), `g` the groups, `act` True (SiLU) or False (none), as the JAX
+    package's; a dilation or another activation raises NotImplementedError naming the 'Conv' module."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None, g: int = 1, d: int = 1, act=True):
         super().__init__()
-        self.c1, self.c2, self.k, self.s = c1, c2, k, s
-        self.register_buffer("weight", torch.zeros(c2, c1, k, k))
+        if d != 1:
+            raise NotImplementedError(f"module 'Conv' with dilation {d!r} is not ported yet")
+        if act not in (True, False):
+            raise NotImplementedError(f"module 'Conv' with activation {act!r} is not ported yet (the port's ConvBNAct ends "
+                                      "in SiLU or nothing)")
+        self.c1, self.c2, self.k, self.s, self.p, self.g, self.act = c1, c2, k, s, autopad(k, p), g, act
+        self.register_buffer("weight", torch.zeros(c2, c1 // g, k, k))
         self.register_buffer("bias", torch.zeros(c2))
-        self.conv_weight = nn.Parameter(torch.zeros(c2, c1, k, k))
+        self.conv_weight = nn.Parameter(torch.zeros(c2, c1 // g, k, k))
         self.bn = BatchNorm(c2)
         self.batch_stats = None  # (mean, biased var, count) of the last training forward, held out of the gradient
         self.q = None  # the int8 form (nn/quantize.py) when load_jax took a quantized subtree
@@ -107,7 +125,7 @@ class ConvBNAct(nn.Module):
 
     def init(self, rng) -> dict:
         return {
-            "conv": {"weight": _uniform_hwio(rng, self.c1, self.c2, self.k)},
+            "conv": {"weight": _uniform_hwio(rng, self.c1, self.c2, self.k, self.g)},
             "bn": {
                 "weight": np.ones(self.c2, np.float32),
                 "bias": np.zeros(self.c2, np.float32),
@@ -122,11 +140,11 @@ class ConvBNAct(nn.Module):
                 "bn/running_mean": bn.running_mean, "bn/running_var": bn.running_var}
 
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
-        """The train-form conv + BN + SiLU in x's dtype. Training mode: the BN moments of
+        """The train-form conv + BN + activation in x's dtype. Training mode: the BN moments of
         the batch, taken in f32 over N, H and W (the scale rounded to x's dtype), kept
         in `batch_stats` for `utils.optim.apply_bn_stats`; eval mode: the running ones,
         exact in f32."""
-        y = conv_nhwc(x, self.conv_weight, self.s, self.k // 2)
+        y = conv_nhwc(x, self.conv_weight, self.s, self.p, self.g)
         bn = self.bn
         if self.training:
             var, mean = torch.var_mean(y.float(), (0, 1, 2), correction=0)
@@ -136,7 +154,7 @@ class ConvBNAct(nn.Module):
             mean, var, y = bn.running_mean, bn.running_var, y.float()
         scale = (bn.weight * torch.rsqrt(var + BN_EPS)).to(y.dtype)
         y = (y - mean.to(y.dtype)) * scale + bn.bias.to(y.dtype)
-        return silu(y).to(x.dtype)
+        return (silu(y) if self.act else y).to(x.dtype)
 
     def load_jax(self, p: dict, device, dtype) -> None:
         if "bn" in p:
@@ -146,7 +164,7 @@ class ConvBNAct(nn.Module):
             def scale(k):
                 return None if c.get(k) is None else torch.tensor(float(np.float32(c[k])), dtype=torch.float32, device=device)
 
-            self.q = {"w": Q.weight_matrix(c["w_int8"], device), "w_scale": _vec(c["w_scale"], device, torch.float32),
+            self.q = {"w": Q.weight_matrix(c["w_int8"], device, self.g), "w_scale": _vec(c["w_scale"], device, torch.float32),
                       "bias": _vec(c["bias"], device, torch.float32), "x_scale": scale("x_scale"),
                       "y_scale": scale("y_scale")}
             return
@@ -160,20 +178,23 @@ class ConvBNAct(nn.Module):
         x = Q.deq(x, self.weight.dtype)  # a quantized producer may feed a float conv
         if self.calib is not None:
             Q.record(self.calib, self.path, x)
-        y = silu(conv_nhwc(x, self.weight, self.s, self.k // 2) + self.bias)
+        y = conv_nhwc(x, self.weight, self.s, self.p, self.g) + self.bias
+        if self.act:
+            y = silu(y)
         if self.calib is not None:
             Q.record(self.calib, f"OUT::{self.path}", y)
         return y
 
     def _forward_int8(self, x):
         """The int8 conv (JAX `ConvBNAct._call_int8`): a QTensor input rides in as it is, a dense one
-        is quantized (static x_scale, else dynamic); int32 sums scaled by s_x · w_scale, bias and SiLU
-        in f32; requantized to a QTensor where a y_scale was calibrated, else the compute dtype."""
+        is quantized (static x_scale, else dynamic); int32 sums scaled by s_x · w_scale, bias and the
+        activation in f32; requantized to a QTensor where a y_scale was calibrated, else the compute dtype."""
         q = self.q
         xq, sx = (x.q, x.s) if isinstance(x, Q.QTensor) else Q.quantize_input(x, q["x_scale"])
-        y = Q.int8_conv(xq, q["w"], self.k, self.s, self.c2).float()
+        y = Q.int8_conv(xq, q["w"], self.k, self.s, self.c2, self.p, self.g).float()
         y = y * (sx * q["w_scale"]) + q["bias"]
-        y = y * torch.sigmoid(y)
+        if self.act:
+            y = y * torch.sigmoid(y)
         if q["y_scale"] is not None:
             return Q.QTensor(torch.clamp(torch.round(y / q["y_scale"]), -127, 127).to(torch.int8), q["y_scale"])
         return y.to(_dtype_of(self))
@@ -224,13 +245,15 @@ class Conv2d(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Two 3x3 ConvBNAct with an optional residual (JAX Bottleneck, k=(3, 3), e=1.0 inside C2f)."""
+    """Two ConvBNAct (kernels `k`, the second with `g` groups) with an optional residual (JAX Bottleneck):
+    3x3 and 3x3 with e=1.0 inside C2f and C2, 1x1 and 3x3 inside C3."""
 
-    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k=(3, 3), e: float = 0.5):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = ConvBNAct(c1, c_, 3, 1)
-        self.cv2 = ConvBNAct(c_, c2, 3, 1)
+        k0, k1 = (kk[0] if isinstance(kk, (tuple, list)) else kk for kk in k)  # (kh, kw) pairs are square
+        self.cv1 = ConvBNAct(c1, c_, k0, 1)
+        self.cv2 = ConvBNAct(c_, c2, k1, 1, g=g)
         self.add = shortcut and c1 == c2
 
     def load_jax(self, p: dict, device, dtype) -> None:
@@ -390,6 +413,219 @@ class Upsample(nn.Module):
         return x.repeat_interleave(self.scale, 1).repeat_interleave(self.scale, 2)
 
 
+class MaxPool2d(nn.Module):
+    """Max-pool of an NHWC map (JAX MaxPool2d): padding `p` with -inf, the output size floored as torch's."""
+
+    def __init__(self, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = k, s, p
+
+    def init(self, rng) -> dict:
+        return {}
+
+    def forward(self, x):
+        return F.max_pool2d(x.permute(0, 3, 1, 2), self.k, self.s, self.p).permute(0, 2, 3, 1).contiguous()
+
+    forward_train = forward
+
+
+def _parts(container):
+    """(tree key, module) of a ModuleList (keys 0, 1, ...) or a ModuleDict (its own keys), in order."""
+    return container.items() if isinstance(container, nn.ModuleDict) else ((str(i), m) for i, m in enumerate(container))
+
+
+def _subtree_init(m, rng) -> dict:
+    """A module's JAX draws; a ModuleList or ModuleDict is a group keyed '0', '1', ... (or its own keys),
+    drawn member by member in order (a head's `cv4`: level by level, each level's convs in turn)."""
+    return {k: _subtree_init(c, rng) for k, c in _parts(m)} if isinstance(m, (nn.ModuleList, nn.ModuleDict)) else m.init(rng)
+
+
+def _subtree_load(m, p: dict, device, dtype) -> None:
+    """Load a JAX subtree as `_subtree_init` draws it."""
+    if isinstance(m, (nn.ModuleList, nn.ModuleDict)):
+        for k, c in _parts(m):
+            _subtree_load(c, p[k], device, dtype)
+    else:
+        m.load_jax(p, device, dtype)
+
+
+class _Tree(nn.Module):
+    """A block whose JAX subtree is its children's, under the names in `tree_keys` and in that order: the
+    order of the JAX `init` draws. A ModuleList or ModuleDict child is a group keyed '0', '1', ...; a child
+    that is None has no group."""
+
+    tree_keys: tuple = ()
+
+    def _children(self):
+        for name in self.tree_keys:
+            m = getattr(self, name)
+            if m is not None:
+                yield name, m
+
+    def init(self, rng) -> dict:
+        return {name: _subtree_init(m, rng) for name, m in self._children()}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        for name, m in self._children():
+            _subtree_load(m, p[name], device, dtype)
+
+    def forward_train(self, x):
+        return self._run(x, True)
+
+    def forward(self, x):
+        return self._run(x, False)
+
+
+def _call(m, x, train: bool):
+    return m.forward_train(x) if train else m(x)
+
+
+class C3(_Tree):
+    """CSP bottleneck with 3 convs (JAX C3): cv1 then n bottlenecks (`bottleneck_k`, e=1.0), beside cv2,
+    concatenated into cv3. Plain torch convs, as the JAX package computes it outside any kernel."""
+
+    tree_keys = ("cv1", "cv2", "cv3", "m")
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5,
+                 bottleneck_k=((1, 1), (3, 3))):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBNAct(c1, c_, 1, 1)
+        self.cv2 = ConvBNAct(c1, c_, 1, 1)
+        self.cv3 = ConvBNAct(2 * c_, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(c_, c_, shortcut, g, k=bottleneck_k, e=1.0) for _ in range(n))
+
+    def _run(self, x, train: bool):
+        a = _call(self.cv1, x, train)
+        for m in self.m:
+            a = _call(m, a, train)
+        return _call(self.cv3, torch.cat([a, _call(self.cv2, x, train)], -1), train)
+
+
+class C2(_Tree):
+    """CSP bottleneck with 2 convs (JAX C2): cv1 split in two halves, n 3x3 bottlenecks on the first,
+    concatenated with the second into cv2. Plain torch convs, as the JAX package computes it outside any kernel."""
+
+    tree_keys = ("cv1", "cv2", "m")
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBNAct(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBNAct(2 * self.c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, g, k=((3, 3), (3, 3)), e=1.0) for _ in range(n))
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        a, b = y[..., : self.c], y[..., self.c :]
+        for m in self.m:
+            a = _call(m, a, train)
+        return _call(self.cv2, torch.cat([a, b], -1), train)
+
+
+class DWConv(ConvBNAct):
+    """Depth-wise ConvBNAct (JAX DWConv): gcd(c1, c2) groups."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class GhostConv(_Tree):
+    """Ghost convolution (JAX GhostConv): a conv to c2 / 2 channels, then a cheap 5x5 depth-wise conv of
+    it, both concatenated."""
+
+    tree_keys = ("cv1", "cv2")
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.s = s
+        self.cv1 = ConvBNAct(c1, c_, k, s, None, g, act=act)
+        self.cv2 = ConvBNAct(c_, c_, 5, 1, None, c_, act=act)
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        return torch.cat([y, _call(self.cv2, y, train)], -1)
+
+
+class GhostBottleneck(_Tree):
+    """GhostNet bottleneck (JAX GhostBottleneck): GhostConv, a depth-wise stride-2 conv where s = 2, GhostConv
+    without activation, plus the input (s = 1) or its depth-wise and 1x1 shortcut (s = 2)."""
+
+    tree_keys = ("conv", "shortcut")
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.s = s
+        conv = {"0": GhostConv(c1, c_, 1, 1)}
+        if s == 2:
+            conv["1"] = DWConv(c_, c_, k, s, act=False)
+        conv["2"] = GhostConv(c_, c2, 1, 1, act=False)
+        self.conv = nn.ModuleDict(conv)
+        self.shortcut = nn.ModuleList([DWConv(c1, c1, k, s, act=False), ConvBNAct(c1, c2, 1, 1, act=False)]) if s == 2 else None
+
+    def _run(self, x, train: bool):
+        y = x
+        for m in self.conv.values():
+            y = _call(m, y, train)
+        sc = x
+        for m in self.shortcut or ():
+            sc = _call(m, sc, train)
+        return y + sc
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottleneck inner blocks (JAX C3Ghost)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.ModuleList(GhostBottleneck(c_, c_) for _ in range(n))
+
+
+class ResNetBlock(_Tree):
+    """ResNet bottleneck block (JAX ResNetBlock): 1x1, 3x3 (stride s), 1x1 to e · c2 without activation, plus
+    the input or its 1x1 (stride s) projection, joined by ReLU."""
+
+    tree_keys = ("cv1", "cv2", "cv3", "shortcut")
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4, act=True):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = ConvBNAct(c1, c2, 1, 1, act=act)
+        self.cv2 = ConvBNAct(c2, c2, 3, s, 1, act=act)
+        self.cv3 = ConvBNAct(c2, c3, 1, act=False)
+        self.shortcut = nn.ModuleList([ConvBNAct(c1, c3, 1, s, act=False)]) if s != 1 or c1 != c3 else None
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv3, _call(self.cv2, _call(self.cv1, x, train), train), train)
+        sc = _call(self.shortcut[0], x, train) if self.shortcut is not None else x
+        return torch.relu(y + sc)
+
+
+class ResNetLayer(_Tree):
+    """A stage of ResNet blocks, or the stem (a 7x7 stride-2 conv and a 3x3 stride-2 max-pool) where
+    `is_first` (JAX ResNetLayer); the yaml's args are explicit [c1, c2, s, is_first, n]."""
+
+    tree_keys = ("layer",)
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1, e: int = 4):
+        super().__init__()
+        self.is_first = is_first
+        self.s_total = 4 if is_first else s
+        if is_first:
+            self.layer = nn.ModuleList([ConvBNAct(c1, c2, 7, 2, 3)])
+            self.pool = MaxPool2d(3, 2, 1)
+        else:
+            self.layer = nn.ModuleList([ResNetBlock(c1, c2, s, e=e)] + [ResNetBlock(e * c2, c2, 1, e=e) for _ in range(n - 1)])
+
+    def _run(self, x, train: bool):
+        for m in self.layer:
+            x = _call(m, x, train)
+        return self.pool(x) if self.is_first else x
+
+
 def dfl_project(box: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """DFL expectation over the last (reg_max) axis: softmax(box) · proj.
 
@@ -398,17 +634,6 @@ def dfl_project(box: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     compute dtype and the two sums and the divide run in f32."""
     e = torch.exp(box - box.amax(-1, keepdim=True)).float()
     return (e * proj.float()).sum(-1) / e.sum(-1)
-
-
-def _branch_init(branch, rng) -> dict:
-    """The JAX draws of a head's extra per-level branch (`cv4`: 3x3, 3x3, 1x1 a level), level by level."""
-    return {str(l): {str(j): m.init(rng) for j, m in enumerate(level)} for l, level in enumerate(branch)}
-
-
-def _branch_load(branch, p: dict, device, dtype) -> None:
-    for l, level in enumerate(branch):
-        for j, m in enumerate(level):
-            m.load_jax(p[str(l)][str(j)], device, dtype)
 
 
 def _branch_walk(branch, xs, train: bool) -> list:
@@ -508,16 +733,21 @@ class Detect(nn.Module):
         dbox = dist2bbox(torch.cat(dists, 1), anchors[None], xywh=True, dim=-1) * strides[None]
         return dbox, torch.cat(clss, 1)
 
-    def decode_parts(self, outs):
-        """DFL decode of the raw per-level outputs → (boxes (B, A, 4) px xywh f32,
-        scores (B, A, nc) f32 sigmoid), the anchors-major layout NMS consumes."""
+    def levels_from_outputs(self, outs):
+        """The DFL expectation and the sigmoid scores of the raw per-level outputs → (dists [(B, HW, 4) f32],
+        scores [(B, HW, nc) f32]), level by level: what `head_levels` computes through the kernel."""
         dists, clss = [], []
         for o in outs:
             B, H, W, _ = o.shape
             box = o[..., : self.reg_max * 4].reshape(B, H * W, 4, self.reg_max)
             dists.append(dfl_project(box, self.proj))
             clss.append(torch.sigmoid(o[..., self.reg_max * 4 :].reshape(B, H * W, self.nc).float()))
-        return self._anchor_decode(dists, clss, [(o.shape[1], o.shape[2]) for o in outs])
+        return dists, clss
+
+    def decode_parts(self, outs):
+        """DFL decode of the raw per-level outputs → (boxes (B, A, 4) px xywh f32,
+        scores (B, A, nc) f32 sigmoid), the anchors-major layout NMS consumes."""
+        return self._anchor_decode(*self.levels_from_outputs(outs), [(o.shape[1], o.shape[2]) for o in outs])
 
     @staticmethod
     def pack(dbox: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
@@ -668,13 +898,13 @@ class Segment(Detect):
         """Detect's draws and bias priors, then the proto's (cv1, upsample, cv2, cv3), then cv4 level by level."""
         p = super().init(rng)
         p["proto"] = self.proto.init(rng)
-        p["cv4"] = _branch_init(self.cv4, rng)
+        p["cv4"] = _subtree_init(self.cv4, rng)
         return p
 
     def load_jax(self, p: dict, device, dtype) -> None:
         super().load_jax(p, device, dtype)
         self.proto.load_jax(p["proto"], device, dtype)
-        _branch_load(self.cv4, p["cv4"], device, dtype)
+        _subtree_load(self.cv4, p["cv4"], device, dtype)
 
     def forward_train(self, xs):
         """(per-level raw box + class outputs, per-level coefficients (B, H, W, nm), protos (B, h, w, nm))
@@ -701,12 +931,12 @@ class Pose(Detect):
     def init(self, rng) -> dict:
         """Detect's draws and bias priors, then cv4 level by level."""
         p = super().init(rng)
-        p["cv4"] = _branch_init(self.cv4, rng)
+        p["cv4"] = _subtree_init(self.cv4, rng)
         return p
 
     def load_jax(self, p: dict, device, dtype) -> None:
         super().load_jax(p, device, dtype)
-        _branch_load(self.cv4, p["cv4"], device, dtype)
+        _subtree_load(self.cv4, p["cv4"], device, dtype)
 
     def forward_train(self, xs):
         """(per-level raw box + class outputs, per-level raw keypoints (B, H, W, nk)) through the train form:
@@ -743,12 +973,12 @@ class OBB(Detect):
     def init(self, rng) -> dict:
         """Detect's draws and bias priors, then cv4 level by level."""
         p = super().init(rng)
-        p["cv4"] = _branch_init(self.cv4, rng)
+        p["cv4"] = _subtree_init(self.cv4, rng)
         return p
 
     def load_jax(self, p: dict, device, dtype) -> None:
         super().load_jax(p, device, dtype)
-        _branch_load(self.cv4, p["cv4"], device, dtype)
+        _subtree_load(self.cv4, p["cv4"], device, dtype)
 
     def forward_train(self, xs):
         """(per-level raw box + class outputs, per-level raw angles (B, H, W, ne)) through the train form:
@@ -786,10 +1016,8 @@ class Classify(nn.Module):
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p=None, g: int = 1):
         super().__init__()
-        if p not in (None, k // 2) or g != 1:
-            raise NotImplementedError(f"Classify with padding {p} and groups {g} is not ported (the port's ConvBNAct pads k // 2)")
         self.c2 = c2
-        self.conv = ConvBNAct(c1, self.c_, k, s)
+        self.conv = ConvBNAct(c1, self.c_, k, s, p, g)
         self.linear = nn.Linear(self.c_, c2).requires_grad_(False)
         self.linear_weight = nn.Parameter(torch.zeros(self.c_, c2))
         self.linear_bias = nn.Parameter(torch.zeros(c2))

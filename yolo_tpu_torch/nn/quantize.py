@@ -72,21 +72,28 @@ def _ceil(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def weight_matrix(w_int8: np.ndarray, device) -> torch.Tensor:
+def weight_matrix(w_int8: np.ndarray, device, groups: int = 1) -> torch.Tensor:
     """HWIO int8 weight → the (K, N) int8 matrix `int8_conv` multiplies by, rows in (u, v, c) order,
-    K and N zero-padded to multiples of 16 (the card's int8 GEMM wants 16-byte leading dimensions; exact)."""
+    K and N zero-padded to multiples of 16 (the card's int8 GEMM wants 16-byte leading dimensions; exact).
+    A grouped conv's weight stays OIHW (`int8_conv` convolves it grouped)."""
+    if groups > 1:
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(w_int8, np.int8).transpose(3, 2, 0, 1))).to(device)
     kh, kw, cin, cout = w_int8.shape
     m = np.zeros((_ceil(kh * kw * cin, 16), _ceil(cout, 16)), np.int8)
     m[: kh * kw * cin, :cout] = np.asarray(w_int8, np.int8).reshape(kh * kw * cin, cout)
     return torch.from_numpy(m).to(device)
 
 
-def int8_conv(xq: torch.Tensor, w: torch.Tensor, k: int, s: int, cout: int) -> torch.Tensor:
-    """'Same'-padded conv of an int8 NHWC map with a `weight_matrix` → int32 NHWC (B, Ho, Wo, cout):
-    the im2col of zero-padded strided views, then `torch._int_mm`, int8 x int8 → int32, exact (zero
-    rows and columns pad M, K and N to what the card's int8 GEMM takes)."""
+def int8_conv(xq: torch.Tensor, w: torch.Tensor, k: int, s: int, cout: int, p: int | None = None, g: int = 1) -> torch.Tensor:
+    """Conv (padding `p`, default k // 2) of an int8 NHWC map with a `weight_matrix` → int32 NHWC (B, Ho, Wo,
+    cout): the im2col of zero-padded strided views, then `torch._int_mm`, int8 x int8 → int32, exact (zero
+    rows and columns pad M, K and N to what the card's int8 GEMM takes). A grouped conv (`g` > 1, an OIHW
+    weight) is an f64 conv of the codes, exact as well (its sums stay far below 2^53), rounded to int32."""
+    p = k // 2 if p is None else p
+    if g > 1:
+        y = F.conv2d(xq.permute(0, 3, 1, 2).double(), w.double(), None, s, p, 1, g)
+        return torch.round(y).to(torch.int32).permute(0, 2, 3, 1)
     B = xq.shape[0]
-    p = k // 2
     if p:
         xq = F.pad(xq, (0, 0, p, p, p, p))
     cols = xq.unfold(1, k, s).unfold(2, k, s)  # (B, Ho, Wo, C, ku, kv)

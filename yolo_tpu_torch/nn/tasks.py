@@ -15,6 +15,9 @@ a Segment head: the detection forward plus mask coefficients and prototypes), `P
 `OBBModel` (the obb task, an OBB head: the detection forward plus rotated boxes and their angles) and
 `ClassificationModel` (the classify task, a Classify head) share the build and both
 walks (`BaseModel`); `model_class_for` picks a checkpoint's class from its config and task.
+The v8 variant yamls (p6, ghost, ghost-p2, ghost-p6, seg-p6, pose-p6, cls-resnet50/101) and
+yolov5 / yolov5-p6 build from the same rows (C2, C3, C3Ghost, GhostConv, ResNetLayer, DWConv,
+MaxPool2d, a padded Conv); a layer without an int8 path takes its inputs dense, as in JAX.
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -38,14 +41,24 @@ from torch import nn
 
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn import modules as M
+from yolo_tpu_torch.nn import quantize as Q
 
 CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
 BN_EPS = M.BN_EPS
+QTENSOR_MODULES = (M.ConvBNAct, M.Conv2d, M.Bottleneck, M.C2f, M.SPPF, M.Concat, M.Upsample, M.Detect)  # JAX's: take int8 maps
 EXTRA_OUTPUT_TASKS = ("segment", "pose", "obb")  # masks, keypoints or angles beside the boxes: the detect-only entry points refuse them
 
 MODULE_MAP = {
     "Conv": M.ConvBNAct,
+    "DWConv": M.DWConv,
     "C2f": M.C2f,
+    "C2": M.C2,
+    "C3": M.C3,
+    "C3Ghost": M.C3Ghost,
+    "GhostConv": M.GhostConv,
+    "GhostBottleneck": M.GhostBottleneck,
+    "ResNetLayer": M.ResNetLayer,
+    "nn.MaxPool2d": M.MaxPool2d,
     "SPPF": M.SPPF,
     "Concat": M.Concat,
     "Detect": M.Detect,
@@ -111,16 +124,17 @@ def parse_model(d: dict, ch: int):
         args = [
             {"nc": nc, "True": True, "False": False, "None": None}.get(a, a) if isinstance(a, str) else a for a in args
         ]
-        if mname == "Conv":
-            _check_conv_args(args)
-            args = args[:3]
+        if mname == "Conv" and len(args) > 7:  # [c2, k, s, p, g, d, act]; ConvBNAct names a dilation or activation it lacks
+            raise NotImplementedError(f"module 'Conv' with arguments {args[7:]!r} is not ported yet")
         n = max(round(n * depth), 1) if n > 1 else n
-        if mcls in (M.ConvBNAct, M.C2f, M.SPPF, M.Classify):
+        if mcls is M.ResNetLayer:  # explicit [c1, c2, s, is_first, n]; 4 · c2 out unless the stem
+            c2 = args[1] if args[3] else args[1] * 4
+        elif mcls in (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.GhostConv, M.GhostBottleneck, M.SPPF, M.Classify):
             c1, c2 = chs[f], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             args = [c1, c2, *args[1:]]
-            if mcls is M.C2f:
+            if mcls in (M.C2f, M.C2, M.C3, M.C3Ghost):  # the repeats are the block's n
                 args.insert(2, n)
                 n = 1
         elif mcls is M.Concat:
@@ -150,20 +164,6 @@ def parse_model(d: dict, ch: int):
     return layers, froms, sorted(set(save))
 
 
-def _check_conv_args(args) -> None:
-    """A `Conv` row is [c2, k, s, p, g, d, act]; the port's ConvBNAct takes c2, k and s, pads k // 2 and
-    ends in SiLU. Any other padding, groups, dilation or activation raises NotImplementedError naming it."""
-    k = args[1] if len(args) > 1 else 1
-    names = ("padding", "groups", "dilation", "activation")
-    defaults = ((None, k // 2), (1,), (1,), (True,))
-    for name, v, ok in zip(names, args[3:], defaults):
-        if v not in ok:
-            raise NotImplementedError(f"module 'Conv' with {name} {v!r} is not ported yet (the port's ConvBNAct pads k // 2, "
-                                      "has no groups or dilation and ends in SiLU)")
-    if len(args) > 7:
-        raise NotImplementedError(f"module 'Conv' with arguments {args[7:]!r} is not ported yet")
-
-
 def _compute_strides(layers, froms) -> None:
     """Propagate spatial strides through the graph and set the Detect head's."""
     stride = {}
@@ -172,8 +172,10 @@ def _compute_strides(layers, froms) -> None:
         if isinstance(m, M.Detect):
             m.stride = [stride[x] for x in f]
             s = None
-        elif isinstance(m, M.ConvBNAct):
+        elif isinstance(m, (M.ConvBNAct, M.MaxPool2d, M.GhostConv, M.GhostBottleneck)):
             s = src * m.s
+        elif isinstance(m, M.ResNetLayer):
+            s = src * m.s_total
         elif isinstance(m, M.Upsample):
             s = src // m.scale
         else:
@@ -321,6 +323,8 @@ class BaseModel(nn.Module):
                 x = m.call_upconcat(x, y[self._upconcat[i]], plain=plain)
             else:
                 x_in = [x if j == -1 else y[j] for j in f] if isinstance(f, list) else (x if f == -1 else y[f])
+                if not isinstance(m, QTENSOR_MODULES):  # a layer without an int8 path takes dense maps (JAX `_apply_layer`)
+                    x_in = [Q.deq(v, M._dtype_of(m)) for v in x_in] if isinstance(x_in, list) else Q.deq(x_in, M._dtype_of(m))
                 x = m(x_in, plain=plain) if isinstance(m, M.C2f) else m(x_in)
             if i in self.save:
                 y[i] = x
@@ -480,10 +484,9 @@ class SegmentationModel(DetectionModel):
         """(preds (B, 4 + nc + nm, A) f32: px xywh boxes, sigmoid scores, mask coefficients; protos
         (B, H/4, W/4, nm) in the model's dtype) from NHWC images in the model's dtype. The C2f blocks, the
         neck fold and the box and class branches go through the kernels (`plain=True`: their twins); the
-        coefficient branch and the prototypes are plain torch convs."""
-        if self.int8:
-            raise NotImplementedError("int8 inference of a segment model is not ported (ROADMAP item 2)")
-        xs = self._head_inputs(x, plain, neck_opt)
+        coefficient branch and the prototypes are plain torch convs. An int8 model walks its convs one by
+        one, without the fold and the kernels (the transposed conv takes the float map)."""
+        xs = self._head_inputs(x, plain, neck_opt and not self.int8)
         boxes, scores = self._decode_head(xs, plain)
         coefs = self.head.coefficients(xs)
         return torch.cat([boxes, scores, coefs.float()], -1).transpose(1, 2), self.head.proto(xs[0])
@@ -504,10 +507,9 @@ class PoseModel(DetectionModel):
         """Predictions (B, 4 + nc + nk, A) f32: px xywh boxes, sigmoid scores, then each anchor's keypoints
         (x, y in pixels and the visibility's sigmoid, keypoint by keypoint) from NHWC images in the model's
         dtype. The C2f blocks, the neck fold and the box and class branches go through the kernels
-        (`plain=True`: their twins); the keypoint branch is plain torch convs."""
-        if self.int8:
-            raise NotImplementedError("int8 inference of a pose model is not ported (ROADMAP item 2)")
-        xs = self._head_inputs(x, plain, neck_opt)
+        (`plain=True`: their twins); the keypoint branch is plain torch convs. An int8 model walks its convs
+        one by one, without the fold and the kernels."""
+        xs = self._head_inputs(x, plain, neck_opt and not self.int8)
         boxes, scores = self._decode_head(xs, plain)
         return torch.cat([boxes, scores, self.head.keypoints(xs)], -1).transpose(1, 2)
 
@@ -526,11 +528,10 @@ class OBBModel(DetectionModel):
     def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False) -> torch.Tensor:
         """Predictions (B, 4 + nc + 1, A) f32: the rotated px (cx, cy, w, h), sigmoid scores, then the angle
         in radians, from NHWC images in the model's dtype. The C2f blocks, the neck fold and the box and class
-        branches go through the kernels (`plain=True`: their twins); the angle branch is plain torch convs."""
-        if self.int8:
-            raise NotImplementedError("int8 inference of an obb model is not ported (ROADMAP item 2)")
-        xs = self._head_inputs(x, plain, neck_opt)
-        dists, clss = self.head.head_levels(xs, plain)
+        branches go through the kernels (`plain=True`: their twins); the angle branch is plain torch convs. An
+        int8 model walks its convs one by one, without the fold and the kernels."""
+        xs = self._head_inputs(x, plain, neck_opt and not self.int8)
+        dists, clss = self.head.levels_from_outputs(self.head(xs)) if self.int8 else self.head.head_levels(xs, plain)
         return self.head.decode_rotated(dists, clss, self.head.angles(xs), [(x.shape[1], x.shape[2]) for x in xs])
 
 
@@ -653,14 +654,15 @@ def _remat(m, x_in):
 
 def validate_s2d_stem(model) -> None:
     """The JAX package's check of a space-to-depth stem setting: layers 0 and 1 are the yolov8
-    stem, plain 3x3 stride-2 convs (the port's ConvBNAct pads k // 2, has no groups or dilation
-    and ends in SiLU). ValueError otherwise."""
+    stem, plain 3x3 stride-2 convs padded 1, without groups, ending in SiLU. ValueError otherwise."""
     for i in (0, 1):
         m = model.layers[i]
         if type(m) is not M.ConvBNAct:
             raise ValueError(f"s2d stem fold: layer {i} is {type(m).__name__}, not a plain stem conv")
-        if (m.k, m.s) != (3, 2):
-            raise ValueError(f"s2d stem fold: layer {i} has k, s = {(m.k, m.s)}, not (3, 2)")
+        if (m.k, m.s, m.p, m.g) != (3, 2, 1, 1):
+            raise ValueError(f"s2d stem fold: layer {i} has k, s, p, g = {(m.k, m.s, m.p, m.g)}, not (3, 2, 1, 1)")
+        if not m.act:
+            raise ValueError(f"s2d stem fold: layer {i} has no activation (the stem ends in SiLU)")
 
 
 def train_leaves(model: DetectionModel) -> dict:

@@ -12,10 +12,10 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x.float()).to(x.dtype)
 
 
-def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
+def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
     """Conv of an NHWC map with an OIHW weight through an NCHW view (channels_last
     memory, so no transpose is materialised); returns a contiguous NHWC map."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None, stride, padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None, stride, padding, 1, groups)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

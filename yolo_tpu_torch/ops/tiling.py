@@ -88,12 +88,12 @@ def tiled_predict(model, img: np.ndarray, tile: int = 256, overlap: float = 0.25
                   conf: float = 0.25, iou: float = 0.45, merge_iou: float = 0.5, **kwargs):
     """Detect on a tile grid of `img` with a YOLO and merge → (boxes_xyxy, scores, cls) in frame
     coordinates. The tiles go through `model.predict` as one batch (`batch` defaults to the
-    tile count); `kwargs` are further predict settings (compute_dtype, plain, ...)."""
-    from yolo_tpu_torch.nn.tasks import EXTRA_OUTPUT_TASKS
-
-    task = getattr(model, "task", "detect")
-    if task in EXTRA_OUTPUT_TASKS:
-        raise NotImplementedError(f"tiled inference with a {task} model is not ported (ROADMAP item 2)")
+    tile count); `kwargs` are further predict settings (compute_dtype, plain, ...). A segment or
+    pose model gives its boxes: the masks and keypoints are dropped, as the JAX package reads only
+    `Results.boxes`. An obb model raises NotImplementedError: its Results carry no axis-aligned
+    boxes, so the JAX package returns none."""
+    if getattr(model, "task", "detect") == "obb":
+        raise NotImplementedError("tiled inference with an obb model is not ported (its Results hold no axis-aligned boxes)")
     grid = tile_grid(img.shape[0], img.shape[1], tile, overlap)
     tiles = slice_tiles(img, grid, tile)
     kwargs.setdefault("batch", len(tiles))

@@ -32,7 +32,7 @@ The JAX package's signature, each setting off unless asked for, as there:
   default route's outputs in another order, and on the H100 none of them was
   faster than it (ROADMAP.md); the port's kernels are always its route, and its
   step loop runs frame by frame.
-`mesh` raises NotImplementedError: sharding over cards is ROADMAP item 7.
+`mesh` raises NotImplementedError: sharding over cards is ROADMAP item 3.
 """
 
 from __future__ import annotations
@@ -133,11 +133,11 @@ class FusedDetectTrack:
     ):
         task = getattr(model, "task", "detect")
         if task in EXTRA_OUTPUT_TASKS:
-            raise NotImplementedError(f"FusedDetectTrack with a {task} model is not ported (ROADMAP item 2)")
+            raise NotImplementedError(f"FusedDetectTrack with a {task} model is not ported (the JAX package's fast path takes plain Detect heads only)")
         if channels not in (1, 3):
             raise ValueError(f"frames have 1 (IR) or 3 (BGR) channels, got {channels}")
         if mesh is not None:
-            raise NotImplementedError("FusedDetectTrack(mesh=...): sharding the pipeline over cards is not ported (ROADMAP item 7)")
+            raise NotImplementedError("FusedDetectTrack(mesh=...): sharding the pipeline over cards is not ported (ROADMAP item 3)")
         if s2d:
             if int8:
                 raise ValueError("s2d and int8 are mutually exclusive")

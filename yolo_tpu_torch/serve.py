@@ -21,7 +21,10 @@ Each model id is a lane: its own YOLO, predictor and queue. A lane that fails
 to load or build is out of service (its requests get status 3); the others
 answer. One worker thread owns every device call: frames that arrive within
 `batch_window_ms` of each other coalesce into one predictor call per lane
-(batches of up to the predictor's 16, padded to a power of two).
+(batches of up to the predictor's 16, padded to a power of two). A segment or
+pose model's lane replies with its boxes, as the JAX package's pose lane does (the
+JAX segment lane fails at its warm-up, which the port does not copy); an obb
+model's lane is out of service, its Results holding no axis-aligned boxes.
 """
 
 from __future__ import annotations
@@ -60,11 +63,11 @@ class _ModelLane:
         self.error: str | None = None  # set when loading, building or warming up failed: the lane is out of service
         try:  # a bad source takes this lane out, not the server
             from yolo_tpu_torch.engine.model import YOLO
-            from yolo_tpu_torch.nn.tasks import EXTRA_OUTPUT_TASKS
 
             self.yolo = YOLO(source, device=str(device))
-            if self.yolo.task in EXTRA_OUTPUT_TASKS:
-                raise NotImplementedError(f"serving a {self.yolo.task} model is not ported (ROADMAP item 2)")
+            if self.yolo.task == "obb":
+                raise NotImplementedError("serving an obb model is not ported (a lane replies with axis-aligned boxes, "
+                                          "which an obb result leaves empty)")
             self.yolo.fuse()
         except Exception as e:
             self.yolo = None
@@ -75,9 +78,9 @@ class _ModelLane:
         """The lane's predictor, warmed up on one zero frame (on a card: the kernels built)."""
         if self.yolo is None:
             raise RuntimeError(self.error or "model not loaded")
-        from yolo_tpu_torch.engine.predictor import BasePredictor
+        from yolo_tpu_torch.engine.model import predictor_class
 
-        self.predictor = BasePredictor(
+        self.predictor = predictor_class(self.yolo.task)(
             self.yolo.model, self.yolo.params,
             overrides={"conf": self.conf, "iou": self.iou, "imgsz": self.imgsz, "max_det": self.max_det, "verbose": False,
                        "device": str(self.device), **self.predict_args},

@@ -96,7 +96,7 @@ def benchmark_formats(model, params, imgsz: int = 640, batch: int = 1, workdir=N
     `batch` → rows [{format, status, size_MB, latency_ms, fps}] in the JAX package's order:
     `native-jit` (the row keeps the JAX package's name so the tables line up: here it is the
     model as it is, no export), `npz` (save_npz → load_npz on the model's device), `orbax` and
-    `stablehlo`. The port has no orbax or stablehlo export (ROADMAP item 8): their rows read
+    `stablehlo`. The port has no orbax or stablehlo export (ROADMAP item 4): their rows read
     '❌ NotImplementedError', as a broken exporter's row does in the JAX package."""
     import tempfile
     from pathlib import Path
