@@ -31,12 +31,12 @@ Phases (any failure stops the run with a non-zero exit code):
    first of two (both forms of its plan, printed per shape);
 3. `[pipeline]`: run FusedDetectTrack (the demo's trained yolov8-small P2,
    scale n, demos/artifacts/train/weights/best.npz) on a seeded synthetic
-   512-frame 640x512 IR clip with moving targets and dropout gaps: in f32
+   256-frame 640x512 IR clip with moving targets and dropout gaps: in f32
    through the kernels and in f32 through the plain twins (tracks, ids and
    stats must be equal, boxes close), then in bf16, timed, with the per-stage
    split and the launch count of every kernel in that run;
 4. `[pipeline head_cm]`: the same with `pallas_head2=True`, the Detect levels
-   through the channel-major head kernel (16 launches per 512 frames, none of
+   through the channel-major head kernel (8 launches per 256 frames, none of
    the default head kernel);
 5. `[pipeline bgr]`: one chunk of 3-channel BGR frames through
    `FusedDetectTrack(channels=3)`, f32 kernels against f32 twins, then bf16;
@@ -47,7 +47,7 @@ Phases (any failure stops the run with a non-zero exit code):
    kernels and through the twins (equal detections and stats), then in bf16,
    timed;
 7. `[track bytetrack]`: `YOLO(best.npz).track(frame, persist=True,
-   tracker="bytetrack.yaml")` on the same 64 BGR frames, one per call, at the
+   tracker="bytetrack.yaml")` on the same 32 BGR frames, one per call, at the
    track defaults (conf 0.1, max_det 300, imgsz 640; the host BYTETracker):
    f32 kernels against f32 twins (rows and ids equal per frame, boxes 1e-2 px,
    conf 1e-4), then bf16, timed (predict and tracker host ms/frame);
@@ -59,13 +59,13 @@ Phases (any failure stops the run with a non-zero exit code):
    batched ByteTrack twin on the card: rows equal the host tracker's under the
    JAX package's contract (ids exact, 2e-2), then its bf16 ms/frame at d_max /
    n_max 320 / 512 (the defaults) and 16 / 64;
-10. `[byte scan]`: the 512-frame clip in 128-frame chunks already on the card:
+10. `[byte scan]`: the 256-frame clip in 128-frame chunks already on the card:
    the bf16 forward, NMS at d_max 16, xyxy → xywh with cls 0, then
    `BatchedBYTETracker(n_max=64, d_max=16).scan_frames`; equal to `update`
    frame by frame and to the same scan on the CPU (ids exact, 1e-4); frames/s
    and the per-chunk event split (forward, NMS, byte step);
 11. config 5 (camera-motion compensation and grayscale recovery; needs cv2, and
-   fails without it): the 649-frame 640x512 panning clip (a copy of
+   fails without it): a 324-frame 640x512 panning clip (half the 649 frames of a copy of
    demos/motion_comp_bench.py::make_panning_clip, seed 7) through the chunked
    config-5 detector (gray frames, /255, broadcast to the stem, predict_parts
    and NMS at conf 0.15, iou 0.6, max_det 16, 128-frame chunks).
@@ -78,7 +78,7 @@ Phases (any failure stops the run with a non-zero exit code):
    (CUDA events), host ms/frame split into motion detection and tracker,
    events, resets and launches; optical_flow also with the detector called
    once a frame. `[motion compare]`: `motion.compare_motion_methods` over the
-   clip's first 128 frames as an mp4v file, the bf16 detector once a frame.
+   clip's first 64 frames as an mp4v file, the bf16 detector once a frame.
    `[grayscale]`: 128 frames of the IR clip as an mp4v file through
    `GrayscaleTracker.process_video(test_range=(32, 80))`, its own YOLO set to
    f32 against a plain-twin f32 detector (equal stats and tracks), then the
@@ -110,7 +110,7 @@ Phases (any failure stops the run with a non-zero exit code):
    px and conf 1e-4), the f32 mAP beside the JAX demo's recorded one, then bf16 and its
    difference; then kernels 1, 2, 3 and 5 against their twins at TOL on activations
    captured from the first val batch (B = 16, 640x640; NMS at conf 0.001, K = 1024);
-14. `[val]`: the same on a 512-frame split (seed 20,000) in f32 and bf16 at batch 16
+14. `[val]`: the same on a 256-frame split (seed 20,000) in f32 and bf16 at batch 16
    and 32: images/s by the host clock over the `.val(...)` call of a model already warmed
    at that batch and dtype (built and on the card before the clock), the per-batch split (loader
    wait, the host's enqueue, upload + forward + NMS in CUDA events, the copy-back wait,
@@ -134,17 +134,17 @@ Phases (any failure stops the run with a non-zero exit code):
    and 5 held against their twins on one frame's activations at the path's shapes (TOL, NMS bit
    for bit; `hold_path_kernels`): `[pipeline options]` (right after `[pipeline]`): `run_clip` in
    bf16 with collect_outputs=False and with prefetch 1 and 4, stats equal to `[pipeline]`'s;
-   `[tiled]`: the clip's first 64 frames as BGR through `ops.tiling.tiled_predict` (tile 256,
+   `[tiled]`: the clip's first 32 frames as BGR through `ops.tiling.tiled_predict` (tile 256,
    overlap 0.25: 9 tiles a frame in one batch, padded to B = 16), f32 then bf16 timed; `[tta]`:
-   the 64 frames through `predict(augment=True, imgsz=640)` (640, 544 and 448 square on the
+   the 32 frames through `predict(augment=True, imgsz=640)` (640, 544 and 448 square on the
    device), the launches per shape; `[ensemble]`: `YOLO([best.npz, last.npz])` over them;
    `[embed]`: `YOLO.embed` of them (vectors within 1e-4), ms/frame; `[enhance]`:
    `otherplan.enhance_small_targets_torch` on 128 frames on the card against the host's cv2
    enhancement and against itself on the CPU (1e-3, equal `classical_detect` boxes); `[detect_only]`
-   and `[single target]`: the clip's first 128 frames as an mp4v file through
+   and `[single target]`: the clip's first 64 frames as an mp4v file through
    `otherplan.detect_only` and `run_single_target_tracking` with the port's YOLO as the detector.
 17. the detect task's last settings (`int8_pipeline_phase`, right after `[pipeline options]`):
-   `[pipeline int8]` (calibrated on the clip's first chunk) on the 512-frame clip: f32 through the
+   `[pipeline int8]` (calibrated on the clip's first chunk) on the 256-frame clip: f32 through the
    NMS kernel against f32 through its twin (tracks, ids, statuses, detection counts and stats
    equal, boxes 1e-2 px), the frames whose detection count differs from `[pipeline]`'s f32 run
    (reported), then bf16 timed beside `[pipeline]`'s frames/s with its launches (kernel 5 only).
@@ -159,7 +159,7 @@ Phases (any failure stops the run with a non-zero exit code):
    bf16 timed with the encoder's host ms/frame; `[benchmark]` (after `[detect_only]`): best.npz's
    decoded forward at 640², B = 8 and 32, f32 kernels against twins with kernels 1, 2, 3 and 5 held
    at those activations, then `YOLO.benchmark(imgsz=640)` in bf16 and f32 and `benchmark_formats`;
-   `[val coco]` (after `[val]`): the 512-frame split with a COCO annotations file, `save_json=True`,
+   `[val coco]` (after `[val]`): the 256-frame split with a COCO annotations file, `save_json=True`,
    the COCOeval keys against a rerun on the written files; `[tune]` (after `[train settings]`): two
    iterations of `YOLO("yolov8-small.yaml").tune` on a 32-frame split at 640; `[classify]` (last):
    yolov8n-cls at full width, predict f32 kernel against twin then bf16, the C2f kernel held at its
@@ -220,6 +220,16 @@ Phases (any failure stops the run with a non-zero exit code):
    detections on every frame), `[variants train]` (one epoch of yolov8n-ghost-p2 at 640, batch 16, bf16: the
    step's split; the trained tree's forward against the twin) and `[variants train step f32]` (one f32 step of
    yolov8n-ghost-p2 on the card against the CPU, TRAIN_STEP_TOL; `zero_grad_leaves` against their BN weight's gradient).
+23. the eighteenth slice (last; `slice18_phases`): the yolo11 and yolo12 families, whose C3k2 blocks are walked
+   module by module and whose Detect heads are not legacy, so that kernels 1-4 launch no time on them (each phase
+   checks it) and kernel 5 is their one kernel. Trees: init(0) with BN moments from seeded noise (`bn_calibrated`).
+   `[yolo11]` and `[yolo12]` (yolo11n / yolo12n at 640²: f32 on the card against the CPU, boxes 1e-2 px and scores
+   1e-4; kernel 5 against its twin on those scores with its `live_share`; bf16 predict at B = 1 and 8, frames/s,
+   the host's ms a frame, the device's launches and busy time a call; then track, launching kernel 5), `[yolo11
+   tasks]` (seg, pose, obb and cls of both: the decoded forward at B = 8 card against CPU; seg and pose: kernel 5
+   held, then predict, val and track launching it), `[yolo11 train]` / `[yolo12 train]` (one bf16 epoch at batch 16, 640: finite losses, the step's
+   split, then val through kernel 5 against its twin) and `[yolo11 train step f32]` (one f32 step on the card against
+   the CPU, TRAIN_STEP_TOL; yolo12n's is left out, `slice18_phases` says why).
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -231,7 +241,8 @@ where one interior block's first warp spends its cycles, stage by stage;
 four captured levels, B = 128 and 1) and its stages; `[val workers]` times the bf16 `[val]`
 call with 1 to 16 loader threads, and the validator's device pass alone; `[train profile]`
 records the device's work over one epoch of `[train]` (the device only: host tracing slows
-the steps tenfold) and sets it against an unprofiled step: the device's idle share.
+the steps tenfold) and sets it against an unprofiled step: the device's idle share; `[train step precision]` sets
+yolo11n's and yolo12n's f32 train steps (card, card without cuDNN, CPU) against the same step in float64.
 Every kernel of a path must have been launched in that path's run. The last
 three lines are the `kernels` JSON line, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -241,6 +252,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -260,13 +272,13 @@ TOL = {"float32": (1e-3, 1e-3), "bfloat16": (6e-2, 6e-2)}
 # the logit the kernel rounded before its sigmoid, 2 * 2^-7 of its size)
 CLS_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2e-3, 6e-2)}
 LOGIT_TOL = {"float32": (1e-3, 0.0), "bfloat16": (6e-2, 1.6e-2)}
-FRAMES, CHUNK, HW = 512, 128, (512, 640)
-PREDICT_FRAMES = 64
-TRACK_FRAMES = 64
-MOTION_FRAMES = 649  # config 5: the reference's clip length (demos/motion_comp_bench.py)
-MOTION_COMPARE_FRAMES = 128
+FRAMES, CHUNK, HW = 256, 128, (512, 640)  # cut from 512 (PR 17) to keep the script inside half its time limit
+PREDICT_FRAMES = 32
+TRACK_FRAMES = 32
+MOTION_FRAMES = 324  # config 5: half the reference's clip length, 649 (demos/motion_comp_bench.py)
+MOTION_COMPARE_FRAMES = 64
 GRAY_FRAMES, GRAY_TEST_RANGE = 128, (32, 80)
-VAL_HELDOUT, VAL_FRAMES = (32, 10_000), (512, 20_000)  # validation splits: frames, seed
+VAL_HELDOUT, VAL_FRAMES = (32, 10_000), (256, 20_000)  # validation splits: frames, seed
 KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "c2f": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:264"),
     "c2f_upconcat": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:290"),
@@ -2124,7 +2136,7 @@ def predict_sources_phase(clip, card):
         log("predict sources", card, "; ".join(f"{k}: {n} frames, {d} detections, written {w} (c2f launches {c})"
                                                for k, (n, d, w, c) in written.items()))
 
-    small = np.ascontiguousarray(np.repeat(clip[290, 100:400, 50:550], 3, -1))  # 300x500 with 3 targets: scaled by 1.28
+    small = np.ascontiguousarray(np.repeat(clip[230, 100:400, 50:550], 3, -1))  # 300x500 with 3 targets: scaled by 1.28
     with native_letterboxes() as calls:
         got, launches = counted(SERVE_PATH, lambda: YOLO(str(WEIGHTS)).predict(small, compute_dtype="float32", verbose=False)[0])
     want = YOLO(str(WEIGHTS)).predict(small, compute_dtype="float32", plain=True, verbose=False)[0]
@@ -2295,7 +2307,7 @@ def val_kernels_phase(model, params, data, card):
 
 
 def val_phase(data, warm_data, card):
-    """`[val]`: YOLO(best.npz).val on a 512-frame split (seed 20,000), f32 and bf16 at batch 16 (the
+    """`[val]`: YOLO(best.npz).val on a 256-frame split (seed 20,000), f32 and bf16 at batch 16 (the
     cfg default) and 32, each after a warm-up of the same YOLO on the 32-frame split: images/s by
     the host clock over the `.val(...)` call alone (the model built and its weights on the card
     before the clock starts), the per-batch split (loader wait on the main thread, upload + forward +
@@ -2417,12 +2429,24 @@ def zero_grad_leaves(model) -> set:
     C3's cv3) into training-mode BNs, which take any constant away. Their gradients are rounding noise of the sum
     that the same BN's weight gradient takes over the same terms, scaled by the normalised activations: it grows
     with the map (1e-7 at 64², 2e-5 at 640² and B = 16), so `train_step_f32_phase` holds each against the largest
-    gradient of its BN's weight instead of its own largest."""
+    gradient of its BN's weight instead of its own largest. The same holds in the attention blocks of yolo11 and yolo12:
+    the BN biases of an Attention's or AAttn's `pe` and `proj`, a PSABlock's `ffn.1` and an ABlock's `mlp.1` add a
+    constant to a residual stream that reaches the loss only through 1x1 convs into training-mode BNs."""
     from yolo_tpu_torch.nn import modules as M
 
-    return {"/".join(["model", *name.split(".")[1:], "m", str(j), "conv", "2", "cv2", "bn", "bias"])
-            for name, m in model.named_modules() if isinstance(m, M.C3)
+    def path(name, *rest):
+        return "/".join(["model", *name.split(".")[1:], *rest, "bn", "bias"])
+
+    zero = {path(name, "m", str(j), "conv", "2", "cv2") for name, m in model.named_modules() if isinstance(m, M.C3)
             for j, b in enumerate(m.m) if isinstance(b, M.GhostBottleneck) and b.s == 1}
+    for name, m in model.named_modules():
+        if isinstance(m, (M.Attention, M.AAttn)):
+            zero |= {path(name, "pe"), path(name, "proj")}
+        elif isinstance(m, M.PSABlock):
+            zero.add(path(name, "ffn", "1"))
+        elif isinstance(m, M.ABlock):
+            zero.add(path(name, "mlp", "1"))
+    return zero
 
 
 def train_epoch_recorder(epochs: list, profile_epoch=None):
@@ -2624,6 +2648,51 @@ def train_step_f32_phase(data, card, cfg_name="yolov8-small.yaml", tag="train st
         f"{sc:.2f} s on the card (its first) and {sp:.2f} s on the CPU; all {len(gp)} gradients and {len(pp)} tensors held")
 
 
+def train_step_precision_phase(data, card, cfg_name="yolo12n.yaml", recipe=None):
+    """`[train step precision]` (`--profile`): the f32 train step of `[train step f32]` (init(0), the loader's first batch
+    of 16 at 640²) on the card with cuDNN, on the card without it and on the CPU, each parameter's gradient against the
+    same step in float64 on the card (the BN moments, SiLU's logistic and area attention stay f32 inside it, as the train
+    form computes them) as a share of its largest: how closely f32 arithmetic itself resolves each gradient, the floor
+    under TRAIN_STEP_TOL's card-against-CPU gate. The leaves `zero_grad_leaves` names are left out."""
+    import torch
+
+    from yolo_tpu_torch.cfg import get_cfg
+    from yolo_tpu_torch.data import build_dataloader, build_yolo_dataset, check_det_dataset
+    from yolo_tpu_torch.engine.trainer import LOSSES
+    from yolo_tpu_torch.nn.tasks import guess_model_task, load_train_params, model_class_for, train_leaves, yaml_model_load
+
+    cfg = get_cfg(overrides=recipe or TRAIN_RECIPE)
+    d = check_det_dataset(str(data))
+    batch = next(iter(build_dataloader(build_yolo_dataset(cfg, d["train"], d, mode="train"), cfg.batch, workers=8, shuffle=True)))
+    yaml_cfg = yaml_model_load(cfg_name)
+    model_cls, loss_cls = model_class_for(yaml_cfg), LOSSES[guess_model_task(yaml_cfg)]
+    runs = {}
+    for name, dev, dtype, cudnn in (("f64", "cuda", torch.float64, True), ("card", "cuda", torch.float32, True),
+                                    ("card without cuDNN", "cuda", torch.float32, False), ("CPU", "cpu", torch.float32, True)):
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            m = model_cls(cfg_name, nc=d["nc"], device=dev)
+            load_train_params(m, m.init(0))
+            m.to(dtype).train()
+            x = torch.from_numpy(batch["img"]).to(dev, dtype) / 255.0
+            tb = {k: torch.from_numpy(batch[k]).to(dev) for k in ("cls", "bboxes", "mask_gt") if k in batch}
+            tb = {k: v.to(dtype) if v.is_floating_point() else v for k, v in tb.items()}
+            total, _ = loss_cls(m, cfg)(m.forward_features(x), tb)
+            total.backward()
+            runs[name] = (float(total.detach()), {k: t.grad.detach().double().cpu() for k, t in train_leaves(m).items()
+                                                  if isinstance(t, torch.nn.Parameter)})
+        finally:
+            torch.backends.cudnn.enabled = True
+    (l64, ref), zero = runs.pop("f64"), zero_grad_leaves(m)
+    rows = []
+    for name, (loss, g) in runs.items():
+        share = {k: float((g[k] - ref[k]).abs().max() / ref[k].abs().max().clamp(min=1e-30)) for k in ref if k not in zero}
+        worst = sorted(share, key=share.get)[-3:]
+        rows.append(f"{name}: loss {abs(loss - l64) / abs(l64):.2e} relative, gradients at most {share[worst[-1]]:.2e} of their "
+                    f"largest (" + ", ".join(f"{k} {share[k]:.2e}, its largest {float(ref[k].abs().max()):.2e}" for k in worst) + ")")
+    log("train step precision", card, f"{cfg_name}, each f32 step against the f64 step: " + "; ".join(rows))
+
+
 def hold_val_runs(tag, card, rk, vk, rp, vp):
     """f32 kernels against f32 twins on one split: metrics within 1e-4, equal confusion matrices, the
     same detections per image → the number of detections and the largest |box / conf| difference."""
@@ -2673,9 +2742,9 @@ def train_finetune_phase(data, run_dir, card):
 # ------------------------------------------- otherplan, tiles, TTA, ensembles, embed --
 
 TILE, TILE_OVERLAP = 256, 0.25  # 9 tiles of a 640x512 frame, one batch padded to B = 16
-SLICE_FRAMES = 64  # frames of the `[tiled]`, `[tta]`, `[ensemble]` and `[embed]` phases
+SLICE_FRAMES = 32  # frames of the `[tiled]`, `[tta]`, `[ensemble]` and `[embed]` phases
 ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 128, 16
-VIDEO_FRAMES = 128  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
+VIDEO_FRAMES = 64  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
 
 
 LIVE_SHARE = 0.5  # `hold_path_kernels(live=True)`: the least share of a twin's outputs that must depend on its input maps
@@ -2723,7 +2792,7 @@ def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024, nm
     (`live_share` at least LIVE_SHARE), or the hold could not fail → {kernel: max |err|}."""
     import torch
 
-    from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_nms
+    from yolo_tpu_torch.ops import cuda_c2f, cuda_head
 
     kernels = {"c2f": (cuda_c2f.fused_c2f, cuda_c2f.c2f_plain), "c2f_upconcat": (cuda_c2f.fused_c2f_upconcat, cuda_c2f.c2f_upconcat_plain),
                "head_level": (cuda_head.fused_head_level, cuda_head.head_level_plain)}
@@ -2750,14 +2819,11 @@ def hold_path_kernels(models, x, tag, card, conf=0.15, iou=0.6, max_nms=1024, nm
     if not nms:
         log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {held}")
         return worst
-    cand, top = nms_candidates(torch.cat([b for b, _ in parts], 1), torch.cat([s for _, s in parts], 1), conf, max_nms)
-    got, want = cuda_nms.nms_keep(cand, top, iou), cuda_nms.nms_keep_plain(cand, top, iou)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"nms_keep {tag}: keep mask differs from the plain twin in {int((got != want).sum())} slots")
+    nms = hold_nms(tag, torch.cat([b for b, _ in parts], 1), torch.cat([s for _, s in parts], 1), conf, iou, max_nms, live)
     worst["nms_keep"] = 0.0
     log(tag, card, f"f32 kernels against twins on {tuple(x.shape)} through {len(models)} model(s): {held}, NMS "
-        f"B={cand.shape[0]} K={cand.shape[1]} kept {int(got.sum())} of {int((top > 0).sum())} valid, bit for bit")
+        f"B={nms['B']} K={nms['K']} kept {nms['kept']} of {nms['valid']} valid, bit for bit"
+        + (f" (live share {nms['live']:.3f})" if live else ""))
     return worst
 
 
@@ -2787,7 +2853,7 @@ def timed_frames(fn, frames):
 
 
 def tiled_phase(clip, card):
-    """`[tiled]`: the clip's first 64 frames as BGR through `ops.tiling.tiled_predict` (tile 256, overlap
+    """`[tiled]`: the clip's first 32 frames as BGR through `ops.tiling.tiled_predict` (tile 256, overlap
     0.25: 9 tiles, one batch padded to B = 16 a frame), f32 through the kernels against the same
     calls through the twins (merged boxes at the f32 gates), kernels 1, 2, 3 and 5 held against their
     twins on one frame's tile batch, then bf16, timed: frames/s, the padded B, the launches."""
@@ -2846,7 +2912,7 @@ def launches_by_shape(model):
 
 
 def tta_phase(clip, card):
-    """`[tta]`: 64 BGR frames through `YOLO(best.npz).predict(augment=True, imgsz=640)` (the scales 1,
+    """`[tta]`: 32 BGR frames through `YOLO(best.npz).predict(augment=True, imgsz=640)` (the scales 1,
     0.83 flipped and 0.67: 640x640, 544x544 and 448x448 on the device), f32 through the kernels against
     the twins (the f32 gates), the launches per shape, kernels 1, 2, 3 and 5 held against their twins
     at each scaled image of one frame; then bf16, timed."""
@@ -2882,7 +2948,7 @@ def tta_phase(clip, card):
 
 
 def ensemble_phase(clip, card):
-    """`[ensemble]`: `YOLO([best.npz, last.npz])`, the two members' predictions in one NMS, over 64 BGR
+    """`[ensemble]`: `YOLO([best.npz, last.npz])`, the two members' predictions in one NMS, over 32 BGR
     frames: f32 through the kernels against the twins (the f32 gates), kernels 1, 2, 3 and 5 held against
     their twins through both members on one frame (NMS over the joined candidates); then bf16, timed."""
     import numpy as np
@@ -2909,7 +2975,7 @@ def ensemble_phase(clip, card):
 
 
 def embed_phase(clip, card):
-    """`[embed]`: `YOLO(best.npz).embed` of 64 BGR frames (square letterbox to 640, f32, the layer before
+    """`[embed]`: `YOLO(best.npz).embed` of 32 BGR frames (square letterbox to 640, f32, the layer before
     the head, the neck folded): through the kernels against through the twins within 1e-4, kernels 1 and
     2 launched (no head, no NMS); ms/frame; kernels 1, 2, 3 and 5 held on the embed input of one frame."""
     import numpy as np
@@ -2966,7 +3032,7 @@ def enhance_phase(clip, card):
 
 
 def video_phases(clip, card):
-    """`[detect_only]`: the clip's first 128 frames as an mp4v file through `otherplan.detect_only` with
+    """`[detect_only]`: the clip's first 64 frames as an mp4v file through `otherplan.detect_only` with
     its default detector (`YOLO(best.npz)`, fused, bf16, on the card), timed, and with f32 detectors
     through the kernels and the twins (equal stats). `[single target]`: `run_single_target_tracking` over
     the file with the port's YOLO (bf16) as the detector: frames/s, stats and the CSV's rows."""
@@ -3051,7 +3117,7 @@ def benchmark_phase(model, params, clip, card):
 
 
 def pipeline_options_phase(model, params, clip, card, want_outs, want_stats):
-    """`[pipeline options]`: `run_clip` of the 512-frame clip in bf16 with collect_outputs=False (no
+    """`[pipeline options]`: `run_clip` of the 256-frame clip in bf16 with collect_outputs=False (no
     outputs kept), and with prefetch 1 and 4 (the pinned ring's depth): the stats must equal `[pipeline]`'s
     bf16 run's, and the outputs too where they are kept; frames/s each."""
     import numpy as np
@@ -3075,7 +3141,7 @@ def pipeline_options_phase(model, params, clip, card, want_outs, want_stats):
 
 
 def int8_pipeline_phase(model, params, clip, card, default_f32, default_fps):
-    """`[pipeline int8]`: FusedDetectTrack(int8=True) calibrated on the clip's first chunk, on the 512-frame
+    """`[pipeline int8]`: FusedDetectTrack(int8=True) calibrated on the clip's first chunk, on the 256-frame
     clip: f32 through the kernels against f32 through the twins (tracks, ids, statuses, detection counts and
     stats equal, boxes 1e-2 px), the frames whose detection count differs from `[pipeline]`'s f32 run
     (reported, not gated), then the timed bf16 run with its launches (the NMS kernel only), beside
@@ -3334,7 +3400,7 @@ def coco_annotations(data) -> Path:
 
 
 def val_coco_phase(data, run_dir: Path, card):
-    """`[val coco]`: `[val]`'s 512-frame split with annotations/instances_val2017.json written from its labels,
+    """`[val coco]`: `[val]`'s 256-frame split with annotations/instances_val2017.json written from its labels,
     YOLO(best.npz).val(save_json=True) at imgsz 640, batch 32, f32 (the kernels): predictions.json holds as
     many rows as the validator kept detections; the coco/* keys beside the validator's mAP50 / mAP50-95, each
     equal to the port's coco_evaluate rerun on the written files; the seconds of each. The annotations file
@@ -3435,7 +3501,7 @@ def classify_c2f_holds(y, frames, card):
 
 def classify_phase(clip, root: Path, card):
     """`[classify]`: yolov8n-cls at full width (scale n, nc 1000, the JAX package's initial tree), imgsz 224.
-    64 frames of the clip as BGR through `predict`, one per call (a square resize, softmax probabilities,
+    32 frames of the clip as BGR through `predict`, one per call (a square resize, softmax probabilities,
     no NMS): f32 through the C2f kernel against the twin (probabilities 1e-4, top-1 equal), then bf16,
     frames/s; the C2f kernel held against its twin at the model's four instances (`classify_c2f_holds`).
     Then a seeded 4-class folder dataset (write_cls_split: 512 train and 128 val images at 224) trained
@@ -4400,28 +4466,9 @@ GHOST_P2_CONF = 1e-6  # below every score of the init(0) tree (its bias prior at
 def task_preds_err(model, got, want) -> dict:
     """|kernel − twin| of a task model's decoded predictions (a segment model's (preds, protos)): `px` over the box rows
     and pose keypoints' x, y (pixels), `unit` over the scores, coefficients, visibilities, angles and prototypes; both
-    must be finite."""
-    import torch
-
-    if isinstance(got, tuple):
-        err = task_preds_err(model, got[0], want[0])
-        if not torch.isfinite(got[1]).all():
-            raise AssertionError("non-finite prototypes")
-        err["unit"] = max(err["unit"], float((got[1].float() - want[1].float()).abs().max()))
-        return err
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"predictions {tuple(got.shape)} vs {tuple(want.shape)}, finite {bool(torch.isfinite(got).all())}")
-    d = (got.float() - want.float()).abs()
-    nc, rest = model.nc, d[:, 4 + model.nc :]
-    px, unit = [d[:, :4]], [d[:, 4 : 4 + nc]]
-    if getattr(model, "task", "detect") == "pose":
-        K, nd = model.head.kpt_shape
-        r = rest.reshape(d.shape[0], K, nd, -1)
-        px.append(r[:, :, :2])
-        unit.append(r[:, :, 2:])
-    else:
-        unit.append(rest)
-    return {"px": max(float(t.max()) for t in px), "unit": max(float(t.max()) for t in unit if t.numel())}
+    must be finite (`column_errors`)."""
+    errs = column_errors(model, got, want)
+    return {"px": errs["px"][0], "unit": max(e for k, (e, _) in errs.items() if k != "px")}
 
 
 def check_preds(tag, err, px=1e-2, unit=1e-4):
@@ -4771,6 +4818,246 @@ def slice17_phases(clip, root: Path, train_data, card):
     print(f"[slice 17] its phases took {time.perf_counter() - t0:.1f} s")
 
 
+SLICE18_FAMILIES = ("yolo11n.yaml", "yolo12n.yaml")
+SLICE18_TASKS = tuple(f"yolo{v}n-{t}.yaml" for v in (11, 12) for t in ("seg", "pose", "obb", "cls"))
+SLICE18_B1_FRAMES, SLICE18_B8_FRAMES = 32, 64  # `[yolo11]` / `[yolo12]`: bf16 predict one frame a call, then 8 a call
+SLICE18_TRACK_FRAMES = 16
+SLICE18_RUN = dict(epochs=1, workers=8, seed=0)  # `[yolo11 train]`: one epoch of the 64-frame split at TRAIN_RECIPE's batch 16
+
+
+def calibrated_yolo(name, x):
+    """YOLO(name) on the card holding its init(0) tree with every BN's moments taken from the NHWC images `x`
+    (`bn_calibrated`): features near unit scale through the depth, so that a hold on them can fail."""
+    from yolo_tpu_torch import YOLO
+
+    y = YOLO(name)
+    y.params = bn_calibrated(y.model, y.params, x)
+    return y
+
+
+def column_errors(model, got, want) -> dict:
+    """|card − CPU| of a model's decoded predictions by column group → {group: (largest difference, largest |value|)}:
+    `px` the boxes and pose keypoints' x, y, `score` the class scores, `rest` the coefficients, visibilities or angles,
+    `protos` a segment model's prototypes, `probs` a classify model's probabilities."""
+    import torch
+
+    if model.task == "classify":
+        return {"probs": (float((got.float() - want.float()).abs().max()), 1.0)}
+    if isinstance(got, tuple):
+        out = column_errors(model, got[0], want[0])
+        if not torch.isfinite(got[1]).all():
+            raise AssertionError("non-finite prototypes")
+        out["protos"] = (float((got[1].float() - want[1].float()).abs().max()), float(want[1].float().abs().max()))
+        return out
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"predictions {tuple(got.shape)} vs {tuple(want.shape)}, finite {bool(torch.isfinite(got).all())}")
+    g, w, nc = got.float(), want.float(), model.nc
+    groups = {"px": [slice(0, 4)], "score": [slice(4, 4 + nc)], "rest": []}
+    if model.task == "pose":
+        K, nd = model.head.kpt_shape
+        idx = torch.arange(4 + nc, g.shape[1], device=g.device)
+        groups["px"].append(idx[(idx - 4 - nc) % nd < 2])
+        groups["rest"].append(idx[(idx - 4 - nc) % nd >= 2])
+    elif g.shape[1] > 4 + nc:
+        groups["rest"].append(slice(4 + nc, g.shape[1]))
+    out = {}
+    for k, parts in groups.items():
+        if parts:
+            d = torch.cat([(g[:, p] - w[:, p]).abs().flatten() for p in parts])
+            out[k] = (float(d.max()), float(torch.cat([w[:, p].abs().flatten() for p in parts]).max()))
+    return out
+
+
+def card_against_cpu(y, x, tag, gates) -> dict:
+    """`y`'s decoded f32 forward of `x` on the card (no kernel 1-4 may launch: C3k2 is walked, the head is not
+    legacy) against the same model and tree on the CPU, each `column_errors` group within `gates[group](its largest
+    |value|)` → {group: largest difference}."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    params_from_jax(y.model, y.params, torch.float32)
+    got, _ = counted(set(), lambda: y.model.predict(x))
+    cpu = type(y.model)(y.model.yaml, device="cpu")
+    params_from_jax(cpu, y.params, torch.float32)
+    want = cpu.predict(x.cpu())
+    want = tuple(t.cuda() for t in want) if isinstance(want, tuple) else want.cuda()
+    errs = column_errors(y.model, got, want)
+    bad = {k: (e, gates[k](m)) for k, (e, m) in errs.items() if e > gates[k](m)}
+    if bad:
+        raise AssertionError(f"{tag}: card against CPU beyond the gates (difference, gate): {bad}")
+    return {k: e for k, (e, _) in errs.items()}
+
+
+FAMILY_GATES = {"px": lambda m: 1e-2, "score": lambda m: 1e-4}  # `[yolo11]` / `[yolo12]`: boxes 1e-2 px, scores 1e-4
+# `[yolo11 tasks]`: scores 1e-4 and probabilities 1e-5; every other group 1e-4 of its largest |value| (boxes at least
+# 1e-2 px), the module gate of tests/test_torch_v8_variants.py. The calibrated trees scale each map back to unit size
+# through the depth, which amplifies f32 rounding: on the CPU alone, 1 and 8 threads differ by 1.3-2.8e-3 px in boxes
+# and 6e-5 in coefficients and prototypes of magnitude 14-19 (yolo11n / yolo12n / yolo11n-seg at 640²).
+TASK_GATES = {"px": lambda m: max(1e-2, 1e-4 * m), "score": lambda m: 1e-4, "rest": lambda m: 1e-4 * max(m, 1.0),
+              "protos": lambda m: 1e-4 * max(m, 1.0), "probs": lambda m: 1e-5}
+
+
+def hold_nms(tag, boxes, scores, conf=0.0, iou=0.7, max_nms=1024, live=True) -> dict:
+    """Kernel 5 against its twin on the K = max_nms candidates of these decoded predictions, as the predictor forms
+    them: the keep mask bit for bit, and with `live` the share of slots whose flag the boxes decide (`live_share`: the
+    slots that the twin suppresses, which boxes set to zero would all keep) above 0, or the hold could not fail."""
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_nms
+
+    cand, top = nms_candidates(boxes, scores, conf, max_nms)
+    got, want = cuda_nms.nms_keep(cand, top, iou), cuda_nms.nms_keep_plain(cand, top, iou)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"nms_keep {tag}: keep mask differs from the plain twin in {int((got != want).sum())} slots")
+    share = live_share("nms_keep", cuda_nms.nms_keep_plain, (cand, top, iou), want) if live else None
+    if live and share <= 0:
+        raise AssertionError(f"nms_keep {tag}: no slot's flag depends on the boxes: the hold could not fail")
+    return {"B": cand.shape[0], "K": cand.shape[1], "kept": int(got.sum()), "valid": int((top > 0).sum()), "live": share}
+
+
+def device_launches(run) -> tuple:
+    """`run()` under torch.profiler (the device only) → (its result, the device's kernels, copies and sets, their
+    summed time in ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731 (µs)
+    return out, sum(e.count for e in on_card), sum(dev(e) for e in on_card) / 1e3
+
+
+def host_split(timings) -> str:
+    n = sum(t["n"] for t in timings)
+    return ", ".join(f"{k} {sum(t[f'{k}_s'] for t in timings) / n * 1e3:.2f}" for k in ("pre", "enqueue", "wait", "post"))
+
+
+def family_phase(name, frames, card):
+    """`[yolo11]` / `[yolo12]`: YOLO("yolo11n.yaml") or YOLO("yolo12n.yaml") at full width (nc 80) with its init(0) tree
+    calibrated on two seeded noise images (`bn_calibrated`): the decoded forward of those images f32 on the card
+    against the CPU (boxes 1e-2 px, scores 1e-4; kernels 1-4 launch no time), kernel 5 against its twin on those
+    scores (K = 1024 at conf 0, `hold_nms`); then bf16 `predict` of the clip's frames, one a call and 8 a call (each
+    frame's ten best; kernel 5 launched), frames/s with the host's ms a frame, and the device's launches and busy
+    time over one call of each size (torch.profiler); then `track` of 16 frames (ByteTrack), launching kernel 5 → the YOLO."""
+    import torch
+
+    tag = name.split("n.")[0]
+    noise = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    y = calibrated_yolo(name, noise)
+    err = card_against_cpu(y, noise, tag, FAMILY_GATES)
+    nms = hold_nms(tag, *y.model.predict_parts(noise))
+    kw = dict(TASK_PREDICT)
+    rates = []
+    for B, n in ((1, SLICE18_B1_FRAMES), (8, SLICE18_B8_FRAMES)):
+        sub = list(frames[:n])
+        y.predict(sub[:B], batch=B, **kw)  # warm: bf16 weights and this batch's plans
+        y.predictor.timings = []
+        t0 = time.perf_counter()
+        res, lb = counted({"nms_keep"}, lambda: y.predict(sub, batch=B, **kw))
+        wall = time.perf_counter() - t0
+        ts, y.predictor.timings = y.predictor.timings, None
+        _, kernels, busy = device_launches(lambda: y.predict(sub[:B], batch=B, **kw))
+        if len(res) != n or not all(len(r) for r in res):
+            raise AssertionError(f"{tag}: {len(res)} results, {sum(not len(r) for r in res)} without detections")
+        rates.append(f"B={B}: {n / wall:.1f} frames/s ({n} frames; host ms a frame: {host_split(ts)}); one call: {kernels} "
+                     f"device launches = {kernels / B:.0f} a frame, {busy:.3f} ms busy; nms_keep {lb['nms_keep']} in the run")
+    _, lt = counted({"nms_keep"}, lambda: [y.track(f, persist=True, tracker="bytetrack.yaml", **kw) for f in frames[:SLICE18_TRACK_FRAMES]])
+    log(tag, card, f"{name}: {len(y.model.layers)} layers, strides {y.model.stride}; f32 card against CPU on 2 noise images "
+        f"at 640²: max |px| {err['px']:.3e}, |score| {err['score']:.3e}; nms_keep B={nms['B']} K={nms['K']} kept "
+        f"{nms['kept']} of {nms['valid']} bit for bit, live share {nms['live']:.3f}; bf16 predict " + "; ".join(rates)
+        + f"; track (ByteTrack, {SLICE18_TRACK_FRAMES} frames) nms_keep {lt['nms_keep']}")
+    return y
+
+
+def family_tasks_phase(frames, seg_data, pose_data, card):
+    """`[yolo11 tasks]`: the seg, pose, obb and cls yamls of both families at full width (nc 80, pose 1, obb 15, cls
+    1000), init(0) calibrated on 8 seeded noise images (224² for classify): the decoded forward at B = 8 f32 on the
+    card against the CPU (TASK_GATES: scores 1e-4, probabilities 1e-5, the rest 1e-4 of its largest); for the seg and pose
+    models kernel 5 against its twin on those predictions (`hold_nms`), then `predict` of 4 frames, `val` of the
+    task's 64-frame held-out split and `track` of 16 frames (ByteTrack), each launching kernel 5 (each frame's ten
+    best); the obb models predict with the rotated NMS in plain torch: no kernel launches."""
+    import torch
+
+    rows = []
+    for name in SLICE18_TASKS:
+        size = 224 if name.endswith("-cls.yaml") else 640
+        noise = torch.rand((8, size, size, 3), generator=torch.Generator().manual_seed(1)).cuda()
+        y = calibrated_yolo(name, noise)
+        err = card_against_cpu(y, noise, f"yolo11 tasks {name}", TASK_GATES)
+        what = f"{name} max |diff| " + " ".join(f"{k} {v:.2e}" for k, v in err.items())
+        if y.task in ("segment", "pose"):
+            nms = hold_nms(name, *y.model.predict_parts(noise))
+            data = seg_data if y.task == "segment" else pose_data
+            kw = dict(TASK_PREDICT)
+            _, lp = counted({"nms_keep"}, lambda: y.predict(list(frames[:4]), **kw))
+            metrics, lv = counted({"nms_keep"}, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True))
+            _, lt = counted({"nms_keep"}, lambda: [y.track(f, persist=True, tracker="bytetrack.yaml", **kw) for f in frames[:SLICE18_TRACK_FRAMES]])
+            if not all(map(math.isfinite, metrics.values())):
+                raise AssertionError(f"yolo11 tasks {name}: val {metrics}")
+            what += (f", nms_keep K={nms['K']} kept {nms['kept']} bit for bit (live {nms['live']:.3f}); nms_keep launches: "
+                     f"predict {lp['nms_keep']}, val {lv['nms_keep']}, track {lt['nms_keep']}")
+        elif y.task == "obb":
+            _, lp = counted(set(), lambda: y.predict(list(frames[:4]), **TASK_PREDICT))
+        rows.append(what)
+    log("yolo11 tasks", card, "f32 B=8 card against CPU: " + "; ".join(rows))
+
+
+def family_train_phase(name, data, run_dir, card):
+    """`[yolo11 train]` / `[yolo12 train]`: one epoch of YOLO(name).train on the 64-frame detect split at 640, batch 16,
+    bf16 with the IR recipe, validating once (kernel 5): the losses finite, the mean step (forward + loss, backward,
+    optimizer in CUDA events); then `val` of the trained tree f32 through kernel 5 against its twin (every key within
+    1e-4). The train step itself runs no kernel; `[yolo11 train step f32]` holds it against the CPU."""
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+
+    tag = name.split("n.")[0] + " train"
+    epochs = []
+    y = YOLO(name)
+    t0 = time.perf_counter()
+    _, launches = counted({"nms_keep"}, lambda: y.train(trainer=train_epoch_recorder(epochs), data=str(data), project=str(run_dir),
+                                                        name=tag.replace(" ", "_"), exist_ok=True, **{**TRAIN_RECIPE, **SLICE18_RUN}))
+    wall = time.perf_counter() - t0
+    e = epochs[-1]
+    r, steps = e["row"], e["timings"][1:]
+    if not all(np.isfinite(r[f"train/{k}_loss"]) for k in ("box", "cls", "dfl")) or not steps:
+        raise AssertionError(f"{tag}: {r}")
+    mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
+    span = e["t_end"] - e["timings"][1]["start"]
+    rk, lk = counted({"nms_keep"}, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False))
+    rp = y.val(data=str(data), imgsz=640, batch=16, plots=False, plain=True)
+    if set(rk) != set(rp) or max(abs(rk[k] - rp[k]) for k in rk) > 1e-4:
+        raise AssertionError(f"{tag}: val kernels {rk} vs twins {rp}")
+    log(tag, card, f"{name}, 1 epoch of {len(e['timings'])} steps at batch {TRAIN_RECIPE['batch']}, 640, bf16: box "
+        f"{r['train/box_loss']:.4f} cls {r['train/cls_loss']:.4f} dfl {r['train/dfl_loss']:.4f}; a step {span / len(steps) * 1e3:.1f} "
+        f"ms (host clock, after the first): forward+loss {mean['forward']:.2f}, backward {mean['backward']:.2f}, "
+        f"optimizer+BN+EMA {mean['optimizer']:.2f} ms (events), loader wait {mean['loader']:.2f} ms; the .train call "
+        f"{wall:.1f} s; launches {launches}; f32 val through kernel 5 = twins (mAP50 {rk['mAP50']:.4f}; launches {lk})")
+
+
+def slice18_phases(clip, train_data, seg_data, pose_data, root: Path, card):
+    """The eighteenth slice's phases: yolo11n and yolo12n, their task models, their training (about 40 s on an H100)."""
+    import numpy as np
+
+    bgr = np.repeat(clip[: max(SLICE18_B8_FRAMES, SLICE18_TRACK_FRAMES)], 3, -1)
+    t0 = time.perf_counter()
+    for name in SLICE18_FAMILIES:
+        family_phase(name, bgr, card)
+    family_tasks_phase(bgr, seg_data, pose_data, card)
+    for name in SLICE18_FAMILIES:
+        family_train_phase(name, train_data, root / "runs", card)
+    # yolo12n's f32 step is not held here: two f32 runs of it cannot agree within TRAIN_STEP_TOL on the gradient of its
+    # stem's BN bias, a sum over 1.6M terms that cancel (card against CPU 2.8e-3 of its largest; each 0.7-1.6e-3 from
+    # the same step in f64: `train_step_precision_phase`, `--profile`). tests/test_torch_yolo11_12.py holds it against
+    # JAX at 128².
+    train_step_f32_phase(train_data, card, cfg_name="yolo11n.yaml", tag="yolo11 train step f32")
+    print(f"[slice 18] its phases took {time.perf_counter() - t0:.1f} s")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -4803,6 +5090,10 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    start = time.perf_counter()
+
+    def mark(what):  # the script's timeline: where its time limit goes
+        print(f"[time] {what} done at {time.perf_counter() - start:.1f} s")
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -4824,6 +5115,7 @@ def main(argv) -> int:
     c2f_edges_phase(card)
     head_edges_phase(card)
     nms_edges_phase(card)
+    mark("build and kernel holds")
 
     ft, launches, bf16_run, f32_run, fps = pipeline_phase("pipeline", model, params, clip, card, head_cm=False)
     pipeline_options_phase(model, params, clip, card, *bf16_run)
@@ -4832,6 +5124,7 @@ def main(argv) -> int:
     if launches_cm["head_level_cm"] != 4 * (FRAMES // CHUNK):
         raise AssertionError(f"head_level_cm: {launches_cm['head_level_cm']} launches, expected one per level and chunk")
     launches["head_level_cm"] = launches_cm["head_level_cm"]
+    mark("pipelines")
     bgr_phase(model, params, clip, card)
     batched_tracker_phase(card)
     predict_phase(clip, card)
@@ -4849,6 +5142,7 @@ def main(argv) -> int:
         track_phase("track botsort sparseOptFlow", clip, card, "botsort.yaml")
     track_device_phase(clip, card, host_rows)
     byte_scan_phase(model, params, clip, card)
+    mark("predict, track, byte scan")
 
     if cv2_version() is None:
         raise RuntimeError("config 5 needs cv2 (the motion detector, the panning clip, the video files); it does not import")
@@ -4862,6 +5156,7 @@ def main(argv) -> int:
     motion_compare_phase(model, params, pan, card)
     grayscale_phase(clip, card)
     grayscale_scorer_phase(card)
+    mark("config 5")
 
     serve_kernels_phase(clip, card)
     letterbox_cost(clip, card)
@@ -4870,6 +5165,7 @@ def main(argv) -> int:
             serve_phase(clip, card, run, srv)
         remote_phase(clip, card, srv)
     predict_sources_phase(clip, card)
+    mark("serving")
 
     tiled_phase(clip, card)
     tta_phase(clip, card)
@@ -4878,6 +5174,7 @@ def main(argv) -> int:
     enhance_phase(clip, card)
     video_phases(clip, card)
     benchmark_phase(model, params, clip, card)
+    mark("tiles, TTA, ensembles, embeddings, video loops, benchmark")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4888,6 +5185,7 @@ def main(argv) -> int:
         if profiling:
             val_workers_sweep(big, heldout, card)
         val_coco_phase(big, Path(tmp) / "val_coco", card)
+        mark("validation")
 
         t0 = time.perf_counter()
         train_root = Path(tmp) / "train"
@@ -4900,12 +5198,22 @@ def main(argv) -> int:
         tuned = train_finetune_phase(train_data, Path(tmp) / "runs", card)
         train_val_kernels_phase({"train": trained, "finetune": tuned}, train_data, card)
         train_settings_phase(train_data, Path(tmp) / "runs", card)
+        mark("training")
         tune_phase(Path(tmp) / "tune", card)
         classify_phase(clip, Path(tmp) / "cls", card)
+        mark("tune, classify")
         seg = segment_phases(Path(tmp) / "seg", card)
+        mark("segment")
         pose_phases(Path(tmp) / "pose", card, seg)
+        mark("pose")
         obb_phases(Path(tmp) / "obb", card)
+        mark("obb")
         slice17_phases(clip, Path(tmp) / "slice17", train_data, card)
+        slice18_phases(clip, train_data, Path(tmp) / "seg" / "data.yaml", Path(tmp) / "pose" / "data.yaml", Path(tmp) / "slice18", card)
+        mark("the seventeenth and eighteenth slices")
+        if profiling:
+            for name in SLICE18_FAMILIES:
+                train_step_precision_phase(train_data, card, name)
 
     if profiling:
         from torch.profiler import ProfilerActivity, profile

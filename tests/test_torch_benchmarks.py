@@ -25,6 +25,7 @@ from yolo_tpu_torch.nn.tasks import DetectionModel
 from yolo_tpu_torch.utils import benchmarks as PB
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
+from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
 
 TINY = {  # tests/test_profilers.py's per-layer model: a compile JAX makes in seconds
     "nc": 1, "scale": "n",

@@ -26,6 +26,7 @@ from yolo_tpu_torch.nn import tasks as PT
 from yolo_tpu_torch.nn.torch_export import flatten_tree
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
+from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
 
 SHAPES = ("bright_circle", "dark_square")
 TOY = dict(epochs=2, imgsz=64, batch=8, lr0=1e-4, amp=False, dropout=0.0, exist_ok=True, verbose=False,
@@ -117,7 +118,8 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     """YOLO("yolov8n-cls.yaml") holds JAX's initial tree bit for bit (scale n, nc 1000, 1280-wide head);
     the task comes from the name or `task=`; -seg, -pose and -obb build a segment, a pose and an obb
     model since those tasks were ported, an RT-DETR head names itself, a ResNet backbone builds a classify model
-    since the seventeenth slice and yolo11n-cls names the module it lacks (C3k2); guess_model_task and
+    since the seventeenth slice, yolo11n-cls builds a classify model since the eighteenth and yolo11n-cls-resnet18 names
+    the module it lacks (TorchVision); guess_model_task and
     model_class_for follow JAX's."""
     py, jy = yolo_tpu_torch.YOLO("yolov8n-cls.yaml", device="cpu"), yolo_tpu.YOLO("yolov8n-cls.yaml")
     got, want = _flat(py.params), _flat(jy.params)
@@ -130,8 +132,10 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     assert yolo_tpu_torch.YOLO("yolov8n-pose.yaml", device="cpu").task == "pose"
     resnet = yolo_tpu_torch.YOLO("yolov8n-cls-resnet50.yaml", device="cpu")
     assert resnet.task == "classify" and isinstance(resnet.model, PT.ClassificationModel) and resnet.model.nc == 1000
-    with pytest.raises(NotImplementedError, match="C3k2"):
-        yolo_tpu_torch.YOLO("yolo11n-cls.yaml", device="cpu")
+    y11 = yolo_tpu_torch.YOLO("yolo11n-cls.yaml", device="cpu")
+    assert y11.task == "classify" and isinstance(y11.model, PT.ClassificationModel)
+    with pytest.raises(NotImplementedError, match="TorchVision"):
+        yolo_tpu_torch.YOLO("yolo11n-cls-resnet18.yaml", device="cpu")
     for cfg in ("yolov8n-cls.yaml", "yolov8n.yaml", "yolov8n-seg.yaml", "yolov8n-pose.yaml", "yolov8n-obb.yaml"):
         d = JT.yaml_model_load(cfg)
         assert PT.guess_model_task(d) == JT.guess_model_task(d)

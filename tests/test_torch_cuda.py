@@ -965,3 +965,74 @@ def test_slice17_phases_on_the_card(card, phase, monkeypatch, tmp_path):
         chip_smoke.task_tiled_phase(bgr[0], "card test")
     else:
         getattr(chip_smoke, phase)(bgr[:8], "card test")
+
+
+def _random_bn_tree(tree, rng):
+    """An unfused subtree with every BN's γ, β and running moments drawn at random (the fold is not the identity)."""
+    if not isinstance(tree, dict):
+        return tree
+    if "bn" in tree:
+        c = np.asarray(tree["bn"]["weight"]).shape[0]
+        bn = {"weight": rng.uniform(0.5, 1.5, c), "bias": rng.normal(0, 0.3, c), "running_mean": rng.normal(0, 0.3, c),
+              "running_var": rng.uniform(0.5, 2.0, c)}
+        return {**tree, "bn": {k: v.astype(np.float32) for k, v in bn.items()}}
+    return {k: _random_bn_tree(v, rng) for k, v in tree.items()}
+
+
+ATTENTION_BLOCKS = [("C2PSA", lambda: PM.C2PSA(128, 128, 1), 128, (20, 20)),  # yolo11n's, at c = 128: two heads
+                    ("A2C2f-area4", lambda: PM.A2C2f(64, 64, 2, True, 4), 64, (20, 24))]  # yolo12n's P4 block: four strips
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTENTION_BLOCKS, ids=[c[0] for c in ATTENTION_BLOCKS])
+def test_attention_blocks_on_the_card_match_cpu(card, case, dtype):
+    """C2PSA (Attention, PSABlock with its ffn's BN unfused, as the JAX package's fuse leaves it) and A2C2f at area 4
+    (AAttn: every product in f32) on two seeded N(0, 1) maps, random BN statistics folded, in f32 and bf16 on the
+    card against the same module and dtype on the CPU: f32 within TOL (1e-3); bf16 within 6e-2 of the output's largest
+    |value| (a bf16 rounding early in the residual chain moves later elements by a few ulps of the largest: 0.69 of 22.6
+    at area 4 on an H100); no C2f kernel launches."""
+    from yolo_tpu_torch.nn.tasks import fuse
+
+    _, build, cin, hw = case
+    rng = np.random.default_rng(0)
+    gpu, cpu = build(), build()
+    tree = fuse(_random_bn_tree(gpu.init(rng), rng))
+    gpu.load_jax(tree, card, dtype)
+    cpu.load_jax(tree, "cpu", dtype)
+    x = torch.from_numpy(rng.normal(0, 1, (2, *hw, cin)).astype(np.float32))
+    before = cuda_c2f.fused_c2f.launches
+    got = gpu(x.to(card, dtype))
+    assert cuda_c2f.fused_c2f.launches == before and got.dtype == dtype and torch.isfinite(got).all()
+    want = cpu(x.to(dtype)).float()
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=6e-2 * float(want.abs().max()), rtol=0.0)
+    torch.testing.assert_close(got.float().cpu(), want, **tol)
+
+
+def test_yolo12n_forward_on_the_card_matches_cpu(card):
+    """yolo12n at full width, its init(0) tree with BN moments from two seeded 320² noise images
+    (`chip_smoke.bn_calibrated`), f32: the decoded predictions on the card against the CPU (boxes 1e-2 px, scores 1e-4),
+    with no launch of kernels 1-4 (C3k2 and A2C2f are walked, the head is not legacy); NMS of those predictions through
+    kernel 5 against its twin, equal slots."""
+    import chip_smoke
+    from yolo_tpu_torch.nn.tasks import DetectionModel, params_from_jax
+    from yolo_tpu_torch.ops.nms import non_max_suppression
+
+    m, cpu = DetectionModel("yolo12n.yaml", device=card), DetectionModel("yolo12n.yaml", device="cpu")
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 320, 320, 3)).astype(np.float32))
+    tree = chip_smoke.bn_calibrated(m, m.init(0), x.to(card))
+    params_from_jax(m, tree, torch.float32)
+    params_from_jax(cpu, tree, torch.float32)
+    counters = (cuda_c2f.fused_c2f, cuda_c2f.fused_c2f_upconcat, cuda_head.fused_head_level, cuda_head_cm.head_level_cm)
+    before = [f.launches for f in counters]
+    preds = m.predict(x.to(card))
+    assert [f.launches for f in counters] == before
+    want = cpu.predict(x).to(card)
+    torch.testing.assert_close(preds[:, :4], want[:, :4], atol=1e-2, rtol=0)
+    torch.testing.assert_close(preds[:, 4:], want[:, 4:], atol=1e-4, rtol=0)
+    n0 = cuda_nms.nms_keep.launches
+    got = non_max_suppression(preds, conf_thres=0.0, max_det=30)
+    assert cuda_nms.nms_keep.launches == n0 + 1
+    want = non_max_suppression(preds, conf_thres=0.0, max_det=30, plain=True)
+    assert got["valid"].any() and torch.equal(got["valid"], want["valid"])
+    for k in ("boxes", "scores", "cls"):
+        torch.testing.assert_close(got[k], want[k], atol=1e-6, rtol=0)

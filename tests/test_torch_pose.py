@@ -47,6 +47,7 @@ from yolo_tpu_torch.utils.loss import v8PoseLoss
 from yolo_tpu_torch.utils.metrics import OKS_SIGMA, kpt_iou
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
+from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
 
 HYP = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5, pose=12.0, kobj=1.0)
 POSE_KEYS = ("cls", "bboxes", "mask_gt", "keypoints")
@@ -157,7 +158,8 @@ def test_pose_model_init_and_routing_match_jax():
     """PoseModel("yolov8n-pose.yaml").init(0) is the JAX package's tree bit for bit (3,306,482 values, kpt_shape (17, 3),
     nk 51, c4 51); YOLO("yolov8n-pose.yaml") is a pose model; the task helpers route `-pose` yamls and Pose heads as
     JAX's do; a yaml's kpt_shape reaches the head; yolov8n-pose-p6 (C2 since the seventeenth slice) is a four-level pose
-    model with JAX's strides, and yolo11n-pose names the module it lacks (C3k2)."""
+    model with JAX's strides, and yolo11n-pose (C3k2 since the eighteenth slice) is a pose model with JAX's strides and
+    the non-legacy class branch."""
     pm, jm = PT.PoseModel("yolov8n-pose.yaml", device="cpu"), JT.PoseModel("yolov8n-pose.yaml")
     _same_tree(pm.init(0), jm.init(0))
     assert PT.param_count(pm.init(0)) == jm.param_count(jm.init(0)) == 3_306_482
@@ -171,8 +173,9 @@ def test_pose_model_init_and_routing_match_jax():
     _same_tree(pm4.init(0), jm4.init(0))
     p6 = PT.PoseModel("yolov8n-pose-p6.yaml", device="cpu")
     assert p6.stride == JT.PoseModel("yolov8n-pose-p6.yaml").stride == [8, 16, 32, 64] and p6.head.kpt_shape == (17, 3)
-    with pytest.raises(NotImplementedError, match="C3k2"):
-        PT.PoseModel("yolo11n-pose.yaml", device="cpu")
+    y11 = PT.PoseModel("yolo11n-pose.yaml", device="cpu")
+    assert y11.stride == JT.PoseModel("yolo11n-pose.yaml").stride == [8, 16, 32] and y11.head.kpt_shape == (17, 3)
+    assert y11.head.legacy is False
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

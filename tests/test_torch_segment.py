@@ -38,6 +38,7 @@ from yolo_tpu_torch.utils.loss import v8SegmentationLoss
 from yolo_tpu_torch.utils.metrics import mask_iou
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
+from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
 
 HYP = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5)
 SEG_KEYS = ("cls", "bboxes", "mask_gt", "masks")
@@ -112,7 +113,8 @@ def test_segmentation_model_init_and_routing_match_jax():
     """SegmentationModel("yolov8n-seg.yaml").init(0) is the JAX package's tree bit for bit (3,421,264
     values, npr 64, nm 32); YOLO("yolov8n-seg.yaml") is a segment model; the task helpers route `-seg`
     yamls and Segment heads as JAX's do; yolov8n-seg-p6 (C2 since the seventeenth slice) is a four-level segment model
-    with JAX's strides, and yolo11n-seg names the module it lacks (C3k2)."""
+    with JAX's strides, and yolo11n-seg (C3k2 since the eighteenth slice) is a segment model with JAX's strides and the
+    non-legacy class branch, while YOLOE's segment head names itself."""
     pm, jm = PT.SegmentationModel("yolov8n-seg.yaml", device="cpu"), JT.SegmentationModel("yolov8n-seg.yaml")
     got, want = _flat(pm.init(0)), _flat(jm.init(0))
     assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
@@ -124,8 +126,10 @@ def test_segmentation_model_init_and_routing_match_jax():
     assert PT.model_class_for(d) is PT.SegmentationModel and PT.guess_model_task(d) == JT.guess_model_task(d) == "segment"
     p6 = PT.SegmentationModel("yolov8n-seg-p6.yaml", device="cpu")
     assert p6.stride == JT.SegmentationModel("yolov8n-seg-p6.yaml").stride == [8, 16, 32, 64] and p6.head.nl == 4
-    with pytest.raises(NotImplementedError, match="C3k2"):
-        PT.SegmentationModel("yolo11n-seg.yaml", device="cpu")
+    y11 = PT.SegmentationModel("yolo11n-seg.yaml", device="cpu")
+    assert y11.stride == JT.SegmentationModel("yolo11n-seg.yaml").stride == [8, 16, 32] and y11.head.legacy is False
+    with pytest.raises(NotImplementedError, match="YOLOESegment"):
+        PT.model_class_for(JT.yaml_model_load("yoloe-11-seg.yaml"))
 
 
 # --- (b) ConvTranspose ----------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from yolo_tpu_torch.utils.loss import v8DetectionLoss
 
 from tests.test_loss import _random_case
 from tests.test_train import tiny_dataset  # noqa: F401 (a fixture)
+from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
 
 HYP = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5)
 

@@ -21,6 +21,7 @@ from yolo_tpu.data import augment as JA
 from yolo_tpu_torch.data import augment as PA
 
 from tests.test_train import tiny_dataset  # noqa: F401 (a fixture)
+from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
 
 ONE_EPOCH = dict(epochs=1, imgsz=160, batch=4, workers=1, mosaic=0.5, close_mosaic=0, amp=False, plots=False, exist_ok=True)
 RUNS = {

@@ -30,6 +30,7 @@ from yolo_tpu_torch.utils.loss import v8DetectionLoss
 
 from tests.test_loss import _random_case
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
+from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
 
 VARIANTS = ["yolov8n-p6.yaml", "yolov8n-ghost.yaml", "yolov8n-ghost-p2.yaml", "yolov8n-ghost-p6.yaml", "yolov8n-seg-p6.yaml",
             "yolov8n-pose-p6.yaml", "yolov8n-cls-resnet50.yaml", "yolov8n-cls-resnet101.yaml", "yolov5n.yaml", "yolov5n-p6.yaml"]
@@ -137,7 +138,8 @@ def _random_bn(tree, rng):
 
 @torch.no_grad()
 def _load_train(module, tree):
-    """An unfused module subtree into the port module's train form (OIHW convs), as `load_train_params` loads a model."""
+    """An unfused module subtree into the port module's train form (OIHW convs, a Detect's DFL projection flat), as
+    `load_train_params` loads a model."""
     for name, m in module.named_modules():
         if hasattr(m, "train_leaves"):
             for rel, t in m.train_leaves().items():
@@ -145,7 +147,8 @@ def _load_train(module, tree):
                 for k in [*(name.split(".") if name else []), *rel.split("/")]:
                     node = node[k]
                 a = np.asarray(node, np.float32)
-                t.copy_(torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a)))
+                a = a.reshape(-1) if rel.endswith("dfl/conv/weight") else a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+                t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
 
 
 @pytest.mark.parametrize("form", ["train", "fused"])

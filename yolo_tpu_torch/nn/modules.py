@@ -7,7 +7,8 @@ Upsample→Concat→C2f fold, `call_upconcat`), SPPF, Concat, Upsample, the Dete
 DFL decode, the Classify head, the Segment head with its Proto and ConvTranspose, the Pose head
 and the OBB head; and for the v8 variants (yolov8-p6, -ghost*, -seg-p6, -pose-p6, -cls-resnet*)
 and yolov5: MaxPool2d, DWConv, C3, C2, GhostConv, GhostBottleneck, C3Ghost, ResNetBlock and
-ResNetLayer.
+ResNetLayer; for yolo11 and yolo12: C3k, C3k2, Attention, PSABlock, C2PSA, AAttn, ABlock, A2C2f
+and the non-legacy Detect class branch (`Seq`: a depth-wise 3x3, then a 1x1).
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -32,9 +33,10 @@ ResNetLayer.
   their plain PyTorch twins instead, the reference the kernels are held
   against on the card.
   Every other conv (stem, stride-2 convs, SPPF, the Segment head's coefficient
-  branch and prototypes, the Pose head's keypoint branch, the OBB head's angle branch, and
-  every conv of the variants' C3, C2, GhostConv, GhostBottleneck and ResNetLayer blocks) is
-  torch.nn.functional.conv2d (conv_transpose2d for Proto's upsample), as the JAX package
+  branch and prototypes, the Pose head's keypoint branch, the OBB head's angle branch,
+  every conv of the variants' C3, C2, GhostConv, GhostBottleneck and ResNetLayer blocks, and
+  all of yolo11's and yolo12's blocks and non-legacy heads, attention products included) is
+  plain torch (conv2d, conv_transpose2d for Proto's upsample, matmul), as the JAX package
   leaves those to XLA.
 - A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
   instead, and may emit a `QTensor`; the blocks then walk their convs module by module
@@ -119,6 +121,7 @@ class ConvBNAct(nn.Module):
         self.bn = BatchNorm(c2)
         self.batch_stats = None  # (mean, biased var, count) of the last training forward, held out of the gradient
         self.q = None  # the int8 form (nn/quantize.py) when load_jax took a quantized subtree
+        self.eval_bn = None  # (running mean, scale, beta) in f32 when load_jax took an unfused subtree
         self.path = ""  # the JAX tree path ('model/3/cv1'), the key of its calibrated scales
         self.calib = None  # while `quantize.capture` runs on this model: the {path: amax} store
         self.record_bn = True  # cleared while a rematerialised layer is recomputed (`recording_bn`)
@@ -157,9 +160,14 @@ class ConvBNAct(nn.Module):
         return (silu(y) if self.act else y).to(x.dtype)
 
     def load_jax(self, p: dict, device, dtype) -> None:
-        if "bn" in p:
-            raise ValueError("load_jax takes fused parameters (fold BN with nn.tasks.fuse first)")
+        """The fused subtree ({conv: {weight, bias}}), its int8 form, or an unfused one ({conv, bn}: the groups
+        that the JAX package's fuse leaves, PSABlock's `ffn`), which runs BN on the running moments in f32."""
         c = p["conv"]
+        self.eval_bn = None
+        if "bn" in p:
+            bn = {k: _vec(v, device, torch.float32) for k, v in p["bn"].items()}
+            self.eval_bn = (bn["running_mean"], bn["weight"] * torch.rsqrt(bn["running_var"] + BN_EPS), bn["bias"])
+            c = {"weight": c["weight"], "bias": np.zeros(self.c2, np.float32)}
         if "w_int8" in c:
             def scale(k):
                 return None if c.get(k) is None else torch.tensor(float(np.float32(c[k])), dtype=torch.float32, device=device)
@@ -178,6 +186,10 @@ class ConvBNAct(nn.Module):
         x = Q.deq(x, self.weight.dtype)  # a quantized producer may feed a float conv
         if self.calib is not None:
             Q.record(self.calib, self.path, x)
+        if self.eval_bn is not None:  # an unfused group: JAX's exact f32 eval BN, the activation in f32, then rounded
+            mean, scale, beta = self.eval_bn
+            y = (conv_nhwc(x, self.weight, self.s, self.p, self.g).float() - mean) * scale + beta
+            return (silu(y) if self.act else y).to(x.dtype)
         y = conv_nhwc(x, self.weight, self.s, self.p, self.g) + self.bias
         if self.act:
             y = silu(y)
@@ -626,6 +638,217 @@ class ResNetLayer(_Tree):
         return self.pool(x) if self.is_first else x
 
 
+class C3k(C3):
+    """C3 with k x k bottleneck kernels (JAX C3k)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5, k: int = 3):
+        super().__init__(c1, c2, n, shortcut, g, e, bottleneck_k=((k, k), (k, k)))
+
+
+class C3k2(C2f):
+    """A C2f whose blocks are C3k(c, c, 2) where `c3k`, else half-width 3x3 Bottlenecks (JAX C3k2). Always walked
+    module by module: the C2f kernel takes full-width bottlenecks only, and the JAX package gates its C2f kernel
+    on the exact type, so neither the kernel nor the neck fold ever sees a C3k2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5, g: int = 1, shortcut: bool = True):
+        nn.Module.__init__(self)
+        self.c = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBNAct(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBNAct((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            C3k(self.c, self.c, 2, shortcut, g) if c3k else Bottleneck(self.c, self.c, shortcut, g, k=((3, 3), (3, 3)), e=0.5)
+            for _ in range(n)
+        )
+
+    def forward(self, x, plain: bool = False):
+        return self.forward_modules(x)
+
+
+class Attention(_Tree):
+    """Multi-head self-attention over the pixels of an NHWC map (JAX Attention): a 1x1 qkv conv whose channels are
+    (heads, q | k | v), q·k in the input's dtype, the softmax in f32 rounded back, the values' weighted sum, a
+    depth-wise 3x3 positional conv of v added, a 1x1 projection. The products are torch.matmul; JAX computes them
+    outside any kernel."""
+
+    tree_keys = ("qkv", "proj", "pe")
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim**-0.5
+        self.qkv = ConvBNAct(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = ConvBNAct(dim, dim, 1, act=False)
+        self.pe = ConvBNAct(dim, dim, 3, 1, g=dim, act=False)
+
+    def _run(self, x, train: bool):
+        B, H, W, C = x.shape
+        kd = self.key_dim
+        qkv = _call(self.qkv, x, train).reshape(B, H * W, self.num_heads, 2 * kd + self.head_dim)
+        q, k, v = qkv[..., :kd].transpose(1, 2), qkv[..., kd : 2 * kd].transpose(1, 2), qkv[..., 2 * kd :]
+        attn = torch.matmul(q, k.transpose(-1, -2)) * self.scale  # (B, heads, N, N)
+        attn = torch.softmax(attn.float(), -1).to(q.dtype)
+        out = torch.matmul(attn, v.transpose(1, 2)).transpose(1, 2).reshape(B, H, W, C)
+        return _call(self.proj, out + _call(self.pe, v.reshape(B, H, W, C), train), train)
+
+
+class PSABlock(_Tree):
+    """Attention and a 1x1 conv feed-forward (2c wide), each with a residual (JAX PSABlock)."""
+
+    tree_keys = ("attn", "ffn")
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4, shortcut: bool = True):
+        super().__init__()
+        self.attn = Attention(c, num_heads=num_heads, attn_ratio=attn_ratio)
+        self.ffn = nn.ModuleList([ConvBNAct(c, c * 2, 1), ConvBNAct(c * 2, c, 1, act=False)])
+        self.add = shortcut
+
+    def _run(self, x, train: bool):
+        a = _call(self.attn, x, train)
+        x = x + a if self.add else a
+        f = _call(self.ffn[1], _call(self.ffn[0], x, train), train)
+        return x + f if self.add else f
+
+
+class C2PSA(_Tree):
+    """CSP block around n PSABlocks (JAX C2PSA): cv1 split in halves, the blocks on the second, concat, cv2."""
+
+    tree_keys = ("cv1", "cv2", "m")
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"C2PSA keeps its width: c1 {c1} != c2 {c2}")
+        self.c = int(c1 * e)
+        self.cv1 = ConvBNAct(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBNAct(2 * self.c, c1, 1)
+        self.m = nn.ModuleList(PSABlock(self.c, attn_ratio=0.5, num_heads=max(self.c // 64, 1)) for _ in range(n))
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        a, b = y[..., : self.c], y[..., self.c :]
+        for m in self.m:
+            b = _call(m, b, train)
+        return _call(self.cv2, torch.cat([a, b], -1), train)
+
+
+class AAttn(_Tree):
+    """Area attention (JAX AAttn): the pixels cut into `area` row strips, each attended on its own; a 1x1 qkv conv
+    whose channels are (heads, q | k | v), every product and the softmax in f32, then a depth-wise 7x7 positional
+    conv of v added in the input's dtype and a 1x1 projection. H · W must divide into the strips (ValueError)."""
+
+    tree_keys = ("qkv", "proj", "pe")
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.dim, self.num_heads, self.area = dim, num_heads, area
+        self.head_dim = dim // num_heads
+        self.qkv = ConvBNAct(dim, dim * 3, 1, act=False)
+        self.proj = ConvBNAct(dim, dim, 1, act=False)
+        self.pe = ConvBNAct(dim, dim, 7, 1, 3, g=dim, act=False)
+
+    def _run(self, x, train: bool):
+        B, H, W, C = x.shape
+        N, h, hd = H * W, self.num_heads, self.head_dim
+        Bn, Nn = B, N
+        if self.area > 1:
+            if N % self.area:
+                raise ValueError(f"area attention cuts {H}x{W} = {N} pixels into {self.area} strips: {N} is not a multiple of {self.area}")
+            Bn, Nn = B * self.area, N // self.area
+        t = _call(self.qkv, x, train).reshape(Bn, Nn, h, 3 * hd).permute(0, 2, 1, 3).float()  # (Bn, h, Nn, 3hd)
+        q, k, v = t[..., :hd], t[..., hd : 2 * hd], t[..., 2 * hd :]
+        attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * hd**-0.5, -1)  # (Bn, h, Nn, Nn)
+        y = torch.matmul(attn, v).transpose(1, 2).reshape(B, H, W, C).to(x.dtype)
+        vv = v.transpose(1, 2).reshape(B, H, W, C).to(x.dtype)
+        return _call(self.proj, y + _call(self.pe, vv, train), train)
+
+
+class ABlock(_Tree):
+    """Area attention and a 1x1 conv MLP (mlp_ratio wide), each with a residual (JAX ABlock)."""
+
+    tree_keys = ("attn", "mlp")
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.ModuleList([ConvBNAct(dim, hidden, 1), ConvBNAct(hidden, dim, 1, act=False)])
+
+    def _run(self, x, train: bool):
+        x = x + _call(self.attn, x, train)
+        return x + _call(self.mlp[1], _call(self.mlp[0], x, train), train)
+
+
+class A2C2f(_Tree):
+    """Area-attention C2f (JAX A2C2f): cv1, n stages of two ABlocks (`a2`) or one C3k each, every stage's output
+    concatenated into cv2; with `residual` (a2 only) the input plus a trained per-channel `gamma` times the output,
+    taken in f32 and rounded to the input's dtype (every consumer casts it so in JAX)."""
+
+    tree_keys = ("cv1", "cv2", "m")
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True, area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0, e: float = 0.5, g: int = 1, shortcut: bool = True):
+        super().__init__()
+        c_ = int(c2 * e)
+        if c_ % 32:
+            raise ValueError(f"A2C2f's hidden width {c_} is not a multiple of 32")
+        self.c1, self.c2, self.n, self.a2, self.residual = c1, c2, n, a2, a2 and residual
+        self.cv1 = ConvBNAct(c1, c_, 1, 1)
+        self.cv2 = ConvBNAct((1 + n) * c_, c2, 1)
+        if a2:
+            self.m = nn.ModuleList(nn.ModuleList(ABlock(c_, c_ // 32, mlp_ratio, area) for _ in range(2)) for _ in range(n))
+        else:
+            self.m = nn.ModuleList(C3k(c_, c_, 2, shortcut, g) for _ in range(n))
+        self.register_buffer("gamma", torch.zeros(c2) if self.residual else None)  # the inference form's
+        self.gamma_train = nn.Parameter(torch.zeros(c2)) if self.residual else None
+
+    def init(self, rng) -> dict:
+        p = super().init(rng)
+        if self.residual:
+            p["gamma"] = np.full((self.c2,), 0.01, np.float32)
+        return p
+
+    def train_leaves(self) -> dict:
+        return {"gamma": self.gamma_train} if self.residual else {}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        super().load_jax(p, device, dtype)
+        if self.residual:
+            self.gamma = _vec(p["gamma"], device, torch.float32)
+
+    def _run(self, x, train: bool):
+        ys = [_call(self.cv1, x, train)]
+        for stage in self.m:
+            z = ys[-1]
+            for blk in stage if self.a2 else (stage,):
+                z = _call(blk, z, train)
+            ys.append(z)
+        y = _call(self.cv2, torch.cat(ys, -1), train)
+        if not self.residual:
+            return y
+        gamma = self.gamma_train if train else self.gamma
+        return (x.float() + gamma.float() * y.float()).to(x.dtype)
+
+
+class Seq(nn.Sequential):
+    """Modules in a row whose JAX subtree is keyed '0', '1', ... (JAX _Seq): the depth-wise then 1x1 pairs of the
+    non-legacy Detect class branch."""
+
+    def init(self, rng) -> dict:
+        return {k: m.init(rng) for k, m in self.named_children()}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        for k, m in self.named_children():
+            m.load_jax(p[k], device, dtype)
+
+    def forward_train(self, x):
+        for m in self:
+            x = m.forward_train(x)
+        return x
+
+
 def dfl_project(box: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """DFL expectation over the last (reg_max) axis: softmax(box) · proj.
 
@@ -647,22 +870,32 @@ def _branch_walk(branch, xs, train: bool) -> list:
 
 
 class Detect(nn.Module):
-    """Anchor-free detect head with DFL box regression (JAX Detect, legacy v8 branches)."""
+    """Anchor-free detect head with DFL box regression (JAX Detect). `legacy` (the v3/v5/v8 branches, where no row
+    of the yaml names C3k2, A2C2f or C2fCIB) gives the class branch two 3x3 ConvBNActs, which the head kernels take;
+    otherwise (yolo11, yolo12) each of its two convs is a depth-wise 3x3 then a 1x1 (`Seq`), and the head runs as
+    plain convs and the DFL decode, as the JAX package's kernels take the legacy branches only."""
 
-    def __init__(self, nc: int = 80, ch: tuple = ()):
+    def __init__(self, nc: int = 80, ch: tuple = (), legacy: bool = True):
         super().__init__()
         self.nc = nc
         self.nl = len(ch)
         self.reg_max = 16
+        self.legacy = legacy
         self.stride = [8, 16, 32][: self.nl] if self.nl <= 3 else [4, 8, 16, 32]  # set from the graph at build
         c2 = max(16, ch[0] // 4, self.reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(
             nn.ModuleList([ConvBNAct(x, c2, 3), ConvBNAct(c2, c2, 3), Conv2d(c2, 4 * self.reg_max, 1)]) for x in ch
         )
-        self.cv3 = nn.ModuleList(
-            nn.ModuleList([ConvBNAct(x, c3, 3), ConvBNAct(c3, c3, 3), Conv2d(c3, nc, 1)]) for x in ch
-        )
+        if legacy:
+            self.cv3 = nn.ModuleList(
+                nn.ModuleList([ConvBNAct(x, c3, 3), ConvBNAct(c3, c3, 3), Conv2d(c3, nc, 1)]) for x in ch
+            )
+        else:
+            self.cv3 = nn.ModuleList(
+                nn.ModuleList([Seq(DWConv(x, x, 3), ConvBNAct(x, c3, 1)), Seq(DWConv(c3, c3, 3), ConvBNAct(c3, c3, 1)),
+                               Conv2d(c3, nc, 1)]) for x in ch
+            )
         self.register_buffer("proj", torch.arange(self.reg_max, dtype=torch.float32))
         self._kw = None
 
@@ -760,7 +993,18 @@ class Detect(nn.Module):
 
     def head_levels(self, xs, plain: bool = False):
         """Both branches + DFL per level from the head inputs (NHWC) through the head kernel (`plain`:
-        its twin) → (dists [(B, HW, 4) f32], scores [(B, HW, nc) f32 sigmoid]), level by level."""
+        its twin; a non-legacy head's branches conv by conv) → (dists [(B, HW, 4) f32], scores
+        [(B, HW, nc) f32 sigmoid]), level by level."""
+        if not self.legacy:  # no kernel takes these branches: JAX `_branch_walk`, conv by conv
+            dists, clss = [], []
+            for l, x in enumerate(xs):
+                b, c = x, x
+                for j in range(3):
+                    b, c = self.cv2[l][j](b), self.cv3[l][j](c)
+                B, H, W, _ = b.shape
+                dists.append(dfl_project(b.reshape(B, H * W, 4, self.reg_max), self.proj))
+                clss.append(torch.sigmoid(c.reshape(B, H * W, self.nc).float()))
+            return dists, clss
         fn = cuda_head.head_level_plain if plain else cuda_head.fused_head_level
         dists, clss = [], []
         for l, x in enumerate(xs):
@@ -777,7 +1021,9 @@ class Detect(nn.Module):
     def decode_from_inputs_cm(self, xs, plain: bool = False):
         """`decode_from_inputs` with every level through the channel-major
         kernel (ops/cuda_head_cm.py, sigmoid inside). Every level shape is
-        served: there is no tile width to fall back from."""
+        served: there is no tile width to fall back from. The legacy branches only (ValueError), as JAX asserts."""
+        if not self.legacy:
+            raise ValueError("the channel-major head kernel takes the legacy Detect branches only (pallas_head2=False)")
         fn = cuda_head_cm.head_level_cm_plain if plain else cuda_head_cm.head_level_cm
         dists, clss = zip(*(fn(x, self.kernel_weights(l)) for l, x in enumerate(xs)))
         return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])
@@ -887,8 +1133,8 @@ class Segment(Detect):
     Detect head's (the head kernel at inference); the coefficient branch `cv4` (3x3, 3x3, 1x1 a
     level) and `proto` are plain torch convs, as the JAX package computes them outside any kernel."""
 
-    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: tuple = ()):
-        super().__init__(nc, ch)
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: tuple = (), legacy: bool = True):
+        super().__init__(nc, ch, legacy)
         self.nm, self.npr = nm, npr
         self.proto = Proto(ch[0], npr, nm)
         c4 = max(ch[0] // 4, nm)
@@ -921,8 +1167,8 @@ class Pose(Detect):
     kernel at inference); the keypoint branch `cv4` (3x3, 3x3, 1x1 to nk = K · ndim a level) is plain torch
     convs, as the JAX package computes it outside any kernel."""
 
-    def __init__(self, nc: int = 80, kpt_shape: tuple = (17, 3), ch: tuple = ()):
-        super().__init__(nc, ch)
+    def __init__(self, nc: int = 80, kpt_shape: tuple = (17, 3), ch: tuple = (), legacy: bool = True):
+        super().__init__(nc, ch, legacy)
         self.kpt_shape = tuple(kpt_shape)
         self.nk = self.kpt_shape[0] * self.kpt_shape[1]
         c4 = max(ch[0] // 4, self.nk)
@@ -964,8 +1210,8 @@ class OBB(Detect):
     kernel at inference); the angle branch `cv4` (3x3, 3x3, 1x1 to ne a level) is plain torch convs, as
     the JAX package computes it outside any kernel."""
 
-    def __init__(self, nc: int = 80, ne: int = 1, ch: tuple = ()):
-        super().__init__(nc, ch)
+    def __init__(self, nc: int = 80, ne: int = 1, ch: tuple = (), legacy: bool = True):
+        super().__init__(nc, ch, legacy)
         self.ne = ne
         c4 = max(ch[0] // 4, ne)
         self.cv4 = nn.ModuleList(nn.ModuleList([ConvBNAct(x, c4, 3), ConvBNAct(c4, c4, 3), Conv2d(c4, ne, 1)]) for x in ch)

@@ -17,7 +17,9 @@ a Segment head: the detection forward plus mask coefficients and prototypes), `P
 walks (`BaseModel`); `model_class_for` picks a checkpoint's class from its config and task.
 The v8 variant yamls (p6, ghost, ghost-p2, ghost-p6, seg-p6, pose-p6, cls-resnet50/101) and
 yolov5 / yolov5-p6 build from the same rows (C2, C3, C3Ghost, GhostConv, ResNetLayer, DWConv,
-MaxPool2d, a padded Conv); a layer without an int8 path takes its inputs dense, as in JAX.
+MaxPool2d, a padded Conv); a layer without an int8 path takes its inputs dense, as in JAX. The yolo11 and
+yolo12 yamls build with C3k2, C2PSA and A2C2f under JAX's parse rules (`legacy` off, so their heads take the
+depth-wise class branch and no head kernel; C3k blocks at scales m-x; A2C2f's residual gamma at l and x).
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -55,6 +57,10 @@ MODULE_MAP = {
     "C2": M.C2,
     "C3": M.C3,
     "C3Ghost": M.C3Ghost,
+    "C3k": M.C3k,
+    "C3k2": M.C3k2,
+    "C2PSA": M.C2PSA,
+    "A2C2f": M.A2C2f,
     "GhostConv": M.GhostConv,
     "GhostBottleneck": M.GhostBottleneck,
     "ResNetLayer": M.ResNetLayer,
@@ -117,6 +123,7 @@ def parse_model(d: dict, ch: int):
     if d.get("activation") and "silu" not in str(d["activation"]).lower():
         raise NotImplementedError(f"module 'Conv' with activation {d['activation']} is not ported yet (the port's ConvBNAct is SiLU)")
     chs, layers, froms, save = [ch], [], [], []
+    legacy = not any(row[2] in ("C3k2", "A2C2f", "C2fCIB") for row in d["backbone"] + d["head"])  # the v8 Detect branches
     for i, (f, n, mname, args) in enumerate(d["backbone"] + d["head"]):
         if mname not in MODULE_MAP:
             raise NotImplementedError(f"module '{mname}' is not ported yet")
@@ -129,27 +136,32 @@ def parse_model(d: dict, ch: int):
         n = max(round(n * depth), 1) if n > 1 else n
         if mcls is M.ResNetLayer:  # explicit [c1, c2, s, is_first, n]; 4 · c2 out unless the stem
             c2 = args[1] if args[3] else args[1] * 4
-        elif mcls in (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.GhostConv, M.GhostBottleneck, M.SPPF, M.Classify):
+        elif mcls in (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.GhostConv,
+                      M.GhostBottleneck, M.SPPF, M.Classify):
             c1, c2 = chs[f], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             args = [c1, c2, *args[1:]]
-            if mcls in (M.C2f, M.C2, M.C3, M.C3Ghost):  # the repeats are the block's n
+            if mcls in (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f):  # the repeats are the block's n
                 args.insert(2, n)
                 n = 1
+            if mcls is M.C3k2 and d.get("scale") in ("m", "l", "x"):
+                args[3] = True  # C3k blocks at the deeper scales, as in the JAX package
+            if mcls is M.A2C2f and d.get("scale") in ("l", "x"):
+                args.extend((True, 1.2))  # the residual gamma and an MLP 1.2 wide
         elif mcls is M.Concat:
             c2 = sum(chs[x] for x in f)
         elif mcls is M.Detect:
-            args = [args[0], [chs[x] for x in f]]
+            args = [args[0], [chs[x] for x in f], legacy]
             c2 = None
         elif mcls is M.Segment:  # npr width-scales, as in the JAX package
-            args = [args[0], args[1], make_divisible(min(args[2], max_channels) * width, 8), [chs[x] for x in f]]
+            args = [args[0], args[1], make_divisible(min(args[2], max_channels) * width, 8), [chs[x] for x in f], legacy]
             c2 = None
         elif mcls is M.Pose:  # the yaml's kpt_shape, as in the JAX package
-            args = [args[0], tuple(d["kpt_shape"]) if d.get("kpt_shape") else args[1], [chs[x] for x in f]]
+            args = [args[0], tuple(d["kpt_shape"]) if d.get("kpt_shape") else args[1], [chs[x] for x in f], legacy]
             c2 = None
         elif mcls is M.OBB:
-            args = [*args[:2], [chs[x] for x in f]]
+            args = [*args[:2], [chs[x] for x in f], legacy]
             c2 = None
         else:
             c2 = chs[f]
@@ -196,8 +208,16 @@ def _fold_bn(p: dict) -> dict:
     return {"conv": {"weight": w * scale[None, None, None, :], "bias": b}}
 
 
+UNFUSED_GROUPS = ("ffn",)  # PSABlock's: the JAX package's fuse finds no module under this key and keeps its BN
+
+
+def _as_numpy(params):
+    return {k: _as_numpy(v) for k, v in params.items()} if isinstance(params, dict) else np.asarray(params)
+
+
 def fuse(params: dict) -> dict:
-    """Fold every conv's BN into its weight and bias (exact inference form), with numpy.
+    """Fold every conv's BN into its weight and bias (exact inference form), with numpy, as the JAX package's
+    `fuse` folds them: the groups under an UNFUSED_GROUPS key keep their BN (ConvBNAct runs it in f32).
 
     Every subtree holding `conv` (or `conv_transpose`) and `bn` groups is a ConvBNAct (a
     ConvTranspose) of the JAX package; other leaves pass through as numpy arrays."""
@@ -205,13 +225,14 @@ def fuse(params: dict) -> dict:
         return np.asarray(params)
     if "bn" in params and ("conv" in params or "conv_transpose" in params):
         return _fold_bn(params)
-    return {k: fuse(v) for k, v in params.items()}
+    return {k: _as_numpy(v) if k in UNFUSED_GROUPS else fuse(v) for k, v in params.items()}
 
 
 def params_are_fused(params) -> bool:
+    """Whether `fuse` would leave the tree as it is."""
     if not isinstance(params, dict):
         return True
-    return "bn" not in params and all(params_are_fused(v) for v in params.values())
+    return "bn" not in params and all(k in UNFUSED_GROUPS or params_are_fused(v) for k, v in params.items())
 
 
 class BaseModel(nn.Module):
@@ -254,12 +275,12 @@ class BaseModel(nn.Module):
             if (
                 isinstance(L[a], M.Upsample)
                 and Fr[a] == -1
-                and isinstance(L[b], M.Concat)
+                and type(L[b]) is M.Concat
                 and isinstance(Fr[b], list)
                 and len(Fr[b]) == 2
                 and Fr[b][0] == -1
                 and Fr[b][1] >= 0
-                and isinstance(L[c], M.C2f)
+                and type(L[c]) is M.C2f  # a C3k2 is walked, as the JAX package's exact-type check leaves it
                 and Fr[c] == -1
                 and L[a].scale == 2
                 and a not in self.save
@@ -281,10 +302,11 @@ class BaseModel(nn.Module):
         paths = set()
         for i, m in enumerate(self.layers):
             base = f"model/{i}"
-            if isinstance(m, M.C2f):
+            if isinstance(m, M.C2f):  # a C3k2's C3k blocks emit none
                 paths |= {f"{base}/cv1", f"{base}/cv2"}
                 for j, b in enumerate(m.m):
-                    paths |= {f"{base}/m/{j}/cv1"} if b.add else {f"{base}/m/{j}/cv1", f"{base}/m/{j}/cv2"}
+                    if isinstance(b, M.Bottleneck):
+                        paths |= {f"{base}/m/{j}/cv1"} if b.add else {f"{base}/m/{j}/cv1", f"{base}/m/{j}/cv2"}
             elif isinstance(m, M.SPPF):
                 paths |= {f"{base}/cv1", f"{base}/cv2"}
             elif isinstance(m, M.ConvBNAct):
