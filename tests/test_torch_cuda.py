@@ -1036,3 +1036,78 @@ def test_yolo12n_forward_on_the_card_matches_cpu(card):
     assert got["valid"].any() and torch.equal(got["valid"], want["valid"])
     for k in ("boxes", "scores", "cls"):
         torch.testing.assert_close(got[k], want[k], atol=1e-6, rtol=0)
+
+
+V3_V6_V9_NAS_MODULES = [  # (id, constructor, input channels, input H x W)
+    ("NASCSP", lambda: PM.NASCSP(32, 64, 2), 32, (13, 14)),
+    ("RepCSP", lambda: PM.RepCSP(32, 64, 2), 32, (13, 14)),
+    ("RepNCSPELAN4", lambda: PM.RepNCSPELAN4(32, 64, 32, 16, 1), 32, (13, 14)),
+    ("ADown-odd", lambda: PM.ADown(32, 64), 32, (13, 15)),
+    ("SPP", lambda: PM.SPP(32, 64), 32, (13, 14)),
+    ("ConvTranspose2d-raw", lambda: PM.ConvTranspose(32, 16, 2, 2, 0, False, False), 32, (13, 14)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", V3_V6_V9_NAS_MODULES, ids=[c[0] for c in V3_V6_V9_NAS_MODULES])
+def test_v3_v6_v9_nas_modules_on_the_card_match_cpu(card, case, dtype):
+    """The yolov3 / yolov6 / YOLO-NAS / yolov9 blocks on two seeded N(0, 1) maps, random BN statistics folded (NASCSP's
+    f32 residual chain, RepConv's f32 bias, ADown's f32 average), in f32 and bf16 on the card against the same module
+    and dtype on the CPU: f32 within TOL (1e-3); bf16 within 2e-2 of the output's largest |value| (the CPU tests'
+    module gate against JAX); no C2f or head kernel launches."""
+    from yolo_tpu_torch.nn.tasks import fuse
+
+    _, build, cin, hw = case
+    rng = np.random.default_rng(0)
+    gpu, cpu = build(), build()
+    tree = fuse(_random_bn_tree(gpu.init(rng), rng))
+    for m, dev in ((gpu, card), (cpu, "cpu")):
+        m.load_jax(tree, dev, dtype)
+        for sub in m.modules():
+            sub.compute_dtype = dtype
+    x = torch.from_numpy(rng.normal(0, 1, (2, *hw, cin)).astype(np.float32))
+    counters = (cuda_c2f.fused_c2f, cuda_head.fused_head_level, cuda_head_cm.head_level_cm)
+    before = [f.launches for f in counters]
+    got = gpu(x.to(card, dtype))
+    assert [f.launches for f in counters] == before and got.dtype == dtype and torch.isfinite(got).all()
+    want = cpu(x.to(dtype)).float()
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2e-2 * float(want.abs().max()), rtol=0.0)
+    torch.testing.assert_close(got.float().cpu(), want, **tol)
+
+
+@pytest.mark.parametrize("name", ["yolov9t.yaml", "yolov3-tiny.yaml", "yolo_nas_s.yaml"])
+def test_v3_v9_nas_forward_on_the_card_routes_the_head(card, name):
+    """At full width, init(0) with BN moments from two seeded 320² noise images (`chip_smoke.bn_calibrated`), f32:
+    yolov9t and yolov3-tiny send each Detect level through the head kernel (one launch a level), within
+    `chip_smoke.card_against_f64`'s gate (the f64 forward, within 4x the CPU's f32 distance from it); yolo_nas_s's ReLU head walks (no head kernel launch), its
+    decoded predictions within the same gate."""
+    import chip_smoke
+    from yolo_tpu_torch import YOLO
+
+    y = YOLO(name, device=card)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 320, 320, 3)).astype(np.float32)).to(card)
+    y.params = chip_smoke.bn_calibrated(y.model, y.params, x)
+    path = chip_smoke.slice19_path(y) - {"nms_keep"}
+    chip_smoke.card_against_f64(y, x, name, path)  # through `counted`: the path's kernels launch, no other
+    _, launches = chip_smoke.counted(path, lambda: y.model.predict(x))
+    assert launches["head_level"] == (y.model.head.nl if path else 0) and launches["head_level_cm"] == 0
+
+
+def test_slice19_phases_on_the_card(card, monkeypatch, tmp_path):
+    """chip_smoke's nineteenth-slice phases at a few frames, on yolov9t and yolo_nas_s (the families), yolov3-spp (the
+    others), the pipeline phase and no training: every hold passes and each path launches its kernels."""
+    import chip_smoke
+
+    for key, value in dict(SLICE19_FAMILIES=("yolov9t.yaml", "yolo_nas_s.yaml"), SLICE19_OTHERS=("yolov3-spp.yaml",),
+                           SLICE19_B1_FRAMES=2, SLICE19_B8_FRAMES=8, SLICE19_TRACK_FRAMES=2,
+                           SLICE19_PIPELINE_FRAMES=chip_smoke.CHUNK).items():
+        monkeypatch.setattr(chip_smoke, key, value)
+    clip = chip_smoke.make_clip(chip_smoke.CHUNK, *chip_smoke.HW)
+    root = tmp_path / "train"
+    chip_smoke.write_split(root, 16, 0, split="train")
+    data = chip_smoke.write_split(root, 16, 1)
+    bgr = np.repeat(clip[:8], 3, -1)
+    for name in chip_smoke.SLICE19_FAMILIES:
+        chip_smoke.slice19_family_phase(name, bgr, data, "test")
+    chip_smoke.slice19_models_phase(bgr, "test")
+    chip_smoke.slice19_pipeline_phase(clip, "test")

@@ -98,7 +98,8 @@ def test_jax_yamls_build_or_name_their_missing_module(path):
     d = PT.yaml_model_load(path.name)
     rows = d["backbone"] + d["head"]
     try:
-        layers, froms, save = PT.parse_model(d, 3)
+        with torch.device("meta"):  # the modules' zero tensors take no memory (yolov3 and yolov9e hold 60M values)
+            layers, froms, save = PT.parse_model(d, 3)
     except NotImplementedError as e:
         name = re.search(r"module '([^']+)'", str(e)).group(1)
         first = next((i for i, r in enumerate(rows) if r[2] == name), None)
@@ -108,7 +109,12 @@ def test_jax_yamls_build_or_name_their_missing_module(path):
         return
     assert len(layers) == len(jlayers) and froms == [s.f for s in jlayers] and save == jsave
     for m, spec in zip(layers, jlayers):
-        assert type(m) is PT.MODULE_MAP[spec.type], spec.type
-        for k in ("c1", "c2", "k", "s", "n", "nc", "nl", "ne", "scale"):
-            if hasattr(m, k) and hasattr(spec.module, k):
-                assert getattr(m, k) == getattr(spec.module, k), (spec.i, k)
+        # a row repeated n times whose module takes no repeats of its own is n copies in a row in both packages
+        # (JAX _SeqN, the port's Seq), each the row's module
+        pairs = list(zip(m, spec.module.mods)) if type(spec.module).__name__ == "_SeqN" else [(m, spec.module)]
+        assert len(pairs) == len(getattr(spec.module, "mods", [0])), spec.i
+        for pm, jm in pairs:
+            assert type(pm) is PT.MODULE_MAP[spec.type], spec.type
+            for k in ("c1", "c2", "k", "s", "n", "nc", "nl", "ne", "scale"):
+                if hasattr(pm, k) and hasattr(jm, k):
+                    assert getattr(pm, k) == getattr(jm, k), (spec.i, k)

@@ -148,7 +148,7 @@ def _load_train(module, tree):
                     node = node[k]
                 a = np.asarray(node, np.float32)
                 a = a.reshape(-1) if rel.endswith("dfl/conv/weight") else a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
-                t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+                t.copy_(torch.from_numpy(np.ascontiguousarray(a)).reshape(t.shape))  # a 0-d leaf (NAS alpha) comes back 1-d
 
 
 @pytest.mark.parametrize("form", ["train", "fused"])

@@ -930,17 +930,25 @@ cudaError_t each_candidate(const Level& s, const Model& m, F f) {
   int sms = 0;
   cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  if (!s.bf16) {  // the f32 tiles of the earlier kernels: the least halo within 113 KB (two blocks an SM), else 227 KB
+  if (!s.bf16) {  // the f32 tiles of the earlier kernels: the least halo within 113 KB (two blocks an SM), else 227 KB;
+    // where none fits (C = 1024: 4 KB an input pixel), the narrow tiles, whose input frame (th + 4) x (tw + 4) fits
     static const int cand[][2] = {{16, 32}, {16, 16}, {8, 32}, {8, 16}, {8, 8}, {4, 16}, {4, 8}, {4, 4}, {2, 8}, {2, 4}};
+    static const int narrow[][2] = {{1, 4}, {2, 2}, {1, 2}, {1, 1}};
+    bool any = false;
     for (size_t budget : {size_t(113) << 10, kMaxSmem}) {
-      bool any = false;
       for (const auto& c : cand) {
         Plan p;
         p.th = imin(c[0], s.H), p.tw = imin(c[1], s.W);
         double cost = 0.0;
         if (candidate(s, sms, m, &p, &cost) && p.smem <= budget) f(p, cost), any = true;
       }
-      if (any) break;
+      if (any) return cudaSuccess;
+    }
+    for (const auto& c : narrow) {
+      Plan p;
+      p.th = imin(c[0], s.H), p.tw = imin(c[1], s.W);
+      double cost = 0.0;
+      if (candidate(s, sms, m, &p, &cost)) f(p, cost);
     }
     return cudaSuccess;
   }

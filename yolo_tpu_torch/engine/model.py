@@ -5,6 +5,7 @@
     YOLO("yolov8n-seg.yaml")       # fresh SegmentationModel (a name with '-seg', or task="segment")
     YOLO("yolov8n-pose.yaml")      # fresh PoseModel (a name with '-pose', or task="pose")
     YOLO("yolov8n-obb.yaml")       # fresh OBBModel (a name with '-obb', or task="obb")
+    YOLO("yolov9c.yaml"), YOLO("yolov3.yaml"), YOLO("yolov6n.yaml"), NAS("yolo_nas_s")  # the older families
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
     YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
@@ -315,3 +316,19 @@ class YOLO:
         from yolo_tpu_torch.engine.exporter import save_npz
 
         return save_npz(self.model, self.params, filename)
+
+
+class NAS(YOLO):
+    """YOLO-NAS (JAX `NAS`): the deploy-form graph of cfg/models/nas/yolo_nas.yaml (fused QARepVGG 3x3 convs,
+    ReLU, the SPP context, NASCSP blocks, the DFL head). Takes the names 'yolo_nas_s', 'yolo_nas_m' and
+    'yolo_nas_l', the yaml, or an .npz checkpoint; a .pt (super_gradients' pickled model) raises ValueError,
+    as in the JAX package."""
+
+    def __init__(self, model: str = "yolo_nas_s", device=None):
+        name = str(model)
+        if name.endswith(".pt"):
+            raise ValueError("super_gradients pickled checkpoints are not importable here; "
+                             "export the state_dict and load via yaml + torch_import instead")
+        if not name.endswith((".yaml", ".yml", ".npz")) and "yolo_nas" in name:
+            name = f"{name}.yaml"
+        super().__init__(name, task="detect", device=device)

@@ -8,7 +8,9 @@ DFL decode, the Classify head, the Segment head with its Proto and ConvTranspose
 and the OBB head; and for the v8 variants (yolov8-p6, -ghost*, -seg-p6, -pose-p6, -cls-resnet*)
 and yolov5: MaxPool2d, DWConv, C3, C2, GhostConv, GhostBottleneck, C3Ghost, ResNetBlock and
 ResNetLayer; for yolo11 and yolo12: C3k, C3k2, Attention, PSABlock, C2PSA, AAttn, ABlock, A2C2f
-and the non-legacy Detect class branch (`Seq`: a depth-wise 3x3, then a 1x1).
+and the non-legacy Detect class branch (`Seq`: a depth-wise 3x3, then a 1x1); for yolov3, yolov6, YOLO-NAS and
+yolov9: ConvBNAct's ReLU and GELU, repeated yaml rows (`Seq`), SPP, ZeroPad2d, Identity, NASBottleneck, NASCSP,
+RepConv, RepBottleneck, RepCSP, RepNCSPELAN4, ELAN1, AConv, ADown, SPPELAN, CBLinear and CBFuse.
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -34,8 +36,9 @@ and the non-legacy Detect class branch (`Seq`: a depth-wise 3x3, then a 1x1).
   against on the card.
   Every other conv (stem, stride-2 convs, SPPF, the Segment head's coefficient
   branch and prototypes, the Pose head's keypoint branch, the OBB head's angle branch,
-  every conv of the variants' C3, C2, GhostConv, GhostBottleneck and ResNetLayer blocks, and
-  all of yolo11's and yolo12's blocks and non-legacy heads, attention products included) is
+  every conv of the variants' C3, C2, GhostConv, GhostBottleneck and ResNetLayer blocks,
+  all of yolo11's and yolo12's blocks and non-legacy heads, attention products included, all of
+  yolov3's, yolov6's, YOLO-NAS's and yolov9's blocks, and a ReLU Detect head, conv by conv) is
   plain torch (conv2d, conv_transpose2d for Proto's upsample, matmul), as the JAX package
   leaves those to XLA.
 - A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
@@ -101,19 +104,43 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
 
-class ConvBNAct(nn.Module):
-    """Conv + BN + SiLU or no activation (JAX ConvBNAct): the fused inference form and the train form.
+def activate(y: torch.Tensor, act) -> torch.Tensor:
+    """The named activation of a ConvBNAct (JAX's three): SiLU (the logistic in f32, rounded), ReLU (torch.maximum,
+    whose gradient splits at a tie as JAX's does), GELU (tanh approximation, jax.nn.gelu's default); None leaves y
+    as it is."""
+    if act == "silu":
+        return silu(y)
+    if act == "relu":  # JAX's jnp.maximum(y, 0): at y == 0 exactly (a constant map after BN) half the gradient passes
+        return torch.maximum(y, torch.zeros((), dtype=y.dtype, device=y.device))
+    if act == "gelu":
+        return F.gelu(y, approximate="tanh")
+    return y
 
-    `p` is the padding (None: k // 2), `g` the groups, `act` True (SiLU) or False (none), as the JAX
-    package's; a dilation or another activation raises NotImplementedError naming the 'Conv' module."""
+
+def act_name(name) -> str:
+    """A yaml's `activation:` as JAX maps it: any name holding 'relu' is relu, 'gelu' gelu, anything else silu."""
+    name = str(name).lower()
+    return "relu" if "relu" in name else "gelu" if "gelu" in name else "silu"
+
+
+class ConvBNAct(nn.Module):
+    """Conv + BN + activation (JAX ConvBNAct): the fused inference form and the train form.
+
+    `p` is the padding (None: k // 2), `g` the groups; `act` True takes `DEFAULT_ACT` (SiLU, or the activation
+    a model yaml names while that model is built: nn/tasks.parse_model), a string pins 'silu', 'relu' or
+    'gelu', False means none; `self.act` holds the name or None. A dilation raises NotImplementedError
+    naming the 'Conv' module."""
+
+    DEFAULT_ACT = "silu"
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None, g: int = 1, d: int = 1, act=True):
         super().__init__()
         if d != 1:
             raise NotImplementedError(f"module 'Conv' with dilation {d!r} is not ported yet")
-        if act not in (True, False):
-            raise NotImplementedError(f"module 'Conv' with activation {act!r} is not ported yet (the port's ConvBNAct ends "
-                                      "in SiLU or nothing)")
+        if act not in (True, False, None, "silu", "relu", "gelu"):
+            raise NotImplementedError(f"module 'Conv' with activation {act!r} is not ported yet (the port's ConvBNAct "
+                                      "ends in SiLU, ReLU, GELU or nothing)")
+        act = ConvBNAct.DEFAULT_ACT if act is True else act or None
         self.c1, self.c2, self.k, self.s, self.p, self.g, self.act = c1, c2, k, s, autopad(k, p), g, act
         self.register_buffer("weight", torch.zeros(c2, c1 // g, k, k))
         self.register_buffer("bias", torch.zeros(c2))
@@ -157,7 +184,7 @@ class ConvBNAct(nn.Module):
             mean, var, y = bn.running_mean, bn.running_var, y.float()
         scale = (bn.weight * torch.rsqrt(var + BN_EPS)).to(y.dtype)
         y = (y - mean.to(y.dtype)) * scale + bn.bias.to(y.dtype)
-        return (silu(y) if self.act else y).to(x.dtype)
+        return activate(y, self.act).to(x.dtype)
 
     def load_jax(self, p: dict, device, dtype) -> None:
         """The fused subtree ({conv: {weight, bias}}), its int8 form, or an unfused one ({conv, bn}: the groups
@@ -169,12 +196,7 @@ class ConvBNAct(nn.Module):
             self.eval_bn = (bn["running_mean"], bn["weight"] * torch.rsqrt(bn["running_var"] + BN_EPS), bn["bias"])
             c = {"weight": c["weight"], "bias": np.zeros(self.c2, np.float32)}
         if "w_int8" in c:
-            def scale(k):
-                return None if c.get(k) is None else torch.tensor(float(np.float32(c[k])), dtype=torch.float32, device=device)
-
-            self.q = {"w": Q.weight_matrix(c["w_int8"], device, self.g), "w_scale": _vec(c["w_scale"], device, torch.float32),
-                      "bias": _vec(c["bias"], device, torch.float32), "x_scale": scale("x_scale"),
-                      "y_scale": scale("y_scale")}
+            self.q = load_int8(c, device, self.g)
             return
         self.q = None
         self.weight = _hwio_to_oihw(c["weight"], device, dtype)
@@ -183,40 +205,52 @@ class ConvBNAct(nn.Module):
     def forward(self, x):
         if self.q is not None:
             return self._forward_int8(x)
-        x = Q.deq(x, self.weight.dtype)  # a quantized producer may feed a float conv
+        x = Q.deq(x, self.weight.dtype).to(self.weight.dtype)  # a quantized (or an f32) producer may feed the conv
         if self.calib is not None:
             Q.record(self.calib, self.path, x)
         if self.eval_bn is not None:  # an unfused group: JAX's exact f32 eval BN, the activation in f32, then rounded
             mean, scale, beta = self.eval_bn
             y = (conv_nhwc(x, self.weight, self.s, self.p, self.g).float() - mean) * scale + beta
-            return (silu(y) if self.act else y).to(x.dtype)
-        y = conv_nhwc(x, self.weight, self.s, self.p, self.g) + self.bias
-        if self.act:
-            y = silu(y)
+            return activate(y, self.act).to(x.dtype)
+        y = activate(conv_nhwc(x, self.weight, self.s, self.p, self.g) + self.bias, self.act)
         if self.calib is not None:
             Q.record(self.calib, f"OUT::{self.path}", y)
         return y
 
     def _forward_int8(self, x):
-        """The int8 conv (JAX `ConvBNAct._call_int8`): a QTensor input rides in as it is, a dense one
-        is quantized (static x_scale, else dynamic); int32 sums scaled by s_x · w_scale, bias and the
-        activation in f32; requantized to a QTensor where a y_scale was calibrated, else the compute dtype."""
-        q = self.q
-        xq, sx = (x.q, x.s) if isinstance(x, Q.QTensor) else Q.quantize_input(x, q["x_scale"])
-        y = Q.int8_conv(xq, q["w"], self.k, self.s, self.c2, self.p, self.g).float()
-        y = y * (sx * q["w_scale"]) + q["bias"]
-        if self.act:
-            y = y * torch.sigmoid(y)
-        if q["y_scale"] is not None:
-            return Q.QTensor(torch.clamp(torch.round(y / q["y_scale"]), -127, 127).to(torch.int8), q["y_scale"])
-        return y.to(_dtype_of(self))
+        return int8_forward(self.q, x, self.k, self.s, self.p, self.g, self.c2, self.act, _dtype_of(self))
+
+
+def load_int8(c: dict, device, groups: int) -> dict:
+    """An int8 conv group of `quantize_params` ({w_int8, w_scale, bias, x_scale?, y_scale?}) on the device."""
+    def scale(k):
+        return None if c.get(k) is None else torch.tensor(float(np.float32(c[k])), dtype=torch.float32, device=device)
+
+    return {"w": Q.weight_matrix(c["w_int8"], device, groups), "w_scale": _vec(c["w_scale"], device, torch.float32),
+            "bias": _vec(c["bias"], device, torch.float32), "x_scale": scale("x_scale"), "y_scale": scale("y_scale")}
+
+
+def int8_forward(q: dict, x, k: int, s: int, p: int, g: int, c2: int, act, dtype):
+    """The int8 conv (JAX `ConvBNAct._call_int8`): a QTensor input rides in as it is, a dense one is quantized
+    (static x_scale, else dynamic); int32 sums scaled by s_x · w_scale, bias and the activation in f32;
+    requantized to a QTensor where a y_scale was calibrated, else rounded to the compute dtype `dtype`."""
+    xq, sx = (x.q, x.s) if isinstance(x, Q.QTensor) else Q.quantize_input(x, q["x_scale"])
+    y = Q.int8_conv(xq, q["w"], k, s, c2, p, g).float()
+    y = y * (sx * q["w_scale"]) + q["bias"]
+    if act == "silu":
+        y = y * torch.sigmoid(y)
+    elif act:
+        y = activate(y, act)
+    if q["y_scale"] is not None:
+        return Q.QTensor(torch.clamp(torch.round(y / q["y_scale"]), -127, 127).to(torch.int8), q["y_scale"])
+    return y.to(dtype)
 
 
 @contextlib.contextmanager
 def recording_bn(module: nn.Module, on: bool):
     """Whether the ConvBNActs inside `module` keep their BN batch moments (`batch_stats`) in
     training forwards while the block runs; a flag on each, so no other module changes."""
-    convs = [c for c in module.modules() if isinstance(c, ConvBNAct)]
+    convs = [c for c in module.modules() if hasattr(c, "record_bn")]  # ConvBNAct, RepConv, ConvTranspose
     for c in convs:
         c.record_bn = on
     try:
@@ -833,20 +867,395 @@ class A2C2f(_Tree):
 
 
 class Seq(nn.Sequential):
-    """Modules in a row whose JAX subtree is keyed '0', '1', ... (JAX _Seq): the depth-wise then 1x1 pairs of the
-    non-legacy Detect class branch."""
+    """Modules in a row whose JAX subtree is keyed '0', '1', ... (JAX _Seq, _SeqN): the depth-wise then 1x1 pairs of
+    the non-legacy Detect class branch, RepNCSPELAN4's cv2 and cv3, and a yaml row repeated n times whose module
+    takes no repeats of its own (yolov3's Bottleneck x8, yolov6's Conv x9)."""
 
     def init(self, rng) -> dict:
         return {k: m.init(rng) for k, m in self.named_children()}
 
     def load_jax(self, p: dict, device, dtype) -> None:
         for k, m in self.named_children():
-            m.load_jax(p[k], device, dtype)
+            if hasattr(m, "load_jax"):  # a pool or a pad has no weights
+                m.load_jax(p[k], device, dtype)
 
     def forward_train(self, x):
         for m in self:
             x = m.forward_train(x)
         return x
+
+
+class Identity(nn.Module):
+    """The input as it is (yaml nn.Identity: yolov9e's layer 0 aliases the image for a second stem)."""
+
+    def init(self, rng) -> dict:
+        return {}
+
+    def forward(self, x):
+        return x
+
+    forward_train = forward
+
+
+class ZeroPad2d(nn.Module):
+    """Zero padding of an NHWC map (yaml nn.ZeroPad2d), in torch's (left, right, top, bottom) order; an int pads
+    all four sides."""
+
+    def __init__(self, padding):
+        super().__init__()
+        self.pad = list(padding) if isinstance(padding, (list, tuple)) else [padding] * 4
+
+    def init(self, rng) -> dict:
+        return {}
+
+    def forward(self, x):
+        l, r, t, b = self.pad
+        return F.pad(x, (0, 0, l, r, t, b))
+
+    forward_train = forward
+
+
+def _max_pool(x: torch.Tensor, k: int, s: int, p: int) -> torch.Tensor:
+    """Max-pool of an NHWC map, padded with -inf."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, s, p).permute(0, 2, 3, 1).contiguous()
+
+
+def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """The 2x2 stride-1 average of an NHWC map in f32, no padding (a map of 80 becomes 79), rounded back to x's
+    dtype (JAX AConv._avgpool2)."""
+    return F.avg_pool2d(x.float().permute(0, 3, 1, 2), 2, 1).permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+class SPP(_Tree):
+    """Spatial pyramid pooling with parallel kernels (JAX SPP): 1x1, max-pools of each k (stride 1, -inf
+    padding) of its output, concat, 1x1."""
+
+    tree_keys = ("cv1", "cv2")
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = ConvBNAct(c1, c_, 1, 1)
+        self.cv2 = ConvBNAct(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        return _call(self.cv2, torch.cat([y] + [_max_pool(y, k, 1, k // 2) for k in self.k], -1), train)
+
+
+class SPPELAN(_Tree):
+    """SPP-ELAN (JAX SPPELAN): 1x1 to c3, three chained k x k max-pools (stride 1, -inf padding), concat, 1x1."""
+
+    tree_keys = ("cv1", "cv5")
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__()
+        self.c, self.k = c3, k
+        self.cv1 = ConvBNAct(c1, c3, 1, 1)
+        self.cv5 = ConvBNAct(4 * c3, c2, 1, 1)
+
+    def _run(self, x, train: bool):
+        y = [_call(self.cv1, x, train)]
+        for _ in range(3):
+            y.append(_max_pool(y[-1], self.k, 1, self.k // 2))
+        return _call(self.cv5, torch.cat(y, -1), train)
+
+
+class NASBottleneck(_Tree):
+    """Two ReLU 3x3 ConvBNActs with a residual scaled by a trained 0-d `alpha` (JAX NASBottleneck).
+
+    The residual sum is f32: in JAX the f32 `alpha` promotes the bf16 maps, so a NASCSP's chain of bottlenecks
+    stays f32 until the next conv rounds its input. Torch does not promote by a 0-d tensor, so the sum is cast
+    here; `dtype` is the compute dtype the convs round their input to (default: the input's)."""
+
+    tree_keys = ("cv1", "cv2")
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c2, 3, 1, act="relu")
+        self.cv2 = ConvBNAct(c2, c2, 3, 1, act="relu")
+        self.add = shortcut and c1 == c2
+        self.register_buffer("alpha", torch.ones(()) if self.add else None)  # the inference form's
+        self.alpha_train = nn.Parameter(torch.ones(())) if self.add else None
+
+    def init(self, rng) -> dict:
+        p = super().init(rng)
+        if self.add:
+            p["alpha"] = np.ones((), np.float32)
+        return p
+
+    def train_leaves(self) -> dict:
+        return {"alpha": self.alpha_train} if self.add else {}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        super().load_jax(p, device, dtype)
+        if self.add:
+            self.alpha = _vec(p["alpha"], device, torch.float32)
+
+    def forward_train(self, x, dtype=None):
+        return self._run(x, True, dtype)
+
+    def forward(self, x, dtype=None):
+        return self._run(x, False, dtype)
+
+    def _run(self, x, train: bool, dtype=None):
+        y = _call(self.cv2, _call(self.cv1, x.to(dtype or x.dtype), train), train)
+        if not self.add:
+            return y
+        alpha = self.alpha_train if train else self.alpha
+        return alpha.float() * x.float() + y.float()
+
+
+class NASCSP(_Tree):
+    """CSP layer over NASBottlenecks (JAX NASCSP): the C3 topology with ReLU convs; the bottlenecks' f32
+    residual chain is rounded to the compute dtype (the input's) at cv3's input, as JAX's concat-then-conv does."""
+
+    tree_keys = ("cv1", "cv2", "cv3", "m")
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBNAct(c1, c_, 1, 1, act="relu")
+        self.cv2 = ConvBNAct(c1, c_, 1, 1, act="relu")
+        self.cv3 = ConvBNAct(2 * c_, c2, 1, act="relu")
+        self.m = nn.ModuleList(NASBottleneck(c_, c_, shortcut) for _ in range(n))
+
+    def _run(self, x, train: bool):
+        a = _call(self.cv1, x, train)
+        for m in self.m:
+            a = m._run(a, train, x.dtype)
+        return _call(self.cv3, torch.cat([a.to(x.dtype), _call(self.cv2, x, train)], -1), train)
+
+
+class RepConv(nn.Module):
+    """Re-parameterisable 3x3 conv (JAX RepConv): the train form sums a 3x3 + BN branch (`conv1`), a 1x1 + BN
+    branch (`conv2`) and, with `bn` where c1 == c2 and s == 1, an identity BN of the input, in f32, then SiLU
+    (`act`), rounded to the compute dtype. The inference form is one 3x3 conv (`nn.tasks.fuse` pads the 1x1 into
+    it and folds the identity BN into its centre tap): the sum in the compute dtype, the bias added in f32, SiLU
+    in f32, then rounded; an int8 tree runs the int8 conv without activation, then the same."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: int = 1, g: int = 1, d: int = 1, act=True, bn: bool = False):
+        super().__init__()
+        if k != 3 or p != 1 or d != 1:
+            raise ValueError(f"RepConv is a 3x3 conv padded 1 (k={k}, p={p}, d={d})")
+        self.c1, self.c2, self.k, self.s, self.g, self.act = c1, c2, k, s, g, bool(act)
+        self.has_id_bn = bn and c1 == c2 and s == 1
+        self.conv1 = ConvBNAct(c1, c2, k, s, p=p, g=g, act=False)
+        self.conv2 = ConvBNAct(c1, c2, 1, s, p=p - k // 2, g=g, act=False)
+        self.bn = BatchNorm(c1) if self.has_id_bn else None
+        self.register_buffer("weight", torch.zeros(c2, c1 // g, k, k))
+        self.register_buffer("bias", torch.zeros(c2))  # f32
+        self.q = None
+        self.batch_stats = None  # the identity BN's, as a ConvBNAct's
+        self.record_bn = True
+
+    def init(self, rng) -> dict:
+        p = {"conv1": self.conv1.init(rng), "conv2": self.conv2.init(rng)}
+        if self.has_id_bn:
+            p["bn"] = {"weight": np.ones(self.c1, np.float32), "bias": np.zeros(self.c1, np.float32),
+                       "running_mean": np.zeros(self.c1, np.float32), "running_var": np.ones(self.c1, np.float32)}
+        return p
+
+    def train_leaves(self) -> dict:
+        if self.bn is None:
+            return {}
+        bn = self.bn
+        return {"bn/weight": bn.weight, "bn/bias": bn.bias, "bn/running_mean": bn.running_mean, "bn/running_var": bn.running_var}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        if "conv" not in p:
+            raise ValueError("RepConv.load_jax takes the fused tree ({conv: {weight, bias}}: nn.tasks.fuse)")
+        c = p["conv"]
+        if "w_int8" in c:
+            self.q = load_int8(c, device, self.g)
+            return
+        self.q = None
+        self.weight = _hwio_to_oihw(c["weight"], device, dtype)
+        self.bias = _vec(c["bias"], device, torch.float32)
+
+    def forward(self, x) -> torch.Tensor:
+        dtype = _dtype_of(self)
+        x = Q.deq(x, dtype)
+        if self.q is not None:
+            y = int8_forward(self.q, x, self.k, self.s, 1, self.g, self.c2, None, dtype).float()
+        else:
+            y = conv_nhwc(x.to(self.weight.dtype), self.weight, self.s, 1, self.g).float() + self.bias
+        return (silu(y) if self.act else y).to(dtype)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1.forward_train(x).float() + self.conv2.forward_train(x).float()
+        if self.bn is not None:
+            bn, xf = self.bn, x.float()
+            if self.training:
+                var, mean = torch.var_mean(xf, (0, 1, 2), correction=0)
+                if self.record_bn:
+                    self.batch_stats = (mean.detach(), var.detach(), x.shape[0] * x.shape[1] * x.shape[2])
+            else:
+                mean, var = bn.running_mean, bn.running_var
+            y = y + (xf - mean) * (bn.weight * torch.rsqrt(var + BN_EPS)) + bn.bias
+        return (silu(y) if self.act else y).to(x.dtype)
+
+
+class RepBottleneck(Bottleneck):
+    """A Bottleneck whose first conv is a RepConv (JAX RepBottleneck)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k=(3, 3), e: float = 0.5):
+        super().__init__(c1, c2, shortcut, g, k, e)
+        self.cv1 = RepConv(c1, int(c2 * e), 3, 1)
+
+
+class RepCSP(C3):
+    """C3 with RepBottleneck inner blocks (JAX RepCSP)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.ModuleList(RepBottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n))
+
+
+class RepNCSPELAN4(_Tree):
+    """GELAN block (JAX RepNCSPELAN4): cv1 to c3 split in halves, cv2 (a RepCSP then a 3x3) on the second half,
+    cv3 (the same) on cv2's output, all four concatenated into cv4. Plain torch convs, as the JAX package
+    computes it outside any kernel."""
+
+    tree_keys = ("cv1", "cv2", "cv3", "cv4")
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = ConvBNAct(c1, c3, 1, 1)
+        self.cv2 = Seq(RepCSP(c3 // 2, c4, n), ConvBNAct(c4, c4, 3, 1))
+        self.cv3 = Seq(RepCSP(c4, c4, n), ConvBNAct(c4, c4, 3, 1))
+        self.cv4 = ConvBNAct(c3 + 2 * c4, c2, 1, 1)
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        parts = [y[..., : self.c], y[..., self.c :]]
+        parts.append(_call(self.cv2, parts[-1], train))
+        parts.append(_call(self.cv3, parts[-1], train))
+        return _call(self.cv4, torch.cat(parts, -1), train)
+
+
+class ELAN1(RepNCSPELAN4):
+    """Light ELAN (JAX ELAN1): RepNCSPELAN4 with a single 3x3 ConvBNAct for each of cv2 and cv3."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int):
+        _Tree.__init__(self)
+        self.c = c3 // 2
+        self.cv1 = ConvBNAct(c1, c3, 1, 1)
+        self.cv2 = ConvBNAct(c3 // 2, c4, 3, 1)
+        self.cv3 = ConvBNAct(c4, c4, 3, 1)
+        self.cv4 = ConvBNAct(c3 + 2 * c4, c2, 1, 1)
+
+
+class AConv(_Tree):
+    """Downsample (JAX AConv): the 2x2 stride-1 average in f32, rounded, then a 3x3 stride-2 conv padded 1."""
+
+    tree_keys = ("cv1",)
+    s = 2
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c2, 3, 2, 1)
+
+    def _run(self, x, train: bool):
+        return _call(self.cv1, _avg_pool2(x), train)
+
+
+class ADown(_Tree):
+    """Split downsample (JAX ADown): the 2x2 stride-1 average in f32, rounded; its first half through a 3x3
+    stride-2 conv, its second through a 3x3 stride-2 max-pool (-inf padding 1) and a 1x1; concatenated."""
+
+    tree_keys = ("cv1", "cv2")
+    s = 2
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.c = c2 // 2
+        self.cv1 = ConvBNAct(c1 // 2, self.c, 3, 2, 1)
+        self.cv2 = ConvBNAct(c1 // 2, self.c, 1, 1, 0)
+
+    def _run(self, x, train: bool):
+        x = _avg_pool2(x)
+        half = x.shape[-1] // 2
+        x1 = _call(self.cv1, x[..., :half], train)
+        x2 = _call(self.cv2, _max_pool(x[..., half:], 3, 2, 1), train)
+        return torch.cat([x1, x2], -1)
+
+
+class CBLinear(nn.Module):
+    """A biased conv without BN whose output is a list of channel groups `c2s` (JAX CBLinear): the sum in the
+    compute dtype, the bias added in f32, rounded back; an int8 tree runs the int8 conv without activation."""
+
+    def __init__(self, c1: int, c2s, k: int = 1, s: int = 1, p: int | None = None, g: int = 1):
+        super().__init__()
+        self.c1, self.c2s, self.k, self.s, self.p, self.g = c1, list(c2s), k, s, autopad(k, p), g
+        c2 = sum(self.c2s)
+        self.register_buffer("weight", torch.zeros(c2, c1 // g, k, k))
+        self.register_buffer("bias", torch.zeros(c2))  # f32
+        self.conv_weight = nn.Parameter(torch.zeros(c2, c1 // g, k, k))
+        self.conv_bias = nn.Parameter(torch.zeros(c2))
+        self.q = None
+
+    def init(self, rng) -> dict:
+        c2 = sum(self.c2s)
+        fan_in = self.c1 // self.g * self.k * self.k
+        w = _uniform_hwio(rng, self.c1, c2, self.k, self.g)
+        b = (1.0 / fan_in) ** 0.5
+        return {"conv": {"weight": w, "bias": rng.uniform(-b, b, (c2,)).astype(np.float32)}}
+
+    def train_leaves(self) -> dict:
+        return {"conv/weight": self.conv_weight, "conv/bias": self.conv_bias}
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        c = p["conv"]
+        if "w_int8" in c:
+            self.q = load_int8(c, device, self.g)
+            return
+        self.q = None
+        self.weight = _hwio_to_oihw(c["weight"], device, dtype)
+        self.bias = _vec(c["bias"], device, torch.float32)
+
+    def _split(self, y: torch.Tensor) -> list:
+        return list(torch.split(y, self.c2s, -1))
+
+    def forward(self, x) -> list:
+        dtype = _dtype_of(self)
+        x = Q.deq(x, dtype)
+        if self.q is not None:
+            return self._split(int8_forward(self.q, x, self.k, self.s, self.p, self.g, sum(self.c2s), None, dtype))
+        y = conv_nhwc(x.to(self.weight.dtype), self.weight, self.s, self.p, self.g).float() + self.bias
+        return self._split(y.to(dtype))
+
+    def forward_train(self, x: torch.Tensor) -> list:
+        return self._split((conv_nhwc(x, self.conv_weight, self.s, self.p, self.g).float() + self.conv_bias).to(x.dtype))
+
+
+class CBFuse(nn.Module):
+    """The sum of one CBLinear split per source (`idx`), each repeated up to the last input's size (nearest, by
+    integer factors), and that input, in f32, rounded to the last input's dtype (JAX CBFuse)."""
+
+    def __init__(self, idx):
+        super().__init__()
+        self.idx = list(idx)
+
+    def init(self, rng) -> dict:
+        return {}
+
+    def forward(self, xs):
+        target = xs[-1]
+        th, tw = target.shape[1], target.shape[2]
+        total = target.float()
+        for i, x in enumerate(xs[:-1]):
+            t = x[self.idx[i]]
+            h, w = t.shape[1], t.shape[2]
+            if (h, w) != (th, tw):
+                t = t.repeat_interleave(th // h, 1).repeat_interleave(tw // w, 2)
+            total = total + t.float()
+        return total.to(target.dtype)
+
+    forward_train = forward
 
 
 def dfl_project(box: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
@@ -939,6 +1348,22 @@ class Detect(nn.Module):
         self.proj = _vec(np.asarray(p["dfl"]["conv"]["weight"]).reshape(self.reg_max), device, torch.float32)
         self._kw = None
 
+    @property
+    def kernel_branches(self) -> bool:
+        """Whether the head kernels take these branches: the legacy ones with SiLU convs. A ReLU head (yolov6,
+        YOLO-NAS) walks conv by conv, as JAX's `predict` does (its merged first conv applies SiLU whatever the
+        head's activation, ROADMAP §3)."""
+        return self.legacy and all(m.act == "silu" for br in (self.cv2, self.cv3) for level in br for m in level[:2])
+
+    def check_cm(self) -> None:
+        """Whether the channel-major head kernel takes this head: ValueError for a non-legacy one (JAX asserts),
+        NotImplementedError for a ReLU one (the kernel, as JAX's, is SiLU only)."""
+        if not self.legacy:
+            raise ValueError("the channel-major head kernel takes the legacy Detect branches only (pallas_head2=False)")
+        if not self.kernel_branches:
+            raise NotImplementedError(f"the channel-major head kernel (kernel 4) is SiLU only; this head's convs end in "
+                                      f"{self.cv2[0][0].act} (pallas_head2=False walks them)")
+
     def kernel_weights(self, l: int) -> cuda_head.HeadWeights:
         if self._kw is None:
             self._kw = [
@@ -993,9 +1418,9 @@ class Detect(nn.Module):
 
     def head_levels(self, xs, plain: bool = False):
         """Both branches + DFL per level from the head inputs (NHWC) through the head kernel (`plain`:
-        its twin; a non-legacy head's branches conv by conv) → (dists [(B, HW, 4) f32], scores
+        its twin; a non-legacy or a ReLU head's branches conv by conv) → (dists [(B, HW, 4) f32], scores
         [(B, HW, nc) f32 sigmoid]), level by level."""
-        if not self.legacy:  # no kernel takes these branches: JAX `_branch_walk`, conv by conv
+        if not self.kernel_branches:  # no kernel takes these branches: conv by conv, as JAX's `predict` walks them
             dists, clss = [], []
             for l, x in enumerate(xs):
                 b, c = x, x
@@ -1022,8 +1447,7 @@ class Detect(nn.Module):
         """`decode_from_inputs` with every level through the channel-major
         kernel (ops/cuda_head_cm.py, sigmoid inside). Every level shape is
         served: there is no tile width to fall back from. The legacy branches only (ValueError), as JAX asserts."""
-        if not self.legacy:
-            raise ValueError("the channel-major head kernel takes the legacy Detect branches only (pallas_head2=False)")
+        self.check_cm()
         fn = cuda_head_cm.head_level_cm_plain if plain else cuda_head_cm.head_level_cm
         dists, clss = zip(*(fn(x, self.kernel_weights(l)) for l, x in enumerate(xs)))
         return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])

@@ -19,7 +19,11 @@ The v8 variant yamls (p6, ghost, ghost-p2, ghost-p6, seg-p6, pose-p6, cls-resnet
 yolov5 / yolov5-p6 build from the same rows (C2, C3, C3Ghost, GhostConv, ResNetLayer, DWConv,
 MaxPool2d, a padded Conv); a layer without an int8 path takes its inputs dense, as in JAX. The yolo11 and
 yolo12 yamls build with C3k2, C2PSA and A2C2f under JAX's parse rules (`legacy` off, so their heads take the
-depth-wise class branch and no head kernel; C3k blocks at scales m-x; A2C2f's residual gamma at l and x).
+depth-wise class branch and no head kernel; C3k blocks at scales m-x; A2C2f's residual gamma at l and x). yolov3,
+yolov6, YOLO-NAS and yolov9 build with their blocks (a yaml's `activation:` for that build only; a row repeated n
+times whose module takes no repeats is a `Seq` of n copies; a CBLinear layer's list of splits reaches its CBFuse
+through the save dict); their legacy heads take the head kernel where they end in SiLU (yolov3, yolov9) and walk conv
+by conv where they end in ReLU (yolov6, YOLO-NAS).
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -64,8 +68,23 @@ MODULE_MAP = {
     "GhostConv": M.GhostConv,
     "GhostBottleneck": M.GhostBottleneck,
     "ResNetLayer": M.ResNetLayer,
+    "Bottleneck": M.Bottleneck,
     "nn.MaxPool2d": M.MaxPool2d,
+    "nn.ZeroPad2d": M.ZeroPad2d,
+    "nn.Identity": M.Identity,
+    "nn.ConvTranspose2d": M.ConvTranspose,
     "SPPF": M.SPPF,
+    "SPP": M.SPP,
+    "NASCSP": M.NASCSP,
+    "RepConv": M.RepConv,
+    "RepCSP": M.RepCSP,
+    "RepNCSPELAN4": M.RepNCSPELAN4,
+    "ELAN1": M.ELAN1,
+    "AConv": M.AConv,
+    "ADown": M.ADown,
+    "SPPELAN": M.SPPELAN,
+    "CBLinear": M.CBLinear,
+    "CBFuse": M.CBFuse,
     "Concat": M.Concat,
     "Detect": M.Detect,
     "Segment": M.Segment,
@@ -74,6 +93,10 @@ MODULE_MAP = {
     "Classify": M.Classify,
     "nn.Upsample": M.Upsample,
 }
+SCALED = (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.GhostConv,
+          M.GhostBottleneck, M.SPPF, M.SPP, M.Bottleneck, M.NASCSP, M.RepConv, M.RepCSP, M.RepNCSPELAN4, M.ELAN1,
+          M.AConv, M.ADown, M.SPPELAN, M.ConvTranspose, M.Classify)  # c2 width-scaled (JAX's list)
+REPEATED = (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.NASCSP, M.RepCSP)  # take the row's n
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -115,13 +138,23 @@ def yaml_model_load(cfg) -> dict:
 
 
 def parse_model(d: dict, ch: int):
-    """Build the layer modules from a model dict → (layers, froms, save list)."""
+    """Build the layer modules from a model dict → (layers, froms, save list). A yaml's `activation:` is the
+    default of every `act=True` conv while this model's modules are built, and only then (JAX's mapping: a name
+    holding 'relu' is ReLU, 'gelu' GELU, anything else SiLU)."""
+    prev = M.ConvBNAct.DEFAULT_ACT
+    if d.get("activation"):
+        M.ConvBNAct.DEFAULT_ACT = M.act_name(d["activation"])
+    try:
+        return _parse_rows(d, ch)
+    finally:
+        M.ConvBNAct.DEFAULT_ACT = prev
+
+
+def _parse_rows(d: dict, ch: int):
     nc, scales = d["nc"], d.get("scales")
     depth, width, max_channels = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")
     if scales:
         depth, width, max_channels = scales[d.get("scale") or next(iter(scales))]
-    if d.get("activation") and "silu" not in str(d["activation"]).lower():
-        raise NotImplementedError(f"module 'Conv' with activation {d['activation']} is not ported yet (the port's ConvBNAct is SiLU)")
     chs, layers, froms, save = [ch], [], [], []
     legacy = not any(row[2] in ("C3k2", "A2C2f", "C2fCIB") for row in d["backbone"] + d["head"])  # the v8 Detect branches
     for i, (f, n, mname, args) in enumerate(d["backbone"] + d["head"]):
@@ -136,19 +169,25 @@ def parse_model(d: dict, ch: int):
         n = max(round(n * depth), 1) if n > 1 else n
         if mcls is M.ResNetLayer:  # explicit [c1, c2, s, is_first, n]; 4 · c2 out unless the stem
             c2 = args[1] if args[3] else args[1] * 4
-        elif mcls in (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.GhostConv,
-                      M.GhostBottleneck, M.SPPF, M.Classify):
+        elif mcls in SCALED:
             c1, c2 = chs[f], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             args = [c1, c2, *args[1:]]
-            if mcls in (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f):  # the repeats are the block's n
+            if mcls in REPEATED:  # the repeats are the block's n
                 args.insert(2, n)
                 n = 1
             if mcls is M.C3k2 and d.get("scale") in ("m", "l", "x"):
                 args[3] = True  # C3k blocks at the deeper scales, as in the JAX package
             if mcls is M.A2C2f and d.get("scale") in ("l", "x"):
                 args.extend((True, 1.2))  # the residual gamma and an MLP 1.2 wide
+            if mname == "nn.ConvTranspose2d":  # the raw torch module: no BN, no activation
+                args = args[:5] + [False, False]
+        elif mcls is M.CBLinear:  # a list of split widths, not width-scaled
+            c2 = args[0]
+            args = [chs[f], c2, *args[1:]]
+        elif mcls is M.CBFuse:
+            c2 = chs[f[-1]]
         elif mcls is M.Concat:
             c2 = sum(chs[x] for x in f)
         elif mcls is M.Detect:
@@ -165,9 +204,8 @@ def parse_model(d: dict, ch: int):
             c2 = None
         else:
             c2 = chs[f]
-        if n > 1:
-            raise NotImplementedError(f"repeated '{mname}' layers are not ported yet")
-        layers.append(mcls(*args))
+        # a module that takes no repeats of its own, on a row with n > 1: n copies in a row (JAX _SeqN)
+        layers.append(M.Seq(*(mcls(*args) for _ in range(n))) if n > 1 else mcls(*args))
         froms.append(f)
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:
@@ -184,12 +222,20 @@ def _compute_strides(layers, froms) -> None:
         if isinstance(m, M.Detect):
             m.stride = [stride[x] for x in f]
             s = None
-        elif isinstance(m, (M.ConvBNAct, M.MaxPool2d, M.GhostConv, M.GhostBottleneck)):
+        elif isinstance(m, (M.ConvBNAct, M.MaxPool2d, M.GhostConv, M.GhostBottleneck, M.AConv, M.ADown)):
             s = src * m.s
         elif isinstance(m, M.ResNetLayer):
             s = src * m.s_total
         elif isinstance(m, M.Upsample):
             s = src // m.scale
+        elif isinstance(m, M.ConvTranspose):
+            s = max(src // m.s, 1)
+        elif isinstance(m, M.CBFuse):
+            s = stride[f[-1] % i]
+        elif isinstance(m, M.Seq):  # a repeated row: its convs' strides multiply, as JAX's _SeqN's
+            s = src
+            for c in m:
+                s *= c.s if isinstance(c, M.ConvBNAct) else 1
         else:
             s = src
         stride[i] = s
@@ -215,14 +261,34 @@ def _as_numpy(params):
     return {k: _as_numpy(v) for k, v in params.items()} if isinstance(params, dict) else np.asarray(params)
 
 
+def _fold_repconv(p: dict) -> dict:
+    """A RepConv's `conv1` (3x3 + BN) and `conv2` (1x1 + BN) → one {conv: {weight, bias}}: each BN folded, the 1x1
+    padded into the 3x3's centre (JAX RepConv.fuse), and the identity BN (`bn`, where the RepConv has one) folded
+    into the centre tap of each channel's own input, which JAX's fuse leaves out (ROADMAP §3)."""
+    f1, f2 = _fold_bn(p["conv1"])["conv"], _fold_bn(p["conv2"])["conv"]
+    w = f1["weight"] + np.pad(f2["weight"], ((1, 1), (1, 1), (0, 0), (0, 0)))
+    b = f1["bias"] + f2["bias"]
+    if "bn" in p:
+        bn = p["bn"]
+        scale = np.asarray(bn["weight"], np.float32) / np.sqrt(np.asarray(bn["running_var"], np.float32) + BN_EPS)
+        w = w.copy()
+        cg = w.shape[2]  # inputs per group: channel i reads its own input at i % cg of its group
+        w[1, 1, np.arange(len(scale)) % cg, np.arange(len(scale))] += scale
+        b = b + (np.asarray(bn["bias"], np.float32) - np.asarray(bn["running_mean"], np.float32) * scale)
+    return {"conv": {"weight": w, "bias": b}}
+
+
 def fuse(params: dict) -> dict:
     """Fold every conv's BN into its weight and bias (exact inference form), with numpy, as the JAX package's
     `fuse` folds them: the groups under an UNFUSED_GROUPS key keep their BN (ConvBNAct runs it in f32).
 
     Every subtree holding `conv` (or `conv_transpose`) and `bn` groups is a ConvBNAct (a
-    ConvTranspose) of the JAX package; other leaves pass through as numpy arrays."""
+    ConvTranspose) of the JAX package, one holding `conv1` and `conv2` a RepConv; other leaves pass
+    through as numpy arrays."""
     if not isinstance(params, dict):
         return np.asarray(params)
+    if "conv1" in params and "conv2" in params:
+        return _fold_repconv(params)
     if "bn" in params and ("conv" in params or "conv_transpose" in params):
         return _fold_bn(params)
     return {k: _as_numpy(v) if k in UNFUSED_GROUPS else fuse(v) for k, v in params.items()}
@@ -298,7 +364,8 @@ class BaseModel(nn.Module):
 
     def int8_flow_paths(self) -> set:
         """Tree paths of the convs that may emit int8 (JAX `int8_flow_paths`): every plain ConvBNAct
-        layer, SPPF's two, a C2f's cv1 and cv2 and its bottlenecks' cv1 (and cv2 without a residual)."""
+        layer, SPPF's two, a C2f's cv1 and cv2 and its bottlenecks' cv1 (and cv2 without a residual), and
+        the same two of a Bottleneck row; none inside a repeated row."""
         paths = set()
         for i, m in enumerate(self.layers):
             base = f"model/{i}"
@@ -307,6 +374,8 @@ class BaseModel(nn.Module):
                 for j, b in enumerate(m.m):
                     if isinstance(b, M.Bottleneck):
                         paths |= {f"{base}/m/{j}/cv1"} if b.add else {f"{base}/m/{j}/cv1", f"{base}/m/{j}/cv2"}
+            elif isinstance(m, M.Bottleneck):  # a yaml row (yolov3)
+                paths |= {f"{base}/cv1"} if m.add else {f"{base}/cv1", f"{base}/cv2"}
             elif isinstance(m, M.SPPF):
                 paths |= {f"{base}/cv1", f"{base}/cv2"}
             elif isinstance(m, M.ConvBNAct):
@@ -322,14 +391,15 @@ class BaseModel(nn.Module):
         recomputed in the backward, its BN moments recorded once."""
         y = {}
         for i, (m, f) in enumerate(zip(self.layers, self.froms)):
-            x_in = [x if j == -1 else y[j] for j in f] if isinstance(f, list) else (x if f == -1 else y[f])
+            x_in = [x if j == -1 else y[j % i] for j in f] if isinstance(f, list) else (x if f == -1 else y[f % i])
             if remat and not isinstance(m, M.Detect):
-                x = _remat(m, x_in)
+                out = _remat(m, x_in)
             else:
-                x = m.forward_train(x_in) if hasattr(m, "forward_train") else m(x_in)
+                out = m.forward_train(x_in) if hasattr(m, "forward_train") else m(x_in)
             if i in self.save:
-                y[i] = x
-        return x
+                y[i] = out
+            x = out if not isinstance(out, list) else x  # a CBLinear's list of splits is read through the save dict
+        return out
 
     def _walk(self, x: torch.Tensor, plain: bool, neck_opt: bool = True, upto: int | None = None, collect=()):
         """Walk the inference modules over layers [0, upto) → (the Detect head's input maps, or
@@ -340,14 +410,19 @@ class BaseModel(nn.Module):
             if neck_opt and i in self._neck_skip:
                 continue
             if isinstance(m, M.Detect):
-                return [x if j == -1 else y[j] for j in f], col
+                return [x if j == -1 else y[j % i] for j in f], col
             if neck_opt and i in self._upconcat:
                 x = m.call_upconcat(x, y[self._upconcat[i]], plain=plain)
             else:
-                x_in = [x if j == -1 else y[j] for j in f] if isinstance(f, list) else (x if f == -1 else y[f])
+                x_in = [x if j == -1 else y[j % i] for j in f] if isinstance(f, list) else (x if f == -1 else y[f % i])
                 if not isinstance(m, QTENSOR_MODULES):  # a layer without an int8 path takes dense maps (JAX `_apply_layer`)
                     x_in = [Q.deq(v, M._dtype_of(m)) for v in x_in] if isinstance(x_in, list) else Q.deq(x_in, M._dtype_of(m))
-                x = m(x_in, plain=plain) if isinstance(m, M.C2f) else m(x_in)
+                x_out = m(x_in, plain=plain) if isinstance(m, M.C2f) else m(x_in)
+                if isinstance(x_out, list):  # a CBLinear's splits: the later layers read them through the save dict
+                    if i in self.save:
+                        y[i] = x_out
+                    continue
+                x = x_out
             if i in self.save:
                 y[i] = x
             if i in collect:
@@ -361,7 +436,7 @@ class BaseModel(nn.Module):
         walk folds the neck unless a requested layer is an Upsample or Concat the fold skips."""
         idx = sorted(set(idx or [len(self.layers) - 2]))
         _, col = self._walk(x, plain, neck_opt=not set(idx) & self._neck_skip, upto=max(idx) + 1, collect=set(idx))
-        return torch.cat([col[i].mean(dim=(1, 2)) if col[i].ndim == 4 else col[i] for i in idx if i in col], -1)
+        return torch.cat([col[i].mean(dim=(1, 2)) if col[i].ndim == 4 else col[i] for i in idx if i in col], -1)  # a CBLinear's list: none
 
 
 class DetectionModel(BaseModel):
@@ -634,7 +709,7 @@ def params_from_jax(model: DetectionModel, params: dict, dtype=None) -> Detectio
     for i, m in enumerate(model.layers):
         if hasattr(m, "load_jax"):
             m.load_jax(mp[str(i)], model.device, dtype)
-    model.int8 = any(m.q is not None for m in model.modules() if isinstance(m, M.ConvBNAct))
+    model.int8 = any(getattr(m, "q", None) is not None for m in model.modules())  # ConvBNAct, RepConv, CBLinear
     model.held = (params, model.device, dtype)
     return model
 
@@ -683,8 +758,8 @@ def validate_s2d_stem(model) -> None:
             raise ValueError(f"s2d stem fold: layer {i} is {type(m).__name__}, not a plain stem conv")
         if (m.k, m.s, m.p, m.g) != (3, 2, 1, 1):
             raise ValueError(f"s2d stem fold: layer {i} has k, s, p, g = {(m.k, m.s, m.p, m.g)}, not (3, 2, 1, 1)")
-        if not m.act:
-            raise ValueError(f"s2d stem fold: layer {i} has no activation (the stem ends in SiLU)")
+        if m.act != "silu":
+            raise ValueError(f"s2d stem fold: layer {i} ends in {m.act or 'no activation'}, not SiLU (the packed stem's)")
 
 
 def train_leaves(model: DetectionModel) -> dict:
@@ -735,5 +810,5 @@ def load_train_params(model: DetectionModel, params: dict) -> DetectionModel:
             node = node[k]
         a = np.asarray(node, np.float32)
         a = a.reshape(-1) if path.endswith("dfl/conv/weight") else (a.transpose(3, 2, 0, 1) if a.ndim == 4 else a)
-        t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a)).reshape(t.shape))  # a 0-d leaf (NAS alpha) comes back 1-d
     return model

@@ -176,6 +176,27 @@ HEAD_EDGES = [
 ]
 
 
+# The legacy heads of yolov3, yolov3-tiny and yolov9 at 640x640 (c2 = 64, c3 = max(C of P3, 80)), one frame: the
+# card also times the head kernel at these against its bound and the cuDNN conv walk. Part of HEAD_EDGES.
+HEAD_WIDTHS = [
+    (1, 80, 80, 256, 64, 256, 80),  # yolov3 / -spp and yolov9c / -e (and their seg heads) P3
+    (1, 40, 40, 512, 64, 256, 80),  # their P4
+    (1, 20, 20, 1024, 64, 256, 80),  # yolov3's P5: C = 1024, where no f32 tile of 2x4 or more fits 227 KB
+    (1, 40, 40, 256, 64, 256, 80),  # yolov3-tiny's stride-16 level
+    (1, 20, 20, 512, 64, 256, 80),  # yolov3-tiny's stride-32 level, yolov9c / -e P5
+    (1, 80, 80, 64, 64, 80, 80),  # yolov9t
+    (1, 40, 40, 96, 64, 80, 80),
+    (1, 20, 20, 128, 64, 80, 80),
+    (1, 80, 80, 128, 64, 128, 80),  # yolov9s
+    (1, 40, 40, 192, 64, 128, 80),
+    (1, 20, 20, 256, 64, 128, 80),
+    (1, 80, 80, 240, 64, 240, 80),  # yolov9m
+    (1, 40, 40, 360, 64, 240, 80),
+    (1, 20, 20, 480, 64, 240, 80),
+]
+HEAD_EDGES += HEAD_WIDTHS
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(cm: bool = False, lib=None):
     """`yt_head_level` (`yt_head_level_cm` with cm) of the kernel library, or of another build of it (`lib`)."""

@@ -33,6 +33,9 @@ The JAX package's signature, each setting off unless asked for, as there:
   faster than it (ROADMAP.md); the port's kernels are always its route, and its
   step loop runs frame by frame.
 `mesh` raises NotImplementedError: sharding over cards is ROADMAP item 3.
+A ReLU head (yolov6, YOLO-NAS) walks its convs, which no head kernel takes, and
+`pallas_head2=True` refuses it (NotImplementedError); a model whose layer 0 has no
+conv to fold the input into (yolov9e's nn.Identity) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -146,6 +149,13 @@ class FusedDetectTrack:
             validate_s2d_stem(model)
         if sparse_head and int8:
             raise ValueError("the sparse box head takes fused float weights, not int8")
+        head = model.layers[-1]
+        if pallas_head2 and head.legacy:
+            head.check_cm()  # a ReLU head: NotImplementedError (a non-legacy one raises at its first chunk, as in JAX)
+        if "conv" not in params["model"]["0"]:  # yolov9e's layer 0 is nn.Identity
+            raise NotImplementedError(f"FusedDetectTrack folds the gray and /255 input into layer 0's conv; this model's "
+                                      f"layer 0 is {type(model.layers[0]).__name__}, which has none (the JAX package "
+                                      "fails on it with a KeyError too; ROADMAP item 5)")
         self.device = resolve_device(device)
         if not params_are_fused(params):
             params = fuse(params)
