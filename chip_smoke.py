@@ -216,7 +216,7 @@ Phases (any failure stops the run with a non-zero exit code):
    forward against the twins, kernels 1, 3 and 5 held at the p6 and ghost-p2 shapes on seeded noise through trees
    whose BN moments come from it (`bn_calibrated`), each held instance's twin depending on its input
    (`live_share`), bf16 predict with its host split), `[pipeline ghost-p2]`
-   (FusedDetectTrack with yolov8n-ghost-p2's init(0) tree over 256 frames, conf 1e-6: tracks, ids and stats equal,
+   (FusedDetectTrack with yolov8n-ghost-p2's init(0) tree over 128 frames, conf 1e-6: tracks, ids and stats equal,
    detections on every frame), `[variants train]` (one epoch of yolov8n-ghost-p2 at 640, batch 16, bf16: the
    step's split; the trained tree's forward against the twin) and `[variants train step f32]` (one f32 step of
    yolov8n-ghost-p2 on the card against the CPU, TRAIN_STEP_TOL; `zero_grad_leaves` against their BN weight's gradient).
@@ -230,6 +230,17 @@ Phases (any failure stops the run with a non-zero exit code):
    held, then predict, val and track launching it), `[yolo11 train]` / `[yolo12 train]` (one bf16 epoch at batch 16, 640: finite losses, the step's
    split, then val through kernel 5 against its twin) and `[yolo11 train step f32]` (one f32 step on the card against
    the CPU, TRAIN_STEP_TOL; yolo12n's is left out, `slice18_phases` says why).
+24. the nineteenth slice (`slice19_phases`): yolov3, yolov6, YOLO-NAS and yolov9 at full width (`[v3 v6 v9 nas]`,
+   `[v3 v6 v9 nas others]`, `[pipeline v9 head_cm]`, `[pipeline nas]`, one epoch each of yolov9t and yolo_nas_s).
+25. the twentieth slice (last; `slice20_phases`): `[v8 scales]` (yolov8 s-x and yolov8-small m-x at full width,
+   whose wide C2f blocks take the kernel's general plan: the f32 forward against the f64 forward, kernels 1-3 held
+   with the live gate, bf16 predict launching kernels 1, 2, 3 and 5), `[v10]` (yolov10n and yolov10s: the end-to-end
+   rows against the f64 forward's, kernels 1 and 2 held with the live gate, bf16 predict at B = 1 and 8, val, track;
+   kernels 3-5 launch no time: the head is depth-wise and NMS-free), `[v10 others]` (m, b, l, x: the same holds,
+   predict of 4 frames) and `[yolov10n.yaml train]` (one bf16 epoch: its six loss items, the step's split, then val
+   through kernels 1-2 against the twins). `[c2f widths]` (with the kernel holds of item 2) holds kernels 1-2 against
+   their twins at every published C2f width (`cuda_c2f.C2F_WIDTHS`), f32 and bf16, with each plan (tile, passes, ring
+   chunk, shared bytes) and the widest instance of each model timed against the cuDNN walk and the bound.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -392,8 +403,8 @@ def capture_instances(model, x):
         return originals[2](x, kw)
 
     cuda_c2f.c2f_plain, cuda_c2f.c2f_upconcat_plain, cuda_head.head_level_plain = c2f, up, head
-    try:
-        boxes, scores = model.predict_parts(x, plain=True)
+    try:  # an end-to-end head (yolov10) has no parts: its own rows, and no NMS to hold
+        boxes, scores = (model.predict(x, plain=True), None) if getattr(model, "end2end", False) else model.predict_parts(x, plain=True)
     finally:
         cuda_c2f.c2f_plain, cuda_c2f.c2f_upconcat_plain, cuda_head.head_level_plain = originals
     return rec, boxes, scores
@@ -542,7 +553,14 @@ def c2f_plan_text(B, H, W, c1, cs, kw, dtype) -> str:
     p = cuda_c2f.plan(B, H, W, c1, cs, kw.c, kw.w2.shape[1], kw.n, dtype)
     text = (f"tile={p['tile'][0]}x{p['tile'][1]} blocks={p['blocks']} cluster={p['cluster']} per_sm={p['blocks_per_sm']} "
             f"smem={p['smem']}B {p['instruction']}")
-    return text + (f" item={p['item_px']}px ring={p['ring_steps']}x{p['step_slices']}" if p["ring_steps"] else "")
+    text += f" item={p['item_px']}px ring={p['ring_steps']}x{p['step_slices']}" if p["ring_steps"] else ""
+    if p["ring_steps"] and p["ring_chunk"] < (kw.c + 15) // 16 * 16:
+        text += f" ring_chunk={p['ring_chunk']}"
+    if p["passes"] > 1:  # a split plan: the chain's passes, then the cv2 launch
+        text += (f" passes={p['passes']} ({p['pass_bottlenecks']} bottleneck(s) each, then cv2 at tile="
+                 f"{p['tail_tile'][0]}x{p['tail_tile'][1]}" + (f" ring_chunk={p['tail_chunk']}x{p['tail_step_slices']}"
+                                                               if p["ring_steps"] else "") + f") workspace={p['workspace']}")
+    return text
 
 
 def c2f_edges_phase(card):
@@ -2766,6 +2784,87 @@ ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 128, 16
 VIDEO_FRAMES = 64  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
 
 
+def c2f_widths_phase(card):
+    """`[c2f widths]`: kernels 1 and 2 against their twins at every published width (`cuda_c2f.C2F_WIDTHS`: the C2f
+    and neck-fold instances of yolov8 and yolov10 n-x at 640², yolov8-small n-x at 640x512), f32 and bf16, one frame,
+    on seeded weights and N(0, 1) inputs, each held with the live gate; every plan printed at B = 1 and 8 (tile,
+    passes, ring chunk, shared bytes). For the widest instance of each model, bf16 at B = 8: the kernel's time beside
+    the cuDNN conv walk's and the bound. A disagreement raises → the number of instances held."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.nn import modules as PM
+    from yolo_tpu_torch.nn.tasks import DetectionModel, yaml_model_load
+    from yolo_tpu_torch.ops import cuda_c2f
+
+    def block(c1, cs, c, c2o, n, dtype, seed=0):
+        rng = np.random.default_rng(seed)
+        mod = PM.C2f(c1, c2o, n=n, shortcut=not cs)
+        for m in mod.modules():
+            if isinstance(m, PM.ConvBNAct):
+                fan_in = m.weight[0].numel()
+                m.weight = torch.from_numpy(rng.uniform(-1, 1, tuple(m.weight.shape)) / np.sqrt(fan_in)).float().to("cuda", dtype)
+                m.bias = torch.from_numpy(rng.normal(0, 0.1, tuple(m.bias.shape))).float().to("cuda", dtype)
+        return mod, rng
+
+    def inputs(rng, B, c1, cs, H, W, dtype):
+        skip = torch.from_numpy(rng.normal(0, 1, (B, H, W, c1 - cs))).float().to("cuda", dtype)
+        small = torch.from_numpy(rng.normal(0, 1, (B, H // 2, W // 2, cs))).float().to("cuda", dtype) if cs else None
+        return small, skip
+
+    held = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for c1, cs, c, c2o, n, H, W in cuda_c2f.C2F_WIDTHS:
+            mod, rng = block(c1, cs, c, c2o, n, dtype)
+            kw, sc = mod.kernel_weights(), mod.shortcut
+            small, skip = inputs(rng, 1, c1, cs, H, W, dtype)
+            name, args = ("c2f_upconcat", (small, skip, kw, sc)) if cs else ("c2f", (skip, kw, sc))
+            kern, plain = ((cuda_c2f.fused_c2f_upconcat, cuda_c2f.c2f_upconcat_plain) if cs
+                           else (cuda_c2f.fused_c2f, cuda_c2f.c2f_plain))
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            desc = f"{H}x{W} {f'up({cs})+{c1 - cs}' if cs else c1}->{c2o} c={c} n={n}"
+            err = hold(name, desc, dn, got, want)["output 0"]
+            share = live_share(name, plain, args, want)
+            if share < LIVE_SHARE:
+                raise AssertionError(f"c2f widths {dn}: {desc}: only {share:.3f} of the twin's outputs depend on the input")
+            held += 1
+            log(f"c2f widths {dn}", card, f"{desc:36s} max_abs_err={err:.3e} live={share:.3f} B=1: "
+                f"{c2f_plan_text(1, H, W, c1, cs, kw, dtype)} | B=8: {c2f_plan_text(8, H, W, c1, cs, kw, dtype)}")
+    # the widest instance of each model, timed
+    for cfg, scale, H, W in cuda_c2f.WIDTH_MODELS:
+        d = yaml_model_load(cfg)
+        if scale:
+            d["scale"] = scale
+        insts = DetectionModel(d, device="cpu").c2f_instances(H, W)
+        c1, cs, c, c2o, n, h, w = max(insts, key=lambda t: t[5] * t[6] * (t[0] * 2 * t[2] + t[4] * 18 * t[2] ** 2 + (2 + t[4]) * t[2] * t[3]))
+        dtype = torch.bfloat16
+        mod, rng = block(c1, cs, c, c2o, n, dtype)
+        kw, sc = mod.kernel_weights(), mod.shortcut
+        small, skip = inputs(rng, 8, c1, cs, h, w, dtype)
+        walk = library_c2f(kw, sc, dtype)
+        if cs:
+            ls, lk = _nchw(small), _nchw(skip)
+            kern = lambda: cuda_c2f.fused_c2f_upconcat(small, skip, kw, sc)  # noqa: E731
+            lib = lambda: walk(torch.cat([torch.nn.functional.interpolate(ls, scale_factor=2.0), lk], 1))  # noqa: E731
+            ins = (small, skip)
+            macs = (h // 2) * (w // 2) * cs * 2 * c + h * w * ((c1 - cs) * 2 * c + n * 18 * c * c + (2 + n) * c * c2o)
+        else:
+            lx = _nchw(skip)
+            kern = lambda: cuda_c2f.fused_c2f(skip, kw, sc)  # noqa: E731
+            lib = lambda: walk(lx)  # noqa: E731
+            ins = (skip,)
+            macs = h * w * (c1 * 2 * c + n * 18 * c * c + (2 + n) * c * c2o)
+        out = kern()
+        wbytes = _nbytes(*(t for k, t in vars(kw).items() if torch.is_tensor(t) and not k.startswith("_")))
+        bound, by = _bound(_nbytes(*ins, out) + wbytes, 2.0 * 8 * macs, "bfloat16")
+        log("c2f widths bfloat16", card, f"widest of {cfg}{' ' + scale if scale else ''}: B=8 {h}x{w} "
+            f"{f'up({cs})+{c1 - cs}' if cs else c1}->{c2o} c={c} n={n} kernel_ms={cuda_ms(kern):.4f} "
+            f"library_ms(cudnn walk)={cuda_ms(lib):.4f} bound_ms={bound:.4f} ({by}) {c2f_plan_text(8, h, w, c1, cs, kw, dtype)}")
+    return held
+
+
 LIVE_SHARE = 0.5  # `hold_path_kernels(live=True)`: the least share of a twin's outputs that must depend on its input maps
 
 
@@ -4478,9 +4577,9 @@ def obb_phases(root: Path, card):
 TASK_YAMLS = {"segment": "yolov8n-seg.yaml", "pose": "yolov8n-pose.yaml", "obb": "yolov8n-obb.yaml"}
 TASK_FORWARD_PATH = {"c2f", "c2f_upconcat", "head_level"}  # a task model's predict: kernels 1-3, no NMS
 TASK_PREDICT = dict(conf=0.0, max_det=10, verbose=False)  # each frame's ten best: an untrained model scores near its bias prior
-TASK_INT8_FRAMES = 16
-TASK_SERVE_FRAMES = 16  # `[task serve]`: frames a client, two clients a lane
-GHOST_P2_FRAMES = 256  # `[pipeline ghost-p2]`: two 128-frame chunks of the clip
+TASK_INT8_FRAMES = 8  # halved in PR 20 with the other PR 17-19 depths (the script passed 1,000 s)
+TASK_SERVE_FRAMES = 8  # `[task serve]`: frames a client, two clients a lane (16 before PR 20)
+GHOST_P2_FRAMES = 128  # `[pipeline ghost-p2]`: one 128-frame chunk of the clip (two before PR 20)
 GHOST_P2_CONF = 1e-6  # below every score of the init(0) tree (its bias prior at P2 is 2.4e-6): 16 detections every frame
 
 
@@ -4539,7 +4638,7 @@ def task_benchmark_phase(frames, card):
 
 def task_int8_phase(frames, card):
     """`[task int8]`: predict(int8=True) (dynamic activation scales: the int8 convs, no kernel 1-3; the NMS kernel on the
-    segment and pose routes, none on the obb route's rotated NMS) of the three init(0) models on 16 BGR frames at 640,
+    segment and pose routes, none on the obb route's rotated NMS) of the three init(0) models on 8 BGR frames at 640,
     each frame's ten best: f32 through the NMS kernel against its twin (equal rows, 1e-2 px, 1e-4); then the int8 tree's
     decoded predictions of one frame on the card against the CPU's, whose convs are the same exact int8 products: a
     dynamic code may flip where the card's f32 rounds an activation to the other side of a code boundary, so the gate
@@ -4751,7 +4850,7 @@ def variants_phase(frames, card):
 
 def ghost_p2_pipeline_phase(clip, card):
     """`[pipeline ghost-p2]`: FusedDetectTrack with yolov8n-ghost-p2's init(0) tree (full width, nc 80) over the clip's
-    first 256 frames in 128-frame chunks, conf 1e-6 (below every score of the untrained tree, whose features fade
+    first 128 frames, one chunk, conf 1e-6 (below every score of the untrained tree, whose features fade
     through its depth so that its scores sit at the bias prior: 16 detections a frame): f32 through the kernels (3 and
     5; the model has no C2f) against f32 through the twins: tracks, ids, statuses, detection counts and stats equal;
     then bf16 frames/s with its launches."""
@@ -4841,8 +4940,8 @@ def slice17_phases(clip, root: Path, train_data, card):
 
 SLICE18_FAMILIES = ("yolo11n.yaml", "yolo12n.yaml")
 SLICE18_TASKS = tuple(f"yolo{v}n-{t}.yaml" for v in (11, 12) for t in ("seg", "pose", "obb", "cls"))
-SLICE18_B1_FRAMES, SLICE18_B8_FRAMES = 32, 64  # `[yolo11]` / `[yolo12]`: bf16 predict one frame a call, then 8 a call
-SLICE18_TRACK_FRAMES = 16
+SLICE18_B1_FRAMES, SLICE18_B8_FRAMES = 16, 32  # `[yolo11]` / `[yolo12]`: bf16 predict one frame a call, then 8 a call (32, 64 before PR 20)
+SLICE18_TRACK_FRAMES = 8
 SLICE18_RUN = dict(epochs=1, workers=8, seed=0)  # `[yolo11 train]`: one epoch of the 64-frame split at TRAIN_RECIPE's batch 16
 
 
@@ -4872,6 +4971,8 @@ def column_errors(model, got, want) -> dict:
         return out
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"predictions {tuple(got.shape)} vs {tuple(want.shape)}, finite {bool(torch.isfinite(got).all())}")
+    if getattr(model, "end2end", False):
+        return end2end_errors(got, want)
     g, w, nc = got.float(), want.float(), model.nc
     groups = {"px": [slice(0, 4)], "score": [slice(4, 4 + nc)], "rest": []}
     if model.task == "pose":
@@ -4887,6 +4988,27 @@ def column_errors(model, got, want) -> dict:
             d = torch.cat([(g[:, p] - w[:, p]).abs().flatten() for p in parts])
             out[k] = (float(d.max()), float(torch.cat([w[:, p].abs().flatten() for p in parts]).max()))
     return out
+
+
+END2END_ROWS = 100  # `end2end_errors`: the reference's best rows of each image that are paired and held
+
+
+def end2end_errors(got, want) -> dict:
+    """|got − want| of an end-to-end head's (B, k, 6) rows (xyxy box, score, class; ranked by score): each of the
+    reference's END2END_ROWS best rows of an image paired with the nearest row of `got` of its class (two near-equal
+    scores may rank either way, and a row near the k-th may drop out of the other's k) → {"px": (largest box difference,
+    largest |coordinate|), "score": (largest score difference, 1)}; a row without a partner of its class raises."""
+    import torch
+
+    px = sc = 0.0
+    for g, w in zip(got.float(), want.float()):
+        for row in w[:END2END_ROWS]:
+            same = g[g[:, 5] == row[5]]
+            if not len(same):
+                raise AssertionError(f"end-to-end rows: class {int(row[5])} (score {float(row[4]):.4f}) has no partner")
+            j = int((same[:, :4] - row[:4]).abs().sum(-1).argmin())
+            px, sc = max(px, float((same[j, :4] - row[:4]).abs().max())), max(sc, float((same[j, 4] - row[4]).abs()))
+    return {"px": (px, float(want[..., :4].abs().max())), "score": (sc, 1.0)}
 
 
 # `card_against_f64`: the least gate of each group, by the group's largest |value| m: boxes 1e-2 px, scores 1e-4,
@@ -5048,8 +5170,9 @@ def family_tasks_phase(frames, seg_data, pose_data, card):
 
 
 def family_train_phase(name, data, run_dir, card, path=frozenset({"nms_keep"})):
-    """`[yolo11 train]` / `[yolo12 train]`: one epoch of YOLO(name).train on the 64-frame detect split at 640, batch 16,
-    bf16 with the IR recipe, validating once (kernel 5): the losses finite, the mean step (forward + loss, backward,
+    """`[yolo11 train]` / `[yolo12 train]` (and the later families'): one epoch of YOLO(name).train on the 64-frame
+    detect split at 640, batch 16, bf16 with the IR recipe, validating once (the path's kernels): every loss item finite
+    (yolov10's six: box, cls, dfl of each branch), the mean step (forward + loss, backward,
     optimizer in CUDA events); then `val` of the trained tree f32 through kernel 5 against its twin (every key within
     1e-4). The train step itself runs no kernel; `[yolo11 train step f32]` holds it against the CPU."""
     import numpy as np
@@ -5065,7 +5188,8 @@ def family_train_phase(name, data, run_dir, card, path=frozenset({"nms_keep"})):
     wall = time.perf_counter() - t0
     e = epochs[-1]
     r, steps = e["row"], e["timings"][1:]
-    if not all(np.isfinite(r[f"train/{k}_loss"]) for k in ("box", "cls", "dfl")) or not steps:
+    items = {k[len("train/"): -len("_loss")]: v for k, v in r.items() if k.startswith("train/") and k.endswith("_loss")}
+    if len(items) < 3 or not all(np.isfinite(v) for v in items.values()) or not steps:
         raise AssertionError(f"{tag}: {r}")
     mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
     span = e["t_end"] - e["timings"][1]["start"]
@@ -5073,11 +5197,11 @@ def family_train_phase(name, data, run_dir, card, path=frozenset({"nms_keep"})):
     rp = y.val(data=str(data), imgsz=640, batch=16, plots=False, plain=True)
     if set(rk) != set(rp) or max(abs(rk[k] - rp[k]) for k in rk) > 1e-4:
         raise AssertionError(f"{tag}: val kernels {rk} vs twins {rp}")
-    log(tag, card, f"{name}, 1 epoch of {len(e['timings'])} steps at batch {TRAIN_RECIPE['batch']}, 640, bf16: box "
-        f"{r['train/box_loss']:.4f} cls {r['train/cls_loss']:.4f} dfl {r['train/dfl_loss']:.4f}; a step {span / len(steps) * 1e3:.1f} "
+    log(tag, card, f"{name}, 1 epoch of {len(e['timings'])} steps at batch {TRAIN_RECIPE['batch']}, 640, bf16: "
+        + " ".join(f"{k} {v:.4f}" for k, v in items.items()) + f"; a step {span / len(steps) * 1e3:.1f} "
         f"ms (host clock, after the first): forward+loss {mean['forward']:.2f}, backward {mean['backward']:.2f}, "
         f"optimizer+BN+EMA {mean['optimizer']:.2f} ms (events), loader wait {mean['loader']:.2f} ms; the .train call "
-        f"{wall:.1f} s; launches {launches}; f32 val through kernel 5 = twins (mAP50 {rk['mAP50']:.4f}; launches {lk})")
+        f"{wall:.1f} s; launches {launches}; f32 val through the path's kernels = twins (mAP50 {rk['mAP50']:.4f}; launches {lk})")
 
 
 def slice18_phases(clip, train_data, seg_data, pose_data, root: Path, card):
@@ -5102,8 +5226,8 @@ def slice18_phases(clip, train_data, seg_data, pose_data, root: Path, card):
 SLICE19_FAMILIES = ("yolov9t.yaml", "yolov9c.yaml", "yolov3.yaml", "yolov3-tiny.yaml", "yolov6n.yaml", "yolo_nas_s.yaml")
 SLICE19_OTHERS = ("yolov3-spp.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9e.yaml", "yolov6s.yaml", "yolov6m.yaml",
                   "yolov6l.yaml", "yolov6x.yaml", "yolo_nas_m.yaml", "yolo_nas_l.yaml", "yolov9c-seg.yaml", "yolov9e-seg.yaml")
-SLICE19_B1_FRAMES, SLICE19_B8_FRAMES, SLICE19_OTHER_FRAMES = 16, 32, 4  # `[v3 v6 v9 nas]`: bf16 predict a frame a call, 8 a call
-SLICE19_TRACK_FRAMES = 8
+SLICE19_B1_FRAMES, SLICE19_B8_FRAMES, SLICE19_OTHER_FRAMES = 8, 16, 2  # `[v3 v6 v9 nas]`: bf16 predict a frame a call, 8 a call (16, 32, 4 before PR 20)
+SLICE19_TRACK_FRAMES = 4
 SLICE19_PIPELINE_FRAMES = 128  # `[pipeline v9 head_cm]`, `[pipeline nas]`: one chunk
 
 
@@ -5269,6 +5393,148 @@ def slice19_phases(clip, train_data, root: Path, card):
     print(f"[slice 19] its phases took {time.perf_counter() - t0:.1f} s")
 
 
+V8_SCALES = [(f"yolov8{s}.yaml", None) for s in "smlx"] + [("yolov8-small.yaml", s) for s in "mlx"]  # `[v8 scales]`
+V8_SCALE_FRAMES = 4
+V10_FAMILIES = ("yolov10n.yaml", "yolov10s.yaml")  # `[v10]`: predict, val and track
+V10_OTHERS = ("yolov10m.yaml", "yolov10b.yaml", "yolov10l.yaml", "yolov10x.yaml")  # `[v10]`: predict 4 frames
+V10_B1_FRAMES, V10_B8_FRAMES, V10_OTHER_FRAMES, V10_TRACK_FRAMES = 16, 32, 4, 8
+V10_PATH = {"c2f", "c2f_upconcat"}  # every v10 model folds its layer 16 (and 13 at n-m) and keeps plain C2f rows; no NMS
+
+
+def scaled_yolo(cfg, scale, x):
+    """YOLO(cfg) at `scale` (a scale of the yaml's `scales`; None: the one the name picks) on the card, its init(0)
+    tree calibrated on the NHWC images `x` (`bn_calibrated`)."""
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.nn.tasks import DetectionModel, yaml_model_load
+
+    y = YOLO(cfg)
+    if scale:
+        d = yaml_model_load(cfg)
+        d["scale"] = scale
+        y.model = DetectionModel(d)
+        y.overrides["model"] = f"{cfg} (scale {scale})"
+    y.params = bn_calibrated(y.model, y.model.init(0), x)
+    return y
+
+
+def v8_scales_phase(frames, card):
+    """`[v8 scales]`: yolov8 s-x (640²) and the repo's yolov8-small at m-x (640x512 frames), whose wide C2f blocks take
+    the kernel's general plan (N chunks, split passes): each at full width (nc 80 / 1), init(0) calibrated on two seeded
+    noise images (`bn_calibrated`), the decoded f32 forward through kernels 1, 2 and 3 against the f64 forward
+    (`card_against_f64`), kernels 1-3 against their twins there with the live gate (`hold_path_kernels`, on the tree
+    `without_cls_prior`), then bf16 `predict` of 4 frames at 640 (each frame's ten best), launching kernels 1, 2, 3 and 5."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import param_count, params_from_jax
+
+    path = {"c2f", "c2f_upconcat", "head_level", "nms_keep"}
+    rows = []
+    for cfg, scale in V8_SCALES:
+        t0 = time.perf_counter()
+        h, w = (512, 640) if cfg == "yolov8-small.yaml" else (640, 640)
+        noise = torch.rand((2, h, w, 3), generator=torch.Generator().manual_seed(0)).cuda()
+        y = scaled_yolo(cfg, scale, noise)
+        err = card_against_f64(y, noise, f"v8 scales {cfg} {scale or ''}", path - {"nms_keep"})
+        params_from_jax(y.model, without_cls_prior(y.model, y.params), torch.float32)
+        held = hold_path_kernels([y.model], noise, f"v8 scales {cfg} {scale or ''}", card, conf=0.0, iou=0.7, live=True)
+        sub = [f[:h, :w] for f in frames[:V8_SCALE_FRAMES]]
+        y.predict(sub[:1], **TASK_PREDICT)
+        t1 = time.perf_counter()
+        res, lp = counted(path, lambda: y.predict(sub, **TASK_PREDICT))
+        rate = len(sub) / (time.perf_counter() - t1)
+        if len(res) != len(sub) or not all(len(r) for r in res):
+            raise AssertionError(f"{cfg} {scale}: {len(res)} results, {sum(not len(r) for r in res)} without detections")
+        rows.append(f"{cfg}{' ' + scale if scale else ''} ({param_count(y.params):,} values, {len(y.model.c2f_instances(h, w))} "
+                    f"C2f instances): f32 against f64 (card / CPU) " + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items())
+                    + f"; held {held}; bf16 predict {rate:.1f} frames/s, launches {lp}; {time.perf_counter() - t0:.1f} s")
+    log("v8 scales", card, "; ".join(rows))
+
+
+def v10_phase(name, frames, data, card):
+    """`[v10]` for yolov10n / s: YOLO(name) at full width (nc 80), init(0) calibrated on two seeded noise images at 640²:
+    the end-to-end (B, 300, 6) rows of the f32 forward through kernels 1 and 2 against the f64 forward's
+    (`card_against_f64`, rows paired by class and box), kernels 1 and 2 against their twins with the live gate (no NMS:
+    the head is NMS-free, and kernels 3-5 launch no time on any v10 path); then bf16 `predict` of the clip's frames one
+    a call and 8 a call (each frame's ten best), frames/s with the host's ms a frame and the device's launches and busy
+    time over one call; `val` of the held-out split (bf16, batch 16) and `track` (ByteTrack, the init(0) tree)."""
+    import torch
+
+    from yolo_tpu_torch import YOLO
+
+    tag = "v10"
+    noise = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    y = calibrated_yolo(name, noise)
+    err = card_against_f64(y, noise, f"{tag} {name}", V10_PATH)
+    held = hold_path_kernels([y.model], noise, f"{tag} {name}", card, live=True, nms=False)
+    kw = dict(TASK_PREDICT)
+    rates = []
+    for B, n in ((1, V10_B1_FRAMES), (8, V10_B8_FRAMES)):
+        sub = list(frames[:n])
+        y.predict(sub[:B], batch=B, **kw)  # warm: bf16 weights and this batch's plans
+        y.predictor.timings = []
+        t0 = time.perf_counter()
+        res, lb = counted(V10_PATH, lambda: y.predict(sub, batch=B, **kw))
+        wall = time.perf_counter() - t0
+        ts, y.predictor.timings = y.predictor.timings, None
+        _, kernels, busy = device_launches(lambda: y.predict(sub[:B], batch=B, **kw))
+        if len(res) != n or not all(len(r) for r in res) or not all((r.boxes.conf <= 1).all() and (r.boxes.cls < 80).all() for r in res):
+            raise AssertionError(f"{name}: {len(res)} results, {sum(not len(r) for r in res)} without detections, or rows out of range")
+        rates.append(f"B={B}: {n / wall:.1f} frames/s (host ms a frame: {host_split(ts)}); one call {kernels} device launches "
+                     f"({kernels / B:.0f} a frame), {busy:.3f} ms busy; launches {lb}")
+    metrics, lv = counted(V10_PATH, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True))
+    if not all(map(math.isfinite, metrics.values())):
+        raise AssertionError(f"{name}: val {metrics}")
+    yt = YOLO(name)
+    _, lt = counted(V10_PATH, lambda: [yt.track(f, persist=True, tracker="bytetrack.yaml", **kw) for f in frames[:V10_TRACK_FRAMES]])
+    log(tag, card, f"{name}: {len(y.model.layers)} layers, strides {y.model.stride}, NMS-free; f32 rows on 2 noise images at "
+        f"640² against the f64 forward's (card / CPU, both f32): " + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items())
+        + f" (held: {held}); bf16 predict " + "; ".join(rates)
+        + f"; val mAP50 {metrics['mAP50']:.4f} (launches {lv}); track {V10_TRACK_FRAMES} frames (launches {lt})")
+
+
+def v10_models_phase(frames, card):
+    """`[v10 others]`: yolov10 m, b, l and x at full width (init(0) calibrated on two noise images at 640², their wide
+    C2f blocks on the kernel's general plan): the rows of the f32 forward against the f64 forward's, kernels 1 and 2
+    against their twins with the live gate, then bf16 `predict` of 4 frames one a call with the path's launches."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import param_count
+
+    noise = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    rows = []
+    for name in V10_OTHERS:
+        t0 = time.perf_counter()
+        y = calibrated_yolo(name, noise)
+        err = card_against_f64(y, noise, f"v10 others {name}", V10_PATH)
+        held = hold_path_kernels([y.model], noise, f"v10 others {name}", card, live=True, nms=False)
+        sub = list(frames[:V10_OTHER_FRAMES])
+        y.predict(sub[:1], **TASK_PREDICT)
+        t1 = time.perf_counter()
+        res, lp = counted(V10_PATH, lambda: y.predict(sub, **TASK_PREDICT))
+        rate = len(sub) / (time.perf_counter() - t1)
+        if len(res) != len(sub) or not all(len(r) for r in res):
+            raise AssertionError(f"{name}: {len(res)} results, {sum(not len(r) for r in res)} without detections")
+        rows.append(f"{name} ({len(y.model.layers)} layers, {param_count(y.params):,} values): rows against f64 (card / CPU) "
+                    + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items()) + f"; held {held}; bf16 predict "
+                    f"{rate:.1f} frames/s, launches {lp}; {time.perf_counter() - t0:.1f} s")
+    log("v10 others", card, "; ".join(rows))
+
+
+def slice20_phases(clip, train_data, root: Path, card):
+    """The twentieth slice's phases: the yolov8 / yolov8-small scales that the widened C2f kernel takes, yolov10 at every
+    scale (predict, val, track), and one epoch of yolov10n. `[c2f widths]` runs with the other kernel holds."""
+    import numpy as np
+
+    bgr = np.repeat(clip[: max(V10_B8_FRAMES, V10_TRACK_FRAMES, V8_SCALE_FRAMES)], 3, -1)
+    t0 = time.perf_counter()
+    v8_scales_phase(bgr, card)
+    for name in V10_FAMILIES:
+        v10_phase(name, bgr, train_data, card)
+    v10_models_phase(bgr, card)
+    family_train_phase("yolov10n.yaml", train_data, root / "runs", card, path=V10_PATH)
+    print(f"[slice 20] its phases took {time.perf_counter() - t0:.1f} s")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -5324,6 +5590,7 @@ def main(argv) -> int:
     c2f_cases = {} if profiling else None
     records = check_kernels(model, params, clip[:CHUNK], card, keep=c2f_cases)
     c2f_edges_phase(card)
+    c2f_widths_phase(card)
     head_edges_phase(card)
     nms_edges_phase(card)
     mark("build and kernel holds")
@@ -5424,6 +5691,8 @@ def main(argv) -> int:
         mark("the seventeenth and eighteenth slices")
         slice19_phases(clip, train_data, Path(tmp) / "slice19", card)
         mark("the nineteenth slice")
+        slice20_phases(clip, train_data, Path(tmp) / "slice20", card)
+        mark("the twentieth slice")
         if profiling:
             for name in SLICE18_FAMILIES:
                 train_step_precision_phase(train_data, card, name)

@@ -25,7 +25,7 @@ from yolo_tpu_torch.nn.tasks import DetectionModel
 from yolo_tpu_torch.utils import benchmarks as PB
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 TINY = {  # tests/test_profilers.py's per-layer model: a compile JAX makes in seconds
     "nc": 1, "scale": "n",

@@ -14,6 +14,8 @@ from yolo_tpu.ops.pallas_c2f import fused_c2f, fused_c2f_upconcat
 from yolo_tpu_torch.nn import modules as PM
 from yolo_tpu_torch.ops import cuda_c2f
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

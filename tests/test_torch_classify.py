@@ -26,7 +26,7 @@ from yolo_tpu_torch.nn import tasks as PT
 from yolo_tpu_torch.nn.torch_export import flatten_tree
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 SHAPES = ("bright_circle", "dark_square")
 TOY = dict(epochs=2, imgsz=64, batch=8, lr0=1e-4, amp=False, dropout=0.0, exist_ok=True, verbose=False,

@@ -17,7 +17,7 @@ from yolo_tpu_torch.utils import coco_eval as P
 
 from tests.conftest import ROOT
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 WEIGHTS = str(ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz")
 

@@ -1111,3 +1111,73 @@ def test_slice19_phases_on_the_card(card, monkeypatch, tmp_path):
         chip_smoke.slice19_family_phase(name, bgr, data, "test")
     chip_smoke.slice19_models_phase(bgr, "test")
     chip_smoke.slice19_pipeline_phase(clip, "test")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c1,cs,c,c2o,n,H,W", cuda_c2f.C2F_WIDTHS)
+def test_c2f_kernel_at_the_published_widths(card, dtype, c1, cs, c, c2o, n, H, W):
+    """Kernels 1 and 2 at every published C2f width (`cuda_c2f.C2F_WIDTHS`: yolov8 and yolov10 n-x at 640², yolov8-small
+    n-x at 640x512), one frame, seeded weights and N(0, 1) inputs: a plan exists (the wide ones run the general plan:
+    N chunks, split passes), one launch is counted per call, the output within TOL of the twin's."""
+    rng = np.random.default_rng(0)
+    mod = PM.C2f(c1, c2o, n=n, shortcut=not cs)
+    _random_convs(mod, rng, dtype)
+    kw = mod.kernel_weights()
+    plan = cuda_c2f.plan(1, H, W, c1, cs, c, c2o, n, dtype)
+    assert plan["passes"] >= 1 and plan["smem"] <= 232448
+    skip = torch.randn(1, H, W, c1 - cs, device=card).to(dtype)
+    fn, twin = (cuda_c2f.fused_c2f_upconcat, cuda_c2f.c2f_upconcat_plain) if cs else (cuda_c2f.fused_c2f, cuda_c2f.c2f_plain)
+    args = ((torch.randn(1, H // 2, W // 2, cs, device=card).to(dtype), skip) if cs else (skip,)) + (kw, mod.shortcut)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got.float(), twin(*args).float(), **TOL[dtype])
+
+
+def test_yolov8s_predicts_in_bf16_on_the_card(card):
+    """`YOLO("yolov8s.yaml").predict` in its default bf16 on the card: its 20x20 C2f blocks (c = 256) fit no one-launch
+    tile, which made the kernel raise ValueError before the general plan; now every C2f instance and Detect level
+    launches its kernel and each frame gets its rows."""
+    import chip_smoke
+    from yolo_tpu_torch import YOLO
+
+    y = YOLO("yolov8s.yaml")
+    frames = [np.random.default_rng(i).integers(0, 255, (480, 640, 3), np.uint8) for i in range(2)]
+    res, launches = chip_smoke.counted({"c2f", "c2f_upconcat", "head_level", "nms_keep"},
+                                       lambda: y.predict(frames, conf=0.0, max_det=10, verbose=False))
+    assert len(res) == 2 and all(len(r) == 10 for r in res) and launches["c2f"] >= 6
+
+
+@pytest.mark.parametrize("name", ["yolov10n.yaml", "yolov10b.yaml"])
+def test_v10_forward_on_the_card_matches_cpu(card, name):
+    """yolov10n and yolov10b at full width, init(0) with BN moments from two seeded 320² noise images
+    (`chip_smoke.bn_calibrated`), f32: the C2f rows through kernel 1, the folded necks through kernel 2, no head or NMS
+    kernel (the class branch is depth-wise, the head NMS-free); the (B, 300, 6) rows within `chip_smoke.card_against_f64`'s
+    gate (paired by class and box), and `predict` returns rows whose scores lie in (0, 1] and classes below nc."""
+    import chip_smoke
+
+    noise = torch.rand((2, 320, 320, 3), generator=torch.Generator().manual_seed(0)).to(card)
+    y = chip_smoke.calibrated_yolo(name, noise)
+    err = chip_smoke.card_against_f64(y, noise, name, chip_smoke.V10_PATH)
+    assert set(err) == {"px", "score"}
+    r = y.predict(np.random.default_rng(0).integers(0, 255, (320, 320, 3), np.uint8), imgsz=320, conf=0.0, verbose=False)[0]
+    assert len(r) and (r.boxes.conf <= 1).all() and (r.boxes.cls < 80).all()
+
+
+def test_slice20_phases_on_the_card(card, monkeypatch, tmp_path):
+    """chip_smoke's twentieth-slice phases at a few frames: `[v8 scales]` on yolov8s and yolov8-small m, `[v10]` on
+    yolov10n, `[v10 others]` on yolov10m, no training: every hold passes and each path launches its kernels."""
+    import chip_smoke
+
+    for key, value in dict(V8_SCALES=[("yolov8s.yaml", None), ("yolov8-small.yaml", "m")], V10_FAMILIES=("yolov10n.yaml",),
+                           V10_OTHERS=("yolov10m.yaml",), V10_B1_FRAMES=2, V10_B8_FRAMES=8, V10_TRACK_FRAMES=2,
+                           V8_SCALE_FRAMES=2).items():
+        monkeypatch.setattr(chip_smoke, key, value)
+    clip = chip_smoke.make_clip(8, *chip_smoke.HW)
+    root = tmp_path / "train"
+    chip_smoke.write_split(root, 16, 0, split="train")
+    data = chip_smoke.write_split(root, 16, 1)
+    bgr = np.repeat(clip, 3, -1)
+    chip_smoke.v8_scales_phase(bgr, "test")
+    chip_smoke.v10_phase("yolov10n.yaml", bgr, data, "test")
+    chip_smoke.v10_models_phase(bgr, "test")

@@ -28,6 +28,8 @@ from yolo_tpu_torch.data import dataset as PD
 from yolo_tpu_torch.utils import files as PF
 from yolo_tpu_torch.utils.coco_eval import coco80_to_coco91_class
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 LABELS = {  # image stem → label file text (None: no file)
     "a": "0 0.5 0.5 0.2 0.3\n1 0.25 0.3 0.1 0.1\n",
     "b": "2 0.1 0.1 0.4 0.1 0.4 0.5 0.1 0.5\n0 0.7 0.7 0.05 0.08\n",  # a polygon row, then a box row

@@ -20,7 +20,7 @@ from yolo_tpu_torch.nn.torch_import import load_pt, load_torch_checkpoint
 
 from tests.conftest import ROOT
 from tests.test_torch_predict import _frame_640x512
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 

@@ -29,7 +29,7 @@ from yolo_tpu_torch.grayscale import analysis as PA
 from yolo_tpu_torch.grayscale import config as PCfg
 from yolo_tpu_torch.grayscale import scoring as PS
 from yolo_tpu_torch.grayscale import tracker as PTr
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 BF16_BOX_PX, BF16_CONF = 0.25, 2e-2

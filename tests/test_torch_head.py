@@ -16,6 +16,8 @@ from yolo_tpu.ops.pallas_head import fused_head_level
 from yolo_tpu_torch.nn import modules as PM
 from yolo_tpu_torch.ops import cuda_head
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -19,6 +19,8 @@ from yolo_tpu_torch import DetectionModel, FusedDetectTrack, params_from_jax
 from yolo_tpu_torch.nn import modules as PM
 from yolo_tpu_torch.ops import cuda_head, cuda_head_cm
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 
 def _fused_level(chain):
     """ConvBNAct init params → fused {conv: {weight, bias}} (BN folded)."""

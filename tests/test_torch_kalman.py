@@ -15,6 +15,7 @@ from yolo_tpu.kalman.batched import make_step as jax_make_step
 from yolo_tpu_torch.kalman import batched as P
 
 from tests.test_kalman import make_detection_script
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
 
 FLOAT_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -11,7 +11,7 @@ from yolo_tpu.data import loaders as JL
 from yolo_tpu.engine.predictor import _iter_source as jax_iter_source
 from yolo_tpu_torch.data import loaders as PL
 from yolo_tpu_torch.engine.predictor import _iter_source
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 
 @pytest.fixture()

@@ -27,7 +27,7 @@ from yolo_tpu_torch.utils import loss as PL
 from yolo_tpu_torch.utils.tal import TaskAlignedAssigner
 
 from tests.test_loss import _random_case
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 HYP = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5)
 

@@ -12,6 +12,8 @@ from yolo_tpu.utils import metrics as JM
 from yolo_tpu_torch.ops import boxes as PB
 from yolo_tpu_torch.utils import metrics as PM
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 
 def _image(rng, n_gt, n_pred, nc, ties=False, stack_on=None):
     """One image: gt boxes/classes and predictions jittered around them plus strays.

@@ -17,6 +17,7 @@ from yolo_tpu_torch import DetectionModel, fuse, load_npz, params_from_jax
 from yolo_tpu_torch.ops import anchors, boxes
 
 from tests.conftest import ROOT
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 

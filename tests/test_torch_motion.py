@@ -26,6 +26,8 @@ from yolo_tpu_torch.motion import global_motion_detector as PG
 from yolo_tpu_torch.motion import motion_compensated_tracker as PMC
 from yolo_tpu_torch.motion import motion_reset_tracker as PR
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 METHODS = ("optical_flow", "feature_matching", "hybrid")
 
 

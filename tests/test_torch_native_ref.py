@@ -22,9 +22,26 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import yolo_tpu.native as JN
 from yolo_tpu_torch import native as PNAT
+
+TORCH_THREADS = 2  # intra-op threads of torch while a port test module runs in a parallel worker
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """Two intra-op threads for torch while the module runs in a pytest-xdist worker (an autouse fixture: every port
+    test file imports it). Torch's default, a thread per core in each of the parallel workers, spins on the cores that
+    the other workers compute on: the Tier-1 run took 1,022-1,210 s with it and 470 s with two. A run in one process
+    keeps the default."""
+    n = torch.get_num_threads()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(n)
+
 
 JAX_SRC = Path(JN.__file__).resolve().with_name("preprocess.cpp")
 BUILD = Path(PNAT.BUILD) / "jax_native"

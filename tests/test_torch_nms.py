@@ -14,6 +14,8 @@ from yolo_tpu.ops.pallas_nms import pallas_nms_keep
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.nms import non_max_suppression_parts
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 
 def _sorted_candidates(rng, B, K, n_valid, ties: bool):
     boxes = np.zeros((B, K, 4), np.float32)

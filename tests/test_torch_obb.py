@@ -48,7 +48,7 @@ from yolo_tpu_torch.utils.loss import v8OBBLoss
 from yolo_tpu_torch.utils.tal import RotatedTaskAlignedAssigner
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 HYP = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5)
 OBB_KEYS = ("cls", "bboxes", "mask_gt")

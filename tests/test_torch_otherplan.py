@@ -20,7 +20,7 @@ from yolo_tpu_torch.otherplan import classical as PC
 
 from tests.conftest import ROOT
 from tests.test_otherplan import ir_frame_with_blob
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 cv2 = pytest.importorskip("cv2")
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"

@@ -21,6 +21,7 @@ from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.kalman.batched import init_state
 
 from tests.conftest import ROOT
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
 
 
 @pytest.mark.parametrize("plain", [False, True])

@@ -27,7 +27,7 @@ from yolo_tpu_torch.ops import nms as PN
 
 from tests.conftest import ROOT
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 
@@ -159,7 +159,7 @@ def tiny_model():
 @pytest.mark.parametrize("neck_opt", [True, False])
 def test_model_predict_matches_jax(tiny_model, neck_opt):
     jm, jp, pm, x = tiny_model
-    want = np.asarray(jm.predict(jp, jnp.asarray(x), dtype=jnp.float32, neck_opt=neck_opt))
+    want = np.asarray(jax.jit(lambda p, v: jm.predict(p, v, dtype=jnp.float32, neck_opt=neck_opt))(jp, jnp.asarray(x)))
     got = pm.predict(torch.from_numpy(x), neck_opt=neck_opt)
     assert tuple(got.shape) == want.shape == (2, 4 + 3, 8 * 12 + 4 * 6 + 2 * 3)
     np.testing.assert_allclose(got[:, :4].numpy(), want[:, :4], rtol=0, atol=2e-3)  # boxes, px

@@ -21,7 +21,7 @@ from yolo_tpu_torch.engine.exporter import load_npz
 from yolo_tpu_torch.nn import quantize as PQ
 
 from tests.conftest import ROOT
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 

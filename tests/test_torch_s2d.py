@@ -18,6 +18,8 @@ from yolo_tpu.pipeline import FusedDetectTrack as JaxFusedDetectTrack
 from yolo_tpu_torch import DetectionModel, FusedDetectTrack, params_from_jax
 from yolo_tpu_torch.nn.tasks import load_train_params, train_leaves, validate_s2d_stem
 
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
+
 
 @pytest.fixture(scope="module")
 def small():

@@ -38,7 +38,7 @@ from yolo_tpu_torch.utils.loss import v8SegmentationLoss
 from yolo_tpu_torch.utils.metrics import mask_iou
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 HYP = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5)
 SEG_KEYS = ("cls", "bboxes", "mask_gt", "masks")

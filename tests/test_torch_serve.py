@@ -22,6 +22,7 @@ import torch
 
 from tests.conftest import ROOT
 from tests.test_torch_predict import BF16_BOX_PX, BF16_CONF
+from tests.test_torch_native_ref import torch_threads  # noqa: F401 (an autouse fixture: two torch threads)
 
 WEIGHTS = str(ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz")
 IMGSZ = 64

@@ -29,7 +29,7 @@ from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
 from tests.test_torch_obb import _write_obb_split, obb_pair  # noqa: F401 (a fixture)
 from tests.test_torch_pose import _write_pose_split, pose_pair  # noqa: F401 (a fixture)
 from tests.test_torch_segment import _write_seg_split, seg_pair  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 TASKS = ("segment", "pose", "obb")
 PAIR = {"segment": "seg_pair", "pose": "pose_pair", "obb": "obb_pair"}

@@ -35,7 +35,7 @@ from yolo_tpu_torch.trackers import track as PT
 
 from tests.conftest import ROOT
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 WEIGHTS = ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz"
 

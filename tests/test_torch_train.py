@@ -29,7 +29,7 @@ from yolo_tpu_torch.utils.loss import v8DetectionLoss
 
 from tests.test_loss import _random_case
 from tests.test_train import tiny_dataset  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 HYP = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5)
 
@@ -146,15 +146,22 @@ def test_optimizer_update_matches_jax(optimizer):
     jstate = jopt.init(params)
     jema, updates = jax.tree_util.tree_map(jnp.asarray, params), 0.0
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
+
+    @jax.jit
+    def jax_update(grads, jstate, jparams, lr, mom, lr_bias):
+        """The JAX trainer's update after value_and_grad (yolo_tpu/engine/trainer.py train_step), jitted: op by op,
+        each of the tree's few hundred leaf shapes compiles every primitive of the update on its own."""
+        new, jstate = jopt.update(grads, jstate, jparams, lr, mom, lr_bias=lr_bias)
+        return {**new, "model": {k: (jparams["model"][k] if k == "1" else v) for k, v in new["model"].items()}}, jstate
+
+    jax_ema = jax.jit(lambda jema, jparams, d: jax.tree_util.tree_map(lambda e, p: d * e + (1 - d) * p, jema, jparams))
     for lr, mom, lr_bias in ((1e-3, 0.8, 0.09), (2e-3, 0.85, 0.05)):
         grads, stats = _grads_and_stats(model, rng)
-        # the JAX trainer's step after value_and_grad (yolo_tpu/engine/trainer.py train_step)
-        new, jstate = jopt.update(_unflat(grads), jstate, jparams, lr, mom, lr_bias=lr_bias)
-        new = {**new, "model": {k: (jparams["model"][k] if k == "1" else v) for k, v in new["model"].items()}}
+        new, jstate = jax_update(_unflat(grads), jstate, jparams, jnp.float32(lr), jnp.float32(mom), jnp.float32(lr_bias))
         jparams = JO.apply_bn_stats(new, stats)
         updates += 1.0
         d = 0.9999 * (1 - jnp.exp(-jnp.float32(updates) / 2000.0))
-        jema = jax.tree_util.tree_map(lambda e, p: d * e + (1 - d) * p, jema, jparams)
+        jema = jax_ema(jema, jparams, d)
         # the port's
         leaves = train_leaves(model)
         for k, p in leaves.items():
@@ -178,7 +185,9 @@ def test_optimizer_update_matches_jax(optimizer):
 
 # --- YOLO.train end to end --------------------------------------------------------------------
 
-TINY = dict(epochs=2, imgsz=160, batch=4, workers=1, mosaic=0.5, close_mosaic=1, amp=False, plots=False, exist_ok=True)
+# imgsz 64: the smallest side at which the 8-image fixture's targets (4-10% of a 160x128 frame) still get assigned
+# anchors; 160 ran the same comparisons at six times the pixels
+TINY = dict(epochs=2, imgsz=64, batch=4, workers=1, mosaic=0.5, close_mosaic=1, amp=False, plots=False, exist_ok=True)
 
 
 def _rows(run_dir):
@@ -188,7 +197,7 @@ def _rows(run_dir):
 
 @pytest.fixture(scope="module")
 def trained(tiny_dataset, tmp_path_factory):  # noqa: F811 (the fixture imported above)
-    """YOLO("yolov8n.yaml").train for 2 epochs on the 8-image fixture (imgsz 160, batch 4, one worker,
+    """YOLO("yolov8n.yaml").train for 2 epochs on the 8-image fixture (imgsz 64, batch 4, one worker,
     mosaic 0.5 closed for the last epoch, f32), in each package."""
     root = tmp_path_factory.mktemp("runs")
     jy, py = yolo_tpu.YOLO("yolov8n.yaml"), yolo_tpu_torch.YOLO("yolov8n.yaml", device="cpu")

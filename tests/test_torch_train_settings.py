@@ -21,9 +21,10 @@ from yolo_tpu.data import augment as JA
 from yolo_tpu_torch.data import augment as PA
 
 from tests.test_train import tiny_dataset  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
-ONE_EPOCH = dict(epochs=1, imgsz=160, batch=4, workers=1, mosaic=0.5, close_mosaic=0, amp=False, plots=False, exist_ok=True)
+# imgsz 64 (multi_scale's 1.5 draw: 96), the smallest side at which the fixture's targets still get assigned anchors
+ONE_EPOCH = dict(epochs=1, imgsz=64, batch=4, workers=1, mosaic=0.5, close_mosaic=0, amp=False, plots=False, exist_ok=True)
 RUNS = {
     # multi_scale draws 1.5 then 1.0 for the two steps (np.random.default_rng(ni)): two image sizes
     "mixers": dict(multi_scale=True, cache="ram", mosaic=1.0, cutmix=0.5),

@@ -31,9 +31,9 @@ from yolo_tpu_torch.nn import tasks as PT
 from yolo_tpu_torch.ops import cuda_c2f, cuda_head, cuda_head_cm
 
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 from tests.test_torch_pose import _same_tree
-from tests.test_torch_v8_variants import _flat, _load_train, _random_bn
+from tests.test_torch_v8_variants import _flat, _jax_forward, _load_train, _random_bn
 
 FAMILIES = ["yolov3-tiny.yaml", "yolov3.yaml", "yolov3-spp.yaml", "yolov6n.yaml", "yolo_nas_s.yaml", "yolov9t.yaml",
             "yolov9s.yaml", "yolov9m.yaml", "yolov9c.yaml", "yolov9e.yaml", "yolov9c-seg.yaml", "yolov9e-seg.yaml"]
@@ -101,8 +101,8 @@ def _run(m, tree, x, form, dtype=jnp.float32):
     if isinstance(m, torch.nn.Module):
         out = m.forward_train(arg) if form == "train" else m(arg)
         return (out[0] if head else out).detach().float().numpy()
-    ctx = JM.Ctx(train=form == "train", dtype=dtype)
-    out = m(tree, jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), arg) if head else jnp.asarray(x, dtype), ctx)
+    out, ctx = _jax_forward(m, tree, jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), arg) if head else jnp.asarray(x, dtype),
+                            form == "train", dtype)
     return np.asarray((out[0] if head else out).astype(jnp.float32)), ctx
 
 
@@ -283,7 +283,7 @@ CALIBRATED = ("yolov3-tiny.yaml", "yolov6n.yaml", "yolo_nas_s.yaml", "yolov9t.ya
 def _predict(model, tree, x, jax_model=None):
     """The f32 (B, 4 + nc [+ nm], A) predictions of the fused `tree`: JAX's where `jax_model` is given, else the port's."""
     if jax_model is not None:
-        out = jax_model.predict(jax.tree_util.tree_map(np.asarray, jax_model.fuse(tree)), jnp.asarray(x))
+        out = jax.jit(jax_model.predict)(jax.tree_util.tree_map(np.asarray, jax_model.fuse(tree)), jnp.asarray(x))
     else:
         PT.params_from_jax(model, PT.fuse(tree), model.compute_dtype)
         out = model.predict(torch.from_numpy(x).to(model.compute_dtype))
@@ -322,7 +322,7 @@ def test_family_tree_fuse_and_predict_match_jax(name, two_threads):
     rng = np.random.default_rng(1)
     x = rng.uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
     PT.params_from_jax(pm, pf)
-    w, g = jm.predict(jf, jnp.asarray(x)), pm.predict(torch.from_numpy(x))
+    w, g = jax.jit(jm.predict)(jf, jnp.asarray(x)), pm.predict(torch.from_numpy(x))
     if task == "segment":
         np.testing.assert_allclose(g[1].numpy(), np.asarray(w[1]), rtol=0, atol=1e-5)
         w, g = w[0], g[0]
@@ -490,8 +490,8 @@ def test_jax_merged_silu_fault_is_not_copied(two_threads):
                 bn["bias"] = rng.normal(0, 1, bn["bias"].shape).astype(np.float32)
         fused = jax.tree_util.tree_map(np.asarray, jm.fuse(tree))
         x = rng.uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
-        want = np.asarray(jm.predict(fused, jnp.asarray(x)))
-        jb, _ = jm.predict_parts(fused, jnp.asarray(x))
+        want = np.asarray(jax.jit(jm.predict)(fused, jnp.asarray(x)))
+        jb, _ = jax.jit(jm.predict_parts)(fused, jnp.asarray(x))
         gap = np.abs(np.asarray(jb) - want[:, :4].transpose(0, 2, 1)).max()
         assert (gap > 1.0) if faulty else (gap < 1e-3), (name, gap)
         PT.params_from_jax(pm, PT.fuse(tree))

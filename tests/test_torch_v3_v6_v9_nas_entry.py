@@ -38,7 +38,7 @@ from yolo_tpu_torch.utils.loss import v8DetectionLoss
 
 from tests.test_loss import _random_case
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 from tests.test_train import tiny_dataset  # noqa: F401 (a fixture)
 from tests.test_torch_yolo11_12 import _frames, _paired, _same_boxes, _tuned
 

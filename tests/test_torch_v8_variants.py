@@ -11,6 +11,8 @@ the largest; train-step losses 1e-4 relative, BN moments 1e-4 of their largest, 
 tensor's largest (at least 1e-6);
 FusedDetectTrack's tracks, ids and stats exact, floats 1e-3."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,7 @@ from yolo_tpu_torch.utils.loss import v8DetectionLoss
 
 from tests.test_loss import _random_case
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 VARIANTS = ["yolov8n-p6.yaml", "yolov8n-ghost.yaml", "yolov8n-ghost-p2.yaml", "yolov8n-ghost-p6.yaml", "yolov8n-seg-p6.yaml",
             "yolov8n-pose-p6.yaml", "yolov8n-cls-resnet50.yaml", "yolov8n-cls-resnet101.yaml", "yolov5n.yaml", "yolov5n-p6.yaml"]
@@ -86,7 +88,7 @@ def test_variant_tree_fuse_and_predict_match_jax(name, two_threads):
     size = 128 if max(pm.stride) == 64 else 64
     x = np.random.default_rng(1).uniform(0, 1, (1, size, size, 3)).astype(np.float32)
     PT.params_from_jax(pm, pf)
-    w, g = jm.predict(jp if task == "classify" else jf, jnp.asarray(x)), pm.predict(torch.from_numpy(x))
+    w, g = jax.jit(jm.predict)(jp if task == "classify" else jf, jnp.asarray(x)), pm.predict(torch.from_numpy(x))
     if task == "classify":
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
         return
@@ -151,6 +153,19 @@ def _load_train(module, tree):
                 t.copy_(torch.from_numpy(np.ascontiguousarray(a)).reshape(t.shape))  # a 0-d leaf (NAS alpha) comes back 1-d
 
 
+def _jax_forward(m, tree, arg, train: bool, dtype=jnp.float32):
+    """A JAX module's forward → (its output, a record of its Ctx with the BN batch moments `stats`). In f32 under one
+    jit: op by op, each primitive of the walk compiles on its own, which took most of the module tests' time, and XLA's
+    fusion keeps f32 results as they are. In bf16 op by op, as JAX's own modules run it: a fusion would skip the bf16
+    rounding between ops (RepNCSPELAN4's train form then lies 0.14 from the op-by-op one in one element of 23,296)."""
+    def run(tree, arg):
+        ctx = JM.Ctx(train=train, dtype=dtype)
+        return m(tree, arg, ctx), ctx.stats
+
+    out, stats = (jax.jit(run) if dtype == jnp.float32 else run)(tree, arg)
+    return out, SimpleNamespace(stats=stats)
+
+
 @pytest.mark.parametrize("form", ["train", "fused"])
 @pytest.mark.parametrize("case", MODULE_CASES, ids=[c[0] for c in MODULE_CASES])
 def test_variant_module_matches_jax(case, form, two_threads):
@@ -169,8 +184,8 @@ def test_variant_module_matches_jax(case, form, two_threads):
     tree = _random_bn(jax.tree_util.tree_map(np.asarray, tree), rng)
     x = rng.normal(0, 1, (2, 13, 14, cin)).astype(np.float32)
     if form == "train":
-        ctx = JM.Ctx(train=True)
-        want = np.asarray(jm(tree, jnp.asarray(x), ctx))
+        want, ctx = _jax_forward(jm, tree, jnp.asarray(x), True)
+        want = np.asarray(want)
         _load_train(pm, tree)
         pm.train()
         got = pm.forward_train(torch.from_numpy(x)).detach().numpy()
@@ -225,7 +240,7 @@ def test_variant_int8_predict_matches_jax(name, two_threads):
     PT.params_from_jax(pm, pq)
     assert pm.int8 and any(m.q is not None and m.g > 1 for m in pm.modules() if isinstance(m, PM.ConvBNAct)) == ("ghost" in name)
     x = np.random.default_rng(2).uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
-    w = np.asarray(jm.predict(jq, jnp.asarray(x)))
+    w = np.asarray(jax.jit(jm.predict)(jq, jnp.asarray(x)))
     g = pm.predict(torch.from_numpy(x), neck_opt=False).numpy()
     np.testing.assert_allclose(g, w, rtol=0, atol=1e-2 * np.abs(w).max())
 

@@ -20,7 +20,7 @@ from yolo_tpu_torch.engine import validator as PV
 
 from tests.conftest import ROOT
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 
 WEIGHTS = str(ROOT / "demos" / "artifacts" / "train" / "weights" / "best.npz")
 KEYS = ("precision", "recall", "mAP50", "mAP50-95", "fitness")

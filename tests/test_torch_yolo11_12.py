@@ -41,9 +41,9 @@ from yolo_tpu_torch.utils.loss import v8DetectionLoss
 
 from tests.test_loss import _random_case
 from tests.test_torch_grayscale import two_threads  # noqa: F401 (a fixture)
-from tests.test_torch_native_ref import jax_native_reference  # noqa: F401 (an autouse fixture: JAX's native letterbox, built whole)
+from tests.test_torch_native_ref import jax_native_reference, torch_threads  # noqa: F401 (autouse fixtures: JAX's native letterbox, built whole; two torch threads)
 from tests.test_torch_pose import _same_tree
-from tests.test_torch_v8_variants import _flat, _load_train, _random_bn
+from tests.test_torch_v8_variants import _flat, _jax_forward, _load_train, _random_bn
 from tests.test_train import tiny_dataset  # noqa: F401 (a fixture)
 
 FAMILIES = [f"yolo{v}n{t}.yaml" for v in (11, 12) for t in ("", "-seg", "-pose", "-obb", "-cls")]
@@ -94,9 +94,9 @@ def _run(m, tree, x, form):
     if isinstance(m, torch.nn.Module):
         out = m.forward_train(arg) if form == "train" else m(arg)
         return (out[0] if head else out).detach().numpy()
-    ctx = JM.Ctx(train=form == "train")
-    out = m(tree, jax.tree_util.tree_map(jnp.asarray, arg) if head else jnp.asarray(x), ctx)
+    out, ctx = _jax_forward(m, tree, jax.tree_util.tree_map(jnp.asarray, arg) if head else jnp.asarray(x), form == "train")
     return np.asarray(out[0] if head else out), ctx
+
 
 
 @pytest.mark.parametrize("form", ["train", "fused"])
@@ -170,7 +170,7 @@ def test_a2c2f_gamma_trains_as_in_jax(two_threads):
     def loss(gamma):
         return jnp.sum(jm({**tree, "gamma": gamma}, jnp.asarray(x), JM.Ctx(train=True)) * r)
 
-    want = np.asarray(jax.grad(loss)(jnp.asarray(tree["gamma"])))
+    want = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(tree["gamma"])))  # jitted: op by op, each primitive compiles alone
     _load_train(pm, tree)
     pm.train()
     assert set(pm.train_leaves()) == {"gamma"}
@@ -204,7 +204,7 @@ def test_family_tree_fuse_and_predict_match_jax(name, two_threads):
     assert task == "classify" or pm.head.legacy is jm.layers[-1].module.legacy is False
     x = np.random.default_rng(1).uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
     PT.params_from_jax(pm, pf)
-    w, g = jm.predict(jp if task == "classify" else jf, jnp.asarray(x)), pm.predict(torch.from_numpy(x))
+    w, g = jax.jit(jm.predict)(jp if task == "classify" else jf, jnp.asarray(x)), pm.predict(torch.from_numpy(x))
     if task == "classify":
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
         return

@@ -78,6 +78,22 @@
 // tiles run on the CUDA cores: cv1 from global memory, the convs through
 // common.cuh's conv_smem, cv2 as f32 partial sums per segment in shared
 // memory. PERF.md has every instance's time beside its bound and cuDNN's.
+// Wide and deep blocks (yolov8 s-x, yolov8-small m-x, yolov10 m-x: c up to 352,
+// n up to 10) fit no such tile: a bf16 tap of c x c outgrows a ring step, and
+// the two maps over the chain's halo 2n outgrow the 227 KB. Where no one-launch
+// tile fits, the plan (plan_for) splits the block into launches of the same
+// kernel (the general instantiation, SPLIT):
+// - passes: the first launch computes cv1 and bottlenecks [0, nb), each next one
+//   the following nb from the previous one's last map, over a halo of 2 nb only;
+//   each writes its concat segments (y_a, y_b, m_i) over its tile to a global
+//   buffer `cat`, (B, H, W, (2 + n) c8) with c8 = c padded to 8, and a last
+//   launch runs cv2 over `cat` as a staged 1x1 GEMM, as cv1 reads x;
+// - N chunks: where a ring step of whole slices does not fit, each GEMM computes
+//   `np` of its output channels at a time, so a ring slot holds np rows of a
+//   slice (np x (pad16(c) + 8)); the packed slices stay as they are, a step
+//   copies a row range of them.
+// Plans that fit without them are the ones they were (the general
+// instantiation is never weighed for them).
 #include "common.cuh"
 
 #include <map>
@@ -99,6 +115,9 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB: the most one block may ask for
 // step was never faster on the card and cost a step's shared memory (PERF.md has the sweep).
 constexpr int kRing = 2;
 
+// what a launch computes: the whole block, or one pass of a split plan
+enum Mode { kWhole = 0, kHead = 1, kMid = 2, kTail = 3 };
+
 struct C2fArgs {
   const void* x;      // plain: (B, H, W, c1); upconcat: skip (B, H, W, c1 - cs)
   const void* small;  // upconcat: (B, H/2, W/2, cs); plain: null
@@ -113,6 +132,11 @@ struct C2fArgs {
   int B, H, W, c1, cs, c, c2o, n, shortcut;
   int th, tw;  // output tile
   int grp;     // weight slices per step of the weight ring (bf16)
+  // the general instantiation (SPLIT) only:
+  void* cat;   // split plans: the concat segments (B, H, W, (2 + n) c8) between passes; null otherwise
+  int mode;    // kWhole; kHead: cv1 and bottlenecks [0, nb); kMid: bottlenecks [j0, j0 + nb); kTail: cv2 over cat
+  int j0, nb;  // the bottlenecks of a kHead / kMid pass
+  int np;      // bf16: output channels of a GEMM (its N chunk; pad16(c) without chunks)
 #ifdef YT_C2F_TRACE
   long long* trace;  // null, or kTraceStages x kTraceSlots cycle counts of block `trace_block`
   int trace_block;
@@ -162,27 +186,37 @@ __host__ __device__ inline int frame_px(int H, int W, int th, int tw, int R) {
   return imin(th + 2 * R, H + 2) * imin(tw + 2 * R, W + 2);
 }
 
-// shared memory of a bf16 block: map | (1 + n) tile segments | map | weight ring | the ring's barriers. The second
-// map's room also stages cv1's input, a round of pixels and a ring step's K chunks at a time.
+// the halo of a launch: the chain's 2n (whole block), its pass's 2 nb, none for cv2 alone
+__host__ __device__ inline int pass_halo(int mode, int n, int nb) { return mode == kTail ? 0 : 2 * (mode == kWhole ? n : nb); }
+
+// shared memory of a bf16 block: map | nseg tile segments | map | weight ring | the ring's barriers. The second
+// map's room also stages cv1's input, a round of pixels and a ring step's K chunks at a time. A whole block keeps
+// 1 + n segments over its tile (y_a, y_b, m_0 .. m_{n-2}), a pass of a split plan none; the ring holds kRing steps
+// of `grp` slices of np rows.
 struct MmaLayout {
   size_t map, seg, total;  // bytes
 };
-__host__ __device__ inline MmaLayout mma_layout(int H, int W, int th, int tw, int n, int c, int ring_slices) {
+__host__ __device__ inline MmaLayout mma_layout(int H, int W, int th, int tw, int R, int nseg, int c, int ring_slices, int np) {
   const int kp = pad16(c), ld = kp + 8;
   MmaLayout l;
-  l.map = size_t(frame_px(H, W, th, tw, 2 * n)) * ld * 2;
+  l.map = size_t(frame_px(H, W, th, tw, R)) * ld * 2;
   l.seg = size_t(th) * tw * ld * 2;
-  l.total = 2 * l.map + (1 + n) * l.seg + size_t(ring_slices) * kp * ld * 2 + kRing * sizeof(uint64_t);
+  l.total = 2 * l.map + nseg * l.seg + size_t(ring_slices) * np * ld * 2 + kRing * sizeof(uint64_t);
   return l;
 }
 
-// shared memory of an f32 block: two maps and the f32 cv2 accumulator over the tile
-__host__ __device__ inline size_t f32_map_bytes(int H, int W, int th, int tw, int n, int c) {
-  return (size_t(frame_px(H, W, th, tw, 2 * n)) * map_ld(c, false) * 4 + 15) & ~size_t(15);
+// shared memory of an f32 block: two maps, and in a whole block the f32 cv2 accumulator over the tile (a split
+// plan's last pass reads its concat from global memory and needs none)
+__host__ __device__ inline size_t f32_map_bytes(int H, int W, int th, int tw, int R, int c) {
+  return (size_t(frame_px(H, W, th, tw, R)) * map_ld(c, false) * 4 + 15) & ~size_t(15);
 }
-__host__ __device__ inline size_t f32_smem(int H, int W, int th, int tw, int n, int c, int c2o) {
-  return 2 * f32_map_bytes(H, W, th, tw, n, c) + size_t(th) * tw * (c2o | 1) * 4;
+__host__ __device__ inline size_t f32_smem(int H, int W, int th, int tw, int R, int c, int c2o, int mode) {
+  if (mode == kTail) return 0;
+  return 2 * f32_map_bytes(H, W, th, tw, R, c) + (mode == kWhole ? size_t(th) * tw * (c2o | 1) * 4 : 0);
 }
+
+// the channels of one pixel's concat in `cat`: 2 + n segments of c padded to 8 (16-byte copies stay aligned)
+__host__ __device__ inline int cat_ld(int c, int n) { return (2 + n) * ((c + 7) & ~7); }
 
 // A block's tile and frame. Frame coordinates are image coordinates minus (oy, ox).
 struct Rect {
@@ -190,8 +224,8 @@ struct Rect {
 };
 struct Geo {
   int b, y0, x0, oy, ox, FH, FW, th, tw, H, W;
-  __device__ Geo(const C2fArgs& a) {
-    const int R = 2 * a.n, tiles_x = (a.W + a.tw - 1) / a.tw, tiles = tiles_x * ((a.H + a.th - 1) / a.th);
+  __device__ Geo(const C2fArgs& a, int R) {
+    const int tiles_x = (a.W + a.tw - 1) / a.tw, tiles = tiles_x * ((a.H + a.th - 1) / a.th);
     const int t = blockIdx.x % tiles;
     b = blockIdx.x / tiles;
     th = a.th, tw = a.tw, H = a.H, W = a.W;
@@ -240,9 +274,24 @@ struct Ring {
   uint64_t* bar;  // one mbarrier per step: its phase completes when the step's slices have landed
   int* done;      // ring steps the block's GEMMs have taken so far: step number -> slot and phase parity
   int grp;
-  int sl;  // halves per slice: np * (kp + 8)
+  int sl;  // halves per slice in a slot: np * (kp + 8)
   int np, kp;
+  int gsl;   // halves between slices in global memory: kp * (kp + 8), the packed slices' own size
+  int rows;  // rows of a slice a step copies: np, or fewer in a conv's last N chunk
 };
+
+// one ring step of `cnt` slices of `rows` rows each, `gsl` halves apart in global memory and `sl` apart in the
+// slot: one expected byte count on the step's barrier, one bulk copy per slice
+__device__ __forceinline__ void bulk_copy_rows(bf16_t* dst, const bf16_t* src, int cnt, int sl, int gsl, uint32_t bytes,
+                                               uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes * cnt) : "memory");
+  for (int q = 0; q < cnt; ++q) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                     smem_u32(dst + size_t(q) * sl)),
+                 "l"(src + size_t(q) * gsl), "r"(bytes), "r"(smem_u32(bar))
+                 : "memory");
+  }
+}
 
 // One implicit GEMM of a block on the tensor cores: rows = `npx` pixels,
 // N = rg.np output channels, K = `nsl` slices of rg.kp. A warp item is
@@ -263,11 +312,12 @@ struct Ring {
 // operand is not in shared memory yet (cv1), `stg(p0, np, s0, cnt)` starts the
 // copies of pixels [p0, p0 + np), the ones a round's items cover, for slices
 // [s0, s0 + cnt) of a step, between two barriers of that step; InPlace says
-// there is nothing to stage.
+// there is nothing to stage. CH (the general instantiation) copies a step slice by slice, the rows of an N
+// chunk; otherwise a step is one copy of whole, adjacent slices.
 struct InPlace {
   __device__ void operator()(int, int, int, int) const {}
 };
-template <int MT, int NT, int KS, int NW, class Pix, class At, class Hnd, class Put, class Stg = InPlace>
+template <int MT, int NT, int KS, int NW, bool CH = false, class Pix, class At, class Hnd, class Put, class Stg = InPlace>
 __device__ __forceinline__ void gemm(Trace& tr, const Ring& rg, const bf16_t* __restrict__ wsl, int nsl, int npx,
                                      const float* __restrict__ bias, int nvalid, Pix pix, At at, Hnd hnd, Put put,
                                      Stg stg = Stg()) {
@@ -284,7 +334,12 @@ __device__ __forceinline__ void gemm(Trace& tr, const Ring& rg, const bf16_t* __
   auto load = [&](int g) {
     if (threadIdx.x == (NW - 1) * 32 && g < total) {  // the last warp is the first to be without an item
       const int s0 = (g % steps) * rg.grp, cnt = imin(rg.grp, nsl - s0), slot = (g0 + g) % kRing;
-      bulk_copy_g2s(rg.buf + size_t(slot) * rg.grp * rg.sl, wsl + size_t(s0) * rg.sl, uint32_t(cnt) * rg.sl * 2, rg.bar + slot);
+      if constexpr (CH) {
+        bulk_copy_rows(rg.buf + size_t(slot) * rg.grp * rg.sl, wsl + size_t(s0) * rg.gsl, cnt, rg.sl, rg.gsl,
+                       uint32_t(rg.rows) * kw8 * 2, rg.bar + slot);
+      } else {
+        bulk_copy_g2s(rg.buf + size_t(slot) * rg.grp * rg.sl, wsl + size_t(s0) * rg.sl, uint32_t(cnt) * rg.sl * 2, rg.bar + slot);
+      }
     }
   };
   tr.tick(kOther);
@@ -394,28 +449,41 @@ __device__ __forceinline__ void gemm(Trace& tr, const Ring& rg, const bf16_t* __
   tr.next();
 }
 
-template <int MT, int NT, int KS, int NW>
+// SPLIT: the general instantiation, which also runs N chunks (np < pad16(c)) and the passes of a split plan
+// (C2fArgs::mode); without it the launch is a whole block with np = pad16(c), the code of every plan that fits so.
+template <int MT, int NT, int KS, int NW, bool SPLIT = false>
 __global__ void __launch_bounds__(NW * 32) c2f_mma_kernel(C2fArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n = a.n, R = 2 * n, c = a.c, c2o = a.c2o, H = a.H, W = a.W;
+  const int n = a.n, c = a.c, c2o = a.c2o, H = a.H, W = a.W;
+  const int mode = SPLIT ? a.mode : kWhole;
+  const int j0 = SPLIT ? a.j0 : 0, nbk = SPLIT && mode != kWhole ? a.nb : n;  // this launch's bottlenecks
+  const int R = SPLIT ? pass_halo(mode, n, nbk) : 2 * n;
   const int kp = pad16(c), ld = kp + 8;
+  const int np = SPLIT ? a.np : kp;
   const int nk1 = (a.c1 + kp - 1) / kp;
-  const MmaLayout L = mma_layout(H, W, a.th, a.tw, n, c, kRing * a.grp);
+  const int nseg = mode == kWhole ? 1 + n : 0;
+  const MmaLayout L = mma_layout(H, W, a.th, a.tw, R, nseg, c, kRing * a.grp, np);
   bf16_t* buf0 = reinterpret_cast<bf16_t*>(smem);
-  bf16_t* segs = reinterpret_cast<bf16_t*>(smem + L.map);  // y_a, y_b, m_0 .. m_{n-2} over the tile
-  bf16_t* buf1 = reinterpret_cast<bf16_t*>(smem + L.map + (1 + n) * L.seg);
+  bf16_t* segs = reinterpret_cast<bf16_t*>(smem + L.map);  // whole block: y_a, y_b, m_0 .. m_{n-2} over the tile
+  bf16_t* buf1 = reinterpret_cast<bf16_t*>(smem + L.map + nseg * L.seg);
   const int segh = int(L.seg / 2);
-  unsigned char* ring = smem + 2 * L.map + (1 + n) * L.seg;
+  unsigned char* ring = smem + 2 * L.map + nseg * L.seg;
   int ring_steps = 0;
-  const Ring rg{reinterpret_cast<bf16_t*>(ring), reinterpret_cast<uint64_t*>(ring + size_t(kRing) * a.grp * kp * ld * 2),
-                &ring_steps, a.grp, kp * ld, kp, kp};
-  const size_t SL = size_t(rg.sl);
+  const Ring rg{reinterpret_cast<bf16_t*>(ring), reinterpret_cast<uint64_t*>(ring + size_t(kRing) * a.grp * np * ld * 2),
+                &ring_steps, a.grp, np * ld, np, kp, kp * ld, np};
+  const size_t SL = size_t(rg.gsl);
+  // the ring of N chunk q of a conv with `cout` outputs: the chunk's rows of each slice
+  auto chunk = [&](int q, int cout) {
+    Ring r = rg;
+    if (SPLIT) r.rows = r.np = imin(np, pad16(cout) - q * np);
+    return r;
+  };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kRing; ++s) mbar_init(rg.bar + s, 1);
     mbar_init_fence();
   }
 
-  const Geo g(a);
+  const Geo g(a, R);
   const int FW = g.FW, tY = g.y0 - g.oy, tX = g.x0 - g.ox;
   const Rect T = g.rect(0);
   // offset into a tile segment of frame pixel (fy, fx), or -1 outside the tile
@@ -423,70 +491,165 @@ __global__ void __launch_bounds__(NW * 32) c2f_mma_kernel(C2fArgs a) {
     const int ty = fy - tY, tx = fx - tX;
     return (ty >= 0 && ty < T.h && tx >= 0 && tx < T.w) ? (ty * T.w + tx) * ld : -1;
   };
+  // split plans: the concat in global memory, and the offset of frame pixel (fy, fx)'s concat there (-1 off the tile)
+  bf16_t* cat = static_cast<bf16_t*>(a.cat);
+  const int cld = cat_ld(c, n), c8 = (c + 7) & ~7;
+  auto cat_off = [&](int fy, int fx) -> long long {
+    const int ty = fy - tY, tx = fx - tX;
+    if (ty < 0 || ty >= T.h || tx < 0 || tx >= T.w) return -1;
+    return ((long long)(g.b * H + g.y0 + ty) * W + g.x0 + tx) * cld;
+  };
+  // 8 channels [k, k + 8) of a concat segment from global memory, of which those from c on read as zeros
+  auto seg8 = [&](bf16_t* dst, const bf16_t* src, int k) {
+    if (k + 8 <= c) {
+      cp_async16(dst, src);
+    } else if (k < c) {  // c % 8 == 4: half a copy
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      *reinterpret_cast<uint2*>(dst + 4) = make_uint2(0, 0);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  };
 
   Trace tr;
   tr.start(a);
   // padded channels and the one-pixel border must read as zeros
-  zero_smem(smem, L.map + (1 + n) * L.seg);
+  zero_smem(smem, L.map + nseg * L.seg);
+  if (SPLIT && mode == kMid) zero_smem(reinterpret_cast<unsigned char*>(buf1), L.map);
+
+  // ---- a 1x1 conv whose input is staged from global memory into buf1 (cv1; cv2 of a split plan's last pass):
+  // N chunk rq of slices w over `nsl` K chunks of kp, over rectangle rc; fetch(dst, iy, ix, ch) stages input
+  // channels [ch, ch + 8) of image pixel (iy, ix)
+  auto staged = [&](const Rect rc, const Ring& rq, const bf16_t* w, int nsl, const float* bias, int nvalid, auto hnd,
+                    auto put, auto fetch) {
+    const int npx = rc.h * rc.w;
+    const RowCol yx(rc.w);
+    Ring r1 = rq;  // as many K chunks to a step as the staged rows of a round leave room for
+    r1.grp = cv1_group(int(L.map / 2), kp, imin(rq.grp, nsl), round_px(npx, rq.np, MT, NT, NW));
+    const int rowh = r1.grp * kp + 8;
+    int cur_p0 = 0, cur_s0 = 0;
+    gemm<MT, NT, KS, NW, SPLIT>(
+        tr, r1, w, nsl, npx, bias, nvalid, [&](int p, int& o0, int& o1) { o0 = p, o1 = 0; },
+        [&](int s, int o0, int) { return buf1 + (o0 - cur_p0) * rowh + (s - cur_s0) * kp; }, hnd, put,
+        [&](int p0, int np_, int s0, int cnt) {
+          cur_p0 = p0, cur_s0 = s0;
+          const int q8 = cnt * kp / 8;
+          for (int i = threadIdx.x; i < np_ * q8; i += NW * 32) {
+            const int r = i / q8, k = (i - r * q8) * 8;
+            int iy, ix;
+            yx(p0 + r, iy, ix);
+            fetch(buf1 + r * rowh + k, iy + g.oy + rc.y, ix + g.ox + rc.x, s0 * kp + k);
+          }
+        });
+  };
+
+  bf16_t* out = static_cast<bf16_t*>(a.out);
+  const RowCol yxT(T.w);
+  // the output offset of tile pixel p
+  auto out_off = [&](int p) {
+    int ty, tx;
+    yxT(p, ty, tx);
+    return ((size_t(g.b) * H + g.y0 + ty) * W + g.x0 + tx) * c2o;
+  };
+  if (SPLIT && mode == kTail) {  // ---- cv2 over the concat in global memory; K walks its segments
+    const bf16_t* cin = cat;
+    for (int oh = 0; oh * kp < c2o; ++oh) {
+      for (int q = 0; q * np < imin(kp, c2o - oh * kp); ++q) {
+        const int ob = oh * kp + q * np;
+        staged(T, chunk(q, imin(kp, c2o - oh * kp)), a.wp + size_t(2 * nk1 + 2 * n * 9 + oh * (2 + n)) * SL + size_t(q) * np * ld,
+               2 + n, a.b2 + ob, imin(np, c2o - ob), out_off, [&](size_t off, int oc, bf16x2_t y) { pair_at(out + off + ob + oc) = y; },
+               [&](bf16_t* dst, int iy, int ix, int ch) {
+                 const int s = ch / kp, k = ch - s * kp;
+                 seg8(dst, cin + ((size_t(g.b) * H + iy) * W + ix) * cld + s * c8 + k, k);
+               });
+      }
+    }
+    return;
+  }
 
   // ---- cv1: one half (0: y_a, 1: y_b) over a rectangle, input staged in buf1
   const bf16_t* x = static_cast<const bf16_t*>(a.x);
   const bf16_t* small = static_cast<const bf16_t*>(a.small);
   const int cs = a.cs, ck = a.c1 - a.cs;
-  auto cv1 = [&](const Rect rc, int half, auto hnd, auto put) {
-    const int npx = rc.h * rc.w;
-    const RowCol yx(rc.w);
-    Ring r1 = rg;  // as many K chunks to a step as the staged rows of a round leave room for
-    r1.grp = cv1_group(int(L.map / 2), kp, imin(rg.grp, nk1), round_px(npx, kp, MT, NT, NW));
-    const int rowh = r1.grp * kp + 8;
-    int cur_p0 = 0, cur_s0 = 0;
-    gemm<MT, NT, KS, NW>(
-        tr, r1, a.wp + size_t(half * nk1) * SL, nk1, npx, a.b1 + half * c, c, [&](int p, int& o0, int& o1) { o0 = p, o1 = 0; },
-        [&](int s, int o0, int) { return buf1 + (o0 - cur_p0) * rowh + (s - cur_s0) * kp; }, hnd, put,
-        [&](int p0, int np, int s0, int cnt) {
-          cur_p0 = p0, cur_s0 = s0;
-          const int q8 = cnt * kp / 8;
-          for (int i = threadIdx.x; i < np * q8; i += NW * 32) {
-            const int r = i / q8, k = (i - r * q8) * 8, ch = s0 * kp + k;
-            int iy, ix;
-            yx(p0 + r, iy, ix);
-            iy += g.oy + rc.y, ix += g.ox + rc.x;
-            bf16_t* dst = buf1 + r * rowh + k;
-            if (ch < cs) {
-              cp_async16(dst, small + ((size_t(g.b) * (H / 2) + iy / 2) * (W / 2) + ix / 2) * cs + ch);
-            } else if (ch < a.c1) {
-              cp_async16(dst, x + ((size_t(g.b) * H + iy) * W + ix) * ck + (ch - cs));
-            } else {
-              *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-            }
-          }
-        });
+  auto fetch_x = [&](bf16_t* dst, int iy, int ix, int ch) {
+    if (ch < cs) {
+      cp_async16(dst, small + ((size_t(g.b) * (H / 2) + iy / 2) * (W / 2) + ix / 2) * cs + ch);
+    } else if (ch < a.c1) {
+      cp_async16(dst, x + ((size_t(g.b) * H + iy) * W + ix) * ck + (ch - cs));
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
   };
-  // y_a over the tile: only cv2 reads it
-  cv1(
-      T, 0, [&](int p) { return p * ld; }, [&](int off, int oc, bf16x2_t y) { pair_at(segs + off + oc) = y; });
-  {  // y_b over the whole frame: the bottleneck chain's input
-    const Rect rb = g.rect(R);
-    const RowCol yx(rb.w);
-    cv1(
-        rb, 1,
-        [&](int p) {
-          int fy, fx;
-          yx(p, fy, fx);
-          fy += rb.y, fx += rb.x;
-          return make_int2((fy * FW + fx) * ld, tile_off(fy, fx));
-        },
-        [&](int2 off, int oc, bf16x2_t y) {
-          pair_at(buf0 + off.x + oc) = y;
-          if (off.y >= 0) pair_at(segs + segh + off.y + oc) = y;
-        });
+  const int nq = SPLIT ? cdiv(c, np) : 1;  // N chunks of a conv with c outputs
+  const Rect rb = g.rect(R);
+  const RowCol yxb(rb.w);
+  if (mode == kWhole) {
+    for (int q = 0; q < nq; ++q) {
+      const int ob = q * np;
+      // y_a over the tile: only cv2 reads it
+      staged(T, chunk(q, c), a.wp + size_t(q) * np * ld, nk1, a.b1 + ob, imin(np, c - ob), [&](int p) { return p * ld; },
+             [&](int off, int oc, bf16x2_t y) { pair_at(segs + off + ob + oc) = y; }, fetch_x);
+      // y_b over the whole frame: the bottleneck chain's input
+      staged(
+          rb, chunk(q, c), a.wp + size_t(nk1) * SL + size_t(q) * np * ld, nk1, a.b1 + c + ob, imin(np, c - ob),
+          [&](int p) {
+            int fy, fx;
+            yxb(p, fy, fx);
+            fy += rb.y, fx += rb.x;
+            return make_int2((fy * FW + fx) * ld, tile_off(fy, fx));
+          },
+          [&](int2 off, int oc, bf16x2_t y) {
+            pair_at(buf0 + off.x + ob + oc) = y;
+            if (off.y >= 0) pair_at(segs + segh + off.y + ob + oc) = y;
+          },
+          fetch_x);
+    }
+  } else if (SPLIT && mode == kHead) {
+    for (int q = 0; q < nq; ++q) {
+      const int ob = q * np;
+      staged(
+          T, chunk(q, c), a.wp + size_t(q) * np * ld, nk1, a.b1 + ob, imin(np, c - ob),
+          [&](int p) {
+            int ty, tx;
+            yxT(p, ty, tx);
+            return cat_off(tY + ty, tX + tx);
+          },
+          [&](long long off, int oc, bf16x2_t y) { pair_at(cat + off + ob + oc) = y; }, fetch_x);
+      staged(
+          rb, chunk(q, c), a.wp + size_t(nk1) * SL + size_t(q) * np * ld, nk1, a.b1 + c + ob, imin(np, c - ob),
+          [&](int p) {
+            int fy, fx;
+            yxb(p, fy, fx);
+            fy += rb.y, fx += rb.x;
+            return make_longlong2((fy * FW + fx) * ld, cat_off(fy, fx));
+          },
+          [&](longlong2 off, int oc, bf16x2_t y) {
+            pair_at(buf0 + off.x + ob + oc) = y;
+            if (off.y >= 0) pair_at(cat + off.y + c8 + ob + oc) = y;
+          },
+          fetch_x);
+    }
+  } else if (SPLIT) {  // kMid: the chain's input, the last map of the pass before, over the frame
+    __syncthreads();  // the maps are zero before the copies land
+    for (int i = threadIdx.x; i < rb.h * rb.w * (c8 / 8); i += NW * 32) {
+      const int p = i / (c8 / 8), k = (i - p * (c8 / 8)) * 8;
+      int fy, fx;
+      yxb(p, fy, fx);
+      fy += rb.y, fx += rb.x;
+      seg8(buf0 + (fy * FW + fx) * ld + k, cat + ((size_t(g.b) * H + g.oy + fy) * W + g.ox + fx) * cld + (1 + j0) * c8 + k, k);
+    }
+    cp_async_commit();
+    cp_async_wait(0);
   }
-  __syncthreads();
-  zero_smem(reinterpret_cast<unsigned char*>(buf1), L.map);  // it held the staged input
+  if (mode != kMid) {
+    __syncthreads();
+    zero_smem(reinterpret_cast<unsigned char*>(buf1), L.map);  // it held the staged input
+  }
 
   // ---- the bottleneck chain: buf0 -> buf1 -> buf0 (in place: an element reads only its own residual)
-  for (int i = 0; i < n; ++i) {
-    const Rect r1 = g.rect(R - 2 * i - 1), r2 = g.rect(R - 2 * i - 2);
+  for (int i = j0; i < j0 + nbk; ++i) {
+    const int k = i - j0;
+    const Rect r1 = g.rect(R - 2 * k - 1), r2 = g.rect(R - 2 * k - 2);
     const float* b_1 = a.bm + (2 * i) * c;
     const float* b_2 = a.bm + (2 * i + 1) * c;
     const bf16_t* w_1 = a.wp + size_t(2 * nk1 + (2 * i) * 9) * SL;
@@ -500,65 +663,129 @@ __global__ void __launch_bounds__(NW * 32) c2f_mma_kernel(C2fArgs a) {
       return ((rc.y + fy) * FW + rc.x + fx) * ld;
     };
     const RowCol yx1(r1.w), yx2(r2.w);
-    gemm<MT, NT, KS, NW>(
-        tr, rg, w_1, 9, r1.h * r1.w, b_1, c, [&](int p, int& o0, int& o1) { o0 = map_off(r1, yx1, p), o1 = 0; }, tap(buf0),
-        [&](int p) { return map_off(r1, yx1, p); }, [&](int off, int oc, bf16x2_t y) { pair_at(buf1 + off + oc) = y; });
-    bf16_t* keep = i < n - 1 ? segs + (2 + i) * segh : nullptr;  // the last m is read from buf0 itself
-    gemm<MT, NT, KS, NW>(
-        tr, rg, w_1 + 9 * SL, 9, r2.h * r2.w, b_2, c, [&](int p, int& o0, int& o1) { o0 = map_off(r2, yx2, p), o1 = 0; },
-        tap(buf1),
-        [&](int p) {
-          int fy, fx;
-          yx2(p, fy, fx);
-          fy += r2.y, fx += r2.x;
-          return make_int2((fy * FW + fx) * ld, keep ? tile_off(fy, fx) : -1);
-        },
-        [&](int2 off, int oc, bf16x2_t y) {
-          bf16x2_t& d = pair_at(buf0 + off.x + oc);
-          if (a.shortcut) y = __hadd2_rn(y, d);
-          d = y;
-          if (off.y >= 0) pair_at(keep + off.y + oc) = y;
-        });
+    for (int q = 0; q < nq; ++q) {
+      const int ob = q * np;
+      gemm<MT, NT, KS, NW, SPLIT>(
+          tr, chunk(q, c), w_1 + size_t(q) * np * ld, 9, r1.h * r1.w, b_1 + ob, imin(np, c - ob),
+          [&](int p, int& o0, int& o1) { o0 = map_off(r1, yx1, p), o1 = 0; }, tap(buf0), [&](int p) { return map_off(r1, yx1, p); },
+          [&](int off, int oc, bf16x2_t y) { pair_at(buf1 + off + ob + oc) = y; });
+    }
+    for (int q = 0; q < nq; ++q) {
+      const int ob = q * np;
+      if (mode == kWhole) {
+        bf16_t* keep = i < n - 1 ? segs + (2 + i) * segh : nullptr;  // the last m is read from buf0 itself
+        gemm<MT, NT, KS, NW, SPLIT>(
+            tr, chunk(q, c), w_1 + 9 * SL + size_t(q) * np * ld, 9, r2.h * r2.w, b_2 + ob, imin(np, c - ob),
+            [&](int p, int& o0, int& o1) { o0 = map_off(r2, yx2, p), o1 = 0; }, tap(buf1),
+            [&](int p) {
+              int fy, fx;
+              yx2(p, fy, fx);
+              fy += r2.y, fx += r2.x;
+              return make_int2((fy * FW + fx) * ld, keep ? tile_off(fy, fx) : -1);
+            },
+            [&](int2 off, int oc, bf16x2_t y) {
+              bf16x2_t& d = pair_at(buf0 + off.x + ob + oc);
+              if (a.shortcut) y = __hadd2_rn(y, d);
+              d = y;
+              if (off.y >= 0) pair_at(keep + off.y + ob + oc) = y;
+            });
+      } else if (SPLIT) {  // every m of a pass goes to the concat: cv2 and the next pass read it there
+        bf16_t* keep = cat + (2 + i) * c8;
+        gemm<MT, NT, KS, NW, SPLIT>(
+            tr, chunk(q, c), w_1 + 9 * SL + size_t(q) * np * ld, 9, r2.h * r2.w, b_2 + ob, imin(np, c - ob),
+            [&](int p, int& o0, int& o1) { o0 = map_off(r2, yx2, p), o1 = 0; }, tap(buf1),
+            [&](int p) {
+              int fy, fx;
+              yx2(p, fy, fx);
+              fy += r2.y, fx += r2.x;
+              return make_longlong2((fy * FW + fx) * ld, cat_off(fy, fx));
+            },
+            [&](longlong2 off, int oc, bf16x2_t y) {
+              bf16x2_t& d = pair_at(buf0 + off.x + ob + oc);
+              if (a.shortcut) y = __hadd2_rn(y, d);
+              d = y;
+              if (off.y >= 0) pair_at(keep + off.y + ob + oc) = y;
+            });
+      }
+    }
   }
+  if (mode != kWhole) return;
 
-  // ---- cv2 over the concat, one GEMM per chunk of kp output channels; K walks the segments
-  bf16_t* out = static_cast<bf16_t*>(a.out);
+  // ---- cv2 over the concat, one GEMM per chunk of kp output channels (and N chunk of it); K walks the segments
   const bf16_t* w_2 = a.wp + size_t(2 * nk1 + 2 * n * 9) * SL;
-  const RowCol yxT(T.w);
   for (int oh = 0; oh * kp < c2o; ++oh) {
-    gemm<MT, NT, KS, NW>(
-        tr, rg, w_2 + size_t(oh * (2 + n)) * SL, 2 + n, T.h * T.w, a.b2 + oh * kp, c2o - oh * kp,
-        [&](int p, int& o0, int& o1) {
-          int ty, tx;
-          yxT(p, ty, tx);
-          o0 = p * ld, o1 = ((tY + ty) * FW + tX + tx) * ld;
-        },
-        [&](int s, int o0, int o1) { return s < 1 + n ? segs + s * segh + o0 : buf0 + o1; },
-        [&](int p) {
-          int ty, tx;
-          yxT(p, ty, tx);
-          return ((size_t(g.b) * H + g.y0 + ty) * W + g.x0 + tx) * c2o + oh * kp;
-        },
-        [&](size_t off, int oc, bf16x2_t y) { pair_at(out + off + oc) = y; });
+    for (int q = 0; q < (SPLIT ? cdiv(imin(kp, c2o - oh * kp), np) : 1); ++q) {
+      const int ob = oh * kp + q * np;
+      gemm<MT, NT, KS, NW, SPLIT>(
+          tr, chunk(q, imin(kp, c2o - oh * kp)), w_2 + size_t(oh * (2 + n)) * SL + size_t(q) * np * ld, 2 + n, T.h * T.w,
+          a.b2 + ob, SPLIT ? imin(np, c2o - ob) : c2o - ob,
+          [&](int p, int& o0, int& o1) {
+            int ty, tx;
+            yxT(p, ty, tx);
+            o0 = p * ld, o1 = ((tY + ty) * FW + tX + tx) * ld;
+          },
+          [&](int s, int o0, int o1) { return s < 1 + n ? segs + s * segh + o0 : buf0 + o1; }, out_off,
+          [&](size_t off, int oc, bf16x2_t y) { pair_at(out + off + ob + oc) = y; });
+    }
   }
 }
+
 
 // ----------------------------------------------------------------- f32 ----
 
 // two blocks to an SM where the maps allow it: the 128 registers this leaves a thread let the
 // compiler keep more weight loads in flight than it does when left to choose
-template <int OCB>
+// SPLIT: the general instantiation, which also runs the passes of a split plan (C2fArgs::mode)
+template <int OCB, bool SPLIT = false>
 __global__ void __launch_bounds__(kThreads, 2) c2f_f32_kernel(C2fArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n = a.n, R = 2 * n, c = a.c, c2o = a.c2o, H = a.H, W = a.W, tw = a.tw;
+  const int n = a.n, c = a.c, c2o = a.c2o, H = a.H, W = a.W, tw = a.tw;
+  const int mode = SPLIT ? a.mode : kWhole;
+  const int j0 = SPLIT ? a.j0 : 0, nbk = SPLIT && mode != kWhole ? a.nb : n;  // this launch's bottlenecks
+  const int R = SPLIT ? pass_halo(mode, n, nbk) : 2 * n;
   const int ld = map_ld(c, false), ld2 = c2o | 1;
-  const size_t map_bytes = f32_map_bytes(H, W, a.th, tw, n, c);
+  const size_t map_bytes = f32_map_bytes(H, W, a.th, tw, R, c);
   float* buf0 = reinterpret_cast<float*>(smem);
   float* buf1 = reinterpret_cast<float*>(smem + map_bytes);
   float* acc2 = reinterpret_cast<float*>(smem + 2 * map_bytes);
-  const Geo g(a);
+  const Geo g(a, R);
   const int FW = g.FW, tY = g.y0 - g.oy, tX = g.x0 - g.ox;
   const Rect T = g.rect(0);
+  float* cat = static_cast<float*>(a.cat);
+  const int cld = cat_ld(c, n), c8 = (c + 7) & ~7;
+  float* out = static_cast<float*>(a.out);
+  if (SPLIT && mode == kTail) {  // cv2 over the concat in global memory: OCB output channels of a tile pixel a thread
+    const int npx = T.h * T.w;
+    for (int it = threadIdx.x; it < npx * (c2o / OCB); it += kThreads) {
+      const int gr = it / npx, p = it - gr * npx;
+      const int iy = g.y0 + p / T.w, ix = g.x0 + p % T.w;
+      const int oc0 = gr * OCB;
+      const float* cp = cat + ((size_t(g.b) * H + iy) * W + ix) * cld;
+      float acc[OCB];
+#pragma unroll
+      for (int o = 0; o < OCB; ++o) acc[o] = 0.f;
+      for (int sg = 0; sg < 2 + n; ++sg) {
+        for (int ci = 0; ci < c; ++ci) {
+          const float v = cp[sg * c8 + ci];
+          float wv[OCB];
+          load_w<OCB>(a.w2 + size_t(sg * c + ci) * c2o + oc0, wv);
+#pragma unroll
+          for (int o = 0; o < OCB; ++o) acc[o] = fmaf(v, wv[o], acc[o]);
+        }
+      }
+      float* d = out + ((size_t(g.b) * H + iy) * W + ix) * c2o + oc0;
+#pragma unroll
+      for (int o = 0; o < OCB; ++o) d[o] = silu<false>(bias_add<false>(acc[o], __ldg(a.b2 + oc0 + o)));
+    }
+    return;
+  }
+  // a split plan's pass: a map's tile into concat segment `seg`
+  auto store_seg = [&](const float* src, int seg) {
+    for (int i = threadIdx.x; i < T.h * T.w * c; i += kThreads) {
+      const int p = i / c, ch = i - p * c, ty = p / T.w, tx = p - ty * T.w;
+      cat[((size_t(g.b) * H + g.y0 + ty) * W + g.x0 + tx) * cld + seg * c8 + ch] = src[((T.y + ty) * FW + T.x + tx) * ld + ch];
+    }
+  };
   // frame pixels outside the image are never written: they read as the convs' zero padding
   for (int i = threadIdx.x; i < g.FH * FW; i += kThreads) {
     const int iy = g.oy + i / FW, ix = g.ox + i % FW;
@@ -617,14 +844,28 @@ __global__ void __launch_bounds__(kThreads, 2) c2f_f32_kernel(C2fArgs a) {
                            });
   };
 
-  cv1(1, buf0, g.rect(R));  // y_b over the whole frame: the bottleneck chain's input
-  cv1(0, buf1, T);          // y_a over the tile: only cv2 reads it
-  __syncthreads();
-  cv2_acc(buf1, 0, true);
-  cv2_acc(buf0, 1, false);
+  if (mode == kWhole || mode == kHead) {
+    cv1(1, buf0, g.rect(R));  // y_b over the whole frame: the bottleneck chain's input
+    cv1(0, buf1, T);          // y_a over the tile: only cv2 reads it
+    __syncthreads();
+    if (mode == kWhole) {
+      cv2_acc(buf1, 0, true);
+      cv2_acc(buf0, 1, false);
+    } else {
+      store_seg(buf1, 0);
+      store_seg(buf0, 1);
+    }
+  } else if (SPLIT) {  // kMid: the chain's input, the last map of the pass before, over the frame
+    const Rect rb = g.rect(R);
+    for (int i = threadIdx.x; i < rb.h * rb.w * c; i += kThreads) {
+      const int p = i / c, ch = i - p * c, fy = rb.y + p / rb.w, fx = rb.x + p % rb.w;
+      buf0[(fy * FW + fx) * ld + ch] = cat[((size_t(g.b) * H + g.oy + fy) * W + g.ox + fx) * cld + (1 + j0) * c8 + ch];
+    }
+  }
 
-  for (int i = 0; i < n; ++i) {
-    const Rect r1 = g.rect(R - 2 * i - 1), r2 = g.rect(R - 2 * i - 2);
+  for (int i = j0; i < j0 + nbk; ++i) {
+    const int k = i - j0;
+    const Rect r1 = g.rect(R - 2 * k - 1), r2 = g.rect(R - 2 * k - 2);
     const float* b_1 = a.bm + (2 * i) * c;
     const float* b_2 = a.bm + (2 * i + 1) * c;
     const float* w_1 = a.wm + size_t(2 * i) * 9 * c * c;
@@ -648,12 +889,16 @@ __global__ void __launch_bounds__(kThreads, 2) c2f_f32_kernel(C2fArgs a) {
                                }
                              });
     __syncthreads();
-    cv2_acc(buf0, 2 + i, false);
+    if (mode == kWhole) {
+      cv2_acc(buf0, 2 + i, false);
+    } else {
+      store_seg(buf0, 2 + i);
+    }
   }
+  if (mode != kWhole) return;
   __syncthreads();
 
   // ---- cv2 epilogue: consecutive threads write consecutive channels of a pixel
-  float* out = static_cast<float*>(a.out);
   for (int idx = threadIdx.x; idx < T.h * T.w * c2o; idx += kThreads) {
     const int p = idx / c2o, o = idx - p * c2o;
     const int ty = p / T.w, tx = p - ty * T.w;
@@ -666,14 +911,19 @@ __global__ void __launch_bounds__(kThreads, 2) c2f_f32_kernel(C2fArgs a) {
 
 using Kernel = void (*)(C2fArgs);
 
-// which instantiation serves an instance, and the rows of its warp item
+// which instantiation serves an instance, and the rows of its warp item; `general` is the one that also runs N
+// chunks and split passes (SPLIT), which only plans that fit no other tile take
 struct Variant {
   Kernel kern;
   int mt, nt;  // bf16: item = 16 mt pixels x 8 nt channels; f32: nt = output channels per thread
   int threads;
 };
-Variant variant_of(int c, bool bf16) {
-  if (!bf16) return c % 8 ? Variant{c2f_f32_kernel<4>, 0, 4, kThreads} : Variant{c2f_f32_kernel<8>, 0, 8, kThreads};
+Variant variant_of(int c, bool bf16, bool general = false) {
+  if (!bf16) {
+    if (general) return c % 8 ? Variant{c2f_f32_kernel<4, true>, 0, 4, kThreads} : Variant{c2f_f32_kernel<8, true>, 0, 8, kThreads};
+    return c % 8 ? Variant{c2f_f32_kernel<4>, 0, 4, kThreads} : Variant{c2f_f32_kernel<8>, 0, 8, kThreads};
+  }
+  if (general) return {c2f_mma_kernel<2, 6, 0, kMmaWarps, true>, 2, 6, 32 * kMmaWarps};
   switch (pad16(c)) {
     case 16: return {c2f_mma_kernel<4, 2, 1, kMmaWarps>, 4, 2, 32 * kMmaWarps};
     case 32: return {c2f_mma_kernel<2, 4, 2, kMmaWarps>, 2, 4, 32 * kMmaWarps};
@@ -683,9 +933,19 @@ Variant variant_of(int c, bool bf16) {
   }
 }
 
-struct Plan {
-  int th = 0, tw = 0, grp = 0, blocks = 0, per_sm = 0;
+// One launch of an instance: mode kWhole (the whole block), kHead (the chain passes of a split plan, nb bottlenecks
+// each: the time of all of them, the shared bytes of the largest) or kTail (its last launch, cv2 over the concat);
+// its tile, slices per ring step and N chunk (bf16), and what the plan works out for it.
+struct Launch {
+  int mode = kWhole, th = 0, tw = 0, grp = 0, np = 0, nb = 0;
+  int blocks = 0, per_sm = 0;
   size_t smem = 0;
+};
+
+struct Plan {
+  Launch main;  // the whole block, or a split plan's chain passes
+  Launch tail;  // a split plan's cv2 launch (mode kTail); unused otherwise
+  bool split() const { return main.mode == kHead; }  // the general instantiation's plan
 };
 
 // registers of a kernel and the card's SM count, asked once
@@ -725,74 +985,144 @@ struct Instance {
   bool bf16;
 };
 
-// One candidate (tile, ring) of an instance: its launch shape and modelled time, or false if its
-// block does not fit. A stage costs its rounds of warp items (bf16: tensor-core steps per item plus
-// a barrier per ring step; f32: fmaf per thread); a block costs its stages on the
-// worst-placed (interior) tile; the launch costs the waves of blocks over the SMs.
-bool candidate(const Instance& s, const Variant& v, int regs, int sms, const Model& m, Plan* p, double* cost) {
-  const int H = s.H, W = s.W, n = s.n, c = s.c, th = p->th, tw = p->tw;
+// Whether launch `L` of an instance fits, and its modelled time. A stage costs its rounds of warp items (bf16:
+// tensor-core steps per item plus a barrier per ring step, once per N chunk; f32: fmaf per thread); a block costs
+// its stages on the worst-placed (interior) tile; the launch costs the waves of blocks over the SMs.
+bool launch_cost(const Instance& s, const Variant& v, int regs, int sms, const Model& m, Launch* L, double* cost) {
+  const int H = s.H, W = s.W, n = s.n, c = s.c, th = L->th, tw = L->tw;
   if (th < 1 || tw < 1 || th > H || tw > W) return false;
-  if (s.bf16 && p->grp < 1) return false;
-  const int R = 2 * n, kp = pad16(c), nk1 = cdiv(s.c1, kp), warps = v.threads / 32;
+  if (s.bf16 && L->grp < 1) return false;
+  const int kp = pad16(c), nk1 = cdiv(s.c1, kp), warps = v.threads / 32;
+  const int np = s.bf16 ? L->np : kp, R = pass_halo(L->mode, n, L->nb);
   size_t map_halves = 0;
   if (s.bf16) {
-    const MmaLayout l = mma_layout(H, W, th, tw, n, c, kRing * p->grp);
-    p->smem = l.total, map_halves = l.map / 2;
+    const MmaLayout l = mma_layout(H, W, th, tw, R, L->mode == kWhole ? 1 + n : 0, c, kRing * L->grp, np);
+    L->smem = l.total, map_halves = l.map / 2;
   } else {
-    p->grp = 0;
-    p->smem = f32_smem(H, W, th, tw, n, c, s.c2o);
+    L->grp = 0;
+    L->smem = f32_smem(H, W, th, tw, R, c, s.c2o, L->mode);
   }
-  if (p->smem > kMaxSmem) return false;
+  if (L->smem > kMaxSmem) return false;
   // px pixels through nsl slices (bf16) or a K of nsl * c (f32), N output channels
   auto stage = [&](int px, int nsl, int N, bool staged = false) {
     if (s.bf16) {
-      const int nchunks = cdiv(kp, 8 * v.nt), mt = item_mtiles(px, nchunks, v.mt, warps);
+      const int nchunks = cdiv(np, 8 * v.nt), mt = item_mtiles(px, nchunks, v.mt, warps);
       const int items = cdiv(px, 16 * mt) * nchunks;
-      const int grp = staged ? cv1_group(int(map_halves), kp, imin(p->grp, nsl), round_px(px, kp, v.mt, v.nt, warps)) : p->grp;
+      const int grp = staged ? cv1_group(int(map_halves), kp, imin(L->grp, nsl), round_px(px, np, v.mt, v.nt, warps)) : L->grp;
       return cdiv(items, warps) * (nsl * (kp / 16 * mt * v.nt) + cdiv(nsl, grp) * m.barrier);
     }
     return cdiv(px * (N / v.nt), kThreads) * double(nsl) * c * v.nt;
   };
   auto rect_px = [&](int halo) { return imin(th + 2 * halo, H) * imin(tw + 2 * halo, W); };
+  const int nq = s.bf16 ? cdiv(c, np) : 1, nq2 = s.bf16 ? cdiv(kp, np) : 1;  // N chunks of a conv, of a cv2 chunk
   double t = 0.0;
-  if (s.bf16) {
-    t += stage(rect_px(R), nk1, c, true) + stage(th * tw, nk1, c, true);
-    t += cdiv(s.c2o, kp) * stage(th * tw, 2 + n, c);
+  if (L->mode == kTail) {
+    t = s.bf16 ? cdiv(s.c2o, kp) * nq2 * stage(th * tw, 2 + n, kp, true) : (2 + n) * stage(th * tw, 1, s.c2o);
   } else {
-    t += (stage(rect_px(R), 1, c) + stage(th * tw, 1, c)) * s.c1 / c + (2 + n) * stage(th * tw, 1, s.c2o);
+    if (s.bf16) {
+      t += nq * (stage(rect_px(R), nk1, c, true) + stage(th * tw, nk1, c, true));
+      if (L->mode == kWhole) t += cdiv(s.c2o, kp) * nq2 * stage(th * tw, 2 + n, c);
+    } else {
+      t += (stage(rect_px(R), 1, c) + stage(th * tw, 1, c)) * s.c1 / c;
+      if (L->mode == kWhole) t += (2 + n) * stage(th * tw, 1, s.c2o);
+    }
+    if (L->mode == kWhole) {
+      for (int k = 0; k < 2 * n; ++k) t += nq * stage(rect_px(R - 1 - k), 9, c);
+    } else {  // every pass of the chain, the last one over the bottlenecks left
+      for (int j0 = 0; j0 < n; j0 += L->nb) {
+        const int Rp = 2 * imin(L->nb, n - j0);
+        for (int k = 0; k < Rp; ++k) t += nq * stage(rect_px(Rp - 1 - k), 9, c);
+      }
+    }
   }
-  for (int k = 0; k < 2 * n; ++k) t += stage(rect_px(R - 1 - k), 9, c);
   const int by_regs = imax(1, 65536 / (imax(regs, 1) * v.threads));
-  p->blocks = s.B * cdiv(H, th) * cdiv(W, tw);
-  p->per_sm = imax(1, imin(2, imin(by_regs, int((kMaxSmem + 1024) / (p->smem + 1024)))));
-  *cost = t * cdiv(p->blocks, sms * p->per_sm) * (p->per_sm == 2 && p->blocks > sms ? m.shared : 1.0);
+  L->blocks = s.B * cdiv(H, th) * cdiv(W, tw);
+  L->per_sm = imax(1, imin(2, imin(by_regs, int((kMaxSmem + 1024) / (L->smem + 1024)))));
+  *cost = t * cdiv(L->blocks, sms * L->per_sm) * (L->per_sm == 2 && L->blocks > sms ? m.shared : 1.0);
   return true;
 }
 
-// every candidate the plan weighs, in order (the first stays on a tie): f(plan, modelled time)
+const int kTileRows[] = {0, 64, 32, 16, 8, 4, 2, 1};  // 0: the map's height
+const int kGroups[] = {9, 3, 1};                      // bf16: weight slices per ring step
+
+// the tile widths the plan weighs for a map W wide
+template <class F>
+void each_tile(const Instance& s, F f) {
+  const int tws[] = {s.W, (s.W + 1) / 2, 64, 32, 16, 8, 4};
+  for (int th : kTileRows) {
+    for (int tw : tws) f(th ? th : s.H, tw);
+  }
+}
+
+// every one-launch candidate the plan weighs first, in order (the first stays on a tie): f(launch, modelled time)
 template <class F>
 cudaError_t each_candidate(const Instance& s, const Model& m, F f) {
   const Variant v = variant_of(s.c, s.bf16);
   int regs = 0, sms = 0;
   cudaError_t e = kernel_facts(v.kern, &regs, &sms);
   if (e != cudaSuccess) return e;
-  const int ths[] = {s.H, 64, 32, 16, 8, 4, 2, 1}, tws[] = {s.W, (s.W + 1) / 2, 64, 32, 16, 8, 4};
-  const int groups[] = {9, 3, 1};  // bf16: weight slices per ring step
-  for (int th : ths) {
-    for (int tw : tws) {
-      for (int grp : groups) {
-        if (!s.bf16 && grp != groups[0]) break;
-        Plan p;
-        p.th = th, p.tw = tw, p.grp = grp;
+  each_tile(s, [&](int th, int tw) {
+    for (int grp : kGroups) {
+      if (!s.bf16 && grp != kGroups[0]) break;
+      Launch L;
+      L.th = th, L.tw = tw, L.grp = grp, L.np = pad16(s.c);
+      double cost = 0.0;
+      if (launch_cost(s, v, regs, sms, m, &L, &cost)) f(L, cost);
+    }
+  });
+  return cudaSuccess;
+}
+
+// The plan of an instance that no one-launch tile of whole slices fits: the general instantiation's split plan with
+// the least modelled time over N chunks of np output channels (bf16) and passes of nb bottlenecks: the chain's passes
+// and a cv2 launch, each with its own tile.
+cudaError_t general_plan(const Instance& s, const Model& m, Plan* best, double* best_cost) {
+  const Variant v = variant_of(s.c, s.bf16, true);
+  int regs = 0, sms = 0;
+  cudaError_t e = kernel_facts(v.kern, &regs, &sms);
+  if (e != cudaSuccess) return e;
+  const int kp = pad16(s.c);
+  int nps[10], k = 0;
+  nps[k++] = kp;
+  if (s.bf16) {
+    for (int np : {192, 160, 128, 96, 64, 48, 32, 16}) {
+      if (np < kp) nps[k++] = np;
+    }
+  }
+  // where the tile is an instance's least-cost one for launches of this mode (and nb)
+  auto best_launch = [&](int mode, int nb, int np, Launch* out, double* out_cost) {
+    *out_cost = -1.0;
+    each_tile(s, [&](int th, int tw) {
+      for (int grp : kGroups) {
+        if (!s.bf16 && grp != kGroups[0]) break;
+        Launch L;
+        L.mode = mode, L.th = th, L.tw = tw, L.grp = grp, L.np = np, L.nb = nb;
         double cost = 0.0;
-        if (candidate(s, v, regs, sms, m, &p, &cost)) f(p, cost);
+        if (launch_cost(s, v, regs, sms, m, &L, &cost) && (*out_cost < 0 || cost < *out_cost)) *out = L, *out_cost = cost;
       }
+    });
+  };
+  Launch tail;
+  double tail_cost = -1.0;
+  for (int i = 0; i < k; ++i) {
+    Launch L;
+    double cost;
+    best_launch(kTail, 0, nps[i], &L, &cost);
+    if (cost >= 0 && (tail_cost < 0 || cost < tail_cost)) tail = L, tail_cost = cost;
+  }
+  *best_cost = -1.0;
+  for (int i = 0; i < k; ++i) {
+    for (int nb = s.n; nb >= 1 && tail_cost >= 0; --nb) {
+      Launch L;
+      double cost;
+      best_launch(kHead, nb, nps[i], &L, &cost);
+      if (cost >= 0 && (*best_cost < 0 || cost + tail_cost < *best_cost)) best->main = L, best->tail = tail, *best_cost = cost + tail_cost;
     }
   }
   return cudaSuccess;
 }
 
-// the plan of an instance: the candidate with the least modelled time
+// the plan of an instance: the one-launch candidate with the least modelled time, else the general plan
 int plan_for(const Instance& s, Plan* best) {
   static std::map<std::tuple<int, int, int, int, int, int, int, bool>, Plan> cache;
   static std::mutex mu;
@@ -804,18 +1134,31 @@ int plan_for(const Instance& s, Plan* best) {
     return 0;
   }
   double best_cost = -1.0;
-  cudaError_t e = each_candidate(s, Model{}, [&](const Plan& p, double cost) {
-    if (best_cost < 0 || cost < best_cost) best_cost = cost, *best = p;
+  Plan p;
+  cudaError_t e = each_candidate(s, Model{}, [&](const Launch& L, double cost) {
+    if (best_cost < 0 || cost < best_cost) best_cost = cost, p.main = L;
   });
   if (e != cudaSuccess) return int(e);
+  if (best_cost < 0) {
+    e = general_plan(s, Model{}, &p, &best_cost);
+    if (e != cudaSuccess) return int(e);
+  }
   if (best_cost < 0) return kNoTileFits;
-  cache[key] = *best;
+  cache[key] = *best = p;
   return 0;
 }
 
 bool takes(int c1, int cs, int c, int c2o, int n, int H, int W, bool bf16) {
   if (n < 1 || c % 4 || (cs && (H % 2 || W % 2))) return false;
   return bf16 ? (c1 % 8 == 0 && cs % 8 == 0 && c2o % 2 == 0) : c2o % 8 == 0;
+}
+
+// the shared bytes of a launch of a split plan's pass over nb bottlenecks (the last pass may have fewer than
+// the plan's), or of its cv2 launch
+size_t pass_smem(const Instance& s, const Launch& L, int nb) {
+  const int R = pass_halo(L.mode, s.n, nb);
+  return s.bf16 ? mma_layout(s.H, s.W, L.th, L.tw, R, 0, s.c, kRing * L.grp, L.np).total
+                : f32_smem(s.H, s.W, L.th, L.tw, R, s.c, s.c2o, L.mode);
 }
 
 #ifdef YT_C2F_TRACE
@@ -830,21 +1173,29 @@ extern "C" {
 // or -2 where no tile of it fits the shared memory.
 
 // what the kernel does with an instance: out = {tile rows, tile columns, blocks, blocks an SM holds,
-// shared bytes per block, steps of the weight ring and slices per step (0 in f32), pixels per warp item (0 in f32)}
+// shared bytes per block, steps of the weight ring and slices per step (0 in f32), pixels per warp item (0 in f32),
+// output channels of a ring slice (the N chunk; pad16(c) without chunks), launches (1, or the passes of a split plan
+// and its cv2 launch), bottlenecks per pass (0: one launch), the cv2 launch's tile rows, tile columns, N chunk and
+// slices per ring step, and the elements of the concat buffer the caller gives a split plan (0: none)}
 int yt_c2f_plan(int B, int H, int W, int c1, int cs, int c, int c2o, int n, int bf16, long long* out) {
   if (!takes(c1, cs, c, c2o, n, H, W, bf16 != 0)) return kNotTaken;
   Plan p;
   const int e = plan_for(Instance{B, H, W, c1, c, c2o, n, bf16 != 0}, &p);
   if (e) return e;
-  const long long vals[] = {p.th, p.tw, p.blocks, p.per_sm, (long long)p.smem, bf16 ? kRing : 0, p.grp, 16 * variant_of(c, bf16 != 0).mt};
-  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  const Launch& L = p.main;
+  const bool sp = p.split();
+  const long long vals[] = {L.th, L.tw, L.blocks, L.per_sm, (long long)L.smem, bf16 ? kRing : 0, L.grp,
+                            16 * variant_of(c, bf16 != 0, sp).mt, bf16 ? L.np : 0, sp ? cdiv(n, L.nb) + 1 : 1,
+                            sp ? L.nb : 0, sp ? p.tail.th : 0, sp ? p.tail.tw : 0, sp && bf16 ? p.tail.np : 0,
+                            sp ? p.tail.grp : 0, sp ? (long long)B * H * W * cat_ld(c, n) : 0};
+  for (int i = 0; i < 16; ++i) out[i] = vals[i];
   return 0;
 }
 
-// The candidates the plan weighs for an instance, in its order: plans[i] = {tile rows, tile columns,
-// slices per ring step, blocks, blocks an SM holds, shared bytes}, costs[i] = the modelled time; at
-// most `room` of them, *count = how many there are. `model` = {barrier, shared}, where it is not
-// null, replaces the built-in constants (a NaN keeps the built-in one).
+// The one-launch candidates the plan weighs first for an instance, in its order: plans[i] = {tile rows, tile
+// columns, slices per ring step, blocks, blocks an SM holds, shared bytes}, costs[i] = the modelled time; at
+// most `room` of them, *count = how many there are (none where the instance needs the general plan). `model` =
+// {barrier, shared}, where it is not null, replaces the built-in constants (a NaN keeps the built-in one).
 int yt_c2f_candidates(int B, int H, int W, int c1, int cs, int c, int c2o, int n, int bf16, const double* model,
                       int room, long long* plans, double* costs, int* count) {
   if (!takes(c1, cs, c, c2o, n, H, W, bf16 != 0)) return kNotTaken;
@@ -852,9 +1203,9 @@ int yt_c2f_candidates(int B, int H, int W, int c1, int cs, int c, int c2o, int n
   if (model && model[0] == model[0]) m.barrier = model[0];
   if (model && model[1] == model[1]) m.shared = model[1];
   int k = 0;
-  cudaError_t e = each_candidate(Instance{B, H, W, c1, c, c2o, n, bf16 != 0}, m, [&](const Plan& p, double cost) {
+  cudaError_t e = each_candidate(Instance{B, H, W, c1, c, c2o, n, bf16 != 0}, m, [&](const Launch& L, double cost) {
     if (k < room) {
-      const long long vals[] = {p.th, p.tw, p.grp, p.blocks, p.per_sm, (long long)p.smem};
+      const long long vals[] = {L.th, L.tw, L.grp, L.blocks, L.per_sm, (long long)L.smem};
       for (int i = 0; i < 6; ++i) plans[k * 6 + i] = vals[i];
       costs[k] = cost;
     }
@@ -872,39 +1223,55 @@ int yt_c2f_set_trace(long long* trace) {
 }
 #endif
 
-// th = 0 launches the instance's plan; th > 0 launches the tile and slices per ring step given (a measurement's way in)
+// th = 0 launches the instance's plan (a split plan needs `cat`, as many elements as yt_c2f_plan names, in the
+// activations' dtype); th > 0 launches the one-launch tile and slices per ring step given (a measurement's way in)
 int yt_c2f_forward(const void* x, const void* small, void* out, const float* w1, const float* b1, const float* wm,
-                   const float* bm, const float* w2, const float* b2, const void* wp, int B, int H, int W, int c1,
-                   int cs, int c, int c2o, int n, int shortcut, int bf16, int th, int tw, int grp, void* stream) {
+                   const float* bm, const float* w2, const float* b2, const void* wp, void* cat, int B, int H, int W,
+                   int c1, int cs, int c, int c2o, int n, int shortcut, int bf16, int th, int tw, int grp, void* stream) {
   if (!takes(c1, cs, c, c2o, n, H, W, bf16 != 0)) return kNotTaken;
   const Instance s{B, H, W, c1, c, c2o, n, bf16 != 0};
-  const Variant v = variant_of(c, bf16 != 0);
   Plan p;
   if (th > 0) {
+    const Variant v1 = variant_of(c, bf16 != 0);
     int regs = 0, sms = 0;
-    cudaError_t e = kernel_facts(v.kern, &regs, &sms);
+    cudaError_t e = kernel_facts(v1.kern, &regs, &sms);
     if (e != cudaSuccess) return int(e);
     double cost = 0.0;
-    p.th = th, p.tw = tw, p.grp = grp;
-    if (!candidate(s, v, regs, sms, Model{}, &p, &cost)) return kNoTileFits;
+    p.main.th = th, p.main.tw = tw, p.main.grp = grp, p.main.np = pad16(c);
+    if (!launch_cost(s, v1, regs, sms, Model{}, &p.main, &cost)) return kNoTileFits;
   } else {
     const int e = plan_for(s, &p);
     if (e) return e;
+    if (p.split() && !cat) return kNotTaken;
   }
-  C2fArgs a{x,  small, out, w1, b1, wm, bm,       w2,   b2,   static_cast<const bf16_t*>(wp),
-            B,  H,     W,   c1, cs, c,  c2o,      n,    shortcut,
-            p.th, p.tw, p.grp};
+  const Variant v = variant_of(c, bf16 != 0, p.split());
+  // one launch: `L` over nb bottlenecks from j0 (a split plan's pass), or the whole block
+  auto launch = [&](const Launch& L, int j0, int nb, size_t smem) -> int {
+    C2fArgs a{x,  small, out, w1, b1, wm, bm,       w2,   b2,   static_cast<const bf16_t*>(wp),
+              B,  H,     W,   c1, cs, c,  c2o,      n,    shortcut,
+              L.th, L.tw, L.grp};
+    a.cat = cat, a.mode = L.mode, a.j0 = j0, a.nb = nb, a.np = L.np;
 #ifdef YT_C2F_TRACE
-  a.trace = g_trace;
-  const int tiles_x = cdiv(W, p.tw), tiles_y = cdiv(H, p.th);
-  a.trace_block = (B / 2) * tiles_x * tiles_y + (tiles_y / 2) * tiles_x + tiles_x / 2;
+    a.trace = g_trace;
+    const int tiles_x = cdiv(W, L.tw), tiles_y = cdiv(H, L.th);
+    a.trace_block = (B / 2) * tiles_x * tiles_y + (tiles_y / 2) * tiles_x + tiles_x / 2;
 #endif
-  // the limit is lifted to what this launch needs, not to the most a block may ask for: the card
-  // sizes L1 by it, and the f32 kernel reads its weights through L1
-  cudaError_t e = cudaFuncSetAttribute(v.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
-  if (e != cudaSuccess) return int(e);
-  v.kern<<<p.blocks, v.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(a);
-  YT_RETURN_LAUNCH_ERROR();
+    // the limit is lifted to what this launch needs, not to the most a block may ask for: the card
+    // sizes L1 by it, and the f32 kernel reads its weights through L1
+    cudaError_t e = cudaFuncSetAttribute(v.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    v.kern<<<B * cdiv(H, L.th) * cdiv(W, L.tw), v.threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+    return int(cudaGetLastError());
+  };
+  if (!p.split()) return launch(p.main, 0, n, p.main.smem);
+  for (int j0 = 0; j0 < n; j0 += p.main.nb) {
+    Launch L = p.main;
+    L.mode = j0 ? kMid : kHead;
+    const int nb = imin(p.main.nb, n - j0);
+    const int e = launch(L, j0, nb, pass_smem(s, L, nb));
+    if (e) return e;
+  }
+  return launch(p.tail, 0, 0, pass_smem(s, p.tail, 0));
 }
 
 }  // extern "C"

@@ -7,7 +7,9 @@ write. Device side, one pass per batch: uint8 BGR → RGB in [0, 1], forward
 through the C2f and head kernels, DFL decode and fixed-shape NMS, with one
 device synchronisation where the outputs are copied to the host. `augment=True`
 runs test-time augmentation (`DetectionModel.predict_augment`); an Ensemble's
-members' predictions meet in one NMS. `int8=True` quantizes the fused tree
+members' predictions meet in one NMS. An end-to-end head (yolov10's v10Detect) gives
+its own final rows, which skip NMS (`ops.nms.end2end_select`: conf, classes,
+max_det; `augment=True` warns and predicts at one scale). `int8=True` quantizes the fused tree
 (nn/quantize.py, dynamic activation scales) and re-quantizes it when the
 parameters change. YOLO_TPU_LAZY_DECODE=1 runs the default route: the JAX
 package's lazy decode computes the same outputs and was not faster on the H100
@@ -42,7 +44,7 @@ from yolo_tpu_torch.nn.quantize import quantize_params
 from yolo_tpu_torch.nn.tasks import BaseModel, DetectionModel, Ensemble, fuse, install_params, params_from_jax
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
-from yolo_tpu_torch.ops.nms import non_max_suppression
+from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression
 from yolo_tpu_torch.utils import LOGGER
 from yolo_tpu_torch.utils.files import imwrite
 
@@ -175,6 +177,8 @@ class BasePredictor:
             preds = self.model.predict_augment(x, plain=a.plain)
         else:  # an int8 model walks without the neck fold
             preds = self.model.predict(x, neck_opt=not getattr(self.model, "int8", False), plain=a.plain)
+        if getattr(self.model, "end2end", False):  # the head's own rows: no NMS (the JAX package runs one, a fault)
+            return end2end_select(preds, conf_thres=a.conf, classes=a.classes, max_det=a.max_det, nc=self.model.nc)
         return non_max_suppression(
             preds, conf_thres=a.conf, iou_thres=a.iou, classes=a.classes, agnostic=a.agnostic_nms,
             max_det=a.max_det, plain=a.plain,
@@ -186,8 +190,8 @@ class BasePredictor:
 
     def _takes_augment(self) -> bool:
         """Test-time augmentation is for a plain DetectionModel (as in the JAX package); for
-        another model (an Ensemble) `augment=True` warns once and predicts at one scale."""
-        if type(self.model) is DetectionModel:
+        another model (an Ensemble, an end-to-end head) `augment=True` warns once and predicts at one scale."""
+        if type(self.model) is DetectionModel and not self.model.end2end:
             return True
         if not getattr(self, "_augment_warned", False):
             LOGGER.warning("model does not support augment=True, using single-scale prediction")

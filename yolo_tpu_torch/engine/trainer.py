@@ -35,6 +35,8 @@ keypoints and validates with `PoseValidator`; a dataset whose `kpt_shape` differ
 yaml's rebuilds the model at the dataset's (the tensors whose shape survives kept when pretrained).
 An obb model trains with `v8OBBLoss` (components box / cls / dfl) on DOTA rows collated as
 xywhr, and validates with `OBBValidator`, as in the JAX trainer.
+A yolov10 model (the end-to-end v10Detect head) trains with `E2EDetectLoss`, each branch's box / cls / dfl
+logged apart (`box_o2m` ... `dfl_o2o`), as the JAX trainer logs them.
 Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 3).
 """
 
@@ -63,7 +65,7 @@ from yolo_tpu_torch.nn.tasks import (
 )
 from yolo_tpu_torch.utils import LOGGER, yaml_save
 from yolo_tpu_torch.utils.callbacks import add_integration_callbacks, default_callbacks, run_callbacks
-from yolo_tpu_torch.utils.loss import v8DetectionLoss, v8OBBLoss, v8PoseLoss, v8SegmentationLoss
+from yolo_tpu_torch.utils.loss import E2EDetectLoss, v8DetectionLoss, v8OBBLoss, v8PoseLoss, v8SegmentationLoss
 from yolo_tpu_torch.utils.optim import apply_bn_stats, build_optimizer
 
 COMPONENTS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl"),
@@ -228,8 +230,12 @@ class DetectionTrainer:
     def task(self) -> str:
         return getattr(self.model, "task", "detect")
 
+    @property
+    def end2end(self) -> bool:
+        return self.task == "detect" and getattr(self.model, "end2end", False)
+
     def _make_loss(self):
-        return LOSSES[self.task](self.model, self.args)
+        return E2EDetectLoss(self.model, self.args) if self.end2end else LOSSES[self.task](self.model, self.args)
 
     def build_optimizer(self, named_params, iterations: int):
         """SGD or AdamW by name, or 'auto': SGD (lr 0.01) past 10,000 iterations, else AdamW at
@@ -435,6 +441,8 @@ class DetectionTrainer:
         t_train = time.time()
         ni = self.start_epoch * nb
         comp_names = COMPONENTS[self.task]
+        if self.end2end:  # the two branches' components apart, as the JAX trainer logs them
+            comp_names = tuple(f"{n}_o2m" for n in comp_names) + tuple(f"{n}_o2o" for n in comp_names)
         last_comps = np.zeros(len(comp_names))
         for epoch in range(self.start_epoch, args.epochs):
             run_callbacks(self.callbacks, "on_train_epoch_start", self)

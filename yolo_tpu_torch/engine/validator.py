@@ -41,7 +41,7 @@ from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn.tasks import install_params
 from yolo_tpu_torch.ops.boxes import scale_boxes, xywhn2xyxy, xyxy2xywh
 from yolo_tpu_torch.ops.masks import process_mask
-from yolo_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_rotated
+from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression, non_max_suppression_rotated
 from yolo_tpu_torch.utils import LOGGER
 from yolo_tpu_torch.utils.metrics import (
     OKS_SIGMA,
@@ -99,11 +99,16 @@ class DetectionValidator:
 
     @torch.no_grad()
     def _device_pass(self, model, imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-        """One uint8 RGB batch → (B, max_det, 7) f32 on the device: xyxy box, score, class, valid."""
+        """One uint8 RGB batch → (B, max_det, 7) f32 on the device: xyxy box, score, class, valid. An end-to-end
+        head's rows skip NMS (`end2end_select`)."""
         a = self.args
         x = self._images(imgs, device, dtype)
-        out = non_max_suppression(model.predict(x, plain=self.plain), conf_thres=float(a.conf), iou_thres=float(a.iou),
-                                  max_det=int(a.max_det), plain=self.plain)
+        preds = model.predict(x, plain=self.plain)
+        if getattr(model, "end2end", False):
+            out = end2end_select(preds, conf_thres=float(a.conf), max_det=int(a.max_det))
+        else:
+            out = non_max_suppression(preds, conf_thres=float(a.conf), iou_thres=float(a.iou), max_det=int(a.max_det),
+                                      plain=self.plain)
         cols = [out["boxes"], out["scores"][..., None], out["cls"][..., None], out["valid"][..., None]]
         return torch.cat([c.to(torch.float32) for c in cols], -1)
 

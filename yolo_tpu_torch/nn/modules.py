@@ -10,7 +10,8 @@ and yolov5: MaxPool2d, DWConv, C3, C2, GhostConv, GhostBottleneck, C3Ghost, ResN
 ResNetLayer; for yolo11 and yolo12: C3k, C3k2, Attention, PSABlock, C2PSA, AAttn, ABlock, A2C2f
 and the non-legacy Detect class branch (`Seq`: a depth-wise 3x3, then a 1x1); for yolov3, yolov6, YOLO-NAS and
 yolov9: ConvBNAct's ReLU and GELU, repeated yaml rows (`Seq`), SPP, ZeroPad2d, Identity, NASBottleneck, NASCSP,
-RepConv, RepBottleneck, RepCSP, RepNCSPELAN4, ELAN1, AConv, ADown, SPPELAN, CBLinear and CBFuse.
+RepConv, RepBottleneck, RepCSP, RepNCSPELAN4, ELAN1, AConv, ADown, SPPELAN, CBLinear and CBFuse; for yolov10:
+SCDown, RepVGGDW, CIB, C2fCIB, PSA and the end-to-end (NMS-free) v10Detect head.
 
 - Two forms of the weights live side by side in each conv module.
   - The inference form, with fused weights: an OIHW `weight` and a `bias`
@@ -38,7 +39,8 @@ RepConv, RepBottleneck, RepCSP, RepNCSPELAN4, ELAN1, AConv, ADown, SPPELAN, CBLi
   branch and prototypes, the Pose head's keypoint branch, the OBB head's angle branch,
   every conv of the variants' C3, C2, GhostConv, GhostBottleneck and ResNetLayer blocks,
   all of yolo11's and yolo12's blocks and non-legacy heads, attention products included, all of
-  yolov3's, yolov6's, YOLO-NAS's and yolov9's blocks, and a ReLU Detect head, conv by conv) is
+  yolov3's, yolov6's, YOLO-NAS's and yolov9's blocks, a ReLU Detect head, conv by conv, and yolov10's
+  SCDown, C2fCIB, PSA and v10Detect branches) is
   plain torch (conv2d, conv_transpose2d for Proto's upsample, matmul), as the JAX package
   leaves those to XLA.
 - A ConvBNAct that `load_jax` gives an int8 subtree (nn/quantize.py) runs the int8 conv
@@ -53,6 +55,7 @@ RepConv, RepBottleneck, RepCSP, RepNCSPELAN4, ELAN1, AConv, ADown, SPPELAN, CBLi
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 
 import numpy as np
@@ -699,6 +702,22 @@ class C3k2(C2f):
         return self.forward_modules(x)
 
 
+class C2fCIB(C2f):
+    """A C2f whose blocks are CIBs (JAX C2fCIB; `lk` puts a RepVGGDW in each). Always walked module by module, as
+    C3k2: the C2f kernel takes Bottleneck chains only, and the JAX package's neck fold matches the exact type C2f."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False, g: int = 1, e: float = 0.5):
+        nn.Module.__init__(self)
+        self.c = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBNAct(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBNAct((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(CIB(self.c, self.c, shortcut, e=1.0, lk=lk) for _ in range(n))
+
+    def forward(self, x, plain: bool = False):
+        return self.forward_modules(x)
+
+
 class Attention(_Tree):
     """Multi-head self-attention over the pixels of an NHWC map (JAX Attention): a 1x1 qkv conv whose channels are
     (heads, q | k | v), q·k in the input's dtype, the softmax in f32 rounded back, the values' weighted sum, a
@@ -864,6 +883,94 @@ class A2C2f(_Tree):
             return y
         gamma = self.gamma_train if train else self.gamma
         return (x.float() + gamma.float() * y.float()).to(x.dtype)
+
+
+class SCDown(_Tree):
+    """Separable-conv downsample (JAX SCDown): a 1x1 ConvBNAct to c2, then a depth-wise k x k one of stride s
+    without activation."""
+
+    tree_keys = ("cv1", "cv2")
+
+    def __init__(self, c1: int, c2: int, k: int, s: int):
+        super().__init__()
+        self.s = s
+        self.cv1 = ConvBNAct(c1, c2, 1, 1)
+        self.cv2 = ConvBNAct(c2, c2, k, s, g=c2, act=False)
+
+    def _run(self, x, train: bool):
+        return _call(self.cv2, _call(self.cv1, x, train), train)
+
+
+class RepVGGDW(_Tree):
+    """A depth-wise 7x7 and a depth-wise 3x3 (each with BN, no activation) summed in f32, then SiLU, rounded to the
+    compute dtype (JAX RepVGGDW; the train form rounds to its input's dtype)."""
+
+    tree_keys = ("conv", "conv1")
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = ConvBNAct(ed, ed, 7, 1, 3, g=ed, act=False)
+        self.conv1 = ConvBNAct(ed, ed, 3, 1, 1, g=ed, act=False)
+
+    def _run(self, x, train: bool):
+        dtype = x.dtype if train else _dtype_of(self)
+        x = x if train else Q.deq(x, dtype)
+        y = _call(self.conv, x, train).float() + _call(self.conv1, x, train).float()
+        return (y * torch.sigmoid(y)).to(dtype)
+
+
+class CIB(_Tree):
+    """Compact inverted block (JAX CIB): five convs in a row under the tree key `cv1` (a depth-wise 3x3, a 1x1 to
+    2c_, a depth-wise 3x3 or, with `lk`, a RepVGGDW, a 1x1 to c2, a depth-wise 3x3), with a residual when
+    `shortcut` and c1 == c2 (dense where either side is int8, as Bottleneck's). The JAX package's fuse finds no
+    module under `cv1` and leaves all five with their BN (nn/tasks.py::unfused_keys)."""
+
+    tree_keys = ("cv1",)
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Seq(
+            ConvBNAct(c1, c1, 3, g=c1),
+            ConvBNAct(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else ConvBNAct(2 * c_, 2 * c_, 3, g=2 * c_),
+            ConvBNAct(2 * c_, c2, 1),
+            ConvBNAct(c2, c2, 3, g=c2),
+        )
+        self.add = shortcut and c1 == c2
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        if not self.add:
+            return y
+        if isinstance(x, Q.QTensor) or isinstance(y, Q.QTensor):
+            return Q.deq(x, _dtype_of(self)) + Q.deq(y, _dtype_of(self))
+        return x + y
+
+
+class PSA(_Tree):
+    """Position-sensitive attention (JAX PSA): cv1 split in halves, one Attention (max(c // 64, 1) heads) and the
+    1x1 feed-forward `ffn` (2c wide, the second conv without activation) on the second half, each with a residual,
+    concat, cv2. The JAX package's fuse leaves `ffn` with its BN, as PSABlock's."""
+
+    tree_keys = ("cv1", "cv2", "attn", "ffn")
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"PSA keeps its width: c1 {c1} != c2 {c2}")
+        self.c = int(c1 * e)
+        self.cv1 = ConvBNAct(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBNAct(2 * self.c, c1, 1)
+        self.attn = Attention(self.c, attn_ratio=0.5, num_heads=max(self.c // 64, 1))
+        self.ffn = nn.ModuleList([ConvBNAct(self.c, self.c * 2, 1), ConvBNAct(self.c * 2, self.c, 1, act=False)])
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        a, b = y[..., : self.c], y[..., self.c :]
+        b = b + _call(self.attn, b, train)
+        b = b + _call(self.ffn[1], _call(self.ffn[0], b, train), train)
+        return _call(self.cv2, torch.cat([a, b], -1), train)
 
 
 class Seq(nn.Sequential):
@@ -1383,12 +1490,13 @@ class Detect(nn.Module):
             outs.append(torch.cat([b, c], -1))
         return outs
 
-    def _anchor_decode(self, dists, clss, feat_shapes):
-        """Per-level dist (B, A_l, 4) and scores (B, A_l, nc) → (boxes (B, A, 4) px xywh, scores (B, A, nc))."""
+    def _anchor_decode(self, dists, clss, feat_shapes, xywh: bool = True):
+        """Per-level dist (B, A_l, 4) and scores (B, A_l, nc) → (boxes (B, A, 4) px xywh (xyxy unless `xywh`),
+        scores (B, A, nc))."""
         from yolo_tpu_torch.ops.anchors import dist2bbox, make_anchors
 
         anchors, strides = make_anchors(feat_shapes, self.stride, 0.5, device=dists[0].device)
-        dbox = dist2bbox(torch.cat(dists, 1), anchors[None], xywh=True, dim=-1) * strides[None]
+        dbox = dist2bbox(torch.cat(dists, 1), anchors[None], xywh=xywh, dim=-1) * strides[None]
         return dbox, torch.cat(clss, 1)
 
     def levels_from_outputs(self, outs):
@@ -1451,6 +1559,80 @@ class Detect(nn.Module):
         fn = cuda_head_cm.head_level_cm_plain if plain else cuda_head_cm.head_level_cm
         dists, clss = zip(*(fn(x, self.kernel_weights(l)) for l, x in enumerate(xs)))
         return self._anchor_decode(dists, clss, [(x.shape[1], x.shape[2]) for x in xs])
+
+
+class v10Detect(Detect):
+    """The end-to-end (NMS-free) head of yolov10 (JAX v10Detect): Detect's box branch and depth-wise class branch
+    (c3 = max(ch[0], min(nc, 100))), the one-to-many pair, beside deep copies of both, `one2one_cv2` /
+    `one2one_cv3`, with the same bias priors. Training returns (one-to-many outputs, one-to-one outputs), the
+    one-to-one branch on detached inputs (only the one-to-many loss shapes the body); inference decodes the
+    one-to-one branch into the (B, max_det, 6) rows of `decode_end2end`. Its branches are walked conv by conv."""
+
+    end2end = True
+
+    def __init__(self, nc: int = 80, ch: tuple = (), legacy: bool = False, max_det: int = 300):
+        super().__init__(nc, ch, legacy=False)
+        self.max_det = max_det
+        self.one2one_cv2 = copy.deepcopy(self.cv2)
+        self.one2one_cv3 = copy.deepcopy(self.cv3)
+
+    @property
+    def kernel_branches(self) -> bool:
+        return False
+
+    def check_cm(self) -> None:
+        raise ValueError("the channel-major head kernel takes the legacy Detect branches only (pallas_head2=False)")
+
+    def init(self, rng) -> dict:
+        """Detect's draws and priors, then each level's one-to-one box convs and class convs in turn, and their
+        priors."""
+        p = super().init(rng)
+        p["one2one_cv2"], p["one2one_cv3"] = {}, {}
+        for l in range(self.nl):
+            p["one2one_cv2"][str(l)] = {str(j): self.one2one_cv2[l][j].init(rng) for j in range(3)}
+            p["one2one_cv3"][str(l)] = {str(j): self.one2one_cv3[l][j].init(rng) for j in range(3)}
+        for l, s in enumerate(self.stride):
+            p["one2one_cv2"][str(l)]["2"]["bias"] = np.ones_like(np.asarray(p["one2one_cv2"][str(l)]["2"]["bias"]))
+            p["one2one_cv3"][str(l)]["2"]["bias"] = np.full_like(np.asarray(p["one2one_cv3"][str(l)]["2"]["bias"]),
+                                                                 math.log(5 / self.nc / (640 / s) ** 2))
+        return p
+
+    def load_jax(self, p: dict, device, dtype) -> None:
+        super().load_jax(p, device, dtype)
+        for l in range(self.nl):
+            for j in range(3):
+                self.one2one_cv2[l][j].load_jax(p["one2one_cv2"][str(l)][str(j)], device, dtype)
+                self.one2one_cv3[l][j].load_jax(p["one2one_cv3"][str(l)][str(j)], device, dtype)
+
+    def one2one(self, xs, train: bool = False) -> list:
+        """Per-level raw outputs (B, H, W, 4*reg_max + nc) of the one-to-one branches."""
+        outs = []
+        for l, x in enumerate(xs):
+            b, c = x, x
+            for j in range(3):
+                b, c = _call(self.one2one_cv2[l][j], b, train), _call(self.one2one_cv3[l][j], c, train)
+            outs.append(torch.cat([b, c], -1))
+        return outs
+
+    def forward_train(self, xs):
+        return super().forward_train(xs), self.one2one([x.detach() for x in xs], train=True)
+
+    def decode_end2end(self, xs) -> torch.Tensor:
+        """The one-to-one branch's (B, k, 6) rows, k = min(max_det, anchors): xyxy px boxes, score, class (f32),
+        by JAX's two-stage top-k: the k anchors of the best class scores, then the k best of their k x nc
+        (anchor, class) pairs. Ties keep the earlier index, as `jax.lax.top_k` does (a stable sort)."""
+        outs = self.one2one(xs)
+        dists, clss = self.levels_from_outputs(outs)
+        boxes, scores = self._anchor_decode(dists, clss, [(o.shape[1], o.shape[2]) for o in outs], xywh=False)
+        B, A, nc = scores.shape
+        k = min(self.max_det, A)
+        top = torch.sort(scores.max(-1).values, dim=1, descending=True, stable=True).indices[:, :k]
+        b_sel = torch.gather(boxes, 1, top[..., None].expand(-1, -1, 4))
+        s_sel = torch.gather(scores, 1, top[..., None].expand(-1, -1, nc)).reshape(B, k * nc)
+        flat_scores, flat_idx = torch.sort(s_sel, dim=1, descending=True, stable=True)
+        flat_scores, flat_idx = flat_scores[:, :k], flat_idx[:, :k]
+        b_final = torch.gather(b_sel, 1, torch.div(flat_idx, nc, rounding_mode="floor")[..., None].expand(-1, -1, 4))
+        return torch.cat([b_final, flat_scores[..., None], (flat_idx % nc).to(torch.float32)[..., None]], -1)
 
 
 class ConvTranspose(nn.Module):

@@ -85,8 +85,13 @@ MODULE_MAP = {
     "SPPELAN": M.SPPELAN,
     "CBLinear": M.CBLinear,
     "CBFuse": M.CBFuse,
+    "SCDown": M.SCDown,
+    "CIB": M.CIB,
+    "C2fCIB": M.C2fCIB,
+    "PSA": M.PSA,
     "Concat": M.Concat,
     "Detect": M.Detect,
+    "v10Detect": M.v10Detect,
     "Segment": M.Segment,
     "Pose": M.Pose,
     "OBB": M.OBB,
@@ -95,8 +100,9 @@ MODULE_MAP = {
 }
 SCALED = (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.GhostConv,
           M.GhostBottleneck, M.SPPF, M.SPP, M.Bottleneck, M.NASCSP, M.RepConv, M.RepCSP, M.RepNCSPELAN4, M.ELAN1,
-          M.AConv, M.ADown, M.SPPELAN, M.ConvTranspose, M.Classify)  # c2 width-scaled (JAX's list)
-REPEATED = (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.NASCSP, M.RepCSP)  # take the row's n
+          M.AConv, M.ADown, M.SPPELAN, M.ConvTranspose, M.Classify, M.SCDown, M.CIB, M.C2fCIB,
+          M.PSA)  # c2 width-scaled (JAX's list)
+REPEATED = (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.NASCSP, M.RepCSP, M.C2fCIB)  # take the row's n
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -190,7 +196,7 @@ def _parse_rows(d: dict, ch: int):
             c2 = chs[f[-1]]
         elif mcls is M.Concat:
             c2 = sum(chs[x] for x in f)
-        elif mcls is M.Detect:
+        elif mcls in (M.Detect, M.v10Detect):
             args = [args[0], [chs[x] for x in f], legacy]
             c2 = None
         elif mcls is M.Segment:  # npr width-scales, as in the JAX package
@@ -206,6 +212,7 @@ def _parse_rows(d: dict, ch: int):
             c2 = chs[f]
         # a module that takes no repeats of its own, on a row with n > 1: n copies in a row (JAX _SeqN)
         layers.append(M.Seq(*(mcls(*args) for _ in range(n))) if n > 1 else mcls(*args))
+        layers[-1].c_out = c2  # output channels (None for a head)
         froms.append(f)
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:
@@ -214,15 +221,15 @@ def _parse_rows(d: dict, ch: int):
     return layers, froms, sorted(set(save))
 
 
-def _compute_strides(layers, froms) -> None:
-    """Propagate spatial strides through the graph and set the Detect head's."""
+def _compute_strides(layers, froms) -> dict:
+    """Propagate spatial strides through the graph and set the Detect head's → {layer: its output's stride}."""
     stride = {}
     for i, (m, f) in enumerate(zip(layers, froms)):
         src = stride.get((f if isinstance(f, int) else f[0]) % i, 1) if i else 1
         if isinstance(m, M.Detect):
             m.stride = [stride[x] for x in f]
             s = None
-        elif isinstance(m, (M.ConvBNAct, M.MaxPool2d, M.GhostConv, M.GhostBottleneck, M.AConv, M.ADown)):
+        elif isinstance(m, (M.ConvBNAct, M.MaxPool2d, M.GhostConv, M.GhostBottleneck, M.AConv, M.ADown, M.SCDown)):
             s = src * m.s
         elif isinstance(m, M.ResNetLayer):
             s = src * m.s_total
@@ -239,6 +246,7 @@ def _compute_strides(layers, froms) -> None:
         else:
             s = src
         stride[i] = s
+    return stride
 
 
 def _fold_bn(p: dict) -> dict:
@@ -254,7 +262,18 @@ def _fold_bn(p: dict) -> dict:
     return {"conv": {"weight": w * scale[None, None, None, :], "bias": b}}
 
 
-UNFUSED_GROUPS = ("ffn",)  # PSABlock's: the JAX package's fuse finds no module under this key and keeps its BN
+def unfused_keys(params: dict) -> set:
+    """The groups of a subtree that the JAX package's fuse leaves with their BN, by their owner: its walk looks each
+    key up as an attribute of the module that owns it and finds none for a PSA's or PSABlock's `ffn` (a group beside
+    `attn`) nor for a CIB's `cv1` (the block's only group: five convs in a sequence, '0'..'4'). ConvBNAct runs these
+    BNs in f32. Every other group folds, every other `cv1` included."""
+    keys = set()
+    if "attn" in params and "ffn" in params:
+        keys.add("ffn")
+    cv1 = params.get("cv1")
+    if set(params) == {"cv1"} and isinstance(cv1, dict) and cv1 and all(k.isdigit() for k in cv1):
+        keys.add("cv1")
+    return keys
 
 
 def _as_numpy(params):
@@ -280,7 +299,7 @@ def _fold_repconv(p: dict) -> dict:
 
 def fuse(params: dict) -> dict:
     """Fold every conv's BN into its weight and bias (exact inference form), with numpy, as the JAX package's
-    `fuse` folds them: the groups under an UNFUSED_GROUPS key keep their BN (ConvBNAct runs it in f32).
+    `fuse` folds them: the groups `unfused_keys` names keep their BN (ConvBNAct runs it in f32).
 
     Every subtree holding `conv` (or `conv_transpose`) and `bn` groups is a ConvBNAct (a
     ConvTranspose) of the JAX package, one holding `conv1` and `conv2` a RepConv; other leaves pass
@@ -291,14 +310,16 @@ def fuse(params: dict) -> dict:
         return _fold_repconv(params)
     if "bn" in params and ("conv" in params or "conv_transpose" in params):
         return _fold_bn(params)
-    return {k: _as_numpy(v) if k in UNFUSED_GROUPS else fuse(v) for k, v in params.items()}
+    keep = unfused_keys(params)
+    return {k: _as_numpy(v) if k in keep else fuse(v) for k, v in params.items()}
 
 
 def params_are_fused(params) -> bool:
     """Whether `fuse` would leave the tree as it is."""
     if not isinstance(params, dict):
         return True
-    return "bn" not in params and all(k in UNFUSED_GROUPS or params_are_fused(v) for k, v in params.items())
+    keep = unfused_keys(params)
+    return "bn" not in params and all(k in keep or params_are_fused(v) for k, v in params.items())
 
 
 class BaseModel(nn.Module):
@@ -320,7 +341,7 @@ class BaseModel(nn.Module):
         self.names = {i: f"{i}" for i in range(self.nc)}
         layers, self.froms, self.save = parse_model(self.yaml, ch)
         self.layers = nn.ModuleList(layers)
-        _compute_strides(self.layers, self.froms)
+        self.layer_strides = _compute_strides(self.layers, self.froms)
         self._build_neck_opt()
         for name, m in self.named_modules():
             if isinstance(m, M.ConvBNAct):
@@ -354,6 +375,19 @@ class BaseModel(nn.Module):
             ):
                 self._upconcat[c] = Fr[b][1]
                 self._neck_skip |= {a, b}
+
+    def c2f_instances(self, H: int, W: int) -> list:
+        """The C2f kernel's instances of this model on an H x W input, in layer order: (c1, cs, c, c2o, n, h, w) per
+        block that reaches the kernel (an exact C2f: a C3k2 or C2fCIB walks its modules), cs > 0 (the small input's
+        channels) where the neck fold takes it, h x w its output map (ops/cuda_c2f.py::C2F_WIDTHS lists them)."""
+        out = []
+        for i, m in enumerate(self.layers):
+            if type(m) is not M.C2f:
+                continue
+            s = self.layer_strides[i]
+            cs = m.cv1.c1 - self.layers[self._upconcat[i]].c_out if i in self._upconcat else 0
+            out.append((m.cv1.c1, cs, m.c, m.cv2.c2, m.n, H // s, W // s))
+        return out
 
     def init(self, seed: int = 0) -> dict:
         """The JAX package's initial parameter tree for this model, bit for bit: one
@@ -464,13 +498,22 @@ class DetectionModel(BaseModel):
         decode = self.head.decode_from_inputs_cm if head_cm else self.head.decode_from_inputs
         return decode(xs, plain=plain)
 
+    @property
+    def end2end(self) -> bool:
+        """Whether the head is yolov10's end-to-end one: `predict` returns its final rows, and no NMS runs."""
+        return getattr(self.head, "end2end", False)
+
     @torch.no_grad()
     def predict_parts(self, x: torch.Tensor, plain: bool = False, head_cm: bool = False, neck_opt: bool | None = None):
         """Decoded (boxes (B, A, 4) px xywh, scores (B, A, nc)), f32, from NHWC
         images in the model's dtype. `plain=True` runs the kernels' plain twins.
         `head_cm=True` sends the Detect levels through the channel-major head
         kernel instead of the default one. `neck_opt` (None: on for a float model,
-        off for an int8 one) folds the neck."""
+        off for an int8 one) folds the neck. An end-to-end head has no such parts
+        (NotImplementedError), as the JAX package asserts."""
+        if self.end2end:
+            raise NotImplementedError("the end-to-end v10Detect head decodes its own (B, max_det, 6) rows: "
+                                      "use predict(); no parts path or fused pipeline takes it")
         xs = self._head_inputs(x, plain, not self.int8 if neck_opt is None else neck_opt)
         return self._decode_head(xs, plain, head_cm)
 
@@ -480,8 +523,12 @@ class DetectionModel(BaseModel):
         scores, the layout `ops.nms.non_max_suppression` takes. The C2f blocks
         and the Detect levels go through the kernels (`plain=True`: their
         twins); `neck_opt=False` materialises the neck's upsample and concat.
-        An int8 model walks its convs one by one (pass neck_opt=False)."""
+        An int8 model walks its convs one by one (pass neck_opt=False). An
+        end-to-end head (yolov10) returns its final (B, max_det, 6) rows instead:
+        xyxy px boxes, score, class (`v10Detect.decode_end2end`), which no NMS takes."""
         xs = self._head_inputs(x, plain, neck_opt)
+        if self.end2end:
+            return self.head.decode_end2end(xs)
         return self.head.pack(*self._decode_head(xs, plain))
 
     @torch.no_grad()
@@ -679,6 +726,9 @@ class Ensemble:
         if not models:
             raise ValueError("an ensemble needs at least one model")
         ncs = {m.nc for m in models}
+        if any(getattr(m, "end2end", False) for m in models):
+            raise NotImplementedError("an ensemble joins its members' predictions for one NMS; an end-to-end v10Detect "
+                                      "head gives final rows that no NMS takes (the JAX package's ensemble mixes them up)")
         if len(ncs) != 1:
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
         self.models = list(models)

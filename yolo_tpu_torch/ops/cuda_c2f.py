@@ -11,12 +11,16 @@ copies, and the weights stream through a two-step ring as the slices that
 `pack_slices` lays out, one bulk copy of the copy engine per step, read from
 global memory once per block and round of warp items. cv2 runs once over the
 kept concat segments with its sums in registers. f32 runs the same tiles on
-the CUDA cores (no TF32). `plan` says what the kernel picks for an instance
-and `candidates` what it weighed; the note at the top of csrc/c2f.cu has the
-design and what bounds it.
+the CUDA cores (no TF32). A wide or deep block that fits no such tile (the s-x
+scales: C2F_WIDTHS) runs the kernel's general instantiation: N chunks of the
+weight ring, and where the halo still does not fit, passes of a few
+bottlenecks each that hand their concat segments to a last cv2 launch through
+a buffer this wrapper allocates. `plan` says what the kernel picks for an
+instance and `candidates` what it weighed; the note at the top of csrc/c2f.cu
+has the design and what bounds it.
 
 `fused_c2f` / `fused_c2f_upconcat` launch the kernel for a CUDA tensor and
-count the launch in their `launches` attribute; for a CPU tensor they compute
+count the call in their `launches` attribute (a split plan's passes are one call); for a CPU tensor they compute
 the plain twin (`c2f_plain` / `c2f_upconcat_plain`), which is also what the
 kernel is held against on the card.
 """
@@ -145,6 +149,51 @@ EDGE_SHAPES = [
     (288, 96, 2, False, 192, 2, 8, 10),  # upconcat, 192 small channels
     (72, 24, 3, True, 48, 1, 34, 42),  # upconcat with the residual and n = 3
 ]
+# The published widths: every C2f and neck-fold instance, (c1, cs, c, c2o, n, H, W) with cs > 0 for the fold, of
+# the models of WIDTH_MODELS at their input sizes, each listed once, under the first model that has it. The s-x
+# scales take the kernel's general plan (N chunks, split passes); the card holds the kernel against its twin at
+# each of them (chip_smoke.py `[c2f widths]`), and tests/test_torch_c2f.py derives the list from the models.
+WIDTH_MODELS = ([(f"yolov8{s}.yaml", None, 640, 640) for s in "nsmlx"] + [("yolov8-small.yaml", s, 512, 640) for s in "nsmlx"]
+                + [(f"yolov10{s}.yaml", None, 640, 640) for s in "nsmblx"])  # (yaml, scale or None, H, W)
+C2F_WIDTHS = [
+    # yolov8n
+    (32, 0, 16, 32, 1, 160, 160), (64, 0, 32, 64, 2, 80, 80), (128, 0, 64, 128, 2, 40, 40), (256, 0, 128, 256, 1, 20, 20),
+    (384, 256, 64, 128, 1, 40, 40), (192, 128, 32, 64, 1, 80, 80), (192, 0, 64, 128, 1, 40, 40), (384, 0, 128, 256, 1, 20, 20),
+    # yolov8s
+    (64, 0, 32, 64, 1, 160, 160), (128, 0, 64, 128, 2, 80, 80), (256, 0, 128, 256, 2, 40, 40), (512, 0, 256, 512, 1, 20, 20),
+    (768, 512, 128, 256, 1, 40, 40), (384, 256, 64, 128, 1, 80, 80), (384, 0, 128, 256, 1, 40, 40), (768, 0, 256, 512, 1, 20, 20),
+    # yolov8m
+    (96, 0, 48, 96, 2, 160, 160), (192, 0, 96, 192, 4, 80, 80), (384, 0, 192, 384, 4, 40, 40), (576, 0, 288, 576, 2, 20, 20),
+    (960, 576, 192, 384, 2, 40, 40), (576, 384, 96, 192, 2, 80, 80), (576, 0, 192, 384, 2, 40, 40), (960, 0, 288, 576, 2, 20, 20),
+    # yolov8l
+    (128, 0, 64, 128, 3, 160, 160), (256, 0, 128, 256, 6, 80, 80), (512, 0, 256, 512, 6, 40, 40), (512, 0, 256, 512, 3, 20, 20),
+    (1024, 512, 256, 512, 3, 40, 40), (768, 512, 128, 256, 3, 80, 80), (768, 0, 256, 512, 3, 40, 40), (1024, 0, 256, 512, 3, 20, 20),
+    # yolov8x
+    (160, 0, 80, 160, 3, 160, 160), (320, 0, 160, 320, 6, 80, 80), (640, 0, 320, 640, 6, 40, 40), (640, 0, 320, 640, 3, 20, 20),
+    (1280, 640, 320, 640, 3, 40, 40), (960, 640, 160, 320, 3, 80, 80), (960, 0, 320, 640, 3, 40, 40), (1280, 0, 320, 640, 3, 20, 20),
+    # yolov8-small n
+    (24, 0, 12, 24, 2, 128, 160), (48, 0, 24, 48, 3, 64, 80), (96, 0, 48, 96, 3, 32, 40), (192, 0, 96, 192, 2, 16, 20),
+    (288, 192, 48, 96, 2, 32, 40), (144, 96, 24, 48, 2, 64, 80), (72, 48, 12, 24, 2, 128, 160), (144, 0, 48, 96, 2, 32, 40),
+    (288, 0, 96, 192, 2, 16, 20),
+    # yolov8-small s
+    (40, 0, 20, 40, 2, 128, 160), (80, 0, 40, 80, 4, 64, 80), (160, 0, 80, 160, 4, 32, 40), (320, 0, 160, 320, 2, 16, 20),
+    (480, 320, 80, 160, 2, 32, 40), (240, 160, 40, 80, 2, 64, 80), (120, 80, 20, 40, 2, 128, 160), (240, 0, 80, 160, 2, 32, 40),
+    (480, 0, 160, 320, 2, 16, 20),
+    # yolov8-small m
+    (56, 0, 28, 56, 3, 128, 160), (112, 0, 56, 112, 6, 64, 80), (224, 0, 112, 224, 6, 32, 40), (448, 0, 224, 448, 3, 16, 20),
+    (672, 448, 112, 224, 3, 32, 40), (336, 224, 56, 112, 3, 64, 80), (168, 112, 28, 56, 3, 128, 160), (336, 0, 112, 224, 3, 32, 40),
+    (672, 0, 224, 448, 3, 16, 20),
+    # yolov8-small l
+    (72, 0, 36, 72, 4, 128, 160), (144, 0, 72, 144, 8, 64, 80), (288, 0, 144, 288, 8, 32, 40), (576, 0, 288, 576, 4, 16, 20),
+    (864, 576, 144, 288, 4, 32, 40), (432, 288, 72, 144, 4, 64, 80), (216, 144, 36, 72, 4, 128, 160), (432, 0, 144, 288, 4, 32, 40),
+    (864, 0, 288, 576, 4, 16, 20),
+    # yolov8-small x
+    (88, 0, 44, 88, 5, 128, 160), (176, 0, 88, 176, 10, 64, 80), (352, 0, 176, 352, 10, 32, 40), (704, 0, 352, 704, 5, 16, 20),
+    (1056, 704, 176, 352, 5, 32, 40), (528, 352, 88, 176, 5, 64, 80), (264, 176, 44, 88, 5, 128, 160), (528, 0, 176, 352, 5, 32, 40),
+    (1056, 0, 352, 704, 5, 16, 20),
+    # yolov10b
+    (128, 0, 64, 128, 2, 160, 160), (256, 0, 128, 256, 4, 80, 80), (512, 0, 256, 512, 4, 40, 40), (768, 512, 128, 256, 2, 80, 80),
+]
 MODEL = ("barrier", "shared")  # the constants of the plan's cost model (csrc/c2f.cu::Model)
 
 
@@ -152,7 +201,7 @@ MODEL = ("barrier", "shared")  # the constants of the plan's cost model (csrc/c2
 def _entry(lib=None):
     """`yt_c2f_forward` of the kernel library, or of another build of it (`lib`)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    argtypes = [p, p, p] + [p] * 7 + [i] * 13 + [p]
+    argtypes = [p, p, p] + [p] * 8 + [i] * 13 + [p]
     if lib is None:
         return _cuda.function("yt_c2f_forward", argtypes)
     fn = lib.yt_c2f_forward
@@ -184,23 +233,36 @@ def plan(B: int, H: int, W: int, c1: int, cs: int, c: int, c2o: int, n: int, dty
     take small tiles to spread over the SMs): the output tile, the blocks of the
     launch (no clusters) and how many an SM holds, the shared bytes per block,
     and the matrix instruction; in bf16 also the steps of the weight ring (two),
-    the slices per step and the pixels of a warp item."""
+    the slices per step, the output channels of a ring slice (`ring_chunk`:
+    pad16(c) unless N chunks shrink it) and the pixels of a warp item. A split
+    plan (`passes` > 1: the chain in passes of `pass_bottlenecks`, then cv2)
+    names its cv2 launch's `tail_tile`, `tail_chunk` and `tail_step_slices`, and
+    the elements of the concat buffer it needs (`workspace`)."""
     bf16 = dtype == torch.bfloat16
-    out = (ctypes.c_longlong * 8)()
+    out = (ctypes.c_longlong * 16)()
     fn = _cuda.function("yt_c2f_plan", [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)])
     err = fn(B, H, W, c1, cs, c, c2o, n, int(bf16), out)
     if err < 0:
         raise ValueError(_refusal(c1, cs, c, c2o, n, H, W, dtype))
     _cuda.check(err, "c2f plan")
-    th, tw, blocks, per_sm, smem, ring, group, item_px = (int(v) for v in out)
+    th, tw, blocks, per_sm, smem, ring, group, item_px, chunk, passes, nb, tth, ttw, tchunk, tgroup, ws = (int(v) for v in out)
     return dict(tile=(th, tw), blocks=blocks, cluster=1, blocks_per_sm=per_sm, smem=smem, ring_steps=ring,
-                step_slices=group, item_px=item_px, instruction="mma.sync.m16n8k16 + ldmatrix" if bf16 else "fmaf (CUDA cores)")
+                step_slices=group, ring_chunk=chunk, item_px=item_px, passes=passes, pass_bottlenecks=nb,
+                tail_tile=(tth, ttw), tail_chunk=tchunk, tail_step_slices=tgroup, workspace=ws,
+                instruction="mma.sync.m16n8k16 + ldmatrix" if bf16 else "fmaf (CUDA cores)")
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace(B: int, H: int, W: int, c1: int, cs: int, c: int, c2o: int, n: int, bf16: bool) -> int:
+    """Elements of the concat buffer the instance's plan needs (0 for one launch); the plan is the kernel's,
+    asked once per instance."""
+    return plan(B, H, W, c1, cs, c, c2o, n, torch.bfloat16 if bf16 else torch.float32)["workspace"]
 
 
 def _refusal(c1, cs, c, c2o, n, H, W, dtype) -> str:
     return (f"the C2f kernel does not take c1={c1} (small: {cs}), c={c}, c2o={c2o}, n={n} on a {H}x{W} map in {dtype}: "
             "it needs c % 4 == 0, an even map in upconcat mode, in bf16 input channel counts "
-            "that are multiples of 8 and an even c2o, in f32 c2o % 8 == 0, and a tile that fits 227 KB of shared memory")
+            "that are multiples of 8 and an even c2o, and in f32 c2o % 8 == 0")
 
 
 def _launch(x: torch.Tensor, small: torch.Tensor | None, kw: C2fWeights, shortcut: bool, force=(0, 0, 0), lib=None) -> torch.Tensor:
@@ -220,10 +282,12 @@ def _launch(x: torch.Tensor, small: torch.Tensor | None, kw: C2fWeights, shortcu
     c2o = kw.w2.shape[1]
     bf16 = x.dtype == torch.bfloat16
     out = torch.empty((B, H, W, c2o), device=x.device, dtype=x.dtype)
+    ws = 0 if force[0] else _workspace(B, H, W, cs + ck, cs, kw.c, c2o, kw.n, bf16)
+    cat = torch.empty(ws, device=x.device, dtype=x.dtype) if ws else None  # a split plan's concat between its passes
     err = _entry(lib)(
         x.data_ptr(), 0 if small is None else small.data_ptr(), out.data_ptr(),
         kw.w1.data_ptr(), kw.b1.data_ptr(), kw.wm.data_ptr(), kw.bm.data_ptr(), kw.w2.data_ptr(), kw.b2.data_ptr(),
-        kw.slices().data_ptr() if bf16 else 0,
+        kw.slices().data_ptr() if bf16 else 0, 0 if cat is None else cat.data_ptr(),
         B, H, W, cs + ck, cs, kw.c, c2o, kw.n, int(shortcut), int(bf16), *force,
         _cuda.stream_of(x),
     )

@@ -13,6 +13,12 @@
 `plain=True` replaces step 2 by `nms_fixed`, the JAX package's default
 select-max route, the reference the kernel route is held against.
 
+An end-to-end head (yolov10's v10Detect) gives its final rows, which no
+suppression takes: `end2end_select` keeps those whose score passes conf, of
+the asked classes, the first max_det of them, in the same fixed outputs (the
+Ultralytics reference's end-to-end branch; the JAX package runs NMS on them,
+a fault the port does not copy).
+
 The obb task's `non_max_suppression_rotated` is plain torch on every device, as
 the JAX package's is plain XLA: its suppression is not greedy (a candidate goes
 when its probiou with any higher-scored candidate, kept or not, reaches the
@@ -106,6 +112,28 @@ def non_max_suppression_parts(
     else:
         extra = None
     return _suppress_tail(b, c, top_conf, offset, iou_thres, max_det, plain, extra)
+
+
+def end2end_select(rows: torch.Tensor, conf_thres: float = 0.25, classes=None, max_det: int = 300, nc: int = 0) -> dict:
+    """The fixed outputs of an end-to-end head's rows (B, k, 6) (xyxy px box, score, class; ranked by score): in
+    each image the rows whose score is > conf_thres and, with `classes`, whose class is one of them (as
+    `non_max_suppression` reads `classes` for a model of `nc` classes: ids in [-nc, nc), negative ones from the
+    end), in their order, the first max_det of them → boxes (B, max_det, 4) | scores | cls | valid, zero (cls -1)
+    where not valid."""
+    keep = rows[..., 4] > conf_thres
+    cls = rows[..., 5].round().to(torch.long)
+    if classes is not None:
+        ids = torch.as_tensor([c % nc for c in map(int, classes) if -nc <= c < nc], dtype=torch.long, device=rows.device)
+        keep = keep & (cls[..., None] == ids).any(-1)
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices[:, :max_det]  # kept rows first, in order
+    valid = torch.gather(keep, 1, order)
+    order, valid = _pad_slots(order, valid, max_det)
+    return {
+        "boxes": torch.where(valid[..., None], torch.gather(rows[..., :4], 1, order[..., None].expand(-1, -1, 4)), 0.0),
+        "scores": torch.where(valid, torch.gather(rows[..., 4], 1, order), 0.0),
+        "cls": torch.where(valid, torch.gather(cls, 1, order), -1),
+        "valid": valid,
+    }
 
 
 def _keep_classes(cls_scores: torch.Tensor, classes) -> torch.Tensor:

@@ -150,6 +150,10 @@ class FusedDetectTrack:
         if sparse_head and int8:
             raise ValueError("the sparse box head takes fused float weights, not int8")
         head = model.layers[-1]
+        if getattr(head, "end2end", False):
+            raise NotImplementedError("FusedDetectTrack runs the Detect parts and the fixed-shape NMS; the end-to-end "
+                                      "v10Detect head has no parts path (the JAX package asserts): use YOLO.predict or "
+                                      "YOLO.track")
         if pallas_head2 and head.legacy:
             head.check_cm()  # a ReLU head: NotImplementedError (a non-legacy one raises at its first chunk, as in JAX)
         if "conv" not in params["model"]["0"]:  # yolov9e's layer 0 is nn.Identity

@@ -168,6 +168,22 @@ class v8DetectionLoss:
         return loss_iou, loss_cls, loss_dfl, aux
 
 
+class E2EDetectLoss:
+    """The dual yolov10 criterion (JAX E2EDetectLoss): `v8DetectionLoss` with the assigner's topk 10 on the
+    one-to-many outputs plus one with topk 1 on the one-to-one outputs (whose head inputs were detached) →
+    (the summed total × B, the six detached components: box, cls, dfl of each branch)."""
+
+    def __init__(self, model, hyp):
+        self.one2many = v8DetectionLoss(model, hyp, tal_topk=10)
+        self.one2one = v8DetectionLoss(model, hyp, tal_topk=1)
+
+    def __call__(self, preds, batch):
+        many, one = preds
+        l_many, c_many = self.one2many(many, batch)
+        l_one, c_one = self.one2one(one, batch)
+        return l_many + l_one, torch.cat([c_many, c_one])
+
+
 class v8SegmentationLoss(v8DetectionLoss):
     """The detection terms plus the prototype-mask BCE (JAX `v8SegmentationLoss`) over the top
     `max_fg` foreground anchors of each image by target score (the lowest index first on ties),
