@@ -232,7 +232,7 @@ Phases (any failure stops the run with a non-zero exit code):
    the CPU, TRAIN_STEP_TOL; yolo12n's is left out, `slice18_phases` says why).
 24. the nineteenth slice (`slice19_phases`): yolov3, yolov6, YOLO-NAS and yolov9 at full width (`[v3 v6 v9 nas]`,
    `[v3 v6 v9 nas others]`, `[pipeline v9 head_cm]`, `[pipeline nas]`, one epoch each of yolov9t and yolo_nas_s).
-25. the twentieth slice (last; `slice20_phases`): `[v8 scales]` (yolov8 s-x and yolov8-small m-x at full width,
+25. the twentieth slice (`slice20_phases`): `[v8 scales]` (yolov8 s-x and yolov8-small m-x at full width,
    whose wide C2f blocks take the kernel's general plan: the f32 forward against the f64 forward, kernels 1-3 held
    with the live gate, bf16 predict launching kernels 1, 2, 3 and 5), `[v10]` (yolov10n and yolov10s: the end-to-end
    rows against the f64 forward's, kernels 1 and 2 held with the live gate, bf16 predict at B = 1 and 8, val, track;
@@ -241,6 +241,14 @@ Phases (any failure stops the run with a non-zero exit code):
    through kernels 1-2 against the twins). `[c2f widths]` (with the kernel holds of item 2) holds kernels 1-2 against
    their twins at every published C2f width (`cuda_c2f.C2F_WIDTHS`), f32 and bf16, with each plan (tile, passes, ring
    chunk, shared bytes) and the widest instance of each model timed against the cuDNN walk and the bound.
+26. the twenty-first slice (last; `slice21_phases`): `[rtdetr]` (rtdetr-l at full width: the f32 rows against the
+   f64 forward's, paired by class and box, and the f32 query selection's sets against the f64 forward's; bf16 and f32
+   predict at B = 1 and 8 with the device's launches a call and the decoder's grid-sample share; val; track),
+   `[rtdetr others]` (rtdetr-x, -resnet50, -resnet101 and yolov8l-rtdetr, whose C2f rows and folded necks hold
+   kernels 1-2 against their twins with the live gate; predict of 4 frames; kernels 3-5 launch no time on any RT-DETR
+   path: the head is a decoder and NMS-free), `[rtdetr-l.yaml train]` (one bf16 epoch: giou / cls / l1, the step's
+   split with the host's Hungarian match, val) and `[yolo11-cls-resnet18]` (predict at 224, one epoch on `[classify]`'s
+   images; no kernel).
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -403,8 +411,9 @@ def capture_instances(model, x):
         return originals[2](x, kw)
 
     cuda_c2f.c2f_plain, cuda_c2f.c2f_upconcat_plain, cuda_head.head_level_plain = c2f, up, head
-    try:  # an end-to-end head (yolov10) has no parts: its own rows, and no NMS to hold
-        boxes, scores = (model.predict(x, plain=True), None) if getattr(model, "end2end", False) else model.predict_parts(x, plain=True)
+    try:  # an end-to-end head (yolov10) or RT-DETR's decoder has no parts: its own rows, and no NMS to hold
+        rows = getattr(model, "end2end", False) or getattr(model, "is_rtdetr", False)
+        boxes, scores = (model.predict(x, plain=True), None) if rows else model.predict_parts(x, plain=True)
     finally:
         cuda_c2f.c2f_plain, cuda_c2f.c2f_upconcat_plain, cuda_head.head_level_plain = originals
     return rec, boxes, scores
@@ -5023,7 +5032,10 @@ def card_against_f64(y, x, tag, path) -> dict:
     CPU as the yardstick of f32 rounding through this depth: each `column_errors` group of the card within 4x the
     CPU's distance from the f64 forward, and F64_FLOOR at least. A calibrated tree amplifies f32 rounding through its
     depth (yolov9t at 640²: 0.34 px in boxes between an H100 and the CPU, both f32), so a fixed gate on two f32 runs
-    can fail where neither is wrong → {group: (card's distance, CPU's distance)}."""
+    can fail where neither is wrong. RT-DETR's CPU and f64 decoders take the card's selected anchors (`selection_check`
+    holds the selection on its own): the rows of the same queries in one order, which a near-tie at the nq-th encoder
+    score would otherwise change, moving every row through the self-attention (`query_errors`) → {group: (card's
+    distance, CPU's distance)}."""
     import copy
 
     import torch
@@ -5034,13 +5046,21 @@ def card_against_f64(y, x, tag, path) -> dict:
     got, _ = counted(path, lambda: y.model.predict(x))
     cpu = type(y.model)(y.model.yaml, device="cpu")
     params_from_jax(cpu, y.params, torch.float32)
-    ref = cpu.predict(x.cpu())
-    ref = tuple(t.cuda() for t in ref) if isinstance(ref, tuple) else ref.cuda()
     m64 = copy.deepcopy(y.model).double()
     params_from_jax(m64, y.params, torch.float64)
-    exact = m64.predict(x.double(), plain=True)
-    del m64
-    ek, er = column_errors(y.model, got, exact), column_errors(y.model, ref, exact)
+    if getattr(y.model, "is_rtdetr", False):
+        ind = rtdetr_selection(y.model, x, plain=False)[1]
+        with torch.no_grad():
+            ref = cpu.head(cpu._walk(x.cpu(), True)[0], ind=ind.cpu()).cuda()
+            exact = m64.head(m64._walk(x.double(), True)[0], ind=ind)
+        del m64
+        ek, er = query_errors(got, exact, x.shape[1:3]), query_errors(ref, exact, x.shape[1:3])
+    else:
+        ref = cpu.predict(x.cpu())
+        ref = tuple(t.cuda() for t in ref) if isinstance(ref, tuple) else ref.cuda()
+        exact = m64.predict(x.double(), plain=True)
+        del m64
+        ek, er = column_errors(y.model, got, exact), column_errors(y.model, ref, exact)
     bad = {k: (e, er[k][0]) for k, (e, m) in ek.items() if e > max(4 * er[k][0], F64_FLOOR[k](m))}
     if bad:
         raise AssertionError(f"{tag}: card farther from the f64 forward than 4x the CPU's f32 (card, CPU): {bad}")
@@ -5534,6 +5554,303 @@ def slice20_phases(clip, train_data, root: Path, card):
     family_train_phase("yolov10n.yaml", train_data, root / "runs", card, path=V10_PATH)
     print(f"[slice 20] its phases took {time.perf_counter() - t0:.1f} s")
 
+# `[rtdetr]` / `[rtdetr others]`: rtdetr-l predicts 16 frames one a call and 32 eight a call, validates and tracks 8;
+# rtdetr-x, -resnet50, -resnet101 and yolov8l-rtdetr predict 4 (the slice's ~300 s budget)
+RTDETR_B1_FRAMES, RTDETR_B8_FRAMES, RTDETR_TRACK_FRAMES, RTDETR_OTHER_FRAMES = 16, 32, 8, 4
+RTDETR_OTHERS = ("rtdetr-x.yaml", "rtdetr-resnet50.yaml", "rtdetr-resnet101.yaml", "yolov8l-rtdetr.yaml")
+RTDETR_V8_PATH = {"c2f", "c2f_upconcat"}  # yolov8-rtdetr's C2f rows and folded necks; HGNetV2 / ResNet reach no kernel
+
+
+def rtdetr_path(name) -> set:
+    return RTDETR_V8_PATH if name.startswith("yolov8") else set()
+
+
+def awake_decoder(model, tree, seed=0, scale=0.02):
+    """`tree` with every float leaf of the RT-DETR decoder but its BN moments moved by seeded N(0, `scale`): at init(0)
+    its box heads give zero deltas, its attention weights are zero (a uniform softmax) and its sampling offsets do not
+    depend on the query, so the boxes are the selected anchors and a hold could not see the decoder's box refinement
+    or its query-dependent sampling (the CPU tests' `_awake` moves it the same way)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def move(node, key=""):
+        if isinstance(node, dict):
+            return {k: move(v, k) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype.kind != "f" or key in ("running_mean", "running_var"):
+            return a
+        return (a + rng.normal(0, scale, a.shape)).astype(a.dtype)
+
+    head = str(len(model.layers) - 1)
+    return {**tree, "model": {**tree["model"], head: move(tree["model"][head])}}
+
+
+def calibrated_rtdetr(name, x):
+    """YOLO(name) on the card holding its init(0) tree with the decoder awake (`awake_decoder`) and every BN's
+    moments then taken from the NHWC images `x` (`bn_calibrated`)."""
+    from yolo_tpu_torch import YOLO
+
+    y = YOLO(name)
+    if not getattr(y.model, "is_rtdetr", False):
+        raise AssertionError(f"{name}: built {type(y.model).__name__}")
+    y.params = bn_calibrated(y.model, awake_decoder(y.model, y.params), x)
+    return y
+
+
+def query_errors(got, want, hw) -> dict:
+    """|got − want| of two RT-DETR forwards' (B, nq, 4 + nc) query rows of the same selected anchors, row by row →
+    {"px": (largest xyxy difference in px of an H x W image, largest |coordinate|), "score": (largest class-score
+    difference, 1)}."""
+    import torch
+
+    from yolo_tpu_torch.ops.nms import query_boxes
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"query rows {tuple(got.shape)} vs {tuple(want.shape)}, finite {bool(torch.isfinite(got).all())}")
+    gb, wb = query_boxes(got, hw).double(), query_boxes(want, hw).double()
+    return {"px": (float((gb - wb).abs().max()), float(wb.abs().max())),
+            "score": (float((got[..., 4:].double() - want[..., 4:].double()).abs().max()), 1.0)}
+
+
+def rtdetr_selection(model, x, plain=True):
+    """The query selection of `model`'s forward of `x` (f32 or f64, as loaded; `plain=False`: yolov8-rtdetr's C2f
+    rows through the kernels, as predict walks) → (encoder scores (B, ΣHW), the selected anchors (B, nq))."""
+    import torch
+
+    with torch.no_grad():
+        xs, _ = model._walk(x, plain=plain)
+        feats, shapes = model.head.encode(xs, False)
+        _, _, enc, ind = model.head.select(feats, shapes, False)
+    return enc.max(-1).values, ind
+
+
+def selection_check(y, x, tag) -> str:
+    """The card's f32 selection of `x` against the f64 forward's, image by image: where the nq-th gap of the f64
+    scores exceeds twice the two forwards' largest encoder-score difference the selected sets must be equal (else the
+    phase fails); below that the anchors that differ are a near-tie and are printed → a line with the anchors that
+    differ, the gaps and that difference."""
+    import copy
+
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    params_from_jax(y.model, y.params, torch.float32)
+    s32, i32 = rtdetr_selection(y.model, x)
+    m64 = copy.deepcopy(y.model).double()
+    params_from_jax(m64, y.params, torch.float64)
+    s64, i64 = rtdetr_selection(m64, x.double())
+    del m64
+    nq = i32.shape[1]
+    noise = float((s32.double() - s64).abs().max())
+    ranked = torch.sort(s64, -1, descending=True).values
+    gap = (ranked[:, nq - 1] - ranked[:, nq]).tolist()
+    moved = [len(set(a.tolist()) - set(b.tolist())) for a, b in zip(i32, i64)]
+    defect = [m and g > 2 * noise for m, g in zip(moved, gap)]  # a gap over 2x every score's difference fixes the set
+    if any(defect):
+        raise AssertionError(f"{tag}: the f32 selection differs from the f64 forward's in {moved} anchors where its nq-th "
+                             f"gap {gap} exceeds twice the largest encoder-score difference {noise:.3e}")
+    return (f"selected sets: {moved} anchors of {nq} differ from the f64 forward's (a near-tie where any: nq-th gap "
+            + ", ".join(f"{g:.3e}" for g in gap) + f", largest encoder-score difference {noise:.3e})")
+
+
+def grid_sample_share(y, x) -> str:
+    """The device's time in one decoder forward of `x` (torch.profiler, the device only) and the share of it in the
+    bilinear grid samples (`grid_sampler_2d` kernels) → a line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        xs, _ = y.model._walk(x, plain=False)
+        y.model.head(xs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y.model.head(xs)
+            torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731 (µs)
+    total = sum(dev(e) for e in on_card)
+    grid = sum(dev(e) for e in on_card if "grid_sampler" in e.key)
+    n = sum(e.count for e in on_card)
+    if not total:
+        return "decoder: the profiler saw no device time"
+    return (f"decoder at B = {x.shape[0]}: {total / 1e3:.3f} ms on the device over {n} launches, the grid samples "
+            f"{grid / 1e3:.3f} ms ({grid / total:.1%})")
+
+
+def rtdetr_phase(frames, data, card):
+    """`[rtdetr]`: rtdetr-l at full width (nc 80), init(0) with the decoder awake, calibrated on two seeded noise images
+    at 640² (`calibrated_rtdetr`): the f32 rows against the f64 forward's (`card_against_f64`: the rows paired by class and box
+    as yolov10's) and the f32 selection's sets against the f64 forward's (`selection_check`); bf16 and f32 predict of
+    the clip's frames one a call and 8 a call (each frame's ten best; no NMS, no kernel: HGNetV2 and the decoder are
+    torch), frames/s with the host's ms a frame and the device's launches and busy time over one call; the share of
+    the decoder's device time in the grid samples; `val` of the held-out split (bf16, batch 16) and `track` (ByteTrack,
+    the init(0) tree)."""
+    import torch
+
+    from yolo_tpu_torch import RTDETR
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    tag, name = "rtdetr", "rtdetr-l.yaml"
+    noise = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    y = calibrated_rtdetr(name, noise)
+    err = card_against_f64(y, noise, f"{tag} {name}", set())
+    sel = selection_check(y, noise, f"{tag} {name}")
+    rates = []
+    for half in (True, False):
+        kw = dict(TASK_PREDICT, compute_dtype=compute_dtype(half), half=half)
+        for B, n in ((1, RTDETR_B1_FRAMES), (8, RTDETR_B8_FRAMES)):
+            sub = list(frames[:n])
+            y.predict(sub[:B], batch=B, **kw)  # warm: the weights in this dtype, this batch's shapes
+            y.predictor.timings = []
+            t0 = time.perf_counter()
+            res, lb = counted(set(), lambda: y.predict(sub, batch=B, **kw))
+            wall = time.perf_counter() - t0
+            ts, y.predictor.timings = y.predictor.timings, None
+            _, kernels, busy = device_launches(lambda: y.predict(sub[:B], batch=B, **kw))
+            if len(res) != n or not all(len(r) == 10 and (r.boxes.conf <= 1).all() and (r.boxes.cls < 80).all() for r in res):
+                raise AssertionError(f"{name}: {len(res)} results, or rows out of range")
+            rates.append(f"{'bf16' if half else 'f32'} B={B}: {n / wall:.1f} frames/s (host ms a frame: {host_split(ts)}); "
+                         f"one call {kernels} device launches ({kernels / B:.0f} a frame), {busy:.3f} ms busy; launches {lb}")
+    params_from_jax(y.model, y.params, torch.bfloat16)
+    share = {B: grid_sample_share(y, torch.from_numpy(frames[:B].copy()).cuda().flip(-1).to(torch.bfloat16) / 255.0) for B in (1, 8)}
+    metrics, lv = counted(set(), lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True))
+    if not all(map(math.isfinite, metrics.values())):
+        raise AssertionError(f"{name}: val {metrics}")
+    yt = RTDETR(name)
+    _, lt = counted(set(), lambda: [yt.track(f, persist=True, tracker="bytetrack.yaml", **TASK_PREDICT) for f in frames[:RTDETR_TRACK_FRAMES]])
+    log(tag, card, f"{name}: {len(y.model.layers)} layers, strides {y.model.stride}, NMS-free, {y.model.head.nq} queries; f32 rows "
+        f"on 2 noise images at 640² against the f64 forward's (card / CPU, both f32): "
+        + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items()) + f"; {sel}; predict " + "; ".join(rates)
+        + f"; {share[1]}; {share[8]}; val mAP50 {metrics['mAP50']:.4f} (launches {lv}); track "
+        f"{RTDETR_TRACK_FRAMES} frames (launches {lt})")
+
+
+def rtdetr_models_phase(frames, card):
+    """`[rtdetr others]`: rtdetr-x, -resnet50, -resnet101 (no kernel on their paths) and yolov8l-rtdetr (its C2f rows
+    and two folded necks through kernels 1 and 2) at full width, init(0) with the decoder awake, calibrated on two
+    noise images at 640² (`calibrated_rtdetr`): the
+    f32 rows against the f64 forward's, the selection's sets; yolov8l-rtdetr's kernels 1 and 2 against their twins
+    with the live gate (`hold_path_kernels`, no NMS); bf16 `predict` of 4 frames one a call, each path's launches
+    (`counted`: c2f and c2f_upconcat above 0 on yolov8l-rtdetr, every kernel 0 on the others; head_level,
+    head_level_cm and nms_keep 0 on all)."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import param_count
+
+    noise = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    rows = []
+    for name in RTDETR_OTHERS:
+        t0 = time.perf_counter()
+        path = rtdetr_path(name)
+        y = calibrated_rtdetr(name, noise)
+        err = card_against_f64(y, noise, f"rtdetr others {name}", path)
+        sel = selection_check(y, noise, f"rtdetr others {name}")
+        held = hold_path_kernels([y.model], noise, f"rtdetr others {name}", card, live=True, nms=False) if path else {}
+        sub = list(frames[:RTDETR_OTHER_FRAMES])
+        y.predict(sub[:1], **TASK_PREDICT)
+        t1 = time.perf_counter()
+        res, lp = counted(path, lambda: y.predict(sub, **TASK_PREDICT))
+        rate = len(sub) / (time.perf_counter() - t1)
+        if len(res) != len(sub) or not all(len(r) == 10 for r in res):
+            raise AssertionError(f"{name}: {len(res)} results, {sum(len(r) != 10 for r in res)} without ten rows")
+        rows.append(f"{name} ({len(y.model.layers)} layers, {param_count(y.params):,} values): rows against f64 (card / CPU) "
+                    + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items()) + f"; {sel}; held {held or 'no kernel on this path'}; "
+                    f"bf16 predict {rate:.1f} frames/s, launches {lp}; {time.perf_counter() - t0:.1f} s")
+    log("rtdetr others", card, "; ".join(rows))
+
+
+def rtdetr_train_phase(data, run_dir, card):
+    """`[rtdetr-l.yaml train]`: one bf16 epoch of rtdetr-l on the 64-frame detect split at 640, batch 16, with the
+    IR recipe (the bf16 check skipped, as the JAX trainer's fails on RT-DETR and keeps bf16): the three loss items
+    (giou, cls, l1) finite, the step's split (forward + loss, backward, optimizer in CUDA events; the host's
+    Hungarian match, its wait for the forward included, on the host clock), then `val` of the trained tree (f32)."""
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.utils import detr_loss
+
+    tag, name = "rtdetr-l.yaml train", "rtdetr-l.yaml"
+    epochs, spent = [], {}
+    time_calls(detr_loss, "hungarian_match", spent)
+    y = YOLO(name)
+    t0 = time.perf_counter()
+    _, launches = counted(set(), lambda: y.train(trainer=train_epoch_recorder(epochs), data=str(data), project=str(run_dir),
+                                                 name="rtdetr_train", exist_ok=True, **{**TRAIN_RECIPE, **SLICE18_RUN}))
+    wall = time.perf_counter() - t0
+    e = epochs[-1]
+    r, steps = e["row"], e["timings"][1:]
+    items = {k[len("train/"): -len("_loss")]: v for k, v in r.items() if k.startswith("train/") and k.endswith("_loss")}
+    if set(items) != {"giou", "cls", "l1"} or not all(np.isfinite(v) for v in items.values()) or not steps:
+        raise AssertionError(f"{tag}: {r}")
+    mean = {k: sum(t[k] for t in steps) / len(steps) for k in ("loader", "forward", "backward", "optimizer")}
+    span = e["t_end"] - e["timings"][1]["start"]
+    n_steps = len(e["timings"])
+    match_ms = spent["hungarian_match"] / max(n_steps, 1) * 1e3
+    metrics, lv = counted(set(), lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False))
+    if not all(map(math.isfinite, metrics.values())):
+        raise AssertionError(f"{tag}: val {metrics}")
+    log(tag, card, f"{name}, 1 epoch of {n_steps} steps at batch {TRAIN_RECIPE['batch']}, 640, bf16: "
+        + " ".join(f"{k} {v:.4f}" for k, v in items.items()) + f"; a step {span / len(steps) * 1e3:.1f} ms (host clock, "
+        f"after the first): forward+loss {mean['forward']:.2f} (of which the host's Hungarian match, seven layers, "
+        f"{match_ms:.2f} ms a step on the host clock), backward {mean['backward']:.2f}, optimizer+BN+EMA "
+        f"{mean['optimizer']:.2f} ms (events), loader wait {mean['loader']:.2f} ms; the .train call {wall:.1f} s; launches "
+        f"{launches}; f32 val mAP50 {metrics['mAP50']:.4f} (launches {lv})")
+
+
+def resnet18_cls_phase(frames, root: Path, card):
+    """`[yolo11-cls-resnet18]`: yolo11-cls-resnet18 (a torchvision ResNet-18 built in place, nc 1000, JAX's init(0)
+    tree): f32 and bf16 `predict` of the clip's frames at 224, one a call (top-1 equal between them on most frames,
+    probabilities finite), frames/s; then one bf16 epoch on `[classify]`'s folder dataset (`root`, 4 classes) at
+    CLS_RUN's batch 8, its loss and top-1. No kernel on its path (the backbone is plain torch convs)."""
+    import numpy as np
+
+    from yolo_tpu_torch import YOLO
+
+    name = "yolo11-cls-resnet18.yaml"
+    y = YOLO(name)
+    if (y.task, y.model.nc, type(y.model.layers[0]).__name__) != ("classify", 1000, "TorchVision"):
+        raise AssertionError(f"{name}: task {y.task}, nc {y.model.nc}, layer 0 {type(y.model.layers[0]).__name__}")
+    sub = list(frames[:RTDETR_B1_FRAMES])
+    out = {}
+    for half in (False, True):
+        kw = dict(imgsz=224, half=half, compute_dtype=compute_dtype(half), verbose=False)
+        y.predict(sub[0], **kw)
+        t0 = time.perf_counter()
+        res, _ = counted(set(), lambda: [y.predict(f, **kw)[0].probs.data for f in sub])
+        out[half] = (res, len(sub) / (time.perf_counter() - t0))
+        if not all(np.isfinite(p).all() and p.shape == (1000,) for p in res):
+            raise AssertionError(f"{name}: probabilities not finite or not (1000,)")
+    same = sum(int(a.argmax() == b.argmax()) for a, b in zip(out[False][0], out[True][0]))
+    yt = YOLO(name)
+    t0 = time.perf_counter()
+    metrics, lt = counted(set(), lambda: yt.train(data=str(root), project=str(root / "runs"), name="resnet18",
+                                                  **{**CLS_RUN, "epochs": 1}))
+    wall = time.perf_counter() - t0
+    losses = yt.trainer.losses
+    if not all(np.isfinite(losses)) or yt.model.nc != len(CLS_SHAPES):
+        raise AssertionError(f"{name} train: losses {losses}, metrics {metrics}, nc {yt.model.nc}")
+    log("yolo11-cls-resnet18", card, f"{name}: predict at 224, one a call: f32 {out[False][1]:.1f}, bf16 {out[True][1]:.1f} "
+        f"frames/s, top-1 equal on {same}/{len(sub)}; 1 epoch of {CLS_TRAIN[0]} images at batch {CLS_RUN['batch']}, bf16: "
+        f"loss {losses[-1]:.4f}, top1 {metrics['top1']:.4f}, {CLS_TRAIN[0] / wall:.1f} images/s over the .train call; "
+        f"launches {lt} (no kernel)")
+
+
+def slice21_phases(clip, train_data, cls_root: Path, root: Path, card):
+    """The twenty-first slice's phases: RT-DETR (rtdetr-l predict, val, track; rtdetr-x, -resnet50, -resnet101 and
+    yolov8l-rtdetr predict, the last through kernels 1-2; one epoch of rtdetr-l) and yolo11-cls-resnet18 (predict,
+    one epoch on `[classify]`'s images)."""
+    import numpy as np
+
+    bgr = np.repeat(clip[: max(RTDETR_B8_FRAMES, RTDETR_TRACK_FRAMES, RTDETR_OTHER_FRAMES)], 3, -1)
+    t0 = time.perf_counter()
+    rtdetr_phase(bgr, train_data, card)
+    rtdetr_models_phase(bgr, card)
+    rtdetr_train_phase(train_data, root / "runs", card)
+    resnet18_cls_phase(bgr, cls_root, card)
+    print(f"[slice 21] its phases took {time.perf_counter() - t0:.1f} s")
+
 
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
@@ -5693,6 +6010,8 @@ def main(argv) -> int:
         mark("the nineteenth slice")
         slice20_phases(clip, train_data, Path(tmp) / "slice20", card)
         mark("the twentieth slice")
+        slice21_phases(clip, train_data, Path(tmp) / "cls", Path(tmp) / "slice21", card)
+        mark("the twenty-first slice")
         if profiling:
             for name in SLICE18_FAMILIES:
                 train_step_precision_phase(train_data, card, name)

@@ -117,9 +117,9 @@ def test_classify_head_and_model_match_jax(two_threads):
 def test_yolo_cls_yaml_matches_jax_init_and_routing():
     """YOLO("yolov8n-cls.yaml") holds JAX's initial tree bit for bit (scale n, nc 1000, 1280-wide head);
     the task comes from the name or `task=`; -seg, -pose and -obb build a segment, a pose and an obb
-    model since those tasks were ported, an RT-DETR head names itself, a ResNet backbone builds a classify model
-    since the seventeenth slice, yolo11n-cls builds a classify model since the eighteenth and yolo11n-cls-resnet18 names
-    the module it lacks (TorchVision); guess_model_task and
+    model since those tasks were ported, a ResNet backbone builds a classify model since the seventeenth slice,
+    yolo11n-cls builds a classify model since the eighteenth, yolo11n-cls-resnet18 (TorchVision) builds one and an
+    RT-DETR head builds an RTDETRDetectionModel since the twenty-first; guess_model_task and
     model_class_for follow JAX's."""
     py, jy = yolo_tpu_torch.YOLO("yolov8n-cls.yaml", device="cpu"), yolo_tpu.YOLO("yolov8n-cls.yaml")
     got, want = _flat(py.params), _flat(jy.params)
@@ -134,8 +134,8 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     assert resnet.task == "classify" and isinstance(resnet.model, PT.ClassificationModel) and resnet.model.nc == 1000
     y11 = yolo_tpu_torch.YOLO("yolo11n-cls.yaml", device="cpu")
     assert y11.task == "classify" and isinstance(y11.model, PT.ClassificationModel)
-    with pytest.raises(NotImplementedError, match="TorchVision"):
-        yolo_tpu_torch.YOLO("yolo11n-cls-resnet18.yaml", device="cpu")
+    tv = yolo_tpu_torch.YOLO("yolo11n-cls-resnet18.yaml", device="cpu")
+    assert tv.task == "classify" and type(tv.model.layers[0]).__name__ == "TorchVision"
     for cfg in ("yolov8n-cls.yaml", "yolov8n.yaml", "yolov8n-seg.yaml", "yolov8n-pose.yaml", "yolov8n-obb.yaml"):
         d = JT.yaml_model_load(cfg)
         assert PT.guess_model_task(d) == JT.guess_model_task(d)
@@ -144,8 +144,7 @@ def test_yolo_cls_yaml_matches_jax_init_and_routing():
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-seg.yaml")) is PT.SegmentationModel
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-pose.yaml")) is PT.PoseModel
     assert PT.model_class_for(JT.yaml_model_load("yolov8n-obb.yaml")) is PT.OBBModel
-    with pytest.raises(NotImplementedError, match="RTDETRDecoder"):
-        PT.model_class_for(JT.yaml_model_load("rtdetr-l.yaml"))
+    assert PT.model_class_for(JT.yaml_model_load("rtdetr-l.yaml")) is PT.RTDETRDetectionModel
 
 
 @pytest.mark.parametrize("k", range(8))

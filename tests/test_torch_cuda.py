@@ -1181,3 +1181,53 @@ def test_slice20_phases_on_the_card(card, monkeypatch, tmp_path):
     chip_smoke.v8_scales_phase(bgr, "test")
     chip_smoke.v10_phase("yolov10n.yaml", bgr, data, "test")
     chip_smoke.v10_models_phase(bgr, "test")
+
+
+def test_yolov8n_rtdetr_predicts_in_bf16_through_kernels_1_2(card):
+    """`RTDETR("yolov8n-rtdetr.yaml").predict` in its default bf16 on the card: its C2f rows launch kernel 1, its two
+    folded necks kernel 2, and no head or NMS kernel (the decoder is NMS-free); each frame gets its ten best queries,
+    scores in (0, 1], classes below nc."""
+    import chip_smoke
+    from yolo_tpu_torch import RTDETR
+
+    y = RTDETR("yolov8n-rtdetr.yaml")
+    frames = [np.random.default_rng(i).integers(0, 255, (480, 640, 3), np.uint8) for i in range(2)]
+    res, launches = chip_smoke.counted({"c2f", "c2f_upconcat"}, lambda: y.predict(frames, conf=0.0, max_det=10, verbose=False))
+    assert len(res) == 2 and all(len(r) == 10 and (r.boxes.conf <= 1).all() and (r.boxes.cls < 80).all() for r in res)
+    assert launches["c2f"] == 2 * 6 and launches["c2f_upconcat"] == 2 * 2
+
+
+@pytest.mark.parametrize("name", ["rtdetr-l.yaml", "yolov8n-rtdetr.yaml"])
+def test_rtdetr_forward_on_the_card_matches_f64(card, name):
+    """rtdetr-l and yolov8n-rtdetr at full width, init(0) with the decoder awake and BN moments from two seeded 320²
+    noise images (`chip_smoke.calibrated_rtdetr`), f32 on the card (yolov8n-rtdetr's C2f rows and necks through kernels 1-2): the query
+    rows within `chip_smoke.card_against_f64`'s gate (ranked and paired by class and box) and the selection against the
+    f64 forward's (`selection_check`: equal sets wherever the nq-th gap exceeds twice the score differences)."""
+    import chip_smoke
+
+    noise = torch.rand((2, 320, 320, 3), generator=torch.Generator().manual_seed(0)).to(card)
+    y = chip_smoke.calibrated_rtdetr(name, noise)
+    err = chip_smoke.card_against_f64(y, noise, name, chip_smoke.rtdetr_path(name))
+    assert set(err) == {"px", "score"}
+    chip_smoke.selection_check(y, noise, name)
+
+
+def test_slice21_phases_on_the_card(card, monkeypatch, tmp_path):
+    """chip_smoke's twenty-first-slice phases at a few frames: `[rtdetr]` on rtdetr-l, `[rtdetr others]` on
+    yolov8l-rtdetr and rtdetr-resnet50, and `[yolo11-cls-resnet18]` on a small folder set, no RT-DETR training: every
+    hold passes and each path launches its kernels (kernels 1-2 on yolov8l-rtdetr only)."""
+    import chip_smoke
+
+    for key, value in dict(RTDETR_OTHERS=("yolov8l-rtdetr.yaml", "rtdetr-resnet50.yaml"), RTDETR_B1_FRAMES=2,
+                           RTDETR_B8_FRAMES=8, RTDETR_TRACK_FRAMES=2, RTDETR_OTHER_FRAMES=2).items():
+        monkeypatch.setattr(chip_smoke, key, value)
+    clip = chip_smoke.make_clip(8, *chip_smoke.HW)
+    root = tmp_path / "train"
+    chip_smoke.write_split(root, 16, 0, split="train")
+    data = chip_smoke.write_split(root, 16, 1)
+    chip_smoke.write_cls_split(tmp_path / "cls", 32, 0)
+    chip_smoke.write_cls_split(tmp_path / "cls", 8, 1, split="val")
+    bgr = np.repeat(clip, 3, -1)
+    chip_smoke.rtdetr_phase(bgr, data, "test")
+    chip_smoke.rtdetr_models_phase(bgr, "test")
+    chip_smoke.resnet18_cls_phase(bgr, tmp_path / "cls", "test")

@@ -135,7 +135,7 @@ def test_val_plots_and_a_failing_plot(splits, two_threads, tmp_path, monkeypatch
 
 
 def test_unported_tasks_and_the_coco_cross_check_raise(tmp_path):
-    """The tasks without a validator raise naming themselves; classify, segment, pose and obb have their own
+    """The tasks without a validator raise naming themselves; classify, segment, pose, obb and RT-DETR have their own
     validators. The COCOeval cross-check no longer raises: tests/test_torch_coco_eval.py holds it
     against JAX."""
     from yolo_tpu_torch.engine.classify import ClassificationValidator
@@ -143,7 +143,8 @@ def test_unported_tasks_and_the_coco_cross_check_raise(tmp_path):
     assert PV.validator_for(SimpleNamespace(task="segment")) is PV.SegmentationValidator
     assert PV.validator_for(SimpleNamespace(task="pose")) is PV.PoseValidator
     assert PV.validator_for(SimpleNamespace(task="obb")) is PV.OBBValidator
-    for model, task in ((SimpleNamespace(is_rtdetr=True), "rtdetr"),):
+    assert PV.validator_for(SimpleNamespace(is_rtdetr=True)) is PV.RTDETRValidator  # since the twenty-first slice
+    for model, task in ((SimpleNamespace(task="world"), "world"),):
         with pytest.raises(NotImplementedError, match=task):
             PV.validator_for(model)
     assert PV.validator_for(SimpleNamespace()) is PV.DetectionValidator

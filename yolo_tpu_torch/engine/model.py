@@ -6,6 +6,8 @@
     YOLO("yolov8n-pose.yaml")      # fresh PoseModel (a name with '-pose', or task="pose")
     YOLO("yolov8n-obb.yaml")       # fresh OBBModel (a name with '-obb', or task="obb")
     YOLO("yolov9c.yaml"), YOLO("yolov3.yaml"), YOLO("yolov6n.yaml"), NAS("yolo_nas_s")  # the older families
+    YOLO("rtdetr-l.yaml"), RTDETR("rtdetr-x.yaml"), YOLO("yolov8n-rtdetr.yaml")  # RT-DETR (a name with 'rtdetr')
+    YOLO("yolo11-cls-resnet18.yaml")  # a torchvision ResNet-18 backbone and the Classify head
     YOLO("weights/best.npz")       # a checkpoint the JAX package saved
     YOLO("weights/best.pt")        # a torch-layout state_dict of either package (nn/torch_export.py)
     YOLO("tcp://host:8777/0")      # lane 0 of a detection server (serve.py): predict and track only
@@ -31,7 +33,10 @@ predicts Results with `obb` (oriented boxes, engine/obb_predictor.py), validates
 probiou and trains on DOTA corner labels (the detect trainer with the rotated loss). All three
 track (their masks or keypoints follow their boxes; oriented boxes keep their angle), `benchmark`
 (their `predict` timed), `tune` (their trainer and validator's fitness) and predict with `int8=True`;
-an ensemble of them raises NotImplementedError, as the JAX package fails on one. Runs on the CUDA
+an ensemble of them raises NotImplementedError, as the JAX package fails on one. An RT-DETR YOLO predicts,
+validates (`RTDETRValidator`), trains (the DETR loss with denoising), tracks, benchmarks and predicts int8, tiled
+or through a server lane without NMS (its queries thresholded); `augment` changes nothing, and FusedDetectTrack and
+an ensemble of it raise NotImplementedError (ROADMAP item 5b), as the JAX package fails on them. Runs on the CUDA
 card unless `device="cpu"` is passed. Orbax checkpoints are not ported, nor the orbax, stablehlo
 and tflite exports.
 """
@@ -52,6 +57,7 @@ from yolo_tpu_torch.nn.tasks import (
     Ensemble,
     OBBModel,
     PoseModel,
+    RTDETRDetectionModel,
     SegmentationModel,
     fuse,
     install_params,
@@ -122,7 +128,8 @@ class YOLO:
         self.overrides["task"] = self.task
 
     def _new(self, cfg: str) -> None:
-        self.model = MODEL_CLASS[self.task](cfg, device=self.device)
+        cls = RTDETRDetectionModel if "rtdetr" in cfg.lower() else MODEL_CLASS[self.task]  # JAX's rule: by the name
+        self.model = cls(cfg, device=self.device)
         self.params = self.model.init(0)
 
     def _load(self, weights: str) -> None:
@@ -332,3 +339,12 @@ class NAS(YOLO):
         if not name.endswith((".yaml", ".yml", ".npz")) and "yolo_nas" in name:
             name = f"{name}.yaml"
         super().__init__(name, task="detect", device=device)
+
+
+class RTDETR(YOLO):
+    """RT-DETR (JAX `RTDETR`): the same facade over an RTDETRDetectionModel, whose decoder predicts a fixed set of
+    queries without NMS. Takes an rtdetr yaml ('rtdetr-l.yaml', 'rtdetr-x.yaml', 'rtdetr-resnet50.yaml',
+    'rtdetr-resnet101.yaml', 'yolov8n-rtdetr.yaml' at any scale) or a checkpoint of one."""
+
+    def __init__(self, model="rtdetr-l.yaml", device=None):
+        super().__init__(model, task="detect", device=device)

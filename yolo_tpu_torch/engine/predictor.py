@@ -9,7 +9,9 @@ device synchronisation where the outputs are copied to the host. `augment=True`
 runs test-time augmentation (`DetectionModel.predict_augment`); an Ensemble's
 members' predictions meet in one NMS. An end-to-end head (yolov10's v10Detect) gives
 its own final rows, which skip NMS (`ops.nms.end2end_select`: conf, classes,
-max_det; `augment=True` warns and predicts at one scale). `int8=True` quantizes the fused tree
+max_det; `augment=True` warns and predicts at one scale). RT-DETR's decoder gives (B, nq, 4 + nc) query rows, which
+skip NMS too (`ops.nms.rtdetr_select`: the best class and its score over conf, the top max_det; `augment` changes
+nothing there, as in the JAX predictor). `int8=True` quantizes the fused tree
 (nn/quantize.py, dynamic activation scales) and re-quantizes it when the
 parameters change. YOLO_TPU_LAZY_DECODE=1 runs the default route: the JAX
 package's lazy decode computes the same outputs and was not faster on the H100
@@ -44,7 +46,7 @@ from yolo_tpu_torch.nn.quantize import quantize_params
 from yolo_tpu_torch.nn.tasks import BaseModel, DetectionModel, Ensemble, fuse, install_params, params_from_jax
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
-from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression
+from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression, rtdetr_select
 from yolo_tpu_torch.utils import LOGGER
 from yolo_tpu_torch.utils.files import imwrite
 
@@ -173,6 +175,9 @@ class BasePredictor:
         x = imgs.flip(-1).to(self.dtype) / 255.0
         if self._classify:
             return {"probs": self.model.predict(x, plain=a.plain)}
+        if getattr(self.model, "is_rtdetr", False):  # the query rows, thresholded: no NMS, and one scale (as in JAX)
+            rows = self.model.predict(x, neck_opt=not self.model.int8, plain=a.plain)
+            return rtdetr_select(rows, x.shape[1:3], conf_thres=a.conf, classes=a.classes, max_det=a.max_det)
         if a.augment and self._takes_augment():
             preds = self.model.predict_augment(x, plain=a.plain)
         else:  # an int8 model walks without the neck fold

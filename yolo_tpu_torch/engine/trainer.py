@@ -37,6 +37,10 @@ An obb model trains with `v8OBBLoss` (components box / cls / dfl) on DOTA rows c
 xywhr, and validates with `OBBValidator`, as in the JAX trainer.
 A yolov10 model (the end-to-end v10Detect head) trains with `E2EDetectLoss`, each branch's box / cls / dfl
 logged apart (`box_o2m` ... `dfl_o2o`), as the JAX trainer logs them.
+An RT-DETR model trains with `RTDETRDetectionLoss` (components giou / cls / l1; the Hungarian match on the host),
+each batch with its contrastive-denoising queries (utils/cdn.py: the noise drawn from a numpy Generator seeded by
+`seed`, the JAX trainer's unseeded), and validates with `RTDETRValidator`. Its bf16 check is skipped and bf16 kept,
+as the JAX trainer's check fails on it (its 64² probe has fewer anchors than queries) and keeps bf16.
 Not ported, raising NotImplementedError: n_devices > 1 (the mesh, ROADMAP item 3).
 """
 
@@ -56,15 +60,18 @@ from yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
 from yolo_tpu_torch.data.dataset import check_det_dataset
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn.tasks import (
-    DetectionModel,
     load_train_params,
+    model_class_for,
     params_to_jax,
     train_leaves,
     tree_from_leaves,
     validate_s2d_stem,
+    yaml_model_load,
 )
 from yolo_tpu_torch.utils import LOGGER, yaml_save
 from yolo_tpu_torch.utils.callbacks import add_integration_callbacks, default_callbacks, run_callbacks
+from yolo_tpu_torch.utils.cdn import cdn_attn_mask, make_cdn_batch
+from yolo_tpu_torch.utils.detr_loss import RTDETRDetectionLoss
 from yolo_tpu_torch.utils.loss import E2EDetectLoss, v8DetectionLoss, v8OBBLoss, v8PoseLoss, v8SegmentationLoss
 from yolo_tpu_torch.utils.optim import apply_bn_stats, build_optimizer
 
@@ -157,7 +164,8 @@ class DetectionTrainer:
             self.model = model
             self.params = params if params is not None else model.init(self.args.seed)
         else:
-            self.model = DetectionModel(self.args.model or "yolov8n.yaml", nc=nc, device=self.device)
+            name = self.args.model or "yolov8n.yaml"
+            self.model = model_class_for(yaml_model_load(name))(name, nc=nc, device=self.device)
             self.params = self.model.init(self.args.seed)
         if getattr(self.model, "task", "detect") not in COMPONENTS:
             raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect, segment, pose and obb)")
@@ -186,6 +194,7 @@ class DetectionTrainer:
         if self.data:
             self.model.names = self.data["names"]
         self.loss_fn = self._make_loss()
+        self.cdn_rng = np.random.default_rng(self.args.seed)  # RT-DETR's denoising noise
         self.stopper = EarlyStopping(self.args.patience)
         self.start_epoch = 0
         self._check_resume()
@@ -234,7 +243,13 @@ class DetectionTrainer:
     def end2end(self) -> bool:
         return self.task == "detect" and getattr(self.model, "end2end", False)
 
+    @property
+    def rtdetr(self) -> bool:
+        return getattr(self.model, "is_rtdetr", False)
+
     def _make_loss(self):
+        if self.rtdetr:
+            return RTDETRDetectionLoss(self.model, self.args)
         return E2EDetectLoss(self.model, self.args) if self.end2end else LOSSES[self.task](self.model, self.args)
 
     def build_optimizer(self, named_params, iterations: int):
@@ -269,9 +284,25 @@ class DetectionTrainer:
             targets = {k: v.pin_memory() for k, v in targets.items()}
         return x.to(self.device, non_blocking=True), {k: v.to(self.device, non_blocking=True) for k, v in targets.items()}
 
-    def _features(self, img: torch.Tensor):
-        """The train forward of a uint8 batch: /255 in the compute dtype, then the walk (remat as set)."""
-        return self.model.forward_features(img.to(self.dtype) / 255.0, remat=bool(self.args.remat))
+    def _features(self, img: torch.Tensor, dn: dict | None = None):
+        """The train forward of a uint8 batch: /255 in the compute dtype, then the walk (remat as set); an RT-DETR
+        model's with the denoising queries of `dn`."""
+        x = img.to(self.dtype) / 255.0
+        if self.rtdetr:
+            return self.model.forward_features(x, remat=bool(self.args.remat), dn=dn)
+        return self.model.forward_features(x, remat=bool(self.args.remat))
+
+    def _denoising(self, batch: dict, targets: dict) -> dict:
+        """An RT-DETR batch's denoising queries (utils/cdn.py) on the device, the attention mask beside them; the
+        loss reads `dn_cls` from `targets` to split them off."""
+        dn = make_cdn_batch(batch, self.model.nc, self.cdn_rng)
+        D, N = dn["dn_cls"].shape[1], np.asarray(batch["cls"]).shape[1]
+        key = (D // (2 * N), N, self.model.head.nq)
+        if getattr(self, "_cdn_mask", (None,))[0] != key:
+            self._cdn_mask = (key, torch.from_numpy(cdn_attn_mask(*key)).to(self.device))
+        out = {k: torch.from_numpy(dn[k]).to(self.device, non_blocking=True) for k in ("dn_cls", "dn_bbox", "dn_valid")}
+        targets["dn_cls"] = out["dn_cls"]
+        return {**out, "attn_mask": self._cdn_mask[1]}
 
     def _autobatch(self, trainset) -> int:
         """batch=-1: `utils.profilers.autobatch` with this trainer's step as the probe: the train forward
@@ -361,7 +392,8 @@ class DetectionTrainer:
         """Forward and loss, backward, `_update` → the detached (box, cls, dfl) components on the
         device. `marks` gets a time mark (a CUDA event on the card, the host clock elsewhere) after each."""
         img, targets = self._upload(batch)
-        total, comps = self.loss_fn(self._features(img), targets)
+        dn = self._denoising(batch, targets) if self.rtdetr else None
+        total, comps = self.loss_fn(self._features(img, dn), targets)
         marks.append(self._mark())
         for p in self.opt.params:
             p.grad = None
@@ -403,7 +435,9 @@ class DetectionTrainer:
                 plot_labels(all_b, all_c, names=self.data.get("names", {}), save_path=self.save_dir / "labels.png")
             except Exception as e:
                 LOGGER.warning(f"label plot failed: {e}")
-        if args.amp:
+        if args.amp and self.rtdetr:
+            LOGGER.warning("AMP sanity check skipped: RT-DETR selects more queries than the 64x64 probe has anchors")
+        elif args.amp:
             from yolo_tpu_torch.utils.checks import check_amp
 
             if not check_amp(self.model, self.params):
@@ -440,7 +474,7 @@ class DetectionTrainer:
         csv_rows = []
         t_train = time.time()
         ni = self.start_epoch * nb
-        comp_names = COMPONENTS[self.task]
+        comp_names = ("giou", "cls", "l1") if self.rtdetr else COMPONENTS[self.task]
         if self.end2end:  # the two branches' components apart, as the JAX trainer logs them
             comp_names = tuple(f"{n}_o2m" for n in comp_names) + tuple(f"{n}_o2o" for n in comp_names)
         last_comps = np.zeros(len(comp_names))

@@ -21,6 +21,7 @@ packed detections and are matched on the host by object keypoint similarity, eac
 area × 0.53 its scale. `OBBValidator` scores oriented boxes: the rotated NMS (probiou, plain
 torch) on the model's xywhr predictions, then probiou matching against the labels' xywhr
 scaled to the letterboxed image (no confusion matrix, no json rows, as in the JAX package).
+`RTDETRValidator` takes every query of RT-DETR whose best score passes `conf` (no NMS, no max_det).
 The classify task's validator is engine/classify.py.
 """
 
@@ -41,7 +42,7 @@ from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn.tasks import install_params
 from yolo_tpu_torch.ops.boxes import scale_boxes, xywhn2xyxy, xyxy2xywh
 from yolo_tpu_torch.ops.masks import process_mask
-from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression, non_max_suppression_rotated
+from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression, non_max_suppression_rotated, query_boxes
 from yolo_tpu_torch.utils import LOGGER
 from yolo_tpu_torch.utils.metrics import (
     OKS_SIGMA,
@@ -54,7 +55,7 @@ from yolo_tpu_torch.utils.metrics import (
 
 
 def validator_for(model):
-    """The validator class of a model's task: detect's, segment's, pose's, obb's or classify's; the other
+    """The validator class of a model's task: detect's, segment's, pose's, obb's, classify's or RT-DETR's; the other
     tasks raise NotImplementedError."""
     task = "rtdetr" if getattr(model, "is_rtdetr", False) else getattr(model, "task", "detect")
     if task == "classify":
@@ -67,6 +68,8 @@ def validator_for(model):
         return PoseValidator
     if task == "obb":
         return OBBValidator
+    if task == "rtdetr":
+        return RTDETRValidator
     if task != "detect":
         raise NotImplementedError(f"validation of the {task} task is not ported (only detect, segment, pose, obb and classify)")
     return DetectionValidator
@@ -365,3 +368,19 @@ class OBBValidator(DetectionValidator):
             tp = match_predictions(out[i, valid, :5], pcls, gt * np.array([W, H, W, H, 1.0], np.float32), gt_cls, self.iou_thresholds)
             metrics.update(tp, out[i, valid, 5], pcls, gt_cls)
         return len(batch["meta"])
+
+
+class RTDETRValidator(DetectionValidator):
+    """Box mAP of an RT-DETR model without NMS (JAX RTDETRValidator): every query whose best class score is > conf is a
+    detection (its xyxy box in the letterboxed image's pixels, that score and class; no max_det), matched on the host
+    at the ten IoU thresholds as the detect validator matches."""
+
+    @torch.no_grad()
+    def _device_pass(self, model, imgs: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """→ (B, nq, 7): xyxy box, score, class, valid."""
+        x = self._images(imgs, device, dtype)
+        rows = model.predict(x, plain=self.plain)
+        sc, cl = rows[..., 4:].max(-1)
+        valid = sc > float(self.args.conf)
+        cols = [query_boxes(rows, x.shape[1:3]), sc[..., None], cl[..., None], valid[..., None]]
+        return torch.cat([c.to(torch.float32) for c in cols], -1)

@@ -213,7 +213,9 @@ class ConvBNAct(nn.Module):
             Q.record(self.calib, self.path, x)
         if self.eval_bn is not None:  # an unfused group: JAX's exact f32 eval BN, the activation in f32, then rounded
             mean, scale, beta = self.eval_bn
-            y = (conv_nhwc(x, self.weight, self.s, self.p, self.g).float() - mean) * scale + beta
+            y = conv_nhwc(x, self.weight, self.s, self.p, self.g)
+            y = (y.double() if y.dtype == torch.float64 else y.float()) - mean  # f64 stays (a reference forward)
+            y = y * scale + beta
             return activate(y, self.act).to(x.dtype)
         y = activate(conv_nhwc(x, self.weight, self.s, self.p, self.g) + self.bias, self.act)
         if self.calib is not None:
@@ -673,6 +675,158 @@ class ResNetLayer(_Tree):
         for m in self.layer:
             x = _call(m, x, train)
         return self.pool(x) if self.is_first else x
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    """JAX's jnp.maximum(x, 0) (its gradient split at a tie, as torch.maximum's)."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class TVBasicBlock(_Tree):
+    """torchvision's ResNet BasicBlock (JAX _TVBasicBlock): a 3x3 (stride s) conv with ReLU, a 3x3 conv, plus the
+    input or its 1x1 (stride s) projection, joined by ReLU."""
+
+    tree_keys = ("cv1", "cv2", "down")
+
+    def __init__(self, c1: int, c2: int, s: int = 1):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c2, 3, s, 1, act="relu")
+        self.cv2 = ConvBNAct(c2, c2, 3, 1, 1, act=False)
+        self.down = ConvBNAct(c1, c2, 1, s, act=False) if s != 1 or c1 != c2 else None
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv2, _call(self.cv1, x, train), train)
+        return _relu(y + (_call(self.down, x, train) if self.down is not None else x))
+
+
+class TorchVision(_Tree):
+    """A torchvision ResNet backbone built in place (JAX TorchVision; yaml args [c2, model, weights, unwrap, truncate,
+    split]): a 7x7 stride-2 ReLU stem, a 3x3 stride-2 max-pool, then the four stages of BasicBlocks (resnet18, 34) or
+    bottleneck ResNetBlocks with ReLU (resnet50, 101). `weights` changes nothing (the weights come from `init` or a
+    checkpoint, as in JAX); unwrap with truncate >= 2 returns the stride-32 map, otherwise its global mean as a 1x1
+    map. Another model or `split=True` raises NotImplementedError, as in JAX."""
+
+    tree_keys = ("stem", "stages")
+    STAGES = {"resnet18": ([2, 2, 2, 2], False), "resnet34": ([3, 4, 6, 3], False),
+              "resnet50": ([3, 4, 6, 3], True), "resnet101": ([3, 4, 23, 3], True)}
+
+    def __init__(self, c2, model: str = "resnet18", weights="DEFAULT", unwrap: bool = True, truncate: int = 2,
+                 split: bool = False):
+        super().__init__()
+        if model not in self.STAGES:
+            raise NotImplementedError(
+                f"TorchVision: only native ResNet backbones {sorted(self.STAGES)} are supported, got '{model}'")
+        if split:
+            raise NotImplementedError("TorchVision: split=True (multi-output) is not supported")
+        depths, bottleneck = self.STAGES[model]
+        self.pool_out = not (unwrap and truncate >= 2)
+        self.s_total = 32
+        self.stem = ConvBNAct(3, 64, 7, 2, 3, act="relu")
+        self.pool = MaxPool2d(3, 2, 1)
+        stages, c_in = [], 64
+        for si, (n, width) in enumerate(zip(depths, (64, 128, 256, 512))):
+            s = 1 if si == 0 else 2
+            if bottleneck:
+                blocks = [ResNetBlock(c_in, width, s, act="relu")] + [ResNetBlock(4 * width, width, 1, act="relu") for _ in range(n - 1)]
+                c_in = 4 * width
+            else:
+                blocks = [TVBasicBlock(c_in, width, s)] + [TVBasicBlock(width, width, 1) for _ in range(n - 1)]
+                c_in = width
+            stages.append(nn.ModuleList(blocks))
+        self.stages = nn.ModuleList(stages)
+        self.c_out = c_in
+
+    def _run(self, x, train: bool):
+        x = self.pool(_call(self.stem, x, train))
+        for blocks in self.stages:
+            for b in blocks:
+                x = _call(b, x, train)
+        return x.mean(dim=(1, 2), keepdim=True) if self.pool_out else x
+
+
+class LightConv(_Tree):
+    """A 1x1 conv without activation, then a k x k depth-wise conv with ReLU (JAX LightConv)."""
+
+    tree_keys = ("conv1", "conv2")
+
+    def __init__(self, c1: int, c2: int, k: int = 1, act="relu"):
+        super().__init__()
+        self.conv1 = ConvBNAct(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act=act)
+
+    def _run(self, x, train: bool):
+        return _call(self.conv2, _call(self.conv1, x, train), train)
+
+
+class HGStem(_Tree):
+    """PPHGNetV2's stem (JAX HGStem): a 3x3 stride-2 ReLU conv; padded by one row and column at the bottom and right,
+    two 2x2 ReLU convs (padded again between them) beside a 2x2 stride-1 max-pool of the padded map; both
+    concatenated into a 3x3 stride-2 conv, then a 1x1 (all ReLU). Its output is at stride 4."""
+
+    tree_keys = ("stem1", "stem2a", "stem2b", "stem3", "stem4")
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = ConvBNAct(c1, cm, 3, 2, act="relu")
+        self.stem2a = ConvBNAct(cm, cm // 2, 2, 1, 0, act="relu")
+        self.stem2b = ConvBNAct(cm // 2, cm, 2, 1, 0, act="relu")
+        self.stem3 = ConvBNAct(cm * 2, cm, 3, 2, act="relu")
+        self.stem4 = ConvBNAct(cm, c2, 1, 1, act="relu")
+
+    def _run(self, x, train: bool):
+        x = F.pad(_call(self.stem1, x, train), (0, 0, 0, 1, 0, 1))
+        x2 = F.pad(_call(self.stem2a, x, train), (0, 0, 0, 1, 0, 1))
+        x2 = _call(self.stem2b, x2, train)
+        x1 = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 1).permute(0, 2, 3, 1)
+        x = _call(self.stem3, torch.cat([x1, x2], -1), train)
+        return _call(self.stem4, x, train)
+
+
+class HGBlock(_Tree):
+    """PPHGNetV2's block (JAX HGBlock): n chained convs (k x k ReLU, or LightConv), the input and every output
+    concatenated, squeezed by a 1x1 to c2 / 2 and excited by a 1x1 to c2 (both ReLU), plus the input where
+    `shortcut` and c1 == c2."""
+
+    tree_keys = ("m", "sc", "ec")
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6, lightconv: bool = False, shortcut: bool = False):
+        super().__init__()
+        self.m = nn.ModuleList((LightConv(c1 if i == 0 else cm, cm, k=k) if lightconv else
+                                ConvBNAct(c1 if i == 0 else cm, cm, k, act="relu")) for i in range(n))
+        self.sc = ConvBNAct(c1 + n * cm, c2 // 2, 1, 1, act="relu")
+        self.ec = ConvBNAct(c2 // 2, c2, 1, 1, act="relu")
+        self.add = shortcut and c1 == c2
+        self.c1, self.c2, self.k, self.n = c1, c2, k, n
+
+    def _run(self, x, train: bool):
+        ys = [x]
+        for m in self.m:
+            ys.append(_call(m, ys[-1], train))
+        y = _call(self.ec, _call(self.sc, torch.cat(ys, -1), train), train)
+        return y + x if self.add else y
+
+
+class RepC3(_Tree):
+    """CSP block of n RepConvs (JAX RepC3): cv1 through the RepConvs plus cv2, both 1x1 of the input, then cv3 (a
+    1x1) where the hidden width differs from c2."""
+
+    tree_keys = ("cv1", "cv2", "m", "cv3")
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBNAct(c1, c_, 1, 1)
+        self.cv2 = ConvBNAct(c1, c_, 1, 1)
+        self.m = nn.ModuleList(RepConv(c_, c_) for _ in range(n))
+        self.cv3 = ConvBNAct(c_, c2, 1, 1) if c_ != c2 else None
+        self.c1, self.c2, self.n = c1, c2, n
+
+    def _run(self, x, train: bool):
+        y = _call(self.cv1, x, train)
+        for m in self.m:
+            y = _call(m, y, train)
+        y = y + _call(self.cv2, x, train)
+        return _call(self.cv3, y, train) if self.cv3 is not None else y
 
 
 class C3k(C3):

@@ -48,6 +48,7 @@ from torch import nn
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn import modules as M
 from yolo_tpu_torch.nn import quantize as Q
+from yolo_tpu_torch.nn import transformer as T
 
 CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
 BN_EPS = M.BN_EPS
@@ -97,12 +98,19 @@ MODULE_MAP = {
     "OBB": M.OBB,
     "Classify": M.Classify,
     "nn.Upsample": M.Upsample,
+    "TorchVision": M.TorchVision,
+    "HGStem": M.HGStem,
+    "HGBlock": M.HGBlock,
+    "RepC3": M.RepC3,
+    "AIFI": T.AIFI,
+    "RTDETRDecoder": T.RTDETRDecoder,
 }
 SCALED = (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.GhostConv,
           M.GhostBottleneck, M.SPPF, M.SPP, M.Bottleneck, M.NASCSP, M.RepConv, M.RepCSP, M.RepNCSPELAN4, M.ELAN1,
           M.AConv, M.ADown, M.SPPELAN, M.ConvTranspose, M.Classify, M.SCDown, M.CIB, M.C2fCIB,
-          M.PSA)  # c2 width-scaled (JAX's list)
-REPEATED = (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.NASCSP, M.RepCSP, M.C2fCIB)  # take the row's n
+          M.PSA, M.RepC3)  # c2 width-scaled (JAX's list)
+REPEATED = (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.NASCSP, M.RepCSP, M.C2fCIB, M.RepC3)  # take the row's n
+HEADS = (M.Detect, T.RTDETRDecoder)  # the layer a walk of the inference form ends at
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -175,6 +183,20 @@ def _parse_rows(d: dict, ch: int):
         n = max(round(n * depth), 1) if n > 1 else n
         if mcls is M.ResNetLayer:  # explicit [c1, c2, s, is_first, n]; 4 · c2 out unless the stem
             c2 = args[1] if args[3] else args[1] * 4
+        elif mcls is M.TorchVision:  # the declared output channels, not width-scaled
+            c2 = args[0]
+        elif mcls in (M.HGStem, M.HGBlock):  # [cm, c2, ...], neither width-scaled; an HGBlock takes the row's n
+            c2 = args[1]
+            args = [chs[f], *args]
+            if mcls is M.HGBlock:
+                args.insert(4, n)
+                n = 1
+        elif mcls is T.AIFI:
+            c2 = chs[f]
+            args = [chs[f], *args]
+        elif mcls is T.RTDETRDecoder:
+            args.insert(1, [chs[x] for x in f])
+            c2 = None
         elif mcls in SCALED:
             c1, c2 = chs[f], args[0]
             if c2 != nc:
@@ -231,8 +253,12 @@ def _compute_strides(layers, froms) -> dict:
             s = None
         elif isinstance(m, (M.ConvBNAct, M.MaxPool2d, M.GhostConv, M.GhostBottleneck, M.AConv, M.ADown, M.SCDown)):
             s = src * m.s
-        elif isinstance(m, M.ResNetLayer):
+        elif isinstance(m, (M.ResNetLayer, M.TorchVision)):
             s = src * m.s_total
+        elif isinstance(m, M.HGStem):  # two stride-2 convs
+            s = src * 4
+        elif isinstance(m, T.RTDETRDecoder):  # a head: its strides are preset
+            s = None
         elif isinstance(m, M.Upsample):
             s = src // m.scale
         elif isinstance(m, M.ConvTranspose):
@@ -262,18 +288,33 @@ def _fold_bn(p: dict) -> dict:
     return {"conv": {"weight": w * scale[None, None, None, :], "bias": b}}
 
 
-def unfused_keys(params: dict) -> set:
+def unfused_keys(params: dict, model_walk: bool = False) -> set:
     """The groups of a subtree that the JAX package's fuse leaves with their BN, by their owner: its walk looks each
     key up as an attribute of the module that owns it and finds none for a PSA's or PSABlock's `ffn` (a group beside
-    `attn`) nor for a CIB's `cv1` (the block's only group: five convs in a sequence, '0'..'4'). ConvBNAct runs these
-    BNs in f32. Every other group folds, every other `cv1` included."""
+    `attn`) nor for a CIB's `cv1` (the block's only group: five convs in a sequence, '0'..'4'), nor, where the whole
+    model is walked (`model_walk`: a detection model's tree; JAX's ClassificationModel has no fuse, its trees fold
+    conv by conv), for a ResNetLayer's `layer` (its only group; rtdetr-resnet50 / 101). ConvBNAct runs these BNs in
+    f32. Every other group folds, every other `cv1` included; an RTDETRDecoder's `input_proj` holds no `conv` / `bn`
+    pair (its groups are `0` and `1`) and stays as it is."""
     keys = set()
     if "attn" in params and "ffn" in params:
         keys.add("ffn")
     cv1 = params.get("cv1")
     if set(params) == {"cv1"} and isinstance(cv1, dict) and cv1 and all(k.isdigit() for k in cv1):
         keys.add("cv1")
+    if model_walk and set(params) == {"layer"}:
+        keys.add("layer")
     return keys
+
+
+def _model_walk(params: dict) -> bool:
+    """Whether JAX folds this tree with its model walk: a whole tree ({"model": ...}) whose last layer is not a
+    Classify head (its group holds `linear`)."""
+    layers = params.get("model") if isinstance(params, dict) else None
+    if not isinstance(layers, dict) or not layers:
+        return False
+    last = layers[max(layers, key=int)]
+    return not (isinstance(last, dict) and "linear" in last)
 
 
 def _as_numpy(params):
@@ -297,29 +338,46 @@ def _fold_repconv(p: dict) -> dict:
     return {"conv": {"weight": w, "bias": b}}
 
 
+def _is_repconv(p: dict) -> bool:
+    """Whether a subtree holding `conv1` and `conv2` is a RepConv's (a 3x3 `conv1` beside a 1x1), not a LightConv's (a
+    1x1 `conv1`, then a depth-wise `conv2`), which folds group by group."""
+    c1 = p["conv1"].get("conv", {}) if isinstance(p["conv1"], dict) else {}
+    return "weight" in c1 and np.shape(c1["weight"])[:2] == (3, 3)
+
+
 def fuse(params: dict) -> dict:
     """Fold every conv's BN into its weight and bias (exact inference form), with numpy, as the JAX package's
     `fuse` folds them: the groups `unfused_keys` names keep their BN (ConvBNAct runs it in f32).
 
     Every subtree holding `conv` (or `conv_transpose`) and `bn` groups is a ConvBNAct (a
-    ConvTranspose) of the JAX package, one holding `conv1` and `conv2` a RepConv; other leaves pass
-    through as numpy arrays."""
+    ConvTranspose) of the JAX package, one holding a 3x3 `conv1` and `conv2` a RepConv; other leaves pass
+    through as numpy arrays. An RTDETRDecoder's input projections (`input_proj/<i>/0` the conv, `/1` the BN)
+    stay unfolded, as JAX's generic fold finds no module under that key."""
+    return _fuse(params, _model_walk(params))
+
+
+def _fuse(params, model_walk: bool):
+    """`fuse` below the root, `model_walk` read from the whole tree there (`_model_walk`)."""
     if not isinstance(params, dict):
         return np.asarray(params)
-    if "conv1" in params and "conv2" in params:
+    if "conv1" in params and "conv2" in params and _is_repconv(params):
         return _fold_repconv(params)
     if "bn" in params and ("conv" in params or "conv_transpose" in params):
         return _fold_bn(params)
-    keep = unfused_keys(params)
-    return {k: _as_numpy(v) if k in keep else fuse(v) for k, v in params.items()}
+    keep = unfused_keys(params, model_walk)
+    return {k: _as_numpy(v) if k in keep else _fuse(v, model_walk) for k, v in params.items()}
 
 
 def params_are_fused(params) -> bool:
     """Whether `fuse` would leave the tree as it is."""
+    return _are_fused(params, isinstance(params, dict) and _model_walk(params))
+
+
+def _are_fused(params, model_walk: bool) -> bool:
     if not isinstance(params, dict):
         return True
-    keep = unfused_keys(params)
-    return "bn" not in params and all(k in keep or params_are_fused(v) for k, v in params.items())
+    keep = unfused_keys(params, model_walk)
+    return "bn" not in params and all(k in keep or _are_fused(v, model_walk) for k, v in params.items())
 
 
 class BaseModel(nn.Module):
@@ -426,7 +484,7 @@ class BaseModel(nn.Module):
         y = {}
         for i, (m, f) in enumerate(zip(self.layers, self.froms)):
             x_in = [x if j == -1 else y[j % i] for j in f] if isinstance(f, list) else (x if f == -1 else y[f % i])
-            if remat and not isinstance(m, M.Detect):
+            if remat and not isinstance(m, HEADS):
                 out = _remat(m, x_in)
             else:
                 out = m.forward_train(x_in) if hasattr(m, "forward_train") else m(x_in)
@@ -436,14 +494,14 @@ class BaseModel(nn.Module):
         return out
 
     def _walk(self, x: torch.Tensor, plain: bool, neck_opt: bool = True, upto: int | None = None, collect=()):
-        """Walk the inference modules over layers [0, upto) → (the Detect head's input maps, or
+        """Walk the inference modules over layers [0, upto) → (the head's input maps (a Detect's or an RTDETRDecoder's), or
         the last layer's output where the walk ends before the head; {i: output} of the layers in
         `collect`). `neck_opt` folds the Upsample→Concat→C2f chains into `C2f.call_upconcat`."""
         y, col = {}, {}
         for i, (m, f) in enumerate(zip(self.layers[:upto], self.froms[:upto])):
             if neck_opt and i in self._neck_skip:
                 continue
-            if isinstance(m, M.Detect):
+            if isinstance(m, HEADS):
                 return [x if j == -1 else y[j % i] for j in f], col
             if neck_opt and i in self._upconcat:
                 x = m.call_upconcat(x, y[self._upconcat[i]], plain=plain)
@@ -679,6 +737,43 @@ class OBBModel(DetectionModel):
         return self.head.decode_rotated(dists, clss, self.head.angles(xs), [(x.shape[1], x.shape[2]) for x in xs])
 
 
+class RTDETRDetectionModel(DetectionModel):
+    """RT-DETR (JAX RTDETRDetectionModel): a backbone and neck (HGNetV2, a ResNet, or yolov8's with its C2f blocks
+    through the kernel and the neck fold) feeding the RTDETRDecoder head. `predict` returns the decoder's
+    (B, nq, 4 + nc) f32 rows: normalized xywh boxes and sigmoid scores, which no NMS takes (the predictor and
+    the validator threshold them). The strides are the head's preset ones. No parts path or fused pipeline
+    takes the head (NotImplementedError, ROADMAP item 5b), as the JAX package asserts."""
+
+    is_rtdetr = True
+
+    def __init__(self, cfg="rtdetr-l.yaml", ch: int = 3, nc: int | None = None, device=None):
+        BaseModel.__init__(self, cfg, ch, nc, device)
+        self.head = self.layers[-1]
+        if not isinstance(self.head, T.RTDETRDecoder):
+            raise ValueError(f"an RTDETRDetectionModel's last layer is an RTDETRDecoder, not {type(self.head).__name__}")
+        self.stride = self.head.stride
+
+    def predict_parts(self, x: torch.Tensor, plain: bool = False, head_cm: bool = False, neck_opt: bool | None = None):
+        raise NotImplementedError("the RTDETRDecoder head gives (B, nq, 4 + nc) query rows, not per-anchor parts: use "
+                                  "predict(); no parts path or fused pipeline takes it (ROADMAP item 5b)")
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False) -> torch.Tensor:
+        """(B, nq, 4 + nc) f32 rows of NHWC images in the model's dtype: the walk (the C2f blocks of a yolov8 neck
+        through the kernel, `plain=True` their twins; `neck_opt` folds the neck), then the decoder in f32."""
+        xs, _ = self._walk(x, plain, neck_opt and not self.int8)
+        return self.head(xs)
+
+    def forward_features(self, x: torch.Tensor, remat: bool = False, dn: dict | None = None):
+        """The train forward (BaseModel's) → the decoder's train outputs; `dn` (dn_cls, dn_bbox, dn_valid and the
+        attention mask, on the device) prepends the denoising queries (JAX `ctx.dn`)."""
+        self.head.dn = dn
+        try:
+            return super().forward_features(x, remat)
+        finally:
+            self.head.dn = None
+
+
 def guess_model_task(cfg: dict) -> str:
     """The task of a model yaml, from its head module (JAX `guess_model_task`)."""
     rows = list(cfg.get("head", [])) or list(cfg.get("backbone", []))
@@ -695,13 +790,15 @@ def guess_model_task(cfg: dict) -> str:
 
 
 def model_class_for(cfg: dict, task: str | None = None):
-    """The model class of a checkpoint's config and task (JAX `model_class_for`): DetectionModel,
-    SegmentationModel, PoseModel, OBBModel or ClassificationModel; the other families raise
-    NotImplementedError naming them."""
+    """The model class of a checkpoint's config and task (JAX `model_class_for`): RTDETRDetectionModel for an
+    RTDETRDecoder head, else DetectionModel, SegmentationModel, PoseModel, OBBModel or ClassificationModel; the
+    World and YOLOE heads raise NotImplementedError naming them."""
     rows = list(cfg.get("head", []))
     head = str(rows[-1][2]) if rows else "Detect"
-    if head in ("RTDETRDecoder", "WorldDetect", "YOLOEDetect", "YOLOESegment"):
-        raise NotImplementedError(f"models with a {head} head are not ported (ROADMAP item 5)")
+    if head == "RTDETRDecoder":
+        return RTDETRDetectionModel
+    if head in ("WorldDetect", "YOLOEDetect", "YOLOESegment"):
+        raise NotImplementedError(f"models with a {head} head are not ported (ROADMAP item 5c)")
     task = task or guess_model_task(cfg)
     if task == "classify":
         return ClassificationModel
@@ -726,6 +823,9 @@ class Ensemble:
         if not models:
             raise ValueError("an ensemble needs at least one model")
         ncs = {m.nc for m in models}
+        if any(getattr(m, "is_rtdetr", False) for m in models):
+            raise NotImplementedError("an ensemble joins its members' per-anchor predictions for one NMS; RT-DETR's query "
+                                      "rows take no NMS (the JAX package's ensemble runs one over them; ROADMAP item 5b)")
         if any(getattr(m, "end2end", False) for m in models):
             raise NotImplementedError("an ensemble joins its members' predictions for one NMS; an end-to-end v10Detect "
                                       "head gives final rows that no NMS takes (the JAX package's ensemble mixes them up)")

@@ -136,6 +136,36 @@ def end2end_select(rows: torch.Tensor, conf_thres: float = 0.25, classes=None, m
     }
 
 
+def query_boxes(rows: torch.Tensor, hw) -> torch.Tensor:
+    """RT-DETR's normalized xywh query boxes (B, nq, 4) → xyxy pixels of an H x W image."""
+    H, W = hw
+    return xywh2xyxy(rows[..., :4]) * torch.tensor([W, H, W, H], dtype=torch.float32, device=rows.device)
+
+
+def rtdetr_select(rows: torch.Tensor, hw, conf_thres: float = 0.25, classes=None, max_det: int = 300) -> dict:
+    """The fixed outputs of RT-DETR's query rows (B, nq, 4 + nc) (normalized xywh boxes, sigmoid scores) of an H x W
+    image, without NMS (JAX's predictor route): each query's best class among `classes` (ids in [-nc, nc), negative
+    ones from the end; the first on a tie) and its score where it is > conf_thres, then the min(max_det, nq) best
+    queries (a stable sort: among equal scores the earlier query, as jax.lax.top_k) → boxes (B, k, 4) xyxy px |
+    scores | cls | valid, zero (cls -1) where not valid."""
+    boxes = query_boxes(rows, hw)
+    scores = rows[..., 4:]
+    if classes is not None:
+        scores = _keep_classes(scores, classes)
+    sc, cl = scores.max(-1)
+    sc = torch.where(sc > conf_thres, sc, -1.0)
+    top, idx = torch.sort(sc, dim=1, descending=True, stable=True)
+    k = min(max_det, sc.shape[1])
+    top, idx = top[:, :k], idx[:, :k]
+    valid = top > 0
+    return {
+        "boxes": torch.where(valid[..., None], torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)), 0.0),
+        "scores": torch.where(valid, top, 0.0),
+        "cls": torch.where(valid, torch.gather(cl, 1, idx), -1),
+        "valid": valid,
+    }
+
+
 def _keep_classes(cls_scores: torch.Tensor, classes) -> torch.Tensor:
     """Scores (..., nc) with every class but `classes` zeroed: ids in [-nc, nc) count, negative ones from the
     end; the others select nothing (as JAX's scatter drops them)."""

@@ -35,7 +35,7 @@ The JAX package's signature, each setting off unless asked for, as there:
 `mesh` raises NotImplementedError: sharding over cards is ROADMAP item 3.
 A ReLU head (yolov6, YOLO-NAS) walks its convs, which no head kernel takes, and
 `pallas_head2=True` refuses it (NotImplementedError); a model whose layer 0 has no
-conv to fold the input into (yolov9e's nn.Identity) raises NotImplementedError.
+conv to fold the input into (yolov9e's nn.Identity) raises NotImplementedError, and so does an RT-DETR model.
 """
 
 from __future__ import annotations
@@ -135,6 +135,10 @@ class FusedDetectTrack:
         plain: bool = False,
     ):
         task = getattr(model, "task", "detect")
+        if getattr(model, "is_rtdetr", False):
+            raise NotImplementedError("FusedDetectTrack runs the Detect parts and the fixed-shape NMS; RT-DETR's decoder "
+                                      "has no parts path (the JAX package asserts): use YOLO.predict or YOLO.track "
+                                      "(ROADMAP item 5b)")
         if task in EXTRA_OUTPUT_TASKS:
             raise NotImplementedError(f"FusedDetectTrack with a {task} model is not ported (the JAX package's fast path takes plain Detect heads only)")
         if channels not in (1, 3):
