@@ -42,12 +42,12 @@ Phases (any failure stops the run with a non-zero exit code):
    `FusedDetectTrack(channels=3)`, f32 kernels against f32 twins, then bf16;
    `[batched tracker]`: `BatchedMultiTargetTracker.update` / `scan_frames` on
    the card against the CPU on a seeded detection sequence;
-6. `[predict]`: `YOLO(best.npz).predict` frame by frame on 64 3-channel frames
+6. `[predict]`: `YOLO(best.npz).predict` frame by frame on PREDICT_FRAMES (16) 3-channel frames
    of the clip into the per-object Kalman clip loop, in f32 through the
    kernels and through the twins (equal detections and stats), then in bf16,
    timed;
 7. `[track bytetrack]`: `YOLO(best.npz).track(frame, persist=True,
-   tracker="bytetrack.yaml")` on the same 32 BGR frames, one per call, at the
+   tracker="bytetrack.yaml")` on TRACK_FRAMES (16) BGR frames, one per call, at the
    track defaults (conf 0.1, max_det 300, imgsz 640; the host BYTETracker):
    f32 kernels against f32 twins (rows and ids equal per frame, boxes 1e-2 px,
    conf 1e-4), then bf16, timed (predict and tracker host ms/frame);
@@ -65,7 +65,7 @@ Phases (any failure stops the run with a non-zero exit code):
    frame by frame and to the same scan on the CPU (ids exact, 1e-4); frames/s
    and the per-chunk event split (forward, NMS, byte step);
 11. config 5 (camera-motion compensation and grayscale recovery; needs cv2, and
-   fails without it): a 324-frame 640x512 panning clip (half the 649 frames of a copy of
+   fails without it): a 162-frame 640x512 panning clip (a quarter of the 649 frames of a copy of
    demos/motion_comp_bench.py::make_panning_clip, seed 7) through the chunked
    config-5 detector (gray frames, /255, broadcast to the stem, predict_parts
    and NMS at conf 0.15, iou 0.6, max_det 16, 128-frame chunks).
@@ -139,9 +139,9 @@ Phases (any failure stops the run with a non-zero exit code):
    the 32 frames through `predict(augment=True, imgsz=640)` (640, 544 and 448 square on the
    device), the launches per shape; `[ensemble]`: `YOLO([best.npz, last.npz])` over them;
    `[embed]`: `YOLO.embed` of them (vectors within 1e-4), ms/frame; `[enhance]`:
-   `otherplan.enhance_small_targets_torch` on 128 frames on the card against the host's cv2
+   `otherplan.enhance_small_targets_torch` on 64 frames on the card against the host's cv2
    enhancement and against itself on the CPU (1e-3, equal `classical_detect` boxes); `[detect_only]`
-   and `[single target]`: the clip's first 64 frames as an mp4v file through
+   and `[single target]`: the clip's first 32 frames as an mp4v file through
    `otherplan.detect_only` and `run_single_target_tracking` with the port's YOLO as the detector.
 17. the detect task's last settings (`int8_pipeline_phase`, right after `[pipeline options]`):
    `[pipeline int8]` (calibrated on the clip's first chunk) on the 256-frame clip: f32 through the
@@ -216,7 +216,7 @@ Phases (any failure stops the run with a non-zero exit code):
    forward against the twins, kernels 1, 3 and 5 held at the p6 and ghost-p2 shapes on seeded noise through trees
    whose BN moments come from it (`bn_calibrated`), each held instance's twin depending on its input
    (`live_share`), bf16 predict with its host split), `[pipeline ghost-p2]`
-   (FusedDetectTrack with yolov8n-ghost-p2's init(0) tree over 128 frames, conf 1e-6: tracks, ids and stats equal,
+   (FusedDetectTrack with yolov8n-ghost-p2's init(0) tree over 64 frames, conf 1e-6: tracks, ids and stats equal,
    detections on every frame), `[variants train]` (one epoch of yolov8n-ghost-p2 at 640, batch 16, bf16: the
    step's split; the trained tree's forward against the twin) and `[variants train step f32]` (one f32 step of
    yolov8n-ghost-p2 on the card against the CPU, TRAIN_STEP_TOL; `zero_grad_leaves` against their BN weight's gradient).
@@ -292,12 +292,13 @@ TOL = {"float32": (1e-3, 1e-3), "bfloat16": (6e-2, 6e-2)}
 CLS_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2e-3, 6e-2)}
 LOGIT_TOL = {"float32": (1e-3, 0.0), "bfloat16": (6e-2, 1.6e-2)}
 FRAMES, CHUNK, HW = 256, 128, (512, 640)  # cut from 512 (PR 17) to keep the script inside half its time limit
-PREDICT_FRAMES = 32
-TRACK_FRAMES = 32
-MOTION_FRAMES = 324  # config 5: half the reference's clip length, 649 (demos/motion_comp_bench.py)
+PREDICT_FRAMES = 16  # cut to fit the run's time limit (PERF.md §4)
+TRACK_FRAMES = 16  # cut to fit the run's time limit (PERF.md §4)
+TASK_TRACK_FRAMES = 32  # the segment / pose / obb tracks' moving clips (their near-ties settle at this length)
+MOTION_FRAMES = 162  # config 5: a quarter of the reference's clip length, 649 (demos/motion_comp_bench.py)
 MOTION_COMPARE_FRAMES = 64
 GRAY_FRAMES, GRAY_TEST_RANGE = 128, (32, 80)
-VAL_HELDOUT, VAL_FRAMES = (32, 10_000), (256, 20_000)  # validation splits: frames, seed
+VAL_HELDOUT, VAL_FRAMES = (32, 10_000), (128, 20_000)  # validation splits: frames, seed
 KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "c2f": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:264"),
     "c2f_upconcat": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:290"),
@@ -328,9 +329,13 @@ def compute_dtype(half: bool) -> str:
     return "bfloat16" if half else "float32"
 
 
+START = time.perf_counter()  # the script's clock: each result line ends with its time on it
+
+
 def log(tag: str, card: str, msg: str) -> None:
-    """One result line, tagged with the card it was measured on."""
-    print(f"[{tag} | {card}] {msg}")
+    """One result line, tagged with the card it was measured on, ending with the script's time when it was printed
+    (the differences between lines are the phases' times)."""
+    print(f"[{tag} | {card}] {msg} [at {time.perf_counter() - START:.1f} s]")
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -411,8 +416,8 @@ def capture_instances(model, x):
         return originals[2](x, kw)
 
     cuda_c2f.c2f_plain, cuda_c2f.c2f_upconcat_plain, cuda_head.head_level_plain = c2f, up, head
-    try:  # an end-to-end head (yolov10) or RT-DETR's decoder has no parts: its own rows, and no NMS to hold
-        rows = getattr(model, "end2end", False) or getattr(model, "is_rtdetr", False)
+    try:  # an end-to-end head (yolov10), RT-DETR's decoder or a YOLOE segment head has no parts: its own rows, no NMS held
+        rows = getattr(model, "end2end", False) or getattr(model, "is_rtdetr", False) or getattr(model, "segment", False)
         boxes, scores = (model.predict(x, plain=True), None) if rows else model.predict_parts(x, plain=True)
     finally:
         cuda_c2f.c2f_plain, cuda_c2f.c2f_upconcat_plain, cuda_head.head_level_plain = originals
@@ -2789,8 +2794,8 @@ def train_finetune_phase(data, run_dir, card):
 
 TILE, TILE_OVERLAP = 256, 0.25  # 9 tiles of a 640x512 frame, one batch padded to B = 16
 SLICE_FRAMES = 32  # frames of the `[tiled]`, `[tta]`, `[ensemble]` and `[embed]` phases
-ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 128, 16
-VIDEO_FRAMES = 64  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
+ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 64, 16  # cut to fit the run's time limit (PERF.md §4)
+VIDEO_FRAMES = 32  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
 
 
 def c2f_widths_phase(card):
@@ -4215,9 +4220,9 @@ def pose_track_phase(y, frames, seg, tmp: Path, card):
         return out
 
     fitted = {}
-    frames = moving_clip(frames, TRACK_FRAMES)
+    frames = moving_clip(frames, TASK_TRACK_FRAMES)
     for tag, model, fr, extra in (("pose track", y, frames, {}),
-                                  ("segment track", seg[0], moving_clip(seg[1], TRACK_FRAMES), {"retina_masks": False})):
+                                  ("segment track", seg[0], moving_clip(seg[1], TASK_TRACK_FRAMES), {"retina_masks": False})):
         yaml, conf = fitted[tag] = track_yaml_for(model, fr, tmp / f"{tag.split()[0]}_bytetrack.yaml", **extra)
         rk, launches = counted(POSE_PATH, lambda: run(model, fr, yaml, conf, False, False, extra))
         rp = run(model, fr, yaml, conf, False, True, extra)
@@ -4537,7 +4542,7 @@ def obb_track_phase(y, frames, tmp: Path, card):
             out.append(r.obb.data.copy() if r.obb is not None else np.zeros((0, 8), np.float32))
         return out
 
-    clip = moving_clip(frames, TRACK_FRAMES)
+    clip = moving_clip(frames, TASK_TRACK_FRAMES)
     yaml, conf = track_yaml_for(y, clip, tmp / "obb_bytetrack.yaml", decimals=10)
     rk, launches = counted(OBB_PATH, lambda: run(yaml, conf, False, False))
     rp = run(yaml, conf, False, True)
@@ -4586,9 +4591,9 @@ def obb_phases(root: Path, card):
 TASK_YAMLS = {"segment": "yolov8n-seg.yaml", "pose": "yolov8n-pose.yaml", "obb": "yolov8n-obb.yaml"}
 TASK_FORWARD_PATH = {"c2f", "c2f_upconcat", "head_level"}  # a task model's predict: kernels 1-3, no NMS
 TASK_PREDICT = dict(conf=0.0, max_det=10, verbose=False)  # each frame's ten best: an untrained model scores near its bias prior
-TASK_INT8_FRAMES = 8  # halved in PR 20 with the other PR 17-19 depths (the script passed 1,000 s)
-TASK_SERVE_FRAMES = 8  # `[task serve]`: frames a client, two clients a lane (16 before PR 20)
-GHOST_P2_FRAMES = 128  # `[pipeline ghost-p2]`: one 128-frame chunk of the clip (two before PR 20)
+TASK_INT8_FRAMES = 4  # cut to fit the run's time limit (PERF.md §4)
+TASK_SERVE_FRAMES = 4  # `[task serve]`: frames a client, two clients a lane
+GHOST_P2_FRAMES = 64  # `[pipeline ghost-p2]`: one 64-frame chunk of the clip
 GHOST_P2_CONF = 1e-6  # below every score of the init(0) tree (its bias prior at P2 is 2.4e-6): 16 detections every frame
 
 
@@ -4859,7 +4864,7 @@ def variants_phase(frames, card):
 
 def ghost_p2_pipeline_phase(clip, card):
     """`[pipeline ghost-p2]`: FusedDetectTrack with yolov8n-ghost-p2's init(0) tree (full width, nc 80) over the clip's
-    first 128 frames, one chunk, conf 1e-6 (below every score of the untrained tree, whose features fade
+    first GHOST_P2_FRAMES frames, one chunk, conf 1e-6 (below every score of the untrained tree, whose features fade
     through its depth so that its scores sit at the bias prior: 16 detections a frame): f32 through the kernels (3 and
     5; the model has no C2f) against f32 through the twins: tracks, ids, statuses, detection counts and stats equal;
     then bf16 frames/s with its launches."""
@@ -4871,7 +4876,7 @@ def ghost_p2_pipeline_phase(clip, card):
     sub = clip[:GHOST_P2_FRAMES]
 
     def pipe(dtype, plain):
-        return FusedDetectTrack(y.model, y.params, frame_hw=HW, chunk=CHUNK, conf=GHOST_P2_CONF, iou=0.6, n_max=64, d_max=16,
+        return FusedDetectTrack(y.model, y.params, frame_hw=HW, chunk=len(sub), conf=GHOST_P2_CONF, iou=0.6, n_max=64, d_max=16,
                                 dtype=dtype, plain=plain)
 
     (ok_, sk, wk), launches = counted({"head_level", "nms_keep"}, lambda: timed_run(pipe(torch.float32, False), sub))
@@ -4881,7 +4886,7 @@ def ghost_p2_pipeline_phase(clip, card):
     if sk["detection_frames"] <= 0 or min(per_frame) <= 0:
         raise AssertionError(f"pipeline ghost-p2: stats {sk}, frames without detections {per_frame.count(0)}")
     ft = pipe(torch.bfloat16, False)
-    ft.run_clip(sub[:CHUNK])  # warm-up
+    ft.run_clip(sub)  # warm-up
     ft.reset()
     (ob, sb, wb), lb = counted({"head_level", "nms_keep"}, lambda: timed_run(ft, sub))
     log("pipeline ghost-p2", card, f"f32 kernels {sk} in {wk:.2f} s = twins {sp} in {wp:.2f} s: tracks, ids, statuses, detection "
@@ -4949,8 +4954,8 @@ def slice17_phases(clip, root: Path, train_data, card):
 
 SLICE18_FAMILIES = ("yolo11n.yaml", "yolo12n.yaml")
 SLICE18_TASKS = tuple(f"yolo{v}n-{t}.yaml" for v in (11, 12) for t in ("seg", "pose", "obb", "cls"))
-SLICE18_B1_FRAMES, SLICE18_B8_FRAMES = 16, 32  # `[yolo11]` / `[yolo12]`: bf16 predict one frame a call, then 8 a call (32, 64 before PR 20)
-SLICE18_TRACK_FRAMES = 8
+SLICE18_B1_FRAMES, SLICE18_B8_FRAMES = 8, 16  # `[yolo11]` / `[yolo12]`: bf16 predict one frame a call, then 8 a call
+SLICE18_TRACK_FRAMES = 4  # cut to fit the run's time limit (PERF.md §4)
 SLICE18_RUN = dict(epochs=1, workers=8, seed=0)  # `[yolo11 train]`: one epoch of the 64-frame split at TRAIN_RECIPE's batch 16
 
 
@@ -5045,6 +5050,8 @@ def card_against_f64(y, x, tag, path) -> dict:
     params_from_jax(y.model, y.params, torch.float32)
     got, _ = counted(path, lambda: y.model.predict(x))
     cpu = type(y.model)(y.model.yaml, device="cpu")
+    if hasattr(y.model, "prompts"):  # a World or YOLOE model: the card's class prompts (the f64 copy keeps them)
+        cpu._set_prompts(y.model.prompts)
     params_from_jax(cpu, y.params, torch.float32)
     m64 = copy.deepcopy(y.model).double()
     params_from_jax(m64, y.params, torch.float64)
@@ -5194,14 +5201,15 @@ def family_train_phase(name, data, run_dir, card, path=frozenset({"nms_keep"})):
     detect split at 640, batch 16, bf16 with the IR recipe, validating once (the path's kernels): every loss item finite
     (yolov10's six: box, cls, dfl of each branch), the mean step (forward + loss, backward,
     optimizer in CUDA events); then `val` of the trained tree f32 through kernel 5 against its twin (every key within
-    1e-4). The train step itself runs no kernel; `[yolo11 train step f32]` holds it against the CPU."""
+    1e-4). The train step itself runs no kernel; `[yolo11 train step f32]` holds it against the CPU. The model comes from
+    the facade its name routes to (`facade_for`: YOLOWorld and YOLOE fine-tune close-set, the data's names embedded)."""
     import numpy as np
 
-    from yolo_tpu_torch import YOLO
+    from yolo_tpu_torch.engine.model import facade_for
 
     tag = name.split("n.")[0] + " train"
     epochs = []
-    y = YOLO(name)
+    y = facade_for(name)(name)
     t0 = time.perf_counter()
     _, launches = counted(path, lambda: y.train(trainer=train_epoch_recorder(epochs), data=str(data), project=str(run_dir),
                                                 name=tag.replace(" ", "_"), exist_ok=True, **{**TRAIN_RECIPE, **SLICE18_RUN}))
@@ -5246,9 +5254,9 @@ def slice18_phases(clip, train_data, seg_data, pose_data, root: Path, card):
 SLICE19_FAMILIES = ("yolov9t.yaml", "yolov9c.yaml", "yolov3.yaml", "yolov3-tiny.yaml", "yolov6n.yaml", "yolo_nas_s.yaml")
 SLICE19_OTHERS = ("yolov3-spp.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9e.yaml", "yolov6s.yaml", "yolov6m.yaml",
                   "yolov6l.yaml", "yolov6x.yaml", "yolo_nas_m.yaml", "yolo_nas_l.yaml", "yolov9c-seg.yaml", "yolov9e-seg.yaml")
-SLICE19_B1_FRAMES, SLICE19_B8_FRAMES, SLICE19_OTHER_FRAMES = 8, 16, 2  # `[v3 v6 v9 nas]`: bf16 predict a frame a call, 8 a call (16, 32, 4 before PR 20)
-SLICE19_TRACK_FRAMES = 4
-SLICE19_PIPELINE_FRAMES = 128  # `[pipeline v9 head_cm]`, `[pipeline nas]`: one chunk
+SLICE19_B1_FRAMES, SLICE19_B8_FRAMES, SLICE19_OTHER_FRAMES = 4, 8, 1  # `[v3 v6 v9 nas]`: bf16 predict a frame a call, 8 a call
+SLICE19_TRACK_FRAMES = 2  # cut to fit the run's time limit (PERF.md §4)
+SLICE19_PIPELINE_FRAMES = 64  # `[pipeline v9 head_cm]`, `[pipeline nas]`: one chunk of 64 frames
 
 
 def slice19_path(y) -> set:
@@ -5336,7 +5344,7 @@ def slice19_models_phase(frames, card):
 
 def slice19_pipeline_phase(clip, card):
     """`[pipeline v9 head_cm]`: FusedDetectTrack(pallas_head2=True) with yolov9t's init(0) tree over the clip's first
-    128 frames at conf 1e-6 (its scores sit at the bias prior: 16 detections a frame), f32 kernels 4 and 5 against the
+    64 frames at conf 1e-6 (its scores sit at the bias prior: 16 detections a frame), f32 kernels 4 and 5 against the
     twins (tracks, ids, statuses, counts, stats equal), then bf16 frames/s with its launches; kernel 4 against its twin
     at yolov9t's three levels on a calibrated tree with live inputs. `[pipeline nas]`: yolo_nas_s's ReLU head walks its
     convs (kernels 1-4 launch no time, kernel 5 does) and `pallas_head2=True` refuses it."""
@@ -5352,7 +5360,7 @@ def slice19_pipeline_phase(clip, card):
         path = {"head_level_cm", "nms_keep"} if head_cm else {"nms_keep"}
 
         def pipe(dtype, plain, y=y, head_cm=head_cm):
-            return FusedDetectTrack(y.model, y.params, frame_hw=HW, chunk=CHUNK, conf=GHOST_P2_CONF, iou=0.6, n_max=64, d_max=16,
+            return FusedDetectTrack(y.model, y.params, frame_hw=HW, chunk=len(sub), conf=GHOST_P2_CONF, iou=0.6, n_max=64, d_max=16,
                                     dtype=dtype, plain=plain, pallas_head2=head_cm)
 
         (ok_, sk, wk), launches = counted(path, lambda: timed_run(pipe(torch.float32, False), sub))
@@ -5414,10 +5422,10 @@ def slice19_phases(clip, train_data, root: Path, card):
 
 
 V8_SCALES = [(f"yolov8{s}.yaml", None) for s in "smlx"] + [("yolov8-small.yaml", s) for s in "mlx"]  # `[v8 scales]`
-V8_SCALE_FRAMES = 4
+V8_SCALE_FRAMES = 2  # cut to fit the run's time limit (PERF.md §4)
 V10_FAMILIES = ("yolov10n.yaml", "yolov10s.yaml")  # `[v10]`: predict, val and track
 V10_OTHERS = ("yolov10m.yaml", "yolov10b.yaml", "yolov10l.yaml", "yolov10x.yaml")  # `[v10]`: predict 4 frames
-V10_B1_FRAMES, V10_B8_FRAMES, V10_OTHER_FRAMES, V10_TRACK_FRAMES = 16, 32, 4, 8
+V10_B1_FRAMES, V10_B8_FRAMES, V10_OTHER_FRAMES, V10_TRACK_FRAMES = 8, 16, 2, 4  # cut to fit the run's time limit (PERF.md §4)
 V10_PATH = {"c2f", "c2f_upconcat"}  # every v10 model folds its layer 16 (and 13 at n-m) and keeps plain C2f rows; no NMS
 
 
@@ -5556,7 +5564,7 @@ def slice20_phases(clip, train_data, root: Path, card):
 
 # `[rtdetr]` / `[rtdetr others]`: rtdetr-l predicts 16 frames one a call and 32 eight a call, validates and tracks 8;
 # rtdetr-x, -resnet50, -resnet101 and yolov8l-rtdetr predict 4 (the slice's ~300 s budget)
-RTDETR_B1_FRAMES, RTDETR_B8_FRAMES, RTDETR_TRACK_FRAMES, RTDETR_OTHER_FRAMES = 16, 32, 8, 4
+RTDETR_B1_FRAMES, RTDETR_B8_FRAMES, RTDETR_TRACK_FRAMES, RTDETR_OTHER_FRAMES = 8, 16, 4, 2  # cut to fit the run's time limit (PERF.md §4)
 RTDETR_OTHERS = ("rtdetr-x.yaml", "rtdetr-resnet50.yaml", "rtdetr-resnet101.yaml", "yolov8l-rtdetr.yaml")
 RTDETR_V8_PATH = {"c2f", "c2f_upconcat"}  # yolov8-rtdetr's C2f rows and folded necks; HGNetV2 / ResNet reach no kernel
 
@@ -5852,6 +5860,247 @@ def slice21_phases(clip, train_data, cls_root: Path, root: Path, card):
     print(f"[slice 21] its phases took {time.perf_counter() - t0:.1f} s")
 
 
+# `[world]` / `[yoloe]`: the YOLO-World and YOLOE configurations at 640², nc 80 (the text tower's embeddings of
+# OV_PROMPTS class names), each with the kernels of its predict path (a YOLOE segment model predicts through
+# `YOLOEModel.predict`, which takes no NMS: its predictor is refused, as JAX's fails)
+OPEN_VOCAB = (
+    ("yolov8s-worldv2.yaml", {"c2f", "nms_keep"}),
+    ("yolov8s-world.yaml", {"c2f", "nms_keep"}),
+    ("yoloe-v8s.yaml", {"c2f", "c2f_upconcat", "nms_keep"}),
+    ("yoloe-v8s-seg.yaml", {"c2f", "c2f_upconcat"}),
+    ("yoloe-11s.yaml", {"nms_keep"}),
+)
+OV_PROMPTS = 80
+OV_B1_FRAMES, OV_B8_FRAMES, OV_TRACK_FRAMES = 8, 16, 4
+OV_SIZE = 640  # the noise images of the holds
+OV_LRPC_CONF = 0.5  # the proposal filter's threshold: sigmoid(0), the contrastive bias of `awake_contrastive`, so that about half pass
+OV_TRAIN = ("yolov8s-worldv2.yaml", "yoloe-v8s.yaml")  # one close-set epoch each
+
+
+def awake_contrastive(model, tree) -> dict:
+    """`tree` with the contrastive heads' biases (JAX's init: -10) at 0. At -10 every score of a World or YOLOE model
+    sits near sigmoid(-10) = 4.5e-05, under the score group's F64_FLOOR of 1e-4, so a hold of the scores could not see
+    the class branch; at 0 they spread about 0.5, where the sigmoid is steepest."""
+    import numpy as np
+
+    hi = str(len(model.layers) - 1)
+    head = dict(tree["model"][hi])
+    head["cv4"] = {l: {**p, "bias": np.zeros_like(p["bias"])} for l, p in head["cv4"].items()}
+    return {**tree, "model": {**tree["model"], hi: head}}
+
+
+def visual_masks(B, Q, h, w):
+    """(B, Q, h, w) f32 prompt masks on the P3 grid: Q seeded rectangles an image."""
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+    vp = torch.zeros((B, Q, h, w))
+    for b in range(B):
+        for q in range(Q):
+            y0, x0 = (int(v) for v in torch.randint(0, h - 12, (2,), generator=g))
+            dy, dx = (int(v) for v in torch.randint(4, 12, (2,), generator=g))
+            vp[b, q, y0 : y0 + dy, x0 : x0 + dx] = 1.0
+    return vp.cuda()
+
+
+def prompt_errors(model, fn, tag) -> tuple:
+    """`fn(model, dtype)` (prompt embeddings of a World or YOLOE model; in f64 through the twins) f32 on the card and on
+    the CPU against its f64 on the card → (card's largest difference, CPU's); the card within 4x the CPU's and 1e-5 at
+    least."""
+    import copy
+
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    tree = model.held[0]
+    params_from_jax(model, tree, torch.float32)
+    got = fn(model, torch.float32)
+    cpu = type(model)(model.yaml, device="cpu")
+    cpu._set_prompts(model.prompts)
+    params_from_jax(cpu, tree, torch.float32)
+    ref = fn(cpu, torch.float32).cuda()
+    m64 = copy.deepcopy(model).double()
+    params_from_jax(m64, tree, torch.float64)
+    exact = fn(m64, torch.float64)
+    ek, er = float((got.double() - exact).abs().max()), float((ref.double() - exact).abs().max())
+    if ek > max(4 * er, 1e-5):
+        raise AssertionError(f"{tag}: card {ek:.3e} from the f64 prompts, CPU {er:.3e}")
+    return ek, er
+
+
+def lrpc_against_f64(y, tree, x, conf, tag, path) -> dict:
+    """`predict_lrpc` of the `set_vocab` tree `tree` (the fused vocabulary and proposal filter) f32 on the card through
+    the kernels of `path` against its f64 forward, with the CPU's f32 as the yardstick (as `card_against_f64`): the
+    keep masks equal to the f64 forward's but for at most 0.1% of the anchors, and the predictions of the anchors all
+    three keep within 4x the CPU's distance (F64_FLOOR at least) → ({group: (card, CPU)}, the flags that differ, the
+    anchors the f64 forward keeps)."""
+    import copy
+
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    model = y.model
+    params_from_jax(model, tree, torch.float32)
+    (got, gk), _ = counted(path, lambda: model.predict_lrpc(x, conf=conf))
+    cpu = type(model)(model.yaml, device="cpu")
+    cpu.nc = cpu.head.nc = model.nc
+    params_from_jax(cpu, tree, torch.float32)
+    ref, rk = (t.cuda() for t in cpu.predict_lrpc(x.cpu(), conf=conf))
+    m64 = copy.deepcopy(model).double()
+    params_from_jax(m64, tree, torch.float64)
+    exact, ek = m64.predict_lrpc(x.double(), conf=conf, plain=True)
+    del m64
+    flips = int((gk != ek).sum())
+    if flips > 1e-3 * ek.numel() or not ek.any() or ek.all():
+        raise AssertionError(f"{tag}: {flips} of {ek.numel()} keep flags differ from the f64 forward's (kept {int(ek.sum())})")
+    both = (gk & ek & rk)[:, None, :].expand_as(exact)
+    sel = lambda t: torch.where(both, t.double(), 0.0)  # noqa: E731 (the anchors all three keep)
+    errs = column_errors(model, sel(got), sel(exact))
+    base = column_errors(model, sel(ref), sel(exact))
+    bad = {k: (e, base[k][0]) for k, (e, m) in errs.items() if e > max(4 * base[k][0], F64_FLOOR[k](m))}
+    if bad:
+        raise AssertionError(f"{tag}: card farther from the f64 forward than 4x the CPU's f32 (card, CPU): {bad}")
+    return {k: (e, base[k][0]) for k, (e, _) in errs.items()}, flips, int(ek.sum())
+
+
+def predict_rates(y, frames, path, tag) -> list:
+    """bf16 predict of the frames one a call and 8 a call (each frame's ten best) → per batch size: frames/s (host
+    clock), the host's ms a frame, the device's launches and busy ms over one call, the path's launches. A YOLOE
+    segment model, whose predictor is refused, predicts through `YOLOEModel.predict` on letterboxed frames."""
+    import torch
+
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    rates = []
+    for B, n in ((1, OV_B1_FRAMES), (8, OV_B8_FRAMES)):
+        sub = list(frames[:n])
+        if getattr(y.model, "segment", False):
+            params_from_jax(y.model, y.params, torch.bfloat16)
+            batches = [torch.cat([letterboxed(f) for f in sub[i : i + B]]).bfloat16() for i in range(0, n, B)]
+            y.model.predict(batches[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, lb = counted(path, lambda: [torch.isfinite(y.model.predict(b)[0]).all().item() for b in batches])
+            wall = time.perf_counter() - t0
+            _, kernels, busy = device_launches(lambda: y.model.predict(batches[0]))
+            if not all(res):
+                raise AssertionError(f"{tag}: non-finite predictions")
+            rates.append(f"B={B}: {n / wall:.1f} frames/s (YOLOEModel.predict, no NMS); one call {kernels} device launches, "
+                         f"{busy:.3f} ms busy; launches {lb}")
+            continue
+        y.predict(sub[:B], batch=B, **TASK_PREDICT)  # warm: bf16 weights and this batch's plans
+        y.predictor.timings = []
+        t0 = time.perf_counter()
+        res, lb = counted(path, lambda: y.predict(sub, batch=B, **TASK_PREDICT))
+        wall = time.perf_counter() - t0
+        ts, y.predictor.timings = y.predictor.timings, None
+        _, kernels, busy = device_launches(lambda: y.predict(sub[:B], batch=B, **TASK_PREDICT))
+        if len(res) != n or not all(len(r) for r in res) or not all((r.boxes.cls < y.model.nc).all() for r in res):
+            raise AssertionError(f"{tag}: {len(res)} results, {sum(not len(r) for r in res)} without detections")
+        rates.append(f"B={B}: {n / wall:.1f} frames/s (host ms a frame: {host_split(ts)}); one call {kernels} device "
+                     f"launches ({kernels / B:.0f} a frame), {busy:.3f} ms busy; launches {lb}")
+    return rates
+
+
+def open_vocab_phase(name, path, tower, names, frames, data, card):
+    """`[world]` / `[yoloe]` for one configuration: YOLOWorld / YOLOE(name) at full width on the card, its init(0) tree
+    calibrated on two seeded OV_SIZE² noise images (`bn_calibrated`, the placeholder prompts) and its contrastive
+    biases at 0 (`awake_contrastive`: scores about 0.5, not 4.5e-05), then the text tower's
+    embeddings of OV_PROMPTS names as its classes (YOLOE: through the head's SwiGLU residual): the decoded f32 forward
+    through the path's kernels against the f64 forward (`card_against_f64`); kernels 1, 2 and 5 against their twins
+    with the live gate (K = 1024 at conf 0; no head kernel: the class branch ends in a 512-wide embedding and a
+    contrastive product); bf16 predict rates at B = 1 and 8. YOLOE also: the visual prompts (SAVPE on three masks an
+    image, held against f64) as the classes, the forward held again; the prompt-free path (`set_vocab` of 20 names,
+    `predict_lrpc` at OV_LRPC_CONF: `lrpc_against_f64`). yoloe-v8s also validates the held-out split (bf16) and tracks
+    OV_TRACK_FRAMES frames (ByteTrack). Every run counts its launches (`counted`: head_level and head_level_cm 0)."""
+    import torch
+
+    from yolo_tpu_torch.engine.model import facade_for
+
+    tag = "world" if "world" in name else "yoloe"
+    t0 = time.perf_counter()
+    noise = torch.rand((2, OV_SIZE, OV_SIZE, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    y = facade_for(name)(name)
+    y.params = awake_contrastive(y.model, bn_calibrated(y.model, y.params, noise))
+    y.set_text_features(tower.encode_text(names).float().cpu().numpy()[None], names=names)
+    fwd = path - {"nms_keep"}
+    err = card_against_f64(y, noise, f"{tag} {name} text", fwd)
+    what = [f"{name} ({len(y.model.layers)} layers, nc {y.model.nc}): text prompts f32 against f64 (card / CPU) "
+            + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items())]
+    held = hold_path_kernels([y.model], noise, f"{tag} {name}", card, conf=0.0, iou=0.7, live=True, nms="nms_keep" in path)
+    what.append("held " + ", ".join(f"{k} {v:.2e}" for k, v in held.items()))
+    what.append("bf16 predict " + "; ".join(predict_rates(y, frames, path, f"{tag} {name}")))
+    if name == "yoloe-v8s.yaml":
+        metrics, lv = counted(path, lambda: y.val(data=str(data), imgsz=640, batch=16, plots=False, half=True))
+        if not all(map(math.isfinite, metrics.values())):
+            raise AssertionError(f"{tag} {name}: val {metrics}")
+        y.predictor = None
+        _, lt = counted(path, lambda: [y.track(f, persist=True, tracker="bytetrack.yaml", **TASK_PREDICT) for f in frames[:OV_TRACK_FRAMES]])
+        what.append(f"val mAP50 {metrics['mAP50']:.4f} (launches {lv}); track {OV_TRACK_FRAMES} frames (launches {lt})")
+    if tag == "yoloe":
+        vp = visual_masks(2, 3, OV_SIZE // 8, OV_SIZE // 8)
+        ve = prompt_errors(y.model, lambda m, dt: m.get_visual_pe(noise.to(m.device, dt), vp.to(m.device, dt), plain=dt == torch.float64),
+                           f"{tag} {name} vpe")
+        y.model.set_visual_pe(y.model.get_visual_pe(noise, vp).cpu().numpy())
+        err = card_against_f64(y, noise, f"{tag} {name} visual", fwd)
+        what.append(f"visual prompts (2 x 3 masks): embeddings card / CPU {ve[0]:.3e} / {ve[1]:.3e} from f64, forward "
+                    + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items()))
+        tree = y.model.set_vocab(y.params, names[:20], text_model=tower)
+        err, flips, kept = lrpc_against_f64(y, tree, noise, OV_LRPC_CONF, f"{tag} {name} lrpc", fwd)
+        what.append(f"prompt-free (20 names, conf {OV_LRPC_CONF:.3g}): {kept} of {2 * 8400 * OV_SIZE ** 2 // 640 ** 2} anchors kept, "
+                    f"{flips} flags from f64's, "
+                    + ", ".join(f"|{k}| {a:.3e} / {b:.3e}" for k, (a, b) in err.items()))
+    log(tag, card, "; ".join(what) + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def text_tower_phase(card):
+    """`[text tower]`: `build_text_model()` (the seeded ViT-B/32 text tower: 12 layers, width 512, context 77,
+    vocabulary 49408) on the card: the features of OV_PROMPTS class names f32 against the CPU's (1e-4), the host's
+    tokenizing ms and the device's forward ms for the 80 → (the tower, the names)."""
+    import torch
+
+    from yolo_tpu_torch.nn.text_model import build_text_model
+
+    t0 = time.perf_counter()
+    tower, cpu = build_text_model(), build_text_model(device="cpu")
+    built = time.perf_counter() - t0
+    names = [f"object class number {i}" for i in range(OV_PROMPTS)]
+    t1 = time.perf_counter()
+    ids = torch.as_tensor(tower.tokenize(names)).long()
+    tok_ms = (time.perf_counter() - t1) * 1e3
+    ids = ids.cuda()
+    got = tower.encode_text(names)
+    ms_dev = cuda_ms(lambda: tower.encoder.encode_text(tower.weights, ids), iters=10)
+    t1 = time.perf_counter()
+    tower.encode_text(names)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t1) * 1e3
+    diff = float((got.cpu() - cpu.encode_text(names)).abs().max())
+    if diff > 1e-4 or got.shape != (OV_PROMPTS, 512):
+        raise AssertionError(f"text tower: card against CPU {diff:.3e}, shape {tuple(got.shape)}")
+    log("text tower", card, f"{OV_PROMPTS} prompts: tokenize {tok_ms:.2f} ms (host), forward {ms_dev:.3f} ms (events), "
+        f"encode_text {call_ms:.2f} ms (host clock, the call); f32 card against CPU {diff:.3e}; the two towers built in "
+        f"{built:.1f} s (numpy draws)")
+    return tower, names
+
+
+def slice22_phases(clip, train_data, root: Path, card):
+    """The twenty-second slice's phases: the text tower, then the five YOLO-World / YOLOE configurations (`[world]`,
+    `[yoloe]`), then one close-set epoch of yolov8s-worldv2 and of yoloe-v8s."""
+    import numpy as np
+
+    bgr = np.repeat(clip[: max(OV_B8_FRAMES, OV_TRACK_FRAMES)], 3, -1)
+    t0 = time.perf_counter()
+    tower, names = text_tower_phase(card)
+    for name, path in OPEN_VOCAB:
+        open_vocab_phase(name, path, tower, names, bgr, train_data, card)
+    for name in OV_TRAIN:
+        family_train_phase(name, train_data, root / "runs", card, path=dict(OPEN_VOCAB)[name])
+    print(f"[slice 22] its phases took {time.perf_counter() - t0:.1f} s")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -6012,6 +6261,8 @@ def main(argv) -> int:
         mark("the twentieth slice")
         slice21_phases(clip, train_data, Path(tmp) / "cls", Path(tmp) / "slice21", card)
         mark("the twenty-first slice")
+        slice22_phases(clip, train_data, Path(tmp) / "slice22", card)
+        mark("the twenty-second slice")
         if profiling:
             for name in SLICE18_FAMILIES:
                 train_step_precision_phase(train_data, card, name)

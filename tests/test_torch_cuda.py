@@ -1231,3 +1231,42 @@ def test_slice21_phases_on_the_card(card, monkeypatch, tmp_path):
     chip_smoke.rtdetr_phase(bgr, data, "test")
     chip_smoke.rtdetr_models_phase(bgr, "test")
     chip_smoke.resnet18_cls_phase(bgr, tmp_path / "cls", "test")
+
+
+@pytest.mark.parametrize("name", ["yolov8n-world.yaml", "yoloe-v8n.yaml", "yoloe-11n-seg.yaml"])
+def test_world_yoloe_forward_on_the_card_matches_f64(card, name):
+    """yolov8n-world, yoloe-v8n and yoloe-11n-seg, init(0) with BN moments from two seeded 320² noise images, the
+    contrastive biases at 0 (`awake_contrastive`) and three random text prompts: the f32 forward on the card (the C2f rows through kernel 1, yoloe-v8n's folded necks through
+    kernel 2; no head kernel) within `chip_smoke.card_against_f64`'s gate, and the C2f instances and the NMS keep mask
+    against their twins with the live gate (`hold_path_kernels`)."""
+    import chip_smoke
+    from yolo_tpu_torch.engine.model import facade_for
+
+    noise = torch.rand((2, 320, 320, 3), generator=torch.Generator().manual_seed(0)).to(card)
+    y = facade_for(name)(name)
+    y.params = chip_smoke.awake_contrastive(y.model, chip_smoke.bn_calibrated(y.model, y.params, noise))
+    y.set_text_features(np.random.default_rng(1).normal(0, 1, (1, 3, 512)).astype(np.float32))
+    path = {"c2f", "c2f_upconcat"} if name == "yoloe-v8n.yaml" else {"c2f"} if "world" in name else set()
+    err = chip_smoke.card_against_f64(y, noise, name, path)
+    assert {"px", "score"} <= set(err)
+    held = chip_smoke.hold_path_kernels([y.model], noise, name, "test", conf=0.0, iou=0.7, live=True, nms=not y.model.segment)
+    assert "head_level" not in held
+
+
+def test_slice22_phases_on_the_card(card, monkeypatch, tmp_path):
+    """chip_smoke's twenty-second-slice phases at a few frames: the text tower, `[world]` on yolov8s-world and
+    `[yoloe]` on yoloe-v8s (its val, track, visual prompts and prompt-free path) and yoloe-11s, no training: every hold
+    passes and each path launches its kernels (head_level 0 on all)."""
+    import chip_smoke
+
+    for key, value in dict(OV_B1_FRAMES=2, OV_B8_FRAMES=8, OV_TRACK_FRAMES=2).items():
+        monkeypatch.setattr(chip_smoke, key, value)
+    clip = chip_smoke.make_clip(8, *chip_smoke.HW)
+    root = tmp_path / "train"
+    chip_smoke.write_split(root, 16, 0, split="train")
+    data = chip_smoke.write_split(root, 16, 1)
+    bgr = np.repeat(clip, 3, -1)
+    tower, names = chip_smoke.text_tower_phase("test")
+    for name, path in chip_smoke.OPEN_VOCAB:
+        if name in ("yolov8s-world.yaml", "yoloe-v8s.yaml", "yoloe-11s.yaml"):
+            chip_smoke.open_vocab_phase(name, path, tower, names, bgr, data, "test")

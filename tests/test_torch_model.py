@@ -122,17 +122,22 @@ def test_jax_yamls_build_or_name_their_missing_module(path):
 
 
 def test_only_the_world_and_yoloe_yamls_raise():
-    """Of the JAX package's model yamls, exactly the six YOLO-World and YOLOE ones still raise NotImplementedError in the
-    port's `parse_model` (their heads are ROADMAP item 5c); every other builds, RT-DETR's and yolo11-cls-resnet18's
-    included, so that a module that stops building cannot hide behind a quiet NotImplementedError."""
+    """Of the JAX package's model yamls, none raises NotImplementedError in the port's `parse_model` any more: the six
+    YOLO-World and YOLOE ones (ROADMAP item 5c) build with the rest, and each of them builds its model class
+    (`model_class_for`: WorldModel or YOLOEModel), so that a module that stops building cannot hide behind a quiet
+    NotImplementedError."""
     from yolo_tpu_torch.nn import tasks as PT
 
-    raising = []
+    raising, open_vocab = [], []
     for path in JAX_YAMLS:
         try:
             with torch.device("meta"):
-                PT.parse_model(PT.yaml_model_load(path.name), 3)
+                d = PT.yaml_model_load(path.name)
+                PT.parse_model(d, 3)
         except NotImplementedError:
             raising.append(path.name)
-    assert sorted(raising) == ["yoloe-11-seg.yaml", "yoloe-11.yaml", "yoloe-v8-seg.yaml", "yoloe-v8.yaml",
-                               "yolov8-world.yaml", "yolov8-worldv2.yaml"]
+        if PT.model_class_for(d) in (PT.WorldModel, PT.YOLOEModel):
+            open_vocab.append(path.name)
+    assert len(JAX_YAMLS) == 58 and raising == []
+    assert sorted(open_vocab) == ["yoloe-11-seg.yaml", "yoloe-11.yaml", "yoloe-v8-seg.yaml", "yoloe-v8.yaml",
+                                  "yolov8-world.yaml", "yolov8-worldv2.yaml"]

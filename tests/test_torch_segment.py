@@ -114,7 +114,8 @@ def test_segmentation_model_init_and_routing_match_jax():
     values, npr 64, nm 32); YOLO("yolov8n-seg.yaml") is a segment model; the task helpers route `-seg`
     yamls and Segment heads as JAX's do; yolov8n-seg-p6 (C2 since the seventeenth slice) is a four-level segment model
     with JAX's strides, and yolo11n-seg (C3k2 since the eighteenth slice) is a segment model with JAX's strides and the
-    non-legacy class branch, while YOLOE's segment head names itself."""
+    non-legacy class branch, while a YOLOE segment head routes to YOLOEModel, as JAX's does (its task guessed segment in
+    both)."""
     pm, jm = PT.SegmentationModel("yolov8n-seg.yaml", device="cpu"), JT.SegmentationModel("yolov8n-seg.yaml")
     got, want = _flat(pm.init(0)), _flat(jm.init(0))
     assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
@@ -128,8 +129,9 @@ def test_segmentation_model_init_and_routing_match_jax():
     assert p6.stride == JT.SegmentationModel("yolov8n-seg-p6.yaml").stride == [8, 16, 32, 64] and p6.head.nl == 4
     y11 = PT.SegmentationModel("yolo11n-seg.yaml", device="cpu")
     assert y11.stride == JT.SegmentationModel("yolo11n-seg.yaml").stride == [8, 16, 32] and y11.head.legacy is False
-    with pytest.raises(NotImplementedError, match="YOLOESegment"):
-        PT.model_class_for(JT.yaml_model_load("yoloe-11-seg.yaml"))
+    d = JT.yaml_model_load("yoloe-11-seg.yaml")
+    assert PT.model_class_for(d) is PT.YOLOEModel and JT.model_class_for(d).__name__ == "YOLOEModel"
+    assert PT.guess_model_task(d) == JT.guess_model_task(d) == "segment"
 
 
 # --- (b) ConvTranspose ----------------------------------------------------------------------------

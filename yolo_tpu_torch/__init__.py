@@ -12,9 +12,9 @@ it (nor JAX). Entry points run on the CUDA card unless the caller passes
 
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.exporter import load_npz
-from yolo_tpu_torch.engine.model import NAS, RTDETR, YOLO
+from yolo_tpu_torch.engine.model import NAS, RTDETR, YOLO, YOLOE, YOLOWorld
 from yolo_tpu_torch.engine.validator import DetectionValidator
 from yolo_tpu_torch.nn.tasks import DetectionModel, fuse, params_from_jax
 from yolo_tpu_torch.pipeline.fused import FusedDetectTrack
 
-__all__ = ["YOLO", "NAS", "RTDETR", "DetectionModel", "DetectionValidator", "FusedDetectTrack", "fuse", "load_npz", "params_from_jax", "resolve_device"]
+__all__ = ["YOLO", "NAS", "RTDETR", "YOLOE", "YOLOWorld", "DetectionModel", "DetectionValidator", "FusedDetectTrack", "fuse", "load_npz", "params_from_jax", "resolve_device"]

@@ -35,8 +35,9 @@ def _unflatten(flat: dict) -> dict:
 
 
 def load_npz(filename, device=None):
-    """→ (the model its config and task name, built: DetectionModel, SegmentationModel, PoseModel or
-    ClassificationModel; numpy parameter tree; meta). Another task's checkpoint raises NotImplementedError.
+    """→ (the model its config and task name, built (`nn.tasks.model_class_for`: DetectionModel, SegmentationModel,
+    PoseModel, OBBModel, ClassificationModel, RTDETRDetectionModel, WorldModel or YOLOEModel, the last two with the
+    placeholder prompts); numpy parameter tree; meta). Another task's checkpoint raises NotImplementedError.
 
     The model's modules are empty until `params_from_jax(model, params)` (or a
     FusedDetectTrack built from them) loads the tree; `device=None` is the card."""

@@ -36,7 +36,12 @@ track (their masks or keypoints follow their boxes; oriented boxes keep their an
 an ensemble of them raises NotImplementedError, as the JAX package fails on one. An RT-DETR YOLO predicts,
 validates (`RTDETRValidator`), trains (the DETR loss with denoising), tracks, benchmarks and predicts int8, tiled
 or through a server lane without NMS (its queries thresholded); `augment` changes nothing, and FusedDetectTrack and
-an ensemble of it raise NotImplementedError (ROADMAP item 5b), as the JAX package fails on them. Runs on the CUDA
+an ensemble of it raise NotImplementedError (ROADMAP item 5b), as the JAX package fails on them. `YOLOWorld` and `YOLOE`
+hold the open-vocabulary models, whose classes are prompts: text (`set_classes`, `set_text_features`) or, for YOLOE,
+visual ones (`set_visual_prompts`); `YOLO(...)` of their yamls raises NotImplementedError (JAX's builds a model
+without prompts that fails at its first forward), their checkpoints load as them. A YOLOE segment model predicts
+only through `YOLOEModel.predict` and `benchmark` (JAX's YOLOE is a detect model: its predictor, validator and
+trainer fail on the (preds, protos) pair). `facade_for(name)` routes a name as the JAX command line does. Runs on the CUDA
 card unless `device="cpu"` is passed. Orbax checkpoints are not ported, nor the orbax, stablehlo
 and tflite exports.
 """
@@ -59,6 +64,8 @@ from yolo_tpu_torch.nn.tasks import (
     PoseModel,
     RTDETRDetectionModel,
     SegmentationModel,
+    WorldModel,
+    YOLOEModel,
     fuse,
     install_params,
     param_count,
@@ -348,3 +355,73 @@ class RTDETR(YOLO):
 
     def __init__(self, model="rtdetr-l.yaml", device=None):
         super().__init__(model, task="detect", device=device)
+
+
+class YOLOWorld(YOLO):
+    """YOLO-World (JAX `YOLOWorld`): a WorldModel of a World yaml with its init(0) tree and the placeholder text
+    embeddings; `set_classes(names)` embeds names with the CLIP text tower (nn/text_model.py; pass `clip_ckpt=` for
+    released weights, `text_model=` for another tower), `set_text_features(feats, names)` takes embeddings
+    (1, n, 512). Predict, val, track, train (close-set: the data's names embedded), benchmark, tiled predict, int8,
+    ensembles and FusedDetectTrack run as for a detection model, at the prompts' class count."""
+
+    def __init__(self, model="yolov8s-world.yaml", device=None):
+        self._prompted(WorldModel, model, device)
+
+    def _prompted(self, cls, model, device) -> None:
+        self.predictor = self.ckpt_path = self.remote = None
+        self.task = "detect"
+        self.device = resolve_device(device)
+        self.model = cls(str(model), device=self.device)
+        self.params = self.model.init(0)
+        self.overrides = {"model": str(model), "task": "detect"}
+
+    def set_classes(self, classes, **kwargs) -> None:
+        self.model.set_classes(classes, **kwargs)
+        self.predictor = None  # the class count changed
+
+    def set_text_features(self, txt_feats, names=None) -> None:
+        self.model.set_text_features(txt_feats)
+        if names:
+            self.model.names = dict(enumerate(names))
+        self.predictor = None
+
+
+class YOLOE(YOLOWorld):
+    """YOLOE (JAX `YOLOE`): a YOLOEModel of a YOLOE yaml (detect or segment) with its init(0) tree and the placeholder
+    prompts; text prompts through `set_classes` / `set_text_features` (each through the head's SwiGLU residual of
+    this tree), visual prompts through `set_visual_prompts`. The task stays detect, as JAX fixes it: a segment yaml's
+    predict, val, track and train raise NotImplementedError (JAX fails on its (preds, protos) pair)."""
+
+    def __init__(self, model="yoloe-11s.yaml", device=None):
+        self._prompted(YOLOEModel, model, device)
+
+    def set_classes(self, classes, **kwargs) -> None:
+        self.model.set_classes(classes, params=self.params, **kwargs)
+        self.predictor = None
+
+    def set_text_features(self, txt_feats, names=None) -> None:
+        self.model.set_text_features(self.params, txt_feats)
+        if names:
+            self.model.names = dict(enumerate(names))
+        self.predictor = None
+
+    def set_visual_prompts(self, image: np.ndarray, prompt_masks, names=None) -> None:
+        """Class prompts from (1, Q, H/8, W/8) masks on `image` (HWC BGR uint8, letterboxed to 640 x 640 unless it is),
+        through SAVPE in f32."""
+        from yolo_tpu_torch.ops.letterbox import LetterBox
+
+        im = LetterBox((640, 640), auto=False)(image) if image.shape[:2] != (640, 640) else image
+        x = torch.from_numpy(np.ascontiguousarray(im[None, ..., ::-1], np.float32) / 255.0).to(self.device)
+        install_params(self.model, self.params, self.device, torch.float32)
+        vp = torch.as_tensor(np.asarray(prompt_masks, np.float32), device=self.device)
+        self.model.set_visual_pe(self.model.get_visual_pe(x, vp).cpu().numpy())
+        if names:
+            self.model.names = dict(enumerate(names))
+        self.predictor = None
+
+
+def facade_for(model) -> type:
+    """The facade a model name takes, as the JAX command line routes it: NAS for a name with 'yolo_nas', YOLOWorld with
+    'world', YOLOE with 'yoloe', YOLO otherwise."""
+    name = str(model).lower()
+    return NAS if "yolo_nas" in name else YOLOWorld if "world" in name else YOLOE if "yoloe" in name else YOLO

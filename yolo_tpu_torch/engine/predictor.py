@@ -11,7 +11,9 @@ members' predictions meet in one NMS. An end-to-end head (yolov10's v10Detect) g
 its own final rows, which skip NMS (`ops.nms.end2end_select`: conf, classes,
 max_det; `augment=True` warns and predicts at one scale). RT-DETR's decoder gives (B, nq, 4 + nc) query rows, which
 skip NMS too (`ops.nms.rtdetr_select`: the best class and its score over conf, the top max_det; `augment` changes
-nothing there, as in the JAX predictor). `int8=True` quantizes the fused tree
+nothing there, as in the JAX predictor). A World or YOLOE model predicts on its prompts through the same route (its
+C2f blocks through the kernels, its head conv by conv); a YOLOE segment model's predictor raises NotImplementedError, as
+JAX's fails on its (preds, protos) pair. `int8=True` quantizes the fused tree
 (nn/quantize.py, dynamic activation scales) and re-quantizes it when the
 parameters change. YOLO_TPU_LAZY_DECODE=1 runs the default route: the JAX
 package's lazy decode computes the same outputs and was not faster on the H100
@@ -43,7 +45,15 @@ from yolo_tpu_torch.data.loaders import VID_FORMATS
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.engine.results import Results
 from yolo_tpu_torch.nn.quantize import quantize_params
-from yolo_tpu_torch.nn.tasks import BaseModel, DetectionModel, Ensemble, fuse, install_params, params_from_jax
+from yolo_tpu_torch.nn.tasks import (
+    BaseModel,
+    DetectionModel,
+    Ensemble,
+    fuse,
+    install_params,
+    params_from_jax,
+    refuse_prompted_segment,
+)
 from yolo_tpu_torch.ops.boxes import scale_boxes
 from yolo_tpu_torch.ops.letterbox import LetterBox
 from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression, rtdetr_select
@@ -135,6 +145,7 @@ class BasePredictor:
         self.args.update(overrides or {})
         if self.args.conf is None:
             self.args.conf = 0.25
+        refuse_prompted_segment(model, "the predictor")
         self.model = model
         self.names = names or getattr(model, "names", {})
         self.done_warmup = False

@@ -37,6 +37,10 @@ An obb model trains with `v8OBBLoss` (components box / cls / dfl) on DOTA rows c
 xywhr, and validates with `OBBValidator`, as in the JAX trainer.
 A yolov10 model (the end-to-end v10Detect head) trains with `E2EDetectLoss`, each branch's box / cls / dfl
 logged apart (`box_o2m` ... `dfl_o2o`), as the JAX trainer logs them.
+A YOLO-World or YOLOE model fine-tunes close-set, as the JAX trainer's hooks do: after any resume, the data's class
+names are embedded by the CLIP text tower (`clip_ckpt`'s weights, else the seeded tower) and become its prompts,
+straight for World and through the head's SwiGLU residual for YOLOE; `v8DetectionLoss` at the prompts' nc. A YOLOE
+segment model raises NotImplementedError, as JAX's fails on its (preds, protos) pair.
 An RT-DETR model trains with `RTDETRDetectionLoss` (components giou / cls / l1; the Hungarian match on the host),
 each batch with its contrastive-denoising queries (utils/cdn.py: the noise drawn from a numpy Generator seeded by
 `seed`, the JAX trainer's unseeded), and validates with `RTDETRValidator`. Its bf16 check is skipped and bf16 kept,
@@ -63,6 +67,7 @@ from yolo_tpu_torch.nn.tasks import (
     load_train_params,
     model_class_for,
     params_to_jax,
+    refuse_prompted_segment,
     train_leaves,
     tree_from_leaves,
     validate_s2d_stem,
@@ -167,6 +172,7 @@ class DetectionTrainer:
             name = self.args.model or "yolov8n.yaml"
             self.model = model_class_for(yaml_model_load(name))(name, nc=nc, device=self.device)
             self.params = self.model.init(self.args.seed)
+        refuse_prompted_segment(self.model, "training")
         if getattr(self.model, "task", "detect") not in COMPONENTS:
             raise NotImplementedError(f"training the {self.model.task} task is not ported (only detect, segment, pose and obb)")
         self.args.task = self.model.task  # the datasets read the task's label rows (DOTA rows for obb)
@@ -201,6 +207,14 @@ class DetectionTrainer:
         if self.model.device != self.device:
             self.model.device = self.device
             self.model.to(self.device)
+        # after resume, which rebuilds the model with its placeholder prompts: the data's class names embedded by the
+        # text tower, straight for World, through the head's SwiGLU residual (its weights of this tree) for YOLOE
+        if self.data and (getattr(self.model, "is_world", False) or getattr(self.model, "is_yoloe", False)):
+            names = list(self.data["names"].values())
+            if getattr(self.model, "is_world", False):
+                self.model.set_classes(names, clip_ckpt=self.args.clip_ckpt)
+            else:
+                self.model.set_classes(names, params=self.params, clip_ckpt=self.args.clip_ckpt)
 
     def _check_train_s2d(self) -> None:
         """YOLO_TPU_TRAIN_S2D (0 off a TPU in JAX, the default here): the JAX trainer's checks, r = 4

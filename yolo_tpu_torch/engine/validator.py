@@ -39,7 +39,7 @@ from yolo_tpu_torch.cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
 from yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
 from yolo_tpu_torch.data.dataset import check_det_dataset
 from yolo_tpu_torch.device import resolve_device
-from yolo_tpu_torch.nn.tasks import install_params
+from yolo_tpu_torch.nn.tasks import install_params, refuse_prompted_segment
 from yolo_tpu_torch.ops.boxes import scale_boxes, xywhn2xyxy, xyxy2xywh
 from yolo_tpu_torch.ops.masks import process_mask
 from yolo_tpu_torch.ops.nms import end2end_select, non_max_suppression, non_max_suppression_rotated, query_boxes
@@ -116,6 +116,7 @@ class DetectionValidator:
         return torch.cat([c.to(torch.float32) for c in cols], -1)
 
     def __call__(self, model, params) -> dict:
+        refuse_prompted_segment(model, "validation")
         a = self.args
         data = self.data or check_det_dataset(a.data)
         split = data.get(a.split) or data.get("val") or data.get("train")

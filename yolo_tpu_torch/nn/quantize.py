@@ -194,7 +194,8 @@ def calibrate_act_scales(model, params, imgs, dtype=None) -> dict:
     params_from_jax(m, params, dtype)
     x = torch.as_tensor(np.asarray(imgs, np.float32)).to(m.device, dtype)
     store = {}
+    guide = m._prompts(x) if hasattr(m, "_prompts") else None  # a World or YOLOE model's class prompts
     with capture(m, store):
-        xs, _ = m._walk(x, plain=True, neck_opt=False)
-        m.head(xs)
+        xs, _ = m._walk(x, plain=True, neck_opt=False, guide=guide)
+        m.head(xs) if guide is None else m.head(xs, guide)
     return {k: float(v) / 127.0 for k, v in store.items()}

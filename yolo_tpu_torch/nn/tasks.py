@@ -23,7 +23,10 @@ depth-wise class branch and no head kernel; C3k blocks at scales m-x; A2C2f's re
 yolov6, YOLO-NAS and yolov9 build with their blocks (a yaml's `activation:` for that build only; a row repeated n
 times whose module takes no repeats is a `Seq` of n copies; a CBLinear layer's list of splits reaches its CBFuse
 through the save dict); their legacy heads take the head kernel where they end in SiLU (yolov3, yolov9) and walk conv
-by conv where they end in ReLU (yolov6, YOLO-NAS).
+by conv where they end in ReLU (yolov6, YOLO-NAS). The YOLO-World and YOLOE yamls build `WorldModel` and `YOLOEModel`
+(nn/open_vocab.py's blocks): their classes are prompt embeddings (1 or B, nc, 512) that the walk threads as an explicit
+argument (`guide`: each C2fAttn reads it, an ImagePoolingAttn returns it refreshed, the head reads the original), and a
+`DetectionModel` of such a yaml raises, as JAX's fails at its first forward without prompts.
 
 Weights come from a JAX parameter tree (nested dicts of arrays, HWIO convs),
 the format of `DetectionModel.init`/`fuse` and of the `.npz` checkpoints
@@ -47,6 +50,7 @@ from torch import nn
 
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.nn import modules as M
+from yolo_tpu_torch.nn import open_vocab as OV
 from yolo_tpu_torch.nn import quantize as Q
 from yolo_tpu_torch.nn import transformer as T
 
@@ -104,6 +108,11 @@ MODULE_MAP = {
     "RepC3": M.RepC3,
     "AIFI": T.AIFI,
     "RTDETRDecoder": T.RTDETRDecoder,
+    "C2fAttn": OV.C2fAttn,
+    "ImagePoolingAttn": OV.ImagePoolingAttn,
+    "WorldDetect": OV.WorldDetect,
+    "YOLOEDetect": OV.YOLOEDetect,
+    "YOLOESegment": OV.YOLOESegment,
 }
 SCALED = (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.GhostConv,
           M.GhostBottleneck, M.SPPF, M.SPP, M.Bottleneck, M.NASCSP, M.RepConv, M.RepCSP, M.RepNCSPELAN4, M.ELAN1,
@@ -111,6 +120,9 @@ SCALED = (M.ConvBNAct, M.DWConv, M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.
           M.PSA, M.RepC3)  # c2 width-scaled (JAX's list)
 REPEATED = (M.C2f, M.C2, M.C3, M.C3Ghost, M.C3k, M.C3k2, M.C2PSA, M.A2C2f, M.NASCSP, M.RepCSP, M.C2fCIB, M.RepC3)  # take the row's n
 HEADS = (M.Detect, T.RTDETRDecoder)  # the layer a walk of the inference form ends at
+GUIDED = (OV.C2fAttn,)  # layers that read the running text embeddings (the guide)
+REFRESHING = (OV.ImagePoolingAttn,)  # layers whose output is the refreshed guide
+PROMPTED = (OV.WorldDetect, OV.YOLOEDetect)  # heads that read the original class prompts (guide0)
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -196,6 +208,23 @@ def _parse_rows(d: dict, ch: int):
             args = [chs[f], *args]
         elif mcls is T.RTDETRDecoder:
             args.insert(1, [chs[x] for x in f])
+            c2 = None
+        elif mcls is OV.C2fAttn:  # ec width-scales capped at max_channels / 2; nh scales where above 1
+            c1, c2 = chs[f], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            ec = make_divisible(min(args[1], max_channels // 2) * width, 8)
+            nh = int(max(round(min(args[2], max_channels // 2 // 32)) * width, 1) if args[2] > 1 else args[2])
+            args = [c1, c2, n, ec, nh, *args[3:]]
+            n = 1
+        elif mcls is OV.ImagePoolingAttn:
+            args = [*args, [chs[x] for x in f]]
+            c2 = None
+        elif mcls in (OV.WorldDetect, OV.YOLOEDetect):
+            args = [*args, [chs[x] for x in f], legacy]
+            c2 = None
+        elif mcls is OV.YOLOESegment:  # npr width-scales, as Segment's
+            args = [args[0], args[1], make_divisible(min(args[2], max_channels) * width, 8), *args[3:], [chs[x] for x in f], legacy]
             c2 = None
         elif mcls in SCALED:
             c1, c2 = chs[f], args[0]
@@ -291,7 +320,9 @@ def _fold_bn(p: dict) -> dict:
 def unfused_keys(params: dict, model_walk: bool = False) -> set:
     """The groups of a subtree that the JAX package's fuse leaves with their BN, by their owner: its walk looks each
     key up as an attribute of the module that owns it and finds none for a PSA's or PSABlock's `ffn` (a group beside
-    `attn`) nor for a CIB's `cv1` (the block's only group: five convs in a sequence, '0'..'4'), nor, where the whole
+    `attn`), a MaxSigmoidAttnBlock's `ec` (beside `gl`) or SAVPE's `cv6`, and hands each SAVPE `cv2` level (its conv
+    under '0') to a ConvBNAct's fuse, which finds no `bn` there; nor for a CIB's `cv1` (the block's only group: five
+    convs in a sequence, '0'..'4'), nor, where the whole
     model is walked (`model_walk`: a detection model's tree; JAX's ClassificationModel has no fuse, its trees fold
     conv by conv), for a ResNetLayer's `layer` (its only group; rtdetr-resnet50 / 101). ConvBNAct runs these BNs in
     f32. Every other group folds, every other `cv1` included; an RTDETRDecoder's `input_proj` holds no `conv` / `bn`
@@ -299,6 +330,10 @@ def unfused_keys(params: dict, model_walk: bool = False) -> set:
     keys = set()
     if "attn" in params and "ffn" in params:
         keys.add("ffn")
+    if "gl" in params and "ec" in params:  # a MaxSigmoidAttnBlock's `ec` (its module attribute is `ec_conv` in JAX)
+        keys.add("ec")
+    if set(params) == {"cv1", "cv2", "cv3", "cv4", "cv5", "cv6"}:  # SAVPE: each `cv2` level holds its conv under '0',
+        keys |= {"cv2", "cv6"}  # which JAX hands whole to the ConvBNAct; `cv6` is an attribute JAX names `cv6_0`
     cv1 = params.get("cv1")
     if set(params) == {"cv1"} and isinstance(cv1, dict) and cv1 and all(k.isdigit() for k in cv1):
         keys.add("cv1")
@@ -474,17 +509,27 @@ class BaseModel(nn.Module):
                 paths.add(base)
         return paths
 
-    def forward_features(self, x: torch.Tensor, remat: bool = False):
+    def forward_features(self, x: torch.Tensor, remat: bool = False, guide: torch.Tensor | None = None):
         """Per-level raw head outputs [(B, H, W, 4*reg_max + nc)] of NHWC images, computed in
         x's dtype through the train form (JAX `forward_features`): every layer materialised,
         no neck fold and no kernel. In training mode (`.train()`) BN takes the batch's
         moments and each ConvBNAct keeps them for `utils.optim.apply_bn_stats`. `remat`
         checkpoints every layer but the head (torch.utils.checkpoint): its activations are
-        recomputed in the backward, its BN moments recorded once."""
-        y = {}
+        recomputed in the backward, its BN moments recorded once. `guide` (a World or YOLOE model's
+        class prompts, (B, nt, 512)) goes to each C2fAttn, an ImagePoolingAttn returns it refreshed
+        for the layers after it, and the head takes it as it came in (JAX's `guide` and `guide0`);
+        an ImagePoolingAttn and the head run outside the checkpoints, as in JAX."""
+        y, guide0 = {}, guide
         for i, (m, f) in enumerate(zip(self.layers, self.froms)):
             x_in = [x if j == -1 else y[j % i] for j in f] if isinstance(f, list) else (x if f == -1 else y[f % i])
-            if remat and not isinstance(m, HEADS):
+            if isinstance(m, GUIDED):
+                g = _require_guide(guide, m)
+                out = _remat(m, x_in, g) if remat else m.forward_train(x_in, g)
+            elif isinstance(m, REFRESHING):
+                out = guide = m.forward_train(x_in, _require_guide(guide, m))
+            elif isinstance(m, PROMPTED):
+                out = m.forward_train(x_in, _require_guide(guide0, m))
+            elif remat and not isinstance(m, HEADS):
                 out = _remat(m, x_in)
             else:
                 out = m.forward_train(x_in) if hasattr(m, "forward_train") else m(x_in)
@@ -493,10 +538,12 @@ class BaseModel(nn.Module):
             x = out if not isinstance(out, list) else x  # a CBLinear's list of splits is read through the save dict
         return out
 
-    def _walk(self, x: torch.Tensor, plain: bool, neck_opt: bool = True, upto: int | None = None, collect=()):
+    def _walk(self, x: torch.Tensor, plain: bool, neck_opt: bool = True, upto: int | None = None, collect=(),
+              guide: torch.Tensor | None = None):
         """Walk the inference modules over layers [0, upto) → (the head's input maps (a Detect's or an RTDETRDecoder's), or
         the last layer's output where the walk ends before the head; {i: output} of the layers in
-        `collect`). `neck_opt` folds the Upsample→Concat→C2f chains into `C2f.call_upconcat`."""
+        `collect`). `neck_opt` folds the Upsample→Concat→C2f chains into `C2f.call_upconcat`. `guide` is a World
+        model's text embeddings: each C2fAttn reads the running ones, an ImagePoolingAttn returns them refreshed."""
         y, col = {}, {}
         for i, (m, f) in enumerate(zip(self.layers[:upto], self.froms[:upto])):
             if neck_opt and i in self._neck_skip:
@@ -509,7 +556,14 @@ class BaseModel(nn.Module):
                 x_in = [x if j == -1 else y[j % i] for j in f] if isinstance(f, list) else (x if f == -1 else y[f % i])
                 if not isinstance(m, QTENSOR_MODULES):  # a layer without an int8 path takes dense maps (JAX `_apply_layer`)
                     x_in = [Q.deq(v, M._dtype_of(m)) for v in x_in] if isinstance(x_in, list) else Q.deq(x_in, M._dtype_of(m))
-                x_out = m(x_in, plain=plain) if isinstance(m, M.C2f) else m(x_in)
+                if isinstance(m, M.C2f):
+                    x_out = m(x_in, plain=plain)
+                elif isinstance(m, GUIDED):
+                    x_out = m(x_in, _require_guide(guide, m))
+                elif isinstance(m, REFRESHING):
+                    x_out = guide = m(x_in, _require_guide(guide, m))
+                else:
+                    x_out = m(x_in)
                 if isinstance(x_out, list):  # a CBLinear's splits: the later layers read them through the save dict
                     if i in self.save:
                         y[i] = x_out
@@ -541,11 +595,15 @@ class DetectionModel(BaseModel):
         self.head = self.layers[-1]
         if not isinstance(self.head, M.Detect):
             raise ValueError(f"a DetectionModel's last layer is a Detect head, not {type(self.head).__name__}")
+        if isinstance(self.head, PROMPTED) and not isinstance(self, (WorldModel, YOLOEModel)):
+            raise NotImplementedError(f"a {type(self.head).__name__} head scores classes against class prompts: build the "
+                                      "model as a WorldModel or YOLOEModel (YOLOWorld / YOLOE); the JAX package's "
+                                      "DetectionModel of this yaml fails at its first forward (ROADMAP item 5c)")
         self.stride = self.head.stride
 
-    def _head_inputs(self, x: torch.Tensor, plain: bool, neck_opt: bool = True):
+    def _head_inputs(self, x: torch.Tensor, plain: bool, neck_opt: bool = True, guide: torch.Tensor | None = None):
         """The Detect head's input maps (the graph walked up to the head)."""
-        xs, _ = self._walk(x, plain, neck_opt)
+        xs, _ = self._walk(x, plain, neck_opt, guide=guide)
         if not isinstance(xs, list):
             raise ValueError("the model has no Detect head")
         return xs
@@ -774,6 +832,195 @@ class RTDETRDetectionModel(DetectionModel):
             self.head.dn = None
 
 
+def refuse_prompted_segment(model, what: str) -> None:
+    """NotImplementedError where `what` (a predictor, a validator, a trainer, an ensemble, the parts path) would take
+    a YOLOE segment model: its `predict` gives (preds, protos) while the JAX package's YOLOE is a detect model, whose
+    predictor, validator, trainer, ensemble and parts path all fail on that pair."""
+    if getattr(model, "is_yoloe", False) and model.segment:
+        raise NotImplementedError(f"{what} of a YOLOE segment model is not ported: the JAX package's YOLOE fixes the task "
+                                  "to detect and fails on its (preds, protos); YOLOEModel.predict is ported (ROADMAP item 5c)")
+
+
+class _PromptedModel(DetectionModel):
+    """What WorldModel and YOLOEModel share: the class prompts (B or 1, nc, 512) as a numpy array, `prompts`, moved
+    to the device once per array and dtype, and the resize of the class axis when they change."""
+
+    def __init__(self, cfg, ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+        # the JAX package's placeholder (its checkpoints hold no prompts, so a reloaded model carries exactly this draw)
+        self.prompts = np.random.default_rng(0).normal(0, 1, (1, self.nc, 512)).astype(np.float32)
+        self._on_device = None
+
+    def _set_prompts(self, pe) -> None:
+        self.prompts = np.asarray(pe, np.float32)
+        self.nc = self.head.nc = self.prompts.shape[1]  # the class count follows the prompts, as in JAX
+
+    def _prompts(self, x: torch.Tensor, pe=None) -> torch.Tensor:
+        """`pe` (default the model's prompts) on x's device in f32 (f64 for an f64 input), broadcast to x's batch."""
+        dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+        arr = self.prompts if pe is None else pe
+        if isinstance(arr, torch.Tensor):
+            t = arr.to(x.device, dtype)
+        else:
+            held = self._on_device
+            if held is None or held[0] is not arr or held[1] != (x.device, dtype):
+                held = self._on_device = (arr, (x.device, dtype), torch.as_tensor(np.asarray(arr, np.float32)).to(x.device, dtype))
+            t = held[2]
+        return t.expand(x.shape[0], *t.shape[1:]) if t.shape[0] != x.shape[0] else t
+
+    def _forward(self, x, plain: bool, neck_opt: bool, pe=None):
+        """The walk (the guide threaded through it) and the head's raw outputs on the prompts."""
+        g = self._prompts(x, pe)
+        return self.head(self._head_inputs(x, plain, neck_opt, guide=g), g)
+
+    @property
+    def segment(self) -> bool:
+        return isinstance(self.head, OV.YOLOESegment)
+
+    @torch.no_grad()
+    def predict_parts(self, x: torch.Tensor, plain: bool = False, head_cm: bool = False, neck_opt: bool | None = None):
+        """(boxes (B, A, 4) px xywh, scores (B, A, nc)) f32, the head walked conv by conv on the prompts (JAX's
+        `predict_parts` of a head that is not the plain Detect). `head_cm` raises ValueError (JAX asserts)."""
+        refuse_prompted_segment(self, "the parts path")
+        if head_cm:
+            self.head.check_cm()
+        return self.head.decode_parts(self._forward(x, plain, not self.int8 if neck_opt is None else neck_opt))
+
+
+class WorldModel(_PromptedModel):
+    """YOLO-World (JAX WorldModel): the classes are text embeddings (1, nc, 512), `txt_feats`. The C2f blocks of the
+    backbone go through the C2f kernel (kernel 1); the C2fAttn neck, the ImagePoolingAttn and the WorldDetect head are
+    plain torch, as in JAX. `set_classes` embeds class names with the CLIP text tower (nn/text_model.py; a seeded one
+    unless weights are given), `set_text_features` takes embeddings."""
+
+    is_world = True
+
+    def __init__(self, cfg="yolov8s-world.yaml", ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+
+    @property
+    def txt_feats(self) -> np.ndarray:
+        return self.prompts
+
+    def set_text_features(self, txt_feats) -> None:
+        """Install text embeddings (1, n, 512); the class count becomes n."""
+        self._set_prompts(txt_feats)
+
+    def set_classes(self, text, text_model=None, clip_ckpt=None) -> None:
+        """Embed the class names with `text_model` (default `build_text_model()`, a seeded tower, on this model's
+        device; `clip_ckpt` loads an OpenAI CLIP checkpoint into it) and install them, with their names."""
+        feats = _text_model(text_model, clip_ckpt, self.device).encode_text(list(text))
+        self.set_text_features(feats.float().cpu().numpy()[None])
+        self.names = dict(enumerate(text))
+
+    def forward_features(self, x: torch.Tensor, remat: bool = False, txt_feats=None):
+        """The train forward on the text embeddings (`txt_feats`, default the model's)."""
+        return super().forward_features(x, remat, guide=self._prompts(x, txt_feats))
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False, txt_feats=None) -> torch.Tensor:
+        """(B, 4 + nc, A) f32: px xywh boxes and the sigmoid of the region-text scores."""
+        return self.head.decode(self._forward(x, plain, neck_opt and not self.int8, txt_feats))
+
+
+class YOLOEModel(_PromptedModel):
+    """YOLOE (JAX YOLOEModel): the classes are prompt embeddings (1 or B, nc, 512), `cls_pe`: text embeddings through
+    the head's SwiGLU residual (`set_text_features`, `set_classes`), or visual prompt embeddings from SAVPE
+    (`get_visual_pe`, `set_visual_pe`); `set_vocab` fuses a vocabulary for the prompt-free `predict_lrpc`. The C2f
+    blocks go through kernel 1 and the neck fold through kernel 2 where the yaml has them (yoloe-v8); the head is plain
+    torch. A YOLOESegment head's `predict` gives (preds, protos)."""
+
+    is_yoloe = True
+
+    def __init__(self, cfg="yoloe-11s.yaml", ch: int = 3, nc: int | None = None, device=None):
+        super().__init__(cfg, ch, nc, device)
+
+    @property
+    def cls_pe(self) -> np.ndarray:
+        return self.prompts
+
+    def _load_head(self, params: dict) -> dict:
+        """The head's subtree of `params`, its SwiGLU residual loaded in f32 (what `get_tpe` reads)."""
+        hp = params["model"][str(len(self.layers) - 1)]
+        M._subtree_load(self.head.reprta, hp["reprta"], self.device, torch.float32)
+        return hp
+
+    def text_prompts(self, params: dict, txt_feats) -> np.ndarray:
+        """Text embeddings (1, n, 512) → prompt embeddings (JAX `get_tpe`, with the head's weights of `params`)."""
+        self._load_head(params)
+        t = torch.as_tensor(np.asarray(txt_feats, np.float32), device=self.device)
+        return self.head.get_tpe(t).float().cpu().numpy()
+
+    def set_text_features(self, params: dict, txt_feats) -> None:
+        """Install text embeddings (1, n, 512) as the class prompts, through `get_tpe`."""
+        self._set_prompts(self.text_prompts(params, txt_feats))
+
+    def set_classes(self, text, params: dict, text_model=None, clip_ckpt=None) -> None:
+        """Embed the class names with the text tower (as WorldModel.set_classes) and install them through `get_tpe`."""
+        feats = _text_model(text_model, clip_ckpt, self.device).encode_text(list(text))
+        self.set_text_features(params, feats.float().cpu().numpy()[None])
+        self.names = dict(enumerate(text))
+
+    def set_visual_pe(self, vpe) -> None:
+        """Use visual prompt embeddings (B, Q, 512) as the class prompts."""
+        self._set_prompts(vpe)
+
+    @torch.no_grad()
+    def get_visual_pe(self, x: torch.Tensor, vp: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """Visual prompt embeddings (B, Q, 512) f32 of (B, Q, H/8, W/8) masks on NHWC images (the installed tree)."""
+        return self.head.get_vpe(self._head_inputs(x, plain, not self.int8), vp)
+
+    def set_vocab(self, params: dict, texts, text_model=None, clip_ckpt=None) -> dict:
+        """The prompt-free re-parameterisation (JAX `set_vocab`): `texts` embedded and fused into per-level vocabulary
+        linears, the current prompts into the proposal filter → a copy of `params` whose head holds them (`lrpc`);
+        the names and the class count become the texts'."""
+        hp = self._load_head(params)
+        feats = _text_model(text_model, clip_ckpt, self.device).encode_text(list(texts))
+        feats = feats.float().cpu().numpy() if isinstance(feats, torch.Tensor) else np.asarray(feats, np.float32)
+        tpe = self.text_prompts(params, feats[None])[0]
+        hi = str(len(self.layers) - 1)
+        out = {**params, "model": {**params["model"], hi: {**hp, "lrpc": {"vocab": self.head.fuse_text(hp, tpe),
+                                                                           "pf": self.head.fuse_text(hp, self.prompts[0])}}}}
+        self.names = dict(enumerate(texts))
+        self.nc = self.head.nc = len(texts)
+        return out
+
+    @torch.no_grad()
+    def predict_lrpc(self, x: torch.Tensor, conf: float = 0.001, plain: bool = False):
+        """The prompt-free path on the installed `set_vocab` tree → ((B, 4 + nc, A) f32 preds, (B, A) keep mask)."""
+        outs, keep = self.head.forward_lrpc(self._head_inputs(x, plain, not self.int8), conf=conf)
+        return self.head.decode(outs), keep
+
+    def forward_features(self, x: torch.Tensor, remat: bool = False, cls_pe=None):
+        """The train forward on the prompts (`cls_pe`, default the model's)."""
+        return super().forward_features(x, remat, guide=self._prompts(x, cls_pe))
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, neck_opt: bool = True, plain: bool = False, cls_pe=None):
+        """(B, 4 + nc, A) f32 predictions; a YOLOESegment head's (preds (B, 4 + nc + nm, A), protos) as
+        SegmentationModel's."""
+        outs = self._forward(x, plain, neck_opt and not self.int8, cls_pe)
+        return self.head.decode_with_masks(outs) if self.segment else self.head.decode(outs)
+
+
+def _text_model(text_model, clip_ckpt, device):
+    """`text_model`, or the seeded CLIP text tower on `device` (with `clip_ckpt`'s weights where given; JAX warns that a
+    tower without weights aligns nothing)."""
+    if text_model is not None:
+        return text_model
+    from yolo_tpu_torch.nn.text_model import build_text_model
+    from yolo_tpu_torch.utils import LOGGER
+
+    tm = build_text_model(device=device)
+    if clip_ckpt:
+        tm.load_torch(clip_ckpt)
+    else:
+        LOGGER.warning("set_classes: no text_model/clip_ckpt supplied — embedding class names with a RANDOMLY-initialized "
+                       "CLIP text tower. The pipeline runs, but open-vocab alignment is meaningless until real CLIP "
+                       "weights are loaded (pass clip_ckpt=... or text_model=...).")
+    return tm
+
+
 def guess_model_task(cfg: dict) -> str:
     """The task of a model yaml, from its head module (JAX `guess_model_task`)."""
     rows = list(cfg.get("head", [])) or list(cfg.get("backbone", []))
@@ -791,14 +1038,16 @@ def guess_model_task(cfg: dict) -> str:
 
 def model_class_for(cfg: dict, task: str | None = None):
     """The model class of a checkpoint's config and task (JAX `model_class_for`): RTDETRDetectionModel for an
-    RTDETRDecoder head, else DetectionModel, SegmentationModel, PoseModel, OBBModel or ClassificationModel; the
-    World and YOLOE heads raise NotImplementedError naming them."""
+    RTDETRDecoder head, WorldModel for a WorldDetect one, YOLOEModel for a YOLOEDetect or YOLOESegment one, else
+    DetectionModel, SegmentationModel, PoseModel, OBBModel or ClassificationModel."""
     rows = list(cfg.get("head", []))
     head = str(rows[-1][2]) if rows else "Detect"
     if head == "RTDETRDecoder":
         return RTDETRDetectionModel
-    if head in ("WorldDetect", "YOLOEDetect", "YOLOESegment"):
-        raise NotImplementedError(f"models with a {head} head are not ported (ROADMAP item 5c)")
+    if head == "WorldDetect":
+        return WorldModel
+    if head in ("YOLOEDetect", "YOLOESegment"):
+        return YOLOEModel
     task = task or guess_model_task(cfg)
     if task == "classify":
         return ClassificationModel
@@ -829,6 +1078,8 @@ class Ensemble:
         if any(getattr(m, "end2end", False) for m in models):
             raise NotImplementedError("an ensemble joins its members' predictions for one NMS; an end-to-end v10Detect "
                                       "head gives final rows that no NMS takes (the JAX package's ensemble mixes them up)")
+        for m in models:
+            refuse_prompted_segment(m, "an ensemble")
         if len(ncs) != 1:
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
         self.models = list(models)
@@ -881,22 +1132,35 @@ def install_params(model, params, device, dtype) -> None:
     params_from_jax(model, params, dtype)
 
 
-def _remat(m, x_in):
+def _remat(m, x_in, guide: torch.Tensor | None = None):
     """One train-form layer under torch.utils.checkpoint: its activations are dropped after the
     forward and recomputed in the backward. The recompute keeps no BN moments: the first forward
-    recorded them (JAX `_apply_layer` under ctx.remat)."""
+    recorded them (JAX `_apply_layer` under ctx.remat). A C2fAttn's guide is one of the
+    checkpoint's inputs, so its gradient flows back as the maps' do."""
     from torch.utils.checkpoint import checkpoint
 
     calls = [0]
     multi = isinstance(x_in, list)
+    n = len(x_in) if multi else 1
 
     def fn(*xs):
         calls[0] += 1
         with M.recording_bn(m, calls[0] == 1):
-            inp = list(xs) if multi else xs[0]
+            inp = list(xs[:n]) if multi else xs[0]
+            if guide is not None:
+                return m.forward_train(inp, xs[n])
             return m.forward_train(inp) if hasattr(m, "forward_train") else m(inp)
 
-    return checkpoint(fn, *(x_in if multi else [x_in]), use_reentrant=False)
+    return checkpoint(fn, *(x_in if multi else [x_in]), *([] if guide is None else [guide]), use_reentrant=False)
+
+
+def _require_guide(guide, m):
+    """The guide a layer reads; a World or YOLOE layer walked without class prompts raises NotImplementedError (the
+    JAX package fails there on its missing guide)."""
+    if guide is None:
+        raise NotImplementedError(f"a {type(m).__name__} reads class prompts: build the model as a WorldModel or "
+                                  "YOLOEModel (YOLOWorld / YOLOE), which hold them (ROADMAP item 5c)")
+    return guide
 
 
 def validate_s2d_stem(model) -> None:

@@ -49,7 +49,14 @@ import torch
 from yolo_tpu_torch.device import resolve_device
 from yolo_tpu_torch.kalman.batched import STATUS_DETECTED, STATUS_NONE, STATUS_PREDICTED, init_state, make_step
 from yolo_tpu_torch.nn.quantize import calibrate_act_scales, params_are_fused_float, quantize_params
-from yolo_tpu_torch.nn.tasks import EXTRA_OUTPUT_TASKS, fuse, params_are_fused, params_from_jax, validate_s2d_stem
+from yolo_tpu_torch.nn.tasks import (
+    EXTRA_OUTPUT_TASKS,
+    fuse,
+    params_are_fused,
+    params_from_jax,
+    refuse_prompted_segment,
+    validate_s2d_stem,
+)
 from yolo_tpu_torch.ops.nms import non_max_suppression_parts
 
 # packed (T, N, 12) column layout; track_num rides an f32 column, exact up to 2^24 ids
@@ -139,6 +146,7 @@ class FusedDetectTrack:
             raise NotImplementedError("FusedDetectTrack runs the Detect parts and the fixed-shape NMS; RT-DETR's decoder "
                                       "has no parts path (the JAX package asserts): use YOLO.predict or YOLO.track "
                                       "(ROADMAP item 5b)")
+        refuse_prompted_segment(model, "FusedDetectTrack")
         if task in EXTRA_OUTPUT_TASKS:
             raise NotImplementedError(f"FusedDetectTrack with a {task} model is not ported (the JAX package's fast path takes plain Detect heads only)")
         if channels not in (1, 3):
