@@ -249,6 +249,16 @@ Phases (any failure stops the run with a non-zero exit code):
    path: the head is a decoder and NMS-free), `[rtdetr-l.yaml train]` (one bf16 epoch: giou / cls / l1, the step's
    split with the host's Hungarian match, val) and `[yolo11-cls-resnet18]` (predict at 224, one epoch on `[classify]`'s
    images; no kernel).
+27. the twenty-second slice (`slice22_phases`): `[text tower]`, `[world]` x2, `[yoloe]` x3, two close-set epochs.
+28. the twenty-third slice (last; `slice23_phases`): `[sam]` (sam_b at 1024, JAX's init(0) woken by `awake_sam`, on
+   a 640x512 BGR clip frame: point and box prompts, the embedding, low-res logits and IoU f32 against f64 within 4x
+   the CPU's f32 distance, logit signs ≥ SIGN_AGREE; encode / decode ms; `generate` at its defaults and unfiltered
+   with the host split), `[mobile_sam]` (the same), `[sam2]` (sam2_t: the image prompts held so; video propagation of
+   8 clip frames at 1024² and 4 backward, each frame against the f64 run; `generate` refused), `[sam variants]`
+   (sam_l, sam_h, sam2_s, sam2_b: `info()` equal to JAX's count, a point prompt against f64, encode ms, peak
+   memory), `[fastsam]` (FastSAM-s and -x at 640 on a calibrated tree: kernels 1, 2, 3 and 5 held with the live gate;
+   everything mode and bbox / point / text prompts on 8 BGR frames, f32 kernels against twins; bf16 frames/s) and
+   `[clip vision]` (the seeded ViT-B/32 vision tower, card against CPU). No SAM path launches a kernel.
 With `--profile`, after the torch.profiler table: `[c2f plans]` launches the
 C2f kernel with every candidate tile and ring step the plan's cost model rates
 within 3x of its choice (at most 40), per instance, dtype and batch (128 and
@@ -276,6 +286,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -295,10 +306,10 @@ FRAMES, CHUNK, HW = 256, 128, (512, 640)  # cut from 512 (PR 17) to keep the scr
 PREDICT_FRAMES = 16  # cut to fit the run's time limit (PERF.md §4)
 TRACK_FRAMES = 16  # cut to fit the run's time limit (PERF.md §4)
 TASK_TRACK_FRAMES = 32  # the segment / pose / obb tracks' moving clips (their near-ties settle at this length)
-MOTION_FRAMES = 162  # config 5: a quarter of the reference's clip length, 649 (demos/motion_comp_bench.py)
+MOTION_FRAMES = 108  # config 5: a sixth of the reference's clip length, 649 (demos/motion_comp_bench.py); cut to fit the run's time limit
 MOTION_COMPARE_FRAMES = 64
-GRAY_FRAMES, GRAY_TEST_RANGE = 128, (32, 80)
-VAL_HELDOUT, VAL_FRAMES = (32, 10_000), (128, 20_000)  # validation splits: frames, seed
+GRAY_FRAMES, GRAY_TEST_RANGE = 96, (32, 80)  # frames cut from 128 to fit the run's time limit
+VAL_HELDOUT, VAL_FRAMES = (32, 10_000), (64, 20_000)  # validation splits: frames, seed (val cut from 128 to fit the time limit)
 KERNEL_ROWS = {  # name → (route, source, the TPU kernel's entry it replaces)
     "c2f": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:264"),
     "c2f_upconcat": ("cuda", "yolo_tpu_torch/csrc/c2f.cu", "yolo_tpu/ops/pallas_c2f.py:290"),
@@ -2215,6 +2226,82 @@ def native_letterboxes():
         native.letterbox = real
 
 
+_PNG_POOL, _PNG_JOBS = ThreadPoolExecutor(8), []  # the split writers' PNG encoders (threads start at first use)
+
+
+def write_png(path, img) -> None:
+    """cv2.imwrite of `img` on _PNG_POOL's threads (cv2 releases the GIL while it compresses): the split writers draw
+    their frames in order on the main thread and hand each finished array over, so the files are those written one
+    after another; `flush_pngs` waits for them."""
+    import cv2
+
+    _PNG_JOBS.append(_PNG_POOL.submit(cv2.imwrite, str(path), img))
+
+
+def flush_pngs() -> None:
+    """Wait until every `write_png` image is on disk."""
+    jobs = list(_PNG_JOBS)
+    _PNG_JOBS.clear()
+    if not all(j.result() for j in jobs):
+        raise OSError("a split image was not written")
+
+
+def split_once(root: Path, tag: str, what: str, write) -> Path:
+    """`write()` → a dataset under `root` (its yaml, or a folder), unless `root` holds it already: `main` writes every
+    dataset while the kernels build (`write_datasets`), the phases (and the card tests, which call them alone) write
+    what is missing. Prints how long a write took."""
+    done = root / ".dataset"
+    if not done.exists():
+        t0 = time.perf_counter()
+        out = write()
+        done.write_text(str(out))
+        print(f"[{tag} split] {what} written in {time.perf_counter() - t0:.1f} s")
+    return Path(done.read_text())
+
+
+def heldout_split(root: Path) -> Path:
+    return split_once(root, "heldout", f"{VAL_HELDOUT[0]} frames of 640x512", lambda: write_split(root, *VAL_HELDOUT))
+
+
+def val_split(root: Path) -> Path:
+    return split_once(root, "val", f"{VAL_FRAMES[0]} frames of 640x512", lambda: write_split(root, *VAL_FRAMES))
+
+
+def train_split(root: Path) -> Path:
+    return split_once(root, "train", f"{TRAIN_SET[0]} train + {VAL_HELDOUT[0]} held-out frames of 640x512",
+                      lambda: (write_split(root, *TRAIN_SET, split="train"), write_split(root, *VAL_HELDOUT))[1])
+
+
+def cls_split(root: Path) -> Path:
+    return split_once(root, "classify", f"{CLS_TRAIN[0]} train + {CLS_VAL[0]} val images of 224x224, {len(CLS_SHAPES)} "
+                      "classes", lambda: (write_cls_split(root, *CLS_TRAIN), write_cls_split(root, *CLS_VAL, split="val"))[1])
+
+
+def seg_split(root: Path) -> Path:
+    return split_once(root, "segment", f"{SEG_TRAIN[0]} train + {SEG_VAL[0]} val frames of 640x512 with polygon labels",
+                      lambda: (write_seg_split(root, *SEG_TRAIN, split="train"), write_seg_split(root, *SEG_VAL, split="val"))[1])
+
+
+def pose_split(root: Path) -> Path:
+    return split_once(root, "pose", f"{POSE_TRAIN[0]} train + {POSE_VAL[0]} val frames of 640x512 with 17-keypoint labels",
+                      lambda: (write_pose_split(root, *POSE_TRAIN, split="train"), write_pose_split(root, *POSE_VAL, split="val"))[1])
+
+
+def obb_split(root: Path) -> Path:
+    return split_once(root, "obb", f"{OBB_TRAIN[0]} train + {OBB_VAL[0]} val frames of 640x512 with DOTA rows",
+                      lambda: (write_obb_split(root, *OBB_TRAIN, split="train"), write_obb_split(root, *OBB_VAL, split="val"))[1])
+
+
+def write_datasets(root: Path) -> None:
+    """Every seeded dataset of the run under `root` (held-out and val splits, the training split, the classify,
+    segment, pose and obb sets), each in the directory its phase reads."""
+    heldout_split(root / "heldout")
+    val_split(root / "val")
+    train_split(root / "train")
+    for name, write in (("cls", cls_split), ("seg", seg_split), ("pose", pose_split), ("obb", obb_split)):
+        write(root / name)
+
+
 def write_split(root: Path, n: int, seed: int, w: int = 640, h: int = 512, split: str = "val") -> Path:
     """A copy of demos/ir_end_to_end.py::_write_split at its defaults (the training
     distribution): n seeded 640x512 IR frames as PNGs under root/images/<split>, 1-3 small
@@ -2238,8 +2325,9 @@ def write_split(root: Path, n: int, seed: int, w: int = 640, h: int = 512, split
             a = rng.uniform(120.0, 200.0)
             img += a * np.exp(-(((xx - cx * w) ** 2 + (yy - cy * h) ** 2) / (2 * r**2)))
             lines.append(f"0 {cx:.4f} {cy:.4f} {(4 * r) / w:.4f} {(4 * r) / h:.4f}")
-        cv2.imwrite(str(root / f"images/{split}/{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
+        write_png(root / f"images/{split}/{i}.png", np.clip(img, 0, 255).astype(np.uint8))
         (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    flush_pngs()
     splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
     (root / "data.yaml").write_text(f"path: {root}\n{splits}names:\n  0: aircraft\n")
     return root / "data.yaml"
@@ -2793,7 +2881,7 @@ def train_finetune_phase(data, run_dir, card):
 # ------------------------------------------- otherplan, tiles, TTA, ensembles, embed --
 
 TILE, TILE_OVERLAP = 256, 0.25  # 9 tiles of a 640x512 frame, one batch padded to B = 16
-SLICE_FRAMES = 32  # frames of the `[tiled]`, `[tta]`, `[ensemble]` and `[embed]` phases
+SLICE_FRAMES = 16  # frames of the `[tiled]`, `[tta]`, `[ensemble]` and `[embed]` phases (cut from 32 to fit the time limit)
 ENHANCE_FRAMES, ENHANCE_CPU_FRAMES = 64, 16  # cut to fit the run's time limit (PERF.md §4)
 VIDEO_FRAMES = 32  # `[detect_only]` / `[single target]`: the clip's first frames as an mp4v file
 
@@ -3594,7 +3682,8 @@ def write_cls_split(root: Path, n: int, seed: int, imgsz: int = 224, split: str 
             cv2.circle(img, (x, y), r, (250, 250, 250), -1)
         else:
             cv2.fillPoly(img, [np.array([[x, y - r], [x - r, y + r], [x + r, y + r]], np.int32)], (250, 250, 250))
-        cv2.imwrite(str(d / f"{k}.png"), img)
+        write_png(d / f"{k}.png", img)
+    flush_pngs()
     return root
 
 
@@ -3672,11 +3761,7 @@ def classify_phase(clip, root: Path, card):
         f"frame per predict call); top-1 equal to f32 on {same}/{PREDICT_FRAMES}; launches {launches}")
     classify_c2f_holds(y, frames, card)
 
-    t0 = time.perf_counter()
-    write_cls_split(root, *CLS_TRAIN)
-    write_cls_split(root, *CLS_VAL, split="val")
-    print(f"[classify split] {CLS_TRAIN[0]} train + {CLS_VAL[0]} val images of 224x224, {len(CLS_SHAPES)} classes, written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    cls_split(root)
     yt = YOLO("yolov8n-cls.yaml")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -3740,8 +3825,9 @@ def write_seg_split(root: Path, n: int, seed: int, split: str, w: int = 640, h: 
             lines.append("0 " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in pts))
             prev = np.array([cx, cy], np.float64)
         gray = np.clip(img, 0, 255).astype(np.uint8)
-        cv2.imwrite(str(root / f"images/{split}/{i}.png"), cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        write_png(root / f"images/{split}/{i}.png", cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
         (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    flush_pngs()
     splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
     (root / "data.yaml").write_text(f"path: {root}\n{splits}names:\n  0: target\n")
     return root / "data.yaml"
@@ -3907,11 +3993,7 @@ def segment_phases(root: Path, card):
     import cv2
     import numpy as np
 
-    t0 = time.perf_counter()
-    write_seg_split(root, *SEG_TRAIN, split="train")
-    data = write_seg_split(root, *SEG_VAL, split="val")
-    print(f"[segment split] {SEG_TRAIN[0]} train + {SEG_VAL[0]} val frames of 640x512 with polygon labels written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    data = seg_split(root)
     y = segment_train_phase(data, root / "runs", card)
     train_step_f32_phase(data, card, cfg_name="yolov8n-seg.yaml", tag="segment train step f32", recipe=SEG_RUN)
     segment_val_kernels_phase(y, data, card)
@@ -3973,8 +4055,9 @@ def write_pose_split(root: Path, n: int, seed: int, split: str, w: int = 640, h:
             lines.append(f"0 {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} {(x2 - x1) / w:.6f} {(y2 - y1) / h:.6f} "
                          + " ".join(f"{x:.6f} {y:.6f} {v}" for (x, y), v in zip(kp, vis)))
         gray = np.clip(img, 0, 255).astype(np.uint8)
-        cv2.imwrite(str(root / f"images/{split}/{i}.png"), cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        write_png(root / f"images/{split}/{i}.png", cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
         (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    flush_pngs()
     splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
     (root / "data.yaml").write_text(f"path: {root}\n{splits}kpt_shape: [17, 3]\nflip_idx: {POSE_FLIP_IDX}\n"
                                     "names:\n  0: person\n")
@@ -4259,11 +4342,7 @@ def pose_phases(root: Path, card, seg):
     import cv2
     import numpy as np
 
-    t0 = time.perf_counter()
-    write_pose_split(root, *POSE_TRAIN, split="train")
-    data = write_pose_split(root, *POSE_VAL, split="val")
-    print(f"[pose split] {POSE_TRAIN[0]} train + {POSE_VAL[0]} val frames of 640x512 with 17-keypoint labels written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    data = pose_split(root)
     y = pose_train_phase(data, root / "runs", card)
     train_step_f32_phase(data, card, cfg_name="yolov8n-pose.yaml", tag="pose train step f32", recipe=POSE_RUN)
     pose_val_kernels_phase(y, data, card)
@@ -4333,8 +4412,9 @@ def write_obb_split(root: Path, n: int, seed: int, split: str, w: int = 640, h: 
                 cv2.polylines(img, poly, True, val, max(2, int(t[3] / 4)), cv2.LINE_AA)
             lines.append(f"{c} " + " ".join(f"{v:.6f}" for v in (pts / [w, h]).ravel()))
         gray = np.clip(img, 0, 255).astype(np.uint8)
-        cv2.imwrite(str(root / f"images/{split}/{i}.png"), cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        write_png(root / f"images/{split}/{i}.png", cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
         (root / f"labels/{split}/{i}.txt").write_text("\n".join(lines) + "\n")
+    flush_pngs()
     splits = "".join(f"{s.name}: images/{s.name}\n" for s in sorted((root / "images").iterdir()))
     (root / "data.yaml").write_text(f"path: {root}\n{splits}names:\n  0: solid\n  1: hollow\n")
     return root / "data.yaml"
@@ -4572,11 +4652,7 @@ def obb_phases(root: Path, card):
     import cv2
     import numpy as np
 
-    t0 = time.perf_counter()
-    write_obb_split(root, *OBB_TRAIN, split="train")
-    data = write_obb_split(root, *OBB_VAL, split="val")
-    print(f"[obb split] {OBB_TRAIN[0]} train + {OBB_VAL[0]} val frames of 640x512 with DOTA rows written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    data = obb_split(root)
     y = obb_train_phase(data, root / "runs", card)
     train_step_f32_phase(data, card, cfg_name="yolov8n-obb.yaml", tag="obb train step f32", recipe={**OBB_RUN, "task": "obb"})
     obb_val_kernels_phase(y, data, card)
@@ -5177,7 +5253,7 @@ def family_tasks_phase(frames, seg_data, pose_data, card):
         size = 224 if name.endswith("-cls.yaml") else 640
         noise = torch.rand((8, size, size, 3), generator=torch.Generator().manual_seed(1)).cuda()
         y = calibrated_yolo(name, noise)
-        err = card_against_f64(y, noise, f"yolo11 tasks {name}", set())
+        err = card_against_f64(y, noise[:1], f"yolo11 tasks {name}", set())  # one image: the time limit
         what = f"{name} max |diff| " + " ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in err.items())
         if y.task in ("segment", "pose"):
             nms = hold_nms(name, *y.model.predict_parts(noise))
@@ -5462,7 +5538,7 @@ def v8_scales_phase(frames, card):
         h, w = (512, 640) if cfg == "yolov8-small.yaml" else (640, 640)
         noise = torch.rand((2, h, w, 3), generator=torch.Generator().manual_seed(0)).cuda()
         y = scaled_yolo(cfg, scale, noise)
-        err = card_against_f64(y, noise, f"v8 scales {cfg} {scale or ''}", path - {"nms_keep"})
+        err = card_against_f64(y, noise[:1], f"v8 scales {cfg} {scale or ''}", path - {"nms_keep"})  # one image: the time limit
         params_from_jax(y.model, without_cls_prior(y.model, y.params), torch.float32)
         held = hold_path_kernels([y.model], noise, f"v8 scales {cfg} {scale or ''}", card, conf=0.0, iou=0.7, live=True)
         sub = [f[:h, :w] for f in frames[:V8_SCALE_FRAMES]]
@@ -5533,7 +5609,7 @@ def v10_models_phase(frames, card):
     for name in V10_OTHERS:
         t0 = time.perf_counter()
         y = calibrated_yolo(name, noise)
-        err = card_against_f64(y, noise, f"v10 others {name}", V10_PATH)
+        err = card_against_f64(y, noise[:1], f"v10 others {name}", V10_PATH)  # one image: the time limit
         held = hold_path_kernels([y.model], noise, f"v10 others {name}", card, live=True, nms=False)
         sub = list(frames[:V10_OTHER_FRAMES])
         y.predict(sub[:1], **TASK_PREDICT)
@@ -5753,7 +5829,7 @@ def rtdetr_models_phase(frames, card):
         t0 = time.perf_counter()
         path = rtdetr_path(name)
         y = calibrated_rtdetr(name, noise)
-        err = card_against_f64(y, noise, f"rtdetr others {name}", path)
+        err = card_against_f64(y, noise[:1], f"rtdetr others {name}", path)  # one image: the time limit
         sel = selection_check(y, noise, f"rtdetr others {name}")
         held = hold_path_kernels([y.model], noise, f"rtdetr others {name}", card, live=True, nms=False) if path else {}
         sub = list(frames[:RTDETR_OTHER_FRAMES])
@@ -6101,6 +6177,349 @@ def slice22_phases(clip, train_data, root: Path, card):
     print(f"[slice 22] its phases took {time.perf_counter() - t0:.1f} s")
 
 
+SAM_COUNTS = {"sam_b": 93_735_728, "sam_l": 312_343_088, "sam_h": 641_090_864, "mobile_sam": 9_818_564,
+              "sam2_t": 38_962_737, "sam2_s": 46_060_593, "sam2_b": 80_850_417}  # the JAX package's SAM(k).info() at 1024
+SAM_VARIANTS = ("sam_l", "sam_h", "sam2_s", "sam2_b")
+SAM_POINT, SAM_BOX = [[320, 256]], [[200, 150, 460, 380]]  # prompts on a 640x512 frame
+SAM2_FRAMES, SAM2_REVERSE = 8, 4  # `[sam2]`'s propagation: clip frames at 1024², then frames tracked backward
+SIGN_AGREE = 0.999
+FASTSAM = ("FastSAM-s.yaml", "FastSAM-x.yaml")
+FASTSAM_FRAMES = 8
+FASTSAM_PATH = frozenset({"c2f", "c2f_upconcat", "head_level", "nms_keep"})
+FASTSAM_PROMPTS = {"everything": {}, "bbox": dict(bboxes=[[200, 150, 460, 380]]), "point": dict(points=[[320, 256]], labels=[1]),  # moved per frame
+                   "text": dict(texts=["a bright aircraft", "cloudy sky"])}
+FASTSAM_PREDICT = dict(conf=0.0, max_det=10, imgsz=640, verbose=False)  # each frame's ten best (a calibrated init(0) tree)
+CLIP_CROPS = 16
+
+
+def awake_sam(model) -> None:
+    """Wake an init(0) SAM in place: SAM1's hypernetwork output biases N(0, 2) (at init(0) every mask logit is
+    negative); SAM2's background position table N(0, 0.3) and object-score bias +3 (at init(0) every frame reads "no
+    object" and its masks sit at -1024). Seeded, so that each phase holds masks with both signs."""
+    import torch
+
+    from yolo_tpu_torch.models.sam.sam2 import SAM2Model
+
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        if isinstance(model, SAM2Model):
+            pe = model.trunk.pos_embed
+            pe.copy_(torch.randn(pe.shape, generator=g) * 0.3)
+            model.sam_mask_decoder.pred_obj_score_head.layers[2].bias.add_(3.0)
+            return
+        for m in model.mask_decoder.output_hypernetworks_mlps:
+            b = m.layers[2].bias
+            b.copy_(torch.randn(b.shape, generator=g) * 2.0)
+
+
+def sam_outputs(model, bgr, prompts):
+    """One frame through a SAM predictor on `model`'s device → (embedding, [(low-res logits, IoU) per prompt set]); the
+    prompts in the frame's pixels, each (points, labels, boxes, multimask)."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.models.sam.predict import SAMPredictor
+
+    pred = SAMPredictor(model).set_image(bgr)
+    dev, s = pred.device, pred._scale
+    out = []
+    for points, labels, boxes, mm in prompts:
+        pts = None if points is None else (torch.from_numpy(np.asarray(points, np.float32) * s)[None].to(dev),
+                                           torch.tensor([labels], device=dev))
+        bxs = None if boxes is None else torch.from_numpy(np.asarray(boxes, np.float32) * s).to(dev)
+        out.append(tuple(t.double().cpu() for t in pred.decode(pts, bxs, mm)))
+    emb = pred.features[0] if isinstance(pred.features, tuple) else pred.features
+    return emb.double().cpu(), out
+
+
+def sam_against_f64(model, bgr, prompts, tag, cpu=True) -> str:
+    """The card's f32 SAM against the same weights in f64 on the card: the encoder's embedding and each prompt set's
+    low-res logits and IoU scores, with the CPU's f32 distance from f64 as the yardstick (each within 4x it, and 1e-4
+    of the output's scale at least; `cpu=False`: that floor alone), and the logits' signs agreeing with f64's on
+    SIGN_AGREE of the pixels or more → the distances."""
+    import copy
+
+    import torch
+
+    emb, outs = sam_outputs(model, bgr, prompts)
+    m64 = copy.deepcopy(model).double()
+    e64, o64 = sam_outputs(m64, bgr, prompts)
+    del m64
+    ecpu, ocpu = (None, None)
+    if cpu:
+        mcpu = copy.deepcopy(model).cpu()
+        ecpu, ocpu = sam_outputs(mcpu, bgr, prompts)
+        del mcpu
+    torch.cuda.empty_cache()
+    groups = {"embedding": [(emb, e64, ecpu)], "logits": [(a[0], b[0], c[0] if c else None) for a, b, c in
+                                                         zip(outs, o64, ocpu or [None] * len(outs))],
+              "iou": [(a[1], b[1], c[1] if c else None) for a, b, c in zip(outs, o64, ocpu or [None] * len(outs))]}
+    text = []
+    for k, trips in groups.items():
+        card_e = max(float((a - b).abs().max()) for a, b, _ in trips)
+        scale = max(float(b.abs().max()) for _, b, _ in trips)
+        cpu_e = max(float((c - b).abs().max()) for _, b, c in trips) if cpu else None
+        floor = 1e-4 * max(scale, 1.0)
+        if card_e > max(4 * (cpu_e or 0.0), floor):
+            raise AssertionError(f"{tag}: {k} card {card_e:.3e} from f64, CPU {cpu_e}, floor {floor:.1e}")
+        text.append(f"{k} {card_e:.3e}" + (f" / {cpu_e:.3e}" if cpu else ""))
+    agree = min(float(((a[0] > 0) == (b[0] > 0)).double().mean()) for a, b in zip(outs, o64))
+    pos = min(float((b[0] > 0).double().mean()) for b in o64)
+    if agree < SIGN_AGREE:
+        raise AssertionError(f"{tag}: logits' signs agree with f64 on {agree:.6f} of the pixels")
+    return (f"f32 against f64 (card{' / CPU' if cpu else ''}): " + ", ".join(text)
+            + f"; logit signs agree on {agree:.6f} (f64 positive on {pos:.3f} of the pixels at least)")
+
+
+def sam_phase(name, bgr, card):
+    """`[sam]` / `[mobile_sam]`: SAM(name) at 1024 on the card (the JAX package's init(0), drawn by the port; woken by
+    `awake_sam`) on one 640x512 BGR frame: a point prompt (three masks) and a box prompt (one), held against f64
+    (`sam_against_f64`, the CPU's f32 as the yardstick), encode and decode ms (events), then `generate` at its
+    defaults (stride 32, batch 64, conf 0.88, stability 0.95) with its host split; no kernel launches on any of it."""
+    import torch
+
+    from yolo_tpu_torch import SAM
+    from yolo_tpu_torch.models.sam.predict import SAMPredictor
+
+    t0 = time.perf_counter()
+    sam = SAM(name)
+    built = time.perf_counter() - t0
+    if sam.info()["params"] != SAM_COUNTS[name]:
+        raise AssertionError(f"{name}: {sam.info()} parameters, the JAX package counts {SAM_COUNTS[name]}")
+    awake_sam(sam.model)
+    prompts = [(SAM_POINT, [1], None, True), (None, None, SAM_BOX, False)]
+    held = sam_against_f64(sam.model, bgr, prompts, name)
+    r = sam.predict(bgr, points=SAM_POINT, labels=[1])
+    rb = sam.predict(bgr, bboxes=SAM_BOX, multimask_output=False)
+    if r.masks.data.shape != (3, *bgr.shape[:2]) or rb.masks.data.shape != (1, *bgr.shape[:2]):
+        raise AssertionError(f"{name}: masks {r.masks.data.shape} / {rb.masks.data.shape}")
+    pred, dev, s = sam.predictor, sam.device, sam.model.img_size
+    x = torch.zeros((1, s, s, 3), device=dev)
+    enc = cuda_ms(lambda: sam.model.encode_image(x), iters=3, warmup=1)
+    pts = (torch.tensor([[[s / 2, s * 0.4]]], device=dev), torch.ones((1, 1), dtype=torch.long, device=dev))
+    dec = cuda_ms(lambda: pred.decode(pts, None, True), iters=10)
+    grid = torch.rand((64, 1, 2), generator=torch.Generator().manual_seed(0)).to(dev) * s
+    dec64 = cuda_ms(lambda: pred.decode((grid, torch.ones((64, 1), dtype=torch.long, device=dev)), None, True), iters=5)
+    gen = SAMPredictor(sam.model)
+    gen.timings = []
+    t1 = time.perf_counter()
+    res, launches = counted(set(), lambda: gen.generate(bgr))
+    wall = time.perf_counter() - t1
+    ts = gen.timings[0]
+    loose, _ = counted(set(), lambda: gen.generate(bgr, points_stride=16, conf_thres=0.0, stability_score_thresh=0.0))
+    tl = gen.timings[1]
+    if len(loose.masks) != len(loose.boxes) or not len(loose.masks) or loose.masks.data.shape[1:] != bgr.shape[:2]:
+        raise AssertionError(f"{name}: the unfiltered generate kept {len(loose.masks)} masks, {len(loose.boxes)} boxes")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(name, card, f"{sam.info()['params']:,} parameters (built and drawn in {built:.1f} s); {held}; masks {tuple(r.masks.data.shape)} "
+        f"(point, IoU {', '.join(f'{v:.4f}' for v in r.iou_scores)}), {tuple(rb.masks.data.shape)} (box); encode "
+        f"{enc:.2f} ms, decode {dec:.3f} ms a prompt, {dec64:.3f} ms for 64 (events); generate {wall:.2f} s: {len(res.masks)} "
+        f"masks of {ts['points']} points (host clock: encode {ts['encode_s']:.3f} s, decode and copy {ts['decode_s']:.3f} s, "
+        f"filters {ts['filter_s']:.3f} s, NMS and upscale {ts['nms_s']:.3f} s); unfiltered (stride 16, conf 0, stability 0) "
+        f"{len(loose.masks)} masks after NMS of {tl['points'] * 3} (decode {tl['decode_s']:.3f} s, filters and boxes "
+        f"{tl['filter_s']:.3f} s, NMS and upscale {tl['nms_s']:.3f} s); peak {peak:.2f} GiB; launches {launches}")
+    del sam, pred, gen
+    torch.cuda.empty_cache()
+
+
+def sam2_phase(bgr, clip, card):
+    """`[sam2]`: SAM("sam2_t") at 1024 (init(0), woken): the point and box prompts held against f64 as `[sam]`'s; then
+    `video_predictor` on SAM2_FRAMES clip frames resized to 1024² (a click on frame 0; ms a tracked frame) and
+    SAM2_REVERSE frames backward with reverse=True; each run against the same weights' f64 run on the card: every
+    frame's logit signs agree on SIGN_AGREE of the pixels, object scores within 1e-3; `generate` refused."""
+    import copy
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import SAM
+
+    t0 = time.perf_counter()
+    sam = SAM("sam2_t")
+    if sam.info()["params"] != SAM_COUNTS["sam2_t"]:
+        raise AssertionError(f"sam2_t: {sam.info()}")
+    awake_sam(sam.model)
+    held = sam_against_f64(sam.model, bgr, [(SAM_POINT, [1], None, True), (None, None, SAM_BOX, False)], "sam2_t")
+    try:
+        sam.predict(bgr, points=SAM_POINT)
+        sam.predictor.generate(bgr)
+        raise AssertionError("sam2_t: generate ran; JAX refuses it")
+    except NotImplementedError:
+        pass
+    side = sam.model.img_size
+    frames = [cv2.resize(np.repeat(f, 3, -1), (side, side), interpolation=cv2.INTER_LINEAR) for f in clip[:SAM2_FRAMES]]
+    m64 = copy.deepcopy(sam.model).double()
+
+    def run(model, seq, reverse):
+        from yolo_tpu_torch.models.sam.video import SAM2VideoPredictor
+
+        vp = SAM2VideoPredictor(model, num_frames=len(seq), reverse=reverse)
+        m, s = vp.add_prompt(seq[0], points=[[side / 2, side * 0.4]], labels=[1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        M, S = vp.propagate(seq[1:])
+        return np.concatenate([m[None], M]), np.concatenate([s[None], S]), (time.perf_counter() - t1) / (len(seq) - 1)
+
+    lines = []
+    for reverse, seq in ((False, frames), (True, frames[SAM2_REVERSE - 1 :: -1])):
+        (M, S, ms), launches = counted(set(), lambda: run(sam.model, seq, reverse))
+        M64, S64, _ = run(m64, seq, reverse)
+        agree = min(float(((a > 0) == (b > 0)).mean()) for a, b in zip(M, M64))
+        score = float(np.abs(S - S64).max())
+        if M.shape != (len(seq), 1, side, side) or agree < SIGN_AGREE or score > 1e-3:
+            raise AssertionError(f"sam2 video reverse={reverse}: {M.shape}, signs {agree:.6f}, scores {score:.3e}")
+        lines.append(f"{'reverse' if reverse else 'forward'} {len(seq)} frames: {ms * 1e3:.1f} ms a tracked frame (host clock), "
+                     f"signs against f64 {agree:.6f}, object scores {score:.2e} (f32 {S.min():.3f}-{S.max():.3f}), masks on "
+                     f"{(M > 0).mean():.3f} of the pixels; launches {launches}")
+    del m64
+    torch.cuda.empty_cache()
+    log("sam2", card, f"sam2_t: {held}; generate refused (NotImplementedError, as JAX); video " + "; ".join(lines)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    del sam
+
+
+def sam_variants_phase(bgr, card):
+    """`[sam variants]`: sam_l, sam_h, sam2_s and sam2_b at 1024: built on the card (info() equal to the JAX package's
+    count), one `set_image` and one point prompt held against f64 on the card (1e-4 of each output's scale; logit
+    signs), the encoder's ms (events) and the peak memory of the f32 predictor."""
+    import torch
+
+    from yolo_tpu_torch import SAM
+
+    for name in SAM_VARIANTS:
+        t0 = time.perf_counter()
+        sam = SAM(name)
+        built = time.perf_counter() - t0
+        n = sam.info()["params"]
+        if n != SAM_COUNTS[name]:
+            raise AssertionError(f"{name}: {n} parameters, the JAX package counts {SAM_COUNTS[name]}")
+        awake_sam(sam.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, launches = counted(set(), lambda: sam.predict(bgr, points=SAM_POINT, labels=[1]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        held = sam_against_f64(sam.model, bgr, [(SAM_POINT, [1], None, True)], name, cpu=False)
+        x = torch.zeros((1, sam.model.img_size, sam.model.img_size, 3), device=sam.device)
+        enc = cuda_ms(lambda: sam.model.encode_image(x), iters=3, warmup=1)
+        log("sam variants", card, f"{name}: {n:,} parameters (built and drawn in {built:.1f} s); {held}; encode {enc:.2f} ms "
+            f"(events); predict peak {peak:.2f} GiB; launches {launches}")
+        del sam
+        torch.cuda.empty_cache()
+
+
+def fastsam_rows(y, frames, clip_model, plain, points):
+    """Each frame through FastSAM.predict (f32) in everything mode and under each FASTSAM_PROMPTS prompt, the point
+    prompt at that frame's `points` → [(kind, rows, masks)]."""
+    out = []
+    for f, point in zip(frames, points):
+        for kind, kw in FASTSAM_PROMPTS.items():
+            extra = {"clip_model": clip_model} if "texts" in kw else {"points": point} if "points" in kw else {}
+            r = y.predict(f, plain=plain, half=False, compute_dtype="float32", **FASTSAM_PREDICT, **{**kw, **extra})[0]
+            out.append((kind, r.boxes.data.copy(), r.masks.data.copy() if r.masks is not None else None))
+    return out
+
+
+def fastsam_phase(name, frames, clip_model, card):
+    """`[fastsam]` for FastSAM-s or -x at 640 (yolov8s / yolov8x-seg, nc 1; the init(0) tree calibrated on two seeded
+    640² noise images): kernels 1, 2, 3 and 5 against their twins with the live gate; FASTSAM_FRAMES BGR clip frames in
+    everything mode and under bbox, point and text prompts (the seeded CLIPModel passed as `clip_model`), f32 through
+    the kernels against f32 through the twins: equal row counts and classes, boxes 1e-2 px, conf 1e-4, each mask's IoU
+    with the twin's 0.99 at least (and the count of masks equal pixel for pixel); the launches of one predict call;
+    bf16 frames/s with the host split."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch import FastSAM
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    t0 = time.perf_counter()
+    y = FastSAM(name)
+    noise = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    y.params = bn_calibrated(y.model, y.params, noise)
+    params_from_jax(y.model, y.params, torch.float32)
+    held = hold_path_kernels([y.model], noise, f"fastsam {name}", card, conf=0.0, iou=0.7, live=True)
+    # warm (f32 weights, plans); each frame's point prompt is its best box's centre, so that it lands in a mask
+    best = [y.predict(f, plain=False, half=False, compute_dtype="float32", **FASTSAM_PREDICT)[0].boxes.xyxy[:1] for f in frames]
+    points = [[[int(v) for v in (b[0, :2] + b[0, 2:]) / 2]] if len(b) else FASTSAM_PROMPTS["point"]["points"] for b in best]
+    pk, launches = counted(FASTSAM_PATH, lambda: fastsam_rows(y, frames, clip_model, False, points))
+    pp = fastsam_rows(y, frames, clip_model, True, points)
+    n_det, worst_box, worst_conf, worst_iou, equal = 0, 0.0, 0.0, 1.0, 0
+    for (kind, bk, mk), (_, bp, mp) in zip(pk, pp):
+        if bk.shape != bp.shape or (mk is None) != (mp is None) or (mk is not None and mk.shape != mp.shape):
+            raise AssertionError(f"fastsam {name} {kind}: rows {bk.shape} vs twins {bp.shape}")
+        if len(bk):
+            if not np.array_equal(bk[:, 5], bp[:, 5]):
+                raise AssertionError(f"fastsam {name} {kind}: classes differ")
+            worst_box = max(worst_box, float(np.abs(bk[:, :4] - bp[:, :4]).max()))
+            worst_conf = max(worst_conf, float(np.abs(bk[:, 4] - bp[:, 4]).max()))
+            worst_iou = min(worst_iou, *(_mask_iou(a, b) for a, b in zip(mk, mp)))
+            equal += sum(bool(np.array_equal(a, b)) for a, b in zip(mk, mp))
+        n_det += len(bk)
+    if n_det == 0 or worst_box > 1e-2 or worst_conf > 1e-4 or worst_iou < 0.99:
+        raise AssertionError(f"fastsam {name}: {n_det} rows, |box| {worst_box}, |conf| {worst_conf}, mask IoU {worst_iou}")
+    kinds = {k: sum(len(b) for kk, b, _ in pk if kk == k) for k in FASTSAM_PROMPTS}
+    bf16 = dict(plain=False, half=True, compute_dtype="bfloat16", **FASTSAM_PREDICT)  # a reused predictor keeps its settings
+    _, one = counted(FASTSAM_PATH, lambda: y.predict(frames[0], **bf16))  # warm: bf16 weights
+    y.predictor.timings = []
+    t1 = time.perf_counter()
+    _, lb = counted(FASTSAM_PATH, lambda: [y.predict(f, **bf16) for f in frames])
+    wall = time.perf_counter() - t1
+    ts, y.predictor.timings = y.predictor.timings, None
+    log("fastsam", card, f"{name}: held " + ", ".join(f"{k} {v:.2e}" for k, v in held.items()) + f"; f32 {len(frames)} frames x "
+        f"{len(FASTSAM_PROMPTS)} modes, kernels against twins: {n_det} rows ({', '.join(f'{k} {v}' for k, v in kinds.items())}), "
+        f"max |box| {worst_box:.3e} px, |conf| {worst_conf:.3e}, least mask IoU {worst_iou:.6f} ({equal} of {n_det} masks "
+        f"equal pixel for pixel); launches {launches}, one everything-mode call {one}; bf16 everything mode "
+        f"{len(frames) / wall:.1f} frames/s (host ms a frame: {host_split(ts)}); launches {lb}; {time.perf_counter() - t0:.1f} s")
+
+
+def clip_vision_phase(clip_model, frames, card):
+    """`[clip vision]`: the seeded ViT-B/32 vision tower on CLIP_CROPS crops of the clip frames (CLIP's preprocess):
+    the card's f32 features against the CPU's (1e-4), and the tower's ms on the device (events)."""
+    import numpy as np
+    import torch
+
+    from yolo_tpu_torch.nn.text_model import _vision_to_device
+
+    rng = np.random.default_rng(0)
+    crops = []
+    for i in range(CLIP_CROPS):
+        f = frames[i % len(frames)]
+        x0, y0 = int(rng.integers(0, 500)), int(rng.integers(0, 380))
+        crops.append(f[y0 : y0 + int(rng.integers(40, 130)), x0 : x0 + int(rng.integers(40, 130)), ::-1])
+    got = clip_model.encode_image(crops)
+    x = torch.from_numpy(clip_model.preprocess(crops))
+    cpu = clip_model.vision.encode_image(_vision_to_device(clip_model.vision_params, "cpu"), x)
+    diff = float((got.cpu() - cpu).abs().max())
+    xd = x.cuda()
+    ms = cuda_ms(lambda: clip_model.vision.encode_image(clip_model.vision_weights, xd), iters=10)
+    if diff > 1e-4 or got.shape != (CLIP_CROPS, 512):
+        raise AssertionError(f"clip vision: card against CPU {diff:.3e}, shape {tuple(got.shape)}")
+    log("clip vision", card, f"{CLIP_CROPS} crops at 224² (ViT-B/32, seeded): f32 card against CPU {diff:.3e}; the tower "
+        f"{ms:.3f} ms on the device (events)")
+
+
+def slice23_phases(clip, card):
+    """The twenty-third slice's phases: `[sam]` (sam_b), `[mobile_sam]`, `[sam2]` (sam2_t, image and video), `[sam
+    variants]` (sam_l, sam_h, sam2_s, sam2_b), `[fastsam]` (FastSAM-s and -x, kernels 1, 2, 3, 5), `[clip vision]`."""
+    import numpy as np
+
+    from yolo_tpu_torch.nn.text_model import CLIPModel
+
+    t0 = time.perf_counter()
+    bgr = np.repeat(clip[0], 3, -1)
+    for name in ("sam_b", "mobile_sam"):
+        sam_phase(name, bgr, card)
+    sam2_phase(bgr, clip, card)
+    sam_variants_phase(bgr, card)
+    clip_model = CLIPModel()
+    frames = np.repeat(clip[:FASTSAM_FRAMES], 3, -1)
+    for name in FASTSAM:
+        fastsam_phase(name, frames, clip_model, card)
+    clip_vision_phase(clip_model, frames, card)
+    print(f"[slice 23] its phases took {time.perf_counter() - t0:.1f} s")
+
+
 def compare_runs(a, b, stats_a, stats_b):
     import numpy as np
 
@@ -6140,8 +6559,13 @@ def main(argv) -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib = _cuda.build()
-    log("build", card, f"{lib.name} in {time.perf_counter() - t0:.1f} s")
+    building = ThreadPoolExecutor(1).submit(_cuda.build)  # nvcc runs in its own processes: the host writes meanwhile
+    datasets = tempfile.TemporaryDirectory()
+    data_root = Path(datasets.name)
+    write_datasets(data_root)
+    written = time.perf_counter() - t0
+    lib = building.result()
+    log("build", card, f"{lib.name} in {time.perf_counter() - t0:.1f} s (every dataset written meanwhile, in {written:.1f} s)")
     for line in (_cuda.BUILD / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("[build]", line.strip())
@@ -6220,10 +6644,8 @@ def main(argv) -> int:
     benchmark_phase(model, params, clip, card)
     mark("tiles, TTA, ensembles, embeddings, video loops, benchmark")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        heldout, big = write_split(Path(tmp) / "heldout", *VAL_HELDOUT), write_split(Path(tmp) / "val", *VAL_FRAMES)
-        print(f"[val splits] {VAL_HELDOUT[0]} + {VAL_FRAMES[0]} frames of 640x512 written in {time.perf_counter() - t0:.1f} s")
+    with datasets as tmp:  # the datasets written while the kernels built; the runs go beside them
+        heldout, big = heldout_split(Path(tmp) / "heldout"), val_split(Path(tmp) / "val")
         val_kernels_phase(model, params, heldout, card)
         val_phase(big, heldout, card)
         if profiling:
@@ -6231,12 +6653,7 @@ def main(argv) -> int:
         val_coco_phase(big, Path(tmp) / "val_coco", card)
         mark("validation")
 
-        t0 = time.perf_counter()
-        train_root = Path(tmp) / "train"
-        write_split(train_root, *TRAIN_SET, split="train")
-        train_data = write_split(train_root, *VAL_HELDOUT)
-        print(f"[train split] {TRAIN_SET[0]} train + {VAL_HELDOUT[0]} held-out frames of 640x512 written in "
-              f"{time.perf_counter() - t0:.1f} s")
+        train_data = train_split(Path(tmp) / "train")
         trained, _ = train_phase(train_data, Path(tmp) / "runs", card, profiling)
         train_step_f32_phase(train_data, card)
         tuned = train_finetune_phase(train_data, Path(tmp) / "runs", card)
@@ -6263,6 +6680,8 @@ def main(argv) -> int:
         mark("the twenty-first slice")
         slice22_phases(clip, train_data, Path(tmp) / "slice22", card)
         mark("the twenty-second slice")
+        slice23_phases(clip, card)
+        mark("the twenty-third slice")
         if profiling:
             for name in SLICE18_FAMILIES:
                 train_step_precision_phase(train_data, card, name)

@@ -1270,3 +1270,107 @@ def test_slice22_phases_on_the_card(card, monkeypatch, tmp_path):
     for name, path in chip_smoke.OPEN_VOCAB:
         if name in ("yolov8s-world.yaml", "yoloe-v8s.yaml", "yoloe-11s.yaml"):
             chip_smoke.open_vocab_phase(name, path, tower, names, bgr, data, "test")
+
+
+def _small_sams():
+    """The small SAM, MobileSAM and SAM2 of the CPU tests at 128² (init(0), woken as chip_smoke wakes them)."""
+    import chip_smoke
+
+    from yolo_tpu_torch.models.sam.build import _build_sam, build_mobile_sam, sam_params_from_jax
+    from yolo_tpu_torch.models.sam.sam2 import FpnNeck, Hiera, SAM2Model
+
+    hiera = dict(embed_dim=32, num_heads=1, stages=(1, 1, 2, 1), window_spec=(4, 2, 4, 2), global_att_blocks=(3,),
+                 window_pos_embed_bkg_spatial_size=(7, 7))
+    out = {}
+    for name, build in (("sam", lambda: _build_sam(32, 2, 2, (1,), 128)), ("mobile_sam", lambda: build_mobile_sam(128)),
+                        ("sam2", lambda: SAM2Model(Hiera(**hiera), FpnNeck(256, [256, 128, 64, 32]), img_size=128,
+                                                   memory_layers=2))):
+        m = build().eval()
+        sam_params_from_jax(m, m.init(0))
+        chip_smoke.awake_sam(m)
+        out[name] = m
+    return out
+
+
+@pytest.mark.parametrize("name", ["sam", "mobile_sam", "sam2"])
+def test_sam_on_the_card_matches_cpu(card, name):
+    """SAM, MobileSAM and SAM2 at 128² (the CPU tests' shapes) on the card in f32 against the same weights on the CPU:
+    the embedding and a point prompt's low-res logits and IoU within 1e-4 of their scale, logit signs on 0.999 of the
+    pixels; no kernel launches (SAM runs plain torch)."""
+    import copy
+
+    import chip_smoke
+
+    m = _small_sams()[name]
+    bgr = np.random.default_rng(0).integers(0, 255, (96, 120, 3), np.uint8)
+    prompts = [([[40, 40]], [1], None, True), (None, None, [[10, 10, 80, 80]], False)]
+    (e_card, o_card), launches = chip_smoke.counted(set(), lambda: chip_smoke.sam_outputs(m.to(card), bgr, prompts))
+    e_cpu, o_cpu = chip_smoke.sam_outputs(copy.deepcopy(m).cpu(), bgr, prompts)
+    assert float((e_card - e_cpu).abs().max()) <= 1e-4 * max(1.0, float(e_cpu.abs().max()))
+    for (lc, ic), (lp, ip) in zip(o_card, o_cpu):
+        assert float((lc - lp).abs().max()) <= 1e-4 * max(1.0, float(lp.abs().max()))
+        assert float((ic - ip).abs().max()) <= 1e-4
+        assert float(((lc > 0) == (lp > 0)).double().mean()) >= 0.999
+    assert not any(launches.values())
+
+
+def test_sam2_video_on_the_card_matches_cpu(card):
+    """The small SAM2's video propagation (a click on frame 0, 5 frames tracked) on the card against the CPU: signs on
+    0.999 of the pixels, object scores 1e-4."""
+    import copy
+
+    from yolo_tpu_torch.models.sam.video import SAM2VideoPredictor
+
+    m = _small_sams()["sam2"]
+    clip = np.random.default_rng(3).uniform(0, 255, (6, 128, 128, 3)).astype(np.float32)
+    runs = []
+    for model in (m.to(card), copy.deepcopy(m).cpu()):
+        vp = SAM2VideoPredictor(model, num_frames=6)
+        m0, s0 = vp.add_prompt(clip[0], points=[[40, 40]], labels=[1])
+        M, S = vp.propagate(clip[1:])
+        runs.append((np.concatenate([m0[None], M]), np.concatenate([s0[None], S])))
+    (Mc, Sc), (Mp, Sp) = runs
+    assert ((Mc > 0) == (Mp > 0)).mean() >= 0.999
+    assert np.abs(Sc - Sp).max() <= 1e-4
+
+
+def test_fastsam_predicts_through_kernels_1_2_3_5(card):
+    """FastSAM-s at 640 on the card, init(0) calibrated on noise: everything mode and a box prompt on two BGR frames,
+    f32 through the kernels against f32 through the twins (rows and classes equal, boxes 1e-2 px, conf 1e-4, mask IoU
+    0.99), launching c2f, c2f_upconcat, head_level and nms_keep (head_level_cm 0)."""
+    import chip_smoke
+
+    from yolo_tpu_torch import FastSAM
+    from yolo_tpu_torch.nn.tasks import params_from_jax
+
+    y = FastSAM("FastSAM-s.yaml")
+    noise = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(0)).to(card)
+    y.params = chip_smoke.bn_calibrated(y.model, y.params, noise)
+    params_from_jax(y.model, y.params, torch.float32)
+    frames = np.repeat(chip_smoke.make_clip(2, *chip_smoke.HW), 3, -1)
+    kw = dict(conf=0.0, max_det=10, imgsz=640, verbose=False, compute_dtype="float32")
+
+    def run(plain):
+        return [y.predict(f, plain=plain, **kw, **p)[0] for f in frames for p in ({}, {"bboxes": [[200, 150, 460, 380]]})]
+
+    got, launches = chip_smoke.counted(chip_smoke.FASTSAM_PATH, lambda: run(False))
+    want = run(True)
+    for a, b in zip(got, want):
+        assert len(a) == len(b) > 0
+        np.testing.assert_allclose(a.boxes.xyxy, b.boxes.xyxy, atol=1e-2)
+        np.testing.assert_allclose(a.boxes.conf, b.boxes.conf, atol=1e-4)
+        assert np.array_equal(a.boxes.cls, b.boxes.cls)
+        assert all(chip_smoke._mask_iou(p, q) >= 0.99 for p, q in zip(a.masks.data, b.masks.data))
+    assert launches["head_level_cm"] == 0
+
+
+def test_slice23_phases_on_the_card(card, monkeypatch):
+    """chip_smoke's twenty-third-slice phases, cut: `[sam]` on sam_b and mobile_sam, `[sam2]` (4 frames, 3 backward),
+    `[sam variants]` on sam2_s, `[fastsam]` on FastSAM-s (2 frames) and `[clip vision]` (4 crops): every hold passes,
+    the SAM paths launch no kernel and FastSAM's launches kernels 1, 2, 3 and 5."""
+    import chip_smoke
+
+    for key, value in dict(SAM_VARIANTS=("sam2_s",), FASTSAM=("FastSAM-s.yaml",), FASTSAM_FRAMES=2, SAM2_FRAMES=4,
+                           SAM2_REVERSE=3, CLIP_CROPS=4).items():
+        monkeypatch.setattr(chip_smoke, key, value)
+    chip_smoke.slice23_phases(chip_smoke.make_clip(8, *chip_smoke.HW), "test")

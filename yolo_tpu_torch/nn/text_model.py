@@ -9,9 +9,12 @@
   the projection), its initial tree drawn with the JAX package's numpy calls, the products in f32 with torch.
 - `CLIPText` (tokenize + encode, its weights on a device; `load_torch` reads an OpenAI `clip` state dict's text
   keys) and `build_text_model`.
+- `CLIPVisionEncoder` (the visual ViT, ViT-B/32 at 224² by default: class token, pre-LN, the same resblocks
+  without a mask, the class token's feature through `proj`) and `CLIPModel` (both towers; `encode_image` resizes
+  each crop's short side to 224 with cv2's bicubic and centre-crops it, as JAX does; `load_torch` reads a whole
+  OpenAI `clip` state dict). FastSAM's text prompts score crops with them.
 
-The vision tower and the joint model (JAX `CLIPVisionEncoder`, `CLIPModel`) serve only the similarity search of
-`solutions/`, which is not ported (ROADMAP item 6). The tower runs no kernel: plain torch, as JAX leaves it to XLA.
+The towers run no kernel: plain torch, as JAX leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -205,13 +208,16 @@ def _ln(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-5) * p["weight"] + p["bias"]
 
 
-def _resblock(p: dict, x: torch.Tensor, nh: int, mask: torch.Tensor) -> torch.Tensor:
-    """Pre-LN causal attention, then the QuickGELU MLP, each with its residual (JAX `_resblock`)."""
+def _resblock(p: dict, x: torch.Tensor, nh: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Pre-LN attention (causal where `mask` is given: the text tower), then the QuickGELU MLP, each with its
+    residual (JAX `_resblock`, one body for both towers)."""
     B, L, w = x.shape
     hd = w // nh
     qkv = _ln(p["ln_1"], x) @ p["attn"]["in_proj_weight"].t() + p["attn"]["in_proj_bias"]
     q, k, v = (t.reshape(B, L, nh, hd).transpose(1, 2) for t in qkv.chunk(3, -1))
-    logits = (q @ k.transpose(-1, -2) / torch.sqrt(torch.tensor(float(hd), dtype=x.dtype))).masked_fill(~mask, float("-inf"))
+    logits = q @ k.transpose(-1, -2) / torch.sqrt(torch.tensor(float(hd), dtype=x.dtype))
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
     att = (torch.softmax(logits, -1) @ v).transpose(1, 2).reshape(B, L, w)
     x = x + att @ p["attn"]["out_proj"]["weight"].t() + p["attn"]["out_proj"]["bias"]
     h = _ln(p["ln_2"], x) @ p["mlp"]["c_fc"]["weight"].t() + p["mlp"]["c_fc"]["bias"]
@@ -303,3 +309,123 @@ def build_text_model(variant: str = "clip:ViT-B/32", bpe_path=None, device=None)
     cfg = {"ViT-L/14": dict(width=768, layers=12, heads=12, embed_dim=768)}.get(
         name, dict(width=512, layers=12, heads=8, embed_dim=512))
     return CLIPText(**cfg, bpe_path=bpe_path, device=device)
+
+
+class CLIPVisionEncoder:
+    """CLIP's visual ViT (JAX CLIPVisionEncoder, OpenAI's names: conv1, class_embedding, positional_embedding, ln_pre,
+    transformer.resblocks, ln_post, proj); the defaults are ViT-B/32's (224², patch 32, width 768, 12 layers, 12 heads,
+    embedding 512). Images: (B, H, W, 3) RGB in [0, 1], normalised with CLIP's mean and std inside `encode_image`."""
+
+    MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+    STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+    def __init__(self, image_size: int = 224, patch: int = 32, width: int = 768, layers: int = 12, heads: int = 12,
+                 embed_dim: int = 512):
+        self.image_size, self.patch, self.width = image_size, patch, width
+        self.layers, self.heads, self.embed_dim = layers, heads, embed_dim
+        self.grid = image_size // patch
+
+    def init(self, seed: int = 0) -> dict:
+        """The JAX package's initial tree, drawn from np.random.default_rng(seed) in its order (conv1 HWIO)."""
+        rng = np.random.default_rng(seed)
+        w = self.width
+
+        def ln():
+            return {"weight": np.ones((w,), np.float32), "bias": np.zeros((w,), np.float32)}
+
+        blocks = {str(i): _resblock_params(rng, w) for i in range(self.layers)}
+        return {
+            "conv1": {"weight": rng.normal(0, 0.02, (self.patch, self.patch, 3, w)).astype(np.float32)},
+            "class_embedding": rng.normal(0, w**-0.5, (w,)).astype(np.float32),
+            "positional_embedding": rng.normal(0, 0.01, (self.grid**2 + 1, w)).astype(np.float32),
+            "ln_pre": ln(),
+            "transformer": {"resblocks": blocks},
+            "ln_post": ln(),
+            "proj": rng.normal(0, w**-0.5, (w, self.embed_dim)).astype(np.float32),
+        }
+
+    def encode_image(self, params: dict, images: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+        """(B, H, W, 3) RGB [0, 1] on the params' device → (B, embed_dim) f32 features, unit norm if `normalize`.
+        `params` holds conv1 in torch's OIHW (the tree `_vision_to_device` installs)."""
+        w = params["proj"]
+        mean = torch.from_numpy(self.MEAN).to(w.device, w.dtype)
+        std = torch.from_numpy(self.STD).to(w.device, w.dtype)
+        x = ((images.to(w.dtype) - mean) / std).permute(0, 3, 1, 2)
+        x = torch.nn.functional.conv2d(x, params["conv1"]["weight"], stride=self.patch)
+        B, width = x.shape[:2]
+        x = x.flatten(2).transpose(1, 2)
+        cls_tok = params["class_embedding"][None, None].expand(B, 1, width)
+        x = _ln(params["ln_pre"], torch.cat([cls_tok, x], 1) + params["positional_embedding"])
+        for i in range(self.layers):
+            x = _resblock(params["transformer"]["resblocks"][str(i)], x, self.heads)
+        feats = _ln(params["ln_post"], x[:, 0]) @ params["proj"]
+        return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True) if normalize else feats
+
+
+def _vision_to_device(tree: dict, device) -> dict:
+    """The vision tree on `device` in f32, conv1 HWIO → OIHW."""
+    out = _to_device(tree, device)
+    out["conv1"]["weight"] = out["conv1"]["weight"].permute(3, 2, 0, 1).contiguous()
+    return out
+
+
+class CLIPModel:
+    """Both CLIP towers (JAX CLIPModel): the text tower seeded with `seed`, the vision tower with `seed + 1`, their f32
+    weights on `device` (None: the card). `vision_params` holds the vision tower's numpy tree."""
+
+    def __init__(self, bpe_path=None, seed: int = 0, device=None, **vision_kw):
+        self.text = CLIPText(bpe_path=bpe_path, seed=seed, device=device)
+        self.device = self.text.device
+        self.vision = CLIPVisionEncoder(**vision_kw)
+        self.set_vision_params(self.vision.init(seed + 1))
+
+    def set_vision_params(self, params: dict) -> None:
+        self.vision_params = params
+        self.vision_weights = _vision_to_device(params, self.device)
+
+    def load_torch(self, path):
+        """A whole OpenAI clip state dict: the text keys into the text tower, `visual.*` into the vision tower."""
+        from yolo_tpu_torch.nn.torch_import import load_torch_checkpoint, state_dict_to_params
+        from yolo_tpu_torch.utils import LOGGER
+
+        if not self.text.tokenizer.has_merges:
+            LOGGER.warning(
+                "CLIP checkpoint loaded but the tokenizer is running byte-level FALLBACK ids "
+                "(no BPE merge table) — text embeddings will be meaningless. Point YOLO_TPU_CLIP_BPE "
+                "(or bpe_path=) at clip's bpe_simple_vocab_16e6.txt.gz.")
+        sd, _ = load_torch_checkpoint(path)
+        self.text.set_params(state_dict_to_params({k: v for k, v in sd.items() if not k.startswith("visual.")},
+                                                  self.text.params))
+        self.set_vision_params(state_dict_to_params(
+            {k[len("visual."):]: v for k, v in sd.items() if k.startswith("visual.")}, self.vision_params))
+        return self
+
+    def encode_text(self, texts) -> torch.Tensor:
+        return self.text.encode_text(texts)
+
+    def preprocess(self, images) -> np.ndarray:
+        """RGB crops of any size (uint8 or [0, 1] floats) → (B, size, size, 3) f32 in [0, 1]: the short side resized to
+        the tower's size with cv2's bicubic, then centre-cropped (CLIP's preprocess, as JAX does it)."""
+        import cv2
+
+        size = self.vision.image_size
+        ims = []
+        for im in images:
+            im = np.asarray(im)
+            if im.dtype == np.uint8:
+                im = im.astype(np.float32) / 255.0
+            if im.shape[:2] != (size, size):
+                h0, w0 = im.shape[:2]
+                s = size / min(h0, w0)
+                im = cv2.resize(im, (max(size, round(w0 * s)), max(size, round(h0 * s))), interpolation=cv2.INTER_CUBIC)
+                h1, w1 = im.shape[:2]
+                top, left = (h1 - size) // 2, (w1 - size) // 2
+                im = im[top : top + size, left : left + size]
+            ims.append(im)
+        return np.stack(ims).astype(np.float32)
+
+    @torch.no_grad()
+    def encode_image(self, images) -> torch.Tensor:
+        """RGB crops → (B, embed_dim) unit-norm f32 features on the towers' device."""
+        x = torch.from_numpy(self.preprocess(images)).to(self.device)
+        return self.vision.encode_image(self.vision_weights, x)
